@@ -1,0 +1,21 @@
+"""llama4-scout-17b-a16e [moe] — MoE, early fusion. hf:meta-llama/Llama-4-Scout-17B-16E.
+48L d_model=5120 40H (GQA kv=8) d_ff=8192 vocab=202048, MoE 16e top-1 (+ shared expert)."""
+from repro_torch.configs.base import ModelConfig, register
+
+FULL = ModelConfig(
+    name="llama4-scout-17b-a16e", family="moe",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab=202048,
+    n_experts=16, top_k=1, d_ff_expert=8192, n_shared_experts=1,
+    act="silu_glu", norm="rmsnorm", rope_theta=500000.0,
+)
+
+SMOKE = ModelConfig(
+    name="llama4-scout-17b-a16e", family="moe",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+    d_ff=96, vocab=256,
+    n_experts=4, top_k=1, d_ff_expert=96, n_shared_experts=1,
+    act="silu_glu",
+)
+
+register(FULL, SMOKE)

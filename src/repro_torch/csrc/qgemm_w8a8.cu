@@ -1,0 +1,181 @@
+// K2 qgemm_w8a8: int8 x int8 -> int32 GEMM with the separable CrossQuant dequant.
+//
+// Replaces the TPU kernel repro/kernels/qgemm.py::_w8a8_kernel (launcher
+// qgemm_w8a8_pallas, pallas_call at qgemm.py:71).
+//
+//   out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * a[m] * sw[n]
+//
+// qx (M, K) int8 row-major, qw (K, N) int8 row-major (the reference's layout),
+// a (M,) f32, sw (N,) f32, out (M, N) f32. The epilogue multiplies in the
+// reference's order (acc -> f32, * a, * sw), so the result is bitwise equal to
+// the plain version: the int32 sum is exact and every float step is one IEEE
+// rounding.
+//
+// What bounds it on an H100 depends on M. At prefill (M = rows x bucket, up to
+// 4096) the work is 2*M*N*K int8 operations against M*K + K*N bytes: operation-
+// bound, on the int8 tensor cores. At decode (M = batch size, 4) it reads the
+// whole K x N weight to produce 4 rows: byte-bound, and the only gain there is
+// to stream the weight at the card's memory rate with enough blocks in flight.
+//
+// Design of this first version: one block computes a 64 x 64 output tile with
+// four warps (2 x 2, each 32 x 32) issuing mma.sync.m16n8k32.s8.s8.s32 on the
+// tensor cores. Each 64-deep K step stages a qx tile (row-major, k contiguous)
+// and a qw tile in shared memory. The B operand of mma.sync is "col" (k
+// contiguous per n), so the qw tile is transposed on its way in: each thread
+// loads four k-rows of four n-bytes and transposes the 4x4 bytes in registers
+// with __byte_perm. The M, N and K edges are masked in the loads (zero codes add
+// nothing to an integer sum) and in the epilogue stores; there is no padding.
+//
+// What a decode GEMM needs, for later work: with M = 4 a 64-row tile wastes 15/16
+// of the MMA, and N/64 blocks (8 for the 512-wide wk/wv) cannot keep 132 SMs
+// streaming. It wants a narrow M tile, split-K across blocks (exact in int32),
+// and cp.async/TMA multi-stage pipelining so each SM keeps several weight tiles
+// in flight. Prefill wants wgmma with TMA-fed shared-memory rings.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 64, BN = 64, BK = 64;
+constexpr int LDS = BK + 16;   // 80-byte rows: fragment loads hit 32 distinct banks
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(kThreads)
+qgemm_w8a8_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
+                  const float* __restrict__ a, const float* __restrict__ sw,
+                  float* __restrict__ out, int M, int N, int K, int vec_a, int vec_b) {
+  __shared__ __align__(16) int8_t sA[BM][LDS];   // [m][k]
+  __shared__ __align__(16) int8_t sB[BN][LDS];   // [n][k]: the qw tile, transposed
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;              // mma fragment coordinates
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // ---- qx tile: 64 rows x 64 bytes, 16 bytes per chunk, two chunks per thread
+#pragma unroll
+    for (int c = tid; c < BM * BK / 16; c += kThreads) {
+      const int r = c / (BK / 16), kc = (c % (BK / 16)) * 16;
+      const int gm = m0 + r, gk = k0 + kc;
+      int4 val = make_int4(0, 0, 0, 0);
+      if (gm < M) {
+        const int8_t* src = qx + (size_t)gm * K + gk;
+        if (vec_a && gk + 16 <= K) {
+          val = *reinterpret_cast<const int4*>(src);
+        } else {
+          alignas(16) int8_t tmp[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) tmp[i] = (gk + i < K) ? src[i] : 0;
+          val = *reinterpret_cast<const int4*>(tmp);
+        }
+      }
+      *reinterpret_cast<int4*>(&sA[r][kc]) = val;
+    }
+    // ---- qw tile: 64 k-rows x 64 n-bytes in 4x4-byte blocks, transposed to [n][k]
+#pragma unroll
+    for (int c = tid; c < (BK / 4) * (BN / 4); c += kThreads) {
+      const int kb = (c / (BN / 4)) * 4, nb = (c % (BN / 4)) * 4;
+      const int gn = n0 + nb;
+      unsigned w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int gk = k0 + kb + r;
+        w[r] = 0u;
+        if (gk < K) {
+          const int8_t* src = qw + (size_t)gk * N + gn;
+          if (vec_b && gn + 4 <= N) {
+            w[r] = *reinterpret_cast<const unsigned*>(src);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (gn + i < N) w[r] |= (unsigned)(uint8_t)src[i] << (8 * i);
+          }
+        }
+      }
+      const unsigned lo01 = __byte_perm(w[0], w[1], 0x5140);
+      const unsigned hi01 = __byte_perm(w[0], w[1], 0x7362);
+      const unsigned lo23 = __byte_perm(w[2], w[3], 0x5140);
+      const unsigned hi23 = __byte_perm(w[2], w[3], 0x7362);
+      *reinterpret_cast<unsigned*>(&sB[nb + 0][kb]) = __byte_perm(lo01, lo23, 0x5410);
+      *reinterpret_cast<unsigned*>(&sB[nb + 1][kb]) = __byte_perm(lo01, lo23, 0x7632);
+      *reinterpret_cast<unsigned*>(&sB[nb + 2][kb]) = __byte_perm(hi01, hi23, 0x5410);
+      *reinterpret_cast<unsigned*>(&sB[nb + 3][kb]) = __byte_perm(hi01, hi23, 0x7632);
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      unsigned af[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + mi * 16 + g;
+        af[mi][0] = *reinterpret_cast<const unsigned*>(&sA[r][kk + tg * 4]);
+        af[mi][1] = *reinterpret_cast<const unsigned*>(&sA[r + 8][kk + tg * 4]);
+        af[mi][2] = *reinterpret_cast<const unsigned*>(&sA[r][kk + 16 + tg * 4]);
+        af[mi][3] = *reinterpret_cast<const unsigned*>(&sA[r + 8][kk + 16 + tg * 4]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = wn + ni * 8 + g;
+        bf[ni][0] = *reinterpret_cast<const unsigned*>(&sB[n][kk + tg * 4]);
+        bf[ni][1] = *reinterpret_cast<const unsigned*>(&sB[n][kk + 16 + tg * 4]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    }
+    __syncthreads();
+  }
+
+  // ---- epilogue: (f32(acc) * a[m]) * sw[n], masked at the M and N edges
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + wm + mi * 16 + g + h * 8;
+        if (r >= M) continue;
+        const float ar = a[r];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + wn + ni * 8 + tg * 2 + e;
+          if (col < N)
+            out[(size_t)r * N + col] =
+                __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][h * 2 + e]), ar), sw[col]);
+        }
+      }
+}
+
+}  // namespace
+
+// vec_a: qx rows may be read as 16-byte vectors (K % 16 == 0, 16-byte aligned);
+// vec_b: qw rows as 4-byte words (N % 4 == 0, 4-byte aligned). The wrapper decides.
+REPRO_API int repro_qgemm_w8a8(const int8_t* qx, const int8_t* qw, const float* a,
+                               const float* sw, float* out, int M, int N, int K,
+                               int vec_a, int vec_b, void* stream) {
+  if (M > 0 && N > 0) {
+    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    qgemm_w8a8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        qx, qw, a, sw, out, M, N, K, vec_a, vec_b);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,22 @@
+"""Device resolution shared by every entry point: a CUDA request without a card
+raises instead of quietly running on the CPU."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+
+def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    """``"cuda"``/``"cuda:N"`` or ``"cpu"`` → ``torch.device``; raises RuntimeError
+    when CUDA is asked for and no card is visible."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(dev)!r} requested but torch.cuda.is_available() "
+                               "is False; pass device='cpu' to run the plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
+    return dev

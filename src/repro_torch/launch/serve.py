@@ -1,0 +1,121 @@
+"""Serving launcher (port of ``repro/launch/serve.py``): init a model, quantize it
+post-training (calibrate static-c column statistics, ``quantize_tree``) and run
+greedy decoding through the continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --quant int8 --path fused-int8 --kv-cache int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b --smoke \\
+        --quant int8 --path fused-int8 --device cpu     # plain versions on the CPU
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import calibration, qlinear as ql
+from repro_torch.data import make_train_batches
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.layers import QuantContext
+from repro_torch.models.quantize import quantize_tree, quantized_bytes
+from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.engine import ServeEngine
+
+QUANTS = {"fp": ql.FP, "int8": ql.W8A8_INT8}
+
+
+@torch.no_grad()
+def calibrate_and_quantize(params: dict, cfg: ModelConfig, quant: ql.QuantConfig, *,
+                           calib_batches: int, seq_len: int, batch_size: int,
+                           seed: int) -> dict:
+    """Offline PTQ: record static-c column absmax over ``calib_batches`` eager
+    passes (``mode="train"``, per-layer observer names, int8 on the unprepared
+    weights, i.e. the ``ref`` integer GEMM), then fold them into int8 weights.
+    Returns the prepared tree; the caller drops the fp tree to free it."""
+    obs = calibration.Observer()
+    batch_fn = make_train_batches(cfg.vocab, seq_len, batch_size, seed=seed + 1)
+    ctx = QuantContext(quant, observer=obs)
+    dev = next(iter(params["embed"].values())).device
+    for b in range(calib_batches):
+        tokens = torch.as_tensor(batch_fn(b)["tokens"], dtype=torch.int64, device=dev)
+        M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="train", unroll=True)
+    return quantize_tree(params, quant, tables=calibration.stack_tables(obs.tables()))
+
+
+def make_prompts(vocab: int, lens: Sequence[int], n_requests: int,
+                 seed: int) -> List[np.ndarray]:
+    """``n_requests`` random prompts cycling through ``lens`` (seeded numpy)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=lens[i % len(lens)]).astype(np.int32)
+            for i in range(n_requests)]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> List:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--quant", default="int8", choices=QUANTS)
+    ap.add_argument("--n-requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--prompt-lens", default=None, metavar="L1,L2,...",
+                    help="mixed-length workload: cycle prompt lengths over requests")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="EOS token id; default: no EOS (token 0 is the PAD token)")
+    ap.add_argument("--calib-batches", type=int, default=2,
+                    help="calibration batches for the int8 static-c path")
+    ap.add_argument("--path", default="ref", choices=["ref", "fused-int8"],
+                    help="integer execution backend: plain ref GEMM or the kernels")
+    ap.add_argument("--kv-cache", default="fp", choices=["fp", "int8"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get(args.arch, smoke=args.smoke)
+    quant = QUANTS[args.quant]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = M.init_params(gen, cfg, device=device)
+    base_bytes = quantized_bytes(params)
+    if args.quant == "int8":
+        print("calibrating static-c column statistics ...")
+        params = calibrate_and_quantize(params, cfg, quant, calib_batches=args.calib_batches,
+                                        seq_len=args.prompt_len,
+                                        batch_size=args.batch_size, seed=args.seed)
+        q_bytes = quantized_bytes(params)
+        print(f"quantized weights: {base_bytes / 2**20:.1f} MiB -> "
+              f"{q_bytes / 2**20:.1f} MiB ({base_bytes / q_bytes:.2f}x smaller)")
+
+    path = None if (args.quant != "int8" or args.path == "ref") else args.path
+    config = EngineConfig(batch_size=args.batch_size, max_len=args.max_len, path=path,
+                          kv_cache=args.kv_cache, eos_id=args.eos_id)
+    engine = ServeEngine(cfg, params, config=config, quant=quant, device=device)
+    lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
+            else [args.prompt_len])
+    engine.submit(make_prompts(cfg.vocab, lens, args.n_requests, args.seed),
+                  max_new=args.max_new)
+    t0 = time.perf_counter()
+    done = engine.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in done)
+    print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s) quant={quant.tag()} path={path} "
+          f"kv={args.kv_cache} device={device} occupancy={engine.occupancy():.2f}")
+    for r in done[:4]:
+        print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out={r.out[:8]}")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""Validated serving configuration + engine statistics (port of
+``repro/serving/config.py``: ``SERVE_PATHS``, ``EngineConfig``, ``EngineStats``).
+
+``EngineConfig`` keeps the reference's fields and cross-field validation, then
+rejects with :class:`NotPortedError` what this port does not serve yet: the
+paged layout, chunked prefill, speculative decoding, N:M sparsity, the grouped
+scheduler and the ``fake``/``dequant-fp`` paths.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+#: serving path → QuantContext wiring. ``None`` serves whatever the params tree +
+#: quant config imply on the plain ``ref`` integer backend.
+SERVE_PATHS: Dict[Optional[str], Dict[str, Any]] = {
+    None: {},
+    "fp": {},
+    "fused-int8": {"int_exec": "kernel", "use_kernels": True},
+}
+#: paths the reference serves that this port does not yet
+NOT_PORTED_PATHS = ("fake", "dequant-fp")
+
+
+class NotPortedError(NotImplementedError):
+    """A configuration the reference engine serves but this port does not yet."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Frozen serving configuration: the reference's fields that this slice
+    serves or rejects, with the reference's defaults."""
+
+    batch_size: int
+    max_len: int
+    eos_id: Optional[int] = None
+    path: Optional[str] = None
+    kv_cache: str = "fp"
+    cache_layout: str = "dense"
+    scheduler: str = "continuous"
+    prefill_buckets: Optional[Tuple[int, ...]] = None
+    chunked: bool = False
+    speculate: int = 1
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+    sparsity: str = "none"
+
+    def __post_init__(self):
+        if self.prefill_buckets is not None:
+            object.__setattr__(self, "prefill_buckets",
+                               tuple(int(b) for b in self.prefill_buckets))
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
+        if self.max_len < 1:
+            raise ValueError(f"max_len must be >= 1, got {self.max_len}")
+        if self.path not in SERVE_PATHS and self.path not in NOT_PORTED_PATHS:
+            raise ValueError(f"unknown serving path {self.path!r}; "
+                             f"pick one of {sorted(k for k in SERVE_PATHS if k)}")
+        if self.kv_cache not in ("fp", "int8"):
+            raise ValueError(f"kv_cache must be 'fp' or 'int8', got {self.kv_cache!r}")
+        if self.cache_layout not in ("dense", "paged"):
+            raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
+                             f"{self.cache_layout!r}")
+        if self.scheduler not in ("continuous", "grouped"):
+            raise ValueError(f"scheduler must be 'continuous' or 'grouped', "
+                             f"got {self.scheduler!r}")
+        if self.speculate < 1:
+            raise ValueError(f"speculate must be >= 1, got {self.speculate}")
+        not_ported = [
+            (self.path in NOT_PORTED_PATHS, f"serving path {self.path!r}"),
+            (self.cache_layout == "paged", "the paged cache layout"),
+            (self.chunked, "chunked prefill"),
+            (self.speculate > 1, "speculative decoding (speculate > 1)"),
+            (self.sparsity != "none", "N:M sparsity"),
+            (self.scheduler == "grouped", "the grouped scheduler"),
+        ]
+        for hit, what in not_ported:
+            if hit:
+                raise NotPortedError(f"{what} is not ported yet; the port serves the "
+                                     "dense continuous layout")
+
+    def check_model(self, cfg) -> None:
+        """Model-dependent validation: only dense global decoders are ported."""
+        if cfg.family != "dense" or cfg.layer_pattern != "global":
+            raise NotPortedError(f"{cfg.name}: family {cfg.family!r} with layer "
+                                 f"pattern {cfg.layer_pattern!r} is not ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineStats:
+    """One snapshot of a ``ServeEngine``'s derived rates + raw counters."""
+
+    occupancy: float
+    prefix_hit_rate: float
+    accept_rate: float
+    tokens_per_step: float
+    counters: Dict[str, int]
+
+    def to_dict(self) -> dict:
+        return {"occupancy": self.occupancy,
+                "prefix_hit_rate": self.prefix_hit_rate,
+                "accept_rate": self.accept_rate,
+                "tokens_per_step": self.tokens_per_step,
+                **self.counters}
+
+    @classmethod
+    def from_counters(cls, counters: Dict[str, int], batch_size: int) -> "EngineStats":
+        c = dict(counters)
+        steps = c.get("decode_steps", 0)
+        occ = c.get("active_slot_steps", 0) / (steps * batch_size) if steps else 0.0
+        prompt = c.get("prompt_tokens", 0)
+        hit = c.get("prefix_tokens_reused", 0) / prompt if prompt else 0.0
+        drafted = c.get("spec_drafted", 0)
+        acc = c.get("spec_accepted", 0) / drafted if drafted else 0.0
+        sss = c.get("spec_slot_steps", 0)
+        tps = c.get("spec_emitted", 0) / sss if sss else 0.0
+        return cls(occupancy=occ, prefix_hit_rate=hit, accept_rate=acc,
+                   tokens_per_step=tps, counters=c)

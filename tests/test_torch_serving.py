@@ -1,0 +1,139 @@
+"""Greedy serving through the PyTorch port's ``ServeEngine`` is token-exact against
+the JAX reference ``ServeEngine`` on the same prepared tree (CPU).
+
+fused-int8 path, dense continuous layout, fp and int8 KV: the mixed lengths and
+``max_new`` of tests/test_continuous_batching.py at batch_size=2 (slots refill
+mid-decode), plus one 130-token prompt at max_len=256 so the admission prefill
+runs the flash-attention path on both sides.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import get as jget  # noqa: E402
+from repro.core import qlinear as jql  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models.quantize import quantize_tree as j_quantize_tree  # noqa: E402
+from repro.serving import engine as JE  # noqa: E402
+from repro.serving.config import EngineConfig as JEngineConfig  # noqa: E402
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get as tget  # noqa: E402
+from repro_torch.core import qlinear as tql  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.serving import engine as TE  # noqa: E402
+from repro_torch.serving.config import EngineConfig, NotPortedError  # noqa: E402
+
+torch.set_num_threads(2)
+
+LENS = [4, 7, 12, 9, 5]                 # tests/test_continuous_batching.py:25-26
+MAX_NEW = [5, 3, 6, 2, 4]
+
+
+@pytest.fixture(scope="module")
+def small():
+    cfg_j = dataclasses.replace(jget("starcoder2-7b", smoke=True), dtype="float32")
+    cfg_t = dataclasses.replace(tget("starcoder2-7b", smoke=True), dtype="float32")
+    qparams = j_quantize_tree(JM.init_params(jax.random.PRNGKey(0), cfg_j), jql.W8A8_INT8)
+    tparams = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, qparams),
+                                        device="cpu")
+    return cfg_j, cfg_t, qparams, tparams
+
+
+def _serve_both(small, prompts, max_new, *, max_len, kv):
+    cfg_j, cfg_t, qparams, tparams = small
+    jeng = JE.ServeEngine(cfg_j, qparams, quant=jql.W8A8_INT8,
+                          config=JEngineConfig(batch_size=2, max_len=max_len,
+                                               path="fused-int8", kv_cache=kv))
+    jeng.submit(prompts, max_new=max_new)
+    jdone = jeng.run()
+    teng = TE.ServeEngine(cfg_t, tparams, quant=tql.W8A8_INT8, device="cpu",
+                          config=EngineConfig(batch_size=2, max_len=max_len,
+                                              path="fused-int8", kv_cache=kv))
+    teng.submit(prompts, max_new=max_new)
+    tdone = teng.run()
+    return jeng, jdone, teng, tdone
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_mixed_workload_token_exact(small, kv):
+    cfg_j = small[0]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg_j.vocab, size=n).astype(np.int32) for n in LENS]
+    jeng, jdone, teng, tdone = _serve_both(small, prompts, MAX_NEW, max_len=32, kv=kv)
+    assert teng.counters["mid_decode_admissions"] > 0
+    for key in ("prefill_calls", "decode_steps", "active_slot_steps",
+                "mid_decode_admissions", "prompt_tokens"):
+        assert teng.counters[key] == jeng.counters[key], key
+    assert [r.rid for r in tdone] == [r.rid for r in jdone]
+    for tr, jr in zip(tdone, jdone):
+        assert tr.out == jr.out, (kv, tr.rid, tr.out, jr.out)
+        assert tr.finish_reason.value == jr.finish_reason.value
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_flash_prefill_token_exact(small, kv):
+    cfg_j = small[0]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg_j.vocab, size=n).astype(np.int32) for n in (130, 20)]
+    _, jdone, _, tdone = _serve_both(small, prompts, [6, 4], max_len=256, kv=kv)
+    for tr, jr in zip(tdone, jdone):
+        assert tr.out == jr.out, (kv, tr.rid, tr.out, jr.out)
+
+
+def test_cpu_run_launches_no_kernel(small):
+    """On the CPU every wrapper takes its plain version: the counters stay 0."""
+    _, cfg_t, _, tparams = small
+    tops.reset_launches()
+    eng = TE.ServeEngine(cfg_t, tparams, quant=tql.W8A8_INT8, device="cpu",
+                         config=EngineConfig(batch_size=2, max_len=32, path="fused-int8"))
+    eng.submit([np.arange(1, 9, dtype=np.int32)], max_new=3)
+    assert len(eng.run()[0].out) == 3
+    assert all(n == 0 for n in tops.LAUNCHES.values())
+
+
+def test_sampler_uses_the_callers_generator():
+    """Temperature + top-k draws come from the explicit torch.Generator: a seed
+    reproduces them, and every draw lies in the top-k set; top-k 1 is argmax."""
+    logits = torch.randn(64, 50, generator=torch.Generator().manual_seed(0))
+    top3 = torch.topk(logits, 3, dim=-1).indices
+    sample = TE._make_sampler(0.7, 3)
+    a = sample(logits, torch.Generator().manual_seed(11))
+    b = sample(logits, torch.Generator().manual_seed(11))
+    assert torch.equal(a, b) and a.dtype == torch.int32
+    assert bool((top3 == a[:, None].long()).any(dim=-1).all())
+    greedy = TE._make_sampler(0.0, 0)(logits, torch.Generator())
+    assert torch.equal(TE._make_sampler(0.7, 1)(logits, torch.Generator()), greedy)
+    assert torch.equal(greedy, torch.argmax(logits, dim=-1).to(torch.int32))
+
+
+def test_seeded_temperature_serving_is_reproducible(small):
+    _, cfg_t, _, tparams = small
+    outs = []
+    for _ in range(2):
+        eng = TE.ServeEngine(cfg_t, tparams, quant=tql.W8A8_INT8, device="cpu",
+                             config=EngineConfig(batch_size=2, max_len=32, path="fused-int8",
+                                                 temperature=0.9, top_k=5, seed=3))
+        eng.submit([np.arange(1, 7, dtype=np.int32), np.arange(3, 12, dtype=np.int32)],
+                   max_new=6)
+        outs.append([r.out for r in eng.run()])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("kw", [dict(cache_layout="paged"), dict(scheduler="grouped"),
+                                dict(speculate=4), dict(sparsity="2:4"),
+                                dict(path="dequant-fp"), dict(path="fake")])
+def test_unported_configs_raise_typed(kw):
+    with pytest.raises(NotPortedError):
+        EngineConfig(batch_size=2, max_len=32, **kw)
+
+
+def test_unported_family_raises():
+    for arch in ("gemma2-9b", "mamba2-130m", "granite-moe-3b-a800m"):
+        with pytest.raises(NotImplementedError):
+            EngineConfig(batch_size=2, max_len=32).check_model(tget(arch, smoke=True))
