@@ -85,7 +85,10 @@ def quantize_act_int8(x: torch.Tensor, bcol: torch.Tensor, cfg: QuantConfig, alp
     """Runtime activation quantization: divide by outer(a_i, b_j).
 
     ``alpha`` may be the prepared tree's ``qalpha`` tensor; it is broadcast as a
-    dimensioned tensor so a bf16 ``t`` promotes to f32, as in the reference."""
+    dimensioned tensor so a bf16 ``t`` promotes to f32, as in the reference.
+    ``a = t^α · (1/qmax)``: the reference serves this function under ``jit``,
+    where XLA compiles the division by the constant qmax into a multiply by its
+    f32 reciprocal."""
     alpha = cfg.alpha if alpha is None else alpha
     if isinstance(alpha, torch.Tensor):
         while alpha.ndim < x.ndim:
@@ -93,7 +96,7 @@ def quantize_act_int8(x: torch.Tensor, bcol: torch.Tensor, cfg: QuantConfig, alp
     while 2 <= bcol.ndim < x.ndim:
         bcol = bcol.unsqueeze(-2)
     t = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), Q.EPS)
-    a = (t ** alpha) / Q.qmax(cfg.a_bits)
+    a = (t ** alpha) * (1.0 / Q.qmax(cfg.a_bits))
     qm = Q.qmax(cfg.a_bits)
     qx = torch.clamp(torch.round(x / (a * bcol)), -qm, qm)
     return qx.to(torch.int8), a.to(torch.float32)

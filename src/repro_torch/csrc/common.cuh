@@ -10,7 +10,7 @@
 #define REPRO_API extern "C" __attribute__((visibility("default")))
 
 // Element types the wrappers pass as an int code.
-enum ReproDtype : int { kF32 = 0, kBF16 = 1 };
+enum ReproDtype : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }

@@ -22,7 +22,8 @@ from typing import Optional, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("act_quantize.cu", "qgemm_w8a8.cu", "flash_attention.cu")
+SOURCES = ("act_quantize.cu", "qgemm_w8a8.cu", "flash_attention.cu",
+           "paged_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -37,6 +38,10 @@ SIGNATURES = {
     # q, k, v, o, kv_len, dtype, B, H, Hkv, Sq, Sk, D, causal, window, softcap, scale, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _P],
+    # q, q_dtype, k_pages, v_pages, kv_dtype, k_scale, v_scale, page_table, kv_len,
+    # q_len, o, B, Hkv, R, D, P, ps, maxP, q_win, window, softcap, scale, stream
+    "repro_paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

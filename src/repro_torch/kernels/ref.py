@@ -70,3 +70,101 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def _page_gather_index(page_table: torch.Tensor, P: int, ps: int) -> torch.Tensor:
+    """(B, maxP) page table → (B, maxP·ps) flat pool positions; sentinel entries
+    (≥ P) clamp into the pool, and callers mask those positions."""
+    pos = page_table.to(torch.int64)[:, :, None] * ps + torch.arange(ps, device=page_table.device)
+    return torch.clamp(pos, 0, P * ps - 1).reshape(page_table.shape[0], -1)
+
+
+def _gathered(pool: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """(P, ps, Hkv, X) pool through flat positions (B, T) → (B, T, Hkv, X)."""
+    return pool.reshape((pool.shape[0] * pool.shape[1],) + pool.shape[2:])[gidx]
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                               page_table: torch.Tensor, kv_len: torch.Tensor, *,
+                               k_scale_pages: Optional[torch.Tensor] = None,
+                               v_scale_pages: Optional[torch.Tensor] = None,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None) -> torch.Tensor:
+    """Paged single-token decode attention (plain version of K4).
+
+    q (B, Hkv, G, D); k/v pages (P, ps, Hkv, D); page_table (B, maxP) int
+    (entries ≥ P are invalid: clamped here, masked by kv_len); kv_len (B,) valid
+    lengths, the newest token at kv_len - 1. Gathers the logical (B, maxP·ps,
+    Hkv, D) view and runs plain-softmax attention in f32. With int8 pools the
+    (P, ps, Hkv, 1) scale pools multiply the score column (K, before softcap
+    and mask) and the probability row (V, after the softmax).
+    → (B, Hkv, G, D) in q's dtype."""
+    P, ps = k_pages.shape[0], k_pages.shape[1]
+    D = q.shape[-1]
+    gidx = _page_gather_index(page_table, P, ps)
+    kf = _gathered(k_pages, gidx).to(torch.float32)
+    vf = _gathered(v_pages, gidx).to(torch.float32)
+
+    def score_scales(pool):        # → (B, Hkv, 1, T)
+        return _gathered(pool, gidx)[..., 0].permute(0, 2, 1)[:, :, None, :]
+
+    s = torch.einsum("bhgd,bthd->bhgt", q.to(torch.float32), kf) * (D ** -0.5)
+    if k_scale_pages is not None:
+        s = s * score_scales(k_scale_pages)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    t_pos = torch.arange(gidx.shape[1], device=q.device)[None, None, None, :]
+    cl = kv_len.reshape(-1, 1, 1, 1)
+    valid = t_pos < cl
+    if window is not None:
+        valid = valid & ((cl - 1 - t_pos) < window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    if v_scale_pages is not None:
+        p = p * score_scales(v_scale_pages)
+    return torch.einsum("bhgt,bthd->bhgd", p, vf).to(q.dtype)
+
+
+def paged_verify_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                               page_table: torch.Tensor, kv_len: torch.Tensor,
+                               q_len: torch.Tensor, *,
+                               k_scale_pages: Optional[torch.Tensor] = None,
+                               v_scale_pages: Optional[torch.Tensor] = None,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None) -> torch.Tensor:
+    """Draft-window verify attention (plain version of K5).
+
+    q (B, Hkv, W, G, D): W window tokens per slot, already scattered into the
+    pools; kv_len (B,) total post-scatter length; q_len (B,) valid window rows
+    (1 ≤ q_len ≤ W), window token i at absolute position kv_len - q_len + i.
+    Per-row causal mask over the gathered view, otherwise exactly
+    :func:`paged_decode_attention_ref`. Rows ≥ q_len clamp to the newest valid
+    position (finite, discarded by callers). → (B, Hkv, W, G, D)."""
+    P, ps = k_pages.shape[0], k_pages.shape[1]
+    W, D = q.shape[2], q.shape[-1]
+    gidx = _page_gather_index(page_table, P, ps)
+    kf = _gathered(k_pages, gidx).to(torch.float32)
+    vf = _gathered(v_pages, gidx).to(torch.float32)
+
+    def score_scales(pool):        # → (B, Hkv, 1, 1, T)
+        return _gathered(pool, gidx)[..., 0].permute(0, 2, 1)[:, :, None, None, :]
+
+    s = torch.einsum("bhwgd,bthd->bhwgt", q.to(torch.float32), kf) * (D ** -0.5)
+    if k_scale_pages is not None:
+        s = s * score_scales(k_scale_pages)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kvl = kv_len.to(torch.int64)
+    qln = q_len.to(torch.int64)
+    q_pos = ((kvl - qln)[:, None]
+             + torch.minimum(torch.arange(W, device=q.device)[None, :], (qln - 1)[:, None]))
+    t_pos = torch.arange(gidx.shape[1], device=q.device)[None, None, None, None, :]
+    qp = q_pos[:, None, :, None, None]
+    valid = t_pos <= qp
+    if window is not None:
+        valid = valid & ((qp - t_pos) < window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    if v_scale_pages is not None:
+        p = p * score_scales(v_scale_pages)
+    return torch.einsum("bhwgt,bthd->bhwgd", p, vf).to(q.dtype)

@@ -6,6 +6,8 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path fused-int8 --kv-cache int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b --smoke \\
         --quant int8 --path fused-int8 --device cpu     # plain versions on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --quant int8 --path fused-int8 --cache-layout paged --speculate 4
 """
 from __future__ import annotations
 
@@ -75,6 +77,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     ap.add_argument("--path", default="ref", choices=["ref", "fused-int8"],
                     help="integer execution backend: plain ref GEMM or the kernels")
     ap.add_argument("--kv-cache", default="fp", choices=["fp", "int8"])
+    ap.add_argument("--cache-layout", default="dense", choices=["dense", "paged"],
+                    help="dense slot table, or page pool + radix prefix reuse")
+    ap.add_argument("--speculate", type=int, default=1,
+                    help="draft-window size of speculative decoding (1: off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -97,7 +103,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
 
     path = None if (args.quant != "int8" or args.path == "ref") else args.path
     config = EngineConfig(batch_size=args.batch_size, max_len=args.max_len, path=path,
-                          kv_cache=args.kv_cache, eos_id=args.eos_id)
+                          kv_cache=args.kv_cache, eos_id=args.eos_id,
+                          cache_layout=args.cache_layout, speculate=args.speculate)
     engine = ServeEngine(cfg, params, config=config, quant=quant, device=device)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
@@ -111,7 +118,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     n_tok = sum(len(r.out) for r in done)
     print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s) quant={quant.tag()} path={path} "
-          f"kv={args.kv_cache} device={device} occupancy={engine.occupancy():.2f}")
+          f"kv={args.kv_cache} layout={args.cache_layout} device={device} "
+          f"occupancy={engine.occupancy():.2f} prefix_hit_rate={engine.prefix_hit_rate():.3f} "
+          f"accept_rate={engine.accept_rate():.3f} tokens_per_step={engine.tokens_per_step():.3f}")
     for r in done[:4]:
         print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out={r.out[:8]}")
     return done

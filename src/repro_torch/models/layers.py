@@ -1,4 +1,5 @@
-"""Transformer building blocks (port of ``repro/models/layers.py``, dense layout).
+"""Transformer building blocks (port of ``repro/models/layers.py``, dense and paged
+layouts).
 
 Functions over params dicts of tensors. Every quantized linear goes through
 :mod:`repro_torch.core.qlinear`. Caches are updated in place (the reference returns
@@ -189,6 +190,87 @@ def _scale_to_scores(scale: torch.Tensor) -> torch.Tensor:
     return scale[..., 0].permute(0, 2, 1)[:, :, None, :]
 
 
+# --------------------------------------------------------------------- paged KV
+
+def _pool_flat(pool: torch.Tensor) -> torch.Tensor:
+    """(P, ps, Hkv, D|1) page pool → (P·ps, Hkv, D|1) flat-position view."""
+    return pool.view((pool.shape[0] * pool.shape[1],) + pool.shape[2:])
+
+
+def _scatter_rows(flat_idx: torch.Tensor, n_rows: int):
+    """The rows of a (N,) flat-index write that land inside a pool of ``n_rows``
+    positions: (source rows, destination positions). Indices ≥ P·ps (sentinel
+    page-table entries, padding rows, verify rows ≥ q_len) write nowhere. The
+    reference's scatter drops them (``mode="drop"``); torch's indexed write on a
+    CUDA tensor would fault on them instead, so they are filtered out here."""
+    keep = (flat_idx >= 0) & (flat_idx < n_rows)
+    src = torch.nonzero(keep).reshape(-1)
+    return src, flat_idx[src]
+
+
+def _pool_scatter(pool: torch.Tensor, route, rows: torch.Tensor) -> None:
+    """Write ``rows`` (N, Hkv, D|1) into a (P, ps, Hkv, D|1) pool, in place, along
+    a ``route`` from :func:`_scatter_rows`. Pages of other sequences are never
+    touched: the engine hands every live position exactly one page slot."""
+    src, dst = route
+    _pool_flat(pool)[dst] = rows[src].to(pool.dtype)
+
+
+def _pool_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """The logical (B, maxP·ps, Hkv, D|1) view of a pool through the page table.
+    Sentinel entries clamp to a valid page; callers mask those positions. Warm
+    prefix prefill only: decode and verify read the pool through the paged
+    kernel, which never forms this view."""
+    P, ps = pool.shape[0], pool.shape[1]
+    gidx = (page_table.to(torch.int64)[:, :, None] * ps
+            + torch.arange(ps, device=pool.device)[None, None, :])
+    gidx = torch.clamp(gidx, 0, P * ps - 1).reshape(page_table.shape[0], -1)
+    return _pool_flat(pool)[gidx]
+
+
+def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                            cache: dict, page_table: torch.Tensor, *,
+                            prefix_len: torch.Tensor, suffix_len: torch.Tensor,
+                            window: Optional[int], softcap: Optional[float]) -> torch.Tensor:
+    """Suffix prefill against a shared paged prefix (plain torch, as in the
+    reference). q/k_new/v_new (B, S, H|Hkv, D) are the right-padded suffix tokens
+    with ``suffix_len`` valid per slot; ``prefix_len`` tokens per slot already
+    live in the pool. Prefix keys/values are read back from the pool (int8 codes
+    times their scale pages); suffix keys use the in-flight fp k/v, so a
+    zero-prefix row computes the cold result. Suffix query i sits at absolute
+    position ``prefix_len[b] + i``."""
+    B, S, H, D = q.shape
+    Hkv = k_new.shape[2]
+    G = H // Hkv
+    kf = _pool_gather(cache["k_pages"], page_table).to(torch.float32)
+    vf = _pool_gather(cache["v_pages"], page_table).to(torch.float32)
+    if "k_scale_pages" in cache:
+        kf = kf * _pool_gather(cache["k_scale_pages"], page_table)
+        vf = vf * _pool_gather(cache["v_scale_pages"], page_table)
+    T = kf.shape[1]
+    pl_ = prefix_len.reshape(-1).to(torch.int64)
+    sl = suffix_len.reshape(-1).to(torch.int64)
+    ar = torch.arange(S, device=q.device)
+    abs_pos = pl_[:, None] + ar[None, :]                               # (B, S)
+    over = (ar[None, :] < sl[:, None]) & (abs_pos < T)
+    rows, cols = torch.nonzero(over, as_tuple=True)
+    kf[rows, abs_pos[rows, cols]] = k_new[rows, cols].to(torch.float32)
+    vf[rows, abs_pos[rows, cols]] = v_new[rows, cols].to(torch.float32)
+
+    qg = q.reshape(B, S, Hkv, G, D).to(torch.float32)
+    s = torch.einsum("bshgd,bthd->bhgst", qg, kf) * (D ** -0.5)
+    s = _softcap(s, softcap)
+    k_pos = torch.arange(T, device=q.device)[None, None, :]              # (1, 1, T)
+    valid = k_pos <= abs_pos[:, :, None]                                 # causal
+    valid = valid & (k_pos < (pl_ + sl)[:, None, None])                  # total length
+    if window is not None:
+        valid = valid & ((abs_pos[:, :, None] - k_pos) < window)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", p, vf)
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
                      cur_len: torch.Tensor, window: Optional[int],
                      softcap: Optional[float], k_scale: Optional[torch.Tensor] = None,
@@ -224,6 +306,48 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                     cur_len: torch.Tensor, q_len: torch.Tensor, window: Optional[int],
+                     softcap: Optional[float], k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Draft-window attention against a dense (B, T, Hkv, D) cache: the W window
+    tokens are already scattered, ``cur_len`` is each slot's total post-scatter
+    length and ``q_len`` its valid window rows; window token i sits at
+    ``cur_len - q_len + i`` and attends keys up to its own position (rows ≥ q_len
+    clamp to the newest valid position; their output is discarded). int8-KV
+    scales apply where :func:`decode_attention` applies them.
+    q (B, W, H, D) → (B, W, H, D)."""
+    B, W, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, W, Hkv, G, D)
+    kf = k_cache.to(torch.float32) if k_scale is not None else k_cache
+    qq, kk = _promote(qg, kf)
+    s = torch.einsum("bwhgd,bthd->bhwgt", qq, kk) * (D ** -0.5)
+    s = s.to(torch.float32)
+    if k_scale is not None:
+        s = s * _scale_to_scores(k_scale)[:, :, None]            # (B, Hkv, 1, 1, T)
+    s = _softcap(s, softcap)
+    cl = cur_len.reshape(-1).to(torch.int64).expand(B)
+    qln = q_len.reshape(-1).to(torch.int64).expand(B)
+    q_pos = ((cl - qln)[:, None]
+             + torch.minimum(torch.arange(W, device=q.device)[None, :], (qln - 1)[:, None]))
+    t_pos = torch.arange(k_cache.shape[1], device=q.device)[None, None, None, None, :]
+    qp = q_pos[:, None, :, None, None]
+    valid = t_pos <= qp
+    if window is not None:
+        valid = valid & ((qp - t_pos) < window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        out = torch.einsum("bhwgt,bthd->bwhgd", p * _scale_to_scores(v_scale)[:, :, None],
+                           v_cache.to(torch.float32))
+    else:
+        pp, vv = _promote(p.to(v_cache.dtype), v_cache)
+        out = torch.einsum("bhwgt,bthd->bwhgd", pp, vv)
+    return out.reshape(B, W, H, D).to(q.dtype)
+
+
 def _prefill_attention(q, k, v, cfg: ModelConfig, ctx: QuantContext, *,
                        window: Optional[int], seq_lens: Optional[torch.Tensor]):
     """Self-attention over a (right-padded) prefill window: the flash kernel for
@@ -243,25 +367,115 @@ def _prefill_attention(q, k, v, cfg: ModelConfig, ctx: QuantContext, *,
                                q_block=blk, kv_block=blk)
 
 
-def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext, *,
-                    cache: Optional[dict] = None,
-                    cur_len: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full (global, causal) attention sublayer on the dense slot-table cache.
+def _kv_rows(k: torch.Tensor, v: torch.Tensor, kv_int8: bool) -> dict:
+    """The (B, S, Hkv, D|1) K/V rows a cache stores: fp, or int8 codes + scales."""
+    if not kv_int8:
+        return {"k": k, "v": v}
+    kq, ks = kv_quantize(k)
+    vq, vs = kv_quantize(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
-    ``cache`` {"k", "v"[, "k_scale", "v_scale"]}: (B, T, Hkv, D) rows. Prefill
-    (S > 1) writes each row's prefix and zeroes the rest; decode (S == 1) writes
-    the new token at ``cur_len - 1`` of its own slot, then attends. ``cur_len``
-    is a (B,) int tensor: prompt lengths at prefill, post-append lengths at
-    decode. Returns (output, cache), the cache updated in place."""
+
+def _paged_attention(q, k, v, cache: dict, page_table: Optional[torch.Tensor],
+                     cfg: ModelConfig, ctx: QuantContext, *, cur_len, prefix_len,
+                     window: Optional[int], decode: bool, q_len=None) -> torch.Tensor:
+    """Attention against a paged pool: scatter the new K/V through the page table
+    (in place), then attend. Decode and verify read the pool through the paged
+    kernel (K4/K5 via ``ops``, fp pools and int8 codes + scale pools alike); a cold
+    prefill runs exactly the dense prefill attention, a warm one
+    :func:`paged_prefill_attention`."""
+    from repro_torch.kernels import ops
+
+    if page_table is None:
+        raise ValueError("paged cache without a page_table")
+    B, S = q.shape[0], q.shape[1]
+    kv_int8 = "k_scale_pages" in cache
+    P, ps = cache["k_pages"].shape[0], cache["k_pages"].shape[1]
+    maxP = page_table.shape[1]
+    table = page_table.to(torch.int64)
+    ar = torch.arange(S, device=q.device)
+
+    if q_len is not None:
+        # draft-window verify: window token i of slot b sits at cur_len - q_len + i
+        cl = cur_len.reshape(-1).to(torch.int64).expand(B)
+        qln = q_len.reshape(-1).to(torch.int64).expand(B)
+        abs_pos = (cl - qln)[:, None] + ar[None, :]                       # (B, S)
+        row_valid = ar[None, :] < qln[:, None]
+    elif decode:
+        cl = cur_len.reshape(-1).to(torch.int64).expand(B)
+        abs_pos = torch.clamp(cl - 1, 0, maxP * ps - 1)[:, None]          # (B, 1)
+        row_valid = torch.ones_like(abs_pos, dtype=torch.bool)
+    else:
+        sl = (torch.full((B,), S, device=q.device) if cur_len is None
+              else cur_len.reshape(-1).expand(B)).to(torch.int64)
+        pl_ = (torch.zeros((B,), dtype=torch.int64, device=q.device) if prefix_len is None
+               else prefix_len.reshape(-1).to(torch.int64).expand(B))
+        abs_pos = pl_[:, None] + ar[None, :]                              # (B, S)
+        row_valid = ar[None, :] < sl[:, None]
+    entry = torch.gather(table, 1, torch.clamp(abs_pos // ps, 0, maxP - 1))
+    flat = torch.where(row_valid, entry * ps + abs_pos % ps, P * ps).reshape(-1)
+    route = _scatter_rows(flat, P * ps)
+    merge = lambda t: t.reshape((-1,) + t.shape[2:])  # noqa: E731
+    for name, rows in _kv_rows(k, v, kv_int8).items():
+        _pool_scatter(cache[f"{name}_pages"], route, merge(rows))
+    scales = dict(k_scale_pages=cache.get("k_scale_pages"),
+                  v_scale_pages=cache.get("v_scale_pages"))
+
+    if q_len is not None:
+        return ops.paged_verify_attention(q, cache["k_pages"], cache["v_pages"], page_table,
+                                          cl, qln, window=window,
+                                          softcap=cfg.attn_softcap, **scales)
+    if decode:
+        return ops.paged_decode_attention(q, cache["k_pages"], cache["v_pages"], page_table,
+                                          cl, window=window, softcap=cfg.attn_softcap,
+                                          **scales)
+    if prefix_len is None:
+        # cold admission: exactly the dense prefill attention
+        return _prefill_attention(q, k, v, cfg, ctx, window=window,
+                                  seq_lens=None if cur_len is None else sl)
+    return paged_prefill_attention(q, k, v, cache, page_table, prefix_len=pl_, suffix_len=sl,
+                                   window=window, softcap=cfg.attn_softcap)
+
+
+def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext, *,
+                    cache: Optional[dict] = None, cur_len: Optional[torch.Tensor] = None,
+                    page_table: Optional[torch.Tensor] = None,
+                    prefix_len: Optional[torch.Tensor] = None,
+                    q_len: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Full (global, causal) attention sublayer; the cache is updated in place.
+
+    Dense ``cache`` {"k", "v"[, "k_scale", "v_scale"]}: (B, T, Hkv, D) rows.
+    Prefill (S > 1) writes each row's prefix and zeroes the rest; decode (S == 1)
+    writes the new token at ``cur_len - 1`` of its own slot, then attends. Paged
+    ``cache`` {"k_pages", "v_pages"[, scale pools]} scatters through
+    ``page_table`` instead; ``prefix_len`` (B,) marks a suffix prefill against a
+    shared paged prefix. ``cur_len`` is a (B,) int tensor: prompt (or suffix)
+    lengths at prefill, post-append lengths at decode.
+
+    ``q_len`` (B,) marks a draft-window verify batch: all S window tokens scatter
+    (rows ≥ q_len write nowhere) and every window row is scored in one pass;
+    ``cur_len`` is then the total post-scatter length, so window token i sits at
+    ``cur_len - q_len + i``. Returns (output, cache)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = ctx.linear(params["wq"], x, "wq").reshape(B, S, H, D)
     k = ctx.linear(params["wk"], x, "wk").reshape(B, S, Hkv, D)
     v = ctx.linear(params["wv"], x, "wv").reshape(B, S, Hkv, D)
 
-    is_decode = cache is not None and S == 1
-    if is_decode and cur_len is not None:
+    is_verify = cache is not None and q_len is not None
+    is_decode = cache is not None and S == 1 and q_len is None
+    paged = cache is not None and "k_pages" in cache
+    if is_verify:
+        # window token i at cur_len - q_len + i; rows ≥ q_len clamp to the newest
+        # valid position (their output is discarded)
+        ql_ = q_len.reshape(-1, 1)
+        positions = ((cur_len.reshape(-1, 1) - ql_)
+                     + torch.minimum(torch.arange(S, device=x.device)[None, :], ql_ - 1))
+    elif is_decode and cur_len is not None:
         positions = cur_len.reshape(-1, 1) - 1
+    elif paged and prefix_len is not None:
+        # paged suffix prefill: suffix token i of slot b sits at prefix_len[b] + i
+        positions = prefix_len.reshape(-1, 1) + torch.arange(S, device=x.device)[None, :]
     else:
         positions = torch.arange(S, device=x.device)[None, :]
     if cfg.use_rope:
@@ -269,26 +483,35 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
         k = rope(k, positions, cfg.rope_theta)
 
     window = None                    # global layers; local (windowed) ones are not ported
+    if paged:
+        out = _paged_attention(q, k, v, cache, page_table, cfg, ctx, cur_len=cur_len,
+                               prefix_len=prefix_len, window=window, decode=is_decode,
+                               q_len=q_len if is_verify else None)
+        y = ctx.linear(params["wo"], out.reshape(B, S, H * D), "wo")
+        return y, cache
     kv_int8 = cache is not None and "k_scale" in cache
-    if is_decode:
+    scales = (dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"]) if kv_int8 else {})
+    if is_verify:
+        # dense draft-window verify: scatter the S window tokens at their absolute
+        # positions (rows ≥ q_len write nowhere), then score the window
+        cl = cur_len.reshape(-1).to(torch.int64).expand(B)
+        qln = q_len.reshape(-1).to(torch.int64).expand(B)
+        T = cache["k"].shape[1]
+        ar = torch.arange(S, device=x.device)
+        idx = torch.clamp((cl - qln)[:, None] + ar[None, :], 0, T - 1)
+        rows, cols = torch.nonzero(ar[None, :] < qln[:, None], as_tuple=True)
+        for name, val in _kv_rows(k, v, kv_int8).items():
+            cache[name][rows, idx[rows, cols]] = val[rows, cols].to(cache[name].dtype)
+        out = verify_attention(q, cache["k"], cache["v"], cur_len=cl, q_len=qln,
+                               window=window, softcap=cfg.attn_softcap, **scales)
+    elif is_decode:
         cl = cur_len.reshape(-1).to(torch.int64).expand(B)
         idx = torch.clamp(cl - 1, 0, cache["k"].shape[1] - 1)
         rows = torch.arange(B, device=x.device)
-        if kv_int8:
-            kq, ks = kv_quantize(k)
-            vq, vs = kv_quantize(v)
-            cache["k"][rows, idx] = kq[:, 0]
-            cache["v"][rows, idx] = vq[:, 0]
-            cache["k_scale"][rows, idx] = ks[:, 0]
-            cache["v_scale"][rows, idx] = vs[:, 0]
-            out = decode_attention(q, cache["k"], cache["v"], cur_len=cl, window=window,
-                                   softcap=cfg.attn_softcap, k_scale=cache["k_scale"],
-                                   v_scale=cache["v_scale"])
-        else:
-            cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
-            out = decode_attention(q, cache["k"], cache["v"], cur_len=cl, window=window,
-                                   softcap=cfg.attn_softcap)
+        for name, val in _kv_rows(k, v, kv_int8).items():
+            cache[name][rows, idx] = val[:, 0].to(cache[name].dtype)
+        out = decode_attention(q, cache["k"], cache["v"], cur_len=cl, window=window,
+                               softcap=cfg.attn_softcap, **scales)
     else:
         seq_lens = None
         if cache is not None and cur_len is not None:
@@ -296,13 +519,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
         out = _prefill_attention(q, k, v, cfg, ctx, window=window, seq_lens=seq_lens)
         if cache is not None:
             # the in-flight attention above ran on fp k/v; only the stored cache is int8
-            if kv_int8:
-                kq, ks = kv_quantize(k)
-                vq, vs = kv_quantize(v)
-                new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-            else:
-                new = {"k": k, "v": v}
-            for name, val in new.items():
+            for name, val in _kv_rows(k, v, kv_int8).items():
                 cache[name][:, :S] = val.to(cache[name].dtype)
                 cache[name][:, S:] = 0
     y = ctx.linear(params["wo"], out.reshape(B, S, H * D), "wo")

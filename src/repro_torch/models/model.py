@@ -1,5 +1,5 @@
 """Dense decoder language model (port of ``repro/models/model.py`` for the dense
-global-attention family).
+global-attention family, on the dense and paged cache layouts).
 
 Parameters keep the reference's layout: ``blocks`` is a list (one entry per
 sublayer kind of the block spec) of dicts whose leaves carry a leading
@@ -73,11 +73,30 @@ def layer_slice(tree, i: int):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=torch.bfloat16, *,
-               kv_int8: bool = False, device="cuda") -> dict:
-    """Dense slot-table cache: per sublayer kind, leaves stacked (n_blocks, B, T,
-    ...). ``kv_int8`` stores K/V as int8 codes plus per-token f32 scales."""
+               kv_int8: bool = False, layout: str = "dense", page_size: int = 16,
+               n_pages: Optional[int] = None, device="cuda") -> dict:
+    """Per sublayer kind, leaves stacked (n_blocks, ...). ``kv_int8`` stores K/V
+    as int8 codes plus per-token f32 scales.
+
+    ``layout="dense"``: a slot table, (n_blocks, B, T, ...) rows per slot.
+    ``layout="paged"``: (n_blocks, P, ps, ...) physical page pools that slots
+    address through a top-level ``page_table`` (B, max_len // page_size) int32,
+    filled with the invalid sentinel ``n_pages`` (reads clamp, writes drop).
+    ``n_pages`` defaults to the dense-equivalent ``batch_size * max_len /
+    page_size``; the serving engine owns the table's contents."""
     spec = block_spec(cfg)
     dev = resolve_device(device)
+    if layout == "paged":
+        if max_len % page_size:
+            raise ValueError(f"page_size {page_size} must divide max_len {max_len}")
+        n_pages = n_pages or batch_size * (max_len // page_size)
+        return {"blocks": [state_lib.attn_paged(cfg, n_pages, page_size, dtype, kv_int8,
+                                                device=dev, n_stack=spec.n_blocks)
+                           for _ in spec.sublayers],
+                "page_table": torch.full((batch_size, max_len // page_size), n_pages,
+                                         dtype=torch.int32, device=dev)}
+    if layout != "dense":
+        raise ValueError(f"unknown cache layout {layout!r}")
     return {"blocks": [state_lib.attn_dense(cfg, batch_size, max_len, dtype, kv_int8,
                                             device=dev, n_stack=spec.n_blocks)
                        for _ in spec.sublayers]}
@@ -104,26 +123,49 @@ def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def apply(params: dict, batch: dict, cfg: ModelConfig, *,
           ctx: Optional[QuantContext] = None, mode: str = "train",
-          caches: Optional[dict] = None, cur_len=None,
+          caches: Optional[dict] = None, cur_len=None, prefix_len=None, q_len=None,
           unroll: bool = False) -> Tuple[torch.Tensor, dict]:
     """Returns (logits, {"caches": caches-or-None}).
 
     mode: train (full logits, no caches) | prefill (writes caches; logits at each
-    slot's last valid position) | decode (one token per slot against caches).
+    slot's last valid position) | decode (one token per slot against caches) |
+    verify (a speculative draft window per slot; logits at every position).
     ``cur_len`` is a scalar or (B,) int tensor: prompt lengths of right-padded
-    prompts at prefill, post-append lengths at decode. Caches update in place.
+    prompts at prefill, post-append lengths at decode, total post-scatter
+    lengths at verify, where ``q_len`` (B,) counts each slot's valid window rows
+    (window token i sits at ``cur_len - q_len + i``). Caches update in place.
+
+    Paged caches carry their ``page_table`` in the cache dict; it reaches every
+    attention layer unchanged. ``prefix_len`` (B,) marks a paged prefill whose
+    slots already hold that many shared-prefix tokens: the batch tokens are the
+    suffix, positions start at ``prefix_len[b]`` and ``cur_len`` counts suffix
+    tokens only.
     """
-    if mode not in ("train", "prefill", "decode"):
+    if mode not in ("train", "prefill", "decode", "verify"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    verify = mode == "verify"
+    if verify and q_len is None:
+        raise ValueError("mode='verify' needs q_len (per-slot valid window rows)")
+    if q_len is not None and not verify:
+        raise ValueError("q_len is only meaningful under mode='verify'")
     ctx = ctx or QuantContext(cfg.quant)
     spec = block_spec(cfg)
     x = _embed(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
-    use_cache = mode in ("prefill", "decode")
+    use_cache = mode in ("prefill", "decode", "verify")
     if use_cache and caches is None:
-        raise ValueError("prefill/decode need caches (init_cache)")
+        raise ValueError("prefill/decode/verify need caches (init_cache)")
+    page_table = caches.get("page_table") if use_cache else None
+    if prefix_len is not None and page_table is None:
+        raise ValueError("prefix_len needs a paged cache (its page_table routes the "
+                         "shared prefix)")
+    as_vec = lambda t: torch.as_tensor(t, device=x.device).reshape(-1).expand(B)  # noqa: E731
     if cur_len is not None:
-        cur_len = torch.as_tensor(cur_len, device=x.device).reshape(-1).expand(B)
+        cur_len = as_vec(cur_len)
+    if prefix_len is not None:
+        prefix_len = as_vec(prefix_len)
+    if q_len is not None:
+        q_len = as_vec(q_len)
 
     for b in range(spec.n_blocks):
         # per-layer names /L{b}/S{i}/... are what calibration.stack_tables reads
@@ -134,7 +176,9 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
             sctx = bctx.sub(f"S{i}")
             h, _ = attention_apply(p["attn"], norm_apply(p["norm1"], x, cfg), cfg,
                                    sctx.sub("attn"), cache=c,
-                                   cur_len=cur_len if use_cache else None)
+                                   cur_len=cur_len if use_cache else None,
+                                   page_table=page_table, prefix_len=prefix_len,
+                                   q_len=q_len)
             x = x + h
             x = x + mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg), cfg, sctx.sub("mlp"))
 

@@ -2,14 +2,16 @@
 ``repro/serving/config.py``: ``SERVE_PATHS``, ``EngineConfig``, ``EngineStats``).
 
 ``EngineConfig`` keeps the reference's fields and cross-field validation, then
-rejects with :class:`NotPortedError` what this port does not serve yet: the
-paged layout, chunked prefill, speculative decoding, N:M sparsity, the grouped
-scheduler and the ``fake``/``dequant-fp`` paths.
+rejects with :class:`NotPortedError` what this port does not serve yet: chunked
+prefill, N:M sparsity, the grouped scheduler and the ``fake``/``dequant-fp``
+paths. The dense and paged layouts and speculative decoding are served.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 #: serving path → QuantContext wiring. ``None`` serves whatever the params tree +
 #: quant config imply on the plain ``ref`` integer backend.
@@ -20,6 +22,9 @@ SERVE_PATHS: Dict[Optional[str], Dict[str, Any]] = {
 }
 #: paths the reference serves that this port does not yet
 NOT_PORTED_PATHS = ("fake", "dequant-fp")
+#: fp KV-cache dtypes by canonical name (``cache_dtype`` is stored as a name):
+#: the ones the paged kernel reads
+CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class NotPortedError(NotImplementedError):
@@ -28,8 +33,9 @@ class NotPortedError(NotImplementedError):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Frozen serving configuration: the reference's fields that this slice
-    serves or rejects, with the reference's defaults."""
+    """Frozen serving configuration: the reference's fields that this port
+    serves or rejects, with the reference's defaults. ``cache_dtype`` is stored
+    as a canonical dtype name (``"bfloat16"``); ``None`` follows the params."""
 
     batch_size: int
     max_len: int
@@ -37,10 +43,15 @@ class EngineConfig:
     path: Optional[str] = None
     kv_cache: str = "fp"
     cache_layout: str = "dense"
+    page_size: int = 8
+    n_pages: Optional[int] = None
+    prefix_reuse: bool = True
+    cache_dtype: Optional[str] = None
     scheduler: str = "continuous"
     prefill_buckets: Optional[Tuple[int, ...]] = None
     chunked: bool = False
     speculate: int = 1
+    drafter_ngram: int = 3
     temperature: float = 0.0
     top_k: int = 0
     seed: int = 0
@@ -50,6 +61,13 @@ class EngineConfig:
         if self.prefill_buckets is not None:
             object.__setattr__(self, "prefill_buckets",
                                tuple(int(b) for b in self.prefill_buckets))
+        if self.cache_dtype is not None:
+            name = (str(self.cache_dtype).removeprefix("torch.")
+                    if isinstance(self.cache_dtype, torch.dtype) else str(self.cache_dtype))
+            if name not in CACHE_DTYPES:
+                raise ValueError(f"cache_dtype must be one of {sorted(CACHE_DTYPES)}, "
+                                 f"got {self.cache_dtype!r}")
+            object.__setattr__(self, "cache_dtype", name)
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
         if self.max_len < 1:
@@ -65,20 +83,32 @@ class EngineConfig:
         if self.scheduler not in ("continuous", "grouped"):
             raise ValueError(f"scheduler must be 'continuous' or 'grouped', "
                              f"got {self.scheduler!r}")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.cache_layout == "paged" and self.scheduler != "continuous":
+            raise ValueError("the paged layout serves through the continuous "
+                             "scheduler (the grouped baseline stays dense)")
         if self.speculate < 1:
             raise ValueError(f"speculate must be >= 1, got {self.speculate}")
+        if self.speculate > 1:
+            if self.temperature > 0.0:
+                raise ValueError("speculate > 1 requires greedy sampling "
+                                 "(temperature <= 0): acceptance is token-"
+                                 "exact only under deterministic sampling")
+            if self.scheduler != "continuous":
+                raise ValueError("speculate > 1 requires the continuous "
+                                 "scheduler (per-slot draft windows)")
         not_ported = [
             (self.path in NOT_PORTED_PATHS, f"serving path {self.path!r}"),
-            (self.cache_layout == "paged", "the paged cache layout"),
             (self.chunked, "chunked prefill"),
-            (self.speculate > 1, "speculative decoding (speculate > 1)"),
             (self.sparsity != "none", "N:M sparsity"),
             (self.scheduler == "grouped", "the grouped scheduler"),
         ]
         for hit, what in not_ported:
             if hit:
                 raise NotPortedError(f"{what} is not ported yet; the port serves the "
-                                     "dense continuous layout")
+                                     "continuous scheduler on the dense and paged "
+                                     "layouts")
 
     def check_model(self, cfg) -> None:
         """Model-dependent validation: only dense global decoders are ported."""

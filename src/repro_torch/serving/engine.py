@@ -1,5 +1,6 @@
-"""Serving engine: admission/decode step builders and the slot-table continuous
-batcher (port of ``repro/serving/engine.py``, dense layout).
+"""Serving engine: admission/decode/verify step builders and the slot-table
+continuous batcher (port of ``repro/serving/engine.py``, dense and paged layouts,
+with speculative decoding).
 
 ``ServeEngine`` keeps a fixed slot table of ``batch_size`` sequences with per-slot
 lengths. Requests are admitted into free slots mid-decode through length-bucketed
@@ -9,6 +10,16 @@ slot at once. Decode advances every slot in lock-step and samples on the device,
 so the host loop moves only int token ids. PyTorch runs eagerly, so the steps
 are plain functions and the one live cache is updated in place (the reference
 jit-compiles them and donates the cache).
+
+``cache_layout="paged"`` swaps the dense per-slot rows for a physical page pool
+addressed through a page table, with a host-side ref-counted allocator and a
+radix index over prompt chunks (:mod:`repro_torch.serving.paging`). Previously
+prefilled prefixes map into new requests copy-free (int8 codes and scales are
+deterministic, so int8 pages share bit-exactly), partial tail pages copy on
+write, only the suffix prefills, and unreferenced cached prefixes evict LRU
+under pool pressure. ``speculate=k`` turns each decode step into a k-token
+verify step over drafts from :mod:`repro_torch.serving.drafter`, token-exact
+against ``speculate=1`` by greedy acceptance.
 """
 from __future__ import annotations
 
@@ -23,8 +34,9 @@ from repro_torch.core import qlinear as ql
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.layers import QuantContext
+from repro_torch.serving import drafter, paging
 from repro_torch.serving.api import FinishReason
-from repro_torch.serving.config import SERVE_PATHS, EngineConfig, EngineStats
+from repro_torch.serving.config import CACHE_DTYPES, SERVE_PATHS, EngineConfig, EngineStats
 
 
 def _make_ctx(cfg: ModelConfig, quant: Optional[ql.QuantConfig],
@@ -92,6 +104,43 @@ def make_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
     return admit_step
 
 
+def make_paged_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
+                          path: Optional[str] = None, temperature: float = 0.0,
+                          top_k: int = 0, warm: bool = False):
+    """Admission prefill straight into the live page pool: each admitted row
+    writes K/V through its own page table into pages the allocator handed it
+    exclusively, so no scatter-merge is needed. ``warm=False`` is the cold path
+    (plain right-padded prefill attention, the dense layout's numerics);
+    ``warm=True`` the shared-prefix path, whose rows are prompt suffixes after
+    ``prefix`` tokens already in the mapped pages."""
+    ctx = _make_ctx(cfg, quant, path)
+    sample = _make_sampler(temperature, top_k)
+
+    def admit_step(params, tokens, lens, prefix, row_tables, caches, gen):
+        """tokens (Bp, S) right-padded suffixes; lens (Bp,) suffix lengths; prefix
+        (Bp,) shared-prefix lengths (unused when cold); row_tables (Bp, maxP) the
+        admitted rows' page tables (sentinel-filled padding rows write nowhere).
+        Returns (first sampled token (Bp,) int32, caches with the live table)."""
+        c = dict(caches, page_table=row_tables)
+        logits, _ = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="prefill",
+                            caches=c, cur_len=lens, prefix_len=prefix if warm else None)
+        return sample(logits[:, -1], gen), caches
+
+    return admit_step
+
+
+def _page_copy(caches: dict, src: int, dst: int, n_tok: int) -> dict:
+    """Copy-on-write of a partially shared tail page: the first ``n_tok`` token rows
+    of physical page ``src`` go into the freshly allocated ``dst`` in every layer's
+    pools (codes and int8 scale pages alike); rows ≥ n_tok stay zero, as a cold
+    prefill leaves them before writing the suffix. In place; returns caches."""
+    for leaves in caches["blocks"]:
+        for leaf in leaves.values():                # (n_blocks, P, ps, Hkv, D|1)
+            leaf[:, dst] = 0
+            leaf[:, dst, :n_tok] = leaf[:, src, :n_tok]
+    return caches
+
+
 def make_serve_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
                            path: Optional[str] = None, temperature: float = 0.0,
                            top_k: int = 0):
@@ -109,6 +158,26 @@ def make_serve_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = N
     return decode_step
 
 
+def make_serve_verify_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
+                           path: Optional[str] = None):
+    """One speculative verify step: score a (B, W) draft window (column 0 each
+    slot's pending token, the rest its drafted continuation) in one forward pass
+    and argmax every window position on the device. Greedy only: the acceptance
+    rule is token-exact only under deterministic sampling."""
+    ctx = _make_ctx(cfg, quant, path)
+
+    def verify_step(params, tokens, caches, cur_len, q_len):
+        """tokens (B, W) draft windows; cur_len (B,) total post-scatter lengths;
+        q_len (B,) valid window rows (shorter windows right-pad; their tail rows
+        write nowhere) → (greedy samples (B, W) int32, where position i samples
+        the token after window token i; caches updated in place)."""
+        logits, ex = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="verify",
+                             caches=caches, cur_len=cur_len, q_len=q_len)
+        return torch.argmax(logits, dim=-1).to(torch.int32), ex["caches"]
+
+    return verify_step
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -117,6 +186,7 @@ class Request:
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     finish_reason: Optional[FinishReason] = None
+    prefix_reused: int = 0        # radix hit length (prompt tokens)
 
 
 def default_buckets(max_len: int, lo: int = 8) -> List[int]:
@@ -156,12 +226,23 @@ def _first_tensor(tree) -> torch.Tensor:
 
 
 class ServeEngine:
-    """Continuous batcher over a fixed-size slot table (dense layout).
+    """Continuous batcher over a fixed-size slot table.
 
     ``device`` is where the params live and the engine runs ("cuda" by
     default; "cpu" runs every kernel's plain version). ``eos_id=None`` disables
-    EOS termination (token 0 is the pad token). The fp KV cache takes the dtype
-    of the params tree's first floating leaf, as the reference does.
+    EOS termination (token 0 is the pad token). The fp KV cache takes
+    ``config.cache_dtype``, or else the dtype of the params tree's first floating
+    leaf, as the reference does.
+
+    ``cache_layout="paged"``: a ref-counted page pool of ``n_pages`` pages of
+    ``page_size`` tokens (default: the dense-equivalent ``batch_size · max_len /
+    page_size``), a page table per slot and, with ``prefix_reuse``, a radix index
+    that maps cached prompt prefixes into new requests copy-free. Each admission
+    reserves its worst-case page count up front, so decode never allocates.
+
+    ``speculate=k``: each decode step verifies a window of the pending token plus
+    up to k-1 drafted tokens in one pass and keeps the longest prefix the model
+    agrees with, so the output equals ``speculate=1`` token for token.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, config: EngineConfig,
@@ -176,18 +257,38 @@ class ServeEngine:
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id
         self.kv_int8 = config.kv_cache == "int8"
+        self.paged = config.cache_layout == "paged"
+        self.spec = config.speculate
+        if self.spec > 1:
+            self.drafter = drafter.NGramDrafter(max_ngram=config.drafter_ngram)
         self.buckets = sorted(b for b in (config.prefill_buckets
                                           or default_buckets(config.max_len))
                               if b <= config.max_len)
-        self.cache_dtype = _first_float_dtype(params) or torch.float32
-        self.caches = M.init_cache(cfg, self.B, self.T, dtype=self.cache_dtype,
-                                   kv_int8=self.kv_int8, device=self.device)
-        self._admit_step = make_admit_step(cfg, quant, path=config.path,
-                                           temperature=config.temperature,
-                                           top_k=config.top_k)
-        self._decode_step = make_serve_decode_step(cfg, quant, path=config.path,
-                                                   temperature=config.temperature,
-                                                   top_k=config.top_k)
+        self.cache_dtype = (CACHE_DTYPES[config.cache_dtype] if config.cache_dtype
+                            else _first_float_dtype(params) or torch.float32)
+        step_kw = dict(path=config.path, temperature=config.temperature, top_k=config.top_k)
+        if self.paged:
+            self.ps = config.page_size
+            self.maxP = self.T // self.ps
+            self.n_pages = config.n_pages or self.B * self.maxP
+            self.pool = paging.PagePool(self.n_pages)
+            self.radix = paging.RadixIndex(self.ps) if config.prefix_reuse else None
+            self._table = np.full((self.B, self.maxP), self.n_pages, np.int32)
+            self._table_dirty = False
+            self._seq_pages: List[List[int]] = [[] for _ in range(self.B)]
+            self.caches = M.init_cache(cfg, self.B, self.T, dtype=self.cache_dtype,
+                                       kv_int8=self.kv_int8, layout="paged",
+                                       page_size=self.ps, n_pages=self.n_pages,
+                                       device=self.device)
+            self._admit_cold = make_paged_admit_step(cfg, quant, warm=False, **step_kw)
+            self._admit_warm = make_paged_admit_step(cfg, quant, warm=True, **step_kw)
+        else:
+            self.caches = M.init_cache(cfg, self.B, self.T, dtype=self.cache_dtype,
+                                       kv_int8=self.kv_int8, device=self.device)
+            self._admit_step = make_admit_step(cfg, quant, **step_kw)
+        self._decode_step = make_serve_decode_step(cfg, quant, **step_kw)
+        if self.spec > 1:
+            self._verify_step = make_serve_verify_step(cfg, quant, path=config.path)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
         self.queue: List[Request] = []
@@ -195,9 +296,15 @@ class ServeEngine:
         self._pos = np.zeros(self.B, np.int32)       # tokens in cache per slot
         self._pending = np.zeros(self.B, np.int32)   # next input token per slot
         self._next_rid = 0
-        self.counters = {"prefill_calls": 0, "decode_steps": 0, "active_slot_steps": 0,
-                         "mid_decode_admissions": 0, "prompt_tokens": 0,
-                         "prefill_tokens": 0}
+        self.counters = {
+            "prefill_calls": 0, "decode_steps": 0, "active_slot_steps": 0,
+            "mid_decode_admissions": 0, "prompt_tokens": 0, "prefill_tokens": 0,
+            # paged layout; zero on dense engines
+            "prefix_hits": 0, "prefix_tokens_reused": 0, "cow_copies": 0,
+            "pages_evicted": 0, "peak_pages_in_use": 0,
+            # speculative decoding; zero when speculate == 1
+            "spec_steps": 0, "spec_slot_steps": 0, "spec_drafted": 0,
+            "spec_accepted": 0, "spec_emitted": 0}
 
     # ---------------------------------------------------------------- submission
 
@@ -229,9 +336,26 @@ class ServeEngine:
     def occupancy(self) -> float:
         return self.stats().occupancy
 
+    def prefix_hit_rate(self) -> float:
+        """Fraction of submitted prompt tokens served from shared prefix pages
+        instead of being prefilled (paged layout; 0.0 on dense)."""
+        return self.stats().prefix_hit_rate
+
+    def accept_rate(self) -> float:
+        """Fraction of drafted tokens the verify step accepted (0.0 when nothing
+        was drafted)."""
+        return self.stats().accept_rate
+
+    def tokens_per_step(self) -> float:
+        """Mean emitted tokens per slot per speculative verify step (0.0 before
+        any speculative step ran)."""
+        return self.stats().tokens_per_step
+
     def _emit(self, slot: int, tok: int, finished: List[Request]) -> None:
         """Record one sampled token for a slot; retire the request when done (a
-        prompt of length max_len fills its row and retires at its first token)."""
+        prompt of length max_len fills its row and retires at its first token).
+        A paged slot drops its page references at retirement and its table row
+        turns sentinel before the next step."""
         r = self._slots[slot]
         r.out.append(tok)
         if self.eos is not None and tok == self.eos:
@@ -249,8 +373,135 @@ class ServeEngine:
             self._slots[slot] = None
             self._pos[slot] = 0
             self._pending[slot] = 0
+            if self.paged:
+                # pages the radix index retains as cached prefixes survive (the
+                # index holds its own reference); the rest return to the free list
+                self.pool.decref(self._seq_pages[slot])
+                self._seq_pages[slot] = []
+                self._table[slot, :] = self.n_pages
+                self._table_dirty = True
+                self._note_pool()
         else:
             self._pending[slot] = tok
+
+    # ------------------------------------------------------------ paged planning
+
+    def _match_prefix(self, prompt: np.ndarray):
+        """Radix walk plus the usability caps shared by planning and bucketing: a
+        request keeps ≥ 1 suffix token (its first sampled token comes from the
+        suffix prefill), so the full-page match is clamped to ``(plen-1)//ps``
+        pages, and a clamped match drops the partial tail hit (it hangs off the
+        unclamped depth). Returns (shared_pages, matched_tokens, cow_src_or_None, j)."""
+        plen, ps = len(prompt), self.ps
+        if self.radix is None:
+            return [], 0, None, 0
+        pages, _, partial = self.radix.match(prompt)
+        n_full = min(len(pages), (plen - 1) // ps)
+        if n_full < len(pages):
+            partial = None
+        j = min(partial.length, plen - 1 - n_full * ps) if partial else 0
+        return pages[:n_full], n_full * ps, partial.page if j > 0 else None, j
+
+    def _plan_paged(self, r: Request) -> Optional[dict]:
+        """Page plan for one request: the shared prefix from the radix index, then
+        this sequence's worst-case page count (prompt plus decode budget, capped
+        at the cache length), evicting LRU cached prefixes under pressure; None
+        when the pool cannot cover it. The shared pages and the COW source are
+        incref'd before evict/alloc, so a matched prefix held only by the index
+        cannot be evicted and handed back as a writable page of this very plan."""
+        plen, ps = len(r.prompt), self.ps
+        shared, matched, cow_src, j = self._match_prefix(r.prompt)
+        self.pool.incref(shared)
+        if cow_src is not None:
+            self.pool.incref([cow_src])
+        prefix = matched + j
+        # the final sampled token retires the request unscattered: max_new - 1
+        need = -(-min(plen + max(r.max_new - 1, 0), self.T) // ps)
+        own_n = need - len(shared)
+        own = self.pool.alloc(own_n)
+        if own is None and self.radix is not None:
+            self.counters["pages_evicted"] += self.radix.evict(self.pool, own_n)
+            own = self.pool.alloc(own_n)
+        if cow_src is not None:                # the copy is issued before any write
+            self.pool.decref([cow_src])
+        if own is None:
+            self.pool.decref(shared)
+            return None
+        cow = (cow_src, own[0], j) if cow_src is not None else None
+        return {"prefix": prefix, "suffix": plen - prefix, "pages": shared + own,
+                "cow": cow}
+
+    def _suffix_estimate(self, r: Request) -> int:
+        """Prefill-window estimate for bucketing: the prompt minus its currently
+        cached shared prefix (the dense layout prefills the whole prompt)."""
+        if not self.paged:
+            return len(r.prompt)
+        _, matched, _, j = self._match_prefix(r.prompt)
+        return len(r.prompt) - matched - j
+
+    def _admit_paged_batch(self, batch: List[Request], bucket: int, free: List[int],
+                           finished: List[Request]) -> int:
+        """Admit up to ``len(free)`` paged requests in one suffix-prefill call.
+        Returns the number admitted; the rest rejoin the queue head."""
+        plans, deferred = [], []
+        for r in batch:
+            plan = self._plan_paged(r)
+            if plan is None or plan["suffix"] > bucket:
+                if plan is not None:       # un-reserve: replanned next round
+                    self.pool.decref(plan["pages"])
+                deferred.append(r)
+            else:
+                plans.append((r, plan))
+        if deferred:
+            self.queue = deferred + self.queue
+        if not plans:
+            return 0
+        rows = 1 << (len(plans) - 1).bit_length() if len(plans) > 1 else 1
+        tokens = np.zeros((rows, bucket), np.int32)
+        lens = np.ones(rows, np.int32)
+        prefixes = np.zeros(rows, np.int32)
+        row_tables = np.full((rows, self.maxP), self.n_pages, np.int32)
+        mid_decode = any(s is not None for s in self._slots)
+        warm = False
+        for j, (slot, (r, plan)) in enumerate(zip(free, plans)):
+            suffix = r.prompt[plan["prefix"]:]
+            tokens[j, : len(suffix)] = suffix
+            lens[j] = len(suffix)
+            prefixes[j] = plan["prefix"]
+            row_tables[j, : len(plan["pages"])] = plan["pages"]
+            if plan["cow"] is not None:
+                self.caches = _page_copy(self.caches, *plan["cow"])
+                self.counters["cow_copies"] += 1
+            self._slots[slot] = r
+            self._seq_pages[slot] = plan["pages"]
+            self._table[slot, :] = self.n_pages
+            self._table[slot, : len(plan["pages"])] = plan["pages"]
+            warm = warm or plan["prefix"] > 0
+            r.prefix_reused = plan["prefix"]
+            self.counters["prompt_tokens"] += len(r.prompt)
+            self.counters["prefill_tokens"] += plan["suffix"]
+            self.counters["prefix_tokens_reused"] += plan["prefix"]
+            self.counters["prefix_hits"] += 1 if plan["prefix"] > 0 else 0
+        self._table_dirty = True
+        dev = self.device
+        step = self._admit_warm if warm else self._admit_cold
+        tok, self.caches = step(
+            self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
+            torch.as_tensor(lens, device=dev), torch.as_tensor(prefixes, device=dev),
+            torch.as_tensor(row_tables, device=dev), self.caches, self._gen)
+        tok = tok.cpu().numpy()
+        self.counters["prefill_calls"] += 1
+        if mid_decode:
+            self.counters["mid_decode_admissions"] += 1
+        self._note_pool()
+        for j, (slot, (r, plan)) in enumerate(zip(free, plans)):
+            if self.radix is not None:
+                # the full prompt pages become a cached prefix (on the device now)
+                self.radix.insert(r.prompt, plan["pages"][: len(r.prompt) // self.ps],
+                                  self.pool)
+            self._pos[slot] = len(r.prompt)
+            self._emit(slot, int(tok[j]), finished)
+        return len(plans)
 
     def _admit_dense_batch(self, batch: List[Request], bucket: int, free: List[int],
                            finished: List[Request]) -> int:
@@ -285,7 +536,8 @@ class ServeEngine:
         """Admit while slots are free: each round takes the largest admittable
         same-bucket group over the whole queue (ties to the bucket whose first
         request arrived earliest), so one odd-length head-of-line request does
-        not split the majority bucket behind it."""
+        not split the majority bucket behind it. Paged requests bucket by their
+        suffix after the cached prefix."""
         while self.queue:
             free = [i for i, s in enumerate(self._slots) if s is None]
             if not free:
@@ -293,28 +545,106 @@ class ServeEngine:
             groups: dict = {}
             first: dict = {}
             for i, r in enumerate(self.queue):
-                b = self._bucket(len(r.prompt))
+                b = self._bucket(self._suffix_estimate(r))
                 groups.setdefault(b, []).append(r)
                 first.setdefault(b, i)
             bucket = max(groups, key=lambda b: (min(len(groups[b]), len(free)), -first[b]))
             batch = groups[bucket][: len(free)]
             taken = {id(r) for r in batch}
             self.queue = [r for r in self.queue if id(r) not in taken]
-            self._admit_dense_batch(batch, bucket, free, finished)
+            if self.paged:
+                admitted = self._admit_paged_batch(batch, bucket, free, finished)
+            else:
+                admitted = self._admit_dense_batch(batch, bucket, free, finished)
+            if admitted == 0:
+                return                     # pool exhausted: wait for retirements
 
     # ---------------------------------------------------------------- main loop
 
+    def _push_table(self) -> None:
+        """Sync the host page table to the device cache. Retired slots' rows are
+        sentinel before the next step: a free slot still decodes in lock-step,
+        and its garbage token must write nowhere (a stale row would corrupt a
+        page the allocator may have handed to another sequence or the index)."""
+        self.caches["page_table"] = torch.as_tensor(self._table, device=self.device)
+        self._table_dirty = False
+
+    def _note_pool(self) -> None:
+        self.counters["peak_pages_in_use"] = max(self.counters["peak_pages_in_use"],
+                                                 self.pool.used_count)
+
+    def _spec_step(self, active: List[int], finished: List[Request]) -> None:
+        """One speculative verify step: draft ≤ spec-1 tokens per active slot from
+        its own prompt+output history, score the whole window in one pass, then
+        accept the longest prefix whose drafts match the model's own greedy
+        samples. Every accepted token advances ``_pos`` as a plain decode step
+        would, and a request retiring mid-window drops the rest of its window
+        with its page mappings torn down before any later step."""
+        W = self.spec
+        toks = np.zeros((self.B, W), np.int32)
+        toks[:, 0] = self._pending
+        wl = np.ones(self.B, np.int32)
+        for i in active:
+            r = self._slots[i]
+            # window budget: room left in the cache row (the pending token lands at
+            # _pos) and tokens left before max_new retires the request
+            n_d = min(W - 1, self.T - self._pos[i] - 1, r.max_new - len(r.out) - 1)
+            if n_d > 0:
+                d = self.drafter.draft(np.concatenate([r.prompt, np.asarray(r.out, np.int32)]),
+                                       n_d)
+                wl[i] = 1 + len(d)
+                toks[i, 1:1 + len(d)] = d
+        dev = self.device
+        out, self.caches = self._verify_step(
+            self.params, torch.as_tensor(toks, dtype=torch.int64, device=dev), self.caches,
+            torch.as_tensor(self._pos + wl, device=dev), torch.as_tensor(wl, device=dev))
+        out = out.cpu().numpy()                        # (B, W) greedy samples
+        self.counters["decode_steps"] += 1
+        self.counters["spec_steps"] += 1
+        self.counters["spec_slot_steps"] += len(active)
+        self.counters["active_slot_steps"] += len(active)
+        for i in active:
+            n = 1                                      # the pending token always lands
+            while n < wl[i] and toks[i, n] == out[i, n - 1]:
+                n += 1
+            self.counters["spec_drafted"] += int(wl[i]) - 1
+            self.counters["spec_accepted"] += n - 1
+            r = self._slots[i]
+            for j in range(n):
+                # retire conditions fire at exactly the token sequential decode would
+                self._pos[i] += 1
+                self._emit(i, int(out[i, j]), finished)
+                self.counters["spec_emitted"] += 1
+                if self._slots[i] is not r:
+                    if self.paged:
+                        assert (not self._seq_pages[i]
+                                and (self._table[i] == self.n_pages).all()), \
+                            "mid-window retirement left stale page mappings"
+                    break
+
     @torch.no_grad()
     def step(self, finished: List[Request]) -> bool:
-        """One engine iteration: admissions plus at most one decode launch.
-        Appends retired requests to ``finished``; returns False once idle."""
+        """One engine iteration: admissions plus at most one decode (or verify)
+        launch. Appends retired requests to ``finished``; returns False once idle."""
         if not (self.queue or any(s is not None for s in self._slots)):
             return False
         self._admit(finished)
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
+            if self.queue and self.paged:
+                # nothing in flight, yet the queue head could not be admitted: no
+                # retirement will ever free enough pages
+                raise RuntimeError(
+                    f"page pool too small: {self.n_pages} pages of {self.ps} cannot "
+                    f"hold request {self.queue[0].rid} (prompt "
+                    f"{len(self.queue[0].prompt)} + budget {self.queue[0].max_new})")
             assert not self.queue, "scheduler stalled with queued requests"
             return True   # everything admitted retired at its first token
+        if self.paged and self._table_dirty:
+            self._push_table()
+        if self.spec > 1:
+            self._spec_step(active, finished)
+            return True
         dev = self.device
         cur = torch.as_tensor(self._pos + 1, device=dev)   # post-append lengths
         tok, self.caches = self._decode_step(

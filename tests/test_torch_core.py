@@ -5,7 +5,11 @@ interpret mode through ``repro.kernels.ops``) and ``repro_torch`` (whose kernel
 wrappers take their plain versions for CPU tensors). Integer paths are bitwise;
 where ``t**alpha`` or ``c**(1-alpha)`` enters, the two libraries' ``pow`` may
 differ in the last ulp, so a code may move by one at a rounding boundary (at most
-1e-4 of the elements) and the scales agree to rel 1e-6.
+1e-4 of the elements) and the scales agree to rel 1e-6 (one ulp).
+
+``quantize_act_int8`` is held against the reference as it serves it, under
+``jax.jit``: XLA compiles its ``t**alpha / qmax`` into a multiply by the f32
+reciprocal of qmax, which the eager call does not.
 """
 import dataclasses
 
@@ -14,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get as jget  # noqa: E402
@@ -42,6 +47,12 @@ def _outlier_acts(rng, rows, cols, n_outliers=4, scale=40.0):
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def _jit_quantize_act(x, bcol, alpha):
+    """The reference's ``quantize_act_int8`` as it serves: under ``jax.jit``."""
+    fn = jax.jit(lambda x, b, a: jql.quantize_act_int8(x, b, jql.W8A8_INT8, alpha=a))
+    return fn(jnp.asarray(x), jnp.asarray(bcol), jnp.asarray(alpha, jnp.float32))
 
 
 def _off_by_one(got, want, frac=1e-4):
@@ -81,8 +92,7 @@ class TestPrepareAndQuantizeAct:
         bcol = np.maximum(np.abs(x).reshape(-1, 256).max(axis=0), 1e-8) ** (1 - alpha)
         bcol = bcol.astype(np.float32)
         qa = np.float32(alpha)
-        jq, ja = jql.quantize_act_int8(jnp.asarray(x), jnp.asarray(bcol), jql.W8A8_INT8,
-                                       alpha=jnp.asarray(qa))
+        jq, ja = _jit_quantize_act(x, bcol, qa)
         tq, ta = tql.quantize_act_int8(_t(x), _t(bcol), tql.W8A8_INT8,
                                        alpha=torch.tensor(qa))
         if alpha == 1.0:
@@ -91,6 +101,32 @@ class TestPrepareAndQuantizeAct:
         else:
             _off_by_one(tq.numpy(), np.asarray(jq))
             np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6)
+
+    def test_quantize_act_int8_reciprocal_bitwise(self):
+        """At α = 1 (no ``pow``) the port's row scale is bitwise the jitted
+        reference's on 4096 outlier rows: ``t · (1/qmax)``, not ``t / qmax``,
+        which differs in the last ulp on a few percent of rows."""
+        rng = np.random.default_rng(11)
+        x = _outlier_acts(rng, 4096, 256)
+        bcol = rng.uniform(0.5, 4.0, size=256).astype(np.float32)
+        jq, ja = _jit_quantize_act(x, bcol, np.float32(1.0))
+        tq, ta = tql.quantize_act_int8(_t(x), _t(bcol), tql.W8A8_INT8,
+                                       alpha=torch.tensor(1.0))
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+
+    def test_quantize_act_int8_pow_within_one_ulp(self):
+        """At α = 0.15 torch's and XLA's f32 ``pow`` differ by one ulp on a few
+        percent of rows; the row scale never differs by more."""
+        rng = np.random.default_rng(12)
+        x = _outlier_acts(rng, 4096, 256)
+        bcol = rng.uniform(0.5, 4.0, size=256).astype(np.float32)
+        _, ja = _jit_quantize_act(x, bcol, np.float32(0.15))
+        _, ta = tql.quantize_act_int8(_t(x), _t(bcol), tql.W8A8_INT8,
+                                      alpha=torch.tensor(0.15))
+        ulps = np.abs(ta.numpy().view(np.int32).astype(np.int64)
+                      - np.asarray(ja).view(np.int32).astype(np.int64))
+        assert ulps.max() <= 1, ulps.max()
 
 
 class TestKernelPlainVersions:

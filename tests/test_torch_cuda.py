@@ -70,3 +70,97 @@ def test_flash_attention(dev, H, Hkv, S, D, dtype, atol):
     torch.cuda.synchronize()
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=atol, rtol=0)
+
+
+SWEEP = [(2, 2, 2, 16, 8, 8, 4), (1, 1, 4, 32, 4, 16, 2), (3, 2, 1, 64, 16, 4, 8),
+         (4, 4, 9, 128, 64, 8, 16)]     # the last: starcoder2-7b's G = 9, D = 128
+
+
+def _paged_inputs(dev, B, Hkv, D, P, ps, maxP, pool_dtype, seed):
+    """Seeded pools of ``pool_dtype`` (int8 with scale pools), an injective page
+    table with sentinel tails, and kv_len inside each row's last page."""
+    rng = np.random.default_rng(seed)
+    if pool_dtype == torch.int8:
+        kp = torch.from_numpy(rng.integers(-127, 128, (P, ps, Hkv, D)).astype(np.int8))
+        vp = torch.from_numpy(rng.integers(-127, 128, (P, ps, Hkv, D)).astype(np.int8))
+        ks = torch.from_numpy(0.002 + 0.05 * rng.random((P, ps, Hkv, 1))).float()
+        vs = torch.from_numpy(0.002 + 0.05 * rng.random((P, ps, Hkv, 1))).float()
+        scales = (ks.to(dev), vs.to(dev))
+    else:
+        kp = torch.from_numpy(rng.standard_normal((P, ps, Hkv, D))).to(pool_dtype)
+        vp = torch.from_numpy(rng.standard_normal((P, ps, Hkv, D))).to(pool_dtype)
+        scales = (None, None)
+    tab = np.full((B, maxP), P, np.int32)
+    kvl = np.zeros(B, np.int32)
+    perm, off = rng.permutation(P), 0
+    for b in range(B):
+        n = int(rng.integers(1, min(maxP, P - off) + 1))
+        tab[b, :n] = perm[off: off + n]
+        off += n
+        kvl[b] = int(rng.integers((n - 1) * ps + 1, n * ps + 1))
+    return (kp.to(dev), vp.to(dev), *scales, torch.from_numpy(tab).to(dev),
+            torch.from_numpy(kvl).to(dev))
+
+
+@pytest.mark.parametrize("B,Hkv,G,D,P,ps,maxP", SWEEP)
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_decode_attention(dev, B, Hkv, G, D, P, ps, maxP, pool_dtype):
+    ops, ref = _ops()
+    kp, vp, ks, vs, tab, kvl = _paged_inputs(dev, B, Hkv, D, P, ps, maxP, pool_dtype, B + D)
+    q = torch.randn(B, 1, Hkv * G, D, generator=torch.Generator(device=dev).manual_seed(D),
+                    device=dev)
+    for window, softcap in ((None, None), (5, None), (None, 30.0)):
+        out = ops.paged_decode_attention(q, kp, vp, tab, kvl, k_scale_pages=ks,
+                                         v_scale_pages=vs, window=window, softcap=softcap)
+        want = ref.paged_decode_attention_ref(q.reshape(B, Hkv, G, D), kp, vp, tab, kvl,
+                                              k_scale_pages=ks, v_scale_pages=vs,
+                                              window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.reshape(B, Hkv, G, D).cpu().numpy(),
+                                   want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,Hkv,G,D,P,ps,maxP", SWEEP)
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.int8])
+def test_paged_verify_attention(dev, B, Hkv, G, D, P, ps, maxP, W, pool_dtype):
+    ops, ref = _ops()
+    kp, vp, ks, vs, tab, kvl = _paged_inputs(dev, B, Hkv, D, P, ps, maxP, pool_dtype, W + D)
+    qln = torch.minimum(kvl, torch.full_like(kvl, W))
+    qln = torch.clamp(qln - torch.arange(B, device=dev, dtype=qln.dtype) % 2, min=1)
+    q = torch.randn(B, W, Hkv * G, D, generator=torch.Generator(device=dev).manual_seed(W),
+                    device=dev)
+    out = ops.paged_verify_attention(q, kp, vp, tab, kvl, qln, k_scale_pages=ks,
+                                     v_scale_pages=vs)
+    qg = q.reshape(B, W, Hkv, G, D).permute(0, 2, 1, 3, 4)
+    want = ref.paged_verify_attention_ref(qg, kp, vp, tab, kvl, qln, k_scale_pages=ks,
+                                          v_scale_pages=vs).permute(0, 2, 1, 3, 4)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for b in range(B):
+        n = int(qln[b])
+        np.testing.assert_allclose(out[b, :n].reshape(n, Hkv, G, D).cpu().numpy(),
+                                   want[b, :n].cpu().numpy(), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.int8])
+def test_paged_all_sentinel_row_and_w1(dev, pool_dtype):
+    """A free slot's all-sentinel row (kv_len 1) and an empty slot (kv_len 0) give
+    finite output without touching the live row's; verify at W = 1 is bitwise
+    the decode launch."""
+    ops, ref = _ops()
+    B, Hkv, G, D, P, ps, maxP = 3, 4, 9, 128, 8, 8, 4
+    kp, vp, ks, vs, _, _ = _paged_inputs(dev, B, Hkv, D, P, ps, maxP, pool_dtype, 5)
+    tab = torch.tensor([[5, 2, P, P], [P] * 4, [P] * 4], dtype=torch.int32, device=dev)
+    kvl = torch.tensor([11, 1, 0], dtype=torch.int32, device=dev)
+    q = torch.randn(B, 1, Hkv * G, D, device=dev, dtype=torch.bfloat16)
+    out = ops.paged_decode_attention(q, kp, vp, tab, kvl, k_scale_pages=ks, v_scale_pages=vs)
+    ver = ops.paged_verify_attention(q, kp, vp, tab, kvl, torch.ones_like(kvl),
+                                     k_scale_pages=ks, v_scale_pages=vs)
+    want = ref.paged_decode_attention_ref(q.reshape(B, Hkv, G, D), kp, vp, tab, kvl,
+                                          k_scale_pages=ks, v_scale_pages=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.equal(out, ver)
+    assert float((out[2].float()).abs().max()) == 0.0
+    np.testing.assert_allclose(out[0].reshape(Hkv, G, D).float().cpu().numpy(),
+                               want[0].float().cpu().numpy(), atol=2e-2, rtol=0)

@@ -4,7 +4,11 @@ the JAX reference ``ServeEngine`` on the same prepared tree (CPU).
 fused-int8 path, dense continuous layout, fp and int8 KV: the mixed lengths and
 ``max_new`` of tests/test_continuous_batching.py at batch_size=2 (slots refill
 mid-decode), plus one 130-token prompt at max_len=256 so the admission prefill
-runs the flash-attention path on both sides.
+runs the flash-attention path on both sides. Also the plain ``ref`` integer path
+(``path=None``) on the same tree, and fused-int8 on a calibrated tree, whose
+``qalpha = 0.15`` puts a ``pow`` into every activation scale. The paged layout
+and speculative decoding have their own files (test_torch_paged.py,
+test_torch_speculative.py).
 """
 import dataclasses
 
@@ -16,7 +20,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.configs import get as jget  # noqa: E402
-from repro.core import qlinear as jql  # noqa: E402
+from repro.core import calibration as jcal, qlinear as jql  # noqa: E402
+from repro.data import make_train_batches  # noqa: E402
+from repro.models.layers import QuantContext as JQuantContext  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.quantize import quantize_tree as j_quantize_tree  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
@@ -45,16 +51,33 @@ def small():
     return cfg_j, cfg_t, qparams, tparams
 
 
-def _serve_both(small, prompts, max_new, *, max_len, kv):
+@pytest.fixture(scope="module")
+def calibrated(small):
+    """The reference's offline PTQ with one calibration batch (eager, per-layer
+    observers; launch/serve.py's recipe), carried into the port as numpy."""
+    cfg_j = small[0]
+    params = JM.init_params(jax.random.PRNGKey(0), cfg_j)
+    obs = jcal.Observer()
+    batch = make_train_batches(cfg_j.vocab, 16, 2, seed=1)(0)
+    JM.apply(params, {k: jax.numpy.asarray(v) for k, v in batch.items()}, cfg_j,
+             ctx=JQuantContext(jql.W8A8_INT8, observer=obs), mode="train", unroll=True)
+    qparams = j_quantize_tree(params, jql.W8A8_INT8,
+                              tables=jcal.stack_tables(obs.tables()))
+    tparams = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, qparams),
+                                        device="cpu")
+    return small[0], small[1], qparams, tparams
+
+
+def _serve_both(small, prompts, max_new, *, max_len, kv, path="fused-int8"):
     cfg_j, cfg_t, qparams, tparams = small
     jeng = JE.ServeEngine(cfg_j, qparams, quant=jql.W8A8_INT8,
                           config=JEngineConfig(batch_size=2, max_len=max_len,
-                                               path="fused-int8", kv_cache=kv))
+                                               path=path, kv_cache=kv))
     jeng.submit(prompts, max_new=max_new)
     jdone = jeng.run()
     teng = TE.ServeEngine(cfg_t, tparams, quant=tql.W8A8_INT8, device="cpu",
                           config=EngineConfig(batch_size=2, max_len=max_len,
-                                              path="fused-int8", kv_cache=kv))
+                                              path=path, kv_cache=kv))
     teng.submit(prompts, max_new=max_new)
     tdone = teng.run()
     return jeng, jdone, teng, tdone
@@ -84,6 +107,33 @@ def test_flash_prefill_token_exact(small, kv):
     _, jdone, _, tdone = _serve_both(small, prompts, [6, 4], max_len=256, kv=kv)
     for tr, jr in zip(tdone, jdone):
         assert tr.out == jr.out, (kv, tr.rid, tr.out, jr.out)
+
+
+def test_ref_path_token_exact(small):
+    """``path=None`` serves the int8 tree through the plain integer GEMM, whose
+    activation scale is ``quantize_act_int8``: the reference runs it under jit
+    (a multiply by 1/qmax), and so must the port to stay token-exact."""
+    cfg_j = small[0]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg_j.vocab, size=n).astype(np.int32) for n in LENS]
+    jeng, jdone, teng, tdone = _serve_both(small, prompts, MAX_NEW, max_len=32, kv="fp",
+                                           path=None)
+    assert [tr.out for tr in tdone] == [jr.out for jr in jdone]
+    assert teng.counters["decode_steps"] == jeng.counters["decode_steps"]
+
+
+def test_calibrated_tree_token_exact(calibrated):
+    """A calibrated tree (qalpha = 0.15 < 1): every activation scale holds
+    ``t**0.15``, where torch's and XLA's f32 ``pow`` differ by one ulp on a few
+    percent of rows. The greedy tokens are equal all the same."""
+    cfg_j, _, qparams, tparams = calibrated
+    qalpha = np.asarray(qparams["blocks"][0]["attn"]["wq"]["qalpha"])
+    assert (qalpha < 1.0).all()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg_j.vocab, size=n).astype(np.int32) for n in LENS]
+    _, jdone, _, tdone = _serve_both(calibrated, prompts, MAX_NEW, max_len=32, kv="fp")
+    for tr, jr in zip(tdone, jdone):
+        assert tr.out == jr.out, (tr.rid, tr.out, jr.out)
 
 
 def test_cpu_run_launches_no_kernel(small):
@@ -125,9 +175,9 @@ def test_seeded_temperature_serving_is_reproducible(small):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("kw", [dict(cache_layout="paged"), dict(scheduler="grouped"),
-                                dict(speculate=4), dict(sparsity="2:4"),
-                                dict(path="dequant-fp"), dict(path="fake")])
+@pytest.mark.parametrize("kw", [dict(chunked=True), dict(scheduler="grouped"),
+                                dict(sparsity="2:4"), dict(path="dequant-fp"),
+                                dict(path="fake")])
 def test_unported_configs_raise_typed(kw):
     with pytest.raises(NotPortedError):
         EngineConfig(batch_size=2, max_len=32, **kw)
