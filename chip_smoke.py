@@ -12,20 +12,32 @@ Phases (any failure raises and exits non-zero):
    with its time, the plain version's, a one-call library yardstick where one
    exists, and the bound the card's data-sheet peaks allow. Times are device
    times: many calls captured in a CUDA graph and replayed. ``call_ms`` is the
-   time of back-to-back calls from Python, host dispatch included.
+   time of back-to-back calls from Python, host dispatch included. K1 and K2
+   at the linears' shapes, K3 at S=128/512, K4/K5 over f32, bf16 and int8 pools;
+   K6 (ragged prefill) on a 64-row packed block with f32 and int8 pools,
+   a dead slot, an all-sentinel row and q_len = 1 rows bitwise equal to K4; K7
+   (sparse W8A8) with half its k-tiles empty, bitwise equal to the plain version,
+   and with an all-ones table bitwise equal to K2; K8 (W4A8 g128) f32-close.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
    from a seeded generator, calibrated (2 batches), quantized to W8A8 static-c
-   CrossQuant, and served through ``ServeEngine(path="fused-int8")``: on the dense
-   continuous layout with fp and int8 KV; on the paged layout with radix prefix
-   reuse, fp and int8 KV, over traffic that shares a 389-token system prefix; and
-   paged with ``speculate=4`` over motif-tiled prompts. Each run's kernel launch
-   counts must equal what its schedule implies.
+   CrossQuant (and, from the same tables, to W4A8 g128), and served through
+   ``ServeEngine(path="fused-int8")``: on the dense continuous layout with fp and
+   int8 KV; on the paged layout with radix prefix reuse, fp and int8 KV, over
+   traffic that shares a 389-token system prefix; paged with ``speculate=4``
+   over motif-tiled prompts; chunked (token budget 128) over the shared-prefix
+   traffic, fp and int8 KV; with ``sparsity="2:4"`` (K2 serves it), then with
+   every other 64-row k-tile of those masks emptied (K7 serves it, 4 requests);
+   and the W4A8 tree (K8). Each run's kernel launch counts must equal what its
+   schedule implies.
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
-   kernels on the card against the plain versions on the CPU: equal greedy
-   tokens, logits within 5e-2 of max|logit| (beside what a one-ulp input nudge
-   does on the CPU alone). Then the engine on the card: paged ≡ dense and
-   speculate=4 ≡ speculate=1 in greedy tokens.
+   the same prompts through packed chunked steps (K6, fp and int8 KV), and the
+   paged run on a block-sparse tree (K7) and on the W4A8 tree (K8), kernels on
+   the card against the plain versions on the CPU: equal greedy tokens, logits
+   within 5e-2 of max|logit| (beside what a one-ulp input nudge does on the CPU
+   alone); chunked fp KV gives the bucketed tokens. Then the engine on the card:
+   paged ≡ dense, speculate=4 ≡ speculate=1 and chunked ≡ bucketed in greedy
+   tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -52,6 +64,7 @@ BATCH, MAX_LEN, MAX_NEW = 4, 1024, 16
 SYSTEM_PREFIX = 389                                # not a page multiple: tails copy on write
 SUFFIXES = [20, 150, 60, 300, 40, 200, 90, 10]
 MOTIF = 16                                         # speculative traffic: tiled motifs
+CHUNK_BUDGET = 128                                 # tokens per packed chunked step
 
 
 def check(cond: bool, msg: str) -> None:
@@ -73,6 +86,17 @@ def bound(bytes_moved: float, ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def empty_odd_k_tiles(tree) -> None:
+    """Empty every other 64-row k-tile of every masked linear of a stacked tree, in
+    place (codes and packed mask): a block-structured mask whose empty tiles the
+    sparse GEMM (K7) skips."""
+    for node in (tree["blocks"][0]["attn"], tree["blocks"][0]["mlp"]):
+        for leaf in node.values():
+            L, K = leaf["qw"].shape[:2]
+            leaf["qw"].view(L, K // 64, 64, -1)[:, 1::2] = 0
+            leaf["mask"].view(L, K // 64, 8, -1)[:, 1::2] = 0
+
+
 def main() -> int:
     import torch
 
@@ -90,12 +114,14 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get
-    from repro_torch.core import qlinear as ql
+    from repro_torch.core import packing, qlinear as ql
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch.serve import calibrate_and_quantize, make_prompts
+    from repro_torch.launch.serve import calibrate, make_prompts
     from repro_torch.models import model as M
     from repro_torch.models.layers import QuantContext
-    from repro_torch.models.quantize import quantized_bytes
+    from repro_torch.models.quantize import (
+        SparsityPlan, quantize_tree, quantized_bytes, sparsify_tree, with_tile_occupancy,
+    )
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServeEngine
 
@@ -119,6 +145,7 @@ def main() -> int:
             print(f"[2]   {line.strip()}")
 
     # ---------------------------------------------------------------- phase 3
+    print(f"[3] start at {time.perf_counter() - t_start:.1f}s")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
 
@@ -353,9 +380,216 @@ def main() -> int:
                   f"bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol={atol}")
         del kp, vp, ks, vs
 
+    # K6 ragged_prefill_attention: packed blocks of a chunked step, over the kv_len
+    # the K4 rows hold; q and the packed k/v bf16 (the serving activations), f32
+    # pool (the engine's fp pool) and int8 pool + scales, ps=8. "128 mixed" is the
+    # full-width chunked run's typical step at token_budget 128: three decode rows
+    # and a 125-token prefill chunk behind the 389-token shared prefix (it starts
+    # mid-page and its own tokens fill whole 32-position chunks); "128 one slot" a
+    # whole budget of one slot's chunk; "64 = 4 x 16" four 16-token chunks (684,
+    # 501 and 114 are not page multiples either).
+    ps6, maxP6 = 8, MAX_LEN // 8
+    P6 = B4 * maxP6
+    dt6 = torch.bfloat16
+    ragged_cases = [
+        ("128 mixed", [1, 1, 1, 125], [700, 517, 130, SYSTEM_PREFIX + 125]),
+        ("128 one slot", [128, 0, 0, 0], [SYSTEM_PREFIX + 128, 0, 0, 0]),
+        ("64 = 4 x 16", [16] * 4, [700, 517, 130, 16]),
+    ]
+
+    def ragged_inputs(q_lens, kv_lens, pool_dt, sentinel=()):
+        kvl = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
+        qln = torch.tensor(q_lens, device=dev, dtype=torch.int32)
+        qs = torch.cumsum(qln, 0, dtype=torch.int32) - qln
+        tab = torch.full((B4, maxP6), P6, dtype=torch.int32, device=dev)
+        perm = torch.randperm(P6, generator=gen, device=dev).to(torch.int32)
+        off = 0
+        for b, n in enumerate(kv_lens):
+            if b in sentinel:
+                continue
+            n = -(-n // ps6)
+            tab[b, :n] = perm[off: off + n]
+            off += n
+        shape = (P6, ps6, Hkv4, D4)
+        if pool_dt == torch.int8:
+            kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            ks = torch.rand(shape[:3] + (1,), generator=gen, device=dev) * 0.05 + 2e-3
+            vs = torch.rand(shape[:3] + (1,), generator=gen, device=dev) * 0.05 + 2e-3
+        else:
+            kp = torch.randn(shape, generator=gen, device=dev).to(pool_dt)
+            vp = torch.randn(shape, generator=gen, device=dev).to(pool_dt)
+            ks = vs = None
+        Nt = max(sum(q_lens), 64)        # the dead-slot case keeps unowned rows
+        q = torch.randn(Nt, Hkv4 * G4, D4, generator=gen, device=dev).to(dt6)
+        kn = torch.randn(Nt, Hkv4, D4, generator=gen, device=dev).to(dt6)
+        vn = torch.randn(Nt, Hkv4, D4, generator=gen, device=dev).to(dt6)
+        return dict(q=q, kn=kn, vn=vn, kp=kp, vp=vp, ks=ks, vs=vs, tab=tab, qs=qs, qln=qln,
+                    kvl=kvl)
+
+    def ragged_call(c, C):
+        return lambda: ops.ragged_prefill_attention(  # noqa: E731
+            c["q"], c["kn"], c["vn"], c["kp"], c["vp"], c["tab"], c["qs"], c["qln"],
+            c["kvl"], chunk_cap=C, k_scale_pages=c["ks"], v_scale_pages=c["vs"])
+
+    def ragged_plain(c, C):
+        Nt = c["q"].shape[0]
+        return lambda: ref.ragged_prefill_attention_ref(  # noqa: E731
+            c["q"].reshape(Nt, Hkv4, G4, D4), c["kn"], c["vn"], c["kp"], c["vp"], c["tab"],
+            c["qs"], c["qln"], c["kvl"], chunk_cap=C, k_scale_pages=c["ks"],
+            v_scale_pages=c["vs"]).reshape(Nt, Hkv4 * G4, D4)
+
+    for label, q_lens, kv_lens in ragged_cases:
+        for pool_dt in (torch.float32, torch.int8):
+            c = ragged_inputs(q_lens, kv_lens, pool_dt)
+            Nt = c["q"].shape[0]                 # the engine launches chunk_cap = Nt
+            out, want = ragged_call(c, Nt)(), ragged_plain(c, Nt)()
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            check(bool(torch.isfinite(out.float()).all()) and err <= 2e-2,
+                  f"ragged_prefill {label} pool {dt_name[pool_dt]}: max err {err} > 2e-2")
+            ms = graph_ms(once(ragged_call(c, Nt)), 50)
+            cms = time_ms(once(ragged_call(c, Nt)), 50)
+            pms = graph_ms(once(ragged_plain(c, Nt)), 5)
+            # bytes: each pool row before the chunk once (positions < cs), the packed
+            # q/k/v once, the output once, scales, table and extents; operations: row
+            # i of a chunk starting at cs meets cs + i + 1 keys, 4 flops per key and
+            # dimension (QK and PV) for each of the H heads
+            pool_rows = sum(k - n for k, n in zip(kv_lens, q_lens))
+            row_bytes = Hkv4 * D4 * pool_dt.itemsize * 2 + (8 * Hkv4 if c["ks"] is not None
+                                                             else 0)
+            nbytes = (pool_rows * row_bytes + (2 * c["q"].numel() + 2 * c["kn"].numel()) * 2
+                      + c["tab"].numel() * 4 + 12 * B4)
+            keys = sum(n * (k - n) + n * (n + 1) // 2 for k, n in zip(kv_lens, q_lens))
+            bms, by = bound(nbytes, 4 * D4 * Hkv4 * G4 * keys, PEAK_OPS["f32"])
+            results[("ragged_prefill_attention", dt_name[pool_dt], label)] = dict(
+                ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+                max_abs_err=err)
+            print(f"[3] ragged_prefill_attention {label}: Nt={Nt} chunk_cap={Nt} B={B4} "
+                  f"H={Hkv4 * G4}/{Hkv4} D={D4} ps={ps6} q bf16 pool {dt_name[pool_dt]} "
+                  f"q_len={q_lens} kv_len={kv_lens}: kernel_ms={ms:.4f} call_ms={cms:.4f} "
+                  f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.5f} ({by}) "
+                  f"max_abs_err={err:.2e} tol=2e-2")
+    # a dead slot (it owns no rows: rows past the owned 33 must read 0) and an
+    # all-sentinel table row whose one-token chunk reads only its own packed k/v
+    c = ragged_inputs([16, 0, 16, 1], [700, 0, 130, 1], torch.int8, sentinel=(3,))
+    out, want = ragged_call(c, 16)(), ragged_plain(c, 16)()
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    check(err <= 2e-2 and float(out[33:].float().abs().max()) == 0.0,
+          f"ragged_prefill dead slot / sentinel row: err {err}, unowned rows nonzero")
+    # q_len == 1 rows over an fp pool holding the packed k/v at the newest position
+    # are bitwise the decode launch (K4)
+    kv1 = [700, 517, 130, 1]
+    for pool_dt in (torch.float32, torch.bfloat16):
+        c = ragged_inputs([1] * 4, kv1, pool_dt)
+        kn, vn = c["kn"][:4], c["vn"][:4]
+        for b, n in enumerate(kv1):
+            page, row = int(c["tab"][b, (n - 1) // ps6]), (n - 1) % ps6
+            c["kp"][page, row], c["vp"][page, row] = kn[b].to(pool_dt), vn[b].to(pool_dt)
+            kn[b], vn[b] = c["kp"][page, row].to(dt6), c["vp"][page, row].to(dt6)
+        q1 = c["q"][:4].contiguous()
+        rag = ops.ragged_prefill_attention(q1, kn.contiguous(), vn.contiguous(), c["kp"],
+                                           c["vp"], c["tab"], c["qs"][:4], c["qln"], c["kvl"],
+                                           chunk_cap=1)
+        dec = ops.paged_decode_attention(q1[:, None], c["kp"], c["vp"], c["tab"], c["kvl"])
+        torch.cuda.synchronize()
+        check(torch.equal(rag, dec[:, 0]),
+              f"ragged q_len=1 != decode launch (pool {dt_name[pool_dt]}): "
+              f"{float((rag.float() - dec[:, 0].float()).abs().max())}")
+    print("[3] ragged_prefill_attention: dead slot rows 0, all-sentinel row exact; q_len=1 rows "
+          "bitwise = paged_decode_attention (f32 and bf16 pools)")
+    del c, out, want
+
+    # K7 qgemm_w8a8_sparse and K8 qgemm_w4a8 at the up projection's shape
+    # (K=4608, N=18432), decode M=4 and prefill M=2048
+    from repro_torch.kernels.qgemm import qgemm_w8a8_sparse_cuda
+    K7, N7 = 4608, 18432
+    keep = torch.ones(K7, N7, dtype=torch.uint8, device=dev)
+    for k0 in range(64, K7, 128):                    # every other 64-row k-tile empty
+        keep[k0:k0 + 64] = 0
+    mask7 = packing.pack_mask(keep, axis=0)
+    occ7 = ops.tile_occupancy(mask7, K7)
+    ones7 = torch.ones_like(occ7)
+    del keep
+    n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K7 * N7))))
+    for Mr in (4, 2048):
+        qx = torch.randint(-127, 128, (Mr, K7), generator=gen, device=dev, dtype=torch.int8)
+        a = torch.rand(Mr, 1, generator=gen, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(N7, generator=gen, device=dev) * 0.1 + 1e-3
+        qws = []
+        for _ in range(n_copies):
+            w = torch.randint(-127, 128, (K7, N7), generator=gen, device=dev, dtype=torch.int8)
+            w.view(K7 // 64, 64, N7)[1::2] = 0
+            qws.append(w)
+        qw = qws[0]
+        out = ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask7, occ7)
+        want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask7)
+        full = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, ones7)
+        dense = ops.qgemm_w8a8(qx, qw, a, sw)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        check(torch.equal(out, want), f"qgemm_w8a8_sparse M={Mr}: not bitwise ({err})")
+        check(torch.equal(full, dense), f"qgemm_w8a8_sparse all-ones table M={Mr} != K2")
+        ms = graph_ms(lambda i=0: ops.qgemm_w8a8_sparse(qx, qws[i % n_copies], a, sw, mask7,
+                                                        occ7), 50)
+        cms = time_ms(lambda i=0: ops.qgemm_w8a8_sparse(qx, qws[i % n_copies], a, sw, mask7,
+                                                       occ7), 50)
+        pms = graph_ms(lambda i=0: ref.qgemm_w8a8_sparse_ref(qx, qws[i % n_copies], a, sw,
+                                                             mask7), 3)
+        ms_full = graph_ms(lambda i=0: qgemm_w8a8_sparse_cuda(qx, qws[i % n_copies], a, sw,
+                                                              ones7), 50)
+        lms = None
+        if Mr > 16:
+            lms = graph_ms(lambda i=0: torch._int_mm(qx, qws[i % n_copies]), 50)
+        # the data decides the work: the occupied tiles' weight bytes and products
+        occ_k = int(occ7.sum()) * 64 * 64                 # weights in occupied tiles
+        nbytes = Mr * K7 + occ_k + mask7.numel() + Mr * 4 + N7 * 4 + Mr * N7 * 4
+        bms, by = bound(nbytes, 2 * Mr * occ_k, PEAK_OPS["int8"])
+        results[("qgemm_w8a8_sparse", Mr)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
+            max_abs_err=err)
+        lstr = "None" if lms is None else f"{lms:.4f}"
+        print(f"[3] qgemm_w8a8_sparse M={Mr} K={K7} N={N7} occupancy "
+              f"{int(occ7.sum())}/{occ7.numel()} tiles: kernel_ms={ms:.4f} call_ms={cms:.4f} "
+              f"plain_ms={pms:.4f} library_ms={lstr} (torch._int_mm, dense) bound_ms={bms:.4f} "
+              f"({by}) bitwise=True; all-ones table {ms_full:.4f} ms, bitwise = qgemm_w8a8")
+        del qws, qw
+
+    n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K7 * N7 // 2))))
+    for Mr in (4, 2048):
+        qx = torch.randint(-127, 128, (Mr, K7), generator=gen, device=dev, dtype=torch.int8)
+        a = torch.rand(Mr, 1, generator=gen, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(K7 // 128, N7, generator=gen, device=dev) * 0.01 + 1e-4
+        qws = [torch.randint(-128, 128, (K7 // 2, N7), generator=gen, device=dev,
+                             dtype=torch.int8) for _ in range(n_copies)]
+        out = ops.qgemm_w4a8(qx, qws[0], a, sw, group=128)
+        want = ref.qgemm_w4a8_ref(qx, qws[0], a, sw, 128)
+        torch.cuda.synchronize()
+        d = (out - want).abs()
+        err = float(d.max())
+        # the plain version sums the 36 group partials in PyTorch's order, the kernel
+        # in k order: f32-close, not bitwise
+        tol = 2e-4 * want.abs() + 1e-5 * float(want.abs().max())
+        check(bool((d <= tol).all()), f"qgemm_w4a8 M={Mr}: max err {err}")
+        ms = graph_ms(lambda i=0: ops.qgemm_w4a8(qx, qws[i % n_copies], a, sw, group=128), 50)
+        cms = time_ms(lambda i=0: ops.qgemm_w4a8(qx, qws[i % n_copies], a, sw, group=128), 50)
+        pms = graph_ms(lambda i=0: ref.qgemm_w4a8_ref(qx, qws[i % n_copies], a, sw, 128), 3)
+        nbytes = Mr * K7 + K7 * N7 // 2 + sw.numel() * 4 + Mr * 4 + Mr * N7 * 4
+        bms, by = bound(nbytes, 2 * Mr * N7 * K7, PEAK_OPS["int8"])
+        results[("qgemm_w4a8", Mr)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+            max_abs_err=err)
+        print(f"[3] qgemm_w4a8 M={Mr} K={K7} N={N7} g128: kernel_ms={ms:.4f} call_ms={cms:.4f} "
+              f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.4f} ({by}) "
+              f"max_abs_err={err:.3e} (tol 2e-4*|plain| + 1e-5*max|plain|)")
+        del qws
+
     # ---------------------------------------------------------------- phase 4
+    print(f"[4] start at {time.perf_counter() - t_start:.1f}s")
     cfg = get("starcoder2-7b")
     quant = ql.W8A8_INT8
+    quant4 = dataclasses.replace(ql.W4A8_G128, mode="int8")
     check(cfg.n_layers == 32 and cfg.d_model == 4608 and cfg.dtype == "bfloat16",
           "starcoder2-7b FULL config")
     t0 = time.perf_counter()
@@ -366,31 +600,39 @@ def main() -> int:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    params = calibrate_and_quantize(params, cfg, quant, calib_batches=2, seq_len=16,
-                                    batch_size=BATCH, seed=0)     # drops the f32 tree
+    tables = calibrate(params, cfg, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0)
+    qparams = quantize_tree(params, quant, tables=tables)
+    q4params = quantize_tree(params, quant4, tables=tables)      # the same calibration
+    del params
     torch.cuda.synchronize()
-    q_bytes = quantized_bytes(params)
+    q_bytes, q4_bytes = quantized_bytes(qparams), quantized_bytes(q4params)
     print(f"[4] {cfg.name} FULL: {cfg.n_layers} layers d_model={cfg.d_model} "
-          f"params={cfg.param_count() / 1e9:.2f}B init {t_init:.1f}s, calibrate+PTQ "
-          f"{time.perf_counter() - t0:.1f}s, weights {fp_bytes / 2**30:.2f} GiB -> "
-          f"{q_bytes / 2**30:.2f} GiB, allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+          f"params={cfg.param_count() / 1e9:.2f}B init {t_init:.1f}s, calibrate+PTQ W8A8 and "
+          f"W4A8-g128 {time.perf_counter() - t0:.1f}s, weights {fp_bytes / 2**30:.2f} GiB -> "
+          f"W8A8 {q_bytes / 2**30:.2f} GiB, W4A8 {q4_bytes / 2**30:.2f} GiB, allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     check(min(LENS) >= 128, "every prompt's bucket reaches the flash kernel")
     prompts = make_prompts(cfg.vocab, LENS, len(LENS), seed=0)
     per_layer = 6                                   # wq wk wv wo up down
     launches = {name: 0 for name in ops.LAUNCHES}
     e2e = {}
 
-    def serve(label: str, reqs, **kw):
+    def serve(label: str, reqs, tree=None, q=quant, gemm="qgemm_w8a8", **kw):
         """One serving run of ``reqs`` at full width and depth. The kernel counts are
         zeroed just before the run and read just after, and must equal what its
-        schedule implies: 192 act_quantize/qgemm launches per model step, 32 flash
-        launches per cold admission of 128 tokens or more, 32 paged decode
-        launches per decode step of a paged engine, 32 verify launches per
-        speculative step."""
-        engine = ServeEngine(cfg, params, quant=quant, device=dev,
+        schedule implies: per model step 192 act_quantize launches and 192 of the
+        tree's GEMM (qgemm_w8a8, or qgemm_w4a8 for a W4A8 tree, or
+        qgemm_w8a8_sparse for masks with empty tiles); 32 flash launches per cold
+        admission of 128 tokens or more; 32 paged decode launches per decode step of
+        a paged engine; 32 verify launches per speculative step; on a chunked engine
+        32 ragged launches per packed step and 32 paged decode launches per
+        pure-decode step, and no flash launch. A chunked engine with fp KV and
+        speculate=1 serves its decode-only steps (the traffic ends in a decode-only
+        tail) through the decode step, one with int8 KV never does."""
+        engine = ServeEngine(cfg, qparams if tree is None else tree, quant=q, device=dev,
                              config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
                                                  path="fused-int8", **kw))
-        cold_buckets = []                 # the flash kernel serves cold prefills only
+        cold_buckets = []                      # flash serves cold prefills only
         attr = "_admit_cold" if engine.paged else "_admit_step"
         admit = getattr(engine, attr)
 
@@ -408,22 +650,34 @@ def main() -> int:
         dt = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
         c = engine.counters
-        steps = c["prefill_calls"] + c["decode_steps"]
-        n_tok = sum(len(r.out) for r in done)
         L = cfg.n_layers
+        if engine.chunked:
+            steps = c["chunk_steps"] + c["chunk_decode_only_steps"]
+            k4_expected = engine.spec == 1 and not engine.kv_int8
+            check((c["chunk_decode_only_steps"] > 0) == k4_expected,
+                  f"{label}: {c['chunk_decode_only_steps']} decode-only steps took the "
+                  f"decode launch (fp KV, speculate=1: some; int8 KV or speculative: none)")
+        else:
+            steps = c["prefill_calls"] + c["decode_steps"]
+        n_tok = sum(len(r.out) for r in done)
         check(len(done) == len(reqs) and all(len(r.out) == MAX_NEW for r in done),
               f"{label}: every request gets {MAX_NEW} tokens")
         check(all(0 <= t < cfg.vocab for r in done for t in r.out), f"{label}: token ids")
-        want = {"act_quantize": per_layer * L * steps, "qgemm_w8a8": per_layer * L * steps,
-                "flash_attention": L * sum(b >= 128 for b in cold_buckets),
-                "paged_decode_attention": (L * c["decode_steps"]
-                                           if engine.paged and engine.spec == 1 else 0),
-                "paged_verify_attention": (L * c["spec_steps"]
-                                           if engine.paged and engine.spec > 1 else 0)}
+        want = {name: 0 for name in ops.LAUNCHES}
+        want.update({"act_quantize": per_layer * L * steps, gemm: per_layer * L * steps})
+        if engine.chunked:
+            want["ragged_prefill_attention"] = L * c["chunk_steps"]
+            want["paged_decode_attention"] = L * c["chunk_decode_only_steps"]
+        else:
+            want["flash_attention"] = L * sum(b >= 128 for b in cold_buckets)
+            if engine.paged:
+                want["paged_decode_attention"] = L * c["decode_steps"] if engine.spec == 1 else 0
+                want["paged_verify_attention"] = L * c["spec_steps"] if engine.spec > 1 else 0
         for name, n in want.items():
             check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n} "
                   f"(prefill_calls={c['prefill_calls']} decode_steps={c['decode_steps']} "
-                  f"spec_steps={c['spec_steps']} cold buckets={cold_buckets})")
+                  f"spec_steps={c['spec_steps']} chunk_steps={c['chunk_steps']} decode-only "
+                  f"steps={c['chunk_decode_only_steps']} cold buckets={cold_buckets})")
         for name in launches:
             launches[name] += counts[name]
         e2e[label] = n_tok / dt
@@ -431,12 +685,14 @@ def main() -> int:
         print(f"[4] serve {label}: {len(done)} requests, {n_tok} tokens in {dt:.2f}s = "
               f"{n_tok / dt:.1f} tok/s; prefill_calls={c['prefill_calls']} (cold buckets "
               f"{cold_buckets}) decode_steps={c['decode_steps']} occupancy="
-              f"{engine.occupancy():.2f} kv pool dtype={pool_dt} launches={counts}; "
-              f"req0 out[:8]={done[0].out[:8]}")
+              f"{engine.occupancy():.2f} kv pool dtype={pool_dt} launches="
+              f"{ {k: v for k, v in counts.items() if v} }; req0 out[:8]={done[0].out[:8]}")
         return engine, done
 
+    # the dense, 2:4 and W4A8 runs serve the first 4 prompts, to hold the script's
+    # time
     for kv in ("fp", "int8"):
-        serve(f"dense fused-int8 kv={kv}", prompts, kv_cache=kv)
+        serve(f"dense fused-int8 kv={kv}", prompts[:BATCH], kv_cache=kv)
 
     # paged with radix reuse: 8 requests behind one 389-token system prefix
     rng = np.random.default_rng(4)
@@ -468,15 +724,54 @@ def main() -> int:
           f"accepted={c['spec_accepted']} accept_rate={engine.accept_rate():.3f} "
           f"tokens_per_step={engine.tokens_per_step():.3f}")
     del engine
-    del params
+
+    # chunked prefill (token budget 128) over the shared-prefix traffic
+    for kv in ("fp", "int8"):
+        engine, _ = serve(f"chunked fused-int8 kv={kv}", shared, kv_cache=kv,
+                          cache_layout="paged", chunked=True, token_budget=CHUNK_BUDGET)
+        c = engine.counters
+        check(c["chunk_steps"] > 0 and c["chunk_prefill_rows"] > 0,
+              f"chunked kv={kv}: no packed prefill step")
+        engine.pool.check()
+        print(f"[4]   chunked kv={kv}: token_budget={engine.token_budget} "
+              f"chunk_steps={c['chunk_steps']} chunk_prefill_rows={c['chunk_prefill_rows']} "
+              f"chunk_decode_rows={c['chunk_decode_rows']} mid_decode_admissions="
+              f"{c['mid_decode_admissions']} prefix_hit_rate={engine.prefix_hit_rate():.3f} "
+              f"decode_steps={c['decode_steps']} decode_only_steps="
+              f"{c['chunk_decode_only_steps']}")
+        del engine
+
+    # 2:4 sparsity applied at engine build: every (64, 64) weight tile keeps
+    # survivors, so the sparse wrapper runs K2, as the reference routes it
+    engine, _ = serve("dense fused-int8 kv=fp sparsity=2:4", prompts[:BATCH], sparsity="2:4")
+    sparse_tree = engine.params
+    print(f"[4]   sparsity=2:4: quantized_bytes dense {quantized_bytes(sparse_tree) / 2**30:.3f} "
+          f"GiB, deploy_sparse {quantized_bytes(sparse_tree, deploy_sparse=True) / 2**30:.3f} "
+          f"GiB (W8A8 tree {q_bytes / 2**30:.3f} GiB)")
+    del engine
+    # the same tree with every other 64-row k-tile of every mask emptied (a
+    # block-structured mask): the sparse wrapper now runs K7, which skips those tiles
+    empty_odd_k_tiles(sparse_tree)
+    engine, _ = serve("dense fused-int8 kv=fp block-sparse", prompts[:BATCH], tree=sparse_tree,
+                      sparsity="2:4", gemm="qgemm_w8a8_sparse")
+    del engine, sparse_tree
+
+    # W4A8 g128 (int mode) from the same calibration tables
+    serve("dense W4A8-g128 kv=fp", prompts[:BATCH], tree=q4params, q=quant4,
+          gemm="qgemm_w4a8")
+    del q4params, qparams
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 5
+    print(f"[5] start at {time.perf_counter() - t_start:.1f}s")
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
-    p2 = calibrate_and_quantize(M.init_params(g, cfg2, device=dev), cfg2, quant,
-                                calib_batches=2, seq_len=16, batch_size=BATCH, seed=1)
+    p2f = M.init_params(g, cfg2, device=dev)
+    tables2 = calibrate(p2f, cfg2, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=1)
+    p2 = quantize_tree(p2f, quant, tables=tables2)
+    p2w4 = quantize_tree(p2f, quant4, tables=tables2)
+    del p2f
     p2_cpu = M.map_tensors(p2, lambda t: t.cpu())
     rng = np.random.default_rng(2)
     lens = np.array([150, 131], np.int32)                    # bucket 256: flash path
@@ -488,23 +783,34 @@ def main() -> int:
     # paged parity runs through a permuted page table (64 pages of 8 per slot)
     perm = torch.randperm(128, generator=torch.Generator().manual_seed(6)).to(torch.int32)
 
-    def greedy(params, device, forced=None, layout="dense"):
-        """Prefill + 8 decode steps, feeding its own argmax (or ``forced`` tokens)."""
+    # the chunked, block-sparse and W4A8 runs prefill two shorter prompts (bucket
+    # 64) and decode 4 steps: a full-width run's CPU side costs about 10 s per
+    # 512-row prefill
+    toks_s = np.zeros((2, 64), np.int64)
+    lens_s = np.array([40, 27], np.int32)
+    for b, n in enumerate(lens_s):
+        toks_s[b, :n] = toks[b, :n]
+    steps5 = 4
+
+    def greedy(params, device, forced=None, layout="dense", steps=8, short=False):
+        """Prefill + ``steps`` decode steps, feeding its own argmax (or ``forced``
+        tokens); ``short``: the two shorter prompts."""
+        tk, ln = (toks_s, lens_s) if short else (toks, lens)
         caches = M.init_cache(cfg2, 2, 512, dtype=torch.float32, layout=layout, page_size=8,
                               device=device)
         if layout == "paged":
             caches["page_table"] = perm.reshape(2, 64).to(device)
-        logits, _ = M.apply(params, {"tokens": torch.as_tensor(toks, device=device)}, cfg2,
+        logits, _ = M.apply(params, {"tokens": torch.as_tensor(tk, device=device)}, cfg2,
                             ctx=ctx, mode="prefill", caches=caches,
-                            cur_len=torch.as_tensor(lens, device=device))
+                            cur_len=torch.as_tensor(ln, device=device))
         out_logits, out_toks = [logits[:, -1].float().cpu()], []
-        for i in range(8):
+        for i in range(steps):
             tok = (torch.argmax(logits[:, -1], dim=-1) if forced is None
                    else forced[i].to(device))
             out_toks.append(tok.cpu())
             logits, _ = M.apply(params, {"tokens": tok[:, None]}, cfg2, ctx=ctx,
                                 mode="decode", caches=caches,
-                                cur_len=torch.as_tensor(lens + i + 1, device=device))
+                                cur_len=torch.as_tensor(ln + i + 1, device=device))
             out_logits.append(logits[:, -1].float().cpu())
         return torch.stack(out_logits), torch.stack(out_toks)
 
@@ -553,6 +859,85 @@ def main() -> int:
           f"logits max_abs_err={perr:.3e} (dense card vs paged card "
           f"{float((pgl - gl).abs().max()):.3e}), tol={tol:.3e}")
 
+    # chunked prefill: the two shorter prompts through packed steps (each prompt in
+    # two chunks, the second starting mid-page), then 4 steps of one-token rows, all
+    # through mode="chunked" (K6), fp and int8 KV
+    def chunked_greedy(params, device, kv_int8):
+        caches = M.init_cache(cfg2, 2, 512, dtype=torch.float32, kv_int8=kv_int8,
+                              layout="paged", page_size=8, device=device)
+        caches["page_table"] = perm.reshape(2, 64).to(device)
+
+        def step(rows):                       # rows: (slot, tokens, first position)
+            flat, pos, sid = [], [], []
+            qs, qln, kvl = [0, 0], [0, 0], [0, 0]
+            for slot, tk, start in rows:
+                qs[slot], qln[slot], kvl[slot] = len(flat), len(tk), start + len(tk)
+                flat += [int(t) for t in tk]
+                pos += range(start, start + len(tk))
+                sid += [slot] * len(tk)
+            t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)  # noqa: E731
+            chunk = dict(q_start=t(qs), q_len=t(qln), kv_len=t(kvl), positions=t(pos),
+                         slot_ids=t(sid))
+            logits, _ = M.apply(params, {"tokens": torch.as_tensor([flat], device=device)},
+                                cfg2, ctx=ctx, mode="chunked", caches=caches, chunk=chunk)
+            return logits[0, [qs[0] + qln[0] - 1, qs[1] + qln[1] - 1]]
+
+        cut = [20, 12]
+        step([(b, toks_s[b, :cut[b]], 0) for b in (0, 1)])
+        logits = step([(b, toks_s[b, cut[b]:lens_s[b]], cut[b]) for b in (0, 1)])
+        out_logits, out_toks = [logits.float().cpu()], []
+        for i in range(steps5):
+            tok = torch.argmax(logits, dim=-1)
+            out_toks.append(tok.cpu())
+            logits = step([(b, [int(tok[b])], int(lens_s[b]) + i) for b in (0, 1)])
+            out_logits.append(logits.float().cpu())
+        return torch.stack(out_logits), torch.stack(out_toks)
+
+    with torch.no_grad():
+        _, sgt = greedy(p2, dev, layout="paged", steps=steps5, short=True)   # bucketed
+        for kv_int8 in (False, True):
+            ops.reset_launches()
+            kgl, kgt = chunked_greedy(p2, dev, kv_int8)
+            check(ops.LAUNCHES["ragged_prefill_attention"] == (2 + steps5) * cfg2.n_layers
+                  and ops.LAUNCHES["flash_attention"] == 0,
+                  f"chunked parity launches {ops.LAUNCHES}")
+            kcl, kct = chunked_greedy(p2_cpu, cpu, kv_int8)
+            kerr = float((kgl - kcl).abs().max())
+            kv = "int8" if kv_int8 else "fp"
+            check(torch.equal(kgt, kct), f"chunked kv={kv} card vs CPU tokens differ: "
+                  f"{kgt.T} vs {kct.T}")
+            check(kerr <= tol, f"chunked kv={kv} card vs CPU logits: max err {kerr} > {tol}")
+            if not kv_int8:
+                check(torch.equal(kgt, sgt), f"chunked fp KV vs bucketed paged tokens "
+                      f"differ: {kgt.T} vs {sgt.T}")
+            same = "" if kv_int8 else " and equal to bucketed paged"
+            print(f"[5] chunked kv={kv} (2 packed prefill steps, {steps5} one-token steps, all K6) "
+                  f"card vs CPU: tokens equal{same}; logits max_abs_err={kerr:.3e}, "
+                  f"tol={tol:.3e}")
+
+    # a block-sparse tree (2:4, then every other 64-row k-tile emptied): K7 runs
+    # on every linear; and the W4A8-g128 tree from the same calibration: K8
+    p2bs = sparsify_tree(p2, SparsityPlan(nm=(2, 4)))
+    empty_odd_k_tiles(p2bs)
+    p2bs = with_tile_occupancy(p2bs)                 # after the last edit of the codes
+    for label, tree, kernel in (("block-sparse", p2bs, "qgemm_w8a8_sparse"),
+                                ("W4A8-g128", p2w4, "qgemm_w4a8")):
+        with torch.no_grad():
+            ops.reset_launches()
+            bgl, bgt = greedy(tree, dev, layout="paged", steps=steps5, short=True)
+            n_gemm = 6 * cfg2.n_layers * (1 + steps5)
+            check(ops.LAUNCHES[kernel] == n_gemm and ops.LAUNCHES["qgemm_w8a8"] == 0,
+                  f"{label} parity launches {ops.LAUNCHES}")
+            bcl, bct = greedy(M.map_tensors(tree, lambda t: t.cpu()), cpu, layout="paged",
+                              steps=steps5, short=True)
+        berr = float((bgl - bcl).abs().max())
+        btol = 5e-2 * float(bcl.abs().max())
+        check(torch.equal(bgt, bct), f"{label} card vs CPU tokens differ: {bgt.T} vs {bct.T}")
+        check(berr <= btol, f"{label} card vs CPU logits: max err {berr} > {btol}")
+        print(f"[5] {label} paged card vs CPU ({kernel} x{n_gemm}): tokens equal "
+              f"{bgt.T.tolist()}, logits max_abs_err={berr:.3e}, tol 5e-2*max|logit|={btol:.3e}")
+    del p2bs, p2w4
+
     # the engine on the card: paged ≡ dense over shared-prefix traffic (warm
     # admissions and copy-on-write at batch 2), speculate=4 ≡ speculate=1 (paged)
     rng = np.random.default_rng(7)
@@ -577,11 +962,15 @@ def main() -> int:
     base_out, _ = engine_tokens(motifs, cache_layout="paged")
     spec_out, seng = engine_tokens(motifs, cache_layout="paged", speculate=4)
     check(spec_out == base_out, f"speculate=4 vs 1 tokens differ: {spec_out} vs {base_out}")
+    chunk_out, ceng = engine_tokens(shared, cache_layout="paged", chunked=True, token_budget=64)
+    check(ceng.counters["chunk_prefill_rows"] > 0 and chunk_out == dense_out,
+          f"engine chunked vs bucketed tokens differ: {chunk_out} vs {dense_out}")
     print(f"[5] 2-layer engine on the card: paged == dense over {len(shared)} shared-prefix "
           f"requests (prefix_hits={peng.counters['prefix_hits']} cow_copies="
           f"{peng.counters['cow_copies']}); speculate=4 == speculate=1 over {len(motifs)} "
           f"motif prompts (accept_rate={seng.accept_rate():.3f} tokens_per_step="
-          f"{seng.tokens_per_step():.3f})")
+          f"{seng.tokens_per_step():.3f}); chunked (budget 64, fp KV) == bucketed "
+          f"(chunk_steps={ceng.counters['chunk_steps']})")
 
     # ---------------------------------------------------------------- result
     kernel_rows = [
@@ -600,6 +989,16 @@ def main() -> int:
          "src/repro/kernels/flash_attention.py:98",
          ("paged_verify_attention", "bf16", "f32", 8),
          "B=4 H=36/4 D=128 ps=8 q_win=4 q bf16 pool f32 q_len=[4,1,3,2]"),
+        ("ragged_prefill_attention", "src/repro_torch/csrc/paged_attention.cu",
+         "src/repro/kernels/flash_attention.py:337",
+         ("ragged_prefill_attention", "f32", "128 mixed"),
+         "Nt=128 B=4 H=36/4 D=128 ps=8 q bf16 pool f32 q_len=[1,1,1,125] "
+         "kv_len=[700,517,130,514]"),
+        ("qgemm_w8a8_sparse", "src/repro_torch/csrc/qgemm_w8a8.cu",
+         "src/repro/kernels/qgemm.py:91", ("qgemm_w8a8_sparse", 4),
+         "M=4 K=4608 N=18432, half the 64-row k-tiles empty"),
+        ("qgemm_w4a8", "src/repro_torch/csrc/qgemm_w8a8.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8", 4), "M=4 K=4608 N=18432 g128"),
     ]
     kernels = []
     for name, source, replaces, key, shape in kernel_rows:

@@ -8,8 +8,10 @@ Execution of a prepared linear (``int_exec``):
 
 * ``"ref"`` (default) — :func:`quantize_act_int8` then :func:`_int8_matmul_ref`, an
   exact integer product formed in float64 (|acc| < 2^53) outside any kernel.
-* ``"kernel"``       — :func:`_int8_kernel`: the ``act_quantize`` → ``qgemm_w8a8``
-  pair of ``kernels/ops.py`` (hand-written CUDA on the card, plain torch on CPU).
+* ``"kernel"``       — :func:`_int8_kernel`: ``act_quantize`` then the GEMM the
+  leaf asks for in ``kernels/ops.py`` (hand-written CUDA on the card, plain torch
+  on CPU): ``qgemm_w8a8``, ``qgemm_w8a8_sparse`` for a leaf with an N:M ``mask``,
+  ``qgemm_w4a8`` for a packed-int4 ``qw4`` leaf (:func:`prepare_int4`).
 
 The reference's ``fake`` mode and ``dequant`` backend are not ported yet.
 """
@@ -20,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core import quantizers as Q
 
 
@@ -43,6 +46,7 @@ class QuantConfig:
 
 
 FP = QuantConfig(mode="fp")
+W4A8_G128 = QuantConfig(mode="fake", a_bits=8, w_bits=4, w_quant="group")
 W8A8_INT8 = QuantConfig(mode="int8", a_bits=8, w_bits=8)
 
 
@@ -81,6 +85,50 @@ def prepare_int8(params: dict, cfg: QuantConfig,
                                  device=w.device)}
 
 
+def prepare_int4(params: dict, cfg: QuantConfig,
+                 cmax: Optional[torch.Tensor] = None) -> dict:
+    """W4 preparation: group-quantize the b-folded weight along d_in with group
+    ``cfg.w_group`` and pack the nibbles along d_in. Group scales are
+    (..., d_in / group, d_out)."""
+    w = params["w"]
+    cm = cmax if cmax is not None else params.get("cmax")
+    alpha_eff = cfg.alpha if cm is not None else 1.0
+    if cm is None:
+        cm = torch.ones(w.shape[-2], dtype=w.dtype, device=w.device)
+    cm = torch.as_tensor(cm, device=w.device)
+    b = torch.clamp_min(cm, Q.EPS) ** (1.0 - alpha_eff)
+    while b.ndim < w.ndim - 1:
+        b = b[..., None, :]
+    b = b.expand(w.shape[:-1])
+    wb = w * b[..., :, None]
+    *lead, d_in, d_out = wb.shape
+    g = cfg.w_group
+    if d_in % g:
+        raise ValueError(f"d_in={d_in} not divisible by group {g}")
+    grouped = wb.reshape(*lead, d_in // g, g, d_out)
+    sw = torch.clamp_min(grouped.abs().amax(dim=-2, keepdim=True), Q.EPS) / Q.qmax(4)
+    qw = torch.clamp(torch.round(grouped / sw), -Q.qmax(4), Q.qmax(4)).to(torch.int8)
+    return {"qw4": packing.pack_int4(qw.reshape(*lead, d_in, d_out), axis=-2),
+            "sw": sw.squeeze(-2).to(torch.float32).contiguous(),
+            "bcol": b.to(torch.float32).contiguous(),
+            "qalpha": torch.full(w.shape[:-2], alpha_eff, dtype=torch.float32,
+                                 device=w.device)}
+
+
+def unpack_int4_weight(qw4: torch.Tensor) -> torch.Tensor:
+    """(..., d_in/2, d_out) packed nibbles → (..., d_in, d_out) int8 codes."""
+    return packing.unpack_int4(qw4, axis=-2)
+
+
+def dequant_int4_weight(qw4: torch.Tensor, sw: torch.Tensor, group: int) -> torch.Tensor:
+    """Unpack the nibbles and apply the (..., G, d_out) group scales → the f32
+    b-folded weight (see :func:`prepare_int4`)."""
+    qw = unpack_int4_weight(qw4).to(torch.float32)
+    *lead, d_in, d_out = qw.shape
+    grouped = qw.reshape(*lead, d_in // group, group, d_out)
+    return (grouped * sw[..., :, None, :]).reshape(*lead, d_in, d_out)
+
+
 def quantize_act_int8(x: torch.Tensor, bcol: torch.Tensor, cfg: QuantConfig, alpha=None):
     """Runtime activation quantization: divide by outer(a_i, b_j).
 
@@ -104,18 +152,24 @@ def quantize_act_int8(x: torch.Tensor, bcol: torch.Tensor, cfg: QuantConfig, alp
 
 def _int8_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     """Kernel pipeline for a 2-D prepared linear: ``act_quantize`` emits int8 codes
-    and row scales straight into ``qgemm_w8a8`` (leading axes flatten to M)."""
+    and row scales straight into the leaf's GEMM (leading axes flatten to M): the
+    sparse GEMM for an N:M leaf (it reads the bit-packed ``mask`` as stored, and
+    the ``occ`` table where ``with_tile_occupancy`` attached one), the W4A8 GEMM for a ``qw4`` leaf, else the dense W8A8 GEMM."""
     from repro_torch.kernels import ops
 
-    if "qw" not in params or "mask" in params:
-        raise NotImplementedError("the kernel path serves dense W8A8 leaves only; "
-                                  "W4A8 and N:M-sparse leaves are not ported yet")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     alpha = params.get("qalpha")
     qx, a = ops.act_quantize(x2, params["bcol"], cfg.alpha if alpha is None else alpha,
                              bits=cfg.a_bits)
-    y = ops.qgemm_w8a8(qx, params["qw"], a, params["sw"])
+    if "qw" in params:
+        if "mask" in params:
+            y = ops.qgemm_w8a8_sparse(qx, params["qw"], a, params["sw"], params["mask"],
+                                      params.get("occ"))
+        else:
+            y = ops.qgemm_w8a8(qx, params["qw"], a, params["sw"])
+    else:
+        y = ops.qgemm_w4a8(qx, params["qw4"], a, params["sw"], group=cfg.w_group)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 
@@ -129,6 +183,21 @@ def _int8_matmul_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         raise NotImplementedError("stacked-expert int8 GEMMs are not ported yet")
     acc = torch.matmul(qx.to(torch.float64), qw.to(torch.float64))
     return acc.to(torch.float32) * a * sw
+
+
+def _int4_matmul_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
+                     sw: torch.Tensor, group: int) -> torch.Tensor:
+    """Reference W4 GEMM: unpack the nibbles, per-group int32 partial sums (an
+    exact float64 product), group dequant by ``sw`` (G, d_out), sum over the
+    groups, then the row scale."""
+    if qw4.ndim != 2:
+        raise NotImplementedError("stacked-expert W4 GEMMs are not ported yet")
+    qw = unpack_int4_weight(qw4)
+    ngroups = qw.shape[-2] // group
+    qx_g = qx.reshape(*qx.shape[:-1], ngroups, group).to(torch.float64)
+    qw_g = qw.reshape(ngroups, group, qw.shape[-1]).to(torch.float64)
+    acc = torch.einsum("...gk,gko->...go", qx_g, qw_g)
+    return (acc.to(torch.float32) * sw).sum(dim=-2) * a
 
 
 def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "",
@@ -149,10 +218,11 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
         wq = params.get("qw", params.get("qw4"))
         if exec_mode == "kernel" and wq.ndim == 2 and x.ndim >= 2:
             return _int8_kernel(params, x, cfg)
-        if "qw" not in params:
-            raise NotImplementedError("W4A8 leaves are not ported yet")
         qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=params.get("qalpha"))
-        return _int8_matmul_ref(qx, params["qw"], a, params["sw"]).to(x.dtype)
+        if "qw" in params:
+            return _int8_matmul_ref(qx, params["qw"], a, params["sw"]).to(x.dtype)
+        return _int4_matmul_ref(qx, params["qw4"], a, params["sw"],
+                                cfg.w_group).to(x.dtype)
 
     w = params["w"]
     if cfg.mode == "fp":

@@ -35,6 +35,10 @@ SIGNATURES = {
     "repro_act_quantize": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # qx, qw, a, sw, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, stream
+    "repro_qgemm_w8a8_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw4, a, sw, out, M, N, K, group, vec_a, vec_b, stream
+    "repro_qgemm_w4a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, kv_len, dtype, B, H, Hkv, Sq, Sk, D, causal, window, softcap, scale, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _P],
@@ -42,6 +46,11 @@ SIGNATURES = {
     # q_len, o, B, Hkv, R, D, P, ps, maxP, q_win, window, softcap, scale, stream
     "repro_paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _F, _P],
+    # q, q_dtype, k_new, v_new, k_pages, v_pages, kv_dtype, k_scale, v_scale,
+    # page_table, q_start, q_len, kv_len, o, Nt, B, Hkv, G, D, P, ps, maxP, chunk_cap,
+    # window, softcap, scale, stream
+    "repro_ragged_prefill": [_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()

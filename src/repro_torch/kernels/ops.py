@@ -9,6 +9,12 @@ Each wrapper checks device, dtype, shape and contiguity, then:
   built at first use by :mod:`repro_torch.kernels.build`) on the current stream,
   or raises. Nothing falls back: a failed build or launch is an error.
 
+The sparse GEMM routes as the reference's ``lax.cond`` does: a leaf whose mask
+leaves no weight tile empty runs the dense K2 (bitwise the same result), any
+other runs K7 with the tile-occupancy table. The table is derived once per leaf
+where the served tree is prepared (``models.quantize.with_tile_occupancy``) and
+passed in, so a serving step does not sync the host once per linear.
+
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
 ``LAUNCHES`` counts kernel launches (never plain-version calls), so a run can
@@ -19,15 +25,21 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
-from repro_torch.kernels.paged_attention import POOL_CODE, paged_attention_cuda
-from repro_torch.kernels.qgemm import qgemm_w8a8_cuda
+from repro_torch.kernels.paged_attention import (
+    POOL_CODE, paged_attention_cuda, ragged_prefill_cuda,
+)
+from repro_torch.kernels.qgemm import (
+    TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w8a8_cuda, qgemm_w8a8_sparse_cuda,
+)
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
-            "paged_decode_attention": 0, "paged_verify_attention": 0}
+            "paged_decode_attention": 0, "paged_verify_attention": 0,
+            "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
 
 
 def reset_launches() -> None:
@@ -101,6 +113,80 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def _check_rows(qx: torch.Tensor, a: torch.Tensor) -> None:
+    M = qx.shape[0]
+    _require(a.shape in ((M, 1), (M,)), f"a must be ({M}, 1), got {tuple(a.shape)}")
+
+
+def tile_occupancy(mask: torch.Tensor, K: int) -> torch.Tensor:
+    """(ceil(K/8), N) bit-packed keep-mask → (ceil(K/64), ceil(N/64)) int32, 1
+    where the kernel's (64, 64) weight tile holds a surviving weight."""
+    kb = TILE_K // 8                                   # packed rows per tile
+    n_kt, n_nt = -(-K // TILE_K), -(-mask.shape[1] // TILE_N)
+    m = F.pad(mask, (0, n_nt * TILE_N - mask.shape[1], 0, n_kt * kb - mask.shape[0]))
+    occ = m.reshape(n_kt, kb, n_nt, TILE_N).amax(dim=(1, 3)) > 0
+    return occ.to(torch.int32).contiguous()
+
+
+def qgemm_w8a8_sparse(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                      sw: torch.Tensor, mask: torch.Tensor,
+                      occ: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block-sparse int8 GEMM over N:M-pruned weights (K7). qx (M, K) int8; qw
+    (K, N) int8, zero wherever ``mask`` is; a (M, 1) f32; sw (N,) f32; ``mask``
+    the leaf's (ceil(K/8), N) bit-packed uint8 keep-mask (the reference's wrapper
+    takes it unpacked); ``occ`` its :func:`tile_occupancy`, given where some
+    (64, 64) weight tile is empty. → (M, N) f32. With ``occ`` the card runs K7,
+    which skips the empty tiles; without it K2, exact as well since qw is zero
+    wherever the mask is. The plain version reads the mask."""
+    _require(qx.ndim == 2 and qw.ndim == 2, "qx and qw must be 2-D")
+    M, K = qx.shape
+    _require(qw.shape[0] == K, f"contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
+    N = qw.shape[1]
+    _check_rows(qx, a)
+    _require(sw.shape == (N,), f"sw must be ({N},), got {tuple(sw.shape)}")
+    _require(mask.shape == (-(-K // 8), N), f"mask must be ({-(-K // 8)}, {N}) bit-packed, "
+             f"got {tuple(mask.shape)}")
+    _require(mask.dtype == torch.uint8, f"mask dtype {mask.dtype} is not uint8")
+    if not _on_cuda(qx, qw, a, sw, mask, *(() if occ is None else (occ,))):
+        return ref.qgemm_w8a8_sparse_ref(qx, qw, a.reshape(M, 1), sw, mask)
+    if occ is None:
+        return qgemm_w8a8(qx, qw, a, sw)
+    _require(occ.shape == (-(-K // TILE_K), -(-N // TILE_N)) and occ.dtype == torch.int32,
+             f"occ must be ({-(-K // TILE_K)}, {-(-N // TILE_N)}) int32, got "
+             f"{tuple(occ.shape)} {occ.dtype}")
+    _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
+    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
+    _contiguous(qx=qx, qw=qw, a=a, sw=sw, occ=occ)
+    out = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, occ)
+    LAUNCHES["qgemm_w8a8_sparse"] += 1
+    return out
+
+
+def qgemm_w4a8(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: torch.Tensor,
+               *, group: int = 128) -> torch.Tensor:
+    """W4A8 grouped GEMM (K8). qx (M, K) int8; qw4 (K/2, N) int8, two int4 codes
+    per byte along K; a (M, 1) f32; sw (K/group, N) f32 → (M, N) f32. The kernel
+    takes groups that are multiples of 64."""
+    _require(qx.ndim == 2 and qw4.ndim == 2, "qx and qw4 must be 2-D")
+    M, K = qx.shape
+    N = qw4.shape[1]
+    _require(K % group == 0 and qw4.shape[0] * 2 == K,
+             f"qw4 {tuple(qw4.shape)} does not pack K={K} in groups of {group}")
+    _check_rows(qx, a)
+    _require(sw.shape == (K // group, N), f"sw must be ({K // group}, {N}), "
+             f"got {tuple(sw.shape)}")
+    if not _on_cuda(qx, qw4, a, sw):
+        return ref.qgemm_w4a8_ref(qx, qw4, a.reshape(M, 1), sw, group)
+    _require(qx.dtype == torch.int8 and qw4.dtype == torch.int8, "qx and qw4 must be int8")
+    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
+    _require(group % TILE_K == 0, f"the W4A8 kernel takes groups of multiples of {TILE_K}, "
+             f"got {group}")
+    _contiguous(qx=qx, qw4=qw4, a=a, sw=sw)
+    out = qgemm_w4a8_cuda(qx, qw4, a, sw, group)
+    LAUNCHES["qgemm_w4a8"] += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *, causal: bool = True,
                     window: Optional[int] = None,
@@ -138,25 +224,24 @@ def _int_vec(x, B: int, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).reshape(-1).to(torch.int32).expand(B).contiguous()
 
 
-def _check_paged(q, k_pages, v_pages, page_table, k_scale_pages, v_scale_pages) -> bool:
-    """Shared checks of the paged wrappers; True when the tensors lie on a card."""
-    _require(q.ndim == 4, f"q must be (B, S, H, D), got {tuple(q.shape)}")
+def _check_pools(H: int, D: int, k_pages, v_pages, page_table, k_scale_pages,
+                 v_scale_pages) -> None:
+    """Shapes of the paged wrappers' pools, page table and scale pools."""
     _require(k_pages.ndim == 4 and v_pages.shape == k_pages.shape,
              f"pools must be (P, ps, Hkv, D): {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
-    B, _, H, D = q.shape
     P, ps, Hkv = k_pages.shape[:3]
     _require(k_pages.shape[3] == D, f"pool head_dim {k_pages.shape[3]} != q's {D}")
     _require(Hkv > 0 and H % Hkv == 0, f"H={H} not a multiple of Hkv={Hkv}")
-    _require(page_table.ndim == 2 and page_table.shape[0] == B,
-             f"page_table must be ({B}, maxP), got {tuple(page_table.shape)}")
+    _require(page_table.ndim == 2, f"page_table must be (B, maxP), got {tuple(page_table.shape)}")
     _require((k_scale_pages is None) == (v_scale_pages is None),
              "pass both scale pools or neither")
     if k_scale_pages is not None:
         _require(k_scale_pages.shape == (P, ps, Hkv, 1) == v_scale_pages.shape,
                  f"scale pools must be ({P}, {ps}, {Hkv}, 1)")
-    scales = () if k_scale_pages is None else (k_scale_pages, v_scale_pages)
-    if not _on_cuda(q, k_pages, v_pages, page_table, *scales):
-        return False
+
+
+def _check_pools_cuda(q, k_pages, v_pages, k_scale_pages, v_scale_pages) -> None:
+    """dtype and layout rules of the paged kernels, for tensors on a card."""
     _require(q.dtype in DTYPE_CODE, f"q dtype {q.dtype} not in f32/bf16")
     _require(k_pages.dtype in POOL_CODE and v_pages.dtype == k_pages.dtype,
              f"pool dtype {k_pages.dtype} not in f32/bf16/int8")
@@ -166,8 +251,22 @@ def _check_paged(q, k_pages, v_pages, page_table, k_scale_pages, v_scale_pages) 
         _require(k_scale_pages.dtype == torch.float32 == v_scale_pages.dtype,
                  "scale pools must be f32")
         _contiguous(k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
-    _require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _require(q.shape[-1] in HEAD_DIMS, f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
     _contiguous(k_pages=k_pages, v_pages=v_pages)
+
+
+def _check_paged(q, k_pages, v_pages, page_table, k_scale_pages, v_scale_pages) -> bool:
+    """Shared checks of the decode/verify wrappers; True when the tensors lie on a
+    card."""
+    _require(q.ndim == 4, f"q must be (B, S, H, D), got {tuple(q.shape)}")
+    B, _, H, D = q.shape
+    _check_pools(H, D, k_pages, v_pages, page_table, k_scale_pages, v_scale_pages)
+    _require(page_table.shape[0] == B,
+             f"page_table must be ({B}, maxP), got {tuple(page_table.shape)}")
+    scales = () if k_scale_pages is None else (k_scale_pages, v_scale_pages)
+    if not _on_cuda(q, k_pages, v_pages, page_table, *scales):
+        return False
+    _check_pools_cuda(q, k_pages, v_pages, k_scale_pages, v_scale_pages)
     return True
 
 
@@ -241,3 +340,50 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                                window=window, softcap=softcap)
     LAUNCHES["paged_verify_attention"] += 1
     return out.reshape(B, Hkv, W, G, D).permute(0, 2, 1, 3, 4).reshape(B, W, H, D)
+
+
+def ragged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                             k_pages: torch.Tensor, v_pages: torch.Tensor,
+                             page_table: torch.Tensor, q_start, q_len, kv_len, *,
+                             chunk_cap: int, k_scale_pages: Optional[torch.Tensor] = None,
+                             v_scale_pages: Optional[torch.Tensor] = None,
+                             window: Optional[int] = None,
+                             softcap: Optional[float] = None) -> torch.Tensor:
+    """Ragged chunked-prefill attention over the paged pool (K6). q (Nt, H, D) is a
+    packed block whose slot b owns rows ``[q_start[b], q_start[b] + q_len[b])``
+    (``q_len ≤ chunk_cap``; 0 marks a dead slot); k_new/v_new (Nt, Hkv, D) are
+    the packed tokens' fp K/V, already scattered into the pools; ``kv_len`` (B,)
+    each slot's visible length after the scatter, so chunk token i sits at
+    ``kv_len - q_len + i`` and attends keys up to its own position, its chunk's
+    keys read from k_new/v_new (int8 scales 1). Pools, page table and scale pools
+    as :func:`paged_decode_attention`. → (Nt, H, D) in q's dtype, zero at rows no
+    slot owns."""
+    _require(q.ndim == 3, f"q must be (Nt, H, D), got {tuple(q.shape)}")
+    Nt, H, D = q.shape
+    _check_pools(H, D, k_pages, v_pages, page_table, k_scale_pages, v_scale_pages)
+    Hkv = k_pages.shape[2]
+    _require(k_new.shape == (Nt, Hkv, D) == v_new.shape,
+             f"k_new/v_new must be ({Nt}, {Hkv}, {D}): {tuple(k_new.shape)}, "
+             f"{tuple(v_new.shape)}")
+    B = page_table.shape[0]
+    qs = _int_vec(q_start, B, q.device)
+    qln = _int_vec(q_len, B, q.device)
+    kvl = _int_vec(kv_len, B, q.device)
+    scales = () if k_scale_pages is None else (k_scale_pages, v_scale_pages)
+    if not _on_cuda(q, k_new, v_new, k_pages, v_pages, page_table, *scales):
+        out = ref.ragged_prefill_attention_ref(
+            q.reshape(Nt, Hkv, H // Hkv, D), k_new, v_new, k_pages, v_pages, page_table,
+            qs, qln, kvl, chunk_cap=chunk_cap, k_scale_pages=k_scale_pages,
+            v_scale_pages=v_scale_pages, window=window, softcap=softcap)
+        return out.reshape(Nt, H, D)
+    _check_pools_cuda(q, k_pages, v_pages, k_scale_pages, v_scale_pages)
+    _require(k_new.dtype == q.dtype == v_new.dtype, "k_new/v_new must have q's dtype")
+    _contiguous(q=q, k_new=k_new, v_new=v_new)
+    _require(window is None or window > 0, f"window must be positive, got {window}")
+    _require(softcap is None or softcap > 0, f"softcap must be positive, got {softcap}")
+    _require(chunk_cap >= 1, f"chunk_cap must be positive, got {chunk_cap}")
+    out = ragged_prefill_cuda(q, k_new, v_new, k_pages, v_pages, k_scale_pages, v_scale_pages,
+                              page_table.to(torch.int32).contiguous(), qs, qln, kvl,
+                              chunk_cap=chunk_cap, window=window, softcap=softcap)
+    LAUNCHES["ragged_prefill_attention"] += 1
+    return out

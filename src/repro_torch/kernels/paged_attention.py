@@ -1,11 +1,13 @@
-"""Launcher of the CUDA kernel K4/K5 ``paged_attention`` (``csrc/paged_attention.cu``),
-the counterpart of the reference's ``_paged_decode_kernel`` in
-``repro/kernels/flash_attention.py``: single-token decode at ``q_win = 1`` and
-draft-window verify at ``q_win > 1``.
+"""Launchers of the CUDA kernels K4/K5/K6 (``csrc/paged_attention.cu``), the
+counterparts of the reference's ``_paged_decode_kernel`` and
+``_ragged_prefill_kernel`` in ``repro/kernels/flash_attention.py``: single-token
+decode at ``q_win = 1``, draft-window verify at ``q_win > 1``, and ragged
+chunked prefill, one kernel body.
 
-Callers go through :func:`repro_torch.kernels.ops.paged_decode_attention` and
-:func:`repro_torch.kernels.ops.paged_verify_attention`, which check the inputs, run
-the plain versions for CPU tensors and count launches.
+Callers go through :func:`repro_torch.kernels.ops.paged_decode_attention`,
+:func:`~repro_torch.kernels.ops.paged_verify_attention` and
+:func:`~repro_torch.kernels.ops.ragged_prefill_attention`, which check the
+inputs, run the plain versions for CPU tensors and count launches.
 """
 from __future__ import annotations
 
@@ -40,4 +42,31 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
         0.0 if softcap is None else float(softcap), float(D ** -0.5),
         torch.cuda.current_stream().cuda_stream)
     build.check(rc, "paged_attention")
+    return out
+
+
+def ragged_prefill_cuda(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                        k_pages: torch.Tensor, v_pages: torch.Tensor,
+                        k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+                        page_table: torch.Tensor, q_start: torch.Tensor, q_len: torch.Tensor,
+                        kv_len: torch.Tensor, *, chunk_cap: int, window: Optional[int],
+                        softcap: Optional[float]) -> torch.Tensor:
+    """q (Nt, Hkv·G, D) and k_new/v_new (Nt, Hkv, D) in one f32|bf16 dtype; pools
+    and scale pools as :func:`paged_attention_cuda`; page_table (B, maxP) and
+    q_start/q_len/kv_len (B,) int32; all contiguous on one card. → (Nt, Hkv·G, D),
+    zero at rows no slot owns."""
+    Nt, H, D = q.shape
+    P, ps, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+    B, maxP = page_table.shape
+    out = torch.zeros_like(q)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = build.library().repro_ragged_prefill(
+        q.data_ptr(), DTYPE_CODE[q.dtype], k_new.data_ptr(), v_new.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), POOL_CODE[k_pages.dtype], ptr(k_scale),
+        ptr(v_scale), page_table.data_ptr(), q_start.data_ptr(), q_len.data_ptr(),
+        kv_len.data_ptr(), out.data_ptr(), Nt, B, Hkv, H // Hkv, D, P, ps, maxP,
+        int(chunk_cap), 0 if window is None else int(window),
+        0.0 if softcap is None else float(softcap), float(D ** -0.5),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "ragged_prefill")
     return out

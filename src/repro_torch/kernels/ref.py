@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core import quantizers as Q
 
 NEG_INF = -1e30
@@ -23,6 +24,29 @@ def qgemm_w8a8_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     (|acc| ≤ 127²·K < 2^53); its f32 conversion rounds as int32→f32 does."""
     acc = torch.matmul(qx.to(torch.float64), qw.to(torch.float64))
     return acc.to(torch.float32) * a.to(torch.float32) * sw.to(torch.float32)
+
+
+def qgemm_w8a8_sparse_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                          sw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """N:M-sparse int8 GEMM (plain version of K7): the masked dense GEMM. ``mask``
+    is the (ceil(K/8), N) bit-packed keep-mask leaf; ``qw`` is already zero where
+    it is, and the multiply keeps the oracle exact on inconsistent inputs."""
+    keep = packing.unpack_mask(mask, count=qw.shape[0], axis=0)
+    return qgemm_w8a8_ref(qx, qw * keep.to(qw.dtype), a, sw)
+
+
+def qgemm_w4a8_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: torch.Tensor,
+                   group: int = 128) -> torch.Tensor:
+    """W4A8 grouped GEMM (plain version of K8). qx (M, K) int8; qw4 (K/2, N) int8,
+    two int4 codes per byte packed along K; a (M, 1) f32; sw (K/group, N) f32.
+    Per-group integer partial sums (an exact float64 product), dequantized by
+    sw[g], summed over the groups, then × a."""
+    M, K = qx.shape
+    qw = packing.unpack_int4(qw4, axis=-2)
+    ng = K // group
+    acc = torch.einsum("mgk,gkn->mgn", qx.reshape(M, ng, group).to(torch.float64),
+                       qw.reshape(ng, group, -1).to(torch.float64))
+    return (acc.to(torch.float32) * sw.to(torch.float32)).sum(dim=-2) * a.to(torch.float32)
 
 
 def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15):
@@ -168,3 +192,68 @@ def paged_verify_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
     if v_scale_pages is not None:
         p = p * score_scales(v_scale_pages)
     return torch.einsum("bhwgt,bthd->bhwgd", p, vf).to(q.dtype)
+
+
+def ragged_prefill_attention_ref(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                                 k_pages: torch.Tensor, v_pages: torch.Tensor,
+                                 page_table: torch.Tensor, q_start: torch.Tensor,
+                                 q_len: torch.Tensor, kv_len: torch.Tensor, *, chunk_cap: int,
+                                 k_scale_pages: Optional[torch.Tensor] = None,
+                                 v_scale_pages: Optional[torch.Tensor] = None,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None) -> torch.Tensor:
+    """Ragged chunked-prefill attention (plain version of K6).
+
+    q (N, Hkv, G, D) is a packed ragged block: slot b owns rows ``[q_start[b],
+    q_start[b] + q_len[b])`` (``q_len ≤ chunk_cap``; 0 marks a dead slot).
+    ``kv_len`` (B,) is each slot's visible length after the chunk's scatter, so
+    the chunk starts at ``cs = kv_len - q_len`` and chunk token i attends keys at
+    positions ≤ cs + i. Positions in ``[cs, kv_len)`` read the packed fp
+    ``k_new``/``v_new`` (N, Hkv, D) rows instead of the pool, with int8 scales
+    set to 1; earlier positions read the pool through the page table with the
+    decode numerics. Rows no slot owns are zero. → (N, Hkv, G, D) in q's dtype."""
+    P, ps = k_pages.shape[0], k_pages.shape[1]
+    B, maxP = page_table.shape
+    N, Hkv, G, D = q.shape
+    C, T, dev = chunk_cap, maxP * ps, q.device
+    gidx = _page_gather_index(page_table, P, ps)
+    kf = _gathered(k_pages, gidx).to(torch.float32)              # (B, T, Hkv, D)
+    vf = _gathered(v_pages, gidx).to(torch.float32)
+    qs = q_start.to(torch.int64)
+    qln = q_len.to(torch.int64)
+    kvl = kv_len.to(torch.int64)
+    cs = kvl - qln
+    t_pos = torch.arange(T, device=dev)
+    in_chunk = (t_pos[None] >= cs[:, None]) & (t_pos[None] < kvl[:, None])      # (B, T)
+    ov = torch.clamp(qs[:, None] + t_pos[None] - cs[:, None], 0, N - 1)
+    kf = torch.where(in_chunk[..., None, None], k_new[ov].to(torch.float32), kf)
+    vf = torch.where(in_chunk[..., None, None], v_new[ov].to(torch.float32), vf)
+
+    def score_scales(pool):        # → (B, Hkv, 1, 1, T), 1 on the chunk's own keys
+        flat = _gathered(pool, gidx)[..., 0]
+        flat = torch.where(in_chunk[..., None], torch.ones_like(flat), flat)
+        return flat.permute(0, 2, 1)[:, :, None, None, :]
+
+    ar = torch.arange(C, device=dev)
+    ridx = torch.clamp(qs[:, None] + ar[None], 0, N - 1)                        # (B, C)
+    qb = q[ridx].permute(0, 2, 1, 3, 4)                                          # (B,Hkv,C,G,D)
+    s = torch.einsum("bhcgd,bthd->bhcgt", qb.to(torch.float32), kf) * (D ** -0.5)
+    if k_scale_pages is not None:
+        s = s * score_scales(k_scale_pages)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = cs[:, None] + torch.minimum(ar[None], torch.clamp_min(qln - 1, 0)[:, None])
+    qp = q_pos[:, None, :, None, None]
+    tp = t_pos[None, None, None, None, :]
+    valid = tp <= qp
+    if window is not None:
+        valid = valid & ((qp - tp) < window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    if v_scale_pages is not None:
+        p = p * score_scales(v_scale_pages)
+    ob = torch.einsum("bhcgt,bthd->bhcgd", p, vf).permute(0, 2, 1, 3, 4).to(q.dtype)
+    out = torch.zeros((N + 1, Hkv, G, D), dtype=q.dtype, device=dev)
+    tgt = torch.where(ar[None] < qln[:, None], qs[:, None] + ar[None], N)      # N: dropped
+    out[tgt.reshape(-1)] = ob.reshape(B * C, Hkv, G, D)
+    return out[:N]

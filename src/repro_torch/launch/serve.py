@@ -8,6 +8,10 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path fused-int8 --device cpu     # plain versions on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
         --quant int8 --path fused-int8 --cache-layout paged --speculate 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --quant int8 --path fused-int8 --cache-layout paged --chunked --token-budget 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --quant int8 --path fused-int8 --sparsity 2:4
 """
 from __future__ import annotations
 
@@ -26,20 +30,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.layers import QuantContext
 from repro_torch.models.quantize import quantize_tree, quantized_bytes
-from repro_torch.serving.config import EngineConfig
+from repro_torch.serving.config import SPARSITY_CHOICES, EngineConfig
 from repro_torch.serving.engine import ServeEngine
 
 QUANTS = {"fp": ql.FP, "int8": ql.W8A8_INT8}
 
 
 @torch.no_grad()
-def calibrate_and_quantize(params: dict, cfg: ModelConfig, quant: ql.QuantConfig, *,
-                           calib_batches: int, seq_len: int, batch_size: int,
-                           seed: int) -> dict:
-    """Offline PTQ: record static-c column absmax over ``calib_batches`` eager
-    passes (``mode="train"``, per-layer observer names, int8 on the unprepared
-    weights, i.e. the ``ref`` integer GEMM), then fold them into int8 weights.
-    Returns the prepared tree; the caller drops the fp tree to free it."""
+def calibrate(params: dict, cfg: ModelConfig, quant: ql.QuantConfig, *, calib_batches: int,
+              seq_len: int, batch_size: int, seed: int) -> dict:
+    """Record static-c column absmax over ``calib_batches`` eager passes
+    (``mode="train"``, per-layer observer names, int8 on the unprepared weights,
+    i.e. the ``ref`` integer GEMM). Returns the stacked tables ``quantize_tree``
+    reads."""
     obs = calibration.Observer()
     batch_fn = make_train_batches(cfg.vocab, seq_len, batch_size, seed=seed + 1)
     ctx = QuantContext(quant, observer=obs)
@@ -47,7 +50,17 @@ def calibrate_and_quantize(params: dict, cfg: ModelConfig, quant: ql.QuantConfig
     for b in range(calib_batches):
         tokens = torch.as_tensor(batch_fn(b)["tokens"], dtype=torch.int64, device=dev)
         M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="train", unroll=True)
-    return quantize_tree(params, quant, tables=calibration.stack_tables(obs.tables()))
+    return calibration.stack_tables(obs.tables())
+
+
+def calibrate_and_quantize(params: dict, cfg: ModelConfig, quant: ql.QuantConfig, *,
+                           calib_batches: int, seq_len: int, batch_size: int,
+                           seed: int) -> dict:
+    """Offline PTQ: :func:`calibrate`, then fold the tables into int8 weights.
+    Returns the prepared tree; the caller drops the fp tree to free it."""
+    return quantize_tree(params, quant, tables=calibrate(
+        params, cfg, quant, calib_batches=calib_batches, seq_len=seq_len,
+        batch_size=batch_size, seed=seed))
 
 
 def make_prompts(vocab: int, lens: Sequence[int], n_requests: int,
@@ -81,6 +94,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
                     help="dense slot table, or page pool + radix prefix reuse")
     ap.add_argument("--speculate", type=int, default=1,
                     help="draft-window size of speculative decoding (1: off)")
+    ap.add_argument("--chunked", action="store_true",
+                    help="chunked prefill interleaved with decode (paged layout)")
+    ap.add_argument("--token-budget", type=int, default=64,
+                    help="per-step token budget of chunked serving")
+    ap.add_argument("--sparsity", default="none", choices=SPARSITY_CHOICES,
+                    help="N:M structured weight sparsity applied at engine build")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -104,7 +123,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     path = None if (args.quant != "int8" or args.path == "ref") else args.path
     config = EngineConfig(batch_size=args.batch_size, max_len=args.max_len, path=path,
                           kv_cache=args.kv_cache, eos_id=args.eos_id,
-                          cache_layout=args.cache_layout, speculate=args.speculate)
+                          cache_layout=args.cache_layout, speculate=args.speculate,
+                          chunked=args.chunked, token_budget=args.token_budget,
+                          sparsity=args.sparsity)
     engine = ServeEngine(cfg, params, config=config, quant=quant, device=device)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
@@ -120,7 +141,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
           f"({n_tok / dt:.1f} tok/s) quant={quant.tag()} path={path} "
           f"kv={args.kv_cache} layout={args.cache_layout} device={device} "
           f"occupancy={engine.occupancy():.2f} prefix_hit_rate={engine.prefix_hit_rate():.3f} "
-          f"accept_rate={engine.accept_rate():.3f} tokens_per_step={engine.tokens_per_step():.3f}")
+          f"accept_rate={engine.accept_rate():.3f} tokens_per_step={engine.tokens_per_step():.3f} "
+          f"chunk_steps={engine.counters['chunk_steps']} sparsity={args.sparsity}")
     for r in done[:4]:
         print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out={r.out[:8]}")
     return done

@@ -437,11 +437,42 @@ def _paged_attention(q, k, v, cache: dict, page_table: Optional[torch.Tensor],
                                    window=window, softcap=cfg.attn_softcap)
 
 
+def _chunked_attention(q, k, v, cache: dict, page_table: torch.Tensor, cfg: ModelConfig,
+                       chunk: dict, *, window: Optional[int]) -> torch.Tensor:
+    """Packed ragged chunk step: scatter every packed token through the page table
+    at its own absolute position (in place), then score the whole ragged block in
+    one ``ragged_prefill_attention`` launch (K6). ``chunk`` carries per-slot
+    extents (``q_start``/``q_len``/``kv_len`` (B,)) and per-token routing
+    (``positions``/``slot_ids`` (Nt,); ``slot_ids == B`` marks a padding row,
+    which writes nowhere). Decode rows are one-token chunks; prefill chunks and
+    draft windows are longer ones. q/k/v (1, Nt, H|Hkv, D) → (1, Nt, H, D)."""
+    from repro_torch.kernels import ops
+
+    B_tab, maxP = page_table.shape
+    kv_int8 = "k_scale_pages" in cache
+    P, ps = cache["k_pages"].shape[0], cache["k_pages"].shape[1]
+    pos = chunk["positions"].reshape(-1).to(torch.int64)
+    sid = chunk["slot_ids"].reshape(-1).to(torch.int64)
+    entry = page_table.to(torch.int64)[torch.clamp(sid, 0, B_tab - 1),
+                                        torch.clamp(pos // ps, 0, maxP - 1)]
+    flat = torch.where(sid < B_tab, entry * ps + pos % ps, P * ps)
+    route = _scatter_rows(flat, P * ps)
+    for name, rows in _kv_rows(k, v, kv_int8).items():
+        _pool_scatter(cache[f"{name}_pages"], route, rows[0])
+    out = ops.ragged_prefill_attention(
+        q[0], k[0], v[0], cache["k_pages"], cache["v_pages"], page_table,
+        chunk["q_start"], chunk["q_len"], chunk["kv_len"], chunk_cap=q.shape[1],
+        k_scale_pages=cache.get("k_scale_pages"), v_scale_pages=cache.get("v_scale_pages"),
+        window=window, softcap=cfg.attn_softcap)
+    return out[None]
+
+
 def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext, *,
                     cache: Optional[dict] = None, cur_len: Optional[torch.Tensor] = None,
                     page_table: Optional[torch.Tensor] = None,
                     prefix_len: Optional[torch.Tensor] = None,
-                    q_len: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[dict]]:
+                    q_len: Optional[torch.Tensor] = None,
+                    chunk: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full (global, causal) attention sublayer; the cache is updated in place.
 
     Dense ``cache`` {"k", "v"[, "k_scale", "v_scale"]}: (B, T, Hkv, D) rows.
@@ -455,17 +486,28 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
     ``q_len`` (B,) marks a draft-window verify batch: all S window tokens scatter
     (rows ≥ q_len write nowhere) and every window row is scored in one pass;
     ``cur_len`` is then the total post-scatter length, so window token i sits at
-    ``cur_len - q_len + i``. Returns (output, cache)."""
+    ``cur_len - q_len + i``.
+
+    ``chunk`` marks a packed ragged chunk batch: the S axis is one packed token
+    row mixing decode tokens, draft windows and prefill chunks of many slots, each
+    token at its own ``chunk["positions"]``; see :func:`_chunked_attention`. Paged
+    caches only. Returns (output, cache)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = ctx.linear(params["wq"], x, "wq").reshape(B, S, H, D)
     k = ctx.linear(params["wk"], x, "wk").reshape(B, S, Hkv, D)
     v = ctx.linear(params["wv"], x, "wv").reshape(B, S, Hkv, D)
 
-    is_verify = cache is not None and q_len is not None
-    is_decode = cache is not None and S == 1 and q_len is None
+    is_chunked = cache is not None and chunk is not None
+    is_verify = cache is not None and q_len is not None and not is_chunked
+    is_decode = cache is not None and S == 1 and q_len is None and not is_chunked
     paged = cache is not None and "k_pages" in cache
-    if is_verify:
+    if is_chunked and not paged:
+        raise ValueError("chunked serving needs a paged cache")
+    if is_chunked:
+        # every packed token carries its own absolute position
+        positions = chunk["positions"].reshape(1, -1)
+    elif is_verify:
         # window token i at cur_len - q_len + i; rows ≥ q_len clamp to the newest
         # valid position (their output is discarded)
         ql_ = q_len.reshape(-1, 1)
@@ -483,6 +525,10 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
         k = rope(k, positions, cfg.rope_theta)
 
     window = None                    # global layers; local (windowed) ones are not ported
+    if is_chunked:
+        out = _chunked_attention(q, k, v, cache, page_table, cfg, chunk, window=window)
+        y = ctx.linear(params["wo"], out.reshape(B, S, H * D), "wo")
+        return y, cache
     if paged:
         out = _paged_attention(q, k, v, cache, page_table, cfg, ctx, cur_len=cur_len,
                                prefix_len=prefix_len, window=window, decode=is_decode,

@@ -124,12 +124,13 @@ def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def apply(params: dict, batch: dict, cfg: ModelConfig, *,
           ctx: Optional[QuantContext] = None, mode: str = "train",
           caches: Optional[dict] = None, cur_len=None, prefix_len=None, q_len=None,
-          unroll: bool = False) -> Tuple[torch.Tensor, dict]:
+          chunk: Optional[dict] = None, unroll: bool = False) -> Tuple[torch.Tensor, dict]:
     """Returns (logits, {"caches": caches-or-None}).
 
     mode: train (full logits, no caches) | prefill (writes caches; logits at each
     slot's last valid position) | decode (one token per slot against caches) |
-    verify (a speculative draft window per slot; logits at every position).
+    verify (a speculative draft window per slot; logits at every position) |
+    chunked (a packed ragged token row; logits at every row).
     ``cur_len`` is a scalar or (B,) int tensor: prompt lengths of right-padded
     prompts at prefill, post-append lengths at decode, total post-scatter
     lengths at verify, where ``q_len`` (B,) counts each slot's valid window rows
@@ -140,19 +141,31 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
     slots already hold that many shared-prefix tokens: the batch tokens are the
     suffix, positions start at ``prefix_len[b]`` and ``cur_len`` counts suffix
     tokens only.
+
+    ``mode="chunked"``: tokens (1, Nt) are a packed ragged token row mixing many
+    slots' work (decode tokens, draft windows, prefill chunks) served in one pass
+    against a paged cache. ``chunk`` carries per-slot extents (``q_start``/
+    ``q_len``/``kv_len`` (B,)) and per-token routing (``positions``/``slot_ids``
+    (Nt,)); logits return for every packed row, (1, Nt, V).
     """
-    if mode not in ("train", "prefill", "decode", "verify"):
+    if mode not in ("train", "prefill", "decode", "verify", "chunked"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     verify = mode == "verify"
+    chunked = mode == "chunked"
     if verify and q_len is None:
         raise ValueError("mode='verify' needs q_len (per-slot valid window rows)")
     if q_len is not None and not verify:
         raise ValueError("q_len is only meaningful under mode='verify'")
+    if chunked and chunk is None:
+        raise ValueError("mode='chunked' needs a chunk dict (per-slot extents + "
+                         "per-token routing)")
+    if chunk is not None and not chunked:
+        raise ValueError("chunk is only meaningful under mode='chunked'")
     ctx = ctx or QuantContext(cfg.quant)
     spec = block_spec(cfg)
     x = _embed(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
-    use_cache = mode in ("prefill", "decode", "verify")
+    use_cache = mode in ("prefill", "decode", "verify", "chunked")
     if use_cache and caches is None:
         raise ValueError("prefill/decode/verify need caches (init_cache)")
     page_table = caches.get("page_table") if use_cache else None
@@ -178,7 +191,7 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
                                    sctx.sub("attn"), cache=c,
                                    cur_len=cur_len if use_cache else None,
                                    page_table=page_table, prefix_len=prefix_len,
-                                   q_len=q_len)
+                                   q_len=q_len, chunk=chunk)
             x = x + h
             x = x + mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg), cfg, sctx.sub("mlp"))
 

@@ -1,41 +1,54 @@
-"""Whole-model weight quantization (port of ``quantize_tree`` and
-``quantized_bytes`` from ``repro/models/quantize.py``).
+"""Whole-model weight quantization and N:M structured sparsity (port of
+``repro/models/quantize.py``: ``quantize_tree``, ``quantized_bytes``,
+``parse_nm``, ``SparsityPlan``, ``nm_keep_mask``, ``sparsify_tree`` and
+``sparsity_summary``), and ``with_tile_occupancy``, which routes masked leaves
+to the sparse kernel on the card.
 
 The offline PTQ step of a deployment: every quantizable linear becomes its
-prepared int8 static-c CrossQuant form; embeddings and norms stay fp."""
+prepared int8 static-c CrossQuant form (or packed int4 groups at ``w_bits <=
+4``); embeddings and norms stay fp. ``sparsify_tree`` prunes prepared or fp
+linears to N:M and attaches a bit-packed ``mask`` leaf.
+
+Stacked ``(L, d_in, d_out)`` leaves are prepared and pruned one layer at a time:
+every step is per layer, so this equals the stacked call while the f32
+temporaries stay one layer large. ``make_sparsity_plan`` (the §4.1
+kernel-proportion gate) needs ``core/kernel_analysis.py`` and is not ported yet.
+"""
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core import qlinear as ql
+from repro_torch.core import quantizers as Q
 
 QUANTIZABLE_PARENTS = ("wq", "wk", "wv", "wo", "up", "gate", "down",
                        "in_proj", "out_proj")
 
 
-def _prepare_stacked(w: torch.Tensor, cfg: ql.QuantConfig,
-                     cmax: Optional[torch.Tensor]) -> dict:
-    """``prepare_int8`` one layer at a time over a stacked (L, d_in, d_out) weight.
-
-    Every step of the preparation is per layer (elementwise, or reduced within one
-    layer's columns), so this equals the stacked call, while the f32 temporaries
-    stay one layer large instead of L (10.9 GB for a 32-layer 4608x18432 stack)."""
-    parts = [ql.prepare_int8({"w": w[i]}, cfg, None if cmax is None else cmax[i])
-             for i in range(w.shape[0])]
+def _per_layer(fn, node: dict, *stacked_args):
+    """Apply ``fn(layer_node, *layer_args)`` to each layer of a stacked leaf dict
+    and stack the results (f32 temporaries one layer large: 10.9 GB would be
+    needed at once for a 32-layer 4608x18432 stack)."""
+    L = next(iter(node.values())).shape[0]
+    parts = [fn({k: v[i] for k, v in node.items()},
+                *(None if a is None else a[i] for a in stacked_args))
+             for i in range(L)]
     return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
 
 def quantize_tree(params, cfg: ql.QuantConfig,
                   tables: Optional[Dict[str, np.ndarray]] = None):
-    """Returns a new params tree with prepared int8 linears. ``tables``:
-    calibration column absmax per linear path (``calibration.stack_tables``);
-    a missing name falls back to c=1 (pure per-token row scaling)."""
+    """Returns a new params tree with prepared linears: int8, or packed int4
+    groups when ``cfg.w_bits <= 4``. ``tables``: calibration column absmax per
+    linear path (``calibration.stack_tables``); a missing name falls back to
+    c=1 (pure per-token row scaling)."""
     tables = tables or {}
-    if cfg.w_bits <= 4:
-        raise NotImplementedError("W4 preparation is not ported yet")
+    prepare = ql.prepare_int4 if cfg.w_bits <= 4 else ql.prepare_int8
 
     def convert(node, prefix):
         if isinstance(node, dict):
@@ -46,8 +59,8 @@ def quantize_tree(params, cfg: ql.QuantConfig,
                     if cmax is None and prefix in tables:
                         cmax = torch.as_tensor(tables[prefix], device=w.device)
                     if w.ndim == 3:
-                        return _prepare_stacked(w, cfg, cmax)
-                    return ql.prepare_int8({"w": w}, cfg, cmax)
+                        return _per_layer(lambda n, c: prepare(n, cfg, c), {"w": w}, cmax)
+                    return prepare({"w": w}, cfg, cmax)
             return {k: convert(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
         if isinstance(node, list):
             return [convert(v, f"{prefix}/{i}") for i, v in enumerate(node)]
@@ -56,10 +69,191 @@ def quantize_tree(params, cfg: ql.QuantConfig,
     return convert(params, "")
 
 
-def quantized_bytes(params) -> int:
-    """Total bytes of every tensor leaf: codes and scale/aux leaves alike."""
+# --------------------------------------------------------------------------------------
+# N:M structured sparsity
+# --------------------------------------------------------------------------------------
+
+def parse_nm(spec: str) -> Tuple[int, int]:
+    """``"2:4"`` -> ``(2, 4)`` (keep n of every m consecutive input channels)."""
+    try:
+        n, m = (int(p) for p in spec.split(":"))
+    except ValueError:
+        raise ValueError(f"sparsity spec {spec!r} is not 'N:M'") from None
+    if not 0 < n < m:
+        raise ValueError(f"sparsity spec {spec!r} needs 0 < N < M")
+    return n, m
+
+
+@dataclasses.dataclass
+class SparsityPlan:
+    """Which linears to prune, and at what N:M. ``layers=None`` prunes every
+    eligible leaf; otherwise only the listed leaf paths (``blocks/0/attn/wq``).
+    The reference's plan also records the §4.1 evidence of
+    ``make_sparsity_plan``, which is not ported yet."""
+
+    nm: Tuple[int, int] = (2, 4)
+    layers: Optional[Tuple[str, ...]] = None
+
+    def wants(self, prefix: str) -> bool:
+        return self.layers is None or prefix in self.layers
+
+
+def nm_keep_mask(score: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Boolean keep-mask holding the top-``n`` scores of every ``m`` consecutive
+    input channels (axis -2), independently per output channel. Ties break
+    toward the lower channel index (stable sorts), so exactly ``n`` survive per
+    group. A trailing remainder when ``d_in % m != 0`` stays dense."""
+    *lead, K, N = score.shape
+    kg = (K // m) * m
+    head = score[..., :kg, :].reshape(*lead, kg // m, m, N)
+    order = torch.argsort(-head, dim=-2, stable=True)       # descending in the group
+    rank = torch.argsort(order, dim=-2, stable=True)         # each element's rank
+    keep = (rank < n).reshape(*lead, kg, N)
+    if kg < K:
+        tail = torch.ones((*lead, K - kg, N), dtype=torch.bool, device=score.device)
+        keep = torch.cat([keep, tail], dim=-2)
+    return keep
+
+
+def _activation_weight(cm, alpha, d_in: int) -> torch.Tensor:
+    """Residual activation factor ``c^α`` that turns |wb| (which already carries
+    ``c^(1-α)``) into the full |w|·c score; uncalibrated leaves (α=1) get c."""
+    cm = torch.clamp_min(torch.as_tensor(cm, dtype=torch.float32), Q.EPS)
+    cm = cm.expand(cm.shape[:-1] + (d_in,))
+    return cm ** torch.as_tensor(alpha, dtype=torch.float32, device=cm.device)[..., None]
+
+
+def sparsify_tree(qparams, plan: SparsityPlan,
+                  tables: Optional[Dict[str, np.ndarray]] = None):
+    """Prune the linears named by ``plan`` to N:M structured sparsity.
+
+    Prepared int8 leaves score ``|qw·sw|`` (times ``c^α`` when calibration
+    columns are known), zero the losers, refit ``sw`` to the survivors and
+    requantize; fp leaves score ``|w|·cmax`` and zero the pruned weights in
+    place. Either way the leaf gains a bit-packed ``mask``. Packed-int4 leaves
+    and leaves that already carry a mask pass through untouched."""
+    tables = tables or {}
+    n, m = plan.nm
+
+    def table_cmax(node, prefix):
+        cm = node.get("cmax")
+        if cm is None and prefix in tables:
+            cm = torch.as_tensor(tables[prefix], device=next(iter(node.values())).device)
+        return cm
+
+    def prune_prepared(node, cm):
+        qw, sw = node["qw"], node["sw"]
+        wb = qw.to(torch.float32) * sw[..., None, :]
+        score = wb.abs()
+        if cm is not None:
+            score = score * _activation_weight(cm, node["qalpha"], qw.shape[-2])[..., :, None]
+        mask = nm_keep_mask(score, n, m)
+        wbp = torch.where(mask, wb, torch.zeros_like(wb))
+        sw2 = torch.clamp_min(wbp.abs().amax(dim=-2), Q.EPS) / Q.qmax(8)
+        qw2 = torch.clamp(torch.round(wbp / sw2[..., None, :]), -Q.qmax(8), Q.qmax(8))
+        return {**node, "qw": qw2.to(torch.int8), "sw": sw2.to(torch.float32),
+                "mask": packing.pack_mask(mask)}
+
+    def prune_fp(node, cm):
+        w = node["w"]
+        score = w.abs().to(torch.float32)
+        if cm is not None:
+            score = score * torch.clamp_min(torch.as_tensor(cm, dtype=torch.float32),
+                                            Q.EPS)[..., :, None]
+        mask = nm_keep_mask(score, n, m)
+        return {**node, "w": torch.where(mask, w, torch.zeros_like(w)),
+                "mask": packing.pack_mask(mask)}
+
+    def convert(node, prefix):
+        if isinstance(node, dict):
+            leaf = prefix.split("/")[-1] if prefix else ""
+            if leaf in QUANTIZABLE_PARENTS and "mask" not in node and plan.wants(prefix):
+                prune = (prune_prepared if "qw" in node
+                         else prune_fp if "w" in node and node["w"].ndim >= 2 else None)
+                if prune is not None:
+                    cm = table_cmax(node, prefix)
+                    ref = node["qw" if "qw" in node else "w"]
+                    if ref.ndim == 3:
+                        return _per_layer(prune, node, cm)
+                    return prune(node, cm)
+            return {k: convert(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v, f"{prefix}/{i}") for i, v in enumerate(node)]
+        return node
+
+    return convert(qparams, "")
+
+
+def with_tile_occupancy(qparams):
+    """The tree with an ``occ`` leaf beside every int8 ``mask`` that leaves a
+    (64, 64) weight tile empty in some layer: the sparse GEMM's per-layer
+    tile-occupancy table (``ops.tile_occupancy``), derived here once per leaf so
+    that no serving step syncs the host for it. On the card a leaf with ``occ``
+    runs K7, which skips the empty tiles, and one without runs K2, as the
+    reference routes a mask that fills every tile. Derive it after the last edit
+    of the codes; a stale ``occ`` is replaced or dropped."""
+    from repro_torch.kernels.ops import tile_occupancy
+
+    def convert(node):
+        if isinstance(node, dict):
+            if "mask" in node and "qw" in node:
+                rest = {k: v for k, v in node.items() if k != "occ"}
+                K, mask = node["qw"].shape[-2], node["mask"]
+                occ = (torch.stack([tile_occupancy(m, K) for m in mask]) if mask.ndim == 3
+                       else tile_occupancy(mask, K))
+                return rest if bool(occ.all()) else {**rest, "occ": occ}
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        return node
+
+    return convert(qparams)
+
+
+_POPCOUNT = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int64)
+
+
+def _popcount(packed: torch.Tensor, chunk: int = 1 << 24) -> int:
+    """Set bits of a packed mask (its pad bits are zero: the survivor count),
+    a byte lookup over slices so a full-width stack needs no 8x temporary."""
+    flat = packed.reshape(-1)
+    table = _POPCOUNT.to(flat.device)
+    return sum(int(table[flat[i:i + chunk].long()].sum())
+               for i in range(0, flat.numel(), chunk))
+
+
+def sparsity_summary(qparams) -> Dict[str, float]:
+    """``{leaf path: kept fraction}`` for every masked leaf (popcount / elements)."""
+    out: Dict[str, float] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            if "mask" in node:
+                ref = node["qw"] if "qw" in node else node["w"]
+                out[prefix] = _popcount(node["mask"]) / ref.numel()
+                return
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}/{i}")
+
+    walk(qparams, "")
+    return out
+
+
+def quantized_bytes(params, *, deploy_sparse: bool = False) -> int:
+    """Total bytes of every tensor leaf: codes and scale/aux leaves alike.
+
+    ``deploy_sparse=True`` costs each masked int8 leaf at its N:M deployment
+    size, its surviving codes (the mask's popcount) plus the packed mask,
+    instead of the dense zero-carrying layout stored here."""
     if isinstance(params, dict):
-        return sum(quantized_bytes(v) for v in params.values())
+        if deploy_sparse and "qw" in params and "mask" in params:
+            aux = sum(quantized_bytes(v, deploy_sparse=True)
+                      for k, v in params.items() if k != "qw")
+            return aux + _popcount(params["mask"]) * params["qw"].element_size()
+        return sum(quantized_bytes(v, deploy_sparse=deploy_sparse) for v in params.values())
     if isinstance(params, list):
-        return sum(quantized_bytes(v) for v in params)
+        return sum(quantized_bytes(v, deploy_sparse=deploy_sparse) for v in params)
     return params.numel() * params.element_size()

@@ -2,9 +2,9 @@
 ``repro/serving/config.py``: ``SERVE_PATHS``, ``EngineConfig``, ``EngineStats``).
 
 ``EngineConfig`` keeps the reference's fields and cross-field validation, then
-rejects with :class:`NotPortedError` what this port does not serve yet: chunked
-prefill, N:M sparsity, the grouped scheduler and the ``fake``/``dequant-fp``
-paths. The dense and paged layouts and speculative decoding are served.
+rejects with :class:`NotPortedError` what this port does not serve yet: the
+grouped scheduler and the ``fake``/``dequant-fp`` paths. The dense and paged
+layouts, speculative decoding, chunked prefill and N:M sparsity are served.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ NOT_PORTED_PATHS = ("fake", "dequant-fp")
 #: fp KV-cache dtypes by canonical name (``cache_dtype`` is stored as a name):
 #: the ones the paged kernel reads
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: N:M sparsity specs an engine applies at build
+SPARSITY_CHOICES = ("none", "2:4", "4:8")
 
 
 class NotPortedError(NotImplementedError):
@@ -50,6 +52,7 @@ class EngineConfig:
     scheduler: str = "continuous"
     prefill_buckets: Optional[Tuple[int, ...]] = None
     chunked: bool = False
+    token_budget: int = 64
     speculate: int = 1
     drafter_ngram: int = 3
     temperature: float = 0.0
@@ -90,6 +93,21 @@ class EngineConfig:
                              "scheduler (the grouped baseline stays dense)")
         if self.speculate < 1:
             raise ValueError(f"speculate must be >= 1, got {self.speculate}")
+        if self.chunked:
+            if self.cache_layout != "paged":
+                raise ValueError("chunked=True needs cache_layout='paged' "
+                                 "(chunks scatter through the page table)")
+            if self.token_budget < self.batch_size * self.speculate:
+                raise ValueError(
+                    f"token_budget {self.token_budget} < batch_size*speculate "
+                    f"{self.batch_size * self.speculate}: every generating "
+                    f"slot's decode row (or draft window) must fit each step")
+        if self.sparsity != "none":
+            from repro_torch.models.quantize import parse_nm
+            parse_nm(self.sparsity)          # raises on malformed N:M
+            if self.sparsity not in SPARSITY_CHOICES:
+                raise ValueError(f"sparsity must be one of {SPARSITY_CHOICES}, "
+                                 f"got {self.sparsity!r}")
         if self.speculate > 1:
             if self.temperature > 0.0:
                 raise ValueError("speculate > 1 requires greedy sampling "
@@ -100,8 +118,6 @@ class EngineConfig:
                                  "scheduler (per-slot draft windows)")
         not_ported = [
             (self.path in NOT_PORTED_PATHS, f"serving path {self.path!r}"),
-            (self.chunked, "chunked prefill"),
-            (self.sparsity != "none", "N:M sparsity"),
             (self.scheduler == "grouped", "the grouped scheduler"),
         ]
         for hit, what in not_ported:

@@ -20,6 +20,13 @@ write, only the suffix prefills, and unreferenced cached prefixes evict LRU
 under pool pressure. ``speculate=k`` turns each decode step into a k-token
 verify step over drafts from :mod:`repro_torch.serving.drafter`, token-exact
 against ``speculate=1`` by greedy acceptance.
+
+``chunked=True`` (paged only) serves each step as one packed ragged token row of
+at most ``token_budget`` tokens: every generating slot's decode row (or draft
+window) first, then prefill chunks of admitted prompts, FIFO, ending on page
+boundaries where they can, so an admission never stalls the decodes behind a
+whole-prompt prefill. ``sparsity="2:4"|"4:8"`` prunes the served tree to N:M at
+engine build.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qlinear as ql
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models import quantize as MQ
 from repro_torch.models.layers import QuantContext
 from repro_torch.serving import drafter, paging
 from repro_torch.serving.api import FinishReason
@@ -178,6 +186,36 @@ def make_serve_verify_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = N
     return verify_step
 
 
+def make_chunked_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
+                      path: Optional[str] = None, temperature: float = 0.0, top_k: int = 0):
+    """One mixed-budget step: a packed ragged token row (decode tokens, draft
+    windows and prefill chunks of many slots side by side) in one
+    ``mode="chunked"`` forward pass. Returns each slot's sampled token (from its
+    last valid packed row) and every row's greedy argmax (the speculative
+    acceptance stream)."""
+    ctx = _make_ctx(cfg, quant, path)
+    sample = _make_sampler(temperature, top_k)
+
+    def chunked_step(params, tokens, q_start, q_len, kv_len, positions, slot_ids, caches,
+                     gen):
+        """tokens (1, Nt) packed row; q_start/q_len/kv_len (B,) per-slot chunk
+        extents (q_len == 0: the slot is idle this step); positions/slot_ids
+        (Nt,) per-token routing (slot_ids == B: padding row, scatters nowhere)
+        → (sampled next token (B,) int32, per-row argmax (Nt,) int32, caches
+        updated in place)."""
+        chunk = {"q_start": q_start, "q_len": q_len, "kv_len": kv_len,
+                 "positions": positions, "slot_ids": slot_ids}
+        logits, ex = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="chunked",
+                             caches=caches, chunk=chunk)
+        last = torch.clamp(q_start + torch.clamp_min(q_len, 1) - 1, 0,
+                           logits.shape[1] - 1).to(torch.int64)
+        tok = sample(logits[0, last], gen)
+        rowmax = torch.argmax(logits[0], dim=-1).to(torch.int32)
+        return tok, rowmax, ex["caches"]
+
+    return chunked_step
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -243,6 +281,21 @@ class ServeEngine:
     ``speculate=k``: each decode step verifies a window of the pending token plus
     up to k-1 drafted tokens in one pass and keeps the longest prefix the model
     agrees with, so the output equals ``speculate=1`` token for token.
+
+    ``chunked=True``: admission plans pages as the paged layout does but runs no
+    prefill; the admitted slot's prompt is served chunk by chunk from each step's
+    leftover token budget, and its pages join the radix index at the final chunk.
+    A packed step launches only its live rows (at most ``token_budget``). A step
+    with no prefill work, fp KV and ``speculate == 1`` runs the lean decode step
+    (K4) instead of the packed launch (K6); their q_len == 1 numerics are the
+    same, so tokens do not depend on the branch. int8 KV and speculative chunked
+    serving stay on the packed launch, as in the reference.
+
+    ``sparsity``: every quantizable linear of the tree is pruned to N:M at build
+    (``sparsify_tree``); prepared int8 leaves gain a packed ``mask`` the fused
+    path's sparse GEMM reads, and leaves that already carry one pass through.
+    Every masked leaf's tile occupancy is derived at build
+    (``with_tile_occupancy``): masks with empty tiles run K7, the rest K2.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, config: EngineConfig,
@@ -253,11 +306,16 @@ class ServeEngine:
         if _first_tensor(params).device != self.device:
             raise ValueError(f"params live on {_first_tensor(params).device}, "
                              f"engine device is {self.device}")
+        if config.sparsity != "none":
+            params = MQ.sparsify_tree(params, MQ.SparsityPlan(nm=MQ.parse_nm(config.sparsity)))
+        params = MQ.with_tile_occupancy(params)
         self.cfg, self.params = cfg, params
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id
         self.kv_int8 = config.kv_cache == "int8"
         self.paged = config.cache_layout == "paged"
+        self.chunked = config.chunked
+        self.token_budget = config.token_budget
         self.spec = config.speculate
         if self.spec > 1:
             self.drafter = drafter.NGramDrafter(max_ngram=config.drafter_ngram)
@@ -289,12 +347,19 @@ class ServeEngine:
         self._decode_step = make_serve_decode_step(cfg, quant, **step_kw)
         if self.spec > 1:
             self._verify_step = make_serve_verify_step(cfg, quant, path=config.path)
+        if self.chunked:
+            self._chunk_step = make_chunked_step(cfg, quant, **step_kw)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
         self.queue: List[Request] = []
         self._slots: List[Optional[Request]] = [None] * self.B
         self._pos = np.zeros(self.B, np.int32)       # tokens in cache per slot
         self._pending = np.zeros(self.B, np.int32)   # next input token per slot
+        # chunked prefill progress: while a slot is mid-prefill, _prefill_target
+        # holds its prompt length (0: generating) and _prefill_off the tokens
+        # already in its pages (radix prefix + scattered chunks)
+        self._prefill_off = np.zeros(self.B, np.int32)
+        self._prefill_target = np.zeros(self.B, np.int32)
         self._next_rid = 0
         self.counters = {
             "prefill_calls": 0, "decode_steps": 0, "active_slot_steps": 0,
@@ -304,7 +369,11 @@ class ServeEngine:
             "pages_evicted": 0, "peak_pages_in_use": 0,
             # speculative decoding; zero when speculate == 1
             "spec_steps": 0, "spec_slot_steps": 0, "spec_drafted": 0,
-            "spec_accepted": 0, "spec_emitted": 0}
+            "spec_accepted": 0, "spec_emitted": 0,
+            # chunked serving; zero when chunked is off
+            "chunk_steps": 0, "chunk_prefill_rows": 0, "chunk_decode_rows": 0,
+            # steps with no prefill work served by the decode step (fp KV)
+            "chunk_decode_only_steps": 0}
 
     # ---------------------------------------------------------------- submission
 
@@ -373,6 +442,8 @@ class ServeEngine:
             self._slots[slot] = None
             self._pos[slot] = 0
             self._pending[slot] = 0
+            self._prefill_off[slot] = 0
+            self._prefill_target[slot] = 0
             if self.paged:
                 # pages the radix index retains as cached prefixes survive (the
                 # index holds its own reference); the rest return to the free list
@@ -622,12 +693,189 @@ class ServeEngine:
                             "mid-window retirement left stale page mappings"
                     break
 
+    # ------------------------------------------------------------- chunked mode
+
+    def _admit_chunked(self) -> None:
+        """FIFO admission into free slots: page planning, copy-on-write and radix
+        matching as ``_admit_paged_batch`` does them, but no prefill runs; the
+        slot enters the mid-prefill state and its prompt is served chunk by chunk
+        out of each step's leftover budget."""
+        while self.queue:
+            free = [i for i, s in enumerate(self._slots) if s is None]
+            if not free:
+                return
+            r = self.queue[0]
+            plan = self._plan_paged(r)
+            if plan is None:
+                return                     # pool pressure: wait for retirements
+            self.queue.pop(0)
+            slot = free[0]
+            if plan["cow"] is not None:
+                self.caches = _page_copy(self.caches, *plan["cow"])
+                self.counters["cow_copies"] += 1
+            self._slots[slot] = r
+            self._seq_pages[slot] = plan["pages"]
+            self._table[slot, :] = self.n_pages
+            self._table[slot, : len(plan["pages"])] = plan["pages"]
+            self._table_dirty = True
+            self._prefill_off[slot] = plan["prefix"]
+            self._prefill_target[slot] = len(r.prompt)
+            r.prefix_reused = plan["prefix"]
+            self.counters["prompt_tokens"] += len(r.prompt)
+            self.counters["prefill_tokens"] += plan["suffix"]
+            self.counters["prefix_tokens_reused"] += plan["prefix"]
+            self.counters["prefix_hits"] += 1 if plan["prefix"] > 0 else 0
+            self._note_pool()
+
+    def _decode_all(self, active: List[int], finished: List[Request]) -> None:
+        """One plain decode step over every slot; the active ones emit."""
+        dev = self.device
+        cur = torch.as_tensor(self._pos + 1, device=dev)   # post-append lengths
+        tok, self.caches = self._decode_step(
+            self.params, torch.as_tensor(self._pending, dtype=torch.int64, device=dev),
+            self.caches, cur, self._gen)
+        tok = tok.cpu().numpy()
+        self._pos[active] += 1
+        self.counters["decode_steps"] += 1
+        self.counters["active_slot_steps"] += len(active)
+        for i in active:
+            self._emit(i, int(tok[i]), finished)
+
+    def _chunked_step(self, finished: List[Request]) -> None:
+        """One mixed-budget step: admit, pack decode rows (draft windows under
+        ``speculate``) of every generating slot first, fill the rest of the token
+        budget with prefill chunks (ends on page boundaries where a whole page
+        fits; a chunk may start mid-page after a partial radix hit), launch once,
+        then emit and advance on the host."""
+        self._admit_chunked()
+        gen = [i for i, s in enumerate(self._slots)
+               if s is not None and self._prefill_target[i] == 0]
+        pre = [i for i, s in enumerate(self._slots)
+               if s is not None and self._prefill_target[i] > 0]
+        if not gen and not pre:
+            if self.queue:
+                raise RuntimeError(
+                    f"page pool too small: {self.n_pages} pages of {self.ps} cannot "
+                    f"hold request {self.queue[0].rid} (prompt "
+                    f"{len(self.queue[0].prompt)} + budget {self.queue[0].max_new})")
+            return
+        if self._table_dirty:
+            self._push_table()
+        if not pre and self.spec == 1 and not self.kv_int8:
+            # pure decode with fp KV: the decode step (K4) skips the packed step's
+            # scatter and row gathers; its rows are the packed launch's q_len == 1
+            # rows, so the tokens are the same
+            self._decode_all(gen, finished)
+            self.counters["chunk_decode_only_steps"] += 1
+            return
+        # packed rows up to the budget; only the `off` live ones are launched
+        Nt = self.token_budget
+        toks = np.zeros(Nt, np.int32)
+        positions = np.zeros(Nt, np.int32)
+        slot_ids = np.full(Nt, self.B, np.int32)
+        q_start = np.zeros(self.B, np.int32)
+        q_len = np.zeros(self.B, np.int32)
+        kv_len = np.zeros(self.B, np.int32)
+        wl = np.ones(self.B, np.int32)
+        off = 0
+        for i in gen:                     # decode rows first: the budget floor fits them
+            r = self._slots[i]
+            window = [int(self._pending[i])]
+            if self.spec > 1:
+                n_d = min(self.spec - 1, self.T - self._pos[i] - 1, r.max_new - len(r.out) - 1)
+                if n_d > 0:
+                    hist = np.concatenate([r.prompt, np.asarray(r.out, np.int32)])
+                    window += list(self.drafter.draft(hist, n_d))
+            W = len(window)
+            toks[off: off + W] = window
+            positions[off: off + W] = self._pos[i] + np.arange(W)
+            slot_ids[off: off + W] = i
+            q_start[i], q_len[i], kv_len[i] = off, W, self._pos[i] + W
+            wl[i] = W
+            off += W
+        for i in pre:                     # leftover budget: prefill chunks, FIFO
+            room = Nt - off
+            if room <= 0:
+                break
+            start = int(self._prefill_off[i])
+            plen = int(self._prefill_target[i])
+            end = min(plen, start + room)
+            if end < plen:
+                # a page-aligned end where a whole page fits; else the raw budget
+                # cut, so progress never stalls
+                aligned = (end // self.ps) * self.ps
+                if aligned > start:
+                    end = aligned
+            toks[off: off + end - start] = self._slots[i].prompt[start:end]
+            positions[off: off + end - start] = np.arange(start, end)
+            slot_ids[off: off + end - start] = i
+            q_start[i], q_len[i], kv_len[i] = off, end - start, end
+            off += end - start
+        dev = self.device
+        as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        tok, rowmax, self.caches = self._chunk_step(
+            self.params, torch.as_tensor(toks[None, :off], dtype=torch.int64, device=dev),
+            as_dev(q_start), as_dev(q_len), as_dev(kv_len), as_dev(positions[:off]),
+            as_dev(slot_ids[:off]), self.caches, self._gen)
+        tok, rowmax = tok.cpu().numpy(), rowmax.cpu().numpy()
+        self.counters["chunk_steps"] += 1
+        self.counters["chunk_decode_rows"] += int(sum(wl[i] for i in gen))
+        if gen:
+            self.counters["decode_steps"] += 1
+            self.counters["active_slot_steps"] += len(gen)
+        served_pre = [i for i in pre if q_len[i] > 0]
+        if served_pre:
+            self.counters["prefill_calls"] += 1
+            self.counters["chunk_prefill_rows"] += int(sum(q_len[i] for i in served_pre))
+            if gen:
+                self.counters["mid_decode_admissions"] += 1
+        if self.spec > 1 and gen:
+            self.counters["spec_steps"] += 1
+            self.counters["spec_slot_steps"] += len(gen)
+        for i in gen:
+            if self.spec == 1:
+                self._pos[i] += 1
+                self._emit(i, int(tok[i]), finished)
+                continue
+            r = self._slots[i]
+            out_w = rowmax[q_start[i]: q_start[i] + wl[i]]
+            n = 1                                      # the pending token always lands
+            while n < wl[i] and toks[q_start[i] + n] == out_w[n - 1]:
+                n += 1
+            self.counters["spec_drafted"] += int(wl[i]) - 1
+            self.counters["spec_accepted"] += n - 1
+            for j in range(n):
+                self._pos[i] += 1
+                self._emit(i, int(out_w[j]), finished)
+                self.counters["spec_emitted"] += 1
+                if self._slots[i] is not r:
+                    assert (not self._seq_pages[i]
+                            and (self._table[i] == self.n_pages).all()), \
+                        "mid-window retirement left stale page mappings"
+                    break
+        for i in served_pre:              # the final chunk emits the first token
+            end = int(kv_len[i])
+            self._prefill_off[i] = end
+            if end == self._prefill_target[i]:
+                r = self._slots[i]
+                self._prefill_target[i] = 0
+                self._pos[i] = len(r.prompt)
+                if self.radix is not None:
+                    # the whole prompt is on the device now: a cached prefix
+                    self.radix.insert(r.prompt, self._seq_pages[i][: len(r.prompt) // self.ps],
+                                      self.pool)
+                self._emit(i, int(tok[i]), finished)
+
     @torch.no_grad()
     def step(self, finished: List[Request]) -> bool:
-        """One engine iteration: admissions plus at most one decode (or verify)
-        launch. Appends retired requests to ``finished``; returns False once idle."""
+        """One engine iteration: admissions plus at most one model launch (decode,
+        verify or, when chunked, one packed step). Appends retired requests to
+        ``finished``; returns False once idle."""
         if not (self.queue or any(s is not None for s in self._slots)):
             return False
+        if self.chunked:
+            self._chunked_step(finished)
+            return True
         self._admit(finished)
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
@@ -645,17 +893,7 @@ class ServeEngine:
         if self.spec > 1:
             self._spec_step(active, finished)
             return True
-        dev = self.device
-        cur = torch.as_tensor(self._pos + 1, device=dev)   # post-append lengths
-        tok, self.caches = self._decode_step(
-            self.params, torch.as_tensor(self._pending, dtype=torch.int64, device=dev),
-            self.caches, cur, self._gen)
-        tok = tok.cpu().numpy()
-        self._pos[active] += 1
-        self.counters["decode_steps"] += 1
-        self.counters["active_slot_steps"] += len(active)
-        for i in active:
-            self._emit(i, int(tok[i]), finished)
+        self._decode_all(active, finished)
         return True
 
     def run(self) -> List[Request]:

@@ -164,3 +164,141 @@ def test_paged_all_sentinel_row_and_w1(dev, pool_dtype):
     assert float((out[2].float()).abs().max()) == 0.0
     np.testing.assert_allclose(out[0].reshape(Hkv, G, D).float().cpu().numpy(),
                                want[0].float().cpu().numpy(), atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------- K7 and K8
+
+def _int8(g, shape, dev, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 8), (4, 4608, 512), (70, 320, 130),
+                                   (256, 1024, 384), (5, 18432, 64)])
+def test_qgemm_w8a8_sparse_bitwise(dev, M, K, N):
+    """A block-sparse mask (every other 64-row k-tile empty, 2:4 elsewhere) runs
+    K7 and is bitwise the plain version; a 2:4 mask fills every tile and runs K2,
+    bitwise too; K7 with every tile forced occupied is bitwise K2."""
+    from repro_torch.core import packing
+    ops, ref = _ops()
+    g = torch.Generator(device=dev).manual_seed(M * K + N)
+    qx = _int8(g, (M, K), dev)
+    keep = torch.zeros(K, N, dtype=torch.uint8, device=dev)
+    keep[0::4] = 1
+    keep[2::4] = 1
+    block = keep.clone()
+    for k0 in range(0, K, 128):
+        block[k0:k0 + 64] = 0
+    a = torch.rand(M, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(N, generator=g, device=dev) + 0.01
+    for mask_u, kernel in ((block, "qgemm_w8a8_sparse"), (keep, "qgemm_w8a8")):
+        qw = _int8(g, (K, N), dev) * mask_u.to(torch.int8)
+        mask = packing.pack_mask(mask_u, axis=0)
+        occ = ops.tile_occupancy(mask, K)
+        occ = None if bool(occ.all()) else occ   # as with_tile_occupancy routes
+        before = dict(ops.LAUNCHES)
+        out = ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask, occ)
+        want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[kernel] == before[kernel] + 1
+        assert torch.equal(out, want)
+        from repro_torch.kernels.qgemm import qgemm_w8a8_sparse_cuda
+        ones = torch.ones_like(ops.tile_occupancy(mask, K))
+        assert torch.equal(qgemm_w8a8_sparse_cuda(qx, qw, a, sw, ones),
+                           ops.qgemm_w8a8(qx, qw, a, sw))
+
+
+@pytest.mark.parametrize("M,K,N,group", [(1, 128, 8, 128), (4, 4608, 512, 128),
+                                         (70, 384, 130, 64), (256, 1024, 384, 128),
+                                         (5, 18432, 64, 128)])
+def test_qgemm_w4a8(dev, M, K, N, group):
+    """Every int4 value unpacks in the kernel; the group sums are f32-close to the
+    plain version, which sums the groups in another order."""
+    ops, ref = _ops()
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    qx = _int8(g, (M, K), dev)
+    qw4 = _int8(g, (K // 2, N), dev, -128, 128)
+    a = torch.rand(M, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(K // group, N, generator=g, device=dev) * 0.01 + 1e-4
+    out = ops.qgemm_w4a8(qx, qw4, a, sw, group=group)
+    want = ref.qgemm_w4a8_ref(qx, qw4, a, sw, group)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=2e-4,
+                               atol=1e-5 * scale)
+
+
+# ---------------------------------------------------------------- K6
+
+def _ragged_inputs(dev, B, Hkv, G, D, P, ps, maxP, q_lens, kv_lens, pool_dtype, q_dtype,
+                   seed):
+    kp, vp, ks, vs, _, _ = _paged_inputs(dev, B, Hkv, D, P, ps, maxP, pool_dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    tab = np.full((B, maxP), P, np.int32)
+    perm, off = rng.permutation(P), 0
+    for b in range(B):
+        n = -(-kv_lens[b] // ps)
+        tab[b, :n] = perm[off: off + n]
+        off += n
+    qln = np.asarray(q_lens, np.int32)
+    qs = np.concatenate([[0], np.cumsum(qln)[:-1]]).astype(np.int32)
+    Nt = max(int(qln.sum()), 1)
+    q = torch.from_numpy(rng.standard_normal((Nt, Hkv * G, D))).to(q_dtype).to(dev)
+    kn = torch.from_numpy(rng.standard_normal((Nt, Hkv, D))).to(q_dtype).to(dev)
+    vn = torch.from_numpy(rng.standard_normal((Nt, Hkv, D))).to(q_dtype).to(dev)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+    return q, kn, vn, kp, vp, ks, vs, t(tab), t(qs), t(qln), t(kv_lens)
+
+
+@pytest.mark.parametrize("case", [
+    # B, Hkv, G, D, P, ps, maxP, q_lens, kv_lens
+    (2, 2, 2, 16, 8, 8, 4, [5, 6], [11, 21]),           # chunks start mid-page
+    (3, 2, 1, 64, 16, 4, 8, [4, 0, 3], [9, 5, 3]),      # a dead slot
+    (1, 1, 4, 32, 4, 16, 2, [16], [16]),                # one slot, the whole block
+    (4, 4, 9, 128, 512, 8, 128, [16, 16, 16, 16], [700, 517, 130, 16]),
+    # the full-width chunked step at token_budget 128: three decode rows and a
+    # 125-token chunk after a 389-token prefix; one slot's 128-token chunk
+    (4, 4, 9, 128, 512, 8, 128, [1, 1, 1, 125], [700, 517, 130, 514]),
+    (4, 4, 9, 128, 512, 8, 128, [128, 0, 0, 0], [517, 0, 0, 0]),
+])
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_ragged_prefill_attention(dev, case, pool_dtype, q_dtype):
+    ops, ref = _ops()
+    B, Hkv, G, D, P, ps, maxP, q_lens, kv_lens = case
+    q, kn, vn, kp, vp, ks, vs, tab, qs, qln, kvl = _ragged_inputs(
+        dev, B, Hkv, G, D, P, ps, maxP, q_lens, kv_lens, pool_dtype, q_dtype, D + B)
+    Nt = C = q.shape[0]                  # the engine launches chunk_cap = Nt
+    for window, softcap in ((None, None), (5, None), (None, 30.0)):
+        out = ops.ragged_prefill_attention(q, kn, vn, kp, vp, tab, qs, qln, kvl, chunk_cap=C,
+                                           k_scale_pages=ks, v_scale_pages=vs,
+                                           window=window, softcap=softcap)
+        want = ref.ragged_prefill_attention_ref(
+            q.reshape(Nt, Hkv, G, D), kn, vn, kp, vp, tab, qs, qln, kvl, chunk_cap=C,
+            k_scale_pages=ks, v_scale_pages=vs, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        tol = 2e-2 if q_dtype == torch.bfloat16 else 2e-5
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.reshape(Nt, Hkv * G, D).float().cpu().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_rows_bitwise_decode_kernel(dev, pool_dtype):
+    """q_len == 1 rows over an fp pool, whose newest token's pool row holds the
+    packed k/v value, are bitwise the decode launch (K4)."""
+    ops, _ = _ops()
+    B, Hkv, G, D, P, ps, maxP = 4, 4, 9, 128, 512, 8, 128
+    kv_lens = [700, 517, 130, 1]
+    q, _, _, kp, vp, _, _, tab, _, _, kvl = _ragged_inputs(
+        dev, B, Hkv, G, D, P, ps, maxP, [1] * B, kv_lens, pool_dtype, torch.bfloat16, 3)
+    rows = [(int(tab[b, (n - 1) // ps]), (n - 1) % ps) for b, n in enumerate(kv_lens)]
+    kn = torch.stack([kp[p, r] for p, r in rows]).to(torch.bfloat16)
+    vn = torch.stack([vp[p, r] for p, r in rows]).to(torch.bfloat16)
+    for b, (p, r) in enumerate(rows):           # the pool holds the packed values
+        kp[p, r], vp[p, r] = kn[b].to(pool_dtype), vn[b].to(pool_dtype)
+    qs = torch.arange(B, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    out = ops.ragged_prefill_attention(q, kn, vn, kp, vp, tab, qs, ones, kvl, chunk_cap=1)
+    dec = ops.paged_decode_attention(q[:, None], kp, vp, tab, kvl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dec[:, 0])

@@ -175,8 +175,7 @@ def test_seeded_temperature_serving_is_reproducible(small):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("kw", [dict(chunked=True), dict(scheduler="grouped"),
-                                dict(sparsity="2:4"), dict(path="dequant-fp"),
+@pytest.mark.parametrize("kw", [dict(scheduler="grouped"), dict(path="dequant-fp"),
                                 dict(path="fake")])
 def test_unported_configs_raise_typed(kw):
     with pytest.raises(NotPortedError):
