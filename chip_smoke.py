@@ -13,7 +13,11 @@ Phases (any failure raises and exits non-zero):
    exists, and the bound the card's data-sheet peaks allow. Times are device
    times: many calls captured in a CUDA graph and replayed. ``call_ms`` is the
    time of back-to-back calls from Python, host dispatch included. K1 and K2
-   at the linears' shapes, K3 at S=128/512, K4/K5 over f32, bf16 and int8 pools;
+   at the linears' shapes: K2's split-K decode body and its 64 x 64 tile body
+   both held bitwise and timed side by side at M=4, 20 and 128, with
+   torch._int_mm (qx zero-padded to 32 rows below that) and the GB/s reached;
+   K3 at S=128/512, its bf16 tensor-core body against SDPA and its f32 body;
+   K4/K5 over f32, bf16 and int8 pools;
    K6 (ragged prefill) on a 64-row packed block with f32 and int8 pools,
    a dead slot, an all-sentinel row and q_len = 1 rows bitwise equal to K4; K7
    (sparse W8A8) with half its k-tiles empty, bitwise equal to the plain version,
@@ -28,12 +32,15 @@ Phases (any failure raises and exits non-zero):
    traffic, fp and int8 KV; with ``sparsity="2:4"`` (K2 serves it), then with
    every other 64-row k-tile of those masks emptied (K7 serves it, 4 requests);
    and the W4A8 tree (K8). Each run's kernel launch counts must equal what its
-   schedule implies.
+   schedule implies, per body too: K2's decode body serves the steps of at most
+   DECODE_MAX_M token rows, its tile body the rest, K3's bf16 body every flash
+   launch.
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
    paged run on a block-sparse tree (K7) and on the W4A8 tree (K8), kernels on
-   the card against the plain versions on the CPU: equal greedy tokens, logits
+   the card against the plain versions on the CPU (flash on its f32 body): equal
+   greedy tokens, logits
    within 5e-2 of max|logit| (beside what a one-ulp input nudge does on the CPU
    alone); chunked fp KV gives the bucketed tokens. Then the engine on the card:
    paged ≡ dense, speculate=4 ≡ speculate=1 and chunked ≡ bucketed in greedy
@@ -116,6 +123,9 @@ def main() -> int:
     from repro_torch.configs import get
     from repro_torch.core import packing, qlinear as ql
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.qgemm import (
+        DECODE_MAX_M, decode_splits, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
+    )
     from repro_torch.launch.serve import calibrate, make_prompts
     from repro_torch.models import model as M
     from repro_torch.models.layers import QuantContext
@@ -217,9 +227,16 @@ def main() -> int:
               f"library_ms=None bound_ms={bms:.4f} ({by}) off_by_one={n_off}/{q.numel()} "
               f"a_max_ulp={a_ulps}")
 
-    # K2 qgemm_w8a8: wq/wo/down (N=4608), wk/wv (N=512), up (N=18432)
+    # K2 qgemm_w8a8: wq/wo/down (N=4608), wk/wv (N=512), up (N=18432). The wrapper
+    # routes M <= DECODE_MAX_M to the split-K decode body and larger M to the 64 x 64
+    # tile body; both bodies are held bitwise and timed side by side (decode, tile,
+    # decode) at the decode shapes (M=4) and at M=20 / M=128 (a verify window and a
+    # packed chunk), the sizes that pick DECODE_MAX_M; M=2048 (prefill) runs the tile
+    # body alone. torch._int_mm (int32 product only) takes M > 16: smaller qx is
+    # zero-padded to 32 rows for it.
     k2_shapes = [(m, k, n) for m in (4, 2048)
                  for (k, n) in ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))]
+    k2_shapes += [(20, 4608, 18432), (128, 4608, 18432)]
     for (Mr, K, N) in k2_shapes:
         qx = torch.randint(-127, 128, (Mr, K), generator=gen, device=dev, dtype=torch.int8)
         # the main path reads each layer's weight once per step, from device memory:
@@ -230,28 +247,48 @@ def main() -> int:
         qw = qws[0]
         a = torch.rand(Mr, 1, generator=gen, device=dev) * 0.1 + 1e-3
         sw = torch.rand(N, generator=gen, device=dev) * 0.1 + 1e-3
+        routed, _ = qgemm_w8a8_plan(Mr, K, N)
+        splits = decode_splits(K, N)              # the decode body's, wherever it is timed
+        bodies = {"tile": lambda i=0: qgemm_w8a8_cuda(qx, qws[i % n_copies], a, sw)}
+        if Mr <= 128:
+            bodies["decode"] = lambda i=0: qgemm_w8a8_decode_cuda(qx, qws[i % n_copies], a, sw,
+                                                                  splits)
+        before = dict(ops.BODY_LAUNCHES)
         out = ops.qgemm_w8a8(qx, qw, a, sw)
+        check(ops.BODY_LAUNCHES[f"qgemm_w8a8/{routed}"] == before[f"qgemm_w8a8/{routed}"] + 1,
+              f"qgemm_w8a8 M={Mr} K={K} N={N} did not run the {routed} body")
         want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+        outs = {b: fn() for b, fn in bodies.items()}
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
         check(torch.equal(out, want), f"qgemm_w8a8 M={Mr} K={K} N={N} not bitwise: {err}")
-        ms = graph_ms(lambda i=0: ops.qgemm_w8a8(qx, qws[i % n_copies], a, sw), 50)
+        for b, o in outs.items():
+            check(torch.equal(o, want), f"qgemm_w8a8 {b} body M={Mr} K={K} N={N} not bitwise")
+        body_ms = {}
+        for b in ("decode", "tile", "decode"):
+            if b in bodies:
+                t = graph_ms(bodies[b], 50)
+                body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+        ms = body_ms[routed]
         cms = time_ms(lambda i=0: ops.qgemm_w8a8(qx, qws[i % n_copies], a, sw), 50)
         pms = graph_ms(lambda i=0: ref.qgemm_w8a8_ref(qx, qws[i % n_copies], a, sw), 5)
-        lms = None
-        if Mr > 16:      # torch._int_mm needs more than 16 rows; int32 product only
-            lms = graph_ms(lambda i=0: torch._int_mm(qx, qws[i % n_copies]), 50)
+        Mp = max(Mr, 32)
+        qxp = torch.zeros(Mp, K, dtype=torch.int8, device=dev)
+        qxp[:Mr] = qx
+        lms = graph_ms(lambda i=0: torch._int_mm(qxp, qws[i % n_copies]), 50)
+        lib = "torch._int_mm" + (f", M padded to {Mp}" if Mp != Mr else "")
         nbytes = Mr * K + K * N + Mr * 4 + N * 4 + Mr * N * 4
         bms, by = bound(nbytes, 2 * Mr * N * K, PEAK_OPS["int8"])
         results[("qgemm_w8a8", Mr, K, N)] = dict(
-            ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
-            max_abs_err=err)
-        lstr = "None" if lms is None else f"{lms:.4f}"
-        print(f"[3] qgemm_w8a8 M={Mr} K={K} N={N}: kernel_ms={ms:.4f} call_ms={cms:.4f} "
-              f"plain_ms={pms:.4f} "
-              f"library_ms={lstr} (torch._int_mm) bound_ms={bms:.4f} ({by}) "
-              f"bitwise=True tflops={2 * Mr * N * K / ms / 1e9:.1f}")
-        del qws, qw
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, library=lib, bound_ms=bms,
+            bound_by=by, max_abs_err=err, body=routed, body_ms=body_ms, gb_s=nbytes / ms / 1e6)
+        times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+        print(f"[3] qgemm_w8a8 M={Mr} K={K} N={N}: routed to the {routed} body (decode splits "
+              f"{splits}) "
+              f"kernel_ms={ms:.4f} ({times}) call_ms={cms:.4f} plain_ms={pms:.4f} "
+              f"library_ms={lms:.4f} ({lib}) bound_ms={bms:.4f} ({by}) bitwise=True "
+              f"GB/s={nbytes / ms / 1e6:.0f} tflops={2 * Mr * N * K / ms / 1e9:.1f}")
+        del qws, qw, qxp
 
     # K3 flash_attention: admission prefill, B=4 rows, 36 heads over 4 kv heads, D=128
     B3, H3, Hkv3, D3 = 4, 36, 4, 128
@@ -261,7 +298,10 @@ def main() -> int:
             q = torch.randn(B3, H3, S, D3, generator=gen, device=dev).to(dtype)
             k = torch.randn(B3, Hkv3, S, D3, generator=gen, device=dev).to(dtype)
             v = torch.randn(B3, Hkv3, S, D3, generator=gen, device=dev).to(dtype)
+            body = f"flash_attention/{'bf16_mma' if dtype == torch.bfloat16 else 'f32'}"
+            before = ops.BODY_LAUNCHES[body]
             out = ops.flash_attention(q, k, v, kv_len)
+            check(ops.BODY_LAUNCHES[body] == before + 1, f"flash_attention {pk} ran {body}")
             want = ref.flash_attention_ref(q, k, v, kv_len)
             torch.cuda.synchronize()
             err = float((out.float() - want.float()).abs().max())
@@ -283,7 +323,7 @@ def main() -> int:
             results[("flash_attention", S, pk)] = dict(
                 ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
                 max_abs_err=err)
-            print(f"[3] flash_attention B={B3} H={H3}/{Hkv3} S={S} D={D3} {pk} kv_len="
+            print(f"[3] flash_attention ({body}) B={B3} H={H3}/{Hkv3} S={S} D={D3} {pk} kv_len="
                   f"{kvl.tolist()}: kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} "
                   f"library_ms={lms:.4f} "
                   f"(sdpa) bound_ms={bms:.4f} ({by}) max_abs_err={err:.2e} tol={atol}")
@@ -614,7 +654,10 @@ def main() -> int:
     check(min(LENS) >= 128, "every prompt's bucket reaches the flash kernel")
     prompts = make_prompts(cfg.vocab, LENS, len(LENS), seed=0)
     per_layer = 6                                   # wq wk wv wo up down
+    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    linears = [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, cfg.d_ff), (cfg.d_ff, d)]
     launches = {name: 0 for name in ops.LAUNCHES}
+    body_launches = {name: 0 for name in ops.BODY_LAUNCHES}
     e2e = {}
 
     def serve(label: str, reqs, tree=None, q=quant, gemm="qgemm_w8a8", **kw):
@@ -622,7 +665,9 @@ def main() -> int:
         zeroed just before the run and read just after, and must equal what its
         schedule implies: per model step 192 act_quantize launches and 192 of the
         tree's GEMM (qgemm_w8a8, or qgemm_w4a8 for a W4A8 tree, or
-        qgemm_w8a8_sparse for masks with empty tiles); 32 flash launches per cold
+        qgemm_w8a8_sparse for masks with empty tiles), a qgemm_w8a8 step on K2's
+        decode body where its token rows (the step's M) are at most DECODE_MAX_M
+        and on the tile body otherwise; 32 flash launches (the bf16 body) per cold
         admission of 128 tokens or more; 32 paged decode launches per decode step of
         a paged engine; 32 verify launches per speculative step; on a chunked engine
         32 ragged launches per packed step and 32 paged decode launches per
@@ -641,14 +686,30 @@ def main() -> int:
             return admit(p, tokens, *rest)
 
         setattr(engine, attr, counted)
+        step_rows, step_ms = [], []            # every model step's token rows (GEMM M), wall ms
+        apply = M.apply
+
+        def apply_counted(p, inputs, *rest, **kw):
+            t0 = time.perf_counter()
+            out = apply(p, inputs, *rest, **kw)
+            torch.cuda.synchronize()               # the engine syncs each step for its tokens
+            step_rows.append(inputs["tokens"].numel())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
         engine.submit(reqs, max_new=MAX_NEW)
         torch.cuda.synchronize()
         ops.reset_launches()
+        M.apply = apply_counted
         t0 = time.perf_counter()
-        done = engine.run()
-        torch.cuda.synchronize()
+        try:
+            done = engine.run()
+            torch.cuda.synchronize()
+        finally:
+            M.apply = apply
         dt = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
+        bodies = dict(ops.BODY_LAUNCHES)
         c = engine.counters
         L = cfg.n_layers
         if engine.chunked:
@@ -678,15 +739,33 @@ def main() -> int:
                   f"(prefill_calls={c['prefill_calls']} decode_steps={c['decode_steps']} "
                   f"spec_steps={c['spec_steps']} chunk_steps={c['chunk_steps']} decode-only "
                   f"steps={c['chunk_decode_only_steps']} cold buckets={cold_buckets})")
+        check(len(step_rows) == steps, f"{label}: {len(step_rows)} model calls != {steps} steps")
+        want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
+        if gemm == "qgemm_w8a8":
+            for rows in step_rows:
+                for K, N in linears:
+                    want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
+        want_bodies["flash_attention/bf16_mma"] = want["flash_attention"]
+        check(bodies == want_bodies, f"{label}: body launches {bodies} != {want_bodies} "
+              f"(step rows {step_rows})")
         for name in launches:
             launches[name] += counts[name]
+        for name in body_launches:
+            body_launches[name] += bodies[name]
         e2e[label] = n_tok / dt
+        small = [t for r, t in zip(step_rows, step_ms) if r <= DECODE_MAX_M]
+        large = [t for r, t in zip(step_rows, step_ms) if r > DECODE_MAX_M]
+        med = lambda x: f"{float(np.median(x)):.1f}" if x else "-"  # noqa: E731
+        print(f"[4]   {label}: model call wall ms (synchronised), median of {len(small)} "
+              f"with <= {DECODE_MAX_M} token rows {med(small)}, of {len(large)} larger "
+              f"{med(large)}; all calls {sum(step_ms) / 1e3:.2f}s of {dt:.2f}s")
         pool_dt = engine.caches["blocks"][0]["k_pages" if engine.paged else "k"].dtype
         print(f"[4] serve {label}: {len(done)} requests, {n_tok} tokens in {dt:.2f}s = "
               f"{n_tok / dt:.1f} tok/s; prefill_calls={c['prefill_calls']} (cold buckets "
               f"{cold_buckets}) decode_steps={c['decode_steps']} occupancy="
               f"{engine.occupancy():.2f} kv pool dtype={pool_dt} launches="
-              f"{ {k: v for k, v in counts.items() if v} }; req0 out[:8]={done[0].out[:8]}")
+              f"{ {k: v for k, v in counts.items() if v} } bodies="
+              f"{ {k: v for k, v in bodies.items() if v} }; req0 out[:8]={done[0].out[:8]}")
         return engine, done
 
     # the dense, 2:4 and W4A8 runs serve the first 4 prompts, to hold the script's
@@ -818,7 +897,8 @@ def main() -> int:
     with torch.no_grad():
         ops.reset_launches()
         gl, gt = greedy(p2, dev)
-        check(ops.LAUNCHES["flash_attention"] == cfg2.n_layers, "parity prefill used flash")
+        check(ops.LAUNCHES["flash_attention"] == cfg2.n_layers
+              == ops.BODY_LAUNCHES["flash_attention/f32"], "parity prefill used flash's f32 body")
         t0 = time.perf_counter()
         cl, ct = greedy(p2_cpu, cpu)
         # How far ulp-level float differences carry: the same CPU run with every
@@ -976,11 +1056,15 @@ def main() -> int:
     kernel_rows = [
         ("act_quantize", "src/repro_torch/csrc/act_quantize.cu",
          "src/repro/kernels/act_quantize.py:29", ("act_quantize", 4, 4608), "M=4 K=4608 bf16"),
-        ("qgemm_w8a8", "src/repro_torch/csrc/qgemm_w8a8.cu",
-         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8", 4, 4608, 18432), "M=4 K=4608 N=18432"),
+        ("qgemm_w8a8/decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8", 4, 4608, 18432),
+         "M=4 K=4608 N=18432, split-K decode body"),
+        ("qgemm_w8a8/tile", "src/repro_torch/csrc/qgemm_w8a8.cu",
+         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8", 2048, 4608, 18432),
+         "M=2048 K=4608 N=18432, 64x64 tile body"),
         ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:33", ("flash_attention", 512, "bf16"),
-         "B=4 H=36/4 S=512 D=128 bf16"),
+         "B=4 H=36/4 S=512 D=128 bf16, tensor-core body"),
         ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu",
          "src/repro/kernels/flash_attention.py:98",
          ("paged_decode_attention", "bf16", "f32", 8),
@@ -1003,12 +1087,14 @@ def main() -> int:
     kernels = []
     for name, source, replaces, key, shape in kernel_rows:
         r = results[key]
+        n_launch = body_launches[name] if name in body_launches else launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                        "launches": n_launch, "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": shape})
+                        "shape": shape,
+                        **{k: r[k] for k in ("library", "body_ms", "gb_s") if k in r}})
     print("[6] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
           + f"; total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

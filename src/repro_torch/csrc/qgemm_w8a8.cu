@@ -46,11 +46,11 @@
 // are masked in the loads (zero codes add nothing to an integer sum) and in the
 // epilogue stores; there is no padding.
 //
-// What a decode GEMM needs, for later work: with M = 4 a 64-row tile wastes 15/16
-// of the MMA, and N/64 blocks (8 for the 512-wide wk/wv) cannot keep 132 SMs
-// streaming. It wants a narrow M tile, split-K across blocks (exact in int32),
-// and cp.async/TMA multi-stage pipelining so each SM keeps several weight tiles
-// in flight. Prefill wants wgmma with TMA-fed shared-memory rings.
+// At decode this body is slow: with M = 4 a 64-row tile wastes 15/16 of the MMA,
+// and N/64 blocks (8 for the 512-wide wk/wv) cannot keep 132 SMs streaming. K2
+// routes M <= 32 to the split-K weight stream in qgemm_decode.cu instead; K7 and
+// K8 still run this body at every M. Prefill wants wgmma with TMA-fed shared-
+// memory rings.
 #include "common.cuh"
 
 namespace {
@@ -60,15 +60,6 @@ constexpr int LDS = BK + 16;   // 80-byte rows: fragment loads hit 32 distinct b
 constexpr int kThreads = 128;
 
 enum Mode : int { kW8 = 0, kW8Sparse = 1, kW4 = 2 };
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // four n-bytes of one weight row (or of one packed int4 row), masked at the N edge
 __device__ __forceinline__ unsigned load_row4(const int8_t* src, int gn, int N, int vec_b) {
@@ -157,14 +148,10 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
           w[r] = gk < K ? load_row4(qw + (size_t)gk * N + gn, gn, N, vec_b) : 0u;
         }
       }
-      const unsigned lo01 = __byte_perm(w[0], w[1], 0x5140);
-      const unsigned hi01 = __byte_perm(w[0], w[1], 0x7362);
-      const unsigned lo23 = __byte_perm(w[2], w[3], 0x5140);
-      const unsigned hi23 = __byte_perm(w[2], w[3], 0x7362);
-      *reinterpret_cast<unsigned*>(&sB[nb + 0][kb]) = __byte_perm(lo01, lo23, 0x5410);
-      *reinterpret_cast<unsigned*>(&sB[nb + 1][kb]) = __byte_perm(lo01, lo23, 0x7632);
-      *reinterpret_cast<unsigned*>(&sB[nb + 2][kb]) = __byte_perm(hi01, hi23, 0x5410);
-      *reinterpret_cast<unsigned*>(&sB[nb + 3][kb]) = __byte_perm(hi01, hi23, 0x7632);
+      unsigned t[4];
+      transpose4x4(w, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) *reinterpret_cast<unsigned*>(&sB[nb + j][kb]) = t[j];
     }
     __syncthreads();
 

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("act_quantize.cu", "qgemm_w8a8.cu", "flash_attention.cu",
+SOURCES = ("act_quantize.cu", "qgemm_w8a8.cu", "qgemm_decode.cu", "flash_attention.cu",
            "paged_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -35,6 +35,8 @@ SIGNATURES = {
     "repro_act_quantize": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _I, _P],
     # qx, qw, a, sw, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, splits, stream
+    "repro_qgemm_w8a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw4, a, sw, out, M, N, K, group, vec_a, vec_b, stream

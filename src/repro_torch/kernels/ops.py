@@ -15,10 +15,15 @@ other runs K7 with the tile-occupancy table. The table is derived once per leaf
 where the served tree is prepared (``models.quantize.with_tile_occupancy``) and
 passed in, so a serving step does not sync the host once per linear.
 
+K2 has two bodies: :func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan` sends few
+activation rows to the split-K weight stream and the rest to the 64 × 64 tile
+body; K3 runs its bf16 tensor-core body or its f32 body by dtype.
+
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
-``LAUNCHES`` counts kernel launches (never plain-version calls), so a run can
-show that its path went through the kernels.
+``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
+can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
+per body of the ops that have two.
 """
 from __future__ import annotations
 
@@ -29,22 +34,26 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda
-from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda
+from repro_torch.kernels.flash_attention import BODIES, HEAD_DIMS, flash_attention_cuda
 from repro_torch.kernels.paged_attention import (
     POOL_CODE, paged_attention_cuda, ragged_prefill_cuda,
 )
 from repro_torch.kernels.qgemm import (
-    TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w8a8_cuda, qgemm_w8a8_sparse_cuda,
+    TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
+    qgemm_w8a8_sparse_cuda,
 )
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
             "paged_decode_attention": 0, "paged_verify_attention": 0,
             "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
+BODY_LAUNCHES = {"qgemm_w8a8/decode": 0, "qgemm_w8a8/tile": 0,
+                 "flash_attention/bf16_mma": 0, "flash_attention/f32": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BODY_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -108,8 +117,14 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
     _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
     _contiguous(qx=qx, qw=qw, a=a, sw=sw)
-    out = qgemm_w8a8_cuda(qx, qw, a, sw)
+    aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+    body, splits = qgemm_w8a8_plan(M, K, N, aligned=aligned)
+    if body == "decode":
+        out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
+    else:
+        out = qgemm_w8a8_cuda(qx, qw, a, sw)
     LAUNCHES["qgemm_w8a8"] += 1
+    BODY_LAUNCHES[f"qgemm_w8a8/{body}"] += 1
     return out
 
 
@@ -214,8 +229,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _contiguous(q=q, k=k, v=v)
     _require(window is None or window > 0, f"window must be positive, got {window}")
     _require(softcap is None or softcap > 0, f"softcap must be positive, got {softcap}")
+    if q.dtype == torch.bfloat16:
+        _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+                 "bf16 q, k, v must be 16-byte aligned")
     out = flash_attention_cuda(q, k, v, kvl, causal=causal, window=window, softcap=softcap)
     LAUNCHES["flash_attention"] += 1
+    BODY_LAUNCHES[f"flash_attention/{BODIES[q.dtype]}"] += 1
     return out
 
 

@@ -1,19 +1,59 @@
 """Launchers of the CUDA kernels K2 ``qgemm_w8a8``, K7 ``qgemm_w8a8_sparse`` and
-K8 ``qgemm_w4a8`` (one kernel body in ``csrc/qgemm_w8a8.cu``), the counterparts of
-the reference's W8A8, block-sparse W8A8 and W4A8 Pallas kernels in
-``repro/kernels/qgemm.py``.
+K8 ``qgemm_w4a8``, the counterparts of the reference's W8A8, block-sparse W8A8 and
+W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. K2 has two bodies: the 64 × 64
+tile body in ``csrc/qgemm_w8a8.cu`` (shared with K7 and K8) and, for few
+activation rows, the split-K weight stream in ``csrc/qgemm_decode.cu``;
+:func:`qgemm_w8a8_plan` picks one.
 
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
 """
 from __future__ import annotations
 
+import math
+from typing import List, Tuple
+
 import torch
 
 from repro_torch.kernels import build
 
-#: the kernel's (k, n) tile: K7's occupancy table has one entry per tile
+#: the tile body's (k, n) tile: K7's occupancy table has one entry per tile
 TILE_K, TILE_N = 64, 64
+
+#: K2 runs the decode body for M <= DECODE_MAX_M: the decode steps (M = batch)
+#: and speculative verify windows; chosen from the bodies' times at M = 20 and
+#: 128 on the H100 (PERF.md)
+DECODE_MAX_M = 32
+DECODE_TILE_N = 128      # output columns per decode-body block
+MAX_SPLITS = 8           # a portable thread-block cluster holds the K splits
+_SMS = 132               # H100 SXM streaming multiprocessors
+_BLOCKS_PER_SM = 4       # blocks to aim at, so each SM keeps ~100 KB of weights in flight
+
+
+def decode_splits(K: int, N: int) -> int:
+    """K splits of the decode body for a (K, N) weight: enough blocks for about
+    four per SM, at most one cluster (8) and one 64-row k-tile per split."""
+    n_tiles = -(-N // DECODE_TILE_N)
+    k_tiles = -(-K // TILE_K)
+    want = math.ceil(_BLOCKS_PER_SM * _SMS / n_tiles)
+    return max(1, min(MAX_SPLITS, k_tiles, want))
+
+
+def split_bounds(K: int, splits: int) -> List[Tuple[int, int]]:
+    """The decode body's K ranges: split s takes the 64-row k-tiles [s·KT/S,
+    (s+1)·KT/S), the last one cut at K."""
+    k_tiles = -(-K // TILE_K)
+    return [(s * k_tiles // splits * TILE_K, min(K, (s + 1) * k_tiles // splits * TILE_K))
+            for s in range(splits)]
+
+
+def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, int]:
+    """K2's body for an (M, K) × (K, N) product: ``("decode", splits)`` for 1 ≤ M ≤
+    DECODE_MAX_M when K and N are multiples of 16 and both operands are 16-byte
+    aligned (``aligned``), else ``("tile", 1)``."""
+    if 1 <= M <= DECODE_MAX_M and K > 0 and K % 16 == 0 and N > 0 and N % 16 == 0 and aligned:
+        return "decode", decode_splits(K, N)
+    return "tile", 1
 
 
 def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
@@ -28,6 +68,23 @@ def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
         M, N, K, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8")
+    return out
+
+
+def qgemm_w8a8_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                           sw: torch.Tensor, splits: int) -> torch.Tensor:
+    """K2's decode body: qx (M ≤ 128, K) int8 · qw (K, N) int8 → (M, N) f32 = acc ·
+    a · sw, over ``splits`` K splits; K and N multiples of 16, qx and qw 16-byte
+    aligned, all contiguous on one card."""
+    M, K = qx.shape
+    N = qw.shape[1]
+    if qx.data_ptr() % 16 or qw.data_ptr() % 16:
+        raise ValueError("the decode body reads qx and qw in 16-byte chunks: align both")
+    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    rc = build.library().repro_qgemm_w8a8_decode(
+        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "qgemm_w8a8 decode body")
     return out
 
 

@@ -72,6 +72,125 @@ def test_flash_attention(dev, H, Hkv, S, D, dtype, atol):
                                atol=atol, rtol=0)
 
 
+# ---------------------------------------------------------------- K2 decode body
+
+DECODE_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]   # wq/wo, wk/wv, up, down
+
+
+def _w8a8_inputs(dev, M, K, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qx = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    a = torch.rand(M, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(N, generator=g, device=dev) + 0.01
+    return qx, qw, a, sw
+
+
+def _decode_max_m():
+    from repro_torch.kernels.qgemm import DECODE_MAX_M
+    return DECODE_MAX_M
+
+
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+@pytest.mark.parametrize("m_case", ["1", "4", "T", "T+1", "20", "128"])
+def test_qgemm_w8a8_routed_bitwise(dev, K, N, m_case):
+    """Across the routing rule (M = T goes to the decode body, T + 1 to the tile
+    body) at the main path's shapes, the routed launch is bitwise the plain version."""
+    ops, ref = _ops()
+    T = _decode_max_m()
+    M = {"T": T, "T+1": T + 1}.get(m_case) or int(m_case)
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M + K + N)
+    before = dict(ops.BODY_LAUNCHES)
+    out = ops.qgemm_w8a8(qx, qw, a, sw)
+    want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+    torch.cuda.synchronize()
+    body = "decode" if M <= T else "tile"
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"] == before[f"qgemm_w8a8/{body}"] + 1
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("M,K,N,splits", [
+    (4, 4608 + 48, 496, 8),        # K not a multiple of 64 nor of the split; N not of 128
+    (3, 1040, 144, 7),             # 17 k-tiles over 7 splits, the last one cut at K
+    (7, 16, 16, 1),                # less than one k-tile
+    (1, 64 * 9 + 32, 1008, 5),
+    (20, 4608, 18432, 4), (33, 4608, 18432, 4), (64, 4608, 4608, 8),
+    (128, 4608, 18432, 4),         # every M tile count the body is built for
+])
+def test_qgemm_w8a8_decode_body_ragged_bitwise(dev, M, K, N, splits):
+    """The decode body itself at ragged K and N, every split count it takes and M
+    up to 128: bitwise the plain version."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_decode_cuda
+    _, ref = _ops()
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M * 7 + K)
+    out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.qgemm_w8a8_ref(qx, qw, a, sw))
+
+
+def test_qgemm_w8a8_decode_body_graph_replay(dev):
+    """Captured in a CUDA graph, the decode body's cluster reduction replays to
+    the same bits on every replay, and to the plain version's."""
+    from repro_torch.kernels.qgemm import decode_splits, qgemm_w8a8_decode_cuda
+    _, ref = _ops()
+    for K, N in ((4608, 512), (18432, 4608)):
+        qx, qw, a, sw = _w8a8_inputs(dev, 4, K, N, K + N)
+        splits = decode_splits(K, N)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
+        want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+        for _ in range(3):
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------- K3 bf16 body
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 9])
+@pytest.mark.parametrize("S", [200, 256])
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, None), (None, 30.0)])
+def test_flash_attention_bf16_body(dev, D, G, S, window, softcap):
+    """The tensor-core body at kv_len 0, 1, a length not a multiple of 64 and S;
+    S a multiple of the 64-row tile or not; window and softcap; GQA groups of 1
+    and 9. Rows with a valid key are within 2e-2 of the plain version; every row,
+    those with no valid key too, within 2e-2 of the f32 body (the rows past
+    kv_len behave as the kernel always had them); kv_len 0 gives zeros."""
+    ops, ref = _ops()
+    B, Hkv = 4, 2
+    H = Hkv * G
+    g = torch.Generator(device=dev).manual_seed(D * 1000 + G * 10 + S)
+    q = torch.randn(B, H, S, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
+    kv_len = torch.tensor([0, 1, S - 37, S], device=dev, dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    before = dict(ops.BODY_LAUNCHES)
+    out = ops.flash_attention(q, k, v, kv_len, **kw)
+    assert ops.BODY_LAUNCHES["flash_attention/bf16_mma"] == before["flash_attention/bf16_mma"] + 1
+    want = ref.flash_attention_ref(q, k, v, kv_len, **kw)
+    f32 = ops.flash_attention(q.float(), k.float(), v.float(), kv_len, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    # row i's first visible key: 0, or i - window + 1 under a window
+    qi = torch.arange(S, device=dev)
+    first = torch.zeros_like(qi) if window is None else (qi - window + 1).clamp_min(0)
+    has_key = (kv_len[:, None] >= 1) & (first[None, :] <= kv_len[:, None] - 1)   # (B, S)
+    rows = has_key[:, None, :, None].expand_as(out)
+    err = (out.float() - want.float()).abs()
+    assert float(err[rows].max()) <= 2e-2
+    assert float((out.float() - f32).abs().max()) <= 2e-2
+    assert float(out[0].float().abs().max()) == 0.0
+
+
 SWEEP = [(2, 2, 2, 16, 8, 8, 4), (1, 1, 4, 32, 4, 16, 2), (3, 2, 1, 64, 16, 4, 8),
          (4, 4, 9, 128, 64, 8, 16)]     # the last: starcoder2-7b's G = 9, D = 128
 
