@@ -13,15 +13,19 @@ Phases (any failure raises and exits non-zero):
    exists, and the bound the card's data-sheet peaks allow. Times are device
    times: many calls captured in a CUDA graph and replayed. ``call_ms`` is the
    time of back-to-back calls from Python, host dispatch included. K1 and K2
-   at the linears' shapes: K2's split-K decode body and its 64 x 64 tile body
-   both held bitwise and timed side by side at M=4, 20 and 128, with
+   at the linears' shapes: each of K2's bodies that takes a shape (split-K
+   decode body for M <= 128, wgmma body for M > 32, 64 x 64 tile body) held
+   bitwise and timed side by side at M=4, 20, 33, 64, 128, 512 and 2048, with
    torch._int_mm (qx zero-padded to 32 rows below that) and the GB/s reached;
+   wherever the plan routes to the wgmma body it must have beaten the tile body;
    K3 at S=128/512, its bf16 tensor-core body against SDPA and its f32 body;
-   K4/K5 over f32, bf16 and int8 pools;
-   K6 (ragged prefill) on a 64-row packed block with f32 and int8 pools,
-   a dead slot, an all-sentinel row and q_len = 1 rows bitwise equal to K4; K7
-   (sparse W8A8) with half its k-tiles empty, bitwise equal to the plain version,
-   and with an all-ones table bitwise equal to K2; K8 (W4A8 g128) f32-close.
+   K4/K5 over f32, bf16 and int8 pools, bf16 q on the split tensor-core body
+   timed beside the f32-q body on the same values;
+   K6 (ragged prefill) on the packed blocks of a chunked step with f32 and int8
+   pools (both bodies timed), a dead slot, an all-sentinel row and q_len = 1
+   rows bitwise equal to K4; K7 (sparse W8A8) with half its k-tiles empty,
+   bitwise equal to the plain version, and with an all-ones table bitwise equal
+   to K2; K8 (W4A8 g128) f32-close.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
    from a seeded generator, calibrated (2 batches), quantized to W8A8 static-c
    CrossQuant (and, from the same tables, to W4A8 g128), and served through
@@ -33,8 +37,12 @@ Phases (any failure raises and exits non-zero):
    every other 64-row k-tile of those masks emptied (K7 serves it, 4 requests);
    and the W4A8 tree (K8). Each run's kernel launch counts must equal what its
    schedule implies, per body too: K2's decode body serves the steps of at most
-   DECODE_MAX_M token rows, its tile body the rest, K3's bf16 body every flash
-   launch.
+   DECODE_MAX_M token rows, its wgmma body the rest, K3's bf16 body every flash
+   launch, the paged bf16 body every K4/K5/K6 launch. Between the runs, one
+   torch.profiler window over a few decode steps of the dense fp-KV engine and a
+   few packed steps of the chunked one prints the device-busy share, the longest
+   device ops, the host ops with the most self time, and kernel launches and
+   host syncs per step.
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
@@ -123,8 +131,10 @@ def main() -> int:
     from repro_torch.configs import get
     from repro_torch.core import packing, qlinear as ql
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.paged_attention import BODIES as paged_bodies
     from repro_torch.kernels.qgemm import (
         DECODE_MAX_M, decode_splits, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
+        qgemm_w8a8_wgmma_cuda, wgmma_splits,
     )
     from repro_torch.launch.serve import calibrate, make_prompts
     from repro_torch.models import model as M
@@ -228,31 +238,44 @@ def main() -> int:
               f"a_max_ulp={a_ulps}")
 
     # K2 qgemm_w8a8: wq/wo/down (N=4608), wk/wv (N=512), up (N=18432). The wrapper
-    # routes M <= DECODE_MAX_M to the split-K decode body and larger M to the 64 x 64
-    # tile body; both bodies are held bitwise and timed side by side (decode, tile,
-    # decode) at the decode shapes (M=4) and at M=20 / M=128 (a verify window and a
-    # packed chunk), the sizes that pick DECODE_MAX_M; M=2048 (prefill) runs the tile
-    # body alone. torch._int_mm (int32 product only) takes M > 16: smaller qx is
-    # zero-padded to 32 rows for it.
-    k2_shapes = [(m, k, n) for m in (4, 2048)
-                 for (k, n) in ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))]
-    k2_shapes += [(20, 4608, 18432), (128, 4608, 18432)]
-    for (Mr, K, N) in k2_shapes:
-        qx = torch.randint(-127, 128, (Mr, K), generator=gen, device=dev, dtype=torch.int8)
+    # routes M <= DECODE_MAX_M to the split-K decode body, larger M to the wgmma body
+    # and shapes neither takes to the 64 x 64 tile body. Every body that takes a
+    # shape is held bitwise and timed side by side (in the order routed, others,
+    # routed again; the lower of the routed body's two times is kept) at the decode
+    # shapes (M=4), a verify window (M=20), packed chunked steps (M=33, 64, 128) and
+    # prefills (M=512, 2048); at every M the plan sends to the wgmma body, it must
+    # have beaten the tile body in this call. torch._int_mm (int32 product only)
+    # takes M > 16: smaller qx is zero-padded to 32 rows for it.
+    # The first ten shapes draw their inputs from ``gen``, in this order; the rest
+    # from a generator of their own, so adding K2 shapes leaves every later
+    # kernel's inputs (K3..K8) as they were.
+    k2_linears = ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))
+    gen_k2 = torch.Generator(device=dev)
+    gen_k2.manual_seed(4321)
+    k2_shapes = ([((m, k, n), gen) for m in (4, 2048) for (k, n) in k2_linears]
+                 + [((20, 4608, 18432), gen), ((128, 4608, 18432), gen)]
+                 + [((m, k, n), gen_k2) for m in (33, 64, 128, 512) for (k, n) in k2_linears
+                    if (m, k, n) != (128, 4608, 18432)])
+    for (Mr, K, N), g2 in k2_shapes:
+        qx = torch.randint(-127, 128, (Mr, K), generator=g2, device=dev, dtype=torch.int8)
         # the main path reads each layer's weight once per step, from device memory:
         # rotate through enough copies that the timed loop cannot serve it from L2
         n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K * N))))
-        qws = [torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+        qws = [torch.randint(-127, 128, (K, N), generator=g2, device=dev, dtype=torch.int8)
                for _ in range(n_copies)]
         qw = qws[0]
-        a = torch.rand(Mr, 1, generator=gen, device=dev) * 0.1 + 1e-3
-        sw = torch.rand(N, generator=gen, device=dev) * 0.1 + 1e-3
+        a = torch.rand(Mr, 1, generator=g2, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(N, generator=g2, device=dev) * 0.1 + 1e-3
         routed, _ = qgemm_w8a8_plan(Mr, K, N)
         splits = decode_splits(K, N)              # the decode body's, wherever it is timed
+        wsplits = wgmma_splits(Mr, K, N)          # the wgmma body's
         bodies = {"tile": lambda i=0: qgemm_w8a8_cuda(qx, qws[i % n_copies], a, sw)}
         if Mr <= 128:
             bodies["decode"] = lambda i=0: qgemm_w8a8_decode_cuda(qx, qws[i % n_copies], a, sw,
                                                                   splits)
+        if Mr > DECODE_MAX_M:
+            bodies["wgmma"] = lambda i=0: qgemm_w8a8_wgmma_cuda(qx, qws[i % n_copies], a, sw,
+                                                                wsplits)
         before = dict(ops.BODY_LAUNCHES)
         out = ops.qgemm_w8a8(qx, qw, a, sw)
         check(ops.BODY_LAUNCHES[f"qgemm_w8a8/{routed}"] == before[f"qgemm_w8a8/{routed}"] + 1,
@@ -265,29 +288,36 @@ def main() -> int:
         for b, o in outs.items():
             check(torch.equal(o, want), f"qgemm_w8a8 {b} body M={Mr} K={K} N={N} not bitwise")
         body_ms = {}
-        for b in ("decode", "tile", "decode"):
-            if b in bodies:
-                t = graph_ms(bodies[b], 50)
-                body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+        for b in [routed] + [b for b in bodies if b != routed] + [routed]:
+            t = graph_ms(bodies[b], 20 if Mr >= 512 else 50)
+            body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+        if routed == "wgmma":
+            check(body_ms["wgmma"] < body_ms["tile"],
+                  f"qgemm_w8a8 M={Mr} K={K} N={N}: the plan routes to the wgmma body, which "
+                  f"took {body_ms['wgmma']:.4f} ms against the tile body's {body_ms['tile']:.4f}")
         ms = body_ms[routed]
         cms = time_ms(lambda i=0: ops.qgemm_w8a8(qx, qws[i % n_copies], a, sw), 50)
-        pms = graph_ms(lambda i=0: ref.qgemm_w8a8_ref(qx, qws[i % n_copies], a, sw), 5)
+        pms = graph_ms(lambda i=0: ref.qgemm_w8a8_ref(qx, qws[i % n_copies], a, sw), 3)
         Mp = max(Mr, 32)
         qxp = torch.zeros(Mp, K, dtype=torch.int8, device=dev)
         qxp[:Mr] = qx
-        lms = graph_ms(lambda i=0: torch._int_mm(qxp, qws[i % n_copies]), 50)
+        lms = graph_ms(lambda i=0: torch._int_mm(qxp, qws[i % n_copies]), 20)
         lib = "torch._int_mm" + (f", M padded to {Mp}" if Mp != Mr else "")
         nbytes = Mr * K + K * N + Mr * 4 + N * 4 + Mr * N * 4
         bms, by = bound(nbytes, 2 * Mr * N * K, PEAK_OPS["int8"])
         results[("qgemm_w8a8", Mr, K, N)] = dict(
             ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, library=lib, bound_ms=bms,
             bound_by=by, max_abs_err=err, body=routed, body_ms=body_ms, gb_s=nbytes / ms / 1e6)
+        for b, t in body_ms.items():
+            results[(f"qgemm_w8a8/{b}", Mr, K, N)] = dict(
+                ms=t, call_ms=cms if b == routed else None, plain_ms=pms, library_ms=lms,
+                library=lib, bound_ms=bms, bound_by=by, max_abs_err=err)
         times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
         print(f"[3] qgemm_w8a8 M={Mr} K={K} N={N}: routed to the {routed} body (decode splits "
-              f"{splits}) "
+              f"{splits}, wgmma splits {wsplits}) "
               f"kernel_ms={ms:.4f} ({times}) call_ms={cms:.4f} plain_ms={pms:.4f} "
               f"library_ms={lms:.4f} ({lib}) bound_ms={bms:.4f} ({by}) bitwise=True "
-              f"GB/s={nbytes / ms / 1e6:.0f} tflops={2 * Mr * N * K / ms / 1e9:.1f}")
+              f"GB/s={nbytes / ms / 1e6:.0f} tops={2 * Mr * N * K / ms / 1e9:.1f}")
         del qws, qw, qxp
 
     # K3 flash_attention: admission prefill, B=4 rows, 36 heads over 4 kv heads, D=128
@@ -370,7 +400,9 @@ def main() -> int:
         # < kv_len), plus scales, q, o, the table and the lengths
         live = int(kvl_np.sum())
         row_bytes = Hkv4 * D4 * pool_dt.itemsize * 2 + (8 * Hkv4 if ks is not None else 0)
-        peak = PEAK_OPS["f32"]                      # the kernel computes in f32
+        # bf16 q runs the tensor-core body (bf16 products), f32 q the CUDA-core body
+        peak = PEAK_OPS["bf16" if q_dt == torch.bfloat16 else "f32"]
+        body = paged_bodies[q_dt]
         for mode, W in (("decode", 1), ("verify", W5)):
             q = torch.randn(B4, W, Hkv4 * G4, D4, generator=gen, device=dev).to(q_dt)
             if mode == "decode":
@@ -407,17 +439,26 @@ def main() -> int:
             ms = graph_ms(once(call), 50)
             cms = time_ms(once(call), 50)
             pms = graph_ms(once(plain), 5)
+            f32_ms = None
+            if q_dt == torch.bfloat16:          # the f32-q body on the same values, beside it
+                qf = q.float()
+                f32_ms = graph_ms(once(
+                    (lambda: ops.paged_decode_attention(qf, kp, vp, tab, kv_len4, **sc))
+                    if mode == "decode" else
+                    (lambda: ops.paged_verify_attention(qf, kp, vp, tab, kv_len4, q_len5, **sc))),
+                    50)
             nbytes = (live * row_bytes + 2 * q.numel() * q.element_size() + tab.numel() * 4
                       + 4 * B4 * (1 if mode == "decode" else 2))
             bms, by = bound(nbytes, flops, peak)
             name = "paged_decode_attention" if mode == "decode" else "paged_verify_attention"
             results[(name, dt_name[q_dt], dt_name[pool_dt], ps)] = dict(
                 ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms,
-                bound_by=by, max_abs_err=err)
-            print(f"[3] {name} B={B4} H={Hkv4 * G4}/{Hkv4} D={D4} q_win={W} {tag} kv_len="
-                  f"{kvl_np.tolist()}{'' if W == 1 else f' q_len={qln_np.tolist()}'}: "
-                  f"kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} library_ms=None "
-                  f"bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol={atol}")
+                bound_by=by, max_abs_err=err, body=body, f32_body_ms=f32_ms)
+            f32s = "" if f32_ms is None else f" f32_body_ms={f32_ms:.4f}"
+            print(f"[3] {name} ({body} body) B={B4} H={Hkv4 * G4}/{Hkv4} D={D4} q_win={W} {tag} "
+                  f"kv_len={kvl_np.tolist()}{'' if W == 1 else f' q_len={qln_np.tolist()}'}: "
+                  f"kernel_ms={ms:.4f}{f32s} call_ms={cms:.4f} plain_ms={pms:.4f} "
+                  f"library_ms=None bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol={atol}")
         del kp, vp, ks, vs
 
     # K6 ragged_prefill_attention: packed blocks of a chunked step, over the kv_len
@@ -491,6 +532,9 @@ def main() -> int:
             ms = graph_ms(once(ragged_call(c, Nt)), 50)
             cms = time_ms(once(ragged_call(c, Nt)), 50)
             pms = graph_ms(once(ragged_plain(c, Nt)), 5)
+            # the f32-q body on the same values (q, k_new, v_new as f32), beside it
+            c32 = {**c, **{k: c[k].float() for k in ("q", "kn", "vn")}}
+            f32_ms = graph_ms(once(ragged_call(c32, Nt)), 50)
             # bytes: each pool row before the chunk once (positions < cs), the packed
             # q/k/v once, the output once, scales, table and extents; operations: row
             # i of a chunk starting at cs meets cs + i + 1 keys, 4 flops per key and
@@ -501,13 +545,14 @@ def main() -> int:
             nbytes = (pool_rows * row_bytes + (2 * c["q"].numel() + 2 * c["kn"].numel()) * 2
                       + c["tab"].numel() * 4 + 12 * B4)
             keys = sum(n * (k - n) + n * (n + 1) // 2 for k, n in zip(kv_lens, q_lens))
-            bms, by = bound(nbytes, 4 * D4 * Hkv4 * G4 * keys, PEAK_OPS["f32"])
+            bms, by = bound(nbytes, 4 * D4 * Hkv4 * G4 * keys, PEAK_OPS["bf16"])
             results[("ragged_prefill_attention", dt_name[pool_dt], label)] = dict(
                 ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
-                max_abs_err=err)
-            print(f"[3] ragged_prefill_attention {label}: Nt={Nt} chunk_cap={Nt} B={B4} "
-                  f"H={Hkv4 * G4}/{Hkv4} D={D4} ps={ps6} q bf16 pool {dt_name[pool_dt]} "
-                  f"q_len={q_lens} kv_len={kv_lens}: kernel_ms={ms:.4f} call_ms={cms:.4f} "
+                max_abs_err=err, body="bf16_mma", f32_body_ms=f32_ms)
+            print(f"[3] ragged_prefill_attention (bf16_mma body) {label}: Nt={Nt} chunk_cap={Nt} "
+                  f"B={B4} H={Hkv4 * G4}/{Hkv4} D={D4} ps={ps6} q bf16 pool {dt_name[pool_dt]} "
+                  f"q_len={q_lens} kv_len={kv_lens}: kernel_ms={ms:.4f} f32_body_ms={f32_ms:.4f} "
+                  f"call_ms={cms:.4f} "
                   f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.5f} ({by}) "
                   f"max_abs_err={err:.2e} tol=2e-2")
     # a dead slot (it owns no rows: rows past the owned 33 must read 0) and an
@@ -665,9 +710,9 @@ def main() -> int:
         zeroed just before the run and read just after, and must equal what its
         schedule implies: per model step 192 act_quantize launches and 192 of the
         tree's GEMM (qgemm_w8a8, or qgemm_w4a8 for a W4A8 tree, or
-        qgemm_w8a8_sparse for masks with empty tiles), a qgemm_w8a8 step on K2's
-        decode body where its token rows (the step's M) are at most DECODE_MAX_M
-        and on the tile body otherwise; 32 flash launches (the bf16 body) per cold
+        qgemm_w8a8_sparse for masks with empty tiles), a qgemm_w8a8 launch on the
+        body qgemm_w8a8_plan gives its step's token rows (the step's M): K2's
+        decode body up to DECODE_MAX_M, its wgmma body above; 32 flash launches (the bf16 body) per cold
         admission of 128 tokens or more; 32 paged decode launches per decode step of
         a paged engine; 32 verify launches per speculative step; on a chunked engine
         32 ragged launches per packed step and 32 paged decode launches per
@@ -746,6 +791,10 @@ def main() -> int:
                 for K, N in linears:
                     want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
         want_bodies["flash_attention/bf16_mma"] = want["flash_attention"]
+        # the serving q is bf16: every paged launch runs the split tensor-core body
+        want_bodies["paged_attention/bf16_mma"] = (want["paged_decode_attention"]
+                                                   + want["paged_verify_attention"]
+                                                   + want["ragged_prefill_attention"])
         check(bodies == want_bodies, f"{label}: body launches {bodies} != {want_bodies} "
               f"(step rows {step_rows})")
         for name in launches:
@@ -820,6 +869,89 @@ def main() -> int:
               f"{c['chunk_decode_only_steps']}")
         del engine
 
+    # One profiler window, outside the timed serving runs: a few pure decode steps
+    # of the dense fp-KV engine and a few packed steps of the chunked fp-KV engine,
+    # split into device-busy time, the longest device ops, the host ops with the
+    # most self time, and kernel launches and host syncs per step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launch_names = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaGraphLaunch"}
+    sync_names = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                  "cudaMemcpy"}
+
+    def trace(label, reqs, ready, n_steps=3, **kw):
+        engine = ServeEngine(cfg, qparams, quant=quant, device=dev,
+                             config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
+                                                 path="fused-int8", **kw))
+        engine.submit(reqs, max_new=MAX_NEW)
+        finished = []
+        c = engine.counters
+        while not ready(engine):
+            check(engine.step(finished), f"trace {label}: the engine went idle before the window")
+        engine.step(finished)                 # one untraced step of the same kind first
+        before = dict(c)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                engine.step(finished)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        if not kernels:
+            print(f"[4t] {label}: the profiler recorded no device activity: device split not "
+                  f"measured (wall {wall_us / 1e3 / n_steps:.1f} ms per step)")
+            return None
+        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s0, e0 in spans[1:]:
+            if s0 > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s0, e0
+            else:
+                cur_e = max(cur_e, e0)
+        busy += cur_e - cur_s
+        by_kernel = {}
+        for e in kernels:
+            tot, n = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+        host = {}
+        for e in events:
+            if e.device_type == DeviceType.CPU:
+                tot, n = host.get(e.name, (0.0, 0))
+                host[e.name] = (tot + e.self_cpu_time_total, n + 1)
+        n_launch = sum(n for name, (_, n) in host.items() if name in launch_names)
+        n_sync = sum(n for name, (_, n) in host.items() if name in sync_names)
+        n_item = host.get("aten::_local_scalar_dense", (0.0, 0))[1]
+        kinds = {k: c[k] - before[k] for k in ("decode_steps", "chunk_steps", "prefill_calls")}
+        print(f"[4t] {label}: {n_steps} steps ({kinds}) in {wall_us / 1e3:.1f} ms of wall time; "
+              f"device busy {busy / 1e3:.2f} ms = {busy / wall_us:.3f} of the window; per step "
+              f"{n_launch / n_steps:.0f} kernel launches, {n_sync / n_steps:.1f} host syncs "
+              f"(stream/device/event synchronize, blocking memcpy) and "
+              f"{n_item / n_steps:.1f} scalar reads (aten::_local_scalar_dense)")
+        syncs = {name: n for name, (_, n) in host.items() if name in sync_names}
+        print(f"[4t]   host syncs per step by call: "
+              f"{ {name: round(n / n_steps, 1) for name, n in sorted(syncs.items())} }")
+        for name, (tot, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:5]:
+            print(f"[4t]   device {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
+                  f"{name[:110]}")
+        for name, (tot, n) in sorted(host.items(), key=lambda x: -x[1][0])[:10]:
+            print(f"[4t]   host self {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
+                  f"{name[:110]}")
+        return dict(wall_ms=wall_us / 1e3 / n_steps, busy_share=busy / wall_us,
+                    launches=n_launch / n_steps, syncs=n_sync / n_steps)
+
+    print(f"[4t] trace start at {time.perf_counter() - t_start:.1f}s")
+    trace("dense fused-int8 kv=fp, decode steps", prompts[:BATCH],
+          lambda e: not e.queue and e.counters["decode_steps"] > 0, kv_cache="fp")
+    trace("chunked fused-int8 kv=fp, packed steps", shared,
+          lambda e: e.counters["chunk_steps"] >= 2, kv_cache="fp", cache_layout="paged",
+          chunked=True, token_budget=CHUNK_BUDGET)
+    print(f"[4t] trace end at {time.perf_counter() - t_start:.1f}s")
+
     # 2:4 sparsity applied at engine build: every (64, 64) weight tile keeps
     # survivors, so the sparse wrapper runs K2, as the reference routes it
     engine, _ = serve("dense fused-int8 kv=fp sparsity=2:4", prompts[:BATCH], sparsity="2:4")
@@ -843,6 +975,17 @@ def main() -> int:
 
     # ---------------------------------------------------------------- phase 5
     print(f"[5] start at {time.perf_counter() - t_start:.1f}s")
+    p5_launches = {name: 0 for name in ops.LAUNCHES}
+    p5_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
+    ops.reset_launches()                    # phase 4's last run is counted already
+
+    def reset5():
+        """Add phase 5's launches so far to its totals, then zero the counts."""
+        for total, counts in ((p5_launches, ops.LAUNCHES), (p5_bodies, ops.BODY_LAUNCHES)):
+            for name in total:
+                total[name] += counts[name]
+        ops.reset_launches()
+
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -895,7 +1038,7 @@ def main() -> int:
 
     cpu = torch.device("cpu")
     with torch.no_grad():
-        ops.reset_launches()
+        reset5()
         gl, gt = greedy(p2, dev)
         check(ops.LAUNCHES["flash_attention"] == cfg2.n_layers
               == ops.BODY_LAUNCHES["flash_attention/f32"], "parity prefill used flash's f32 body")
@@ -926,7 +1069,7 @@ def main() -> int:
     # the paged layout: the same prefill + decode through a permuted page table,
     # the decode through K4 on the card and its plain version on the CPU
     with torch.no_grad():
-        ops.reset_launches()
+        reset5()
         pgl, pgt = greedy(p2, dev, layout="paged")
         check(ops.LAUNCHES["paged_decode_attention"] == 8 * cfg2.n_layers,
               f"paged parity decode launches {ops.LAUNCHES['paged_decode_attention']}")
@@ -976,7 +1119,7 @@ def main() -> int:
     with torch.no_grad():
         _, sgt = greedy(p2, dev, layout="paged", steps=steps5, short=True)   # bucketed
         for kv_int8 in (False, True):
-            ops.reset_launches()
+            reset5()
             kgl, kgt = chunked_greedy(p2, dev, kv_int8)
             check(ops.LAUNCHES["ragged_prefill_attention"] == (2 + steps5) * cfg2.n_layers
                   and ops.LAUNCHES["flash_attention"] == 0,
@@ -1003,7 +1146,7 @@ def main() -> int:
     for label, tree, kernel in (("block-sparse", p2bs, "qgemm_w8a8_sparse"),
                                 ("W4A8-g128", p2w4, "qgemm_w4a8")):
         with torch.no_grad():
-            ops.reset_launches()
+            reset5()
             bgl, bgt = greedy(tree, dev, layout="paged", steps=steps5, short=True)
             n_gemm = 6 * cfg2.n_layers * (1 + steps5)
             check(ops.LAUNCHES[kernel] == n_gemm and ops.LAUNCHES["qgemm_w8a8"] == 0,
@@ -1053,48 +1196,70 @@ def main() -> int:
           f"(chunk_steps={ceng.counters['chunk_steps']})")
 
     # ---------------------------------------------------------------- result
+    reset5()
+    # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
+    # bodies of the main path count their phase-4 launches; the f32 bodies serve
+    # only the phase-5 parity runs and count those. K2's tile body, which no
+    # aligned main-path shape reaches any more, is the body of K7 and K8 (rows below).
     kernel_rows = [
         ("act_quantize", "src/repro_torch/csrc/act_quantize.cu",
-         "src/repro/kernels/act_quantize.py:29", ("act_quantize", 4, 4608), "M=4 K=4608 bf16"),
+         "src/repro/kernels/act_quantize.py:29", ("act_quantize", 4, 4608), "M=4 K=4608 bf16",
+         "phase 4"),
         ("qgemm_w8a8/decode", "src/repro_torch/csrc/qgemm_decode.cu",
          "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8", 4, 4608, 18432),
-         "M=4 K=4608 N=18432, split-K decode body"),
-        ("qgemm_w8a8/tile", "src/repro_torch/csrc/qgemm_w8a8.cu",
-         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8", 2048, 4608, 18432),
-         "M=2048 K=4608 N=18432, 64x64 tile body"),
-        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "M=4 K=4608 N=18432, split-K decode body", "phase 4"),
+        ("qgemm_w8a8/wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
+         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/wgmma", 2048, 4608, 18432),
+         "M=2048 K=4608 N=18432, wgmma body", "phase 4"),
+        ("flash_attention/bf16_mma", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:33", ("flash_attention", 512, "bf16"),
-         "B=4 H=36/4 S=512 D=128 bf16, tensor-core body"),
-        ("paged_decode_attention", "src/repro_torch/csrc/paged_attention.cu",
+         "B=4 H=36/4 S=512 D=128 bf16, tensor-core body", "phase 4"),
+        ("flash_attention/f32", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:33", ("flash_attention", 512, "f32"),
+         "B=4 H=36/4 S=512 D=128 f32, CUDA-core body", "phase 5"),
+        ("paged_decode_attention", "src/repro_torch/csrc/paged_attention_mma.cu",
          "src/repro/kernels/flash_attention.py:98",
          ("paged_decode_attention", "bf16", "f32", 8),
-         "B=4 H=36/4 D=128 ps=8 q bf16 pool f32 kv_len=[700,517,130,1]"),
-        ("paged_verify_attention", "src/repro_torch/csrc/paged_attention.cu",
+         "B=4 H=36/4 D=128 ps=8 q bf16 pool f32 kv_len=[700,517,130,1], split bf16 body",
+         "phase 4"),
+        ("paged_verify_attention", "src/repro_torch/csrc/paged_attention_mma.cu",
          "src/repro/kernels/flash_attention.py:98",
          ("paged_verify_attention", "bf16", "f32", 8),
-         "B=4 H=36/4 D=128 ps=8 q_win=4 q bf16 pool f32 q_len=[4,1,3,2]"),
-        ("ragged_prefill_attention", "src/repro_torch/csrc/paged_attention.cu",
+         "B=4 H=36/4 D=128 ps=8 q_win=4 q bf16 pool f32 q_len=[4,1,3,2], split bf16 body",
+         "phase 4"),
+        ("ragged_prefill_attention", "src/repro_torch/csrc/paged_attention_mma.cu",
          "src/repro/kernels/flash_attention.py:337",
          ("ragged_prefill_attention", "f32", "128 mixed"),
          "Nt=128 B=4 H=36/4 D=128 ps=8 q bf16 pool f32 q_len=[1,1,1,125] "
-         "kv_len=[700,517,130,514]"),
+         "kv_len=[700,517,130,514], split bf16 body", "phase 4"),
+        ("paged_attention/f32", "src/repro_torch/csrc/paged_attention.cu",
+         "src/repro/kernels/flash_attention.py:98",
+         ("paged_decode_attention", "f32", "f32", 8),
+         "B=4 H=36/4 D=128 ps=8 q f32 pool f32 kv_len=[700,517,130,1], CUDA-core body "
+         "(decode; it serves verify and ragged f32 q too)", "phase 5"),
         ("qgemm_w8a8_sparse", "src/repro_torch/csrc/qgemm_w8a8.cu",
          "src/repro/kernels/qgemm.py:91", ("qgemm_w8a8_sparse", 4),
-         "M=4 K=4608 N=18432, half the 64-row k-tiles empty"),
+         "M=4 K=4608 N=18432, half the 64-row k-tiles empty", "phase 4"),
         ("qgemm_w4a8", "src/repro_torch/csrc/qgemm_w8a8.cu",
-         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8", 4), "M=4 K=4608 N=18432 g128"),
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8", 4), "M=4 K=4608 N=18432 g128",
+         "phase 4"),
     ]
     kernels = []
-    for name, source, replaces, key, shape in kernel_rows:
+    for name, source, replaces, key, shape, counted in kernel_rows:
         r = results[key]
-        n_launch = body_launches[name] if name in body_launches else launches[name]
+        counts = ({**launches, **body_launches} if counted == "phase 4"
+                  else {**p5_launches, **p5_bodies})
+        n_launch = counts[name]
+        check(n_launch > 0, f"{name}: no launch in {counted}")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n_launch, "max_abs_err": r["max_abs_err"],
+                        "launches": n_launch, "launches_in": counted,
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape,
-                        **{k: r[k] for k in ("library", "body_ms", "gb_s") if k in r}})
+                        **{k: r[k] for k in ("library", "body_ms", "gb_s", "f32_body_ms")
+                           if r.get(k) is not None}})
     print("[6] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
           + f"; total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,8 @@
-// K4/K5/K6 paged_attention: single-token decode (q_win = 1), draft-window verify
-// (q_win > 1) and ragged chunked-prefill attention through a page table, with an
-// online softmax. One kernel body serves all three.
+// K4/K5/K6 paged_attention, f32 body: single-token decode (q_win = 1), draft-window
+// verify (q_win > 1) and ragged chunked-prefill attention through a page table,
+// with an online softmax, for f32 queries (the card-vs-CPU parity runs). bf16
+// queries, the serving path, run the split tensor-core body in
+// paged_attention_mma.cu. One kernel body serves all three modes here.
 //
 // Replaces the TPU kernels repro/kernels/flash_attention.py::_paged_decode_kernel
 // (launcher paged_decode_attention_pallas, pallas_call at flash_attention.py:329),
@@ -62,10 +64,6 @@
 // the chunk's max and sum with shuffles, and each lane then updates D / 32
 // columns of that row's f32 accumulator (one register each over the chunk's
 // keys), which lives in shared memory with the row's running max and denominator.
-//
-// Later work: split each slot's pages across blocks (flash-decoding) to fill the
-// card at small B, and tensor-core products for the q_win > 1 verify and the
-// ragged prefill rows.
 #include "common.cuh"
 
 namespace {
@@ -367,9 +365,6 @@ int dispatch(int q_dtype, int kv_dtype, const Args& args, int B, int rows, dim3 
   REPRO_PAGED_CASE(kF32, float, kF32, float)
   REPRO_PAGED_CASE(kF32, float, kBF16, __nv_bfloat16)
   REPRO_PAGED_CASE(kF32, float, kI8, int8_t)
-  REPRO_PAGED_CASE(kBF16, __nv_bfloat16, kF32, float)
-  REPRO_PAGED_CASE(kBF16, __nv_bfloat16, kBF16, __nv_bfloat16)
-  REPRO_PAGED_CASE(kBF16, __nv_bfloat16, kI8, int8_t)
 #undef REPRO_PAGED_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

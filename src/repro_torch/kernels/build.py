@@ -22,9 +22,9 @@ from typing import Optional, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("act_quantize.cu", "qgemm_w8a8.cu", "qgemm_decode.cu", "flash_attention.cu",
-           "paged_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("act_quantize.cu", "qgemm_w8a8.cu", "qgemm_decode.cu", "qgemm_wgmma.cu",
+           "flash_attention.cu", "paged_attention.cu", "paged_attention_mma.cu")
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -37,6 +37,8 @@ SIGNATURES = {
     "repro_qgemm_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, out, M, N, K, splits, stream
     "repro_qgemm_w8a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, splits, stream
+    "repro_qgemm_w8a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw4, a, sw, out, M, N, K, group, vec_a, vec_b, stream
@@ -48,6 +50,16 @@ SIGNATURES = {
     # q_len, o, B, Hkv, R, D, P, ps, maxP, q_win, window, softcap, scale, stream
     "repro_paged_attention": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _F, _F, _P],
+    # q, k_pages, v_pages, kv_dtype, k_scale, v_scale, page_table, kv_len, q_len, o,
+    # part_acc, part_ml, B, Hkv, R, D, P, ps, maxP, q_win, n_parts, part_len, window,
+    # softcap, scale, stream
+    "repro_paged_attention_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # q, k_new, v_new, k_pages, v_pages, kv_dtype, k_scale, v_scale, page_table,
+    # q_start, q_len, kv_len, o, part_acc, part_ml, Nt, B, Hkv, G, D, P, ps, maxP,
+    # chunk_cap, n_parts, part_len, window, softcap, scale, stream
+    "repro_ragged_prefill_bf16": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # q, q_dtype, k_new, v_new, k_pages, v_pages, kv_dtype, k_scale, v_scale,
     # page_table, q_start, q_len, kv_len, o, Nt, B, Hkv, G, D, P, ps, maxP, chunk_cap,
     # window, softcap, scale, stream

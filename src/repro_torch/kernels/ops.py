@@ -15,15 +15,17 @@ other runs K7 with the tile-occupancy table. The table is derived once per leaf
 where the served tree is prepared (``models.quantize.with_tile_occupancy``) and
 passed in, so a serving step does not sync the host once per linear.
 
-K2 has two bodies: :func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan` sends few
-activation rows to the split-K weight stream and the rest to the 64 × 64 tile
-body; K3 runs its bf16 tensor-core body or its f32 body by dtype.
+K2 has three bodies: :func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan` sends few
+activation rows to the split-K weight stream, more to the ``wgmma`` body and
+shapes neither takes to the 64 × 64 tile body; K3 and K4–K6 run a bf16
+tensor-core body or an f32 body by dtype.
 
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
-per body of the ops that have two.
+per body of the ops that have several (K2; K3; K4–K6, whose bf16 body is split
+tensor-core attention and whose f32 body runs on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -36,18 +38,19 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda
 from repro_torch.kernels.flash_attention import BODIES, HEAD_DIMS, flash_attention_cuda
 from repro_torch.kernels.paged_attention import (
-    POOL_CODE, paged_attention_cuda, ragged_prefill_cuda,
+    BODIES as PAGED_BODIES, POOL_CODE, paged_attention_cuda, ragged_prefill_cuda,
 )
 from repro_torch.kernels.qgemm import (
     TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
-    qgemm_w8a8_sparse_cuda,
+    qgemm_w8a8_sparse_cuda, qgemm_w8a8_wgmma_cuda,
 )
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
             "paged_decode_attention": 0, "paged_verify_attention": 0,
             "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
-BODY_LAUNCHES = {"qgemm_w8a8/decode": 0, "qgemm_w8a8/tile": 0,
-                 "flash_attention/bf16_mma": 0, "flash_attention/f32": 0}
+BODY_LAUNCHES = {"qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
+                 "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
+                 "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
 
 
 def reset_launches() -> None:
@@ -121,6 +124,8 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     body, splits = qgemm_w8a8_plan(M, K, N, aligned=aligned)
     if body == "decode":
         out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
+    elif body == "wgmma":
+        out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
     else:
         out = qgemm_w8a8_cuda(qx, qw, a, sw)
     LAUNCHES["qgemm_w8a8"] += 1
@@ -317,6 +322,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                                v_scale_pages, page_table.to(torch.int32).contiguous(), kvl,
                                None, q_win=1, window=window, softcap=softcap)
     LAUNCHES["paged_decode_attention"] += 1
+    BODY_LAUNCHES[f"paged_attention/{PAGED_BODIES[q.dtype]}"] += 1
     return out.reshape(B, 1, H, D)
 
 
@@ -358,6 +364,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                                page_table.to(torch.int32).contiguous(), kvl, qln, q_win=W,
                                window=window, softcap=softcap)
     LAUNCHES["paged_verify_attention"] += 1
+    BODY_LAUNCHES[f"paged_attention/{PAGED_BODIES[q.dtype]}"] += 1
     return out.reshape(B, Hkv, W, G, D).permute(0, 2, 1, 3, 4).reshape(B, W, H, D)
 
 
@@ -405,4 +412,5 @@ def ragged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
                               page_table.to(torch.int32).contiguous(), qs, qln, kvl,
                               chunk_cap=chunk_cap, window=window, softcap=softcap)
     LAUNCHES["ragged_prefill_attention"] += 1
+    BODY_LAUNCHES[f"paged_attention/{PAGED_BODIES[q.dtype]}"] += 1
     return out

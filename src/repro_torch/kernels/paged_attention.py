@@ -1,8 +1,11 @@
-"""Launchers of the CUDA kernels K4/K5/K6 (``csrc/paged_attention.cu``), the
-counterparts of the reference's ``_paged_decode_kernel`` and
-``_ragged_prefill_kernel`` in ``repro/kernels/flash_attention.py``: single-token
-decode at ``q_win = 1``, draft-window verify at ``q_win > 1``, and ragged
-chunked prefill, one kernel body.
+"""Launchers of the CUDA kernels K4/K5/K6, the counterparts of the reference's
+``_paged_decode_kernel`` and ``_ragged_prefill_kernel`` in
+``repro/kernels/flash_attention.py``: single-token decode at ``q_win = 1``,
+draft-window verify at ``q_win > 1``, and ragged chunked prefill. Two bodies, by
+q's dtype (:data:`BODIES`): bf16 q runs the split tensor-core body in
+``csrc/paged_attention_mma.cu`` (each slot's key walk cut into the partitions of
+:func:`split_plan`, merged by a second launch), f32 q the CUDA-core body in
+``csrc/paged_attention.cu``.
 
 Callers go through :func:`repro_torch.kernels.ops.paged_decode_attention`,
 :func:`~repro_torch.kernels.ops.paged_verify_attention` and
@@ -11,7 +14,8 @@ inputs, run the plain versions for CPU tensors and count launches.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,6 +23,30 @@ from repro_torch.kernels import build
 from repro_torch.kernels.act_quantize import DTYPE_CODE
 
 POOL_CODE = {**DTYPE_CODE, torch.int8: 2}    # pool element types the kernel reads
+BODIES = {torch.bfloat16: "bf16_mma", torch.float32: "f32"}
+
+#: the bf16 body's key chunk, target partition length and most partitions
+SPLIT_CHUNK, SPLIT_TARGET, SPLIT_MAX = 32, 128, 32
+
+
+def split_plan(maxP: int, ps: int) -> Tuple[int, int]:
+    """(n_parts, part_len) of the bf16 body: the logical positions [0, maxP·ps)
+    cut into n_parts partitions of part_len positions (a multiple of the 32-key
+    chunk), about 128 each and at most 32 of them, none empty. It reads shapes
+    only, so a launch needs no kv_len on the host, and a decode and a ragged
+    launch over one table cut every slot's walk alike."""
+    span = maxP * ps
+    n = max(1, min(SPLIT_MAX, math.ceil(span / SPLIT_TARGET)))
+    part_len = math.ceil(math.ceil(span / n) / SPLIT_CHUNK) * SPLIT_CHUNK
+    return math.ceil(span / part_len), part_len
+
+
+def _scratch(n_parts: int, rows: int, D: int, device):
+    """The bf16 body's partial (acc, (m, l)) buffers, or none for one partition."""
+    if n_parts == 1:
+        return None, None
+    return (torch.empty((n_parts, rows, D), dtype=torch.float32, device=device),
+            torch.empty((n_parts, rows, 2), dtype=torch.float32, device=device))
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -34,6 +62,18 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.
     P, ps = k_pages.shape[0], k_pages.shape[1]
     out = torch.empty_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if q.dtype == torch.bfloat16:
+        n_parts, part_len = split_plan(page_table.shape[1], ps)
+        acc, ml = _scratch(n_parts, B * Hkv * R, D, q.device)
+        rc = build.library().repro_paged_attention_bf16(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), POOL_CODE[k_pages.dtype],
+            ptr(k_scale), ptr(v_scale), page_table.data_ptr(), kv_len.data_ptr(), ptr(q_len),
+            out.data_ptr(), ptr(acc), ptr(ml), B, Hkv, R, D, P, ps, page_table.shape[1], q_win,
+            n_parts, part_len, 0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), float(D ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "paged_attention bf16 body")
+        return out
     rc = build.library().repro_paged_attention(
         q.data_ptr(), DTYPE_CODE[q.dtype], k_pages.data_ptr(), v_pages.data_ptr(),
         POOL_CODE[k_pages.dtype], ptr(k_scale), ptr(v_scale), page_table.data_ptr(),
@@ -60,6 +100,19 @@ def ragged_prefill_cuda(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tenso
     B, maxP = page_table.shape
     out = torch.zeros_like(q)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if q.dtype == torch.bfloat16:
+        n_parts, part_len = split_plan(maxP, ps)
+        acc, ml = _scratch(n_parts, Nt * H, D, q.device)
+        rc = build.library().repro_ragged_prefill_bf16(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), POOL_CODE[k_pages.dtype], ptr(k_scale), ptr(v_scale),
+            page_table.data_ptr(), q_start.data_ptr(), q_len.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), ptr(acc), ptr(ml), Nt, B, Hkv, H // Hkv, D, P, ps, maxP,
+            int(chunk_cap), n_parts, part_len, 0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), float(D ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "ragged_prefill bf16 body")
+        return out
     rc = build.library().repro_ragged_prefill(
         q.data_ptr(), DTYPE_CODE[q.dtype], k_new.data_ptr(), v_new.data_ptr(),
         k_pages.data_ptr(), v_pages.data_ptr(), POOL_CODE[k_pages.dtype], ptr(k_scale),

@@ -1,8 +1,10 @@
 """Launchers of the CUDA kernels K2 ``qgemm_w8a8``, K7 ``qgemm_w8a8_sparse`` and
 K8 ``qgemm_w4a8``, the counterparts of the reference's W8A8, block-sparse W8A8 and
-W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. K2 has two bodies: the 64 × 64
-tile body in ``csrc/qgemm_w8a8.cu`` (shared with K7 and K8) and, for few
-activation rows, the split-K weight stream in ``csrc/qgemm_decode.cu``;
+W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. K2 has three bodies: the 64 × 64
+tile body in ``csrc/qgemm_w8a8.cu`` (shared with K7 and K8), for few activation
+rows the split-K weight stream in ``csrc/qgemm_decode.cu``, and for more rows the
+``wgmma`` body in ``csrc/qgemm_wgmma.cu`` (TMA ring, register-sourced weight
+operand, cluster split-K where few output tiles would idle the card);
 :func:`qgemm_w8a8_plan` picks one.
 
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
@@ -28,6 +30,10 @@ DECODE_TILE_N = 128      # output columns per decode-body block
 MAX_SPLITS = 8           # a portable thread-block cluster holds the K splits
 _SMS = 132               # H100 SXM streaming multiprocessors
 _BLOCKS_PER_SM = 4       # blocks to aim at, so each SM keeps ~100 KB of weights in flight
+WGMMA_TILE_N = 128       # output columns per wgmma-body block
+WGMMA_TILE_K = 128       # k-rows per ring stage (one 128-byte TMA row)
+WGMMA_MAX_TILE_M = 128   # token rows per block: M rounded up to 16 up to here
+WGMMA_MIN_SPLIT_K_TILES = 36   # k-tiles a wgmma K split keeps at least (K = 4608)
 
 
 def decode_splits(K: int, N: int) -> int:
@@ -47,13 +53,35 @@ def split_bounds(K: int, splits: int) -> List[Tuple[int, int]]:
             for s in range(splits)]
 
 
+def wgmma_tile_m(M: int) -> int:
+    """The wgmma body's token rows per block: M rounded up to 16 (at least 48)
+    up to 128 rows, else 128-row tiles."""
+    return WGMMA_MAX_TILE_M if M > WGMMA_MAX_TILE_M else max(48, -(-M // 16) * 16)
+
+
+def wgmma_splits(M: int, K: int, N: int) -> int:
+    """K splits of the wgmma body: 1 where its output tiles fill the card, else
+    enough for about one block per SM, at most one cluster (8), and never fewer
+    than WGMMA_MIN_SPLIT_K_TILES k-tiles per split: on the H100 a split of K =
+    4608 (36 k-tiles) lost more to the cluster reduction than it gained, at every
+    M from 33 to 128 and N from 512 to 18432, while K = 18432 gained from 2-4."""
+    tiles = -(-N // WGMMA_TILE_N) * -(-M // wgmma_tile_m(M))
+    want = math.ceil(_SMS / tiles)
+    by_k = -(-K // WGMMA_TILE_K) // WGMMA_MIN_SPLIT_K_TILES
+    return max(1, min(MAX_SPLITS, by_k, want))
+
+
 def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, int]:
-    """K2's body for an (M, K) × (K, N) product: ``("decode", splits)`` for 1 ≤ M ≤
-    DECODE_MAX_M when K and N are multiples of 16 and both operands are 16-byte
-    aligned (``aligned``), else ``("tile", 1)``."""
-    if 1 <= M <= DECODE_MAX_M and K > 0 and K % 16 == 0 and N > 0 and N % 16 == 0 and aligned:
+    """K2's body for an (M, K) × (K, N) product, where K and N are multiples of 16
+    and both operands 16-byte aligned (``aligned``): ``("decode", splits)`` for 1 ≤
+    M ≤ DECODE_MAX_M, ``("wgmma", splits)`` above (chip_smoke phase 3 measured it
+    faster than the tile body at every M from 33 to 2048 on the H100, PERF.md);
+    every other product ``("tile", 1)``."""
+    if not (M >= 1 and K > 0 and K % 16 == 0 and N > 0 and N % 16 == 0 and aligned):
+        return "tile", 1
+    if M <= DECODE_MAX_M:
         return "decode", decode_splits(K, N)
-    return "tile", 1
+    return "wgmma", wgmma_splits(M, K, N)
 
 
 def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
@@ -85,6 +113,23 @@ def qgemm_w8a8_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
         M, N, K, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 decode body")
+    return out
+
+
+def qgemm_w8a8_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                          sw: torch.Tensor, splits: int) -> torch.Tensor:
+    """K2's wgmma body: qx (M, K) int8 · qw (K, N) int8 → (M, N) f32 = acc · a ·
+    sw, over ``splits`` K splits; K and N multiples of 16, qx and qw 16-byte
+    aligned, all contiguous on one card."""
+    M, K = qx.shape
+    N = qw.shape[1]
+    if qx.data_ptr() % 16 or qw.data_ptr() % 16:
+        raise ValueError("the wgmma body loads qx and qw with TMA: align both to 16 bytes")
+    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    rc = build.library().repro_qgemm_w8a8_wgmma(
+        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "qgemm_w8a8 wgmma body")
     return out
 
 

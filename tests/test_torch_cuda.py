@@ -94,7 +94,7 @@ def _decode_max_m():
 @pytest.mark.parametrize("K,N", DECODE_SHAPES)
 @pytest.mark.parametrize("m_case", ["1", "4", "T", "T+1", "20", "128"])
 def test_qgemm_w8a8_routed_bitwise(dev, K, N, m_case):
-    """Across the routing rule (M = T goes to the decode body, T + 1 to the tile
+    """Across the routing rule (M = T goes to the decode body, T + 1 to the wgmma
     body) at the main path's shapes, the routed launch is bitwise the plain version."""
     ops, ref = _ops()
     T = _decode_max_m()
@@ -104,7 +104,7 @@ def test_qgemm_w8a8_routed_bitwise(dev, K, N, m_case):
     out = ops.qgemm_w8a8(qx, qw, a, sw)
     want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
     torch.cuda.synchronize()
-    body = "decode" if M <= T else "tile"
+    body = "decode" if M <= T else "wgmma"
     assert ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"] == before[f"qgemm_w8a8/{body}"] + 1
     assert torch.equal(out, want)
 
@@ -144,6 +144,71 @@ def test_qgemm_w8a8_decode_body_graph_replay(dev):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
+        want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+        for _ in range(3):
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------- K2 wgmma body
+
+WGMMA_M = [33, 40, 64, 100, 128, 512, 2047, 2048]
+
+
+@pytest.mark.parametrize("K,N", DECODE_SHAPES + [(4608 + 48, 496)])
+@pytest.mark.parametrize("M", WGMMA_M)
+def test_qgemm_w8a8_wgmma_bitwise(dev, M, K, N):
+    """Through ops.qgemm_w8a8's routing, packed-chunk and prefill row counts (M
+    edges 33, 100, 2047 inside a token tile) at the four linear shapes and at a
+    ragged K and N (neither a multiple of 128) run the wgmma body, bitwise the
+    plain version."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_plan
+    ops, ref = _ops()
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, 3 * M + K + N)
+    assert qgemm_w8a8_plan(M, K, N)[0] == "wgmma"
+    before = ops.BODY_LAUNCHES["qgemm_w8a8/wgmma"]
+    out = ops.qgemm_w8a8(qx, qw, a, sw)
+    want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["qgemm_w8a8/wgmma"] == before + 1
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("M,K,N,splits", [
+    (33, 18432, 4608, 2), (128, 18432, 4608, 4), (64, 18432, 512, 8),
+    (100, 4608 + 48, 496, 5),      # 37 k-tiles over 5 splits, the last one cut at K
+    (48, 16 * 9, 16, 1),           # less than one k-tile, one output column tile
+    (300, 1040, 144, 3),
+])
+def test_qgemm_w8a8_wgmma_splits_bitwise(dev, M, K, N, splits):
+    """The wgmma body itself at every cluster split it takes, ragged K and N and
+    more than one token tile: bitwise the plain version."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_wgmma_cuda
+    _, ref = _ops()
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M * 5 + K)
+    out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.qgemm_w8a8_ref(qx, qw, a, sw))
+
+
+def test_qgemm_w8a8_wgmma_graph_replay(dev):
+    """Captured in a CUDA graph (tensor maps encoded at capture), the wgmma body
+    replays to the plain version's bits, with and without the cluster split."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_wgmma_cuda, wgmma_splits
+    _, ref = _ops()
+    for M, K, N in ((128, 18432, 4608), (2048, 4608, 512), (33, 4608, 18432)):
+        qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M + K + N)
+        splits = wgmma_splits(M, K, N)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
         want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
         for _ in range(3):
             out.fill_(float("nan"))
@@ -283,6 +348,89 @@ def test_paged_all_sentinel_row_and_w1(dev, pool_dtype):
     assert float((out[2].float()).abs().max()) == 0.0
     np.testing.assert_allclose(out[0].reshape(Hkv, G, D).float().cpu().numpy(),
                                want[0].float().cpu().numpy(), atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------- K4/K5 bf16 body
+
+def _edge_paged(dev, maxP, ps, pool_dtype, seed):
+    """Five slots over (P, ps, 4, 128) pools: kv_len 0, 1, one full page (a page
+    boundary), the whole table (maxP·ps) and 3 on an all-sentinel table row."""
+    Hkv, D = 4, 128
+    span = maxP * ps
+    kv_lens = [0, 1, ps, span, 3]
+    P = maxP + 4
+    kp, vp, ks, vs, _, _ = _paged_inputs(dev, 1, Hkv, D, P, ps, maxP, pool_dtype, seed)
+    rng = np.random.default_rng(seed)
+    tab = np.full((5, maxP), P, np.int32)
+    perm, off = rng.permutation(P), 0
+    for b in range(4):
+        n = -(-kv_lens[b] // ps)
+        tab[b, :n] = perm[off: off + n]
+        off += n
+    t = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)  # noqa: E731
+    return kp, vp, ks, vs, t(tab), t(kv_lens)
+
+
+@pytest.mark.parametrize("maxP,ps", [(4, 8), (32, 8), (16, 16)])   # 1, 2 and 2 partitions
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("window,softcap", [(None, None), (5, None), (None, 30.0)])
+def test_paged_bf16_body(dev, maxP, ps, pool_dtype, window, softcap):
+    """bf16 q runs the split tensor-core body: decode (K4) and a q_win = 4 verify
+    (K5) at kv_len 0, 1, a page boundary and maxP·ps, with one and with several
+    key partitions, within 2e-2 of the plain version; kv_len 0 gives zeros and an
+    all-sentinel table row finite values; verify at q_win = 1 is bitwise decode."""
+    from repro_torch.kernels.paged_attention import split_plan
+    ops, ref = _ops()
+    Hkv, G, D, W = 4, 9, 128, 4
+    assert split_plan(maxP, ps)[0] == (1 if maxP * ps <= 32 else 2)
+    kp, vp, ks, vs, tab, kvl = _edge_paged(dev, maxP, ps, pool_dtype, maxP + ps)
+    kw = dict(k_scale_pages=ks, v_scale_pages=vs, window=window, softcap=softcap)
+    g = torch.Generator(device=dev).manual_seed(maxP * ps)
+    q = torch.randn(5, 1, Hkv * G, D, generator=g, device=dev).to(torch.bfloat16)
+    before = ops.BODY_LAUNCHES["paged_attention/bf16_mma"]
+    out = ops.paged_decode_attention(q, kp, vp, tab, kvl, **kw)
+    ver1 = ops.paged_verify_attention(q, kp, vp, tab, kvl, torch.ones_like(kvl), **kw)
+    want = ref.paged_decode_attention_ref(q.reshape(5, Hkv, G, D), kp, vp, tab, kvl, **kw)
+    qw = torch.randn(5, W, Hkv * G, D, generator=g, device=dev).to(torch.bfloat16)
+    qln = torch.tensor([1, 1, 3, 4, 2], dtype=torch.int32, device=dev)
+    outw = ops.paged_verify_attention(qw, kp, vp, tab, kvl, qln, **kw)
+    wantw = ref.paged_verify_attention_ref(qw.reshape(5, W, Hkv, G, D).permute(0, 2, 1, 3, 4),
+                                           kp, vp, tab, kvl, qln, **kw).permute(0, 2, 1, 3, 4)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["paged_attention/bf16_mma"] == before + 3
+    assert torch.isfinite(out.float()).all() and torch.isfinite(outw.float()).all()
+    assert torch.equal(out, ver1)
+    assert float(out[0].float().abs().max()) == 0.0
+    err = (out.reshape(5, Hkv, G, D).float() - want.float()).abs()[1:4]
+    assert float(err.max()) <= 2e-2
+    for b in (1, 2, 3):
+        n = int(qln[b])
+        errw = (outw[b, :n].reshape(n, Hkv, G, D).float() - wantw[b, :n].float()).abs()
+        assert float(errw.max()) <= 2e-2
+
+
+def test_paged_bf16_body_graph_replay(dev):
+    """The split body and its combine launch, captured in a CUDA graph (the
+    partition scratch comes from the graph's pool), replay to the eager bits."""
+    ops, _ = _ops()
+    kp, vp, ks, vs, tab, kvl = _edge_paged(dev, 128, 8, torch.int8, 7)
+    q = torch.randn(5, 1, 36, 128, device=dev).to(torch.bfloat16)
+    call = lambda: ops.paged_decode_attention(q, kp, vp, tab, kvl, k_scale_pages=ks,  # noqa: E731
+                                              v_scale_pages=vs)
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
 
 
 # ---------------------------------------------------------------- K7 and K8

@@ -1,8 +1,12 @@
-"""K2's body routing and K-split plan (``repro_torch.kernels.qgemm``), on the CPU.
+"""K2's body routing and K-split plan (``repro_torch.kernels.qgemm``) and the
+paged bf16 body's key-walk split (``repro_torch.kernels.paged_attention``), on the
+CPU.
 
-The decode body splits K across a thread-block cluster; the plan that picks the
-body and the splits is plain Python, checked here for every linear shape of every
-registered config. CPU tensors take the plain versions and move no launch count.
+The decode and wgmma bodies split K across a thread-block cluster; the plan that
+picks the body and the splits is plain Python, checked here for every linear shape
+of every registered config. The paged body cuts each slot's key walk into
+partitions sized from shapes alone. CPU tensors take the plain versions and move
+no launch count.
 """
 import numpy as np
 import pytest
@@ -11,8 +15,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import all_archs, get  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.paged_attention import SPLIT_CHUNK, SPLIT_MAX, split_plan  # noqa: E402
 from repro_torch.kernels.qgemm import (  # noqa: E402
-    DECODE_MAX_M, MAX_SPLITS, TILE_K, decode_splits, qgemm_w8a8_plan, split_bounds,
+    DECODE_MAX_M, MAX_SPLITS, TILE_K, WGMMA_MIN_SPLIT_K_TILES, WGMMA_TILE_K,
+    WGMMA_TILE_N, decode_splits, qgemm_w8a8_plan, split_bounds, wgmma_splits, wgmma_tile_m,
 )
 
 
@@ -49,15 +55,74 @@ def test_splits_cover_k_on_tile_boundaries(name, smoke, K, N):
 
 @pytest.mark.parametrize("name,smoke,K,N", CONFIG_SHAPES)
 def test_plan_routes_small_m_to_the_decode_body(name, smoke, K, N):
-    """M ≤ T runs the decode body where K and N take 16-byte chunks; larger M, or
-    shapes and addresses it does not take, run the tile body."""
+    """M ≤ T runs the decode body where K and N take 16-byte chunks; larger M runs
+    the wgmma body there; shapes and addresses neither takes run the tile body."""
     takes = K % 16 == 0 and N % 16 == 0
     for M in (1, 4, DECODE_MAX_M):
         body, splits = qgemm_w8a8_plan(M, K, N)
         assert (body, splits) == (("decode", decode_splits(K, N)) if takes else ("tile", 1))
         assert qgemm_w8a8_plan(M, K, N, aligned=False) == ("tile", 1)
     for M in (DECODE_MAX_M + 1, 128, 2048):
-        assert qgemm_w8a8_plan(M, K, N) == ("tile", 1)
+        want = ("wgmma", wgmma_splits(M, K, N)) if takes else ("tile", 1)
+        assert qgemm_w8a8_plan(M, K, N) == want
+        assert qgemm_w8a8_plan(M, K, N, aligned=False) == ("tile", 1)
+
+
+@pytest.mark.parametrize("name,smoke,K,N", CONFIG_SHAPES)
+def test_wgmma_splits_fill_the_card(name, smoke, K, N):
+    """The wgmma body's K splits: at least WGMMA_MIN_SPLIT_K_TILES 128-row k-tiles
+    each, at most one cluster of them, none where its output tiles alone give every
+    SM a block, and enough otherwise that the split grid reaches one block per SM
+    or runs out of such splits or cluster ranks. Its token tile covers M up to 128
+    rows, in steps of 16, and cuts larger M into 128-row tiles."""
+    k_tiles = -(-K // WGMMA_TILE_K)
+    max_by_k = max(1, k_tiles // WGMMA_MIN_SPLIT_K_TILES)
+    for M in (33, 40, 64, 100, 128, 512, 2047, 2048):
+        bm = wgmma_tile_m(M)
+        assert bm % 16 == 0 and 48 <= bm <= 128 and (bm >= M or bm == 128)
+        assert bm - M < 16 or M > 128
+        tiles = -(-N // WGMMA_TILE_N) * -(-M // bm)
+        splits = wgmma_splits(M, K, N)
+        assert 1 <= splits <= min(MAX_SPLITS, max_by_k)
+        assert k_tiles // splits >= min(k_tiles, WGMMA_MIN_SPLIT_K_TILES)
+        if tiles >= 132:
+            assert splits == 1
+        else:
+            assert tiles * splits >= 132 or splits in (MAX_SPLITS, max_by_k)
+
+
+@pytest.mark.parametrize("maxP,ps", [(1, 1), (1, 16), (4, 8), (7, 3), (64, 8), (128, 8),
+                                     (128, 16), (513, 8), (4096, 16)])
+def test_paged_split_covers_each_walk(maxP, ps):
+    """The paged bf16 body's partitions cover [0, maxP·ps) in order, each a whole
+    number of 32-key chunks and none empty; at every walk length a slot can have
+    (kv_len, or a chunk row's last key + 1) the partitions that reach it are
+    exactly the first ceil(walk / part_len), each non-empty inside the walk. The
+    plan reads maxP and ps only, so a decode and a ragged launch over one table
+    (whatever their rows or Nt) cut every walk alike."""
+    span = maxP * ps
+    n_parts, part_len = split_plan(maxP, ps)
+    assert 1 <= n_parts <= SPLIT_MAX and part_len % SPLIT_CHUNK == 0
+    bounds = [(p * part_len, min(span, (p + 1) * part_len)) for p in range(n_parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == span
+    assert all(e > b for b, e in bounds)
+    assert all(e0 == b1 for (_, e0), (b1, _) in zip(bounds, bounds[1:]))
+    for walk in sorted({1, ps, ps + 1, part_len, part_len + 1, span - 1, span} - {0}):
+        if walk > span:
+            continue
+        live = [p for p, (b, _) in enumerate(bounds) if b < walk]
+        assert live == list(range(-(-walk // part_len)))
+        assert all(min(e, walk) > b for b, e in (bounds[p] for p in live))
+    assert split_plan(maxP, ps) == (n_parts, part_len)
+
+
+def test_paged_split_main_path():
+    """The serving shapes: max_len 1024 in pages of 8 or 16 gives 8 partitions of
+    128 positions, so slot kv_len [700, 517, 130, 1] walks 6, 5, 2 and 1 of them; a
+    short table runs one partition (no combine launch)."""
+    assert split_plan(128, 8) == (8, 128) == split_plan(64, 16)
+    assert [-(-n // 128) for n in (700, 517, 130, 1)] == [6, 5, 2, 1]
+    assert split_plan(4, 8) == (1, 32) and split_plan(8, 16) == (1, 128)
 
 
 def test_plan_edges():
@@ -74,6 +139,12 @@ def test_plan_edges():
                                               (18432, 4608))] == [8, 8, 4, 8]
     assert split_bounds(4608, 8)[1] == (576, 1152)
     assert split_bounds(18432 + 64, 8)[-1] == (16128, 18496)   # 289 k-tiles: 252..288
+    # the wgmma body: K = 4608 never splits; down (K = 18432) splits 4 ways at M <= 128
+    assert [wgmma_splits(m, k, n) for m in (33, 128, 2048)
+            for k, n in ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))] == \
+        [1, 1, 1, 4, 1, 1, 1, 4, 1, 1, 1, 1]
+    assert qgemm_w8a8_plan(33, 4600, 4608) == ("tile", 1)
+    assert qgemm_w8a8_plan(33, 4608, 4600) == ("tile", 1)
 
 
 @pytest.mark.parametrize("M", [1, 4, DECODE_MAX_M, DECODE_MAX_M + 1, 128])
@@ -94,4 +165,14 @@ def test_cpu_tensors_take_the_plain_versions(M):
         qd, kd = q.to(dtype), kv.to(dtype)
         assert torch.equal(ops.flash_attention(qd, kd, kd, torch.tensor([M])),
                            ref.flash_attention_ref(qd, kd, kd, torch.tensor([M])))
+    B, Hkv, G, D, P, ps, maxP = 2, 2, 3, 16, 6, 4, 3
+    pages = torch.from_numpy(rng.standard_normal((P, ps, Hkv, D)).astype(np.float32))
+    tab = torch.tensor([[0, 2, P], [1, 3, 4]], dtype=torch.int32)
+    kvl = torch.tensor([6, 9], dtype=torch.int32)
+    qd = torch.from_numpy(rng.standard_normal((B, 1, Hkv * G, D)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = ops.paged_decode_attention(qd.to(dtype), pages, pages, tab, kvl)
+        want = ref.paged_decode_attention_ref(qd.to(dtype).reshape(B, Hkv, G, D), pages, pages,
+                                              tab, kvl)
+        assert torch.equal(out, want.reshape(out.shape))
     assert not any(ops.LAUNCHES.values()) and not any(ops.BODY_LAUNCHES.values())
