@@ -12,20 +12,28 @@ Phases (any failure raises and exits non-zero):
    with its time, the plain version's, a one-call library yardstick where one
    exists, and the bound the card's data-sheet peaks allow. Times are device
    times: many calls captured in a CUDA graph and replayed. ``call_ms`` is the
-   time of back-to-back calls from Python, host dispatch included. K1 and K2
-   at the linears' shapes: each of K2's bodies that takes a shape (split-K
-   decode body for M <= 128, wgmma body for M > 32, 64 x 64 tile body) held
-   bitwise and timed side by side at M=4, 20, 33, 64, 128, 512 and 2048, with
-   torch._int_mm (qx zero-padded to 32 rows below that) and the GB/s reached;
-   wherever the plan routes to the wgmma body it must have beaten the tile body;
+   time of back-to-back calls from Python, host dispatch included. K1 at M=4 and
+   2048 x K=4608 and 18432: its split, rows and sweep bodies each held against the
+   plain version (codes off by one on <= 1e-5 of them, a within one ulp) eagerly
+   and under graph replay, and timed side by side. K2 at the linears' shapes: each
+   of its bodies that takes a shape (split-K decode body for M <= 128, wgmma body
+   for M > 32, 64 x 64 tile body) held bitwise and timed side by side at M=4, 20,
+   33, 64, 128, 512 and 2048, with torch._int_mm (qx zero-padded to 32 rows below
+   that) and the GB/s reached; wherever the plan routes to the wgmma body it must
+   have beaten the tile body;
    K3 at S=128/512, its bf16 tensor-core body against SDPA and its f32 body;
    K4/K5 over f32, bf16 and int8 pools, bf16 q on the split tensor-core body
    timed beside the f32-q body on the same values;
    K6 (ragged prefill) on the packed blocks of a chunked step with f32 and int8
    pools (both bodies timed), a dead slot, an all-sentinel row and q_len = 1
-   rows bitwise equal to K4; K7 (sparse W8A8) with half its k-tiles empty,
-   bitwise equal to the plain version, and with an all-ones table bitwise equal
-   to K2; K8 (W4A8 g128) f32-close.
+   rows bitwise equal to K4, and a fixed case whose outputs all lie in [4, 8)
+   with plain values near bf16 midpoints; K7 (sparse W8A8) with half its k-tiles
+   empty, bitwise equal to the plain version, and with an all-ones table bitwise
+   equal to K2; K8 (W4A8 g128) at M=4, 33, 128 and 2048 x the four linears, its
+   decode, wgmma and tile bodies f32-close eagerly and under graph replay and
+   timed side by side; a body the plan routes to must have beaten the tile body.
+   bf16 outputs (K3, K4-K6 with bf16 q) pass where within 2e-2 of the plain
+   version or within one bf16 ulp of it rounded to bf16.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
    from a seeded generator, calibrated (2 batches), quantized to W8A8 static-c
    CrossQuant (and, from the same tables, to W4A8 g128), and served through
@@ -36,13 +44,15 @@ Phases (any failure raises and exits non-zero):
    traffic, fp and int8 KV; with ``sparsity="2:4"`` (K2 serves it), then with
    every other 64-row k-tile of those masks emptied (K7 serves it, 4 requests);
    and the W4A8 tree (K8). Each run's kernel launch counts must equal what its
-   schedule implies, per body too: K2's decode body serves the steps of at most
-   DECODE_MAX_M token rows, its wgmma body the rest, K3's bf16 body every flash
-   launch, the paged bf16 body every K4/K5/K6 launch. Between the runs, one
-   torch.profiler window over a few decode steps of the dense fp-KV engine and a
-   few packed steps of the chunked one prints the device-busy share, the longest
-   device ops, the host ops with the most self time, and kernel launches and
-   host syncs per step.
+   schedule implies, per body too: K1's split body serves the steps of at most
+   32 token rows, its rows body the rest; K2's and K8's decode bodies serve the
+   steps of at most DECODE_MAX_M token rows, their wgmma bodies the rest, K3's
+   bf16 body every flash launch, the paged bf16 body every K4/K5/K6 launch.
+   Between the runs, torch.profiler windows over a few decode steps of the dense
+   fp-KV engine, a few packed steps of the chunked one and a few decode steps of
+   the W4A8 one print the device-busy share, the longest device ops, K1's, K2's
+   and K8's device time per step, the host ops with the most self time, and
+   kernel launches and host syncs per step.
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
@@ -50,9 +60,12 @@ Phases (any failure raises and exits non-zero):
    the card against the plain versions on the CPU (flash on its f32 body): equal
    greedy tokens, logits
    within 5e-2 of max|logit| (beside what a one-ulp input nudge does on the CPU
-   alone); chunked fp KV gives the bucketed tokens. Then the engine on the card:
-   paged ≡ dense, speculate=4 ≡ speculate=1 and chunked ≡ bucketed in greedy
-   tokens.
+   alone); chunked fp KV gives the bucketed tokens. The paged run again in
+   bf16 (flash's and the paged bf16 bodies): card logits within e of the CPU's,
+   greedy choices equal wherever the CPU's top-1/top-2 margin exceeds 2e, where e
+   is what bf16 instead of f32 moves the card's first decode step. Then the
+   engine on the card: paged ≡ dense, speculate=4 ≡ speculate=1 and chunked ≡
+   bucketed in greedy tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -101,6 +114,24 @@ def bound(bytes_moved: float, ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bf16_bar(out, plain, atol: float = 2e-2):
+    """The bar on a bf16 kernel output against its plain version: an element passes
+    where |out - plain| <= atol, or where out lies within one bf16 ulp of plain
+    rounded to bf16, the ulp taken at |bf16(plain)|: 2^(floor(log2|x|) - 7). Below
+    |plain| = 2 the second arm admits nothing the first does not; above it, it
+    admits the one rounding a bf16 output can take across a midpoint, which atol
+    alone refuses from |plain| = 4 on (one ulp there is 0.031), so the bar does not
+    depend on where the draw puts the plain values. Returns (every element passes,
+    the number that only the ulp arm passed)."""
+    import torch
+
+    o, p = out.float(), plain.float()
+    near = (o - p).abs() <= atol
+    pb = p.to(torch.bfloat16).float()
+    by_ulp = (o - pb).abs() <= torch.exp2(torch.floor(torch.log2(pb.abs())) - 7)
+    return bool((near | by_ulp).all()), int((by_ulp & ~near).sum())
+
+
 def empty_odd_k_tiles(tree) -> None:
     """Empty every other 64-row k-tile of every masked linear of a stacked tree, in
     place (codes and packed mask): a block-structured mask whose empty tiles the
@@ -133,9 +164,11 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.paged_attention import BODIES as paged_bodies
     from repro_torch.kernels.qgemm import (
-        DECODE_MAX_M, decode_splits, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
-        qgemm_w8a8_wgmma_cuda, wgmma_splits,
+        DECODE_MAX_M, decode_splits, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
+        qgemm_w4a8_wgmma_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
+        qgemm_w8a8_wgmma_cuda, w4a8_decode_splits, w4a8_wgmma_splits, wgmma_splits,
     )
+    from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
     from repro_torch.launch.serve import calibrate, make_prompts
     from repro_torch.models import model as M
     from repro_torch.models.layers import QuantContext
@@ -208,34 +241,81 @@ def main() -> int:
 
     results = {}
 
-    # K1 act_quantize: every quantized linear's input; bf16 activations (FULL dtype)
+    def replay(fn):
+        """``fn``'s outputs from one call captured in a CUDA graph, after a replay
+        over outputs that were overwritten first."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = fn()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        for o in outs:
+            o.fill_(float("nan") if o.is_floating_point() else 0)
+        graph.replay()
+        torch.cuda.synchronize()
+        return outs
+
+    # K1 act_quantize: every quantized linear's input; bf16 activations (FULL dtype).
+    # Each body held against the plain version (codes off by one on <= 1e-5 of the
+    # elements, a within one ulp: torch's pow and powf part by an ulp on a few
+    # inputs), eagerly and under graph replay, and timed: the split body (cluster
+    # of S ranks per row), the rows body (row in registers) and the sweep body (the
+    # first design, x read twice) beside them
     k1_shapes = [(m, k) for m in (4, 2048) for k in (4608, 18432)]
     for (Mr, K) in k1_shapes:
         x = (torch.randn(Mr, K, generator=gen, device=dev) * 2).to(torch.bfloat16)
         x[:, torch.randperm(K, generator=gen, device=dev)[:8]] *= 30   # outlier channels
         bcol = torch.rand(K, generator=gen, device=dev) * 3 + 0.25
         alpha = torch.tensor(0.15, device=dev)
+        routed, splits = act_quantize_plan(Mr, K)
+        bodies = {"split": splits if routed == "split" else 8, "rows": 1, "sweep": 1}
+        before = dict(ops.BODY_LAUNCHES)
         q, a = ops.act_quantize(x, bcol, alpha)
+        check(ops.BODY_LAUNCHES[f"act_quantize/{routed}"]
+              == before[f"act_quantize/{routed}"] + 1,
+              f"act_quantize M={Mr} K={K} did not run the {routed} body")
         qr, ar = ref.act_quantize_ref(x, bcol, 8, alpha)
         torch.cuda.synchronize()
-        d = (q.int() - qr.int()).abs()
-        n_off = int((d > 0).sum())
-        a_ulps = int((a.view(torch.int32) - ar.view(torch.int32)).abs().max())
-        check(int(d.max()) <= 1 and n_off <= 1e-5 * q.numel(),
-              f"act_quantize codes M={Mr} K={K}: max |dq|={int(d.max())}, off={n_off}")
-        check(a_ulps <= 1, f"act_quantize scale M={Mr} K={K}: {a_ulps} ulp")
-        ms = graph_ms(once(lambda: ops.act_quantize(x, bcol, alpha)), 200)
+        worst = (0, 0, 0)                            # max |dq|, off-by-one count, a ulps
+        for b in [routed] + [b for b in bodies if b != routed]:
+            call = (lambda b=b: act_quantize_cuda(x, bcol, alpha, 0.0, 8, b, bodies[b]))
+            for qb, ab in (call(), replay(call)):
+                torch.cuda.synchronize()
+                d = (qb.int() - qr.int()).abs()
+                n_off = int((d > 0).sum())
+                a_ulps = int((ab.view(torch.int32) - ar.view(torch.int32)).abs().max())
+                check(int(d.max()) <= 1 and n_off <= 1e-5 * q.numel(),
+                      f"act_quantize {b} body M={Mr} K={K}: max |dq|={int(d.max())}, "
+                      f"off={n_off}")
+                check(a_ulps <= 1, f"act_quantize {b} body scale M={Mr} K={K}: {a_ulps} ulp")
+                worst = max(worst, (int(d.max()), n_off, a_ulps))
+        check(torch.equal(q, act_quantize_cuda(x, bcol, alpha, 0.0, 8, routed, splits)[0]),
+              f"act_quantize M={Mr} K={K}: ops launch differs from the {routed} body")
+        body_ms = {}
+        for b in [routed] + [b for b in bodies if b != routed] + [routed]:
+            t = graph_ms(once(lambda b=b: act_quantize_cuda(x, bcol, alpha, 0.0, 8, b,
+                                                            bodies[b])), 200)
+            body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+        ms = body_ms[routed]
         cms = time_ms(once(lambda: ops.act_quantize(x, bcol, alpha)), 200)
         pms = graph_ms(once(lambda: ref.act_quantize_ref(x, bcol, 8, alpha)), 20)
         nbytes = Mr * K * 2 + K * 4 + Mr * K + Mr * 4
         bms, by = bound(nbytes, 6 * Mr * K, PEAK_OPS["f32"])
-        results[("act_quantize", Mr, K)] = dict(
-            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
-            max_abs_err=float(d.max()))
-        print(f"[3] act_quantize M={Mr} K={K} bf16: kernel_ms={ms:.4f} call_ms={cms:.4f} "
-              f"plain_ms={pms:.4f} "
-              f"library_ms=None bound_ms={bms:.4f} ({by}) off_by_one={n_off}/{q.numel()} "
-              f"a_max_ulp={a_ulps}")
+        for b, t in body_ms.items():
+            results[(f"act_quantize/{b}", Mr, K)] = dict(
+                ms=t, call_ms=cms if b == routed else None, plain_ms=pms, library_ms=None,
+                bound_ms=bms, bound_by=by, max_abs_err=float(worst[0]))
+        times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+        print(f"[3] act_quantize M={Mr} K={K} bf16: routed to the {routed} body (split "
+              f"body at {bodies['split']} ranks) "
+              f"kernel_ms={ms:.4f} ({times}) call_ms={cms:.4f} plain_ms={pms:.4f} "
+              f"library_ms=None bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f} "
+              f"max|dq|={worst[0]} off_by_one<={worst[1]}/{q.numel()} a_max_ulp={worst[2]} "
+              f"(every body, eager and graph replay)")
 
     # K2 qgemm_w8a8: wq/wo/down (N=4608), wk/wv (N=512), up (N=18432). The wrapper
     # routes M <= DECODE_MAX_M to the split-K decode body, larger M to the wgmma body
@@ -335,7 +415,13 @@ def main() -> int:
             want = ref.flash_attention_ref(q, k, v, kv_len)
             torch.cuda.synchronize()
             err = float((out.float() - want.float()).abs().max())
-            check(err <= atol, f"flash_attention S={S} {pk}: max err {err} > {atol}")
+            if dtype == torch.bfloat16:
+                ok, n_ulp = bf16_bar(out, want, atol)
+                check(ok, f"flash_attention S={S} bf16: max err {err} beyond {atol} or one "
+                          f"bf16 ulp of the plain version")
+            else:
+                n_ulp = 0
+                check(err <= atol, f"flash_attention S={S} {pk}: max err {err} > {atol}")
             ms = graph_ms(once(lambda: ops.flash_attention(q, k, v, kv_len)), 20)
             cms = time_ms(once(lambda: ops.flash_attention(q, k, v, kv_len)), 20)
             pms = graph_ms(once(lambda: ref.flash_attention_ref(q, k, v, kv_len)), 5)
@@ -356,7 +442,8 @@ def main() -> int:
             print(f"[3] flash_attention ({body}) B={B3} H={H3}/{Hkv3} S={S} D={D3} {pk} kv_len="
                   f"{kvl.tolist()}: kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} "
                   f"library_ms={lms:.4f} "
-                  f"(sdpa) bound_ms={bms:.4f} ({by}) max_abs_err={err:.2e} tol={atol}")
+                  f"(sdpa) bound_ms={bms:.4f} ({by}) max_abs_err={err:.2e} tol={atol}"
+                  + (f" or one bf16 ulp ({n_ulp} by the ulp)" if pk == "bf16" else ""))
 
     # K4/K5 paged_attention: the decode (q_win = 1) and the speculative verify
     # (q_win = 4) of every layer, B=4 slots, 36 heads over 4 kv heads, D=128, at the
@@ -435,7 +522,12 @@ def main() -> int:
             torch.cuda.synchronize()
             check(bool(torch.isfinite(out.float()).all()), f"paged {mode} {tag}: non-finite")
             err = float((out.float() - want.float()).abs()[valid].max())
-            check(err <= atol, f"paged {mode} {tag}: max err {err} > {atol}")
+            if q_dt == torch.bfloat16:
+                ok, n_ulp = bf16_bar(out[valid], want[valid], atol)
+                check(ok, f"paged {mode} {tag}: max err {err} beyond {atol} or one bf16 ulp")
+            else:
+                n_ulp = 0
+                check(err <= atol, f"paged {mode} {tag}: max err {err} > {atol}")
             ms = graph_ms(once(call), 50)
             cms = time_ms(once(call), 50)
             pms = graph_ms(once(plain), 5)
@@ -458,7 +550,8 @@ def main() -> int:
             print(f"[3] {name} ({body} body) B={B4} H={Hkv4 * G4}/{Hkv4} D={D4} q_win={W} {tag} "
                   f"kv_len={kvl_np.tolist()}{'' if W == 1 else f' q_len={qln_np.tolist()}'}: "
                   f"kernel_ms={ms:.4f}{f32s} call_ms={cms:.4f} plain_ms={pms:.4f} "
-                  f"library_ms=None bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol={atol}")
+                  f"library_ms=None bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol={atol}"
+                  + (f" or one bf16 ulp ({n_ulp} by the ulp)" if q_dt == torch.bfloat16 else ""))
         del kp, vp, ks, vs
 
     # K6 ragged_prefill_attention: packed blocks of a chunked step, over the kv_len
@@ -478,7 +571,7 @@ def main() -> int:
         ("64 = 4 x 16", [16] * 4, [700, 517, 130, 16]),
     ]
 
-    def ragged_inputs(q_lens, kv_lens, pool_dt, sentinel=()):
+    def ragged_inputs(q_lens, kv_lens, pool_dt, sentinel=(), gen=gen):
         kvl = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
         qln = torch.tensor(q_lens, device=dev, dtype=torch.int32)
         qs = torch.cumsum(qln, 0, dtype=torch.int32) - qln
@@ -527,8 +620,9 @@ def main() -> int:
             out, want = ragged_call(c, Nt)(), ragged_plain(c, Nt)()
             torch.cuda.synchronize()
             err = float((out.float() - want.float()).abs().max())
-            check(bool(torch.isfinite(out.float()).all()) and err <= 2e-2,
-                  f"ragged_prefill {label} pool {dt_name[pool_dt]}: max err {err} > 2e-2")
+            ok, n_ulp = bf16_bar(out, want)
+            check(ok, f"ragged_prefill {label} pool {dt_name[pool_dt]}: max err {err} beyond "
+                      f"2e-2 or one bf16 ulp")
             ms = graph_ms(once(ragged_call(c, Nt)), 50)
             cms = time_ms(once(ragged_call(c, Nt)), 50)
             pms = graph_ms(once(ragged_plain(c, Nt)), 5)
@@ -554,14 +648,14 @@ def main() -> int:
                   f"q_len={q_lens} kv_len={kv_lens}: kernel_ms={ms:.4f} f32_body_ms={f32_ms:.4f} "
                   f"call_ms={cms:.4f} "
                   f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.5f} ({by}) "
-                  f"max_abs_err={err:.2e} tol=2e-2")
+                  f"max_abs_err={err:.2e} tol=2e-2 or one bf16 ulp ({n_ulp} by the ulp)")
     # a dead slot (it owns no rows: rows past the owned 33 must read 0) and an
     # all-sentinel table row whose one-token chunk reads only its own packed k/v
     c = ragged_inputs([16, 0, 16, 1], [700, 0, 130, 1], torch.int8, sentinel=(3,))
     out, want = ragged_call(c, 16)(), ragged_plain(c, 16)()
     torch.cuda.synchronize()
     err = float((out.float() - want.float()).abs().max())
-    check(err <= 2e-2 and float(out[33:].float().abs().max()) == 0.0,
+    check(bf16_bar(out, want)[0] and float(out[33:].float().abs().max()) == 0.0,
           f"ragged_prefill dead slot / sentinel row: err {err}, unowned rows nonzero")
     # q_len == 1 rows over an fp pool holding the packed k/v at the newest position
     # are bitwise the decode launch (K4)
@@ -584,10 +678,40 @@ def main() -> int:
               f"{float((rag.float() - dec[:, 0].float()).abs().max())}")
     print("[3] ragged_prefill_attention: dead slot rows 0, all-sentinel row exact; q_len=1 rows "
           "bitwise = paged_decode_attention (f32 and bf16 pools)")
-    del c, out, want
+    # The fixed case of the bf16 bar: the "128 mixed" step over an int8 pool, from a
+    # generator of its own, with every V value (center_d + noise) / 16 for a center
+    # per head dimension in [72, 119]: every output lies in [4, 8), where one bf16
+    # ulp (0.031) exceeds 2e-2, and some plain values lie within 1e-5 of a bf16
+    # midpoint, where the kernel and the plain version may round apart
+    g6 = torch.Generator(device=dev)
+    g6.manual_seed(1606)
+    c = ragged_inputs([1, 1, 1, 125], [700, 517, 130, SYSTEM_PREFIX + 125], torch.int8, gen=g6)
+    center = torch.randint(72, 120, (Hkv4, D4), generator=g6, device=dev)
+    c["vp"].copy_(center + torch.randint(-8, 9, c["vp"].shape, generator=g6, device=dev))
+    c["vs"].fill_(1 / 16)
+    c["vn"].copy_((center + torch.randint(-8, 9, c["vn"].shape, generator=g6, device=dev)) / 16)
+    out, want = ragged_call(c, 128)(), ragged_plain(c, 128)()
+    p6 = ragged_plain({**c, "q": c["q"].float()}, 128)()   # its f32 values, before the bf16 cast
+    torch.cuda.synchronize()
+    ulp6 = torch.exp2(torch.floor(torch.log2(p6.abs())) - 7)
+    frac6 = p6.abs() / ulp6
+    n_mid = int(((frac6 - frac6.floor() - 0.5).abs() * ulp6 < 1e-5).sum())
+    ok, n_ulp = bf16_bar(out, want)
+    ok32, _ = bf16_bar(out, p6)
+    n_flip = int((out.float() != want.float()).sum())
+    err = float((out.float() - want.float()).abs().max())
+    check(4 <= float(p6.min()) and float(p6.max()) < 8, "near-midpoint case: outputs in [4, 8)")
+    check(n_mid > 0, "near-midpoint case: no plain value within 1e-5 of a bf16 midpoint")
+    check(ok and ok32, f"ragged_prefill near-midpoint case: max err {err} beyond 2e-2 or one "
+          f"bf16 ulp")
+    print(f"[3] ragged_prefill_attention near-midpoint case (int8 pool, plain f32 values in "
+          f"[{float(p6.min()):.3f}, {float(p6.max()):.3f}]): {n_mid} of {p6.numel()} within 1e-5 "
+          f"of a bf16 midpoint; {n_flip} outputs differ from the bf16 plain version, max_abs_err="
+          f"{err:.3e}; {n_ulp} passed by the one-ulp arm of the bar only (2e-2 < one ulp = 0.031)")
+    del c, out, want, p6, ulp6, frac6
 
-    # K7 qgemm_w8a8_sparse and K8 qgemm_w4a8 at the up projection's shape
-    # (K=4608, N=18432), decode M=4 and prefill M=2048
+    # K7 qgemm_w8a8_sparse at the up projection's shape (K=4608, N=18432), decode
+    # M=4 and prefill M=2048
     from repro_torch.kernels.qgemm import qgemm_w8a8_sparse_cuda
     K7, N7 = 4608, 18432
     keep = torch.ones(K7, N7, dtype=torch.uint8, device=dev)
@@ -624,9 +748,10 @@ def main() -> int:
                                                              mask7), 3)
         ms_full = graph_ms(lambda i=0: qgemm_w8a8_sparse_cuda(qx, qws[i % n_copies], a, sw,
                                                               ones7), 50)
-        lms = None
-        if Mr > 16:
-            lms = graph_ms(lambda i=0: torch._int_mm(qx, qws[i % n_copies]), 50)
+        # the dense product, with qx zero-padded to 32 rows below that (as for K2)
+        qxp = torch.zeros(max(Mr, 32), K7, dtype=torch.int8, device=dev)
+        qxp[:Mr] = qx
+        lms = graph_ms(lambda i=0: torch._int_mm(qxp, qws[i % n_copies]), 50)
         # the data decides the work: the occupied tiles' weight bytes and products
         occ_k = int(occ7.sum()) * 64 * 64                 # weights in occupied tiles
         nbytes = Mr * K7 + occ_k + mask7.numel() + Mr * 4 + N7 * 4 + Mr * N7 * 4
@@ -634,41 +759,81 @@ def main() -> int:
         results[("qgemm_w8a8_sparse", Mr)] = dict(
             ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
             max_abs_err=err)
-        lstr = "None" if lms is None else f"{lms:.4f}"
         print(f"[3] qgemm_w8a8_sparse M={Mr} K={K7} N={N7} occupancy "
               f"{int(occ7.sum())}/{occ7.numel()} tiles: kernel_ms={ms:.4f} call_ms={cms:.4f} "
-              f"plain_ms={pms:.4f} library_ms={lstr} (torch._int_mm, dense) bound_ms={bms:.4f} "
+              f"plain_ms={pms:.4f} library_ms={lms:.4f} (torch._int_mm, dense"
+              f"{', M padded to 32' if Mr < 32 else ''}) bound_ms={bms:.4f} "
               f"({by}) bitwise=True; all-ones table {ms_full:.4f} ms, bitwise = qgemm_w8a8")
-        del qws, qw
+        del qws, qw, qxp
 
-    n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K7 * N7 // 2))))
-    for Mr in (4, 2048):
-        qx = torch.randint(-127, 128, (Mr, K7), generator=gen, device=dev, dtype=torch.int8)
-        a = torch.rand(Mr, 1, generator=gen, device=dev) * 0.1 + 1e-3
-        sw = torch.rand(K7 // 128, N7, generator=gen, device=dev) * 0.01 + 1e-4
-        qws = [torch.randint(-128, 128, (K7 // 2, N7), generator=gen, device=dev,
-                             dtype=torch.int8) for _ in range(n_copies)]
-        out = ops.qgemm_w4a8(qx, qws[0], a, sw, group=128)
-        want = ref.qgemm_w4a8_ref(qx, qws[0], a, sw, 128)
-        torch.cuda.synchronize()
-        d = (out - want).abs()
-        err = float(d.max())
-        # the plain version sums the 36 group partials in PyTorch's order, the kernel
-        # in k order: f32-close, not bitwise
-        tol = 2e-4 * want.abs() + 1e-5 * float(want.abs().max())
-        check(bool((d <= tol).all()), f"qgemm_w4a8 M={Mr}: max err {err}")
-        ms = graph_ms(lambda i=0: ops.qgemm_w4a8(qx, qws[i % n_copies], a, sw, group=128), 50)
-        cms = time_ms(lambda i=0: ops.qgemm_w4a8(qx, qws[i % n_copies], a, sw, group=128), 50)
-        pms = graph_ms(lambda i=0: ref.qgemm_w4a8_ref(qx, qws[i % n_copies], a, sw, 128), 3)
-        nbytes = Mr * K7 + K7 * N7 // 2 + sw.numel() * 4 + Mr * 4 + Mr * N7 * 4
-        bms, by = bound(nbytes, 2 * Mr * N7 * K7, PEAK_OPS["int8"])
-        results[("qgemm_w4a8", Mr)] = dict(
-            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
-            max_abs_err=err)
-        print(f"[3] qgemm_w4a8 M={Mr} K={K7} N={N7} g128: kernel_ms={ms:.4f} call_ms={cms:.4f} "
-              f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.4f} ({by}) "
-              f"max_abs_err={err:.3e} (tol 2e-4*|plain| + 1e-5*max|plain|)")
-        del qws
+    # K8 qgemm_w4a8 (g128) at the four linears' shapes: the decode body (split-K
+    # weight stream, M <= 128), the wgmma body (M > DECODE_MAX_M) and the tile body,
+    # each that takes a shape held against the plain version (f32-close: the plain
+    # version sums the group partials in PyTorch's order), eagerly and under graph
+    # replay, and timed side by side (routed, others, routed again; the lower of the
+    # routed body's two times is kept); wherever the plan routes to a new body it
+    # must have beaten the tile body in this call. From a generator of its own.
+    gen_k8 = torch.Generator(device=dev)
+    gen_k8.manual_seed(8888)
+    for Mr in (4, 33, 128, 2048):
+        for K, N in k2_linears:
+            qx = torch.randint(-127, 128, (Mr, K), generator=gen_k8, device=dev,
+                               dtype=torch.int8)
+            a = torch.rand(Mr, 1, generator=gen_k8, device=dev) * 0.1 + 1e-3
+            sw = torch.rand(K // 128, N, generator=gen_k8, device=dev) * 0.01 + 1e-4
+            n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K * N // 2))))
+            qws = [torch.randint(-128, 128, (K // 2, N), generator=gen_k8, device=dev,
+                                 dtype=torch.int8) for _ in range(n_copies)]
+            routed, rsplits = qgemm_w4a8_plan(Mr, K, N, 128)
+            dsplits, wsplits = w4a8_decode_splits(K, N, 128), w4a8_wgmma_splits(Mr, K, N, 128)
+            bodies = {"tile": lambda i=0: qgemm_w4a8_cuda(qx, qws[i % n_copies], a, sw, 128)}
+            if Mr <= 128:
+                bodies["decode"] = lambda i=0: qgemm_w4a8_decode_cuda(qx, qws[i % n_copies], a,
+                                                                      sw, 128, dsplits)
+            if Mr > DECODE_MAX_M:
+                bodies["wgmma"] = lambda i=0: qgemm_w4a8_wgmma_cuda(qx, qws[i % n_copies], a,
+                                                                    sw, 128, wsplits)
+            before = dict(ops.BODY_LAUNCHES)
+            out = ops.qgemm_w4a8(qx, qws[0], a, sw, group=128)
+            check(ops.BODY_LAUNCHES[f"qgemm_w4a8/{routed}"]
+                  == before[f"qgemm_w4a8/{routed}"] + 1,
+                  f"qgemm_w4a8 M={Mr} K={K} N={N} did not run the {routed} body")
+            want = ref.qgemm_w4a8_ref(qx, qws[0], a, sw, 128)
+            tol = 2e-4 * want.abs() + 1e-5 * float(want.abs().max())
+            err = float((out - want).abs().max())
+            for b, fn in bodies.items():
+                for o in ((fn(),) if b == "tile" else (fn(), replay(fn)[0])):
+                    torch.cuda.synchronize()
+                    d = (o - want).abs()
+                    check(bool((d <= tol).all()), f"qgemm_w4a8 {b} body M={Mr} K={K} N={N}: "
+                          f"max err {float(d.max())}")
+                    err = max(err, float(d.max()))
+            body_ms = {}
+            for b in [routed] + [b for b in bodies if b != routed] + [routed]:
+                t = graph_ms(bodies[b], 20 if Mr >= 512 else 50)
+                body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+            if routed != "tile":
+                check(body_ms[routed] < body_ms["tile"],
+                      f"qgemm_w4a8 M={Mr} K={K} N={N}: the plan routes to the {routed} body, "
+                      f"which took {body_ms[routed]:.4f} ms against the tile body's "
+                      f"{body_ms['tile']:.4f}")
+            ms = body_ms[routed]
+            cms = time_ms(lambda i=0: ops.qgemm_w4a8(qx, qws[i % n_copies], a, sw, group=128), 50)
+            pms = graph_ms(lambda i=0: ref.qgemm_w4a8_ref(qx, qws[i % n_copies], a, sw, 128), 3)
+            nbytes = Mr * K + K * N // 2 + sw.numel() * 4 + Mr * 4 + Mr * N * 4
+            bms, by = bound(nbytes, 2 * Mr * N * K, PEAK_OPS["int8"])
+            for b, t in body_ms.items():
+                results[(f"qgemm_w4a8/{b}", Mr, K, N)] = dict(
+                    ms=t, call_ms=cms if b == routed else None, plain_ms=pms, library_ms=None,
+                    bound_ms=bms, bound_by=by, max_abs_err=err, gb_s=nbytes / t / 1e6)
+            times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+            print(f"[3] qgemm_w4a8 M={Mr} K={K} N={N} g128: routed to the {routed} body "
+                  f"({rsplits} splits; decode splits {dsplits}, wgmma splits {wsplits}) "
+                  f"kernel_ms={ms:.4f} ({times}) call_ms={cms:.4f} plain_ms={pms:.4f} "
+                  f"library_ms=None bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f} "
+                  f"tops={2 * Mr * N * K / ms / 1e9:.1f} max_abs_err={err:.3e} "
+                  f"(tol 2e-4*|plain| + 1e-5*max|plain|, every body, eager and graph replay)")
+            del qws
 
     # ---------------------------------------------------------------- phase 4
     print(f"[4] start at {time.perf_counter() - t_start:.1f}s")
@@ -710,9 +875,11 @@ def main() -> int:
         zeroed just before the run and read just after, and must equal what its
         schedule implies: per model step 192 act_quantize launches and 192 of the
         tree's GEMM (qgemm_w8a8, or qgemm_w4a8 for a W4A8 tree, or
-        qgemm_w8a8_sparse for masks with empty tiles), a qgemm_w8a8 launch on the
-        body qgemm_w8a8_plan gives its step's token rows (the step's M): K2's
-        decode body up to DECODE_MAX_M, its wgmma body above; 32 flash launches (the bf16 body) per cold
+        qgemm_w8a8_sparse for masks with empty tiles); an act_quantize launch on
+        the body act_quantize_plan gives its step's token rows (the step's M) and
+        the linear's K (the split body up to 32 rows, the rows body above), a
+        qgemm_w8a8 or qgemm_w4a8 launch on the body its plan gives: the decode body
+        up to DECODE_MAX_M, the wgmma body above; 32 flash launches (the bf16 body) per cold
         admission of 128 tokens or more; 32 paged decode launches per decode step of
         a paged engine; 32 verify launches per speculative step; on a chunked engine
         32 ragged launches per packed step and 32 paged decode launches per
@@ -786,10 +953,13 @@ def main() -> int:
                   f"steps={c['chunk_decode_only_steps']} cold buckets={cold_buckets})")
         check(len(step_rows) == steps, f"{label}: {len(step_rows)} model calls != {steps} steps")
         want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
-        if gemm == "qgemm_w8a8":
-            for rows in step_rows:
-                for K, N in linears:
+        for rows in step_rows:
+            for K, N in linears:
+                want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
+                if gemm == "qgemm_w8a8":
                     want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
+                elif gemm == "qgemm_w4a8":
+                    want_bodies[f"qgemm_w4a8/{qgemm_w4a8_plan(rows, K, N, q.w_group)[0]}"] += L
         want_bodies["flash_attention/bf16_mma"] = want["flash_attention"]
         # the serving q is bf16: every paged launch runs the split tensor-core body
         want_bodies["paged_attention/bf16_mma"] = (want["paged_decode_attention"]
@@ -881,8 +1051,20 @@ def main() -> int:
     sync_names = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
                   "cudaMemcpy"}
 
-    def trace(label, reqs, ready, n_steps=3, **kw):
-        engine = ServeEngine(cfg, qparams, quant=quant, device=dev,
+    def family(name: str):
+        """The hand-written GEMM or quantize kernel a profiler kernel name belongs to."""
+        if "act_quant" in name:
+            return "K1 act_quantize"
+        if ("qgemm_w4a8_wgmma" in name or "qgemm_kernel<2>" in name
+                or ("qgemm_decode_kernel<" in name and "true>" in name)):
+            return "K8 qgemm_w4a8"
+        if ("qgemm_wgmma_kernel" in name or "qgemm_kernel<0>" in name
+                or ("qgemm_decode_kernel<" in name and "false>" in name)):
+            return "K2 qgemm_w8a8"
+        return None
+
+    def trace(label, reqs, ready, n_steps=3, tree=None, q=quant, **kw):
+        engine = ServeEngine(cfg, qparams if tree is None else tree, quant=q, device=dev,
                              config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
                                                  path="fused-int8", **kw))
         engine.submit(reqs, max_new=MAX_NEW)
@@ -938,6 +1120,15 @@ def main() -> int:
         for name, (tot, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:5]:
             print(f"[4t]   device {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
                   f"{name[:110]}")
+        fams = {}
+        for name, (tot, n) in by_kernel.items():
+            f = family(name)
+            if f is not None:
+                t0, n0 = fams.get(f, (0.0, 0))
+                fams[f] = (t0 + tot, n0 + n)
+        print("[4t]   device time per step by kernel: " + "; ".join(
+            f"{f} {tot / 1e3 / n_steps:.3f} ms x{n / n_steps:.0f}"
+            for f, (tot, n) in sorted(fams.items())))
         for name, (tot, n) in sorted(host.items(), key=lambda x: -x[1][0])[:10]:
             print(f"[4t]   host self {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
                   f"{name[:110]}")
@@ -967,9 +1158,13 @@ def main() -> int:
                       sparsity="2:4", gemm="qgemm_w8a8_sparse")
     del engine, sparse_tree
 
-    # W4A8 g128 (int mode) from the same calibration tables
+    # W4A8 g128 (int mode) from the same calibration tables, then a profiler window
+    # over 3 of its decode steps
     serve("dense W4A8-g128 kv=fp", prompts[:BATCH], tree=q4params, q=quant4,
           gemm="qgemm_w4a8")
+    trace("dense W4A8-g128 kv=fp, decode steps", prompts[:BATCH],
+          lambda e: not e.queue and e.counters["decode_steps"] > 0, tree=q4params, q=quant4,
+          kv_cache="fp")
     del q4params, qparams
     torch.cuda.empty_cache()
 
@@ -1014,15 +1209,16 @@ def main() -> int:
         toks_s[b, :n] = toks[b, :n]
     steps5 = 4
 
-    def greedy(params, device, forced=None, layout="dense", steps=8, short=False):
-        """Prefill + ``steps`` decode steps, feeding its own argmax (or ``forced``
-        tokens); ``short``: the two shorter prompts."""
+    def greedy(params, device, forced=None, layout="dense", steps=8, short=False, c=cfg2):
+        """Prefill + ``steps`` decode steps of config ``c``, feeding its own argmax (or
+        ``forced`` tokens); ``short``: the two shorter prompts. The fp KV pool is f32
+        at either activation dtype, as the engine gives the tree's first float leaf."""
         tk, ln = (toks_s, lens_s) if short else (toks, lens)
-        caches = M.init_cache(cfg2, 2, 512, dtype=torch.float32, layout=layout, page_size=8,
+        caches = M.init_cache(c, 2, 512, dtype=torch.float32, layout=layout, page_size=8,
                               device=device)
         if layout == "paged":
             caches["page_table"] = perm.reshape(2, 64).to(device)
-        logits, _ = M.apply(params, {"tokens": torch.as_tensor(tk, device=device)}, cfg2,
+        logits, _ = M.apply(params, {"tokens": torch.as_tensor(tk, device=device)}, c,
                             ctx=ctx, mode="prefill", caches=caches,
                             cur_len=torch.as_tensor(ln, device=device))
         out_logits, out_toks = [logits[:, -1].float().cpu()], []
@@ -1030,7 +1226,7 @@ def main() -> int:
             tok = (torch.argmax(logits[:, -1], dim=-1) if forced is None
                    else forced[i].to(device))
             out_toks.append(tok.cpu())
-            logits, _ = M.apply(params, {"tokens": tok[:, None]}, cfg2, ctx=ctx,
+            logits, _ = M.apply(params, {"tokens": tok[:, None]}, c, ctx=ctx,
                                 mode="decode", caches=caches,
                                 cur_len=torch.as_tensor(ln + i + 1, device=device))
             out_logits.append(logits[:, -1].float().cpu())
@@ -1081,6 +1277,43 @@ def main() -> int:
     print(f"[5] paged (ps=8, permuted table) card vs CPU: tokens equal, equal to dense; "
           f"logits max_abs_err={perr:.3e} (dense card vs paged card "
           f"{float((pgl - gl).abs().max()):.3e}), tol={tol:.3e}")
+
+    # bf16 activations, the configs' default and the main path's dtype, on the paged
+    # layout: the cold admission (bucket 256) runs flash's bf16 body and the decode
+    # steps the paged bf16 body. The bar calibrates itself: e = max|bf16 - f32
+    # logits| of the card's first decode step (the same tree, fed the f32 card run's
+    # tokens). The card's bf16 logits, fed the CPU bf16 run's greedy tokens, lie
+    # within e of the CPU's (a factor of 1, as tests/test_torch_bf16.py holds the
+    # port's CPU run to the JAX engine's), and the card's greedy choice equals the
+    # CPU's at every step where the CPU's top-1/top-2 margin exceeds 2e (at least one
+    # must).
+    cfg2b = dataclasses.replace(cfg2, dtype="bfloat16")
+    with torch.no_grad():
+        reset5()
+        bfl, _ = greedy(p2, dev, forced=pgt, layout="paged", c=cfg2b)
+        bodies_b = {k: v for k, v in ops.BODY_LAUNCHES.items() if k.startswith(("flash", "paged"))}
+        check(bodies_b == {"flash_attention/bf16_mma": cfg2.n_layers, "flash_attention/f32": 0,
+                           "paged_attention/bf16_mma": 8 * cfg2.n_layers,
+                           "paged_attention/f32": 0},
+              f"bf16 parity run: attention launches by body {bodies_b}")
+        bcl, bct = greedy(p2_cpu, cpu, layout="paged", c=cfg2b)
+        bgl, _ = greedy(p2, dev, forced=bct, layout="paged", c=cfg2b)
+    e_b = float((bfl[1] - pgl[1]).abs().max())
+    berr = float((bgl - bcl).abs().max())
+    top2 = torch.topk(bcl, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * e_b
+    same = torch.argmax(bgl, dim=-1) == torch.argmax(bcl, dim=-1)
+    check(e_b > 0, "bf16 parity: bf16 and f32 logits are equal")
+    check(berr <= e_b, f"bf16 card vs CPU logits: max err {berr} > e = {e_b}")
+    check(int(sure.sum()) > 0,
+          f"bf16 parity: no step with a top-1/top-2 margin above 2e = {2 * e_b}")
+    check(bool(same[sure].all()), f"bf16 card vs CPU greedy choice differs at a margin > 2e: "
+          f"{torch.argmax(bgl, dim=-1).T} vs {torch.argmax(bcl, dim=-1).T}")
+    print(f"[5] bf16 paged card vs CPU (flash and paged bf16 bodies, {bodies_b}): e = max|bf16 - "
+          f"f32| on the card's first decode step = {e_b:.3e}; logits max_abs_err={berr:.3e} "
+          f"({berr / e_b:.2f} e, bar e); greedy choice equal at "
+          f"{int(same[sure].sum())} of the {int(sure.sum())} of {sure.numel()} (step, row) "
+          f"pairs whose margin exceeds 2e, at {int(same.sum())} of all {same.numel()}")
 
     # chunked prefill: the two shorter prompts through packed steps (each prompt in
     # two chunks, the second starting mid-page), then 4 steps of one-token rows, all
@@ -1199,12 +1432,16 @@ def main() -> int:
     reset5()
     # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
     # bodies of the main path count their phase-4 launches; the f32 bodies serve
-    # only the phase-5 parity runs and count those. K2's tile body, which no
-    # aligned main-path shape reaches any more, is the body of K7 and K8 (rows below).
+    # only the phase-5 parity runs and count those. The tile body, which no aligned
+    # main-path shape of K2 or K8 reaches any more, is the body of K7 (row below); K1's
+    # sweep body serves no main-path shape either.
     kernel_rows = [
-        ("act_quantize", "src/repro_torch/csrc/act_quantize.cu",
-         "src/repro/kernels/act_quantize.py:29", ("act_quantize", 4, 4608), "M=4 K=4608 bf16",
-         "phase 4"),
+        ("act_quantize/split", "src/repro_torch/csrc/act_quantize.cu",
+         "src/repro/kernels/act_quantize.py:29", ("act_quantize/split", 4, 4608),
+         "M=4 K=4608 bf16, cluster-split body", "phase 4"),
+        ("act_quantize/rows", "src/repro_torch/csrc/act_quantize.cu",
+         "src/repro/kernels/act_quantize.py:29", ("act_quantize/rows", 2048, 18432),
+         "M=2048 K=18432 bf16, rows body", "phase 4"),
         ("qgemm_w8a8/decode", "src/repro_torch/csrc/qgemm_decode.cu",
          "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8", 4, 4608, 18432),
          "M=4 K=4608 N=18432, split-K decode body", "phase 4"),
@@ -1240,9 +1477,12 @@ def main() -> int:
         ("qgemm_w8a8_sparse", "src/repro_torch/csrc/qgemm_w8a8.cu",
          "src/repro/kernels/qgemm.py:91", ("qgemm_w8a8_sparse", 4),
          "M=4 K=4608 N=18432, half the 64-row k-tiles empty", "phase 4"),
-        ("qgemm_w4a8", "src/repro_torch/csrc/qgemm_w8a8.cu",
-         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8", 4), "M=4 K=4608 N=18432 g128",
-         "phase 4"),
+        ("qgemm_w4a8/decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/decode", 4, 4608, 18432),
+         "M=4 K=4608 N=18432 g128, split-K decode body", "phase 4"),
+        ("qgemm_w4a8/wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/wgmma", 2048, 4608, 18432),
+         "M=2048 K=4608 N=18432 g128, wgmma body", "phase 4"),
     ]
     kernels = []
     for name, source, replaces, key, shape, counted in kernel_rows:

@@ -63,6 +63,16 @@ __device__ __forceinline__ void transpose4x4(const unsigned (&w)[4], unsigned (&
   t[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
+// int4 codes packed two to a byte: the low / high nibble of each of four bytes,
+// sign-extended to a byte: where the nibble's bit 3 is set, 8 * 30 = 0xF0 fills the
+// byte's high half (no carry leaves a byte)
+__device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
+  return (p & 0x0F0F0F0Fu) | ((p & 0x08080808u) * 30u);
+}
+__device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
+  return ((p >> 4) & 0x0F0F0F0Fu) | (((p >> 4) & 0x08080808u) * 30u);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));

@@ -64,14 +64,16 @@ __device__ __forceinline__ uint64_t desc_k_sw128(const void* p) {
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// D (64 x N, s32) += A (64 x 32 s8, registers: a warp's 16 rows in the
-// mma.m16n8k32 A-fragment layout) * B (32 x N s8, K-major, descriptor), one
-// specialization per token-tile width N; each thread holds N / 2 accumulators,
-// d[4j + 2h + e] at row 16 warp + g + 8h, column 8j + 2tg + e.
+// D (64 x N, s32) = A (64 x 32 s8, registers: a warp's 16 rows in the
+// mma.m16n8k32 A-fragment layout) * B (32 x N s8, K-major, descriptor) + D, or
+// without the "+ D" where scale_d is 0 (a fresh sum); one specialization per
+// token-tile width N; each thread holds N / 2 accumulators, d[4j + 2h + e] at row
+// 16 warp + g + 8h, column 8j + 2tg + e.
 template <int N> struct WgmmaS8;
 
 template <> struct WgmmaS8<48> {
-  static __device__ __forceinline__ void mma(int (&d)[24], const unsigned (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void mma(int (&d)[24], const unsigned (&a)[4], uint64_t b,
+                                         int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
@@ -81,12 +83,13 @@ template <> struct WgmmaS8<48> {
         "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
         "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaS8<64> {
-  static __device__ __forceinline__ void mma(int (&d)[32], const unsigned (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void mma(int (&d)[32], const unsigned (&a)[4], uint64_t b,
+                                         int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -97,12 +100,13 @@ template <> struct WgmmaS8<64> {
         "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaS8<80> {
-  static __device__ __forceinline__ void mma(int (&d)[40], const unsigned (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void mma(int (&d)[40], const unsigned (&a)[4], uint64_t b,
+                                         int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
@@ -114,12 +118,13 @@ template <> struct WgmmaS8<80> {
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
         "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaS8<96> {
-  static __device__ __forceinline__ void mma(int (&d)[48], const unsigned (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void mma(int (&d)[48], const unsigned (&a)[4], uint64_t b,
+                                         int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
@@ -132,12 +137,13 @@ template <> struct WgmmaS8<96> {
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
         "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaS8<112> {
-  static __device__ __forceinline__ void mma(int (&d)[56], const unsigned (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void mma(int (&d)[56], const unsigned (&a)[4], uint64_t b,
+                                         int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n112k32.s32.s8.s8 "
@@ -151,12 +157,13 @@ template <> struct WgmmaS8<112> {
         "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 
 template <> struct WgmmaS8<128> {
-  static __device__ __forceinline__ void mma(int (&d)[64], const unsigned (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void mma(int (&d)[64], const unsigned (&a)[4], uint64_t b,
+                                         int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -171,7 +178,7 @@ template <> struct WgmmaS8<128> {
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
 

@@ -1,25 +1,36 @@
-// K2 qgemm_w8a8, decode body: the int8 x int8 -> int32 GEMM with the separable
-// CrossQuant dequant for few activation rows (M <= 128; the wrapper routes
-// M <= 32 here, kernels/qgemm.py::qgemm_w8a8_plan), as a split-K, pipelined
-// weight stream.
+// K2 qgemm_w8a8 and K8 qgemm_w4a8, decode body: the int8 x int8 -> int32 GEMMs
+// with the separable CrossQuant dequant for few activation rows (M <= 128; the
+// wrappers route M <= 32 here, kernels/qgemm.py::qgemm_w8a8_plan and
+// qgemm_w4a8_plan), as a split-K, pipelined weight stream.
 //
-// Replaces the TPU kernel repro/kernels/qgemm.py::_w8a8_kernel (launcher
-// qgemm_w8a8_pallas, pallas_call at :71) for small M; larger M runs the 64 x 64
-// tile body in qgemm_w8a8.cu.
+// Replaces, for small M, the TPU kernels in repro/kernels/qgemm.py:
+//   _w8a8_kernel (launcher qgemm_w8a8_pallas, pallas_call at :71)  -> K2 (W4 false)
+//   _w4a8_kernel (launcher qgemm_w4a8_pallas, pallas_call at :209) -> K8 (W4 true)
+// Larger M runs the wgmma bodies in qgemm_wgmma.cu, shapes neither takes the 64 x
+// 64 tile body in qgemm_w8a8.cu.
 //
-//   out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * a[m] * sw[n]
+//   K2: out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * a[m] * sw[n]
+//   K8: out[m, n] = (sum_g float(sum_{k in g} qx[m, k] * w[k, n]) * sw[g, n]) * a[m]
 //
-// qx (M, K) int8 row-major, qw (K, N) int8 row-major (the reference's layout), a
-// (M,) f32, sw (N,) f32, out (M, N) f32; K and N multiples of 16, qx and qw
-// 16-byte aligned (the wrapper checks). The int32 sum is exact in any order and
+// qx (M, K) int8 row-major, a (M,) f32, out (M, N) f32. K2: qw (K, N) int8
+// row-major (the reference's layout), sw (N,) f32; K and N multiples of 16, qx and
+// qw 16-byte aligned (the wrapper checks). The int32 sum is exact in any order and
 // the epilogue multiplies in the reference's order, each step one IEEE rounding,
-// so the result is bitwise equal to the plain version.
+// so K2 is bitwise equal to the plain version. K8: qw4 (K/2, N) holds two int4
+// codes per byte along K (low nibble row 2r, high nibble row 2r + 1, both
+// sign-extended), sw (K/group, N) f32 group scales, group a multiple of 64 that
+// divides K; each group's int32 partial is flushed as f32(partial) * sw[g, n] into
+// an f32 sum, so K8 is f32-close to the plain version, which sums the groups in
+// PyTorch's order, not bitwise.
 //
 // What bounds it on an H100: at decode (M = 4) the GEMM reads the whole K x N
 // weight to produce four rows, 2*M operations per weight byte against the ~590
 // int8 operations per byte the card can do: byte-bound. The only gain is to keep
 // enough weight bytes in flight that the stream runs at the memory rate (Little's
-// law: ~3.35 TB/s x ~1 us, a few MB across the card, tens of KB per SM).
+// law: ~3.35 TB/s x ~1 us, a few MB across the card, tens of KB per SM). K8 reads
+// half K2's weight bytes, plus K/group f32 scales per column (6 % of its bytes at
+// g128, read once per split and group: each warp's 32 columns, a float4 per lane
+// shared by its four k-lanes).
 //
 // Design:
 // - Roles swapped: the tensor cores compute out^T = qw^T * qx^T with
@@ -29,21 +40,30 @@
 //   (n = 4g..4g+3) and transposes the 4 x 4 bytes in registers (transpose4x4;
 //   ldmatrix.trans takes no 8-bit elements): its four n become rows g and g + 8
 //   of two MMAs, so the weight tile needs no transposed copy in shared memory.
-//   The B operand (qx, k-contiguous) is read as it lies.
+//   K8 reads two packed rows instead and unpacks each 4-byte word into its low
+//   and high k-rows in registers (nibbles_lo / nibbles_hi: a mask, and a multiply
+//   that fills the high half of each negative byte, fewer instructions than
+//   __vsub4 and faster on the H100), then runs the same transposes. The B operand
+//   (qx, k-contiguous) is read as it lies.
 // - A block owns 128 output columns (4 warps x 32) and one K split. Its weight
 //   rows stream through a ring of 4 shared-memory stages of 64 k-rows (8 KB of
-//   weights plus the stage's qx slice) with cp.async.cg, 16 B per thread and
-//   copy, so three stages (24 KB) are in flight while one is multiplied. The 16-
-//   byte chunks of each 128-byte row are XOR-swizzled by k-row so the lanes'
-//   4-byte reads hit 32 distinct banks; qx rows are padded to 80 bytes.
+//   int8 weights, or 4 KB of packed int4, plus the stage's qx slice) with
+//   cp.async.cg, 16 B per thread and copy, so three stages are in flight while one
+//   is multiplied (for K8, 8 stages, 128-row stages of 8 KB, or 8 warps that split
+//   such a stage in two halves each measured no faster on the H100 over the four
+//   decode shapes together). The 16-byte chunks of each 128-byte row are
+//   XOR-swizzled by row so the lanes' 4-byte reads hit 32 distinct banks (by k-row
+//   / 4 for int8 rows, by packed row / 2 for int4 rows); qx rows are padded to 80
+//   bytes.
 // - Split-K across a thread-block cluster: the grid is (ceil(N/128), S) with
-//   cluster (1, S, 1), S <= 8 splits of whole 64-row k-tiles (split s takes
-//   k-tiles [s*KT/S, (s+1)*KT/S)). Each block leaves its int32 partials in its
-//   own shared memory; after a cluster barrier the leader (rank 0) sums the S
-//   partials through distributed shared memory in rank order, runs the epilogue
-//   and stores; a second barrier keeps the other blocks' shared memory alive
-//   until it has read them. No workspace, no atomics, deterministic, and a
-//   launch replays unchanged under CUDA-graph capture.
+//   cluster (1, S, 1), S <= 8 splits of whole 64-row k-tiles (K2: split s takes
+//   k-tiles [s*KT/S, (s+1)*KT/S)) or of whole groups (K8: groups [s*G/S,
+//   (s+1)*G/S), so no group straddles two splits). Each block leaves its partials
+//   (K2 int32, K8 f32) in its own shared memory; after a cluster barrier the
+//   leader (rank 0) sums the S partials through distributed shared memory in rank
+//   order, runs the epilogue and stores; a second barrier keeps the other blocks'
+//   shared memory alive until it has read them. No workspace, no atomics,
+//   deterministic, and a launch replays unchanged under CUDA-graph capture.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -55,24 +75,33 @@ namespace {
 constexpr int BN = 128, BK = 64, kStages = 4, kThreads = 128, kMaxSplits = 8;
 constexpr int LDX = BK + 16;   // 80-byte qx rows: the B-fragment reads hit 32 banks
 
-template <int MT>
-__host__ __device__ constexpr int stage_bytes() { return BK * BN + 8 * MT * LDX; }
+// weight bytes of one stage: 64 int8 k-rows, or 32 packed int4 rows (64 k-rows)
+template <bool W4>
+__host__ __device__ constexpr int w_bytes() { return (W4 ? BK / 2 : BK) * BN; }
 
-template <int MT>
-constexpr int smem_bytes() {
-  return kStages * stage_bytes<MT>() > 8 * MT * BN * 4 ? kStages * stage_bytes<MT>()
-                                                       : 8 * MT * BN * 4;
+template <int MT, bool W4>
+__host__ __device__ constexpr int stage_bytes() { return w_bytes<W4>() + 8 * MT * LDX; }
+
+template <int MT, bool W4>
+__host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_bytes<MT, W4>() > 8 * MT * BN * 4 ? kStages * stage_bytes<MT, W4>()
+                                                           : 8 * MT * BN * 4;
 }
 
-// the physical 16-byte chunk of logical chunk ch in stage row r: XOR with 2 *
-// ((r / 4) % 4), so the four k-row groups a warp reads at once sit in distinct banks
-__device__ __forceinline__ int swz(int r, int ch) { return ch ^ (((r >> 2) & 3) << 1); }
+// the physical 16-byte chunk of logical chunk ch in stage row r. int8 rows: XOR
+// with 2 * ((r / 4) % 4), so the four k-row groups a warp reads at once sit in
+// distinct banks; packed int4 rows, of which a warp reads rows 2tg and 2tg + 1 at
+// once: XOR with 2 * ((r / 2) % 4)
+template <bool W4>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return W4 ? ch ^ (((r >> 1) & 3) << 1) : ch ^ (((r >> 2) & 3) << 1);
+}
 
-template <int MT>
+template <int MT, bool W4>
 __global__ void __launch_bounds__(kThreads)
 qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
                     const float* __restrict__ a, const float* __restrict__ sw,
-                    float* __restrict__ out, int M, int N, int K) {
+                    float* __restrict__ out, int M, int N, int K, int group) {
   constexpr int MR = 8 * MT;              // qx rows staged: M padded to the n8 tiles
   extern __shared__ __align__(16) int8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -81,19 +110,38 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   const int g = lane >> 2, tg = lane & 3;
   const int n0 = blockIdx.x * BN;
   const int S = gridDim.y, split = blockIdx.y;   // cluster (1, S, 1): rank == split
-  const int KT = (K + BK - 1) / BK;
-  const int kt0 = split * KT / S, kt1 = (split + 1) * KT / S;
-  const int steps = kt1 - kt0, kbeg = kt0 * BK, kend = min(K, kt1 * BK);
+  int kbeg, kend;
+  if (W4) {                       // whole groups per split; K % group == 0, group % 64 == 0
+    const int G = K / group;
+    kbeg = split * G / S * group;
+    kend = (split + 1) * G / S * group;
+  } else {                        // whole 64-row k-tiles per split, the last cut at K
+    const int KT = (K + BK - 1) / BK;
+    kbeg = split * KT / S * BK;
+    kend = min(K, (split + 1) * KT / S * BK);
+  }
+  const int steps = (kend - kbeg + BK - 1) / BK;
 
   auto load = [&](int step, int buf) {
-    int8_t* sW = smem + buf * stage_bytes<MT>();
-    int8_t* sX = sW + BK * BN;
+    int8_t* sW = smem + buf * stage_bytes<MT, W4>();
+    int8_t* sX = sW + w_bytes<W4>();
     const int k0 = kbeg + step * BK;
+    if (W4) {                     // 32 packed rows: k-rows k0 .. k0 + 63
 #pragma unroll
-    for (int c = tid; c < BK * BN / 16; c += kThreads) {
-      const int r = c >> 3, ch = c & 7, gk = k0 + r, gn = n0 + ch * 16;
-      const bool ok = gk < kend && gn < N;          // N % 16 == 0: a chunk is in or out
-      async_copy16(sW + r * BN + swz(r, ch) * 16, ok ? qw + (size_t)gk * N + gn : qw, ok);
+      for (int c = tid; c < (BK / 2) * BN / 16; c += kThreads) {
+        const int r = c >> 3, ch = c & 7, gp = k0 / 2 + r, gn = n0 + ch * 16;
+        const bool ok = gp < kend / 2 && gn < N;
+        async_copy16(sW + r * BN + swz<true>(r, ch) * 16, ok ? qw + (size_t)gp * N + gn : qw,
+                     ok);
+      }
+    } else {
+#pragma unroll
+      for (int c = tid; c < BK * BN / 16; c += kThreads) {
+        const int r = c >> 3, ch = c & 7, gk = k0 + r, gn = n0 + ch * 16;
+        const bool ok = gk < kend && gn < N;        // N % 16 == 0: a chunk is in or out
+        async_copy16(sW + r * BN + swz<false>(r, ch) * 16, ok ? qw + (size_t)gk * N + gn : qw,
+                     ok);
+      }
     }
     for (int c = tid; c < MR * (BK / 16); c += kThreads) {
       const int m = c >> 2, ch = c & 3, gk = k0 + ch * 16;
@@ -103,12 +151,16 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   };
 
   int acc[MT][2][4];
+  float accf[MT][2][4];           // K8: the group-dequantized sum
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][i][e] = 0;
+      for (int e = 0; e < 4; ++e) {
+        acc[j][i][e] = 0;
+        accf[j][i][e] = 0.f;
+      }
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -120,18 +172,42 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
     __syncthreads();             // ... everyone's, and stage t - 1's buffer is free
     if (t + kStages - 1 < steps) load(t + kStages - 1, (t + kStages - 1) % kStages);
     async_commit();
-    const int8_t* sW = smem + (t % kStages) * stage_bytes<MT>();
-    const int8_t* sX = sW + BK * BN;
+    const int8_t* sW = smem + (t % kStages) * stage_bytes<MT, W4>();
+    const int8_t* sX = sW + w_bytes<W4>();
+    // K8: the scales of the group this stage ends, fetched before the stage's MMAs
+    const int kdone = kbeg + (t + 1) * BK;
+    const bool flush = W4 && kdone % group == 0;
+    float4 swg = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (flush && n0 + 32 * warp + 4 * g < N)        // N % 16 == 0: all four or none
+      swg = *reinterpret_cast<const float4*>(sw + (size_t)(kdone / group - 1) * N + n0 +
+                                             32 * warp + 4 * g);
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 32) {
       // k-rows ks + 4tg + r (chunk tg of the mma's k32) and ks + 16 + 4tg + r
-      // (chunk tg + 4), bytes n = 32 warp + 4g .. + 3; (row / 4) % 4 == tg
+      // (chunk tg + 4), bytes n = 32 warp + 4g .. + 3; (row / 4) % 4 == tg. K8 reads
+      // them as packed rows ks/2 + 2tg + {0, 1} and ks/2 + 8 + 2tg + {0, 1}, whose
+      // low and high nibbles are k-rows 2p and 2p + 1; (row / 2) % 4 == tg
       unsigned w0[4], w1[4], t0[4], t1[4];
-      const int col = (((2 * warp + (g >> 2)) ^ (tg << 1)) << 4) + (g & 3) * 4;
+      if (W4) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        w0[r] = *reinterpret_cast<const unsigned*>(sW + (ks + 4 * tg + r) * BN + col);
-        w1[r] = *reinterpret_cast<const unsigned*>(sW + (ks + 16 + 4 * tg + r) * BN + col);
+        for (int h = 0; h < 2; ++h) {
+          const int p0 = ks / 2 + 2 * tg + h, p1 = p0 + 8;
+          const int c0 = (((2 * warp + (g >> 2)) ^ (((p0 >> 1) & 3) << 1)) << 4) + (g & 3) * 4;
+          const int c1 = (((2 * warp + (g >> 2)) ^ (((p1 >> 1) & 3) << 1)) << 4) + (g & 3) * 4;
+          const unsigned q0 = *reinterpret_cast<const unsigned*>(sW + p0 * BN + c0);
+          const unsigned q1 = *reinterpret_cast<const unsigned*>(sW + p1 * BN + c1);
+          w0[2 * h] = nibbles_lo(q0);
+          w0[2 * h + 1] = nibbles_hi(q0);
+          w1[2 * h] = nibbles_lo(q1);
+          w1[2 * h + 1] = nibbles_hi(q1);
+        }
+      } else {
+        const int col = (((2 * warp + (g >> 2)) ^ (tg << 1)) << 4) + (g & 3) * 4;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          w0[r] = *reinterpret_cast<const unsigned*>(sW + (ks + 4 * tg + r) * BN + col);
+          w1[r] = *reinterpret_cast<const unsigned*>(sW + (ks + 16 + 4 * tg + r) * BN + col);
+        }
       }
       transpose4x4(w0, t0);
       transpose4x4(w1, t1);
@@ -147,13 +223,32 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
         mma_s8(acc[j][1], a1, b);
       }
     }
+    if (flush) {
+      // end of a group: f32 += f32(int32 partial) * sw[g, n]; clear. acc[j][i][2h + e]
+      // <-> n = 32 warp + 4g + 2i + h: scale component 2i + h
+      const float sc[4] = {swg.x, swg.y, swg.z, swg.w};
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              int& p = acc[j][i][2 * h + e];
+              float& f = accf[j][i][2 * h + e];
+              f = __fadd_rn(f, __fmul_rn(__int2float_rn(p), sc[2 * i + h]));
+              p = 0;
+            }
+    }
   }
   async_wait<0>();
   __syncthreads();               // the ring is drained: reuse it for the partials
 
-  // partials [m][n_local] int32: acc[j][i][2h + e] <-> n = 32 warp + 4g + 2i + h,
-  // m = 8j + 2tg + e
+  // partials [m][n_local], int32 (K2) or f32 (K8): acc[j][i][2h + e] <-> n = 32 warp +
+  // 4g + 2i + h, m = 8j + 2tg + e
   int* sRed = reinterpret_cast<int*>(smem);
+  float* sRedf = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int j = 0; j < MT; ++j)
 #pragma unroll
@@ -161,29 +256,43 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          sRed[(8 * j + 2 * tg + e) * BN + 32 * warp + 4 * g + 2 * i + h] = acc[j][i][2 * h + e];
+        for (int e = 0; e < 2; ++e) {
+          const int idx = (8 * j + 2 * tg + e) * BN + 32 * warp + 4 * g + 2 * i + h;
+          if (W4)
+            sRedf[idx] = accf[j][i][2 * h + e];
+          else
+            sRed[idx] = acc[j][i][2 * h + e];
+        }
   cluster.sync();                // every split's partials are written (release/acquire)
 
   if (split == 0) {
     const int n = n0 + tid;      // one output column per thread (BN == kThreads)
     if (n < N) {
-      const float swn = sw[n];
-      for (int m = 0; m < M; ++m) {
-        int sum = 0;
-        for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(sRed, r)[m * BN + tid];
-        out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), swn);
+      if (W4) {
+        for (int m = 0; m < M; ++m) {
+          float sum = 0.f;
+          for (int r = 0; r < S; ++r)
+            sum = __fadd_rn(sum, cluster.map_shared_rank(sRedf, r)[m * BN + tid]);
+          out[(size_t)m * N + n] = __fmul_rn(sum, a[m]);
+        }
+      } else {
+        const float swn = sw[n];
+        for (int m = 0; m < M; ++m) {
+          int sum = 0;
+          for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(sRed, r)[m * BN + tid];
+          out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), swn);
+        }
       }
     }
   }
   cluster.sync();                // the leader has read every block's shared memory
 }
 
-template <int MT>
+template <int MT, bool W4>
 int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, float* out,
-           int M, int N, int K, int splits, cudaStream_t s) {
-  constexpr int smem = smem_bytes<MT>();
-  cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT>,
+           int M, int N, int K, int group, int splits, cudaStream_t s) {
+  constexpr int smem = smem_bytes<MT, W4>();
+  cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT, W4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -198,9 +307,20 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qgemm_decode_kernel<MT>, qx, qw, a, sw, out, M, N, K);
+  err = cudaLaunchKernelEx(&cfg, qgemm_decode_kernel<MT, W4>, qx, qw, a, sw, out, M, N, K,
+                           group);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool W4>
+int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, float* out,
+             int M, int N, int K, int group, int splits, cudaStream_t s) {
+  if (M <= 8) return launch<1, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
+  if (M <= 16) return launch<2, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
+  if (M <= 32) return launch<4, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
+  if (M <= 64) return launch<8, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
+  return launch<16, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
 }
 
 }  // namespace
@@ -215,10 +335,20 @@ REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const 
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || splits > KT)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 8) return launch<1>(qx, qw, a, sw, out, M, N, K, splits, s);
-  if (M <= 16) return launch<2>(qx, qw, a, sw, out, M, N, K, splits, s);
-  if (M <= 32) return launch<4>(qx, qw, a, sw, out, M, N, K, splits, s);
-  if (M <= 64) return launch<8>(qx, qw, a, sw, out, M, N, K, splits, s);
-  return launch<16>(qx, qw, a, sw, out, M, N, K, splits, s);
+  return launch_m<false>(qx, qw, a, sw, out, M, N, K, 0, splits,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// qw4 (K/2, N) packed int4, sw (K/group, N) f32; group a positive multiple of 64
+// dividing K; splits 1..8 and at most K/group; M in 1..128; N a multiple of 16; qx,
+// qw4 and sw 16-byte aligned. The wrapper picks splits
+// (kernels/qgemm.py::w4a8_decode_splits) and checks the rest.
+REPRO_API int repro_qgemm_w4a8_decode(const int8_t* qx, const int8_t* qw4, const float* a,
+                                      const float* sw, float* out, int M, int N, int K,
+                                      int group, int splits, void* stream) {
+  if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || group <= 0 || group % BK != 0 ||
+      K % group != 0 || splits < 1 || splits > kMaxSplits || splits > K / group)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_m<true>(qx, qw4, a, sw, out, M, N, K, group, splits,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -38,7 +38,7 @@
 // contiguous per n), so the qw tile is transposed on its way in: each thread
 // loads four k-rows of four n-bytes and transposes the 4x4 bytes in registers
 // with __byte_perm. K8 loads two packed k-rows instead and sign-extends their
-// nibbles into the four int8 k-rows in registers (__vsub4), so the MMA loop is
+// nibbles into the four int8 k-rows in registers (nibbles_lo / _hi), so the MMA loop is
 // K2's; after each group's K steps every thread adds its int32 partials times
 // sw[g, n] into f32 registers and clears them, and the epilogue multiplies by a.
 // K7 reads its tile's occupancy before each K step; the whole block skips an
@@ -48,9 +48,9 @@
 //
 // At decode this body is slow: with M = 4 a 64-row tile wastes 15/16 of the MMA,
 // and N/64 blocks (8 for the 512-wide wk/wv) cannot keep 132 SMs streaming. K2
-// routes M <= 32 to the split-K weight stream in qgemm_decode.cu instead; K7 and
-// K8 still run this body at every M. Prefill wants wgmma with TMA-fed shared-
-// memory rings.
+// and K8 route M <= 32 to the split-K weight stream in qgemm_decode.cu and larger
+// M to the wgmma bodies in qgemm_wgmma.cu, and run this body only for shapes those
+// do not take; K7 runs it at every M.
 #include "common.cuh"
 
 namespace {
@@ -69,14 +69,6 @@ __device__ __forceinline__ unsigned load_row4(const int8_t* src, int gn, int N, 
   for (int i = 0; i < 4; ++i)
     if (gn + i < N) w |= (unsigned)(uint8_t)src[i] << (8 * i);
   return w;
-}
-
-// the low / high nibble of each byte, sign-extended to a byte: (v ^ 8) - 8
-__device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
-  return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-__device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
-  return __vsub4(((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
 template <int MODE>

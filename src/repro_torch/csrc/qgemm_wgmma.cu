@@ -1,6 +1,8 @@
 // K2 qgemm_w8a8, wgmma body: the int8 x int8 -> int32 GEMM with the separable
 // CrossQuant dequant for more activation rows than the decode body takes (the
-// wrapper routes M > DECODE_MAX_M here, kernels/qgemm.py::qgemm_w8a8_plan).
+// wrapper routes M > DECODE_MAX_M here, kernels/qgemm.py::qgemm_w8a8_plan). K8's
+// wgmma body (W4A8, grouped scales) follows it below, on the same TMA and wgmma
+// helpers.
 //
 // Replaces the TPU kernel repro/kernels/qgemm.py::_w8a8_kernel (launcher
 // qgemm_w8a8_pallas, pallas_call at :71) for packed chunked steps and prefills;
@@ -212,6 +214,212 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   cluster.sync();                        // the leader has read every block's partials
 }
 
+// ---- K8 qgemm_w4a8, wgmma body -------------------------------------------------
+//
+// Replaces repro/kernels/qgemm.py::_w4a8_kernel (launcher qgemm_w4a8_pallas,
+// pallas_call at :209) for M > DECODE_MAX_M (kernels/qgemm.py::qgemm_w4a8_plan):
+//
+//   out[m, n] = (sum_g float(sum_{k in g} qx[m, k] * w[k, n]) * sw[g, n]) * a[m]
+//
+// qw4 (K/2, N) int8 holds two int4 codes per byte along K (low nibble row 2r, high
+// nibble row 2r + 1, sign-extended), sw (K/group, N) f32, group 64 or a multiple of
+// 128 that divides K. f32-close to the plain version (which sums the groups in
+// PyTorch's order), not bitwise.
+//
+// It keeps K2's wgmma design (out^T = w^T * qx^T, the weight the register-sourced
+// A operand, qx the B operand through a 128B-swizzle descriptor, a producer warp
+// feeding a TMA ring on mbarriers, cluster split-K) with three changes:
+// - The weight stage is 64 packed rows x 128 bytes (a TMA box of 64 rows), the
+//   same 128 k-rows as K2's 128 x 128-byte tile in half the bytes. Each lane reads
+//   2-byte words, columns n and n + 1 of four packed rows, unpacks the nibbles in
+//   registers and byte-permutes them into its A fragments: 4 shared loads per k32,
+//   no 4 x 4 transposes, and the reads of a warp hit 16 distinct banks.
+// - Each group's int32 sum starts fresh (wgmma scale-d 0 on its first k32 step);
+//   after its last step the warpgroup drains (wgmma.wait_group 0) and folds the sum
+//   as f32 * sw[g, n] into an f32 accumulator: one fold per 128-k stage at g128,
+//   two at g64. The f32 accumulator doubles the accumulator registers, so the 128
+//   output columns of a block are split over two consumer warpgroups of 64 (one
+//   m64nBMk32 per k32 step each): at BM = 128 a thread holds 64 int32 and 64 f32.
+// - How far the drain is hidden: the fold stalls only its own warpgroup; the
+//   other one, on the other 64 columns of the same stage, keeps issuing wgmma, and
+//   the producer keeps kW4Stages - 1 stages of TMA loads in flight. With 288
+//   threads of ~170 registers one block holds an SM at BM > 64 (two blocks at BM
+//   <= 64), so the two consumer warpgroups, not a second block, carry the overlap
+//   there. On the H100 the unpack's instructions, not the drain, set the pace: a
+//   cheaper sign extension made the body faster, while unpacking the next
+//   stage during the current one's wgmma, an int32 -> f32 conversion off the I2F
+//   unit, 16x codes (one instruction less per word) and ldmatrix.trans reads (one
+//   instruction for eight 2-byte loads; faster only at M <= 64) each measured
+//   slower at M >= 128.
+constexpr int kW4Consumers = 256, kW4Threads = kW4Consumers + 32, kW4Stages = 4;
+constexpr int W4_BYTES = (BK / 2) * BN;     // 64 packed rows x 128 bytes: 128 k-rows
+
+template <int BM>
+__host__ __device__ constexpr int w4_stage_bytes() { return W4_BYTES + BM * BK; }
+
+template <int BM>
+__host__ __device__ constexpr int w4_smem_bytes() {  // slack + ring (and partials) + barriers
+  return 1024 + kW4Stages * w4_stage_bytes<BM>() + 2 * kW4Stages * 8;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(kW4Threads, BM <= 64 ? 2 : 1)
+qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ a,
+                        const float* __restrict__ sw, float* __restrict__ out, int M, int N,
+                        int K, int group) {
+  static_assert(BM * BN * 4 <= kW4Stages * w4_stage_bytes<BM>(), "partials fit in the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kW4Stages * w4_stage_bytes<BM>());
+  uint64_t* empty = full + kW4Stages;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int S = gridDim.z, split = blockIdx.z;      // cluster (1, 1, S): rank == split
+  // splits take whole units of max(group, 128) k-rows: whole groups and whole stages
+  const int unit = group > BK ? group : BK, spu = unit / BK;
+  const int KT = (K + BK - 1) / BK, NU = (K + unit - 1) / unit;
+  const int kt0 = split * NU / S * spu;
+  const int steps = min(KT, (split + 1) * NU / S * spu) - kt0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kW4Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kW4Consumers / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  constexpr int NA = BM / 2;              // accumulators per thread
+  int acc[NA];
+  float accf[NA];
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    acc[j] = 0;
+    accf[j] = 0.f;
+  }
+  // consumer warp w: warpgroup w / 4 owns the block's columns 64 (w / 4) .. + 63, its
+  // warp w % 4 the A rows 16 (w % 4) .. + 15; a lane's rows g and g + 8 are the
+  // columns nl and nl + 1
+  const int nl = 64 * (warp >> 2) + 16 * (warp & 3) + 2 * g;
+  const bool consumer = warp < kW4Consumers / 32;
+
+  if (!consumer) {
+    // producer: keep the ring full
+    if (lane == 0) {
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % kW4Stages;
+        if (t >= kW4Stages) mbar_wait(&empty[s], ((t / kW4Stages) - 1) & 1);
+        unsigned char* sW = smem + s * w4_stage_bytes<BM>();
+        mbar_arrive_expect_tx(&full[s], w4_stage_bytes<BM>());
+        const int k0 = (kt0 + t) * BK;
+        tma_load_2d(sW, &tm_w, &full[s], n0, k0 / 2);
+        tma_load_2d(sW + W4_BYTES, &tm_x, &full[s], k0, m0);
+      }
+    }
+  } else {
+    const int ch = nl >> 4, off = nl & 15;  // logical 16-byte chunk, byte offset
+    const bool col_ok = n0 + nl < N;        // N % 16 == 0: both columns or neither
+    float2 sc = make_float2(0.f, 0.f);
+    for (int t = 0; t < steps; ++t) {
+      const int s = t % kW4Stages;
+      mbar_wait(&full[s], (t / kW4Stages) & 1);
+      const unsigned char* sW = smem + s * w4_stage_bytes<BM>();
+      const unsigned char* sX = sW + W4_BYTES;
+      const int k0 = (kt0 + t) * BK;
+      unsigned af[BK / 32][4];
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // k-rows 32ks + 16h + 4tg + {0..3}: packed rows p, p + 1, p = 16ks + 8h + 2tg
+          const int p = 16 * ks + 8 * h + 2 * tg;
+          const unsigned lo16 = *reinterpret_cast<const unsigned short*>(
+              sW + p * 128 + ((ch ^ (p & 7)) << 4) + off);
+          const unsigned hi16 = *reinterpret_cast<const unsigned short*>(
+              sW + (p + 1) * 128 + ((ch ^ ((p + 1) & 7)) << 4) + off);
+          const unsigned w = lo16 | (hi16 << 16);   // (p, n), (p, n+1), (p+1, n), (p+1, n+1)
+          const unsigned lo = nibbles_lo(w), hi = nibbles_hi(w);
+          // k-rows 2p, 2p + 1, 2p + 2, 2p + 3 of column n, then of column n + 1
+          af[ks][2 * h] = __byte_perm(lo, hi, 0x6240);
+          af[ks][2 * h + 1] = __byte_perm(lo, hi, 0x7351);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks) {
+        const int k = k0 + 32 * ks;
+        if (k >= K) break;                  // the last stage of a K that ends on a g64 group
+        if (k % group == 0 && col_ok)       // a new group: its scales, before its products
+          sc = *reinterpret_cast<const float2*>(sw + (size_t)(k / group) * N + n0 + nl);
+        WgmmaS8<BM>::mma(acc, af[ks], desc_k_sw128(sX + 32 * ks), k % group != 0);
+        if ((k + 32) % group == 0) {
+          // the group's last k32 step: drain, then f32 += f32(int32 sum) * sw[g, n]
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int j = 0; j < NA; j += 4)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                accf[j + 2 * h + e] = __fadd_rn(
+                    accf[j + 2 * h + e], __fmul_rn(__int2float_rn(acc[j + 2 * h + e]),
+                                                   h ? sc.y : sc.x));
+          wgmma_fence();                    // the fold read acc: order it before the next wgmma
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();                      // this warp's reads of stage s are done
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+
+  // accf[4j + 2h + e] <-> token m = m0 + 8j + 2tg + e, column n = n0 + nl + h
+  if (S == 1) {
+    if (consumer && n0 + nl < N) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * j + 2 * tg + e;
+          if (m >= M) continue;
+          const float am = a[m];
+          const float2 v = make_float2(__fmul_rn(accf[4 * j + e], am),
+                                       __fmul_rn(accf[4 * j + 2 + e], am));
+          *reinterpret_cast<float2*>(out + (size_t)m * N + n0 + nl) = v;
+        }
+    }
+    return;
+  }
+
+  __syncthreads();                       // every warp is done with the ring: reuse it
+  float* sRed = reinterpret_cast<float*>(smem);     // [BM][BN] f32 partials
+  if (consumer) {
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(sRed + (8 * j + 2 * tg + e) * BN + nl) =
+            make_float2(accf[4 * j + e], accf[4 * j + 2 + e]);
+  }
+  cluster.sync();                        // every split's partials are written
+  if (split == 0) {
+    for (int idx = tid; idx < BM * BN; idx += kW4Threads) {
+      const int ml = idx / BN, n = n0 + idx % BN, m = m0 + ml;
+      if (m >= M || n >= N) continue;
+      float sum = 0.f;
+      for (int r = 0; r < S; ++r) sum = __fadd_rn(sum, cluster.map_shared_rank(sRed, r)[idx]);
+      out[(size_t)m * N + n] = __fmul_rn(sum, a[m]);
+    }
+  }
+  cluster.sync();                        // the leader has read every block's partials
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs no -lcuda
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -275,6 +483,34 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BM>
+int launch_w4(const int8_t* qx, const int8_t* qw4, const float* a, const float* sw, float* out,
+              int M, int N, int K, int group, int splits, cudaStream_t s) {
+  CUtensorMap tm_x, tm_w;
+  if (!encode(&tm_x, qx, M, K, BM) || !encode(&tm_w, qw4, K / 2, N, BK / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = w4_smem_bytes<BM>();
+  cudaError_t err = cudaFuncSetAttribute(qgemm_w4a8_wgmma_kernel<BM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cfg.blockDim = dim3(kW4Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, qgemm_w4a8_wgmma_kernel<BM>, tm_x, tm_w, a, sw, out, M, N, K,
+                           group);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // splits: 1..8 and at most ceil(K/128); M >= 1; K and N multiples of 16; qx and qw
@@ -296,5 +532,29 @@ REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const f
     case 96: return launch<96>(qx, qw, a, sw, out, M, N, K, splits, s);
     case 112: return launch<112>(qx, qw, a, sw, out, M, N, K, splits, s);
     default: return launch<128>(qx, qw, a, sw, out, M, N, K, splits, s);
+  }
+}
+
+// qw4 (K/2, N) packed int4; sw (K/group, N) f32; group 64 or a positive multiple of
+// 128 that divides K; splits 1..8 and at most ceil(K / max(group, 128)); M >= 1; N a
+// multiple of 16; qx, qw4 and sw 16-byte aligned. The wrapper picks splits
+// (kernels/qgemm.py::w4a8_wgmma_splits) and checks the rest.
+REPRO_API int repro_qgemm_w4a8_wgmma(const int8_t* qx, const int8_t* qw4, const float* a,
+                                     const float* sw, float* out, int M, int N, int K,
+                                     int group, int splits, void* stream) {
+  const int unit = group > BK ? group : BK;
+  if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || group <= 0 ||
+      (group != 64 && group % BK != 0) || K % group != 0 || splits < 1 ||
+      splits > kMaxSplits || splits > (K + unit - 1) / unit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
+  switch (bm) {
+    case 16: case 32: case 48: return launch_w4<48>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
+    case 64: return launch_w4<64>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
+    case 80: return launch_w4<80>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
+    case 96: return launch_w4<96>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
+    case 112: return launch_w4<112>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
+    default: return launch_w4<128>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
   }
 }

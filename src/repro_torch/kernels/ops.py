@@ -15,8 +15,11 @@ other runs K7 with the tile-occupancy table. The table is derived once per leaf
 where the served tree is prepared (``models.quantize.with_tile_occupancy``) and
 passed in, so a serving step does not sync the host once per linear.
 
-K2 has three bodies: :func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan` sends few
-activation rows to the split-K weight stream, more to the ``wgmma`` body and
+K1 has three bodies (:func:`repro_torch.kernels.act_quantize.act_quantize_plan`:
+a cluster-split row for few rows, register-resident rows for more, two sweeps
+beyond the registers). K2 and K8 have three each:
+:func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan` and ``qgemm_w4a8_plan`` send
+few activation rows to the split-K weight stream, more to the ``wgmma`` body and
 shapes neither takes to the 64 × 64 tile body; K3 and K4–K6 run a bf16
 tensor-core body or an f32 body by dtype.
 
@@ -24,8 +27,8 @@ Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
-per body of the ops that have several (K2; K3; K4–K6, whose bf16 body is split
-tensor-core attention and whose f32 body runs on the CUDA cores).
+per body of the ops that have several (K1; K2; K8; K3; K4–K6, whose bf16 body is
+split tensor-core attention and whose f32 body runs on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -35,20 +38,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda
+from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda, act_quantize_plan
 from repro_torch.kernels.flash_attention import BODIES, HEAD_DIMS, flash_attention_cuda
 from repro_torch.kernels.paged_attention import (
     BODIES as PAGED_BODIES, POOL_CODE, paged_attention_cuda, ragged_prefill_cuda,
 )
 from repro_torch.kernels.qgemm import (
-    TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
+    TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
+    qgemm_w4a8_wgmma_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
     qgemm_w8a8_sparse_cuda, qgemm_w8a8_wgmma_cuda,
 )
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
             "paged_decode_attention": 0, "paged_verify_attention": 0,
             "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
-BODY_LAUNCHES = {"qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
+BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/sweep": 0,
+                 "qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
+                 "qgemm_w4a8/decode": 0, "qgemm_w4a8/wgmma": 0, "qgemm_w4a8/tile": 0,
                  "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
                  "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
 
@@ -99,9 +105,11 @@ def act_quantize(x: torch.Tensor, bcol: torch.Tensor,
     if alpha_t is not None:
         _require(alpha_t.numel() == 1 and alpha_t.dtype == torch.float32,
                  "alpha tensor must hold one f32 value")
+    body, splits = act_quantize_plan(*x.shape)
     out = act_quantize_cuda(x, bcol, alpha_t, 0.0 if alpha_t is not None else float(alpha),
-                            bits)
+                            bits, body, splits)
     LAUNCHES["act_quantize"] += 1
+    BODY_LAUNCHES[f"act_quantize/{body}"] += 1
     return out
 
 
@@ -202,8 +210,16 @@ def qgemm_w4a8(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: torch.T
     _require(group % TILE_K == 0, f"the W4A8 kernel takes groups of multiples of {TILE_K}, "
              f"got {group}")
     _contiguous(qx=qx, qw4=qw4, a=a, sw=sw)
-    out = qgemm_w4a8_cuda(qx, qw4, a, sw, group)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (qx, qw4, sw))
+    body, splits = qgemm_w4a8_plan(M, K, N, group, aligned=aligned)
+    if body == "decode":
+        out = qgemm_w4a8_decode_cuda(qx, qw4, a, sw, group, splits)
+    elif body == "wgmma":
+        out = qgemm_w4a8_wgmma_cuda(qx, qw4, a, sw, group, splits)
+    else:
+        out = qgemm_w4a8_cuda(qx, qw4, a, sw, group)
     LAUNCHES["qgemm_w4a8"] += 1
+    BODY_LAUNCHES[f"qgemm_w4a8/{body}"] += 1
     return out
 
 

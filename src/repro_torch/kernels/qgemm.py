@@ -1,11 +1,11 @@
 """Launchers of the CUDA kernels K2 ``qgemm_w8a8``, K7 ``qgemm_w8a8_sparse`` and
 K8 ``qgemm_w4a8``, the counterparts of the reference's W8A8, block-sparse W8A8 and
-W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. K2 has three bodies: the 64 × 64
-tile body in ``csrc/qgemm_w8a8.cu`` (shared with K7 and K8), for few activation
-rows the split-K weight stream in ``csrc/qgemm_decode.cu``, and for more rows the
-``wgmma`` body in ``csrc/qgemm_wgmma.cu`` (TMA ring, register-sourced weight
-operand, cluster split-K where few output tiles would idle the card);
-:func:`qgemm_w8a8_plan` picks one.
+W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. K2 and K8 have three bodies
+each: the 64 × 64 tile body in ``csrc/qgemm_w8a8.cu`` (shared with K7), for few
+activation rows the split-K weight stream in ``csrc/qgemm_decode.cu``, and for more
+rows the ``wgmma`` bodies in ``csrc/qgemm_wgmma.cu`` (TMA ring, register-sourced
+weight operand, cluster split-K where few output tiles would idle the card);
+:func:`qgemm_w8a8_plan` and :func:`qgemm_w4a8_plan` pick one.
 
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
@@ -45,11 +45,12 @@ def decode_splits(K: int, N: int) -> int:
     return max(1, min(MAX_SPLITS, k_tiles, want))
 
 
-def split_bounds(K: int, splits: int) -> List[Tuple[int, int]]:
-    """The decode body's K ranges: split s takes the 64-row k-tiles [s·KT/S,
-    (s+1)·KT/S), the last one cut at K."""
-    k_tiles = -(-K // TILE_K)
-    return [(s * k_tiles // splits * TILE_K, min(K, (s + 1) * k_tiles // splits * TILE_K))
+def split_bounds(K: int, splits: int, unit: int = TILE_K) -> List[Tuple[int, int]]:
+    """A body's K ranges: split s takes the ``unit``-row pieces [s·U/S, (s+1)·U/S) of
+    the U = ceil(K / unit) there are, the last one cut at K. K2's decode body splits
+    64-row k-tiles; K8's bodies their :func:`w4a8_split_unit`."""
+    n_units = -(-K // unit)
+    return [(s * n_units // splits * unit, min(K, (s + 1) * n_units // splits * unit))
             for s in range(splits)]
 
 
@@ -82,6 +83,41 @@ def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, 
     if M <= DECODE_MAX_M:
         return "decode", decode_splits(K, N)
     return "wgmma", wgmma_splits(M, K, N)
+
+
+def w4a8_decode_splits(K: int, N: int, group: int) -> int:
+    """K splits of K8's decode body: :func:`decode_splits`, at most one per group."""
+    return max(1, min(decode_splits(K, N), K // group))
+
+
+def w4a8_split_unit(body: str, group: int) -> int:
+    """The k-rows a K8 split is made of: whole groups for the decode body (its
+    stages are 64 k-rows, group a multiple of 64); whole groups and whole 128-row
+    stages for the wgmma body."""
+    return group if body == "decode" else max(group, WGMMA_TILE_K)
+
+
+def w4a8_wgmma_splits(M: int, K: int, N: int, group: int) -> int:
+    """K splits of K8's wgmma body: :func:`wgmma_splits`, at most one per unit."""
+    return max(1, min(wgmma_splits(M, K, N), -(-K // w4a8_split_unit("wgmma", group))))
+
+
+def qgemm_w4a8_plan(M: int, K: int, N: int, group: int,
+                    aligned: bool = True) -> Tuple[str, int]:
+    """K8's body for an (M, K) × packed (K/2, N) product in groups of ``group``
+    k-rows, where N is a multiple of 16, ``group`` a multiple of 64 dividing K,
+    and qx, qw4 and sw 16-byte aligned (``aligned``): ``("decode", splits)`` for 1
+    ≤ M ≤ DECODE_MAX_M, ``("wgmma", splits)`` above where ``group`` is 64 or a
+    multiple of 128 (its 128-row stages then end on a group boundary or inside one
+    group); every other product ``("tile", 1)``."""
+    if not (M >= 1 and N > 0 and N % 16 == 0 and group > 0 and group % TILE_K == 0
+            and K > 0 and K % group == 0 and aligned):
+        return "tile", 1
+    if M <= DECODE_MAX_M:
+        return "decode", w4a8_decode_splits(K, N, group)
+    if group == TILE_K or group % WGMMA_TILE_K == 0:
+        return "wgmma", w4a8_wgmma_splits(M, K, N, group)
+    return "tile", 1
 
 
 def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
@@ -168,3 +204,36 @@ def qgemm_w4a8_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
         M, N, K, group, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w4a8")
     return out
+
+
+def _w4a8_body_cuda(entry: str, what: str, qx: torch.Tensor, qw4: torch.Tensor,
+                    a: torch.Tensor, sw: torch.Tensor, group: int,
+                    splits: int) -> torch.Tensor:
+    M, K = qx.shape
+    N = qw4.shape[1]
+    if qx.data_ptr() % 16 or qw4.data_ptr() % 16 or sw.data_ptr() % 16:
+        raise ValueError(f"K8's {what} reads qx, qw4 and sw in 16-byte chunks: align them")
+    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    rc = getattr(build.library(), entry)(
+        qx.data_ptr(), qw4.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        M, N, K, group, splits, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, f"qgemm_w4a8 {what}")
+    return out
+
+
+def qgemm_w4a8_decode_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
+                           sw: torch.Tensor, group: int, splits: int) -> torch.Tensor:
+    """K8's decode body: qx (M ≤ 128, K) int8 · qw4 (K/2, N) packed int4 with (K/group,
+    N) f32 group scales → (M, N) f32, over ``splits`` K splits of whole groups;
+    ``group`` a multiple of 64 dividing K, N a multiple of 16, qx, qw4 and sw 16-byte
+    aligned, all contiguous on one card."""
+    return _w4a8_body_cuda("repro_qgemm_w4a8_decode", "decode body", qx, qw4, a, sw, group,
+                           splits)
+
+
+def qgemm_w4a8_wgmma_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
+                          sw: torch.Tensor, group: int, splits: int) -> torch.Tensor:
+    """K8's wgmma body: as :func:`qgemm_w4a8_decode_cuda` for any M ≥ 1, ``group`` 64
+    or a multiple of 128, splits of :func:`w4a8_split_unit` k-rows."""
+    return _w4a8_body_cuda("repro_qgemm_w4a8_wgmma", "wgmma body", qx, qw4, a, sw, group,
+                           splits)

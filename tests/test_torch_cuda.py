@@ -569,3 +569,176 @@ def test_ragged_decode_rows_bitwise_decode_kernel(dev, pool_dtype):
     dec = ops.paged_decode_attention(q[:, None], kp, vp, tab, kvl)
     torch.cuda.synchronize()
     assert torch.equal(out, dec[:, 0])
+
+
+# ---------------------------------------------------------------- K1 split and rows bodies
+
+K1_M = [1, 4, 7, 32, 33, 2048]
+K1_K = [128, 4608, 18432, 4612]           # 4612: ragged, not a multiple of the 8-element unit
+
+
+def _act_inputs(dev, M, K, dtype, seed, offset=0):
+    """x (M, K) with planted outlier channels; ``offset`` elements of slack in front
+    move x off 16-byte alignment (the kernel's element-wise path)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.empty(M * K + offset, device=dev, dtype=dtype)
+    x = base[offset:].view(M, K)
+    x.copy_(torch.randn(M, K, generator=g, device=dev) * 2)
+    x[:, torch.randperm(K, generator=g, device=dev)[:4]] *= 30
+    bcol = torch.rand(K, generator=g, device=dev) * 3 + 0.25
+    return x, bcol, torch.tensor(0.15, device=dev)
+
+
+def _check_act(q, a, qr, ar):
+    """Codes equal but for off-by-one on at most 1e-5 of them; a within one ulp."""
+    d = (q.int() - qr.int()).abs()
+    assert int(d.max()) <= 1
+    assert int((d > 0).sum()) <= 1e-5 * q.numel()
+    assert int((a.view(torch.int32) - ar.view(torch.int32)).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", K1_K)
+@pytest.mark.parametrize("M", K1_M)
+def test_act_quantize_bodies(dev, M, K, dtype):
+    """Through ops.act_quantize's routing (the body act_quantize_plan gives, counted)
+    and each of the split and rows bodies launched directly, at every M and K:
+    against the plain version."""
+    from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
+    ops, ref = _ops()
+    x, bcol, alpha = _act_inputs(dev, M, K, dtype, M * 131 + K)
+    qr, ar = ref.act_quantize_ref(x, bcol, 8, alpha)
+    body, splits = act_quantize_plan(M, K)
+    before = ops.BODY_LAUNCHES[f"act_quantize/{body}"]
+    q, a = ops.act_quantize(x, bcol, alpha)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"act_quantize/{body}"] == before + 1
+    _check_act(q, a, qr, ar)
+    units = -(-K // 8)
+    for b, s in (("rows", 1), ("split", max(2, min(8, units)))):
+        q, a = act_quantize_cuda(x, bcol, alpha, 0.0, 8, b, s)
+        torch.cuda.synchronize()
+        _check_act(q, a, qr, ar)
+
+
+@pytest.mark.parametrize("body,splits", [("rows", 1), ("split", 3), ("split", 8), ("sweep", 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quantize_unaligned_and_float_alpha(dev, body, splits, dtype):
+    """x off 16-byte alignment (the element-wise loads and stores) and the exponent
+    passed as a float instead of a device tensor."""
+    from repro_torch.kernels.act_quantize import act_quantize_cuda
+    _, ref = _ops()
+    x, bcol, _ = _act_inputs(dev, 5, 4608, dtype, 77, offset=1)
+    assert x.data_ptr() % 16 != 0
+    q, a = act_quantize_cuda(x, bcol, None, 0.15, 8, body, splits)
+    qr, ar = ref.act_quantize_ref(x, bcol, 8, 0.15)
+    torch.cuda.synchronize()
+    _check_act(q, a, qr, ar)
+
+
+def test_act_quantize_graph_replay(dev):
+    """Captured in a CUDA graph, the split body's cluster launch and the rows body
+    replay to the plain version's codes and scales."""
+    ops, ref = _ops()
+    for M, K in ((4, 18432), (4, 4608), (2048, 4608)):
+        x, bcol, alpha = _act_inputs(dev, M, K, torch.bfloat16, M + K)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.act_quantize(x, bcol, alpha)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            q, a = ops.act_quantize(x, bcol, alpha)
+        qr, ar = ref.act_quantize_ref(x, bcol, 8, alpha)
+        for _ in range(3):
+            q.fill_(0)
+            a.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            _check_act(q, a, qr, ar)
+
+
+# ---------------------------------------------------------------- K8 decode and wgmma bodies
+
+K8_M = [1, 4, 32, 33, 128, 2047]
+
+
+def _w4a8_inputs(dev, M, K, N, group, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qx = _int8(g, (M, K), dev)
+    qw4 = _int8(g, (K // 2, N), dev, -128, 128)
+    a = torch.rand(M, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(K // group, N, generator=g, device=dev) * 0.01 + 1e-4
+    return qx, qw4, a, sw
+
+
+def _check_w4a8(out, want):
+    """f32-close: the plain version sums the group partials in PyTorch's order."""
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=2e-4,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+@pytest.mark.parametrize("M", K8_M)
+def test_qgemm_w4a8_routed(dev, M, K, N, group):
+    """Through ops.qgemm_w4a8's routing (decode body at M <= DECODE_MAX_M, wgmma body
+    above, with the plan's split count) at the four linears: f32-close to the
+    plain version, the routed body counted."""
+    from repro_torch.kernels.qgemm import qgemm_w4a8_plan
+    ops, ref = _ops()
+    qx, qw4, a, sw = _w4a8_inputs(dev, M, K, N, group, M + K + N + group)
+    body, _ = qgemm_w4a8_plan(M, K, N, group)
+    assert body == ("decode" if M <= _decode_max_m() else "wgmma")
+    before = ops.BODY_LAUNCHES[f"qgemm_w4a8/{body}"]
+    out = ops.qgemm_w4a8(qx, qw4, a, sw, group=group)
+    want = ref.qgemm_w4a8_ref(qx, qw4, a, sw, group)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w4a8/{body}"] == before + 1
+    _check_w4a8(out, want)
+
+
+@pytest.mark.parametrize("body,M,K,N,group,splits", [
+    ("decode", 4, 4608, 18432, 128, 1), ("decode", 4, 4608, 512, 64, 8),
+    ("decode", 20, 18432, 4608, 128, 7), ("decode", 128, 4608, 4608, 64, 5),
+    ("decode", 3, 64 * 5, 144, 64, 5),         # one group per split, ragged N tile
+    ("wgmma", 33, 18432, 4608, 128, 4), ("wgmma", 128, 18432, 4608, 64, 8),
+    ("wgmma", 64, 4608 + 64, 496, 64, 3),       # K ends mid-stage on a g64 group
+    ("wgmma", 300, 1024, 144, 256, 2),          # a group spans two stages; two token tiles
+    ("wgmma", 48, 128, 16, 128, 1),             # one stage, one column tile
+])
+def test_qgemm_w4a8_bodies_splits(dev, body, M, K, N, group, splits):
+    """Each new body launched directly at split counts, ragged N and groups the
+    plan does not pick at the main path's shapes: f32-close to the plain version."""
+    from repro_torch.kernels.qgemm import qgemm_w4a8_decode_cuda, qgemm_w4a8_wgmma_cuda
+    _, ref = _ops()
+    qx, qw4, a, sw = _w4a8_inputs(dev, M, K, N, group, M * 3 + K + splits)
+    fn = qgemm_w4a8_decode_cuda if body == "decode" else qgemm_w4a8_wgmma_cuda
+    out = fn(qx, qw4, a, sw, group, splits)
+    torch.cuda.synchronize()
+    _check_w4a8(out, ref.qgemm_w4a8_ref(qx, qw4, a, sw, group))
+
+
+def test_qgemm_w4a8_graph_replay(dev):
+    """Captured in a CUDA graph, both new bodies (cluster split and not) replay to
+    the same values on every replay, f32-close to the plain version."""
+    ops, ref = _ops()
+    for M, K, N in ((4, 18432, 4608), (4, 4608, 512), (128, 18432, 4608), (2048, 4608, 512)):
+        qx, qw4, a, sw = _w4a8_inputs(dev, M, K, N, 128, M + N)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = ops.qgemm_w4a8(qx, qw4, a, sw, group=128)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ops.qgemm_w4a8(qx, qw4, a, sw, group=128)
+        want = ref.qgemm_w4a8_ref(qx, qw4, a, sw, 128)
+        for _ in range(3):
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+            _check_w4a8(out, want)

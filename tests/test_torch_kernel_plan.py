@@ -1,24 +1,31 @@
-"""K2's body routing and K-split plan (``repro_torch.kernels.qgemm``) and the
-paged bf16 body's key-walk split (``repro_torch.kernels.paged_attention``), on the
-CPU.
+"""K2's and K8's body routing and K-split plans (``repro_torch.kernels.qgemm``),
+K1's body plan (``repro_torch.kernels.act_quantize``) and the paged bf16 body's
+key-walk split (``repro_torch.kernels.paged_attention``), on the CPU.
 
-The decode and wgmma bodies split K across a thread-block cluster; the plan that
-picks the body and the splits is plain Python, checked here for every linear shape
-of every registered config. The paged body cuts each slot's key walk into
-partitions sized from shapes alone. CPU tensors take the plain versions and move
-no launch count.
+The decode and wgmma bodies split K across a thread-block cluster, K1's split body
+a row; the plans that pick the body and the splits are plain Python, checked here
+for every linear shape of every registered config. The paged body cuts each slot's
+key walk into partitions sized from shapes alone. CPU tensors take the plain
+versions and move no launch count; the plain K1 and K8 versions hold to the JAX
+reference's own plain functions.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+
 from repro_torch.configs import all_archs, get  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import act_quantize as K1, ops, ref  # noqa: E402
 from repro_torch.kernels.paged_attention import SPLIT_CHUNK, SPLIT_MAX, split_plan  # noqa: E402
 from repro_torch.kernels.qgemm import (  # noqa: E402
     DECODE_MAX_M, MAX_SPLITS, TILE_K, WGMMA_MIN_SPLIT_K_TILES, WGMMA_TILE_K,
-    WGMMA_TILE_N, decode_splits, qgemm_w8a8_plan, split_bounds, wgmma_splits, wgmma_tile_m,
+    WGMMA_TILE_N, decode_splits, qgemm_w4a8_plan, qgemm_w8a8_plan, split_bounds,
+    w4a8_decode_splits, w4a8_split_unit, w4a8_wgmma_splits, wgmma_splits, wgmma_tile_m,
 )
 
 
@@ -175,4 +182,166 @@ def test_cpu_tensors_take_the_plain_versions(M):
         want = ref.paged_decode_attention_ref(qd.to(dtype).reshape(B, Hkv, G, D), pages, pages,
                                               tab, kvl)
         assert torch.equal(out, want.reshape(out.shape))
+    xs = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    bcol = torch.from_numpy(rng.random(K).astype(np.float32) + 0.5)
+    for got, want in zip(ops.act_quantize(xs, bcol, 0.15), ref.act_quantize_ref(xs, bcol, 8, 0.15)):
+        assert torch.equal(got, want)
+    qw4 = torch.from_numpy(rng.integers(-128, 128, (K // 2, N)).astype(np.int8))
+    sw4 = torch.from_numpy(rng.random((K // 64, N)).astype(np.float32) * 0.01)
+    assert torch.equal(ops.qgemm_w4a8(qx, qw4, a, sw4, group=64),
+                       ref.qgemm_w4a8_ref(qx, qw4, a, sw4, 64))
     assert not any(ops.LAUNCHES.values()) and not any(ops.BODY_LAUNCHES.values())
+
+
+# ---------------------------------------------------------------- K1 body plan
+
+@pytest.mark.parametrize("K", [4608, 18432])
+@pytest.mark.parametrize("M", [1, 4, 32, 33, 2048])
+def test_act_quantize_plan_main_path(M, K):
+    """The decode and verify rows (M <= 32) run the cluster-split body, S <= 8 ranks
+    of whole 8-element units with M * S near one block per SM (32 blocks at M = 4,
+    128 at M = 32); more rows run the rows body, the row in registers."""
+    body, splits = K1.act_quantize_plan(M, K)
+    if M <= K1.SPLIT_MAX_M:
+        assert body == "split"
+        assert splits == min(K1.MAX_SPLITS, 132 // M)
+        assert M * splits <= 132 and (splits == K1.MAX_SPLITS or M * (splits + 1) > 132)
+    else:
+        assert (body, splits) == ("rows", 1)
+
+
+@pytest.mark.parametrize("name,smoke,K,N", CONFIG_SHAPES)
+def test_act_quantize_plan_every_config(name, smoke, K, N):
+    """Every linear input of every config, at every row count a step gives: at most
+    one cluster, no rank without MIN_SPLIT_UNITS units, a slice within the
+    registers, the rows body within its K limit, the sweep body beyond it."""
+    units = -(-K // K1.UNIT)
+    for M in (1, 4, 17, 32, 33, 128, 4096):
+        body, splits = K1.act_quantize_plan(M, K)
+        assert 1 <= splits <= K1.MAX_SPLITS
+        if body == "split":
+            assert 2 <= splits and M <= K1.SPLIT_MAX_M
+            assert units // splits >= K1.MIN_SPLIT_UNITS
+            assert -(-units // splits) * K1.UNIT <= K1.SPLIT_MAX_SLICE
+        else:
+            assert splits == 1
+            assert body == ("rows" if K <= K1.ROWS_MAX_K else "sweep")
+
+
+def test_act_quantize_plan_edges():
+    """Small K leaves no split worth a cluster; K past the registers sweeps."""
+    assert K1.act_quantize_plan(4, 128) == ("rows", 1)
+    assert K1.act_quantize_plan(4, 8 * 64) == ("split", 2)
+    assert K1.act_quantize_plan(1, 8 * 64 * 8) == ("split", 8)
+    assert K1.act_quantize_plan(2048, K1.ROWS_MAX_K) == ("rows", 1)
+    assert K1.act_quantize_plan(2048, K1.ROWS_MAX_K + 8) == ("sweep", 1)
+    assert K1.act_quantize_plan(0, 4608) == ("rows", 1)
+
+
+# ---------------------------------------------------------------- K8 body plan
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("name,smoke,K,N", CONFIG_SHAPES)
+def test_w4a8_plan_routes_by_rows(name, smoke, K, N, group):
+    """M <= T runs K8's decode body, larger M its wgmma body, where N takes 16-byte
+    chunks and the group divides K; other shapes and unaligned operands the tile
+    body."""
+    takes = N % 16 == 0 and K % group == 0
+    for M in (1, 4, DECODE_MAX_M):
+        want = ("decode", w4a8_decode_splits(K, N, group)) if takes else ("tile", 1)
+        assert qgemm_w4a8_plan(M, K, N, group) == want
+        assert qgemm_w4a8_plan(M, K, N, group, aligned=False) == ("tile", 1)
+    for M in (DECODE_MAX_M + 1, 128, 2048):
+        want = ("wgmma", w4a8_wgmma_splits(M, K, N, group)) if takes else ("tile", 1)
+        assert qgemm_w4a8_plan(M, K, N, group) == want
+        assert qgemm_w4a8_plan(M, K, N, group, aligned=False) == ("tile", 1)
+
+
+@pytest.mark.parametrize("name,smoke,K,N,group",
+                         [c + (g,) for c in CONFIG_SHAPES for g in (64, 128) if c[2] % g == 0])
+def test_w4a8_splits_on_group_boundaries(name, smoke, K, N, group):
+    """Both new bodies' splits cover [0, K) in order, none empty, at most one
+    cluster, each starting on a group boundary (the wgmma body's on a 128-row stage
+    too) and ending on one or at K, so no group straddles two splits. (A K the
+    group does not divide runs the tile body: test_w4a8_plan_routes_by_rows.)"""
+    for body, splits in (("decode", w4a8_decode_splits(K, N, group)),
+                         *(("wgmma", w4a8_wgmma_splits(M, K, N, group)) for M in (33, 128, 2048))):
+        assert 1 <= splits <= MAX_SPLITS
+        unit = w4a8_split_unit(body, group)
+        bounds = split_bounds(K, splits, unit)
+        assert bounds[0][0] == 0 and bounds[-1][1] == K
+        assert all(e0 == b1 for (_, e0), (b1, _) in zip(bounds, bounds[1:]))
+        for b, e in bounds:
+            assert e > b and b % group == 0 and b % unit == 0
+            assert e % group == 0
+
+
+def test_w4a8_plan_edges():
+    """The tile body takes what the new bodies do not: no rows, N not a multiple of
+    16, a group that does not divide K or is not a multiple of 64, and at M > T a
+    group neither 64 nor a multiple of 128 (the wgmma body's 128-row stages); the
+    main path's splits (starcoder2-7b, g128)."""
+    assert qgemm_w4a8_plan(0, 4608, 4608, 128) == ("tile", 1)
+    assert qgemm_w4a8_plan(4, 4608, 4600, 128) == ("tile", 1)
+    assert qgemm_w4a8_plan(4, 4608 + 64, 4608, 128) == ("tile", 1)
+    assert qgemm_w4a8_plan(4, 4608, 4608, 96) == ("tile", 1)
+    assert qgemm_w4a8_plan(4, 4608 + 64 * 3, 512, 192)[0] == "decode"
+    assert qgemm_w4a8_plan(33, 4608 + 64 * 3, 512, 192) == ("tile", 1)
+    assert qgemm_w4a8_plan(33, 4608 + 64, 512, 64)[0] == "wgmma"
+    shapes = ((4608, 4608), (4608, 512), (4608, 18432), (18432, 4608))
+    assert [qgemm_w4a8_plan(4, k, n, 128) for k, n in shapes] == \
+        [("decode", 8), ("decode", 8), ("decode", 4), ("decode", 8)]
+    assert [qgemm_w4a8_plan(m, k, n, 128)[1] for m in (33, 128, 2048) for k, n in shapes] == \
+        [1, 1, 1, 4, 1, 1, 1, 4, 1, 1, 1, 1]
+    # g64, K = 4672 (73 groups): the wgmma body's 128-row units, the last one half
+    assert split_bounds(4608 + 64, 3, w4a8_split_unit("wgmma", 64)) == [
+        (0, 1536), (1536, 3072), (3072, 4672)]
+    assert split_bounds(4608, 4, w4a8_split_unit("decode", 128))[1] == (1152, 2304)
+
+
+# ---------------------------------------------------------------- plain K1 and K8 vs JAX
+
+def _outlier_rows(rng, M, K):
+    x = rng.standard_normal((M, K)).astype(np.float32) * 2
+    x[:, rng.choice(K, size=4, replace=False)] *= 30
+    return x
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.15])
+@pytest.mark.parametrize("M,K", [(4, 4608), (33, 1000), (130, 256)])
+def test_act_quantize_ref_matches_jax(M, K, alpha):
+    """The port's plain K1 against the reference's jitted ``ref.act_quantize_ref``
+    on seeded numpy inputs: the row scale within one ulp (torch's and XLA's f32
+    pow differ by one on a few inputs at alpha < 1; bitwise at alpha = 1), and the
+    codes bitwise on every row whose scale is bitwise."""
+    rng = np.random.default_rng(M + K)
+    x = _outlier_rows(rng, M, K)
+    bcol = rng.uniform(0.25, 3.25, size=K).astype(np.float32)
+    jq, ja = jax.jit(lambda x, b: jref.act_quantize_ref(x, b, 8, alpha))(
+        jnp.asarray(x), jnp.asarray(bcol))
+    tq, ta = ref.act_quantize_ref(torch.from_numpy(x), torch.from_numpy(bcol), 8,
+                                  torch.tensor(alpha))
+    jq, ja, tq, ta = np.asarray(jq), np.asarray(ja), tq.numpy(), ta.numpy()
+    ulps = np.abs(ta.view(np.int32).astype(np.int64) - ja.view(np.int32).astype(np.int64))
+    assert ulps.max() <= (0 if alpha == 1.0 else 1)
+    same = ulps[:, 0] == 0
+    assert same.mean() > 0.5
+    np.testing.assert_array_equal(tq[same], jq[same])
+
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("M,K,N", [(4, 4608, 96), (33, 1024, 130), (2, 256, 16)])
+def test_qgemm_w4a8_ref_matches_jax(M, K, N, group):
+    """The port's plain K8 against the reference's ``ref.qgemm_w4a8_ref`` on seeded
+    numpy inputs, under the bar the kernel is held to: 2e-4 |plain| + 1e-5
+    max|plain| (the group partials summed in another order)."""
+    rng = np.random.default_rng(M * K + N + group)
+    qx = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    qw4 = rng.integers(-128, 128, (K // 2, N)).astype(np.int8)
+    a = (rng.random((M, 1)) + 0.01).astype(np.float32)
+    sw = (rng.random((K // group, N)) * 0.01 + 1e-4).astype(np.float32)
+    want = np.asarray(jref.qgemm_w4a8_ref(jnp.asarray(qx), jnp.asarray(qw4), jnp.asarray(a),
+                                          jnp.asarray(sw), group))
+    got = ref.qgemm_w4a8_ref(*(torch.from_numpy(t) for t in (qx, qw4, a, sw)), group).numpy()
+    tol = 2e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
+    assert (np.abs(got - want) <= tol).all()
