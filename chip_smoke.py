@@ -7,7 +7,9 @@ hand-written kernels against its plain PyTorch version.
 Phases (any failure raises and exits non-zero):
 
 1. torch/CUDA versions and the card's name and power limit (nvidia-smi).
-2. Build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a).
+2. Build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), one line
+   per kernel with its registers, spill bytes and whether ptxas serialized its
+   wgmma.
 3. Each kernel against its plain version on the card, at the main path's shapes,
    with its time, the plain version's, a one-call library yardstick where one
    exists, and the bound the card's data-sheet peaks allow. Times are device
@@ -27,11 +29,18 @@ Phases (any failure raises and exits non-zero):
    K6 (ragged prefill) on the packed blocks of a chunked step with f32 and int8
    pools (both bodies timed), a dead slot, an all-sentinel row and q_len = 1
    rows bitwise equal to K4, and a fixed case whose outputs all lie in [4, 8)
-   with plain values near bf16 midpoints; K7 (sparse W8A8) with half its k-tiles
-   empty, bitwise equal to the plain version, and with an all-ones table bitwise
-   equal to K2; K8 (W4A8 g128) at M=4, 33, 128 and 2048 x the four linears, its
-   decode, wgmma and tile bodies f32-close eagerly and under graph replay and
-   timed side by side; a body the plan routes to must have beaten the tile body.
+   with plain values near bf16 midpoints; K7 (block-sparse W8A8) on its decode
+   and wgmma bodies at the up and down projections, M=4, 32, 64, 128 and 2048,
+   over alternating empty k-tiles, a random half of the tiles empty, an empty
+   128-column block, an empty split range and an all-ones table, bitwise equal to
+   the plain version and to K2 eagerly and under graph replay, timed beside K2's
+   body on the same weights (it must beat K2 wherever a tile is empty, and stay
+   within 5 % of it on the all-ones table, 10 % at M=64), and its tile body at
+   M=4 and 2048 beside them, bitwise and timed, also reached through the
+   wrapper; K8 (W4A8 g128) at M=4, 33, 128 and
+   2048 x the four linears, its decode, wgmma and tile bodies f32-close eagerly
+   and under graph replay and timed side by side; a body the plan routes to
+   must have beaten the tile body.
    bf16 outputs (K3, K4-K6 with bf16 q) pass where within 2e-2 of the plain
    version or within one bf16 ulp of it rounded to bf16.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
@@ -45,14 +54,14 @@ Phases (any failure raises and exits non-zero):
    every other 64-row k-tile of those masks emptied (K7 serves it, 4 requests);
    and the W4A8 tree (K8). Each run's kernel launch counts must equal what its
    schedule implies, per body too: K1's split body serves the steps of at most
-   32 token rows, its rows body the rest; K2's and K8's decode bodies serve the
-   steps of at most DECODE_MAX_M token rows, their wgmma bodies the rest, K3's
+   32 token rows, its rows body the rest; K2's, K7's and K8's decode bodies serve
+   the steps of at most DECODE_MAX_M token rows, their wgmma bodies the rest, K3's
    bf16 body every flash launch, the paged bf16 body every K4/K5/K6 launch.
    Between the runs, torch.profiler windows over a few decode steps of the dense
    fp-KV engine, a few packed steps of the chunked one and a few decode steps of
-   the W4A8 one print the device-busy share, the longest device ops, K1's, K2's
-   and K8's device time per step, the host ops with the most self time, and
-   kernel launches and host syncs per step.
+   the block-sparse and of the W4A8 one print the device-busy share, the longest
+   device ops, K1's, K2's, K7's and K8's device time per step, the host ops with
+   the most self time, and kernel launches and host syncs per step.
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
@@ -76,6 +85,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -105,6 +115,42 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str):
+    """One line per compiled kernel from ``nvcc -Xptxas -v``'s log: its name with
+    its mangled template arguments (``qgemm_wgmma_kernel<Li128ELb1E>``), registers,
+    spill bytes, and whether ptxas serialized its wgmma (C7520); then any line
+    that names an error or a warning."""
+    kernels, other, serial, name = {}, [], [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            n = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            if n:
+                start = n.end()
+                name = mangled[start:start + int(n.group(1))]
+                args = re.match(r"I(\w*?E)E", mangled[start + int(n.group(1)):])
+                name += f"<{args.group(1)}>" if args else ""
+            else:
+                name = mangled
+            kernels[name] = {}
+        elif name is not None and (n := re.search(r"(\d+) bytes spill stores", line)):
+            kernels[name]["spill"] = int(n.group(1))
+        elif name is not None and (n := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["regs"] = int(n.group(1))
+        elif "C7520" in line:
+            serial.append(line)
+        elif "error" in line or "warning" in line:
+            other.append(line.strip())
+    for line in serial:                        # ptxas prints these before the kernels
+        for k, v in kernels.items():
+            if k.split("<")[0] in line and k.split("<")[-1].rstrip(">") in line:
+                v["serialized"] = True
+    return [f"{k}: {v.get('regs')} registers, {v.get('spill', 0)} bytes spill"
+            + ("; wgmma serialized (C7520)" if v.get("serialized") else "")
+            for k, v in kernels.items()] + other
 
 
 def bound(bytes_moved: float, ops: float, peak: float):
@@ -166,7 +212,9 @@ def main() -> int:
     from repro_torch.kernels.qgemm import (
         DECODE_MAX_M, decode_splits, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
         qgemm_w4a8_wgmma_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
-        qgemm_w8a8_wgmma_cuda, w4a8_decode_splits, w4a8_wgmma_splits, wgmma_splits,
+        qgemm_w8a8_sparse_cuda, qgemm_w8a8_sparse_plan, qgemm_w8a8_wgmma_cuda,
+        sparse_stage_ranges, w4a8_decode_splits,
+        w4a8_wgmma_splits, wgmma_splits,
     )
     from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
     from repro_torch.launch.serve import calibrate, make_prompts
@@ -193,9 +241,8 @@ def main() -> int:
     lib_path, log = build.build(verbose=True)
     build.library()
     print(f"[2] built {lib_path.name} in {time.perf_counter() - t0:.1f}s")
-    for line in log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "error", "warning")):
-            print(f"[2]   {line.strip()}")
+    for line in ptxas_summary(log):
+        print(f"[2]   {line}")
 
     # ---------------------------------------------------------------- phase 3
     print(f"[3] start at {time.perf_counter() - t_start:.1f}s")
@@ -710,61 +757,151 @@ def main() -> int:
           f"{err:.3e}; {n_ulp} passed by the one-ulp arm of the bar only (2e-2 < one ulp = 0.031)")
     del c, out, want, p6, ulp6, frac6
 
-    # K7 qgemm_w8a8_sparse at the up projection's shape (K=4608, N=18432), decode
-    # M=4 and prefill M=2048
-    from repro_torch.kernels.qgemm import qgemm_w8a8_sparse_cuda
-    K7, N7 = 4608, 18432
-    keep = torch.ones(K7, N7, dtype=torch.uint8, device=dev)
-    for k0 in range(64, K7, 128):                    # every other 64-row k-tile empty
-        keep[k0:k0 + 64] = 0
-    mask7 = packing.pack_mask(keep, axis=0)
-    occ7 = ops.tile_occupancy(mask7, K7)
-    ones7 = torch.ones_like(occ7)
-    del keep
-    n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K7 * N7))))
-    for Mr in (4, 2048):
-        qx = torch.randint(-127, 128, (Mr, K7), generator=gen, device=dev, dtype=torch.int8)
-        a = torch.rand(Mr, 1, generator=gen, device=dev) * 0.1 + 1e-3
-        sw = torch.rand(N7, generator=gen, device=dev) * 0.1 + 1e-3
-        qws = []
-        for _ in range(n_copies):
-            w = torch.randint(-127, 128, (K7, N7), generator=gen, device=dev, dtype=torch.int8)
-            w.view(K7 // 64, 64, N7)[1::2] = 0
-            qws.append(w)
-        qw = qws[0]
-        out = ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask7, occ7)
-        want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask7)
-        full = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, ones7)
-        dense = ops.qgemm_w8a8(qx, qw, a, sw)
-        torch.cuda.synchronize()
-        err = float((out - want).abs().max())
-        check(torch.equal(out, want), f"qgemm_w8a8_sparse M={Mr}: not bitwise ({err})")
-        check(torch.equal(full, dense), f"qgemm_w8a8_sparse all-ones table M={Mr} != K2")
-        ms = graph_ms(lambda i=0: ops.qgemm_w8a8_sparse(qx, qws[i % n_copies], a, sw, mask7,
-                                                        occ7), 50)
-        cms = time_ms(lambda i=0: ops.qgemm_w8a8_sparse(qx, qws[i % n_copies], a, sw, mask7,
-                                                       occ7), 50)
-        pms = graph_ms(lambda i=0: ref.qgemm_w8a8_sparse_ref(qx, qws[i % n_copies], a, sw,
-                                                             mask7), 3)
-        ms_full = graph_ms(lambda i=0: qgemm_w8a8_sparse_cuda(qx, qws[i % n_copies], a, sw,
-                                                              ones7), 50)
-        # the dense product, with qx zero-padded to 32 rows below that (as for K2)
-        qxp = torch.zeros(max(Mr, 32), K7, dtype=torch.int8, device=dev)
-        qxp[:Mr] = qx
-        lms = graph_ms(lambda i=0: torch._int_mm(qxp, qws[i % n_copies]), 50)
-        # the data decides the work: the occupied tiles' weight bytes and products
-        occ_k = int(occ7.sum()) * 64 * 64                 # weights in occupied tiles
-        nbytes = Mr * K7 + occ_k + mask7.numel() + Mr * 4 + N7 * 4 + Mr * N7 * 4
-        bms, by = bound(nbytes, 2 * Mr * occ_k, PEAK_OPS["int8"])
-        results[("qgemm_w8a8_sparse", Mr)] = dict(
-            ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
-            max_abs_err=err)
-        print(f"[3] qgemm_w8a8_sparse M={Mr} K={K7} N={N7} occupancy "
-              f"{int(occ7.sum())}/{occ7.numel()} tiles: kernel_ms={ms:.4f} call_ms={cms:.4f} "
-              f"plain_ms={pms:.4f} library_ms={lms:.4f} (torch._int_mm, dense"
-              f"{', M padded to 32' if Mr < 32 else ''}) bound_ms={bms:.4f} "
-              f"({by}) bitwise=True; all-ones table {ms_full:.4f} ms, bitwise = qgemm_w8a8")
-        del qws, qw, qxp
+    # K7 qgemm_w8a8_sparse: K2's decode and wgmma bodies with a tile skip, routed by
+    # qgemm_w8a8_sparse_plan, at the up (K=4608, N=18432) and down (K=18432, N=4608)
+    # projections over occupancy patterns of 64 x 64 weight tiles: every other
+    # 64-row k-tile empty ("alt", the block-sparse serving tree's pattern), a seeded
+    # half of the tiles empty ("random"), "alt" with one 128-column block fully
+    # empty and the next holding a single tile ("block_empty": fewer occupied
+    # stages than splits), "alt" with the k-range of K2's second decode split empty
+    # ("split_empty"), and every tile occupied ("ones"). Each is held bitwise
+    # against the plain version and against K2's routed body on the same weights,
+    # eagerly and under graph replay, and K7 and K2 are timed in turns (K7, K2, K2,
+    # K7; the lower time of each kept): K7 must beat K2 wherever a tile is empty and
+    # stay within 5 % of it on "ones" (10 % at M=64). M=32 is the decode body's
+    # largest tile (DECODE_MAX_M), M=64 a small token tile of the wgmma body. The
+    # 64 x 64 tile body, which the plan keeps for unaligned operands and K or N not
+    # a multiple of 16, is held at M=4 and 2048 on "alt" and "ones" beside the
+    # routed body: bitwise against the plain version and K2, eagerly and replayed,
+    # timed, and reached through the wrapper with a misaligned qx. The bound counts
+    # the bytes K7 must move (qx, the occupied tiles' weights, the table, a, sw,
+    # out) and the occupied tiles' products. From a generator of its own.
+    gen_k7 = torch.Generator(device=dev)
+    gen_k7.manual_seed(7777)
+    k7_cases = {(4608, 18432): [("alt", (4, 32, 64, 128, 2048)), ("random", (4, 32, 64, 2048)),
+                                ("ones", (4, 32, 64, 128, 2048)), ("block_empty", (4, 128)),
+                                ("split_empty", (4,))],
+                (18432, 4608): [("alt", (4, 32, 128)), ("random", (32, 128)),
+                                ("split_empty", (4, 128)), ("ones", (4, 32, 128))]}
+
+    def k7_tiles(pattern, K, N):
+        """The (KT, NT) bool table of occupied tiles of a pattern."""
+        KT, NT = -(-K // 64), -(-N // 64)
+        t = torch.ones(KT, NT, dtype=torch.bool, device=dev)
+        if pattern in ("alt", "block_empty", "split_empty"):
+            t[1::2] = False
+        if pattern == "random":
+            t = torch.rand(KT, NT, generator=gen_k7, device=dev) < 0.5
+        elif pattern == "block_empty":
+            t[:, :4] = False
+            t[KT - 1, 2] = True
+        elif pattern == "split_empty":
+            S = decode_splits(K, N)
+            t[KT // S: 2 * KT // S] = False
+        return t
+
+    for (K, N), patterns in k7_cases.items():
+        n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K * N))))
+        for pattern, m_list in patterns:
+            tiles = k7_tiles(pattern, K, N)
+            keep = tiles.repeat_interleave(64, 0).repeat_interleave(64, 1)[:K, :N]
+            qws = [torch.randint(-127, 128, (K, N), generator=gen_k7, device=dev,
+                                 dtype=torch.int8) * keep.to(torch.int8)
+                   for _ in range(n_copies)]
+            mask7 = packing.pack_mask(keep.to(torch.uint8), axis=0)
+            occ7 = ops.tile_occupancy(mask7, K)
+            check(torch.equal(occ7.bool(), tiles), f"K7 {pattern}: occupancy table")
+            occ_w = int(keep.sum())                   # weights in occupied tiles
+            del keep
+            for Mr in m_list:
+                qx = torch.randint(-127, 128, (Mr, K), generator=gen_k7, device=dev,
+                                   dtype=torch.int8)
+                a = torch.rand(Mr, 1, generator=gen_k7, device=dev) * 0.1 + 1e-3
+                sw = torch.rand(N, generator=gen_k7, device=dev) * 0.1 + 1e-3
+                routed, splits = qgemm_w8a8_sparse_plan(Mr, K, N)
+                k2_routed = qgemm_w8a8_plan(Mr, K, N)[0]
+                k7 = lambda i=0: ops.qgemm_w8a8_sparse(qx, qws[i % n_copies], a, sw,  # noqa: E731
+                                                       mask7, occ7)
+                k2 = lambda i=0: ops.qgemm_w8a8(qx, qws[i % n_copies], a, sw)  # noqa: E731
+                before = dict(ops.BODY_LAUNCHES)
+                out = k7()
+                check(ops.BODY_LAUNCHES[f"qgemm_w8a8_sparse/{routed}"]
+                      == before[f"qgemm_w8a8_sparse/{routed}"] + 1
+                      and routed == k2_routed and routed != "tile",
+                      f"qgemm_w8a8_sparse M={Mr} K={K} N={N} {pattern}: did not run the "
+                      f"{routed} body (K2: {k2_routed})")
+                want = ref.qgemm_w8a8_sparse_ref(qx, qws[0], a, sw, mask7)
+                outs = [out, replay(k7)[0], k2(), replay(k2)[0]]
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                for o, what in zip(outs, ("K7", "K7 graph replay", "K2", "K2 graph replay")):
+                    check(torch.equal(o, want), f"qgemm_w8a8_sparse M={Mr} K={K} N={N} "
+                          f"{pattern}: {what} not bitwise the plain version")
+                reps = 20 if Mr >= 512 else 50
+                t7, t2 = [], []
+                for fn, ts in ((k7, t7), (k2, t2), (k2, t2), (k7, t7)):
+                    ts.append(graph_ms(fn, reps))
+                ms, k2_ms = min(t7), min(t2)
+                if pattern == "ones":
+                    # at the wgmma body's small token tiles (33 <= M < 128) the table
+                    # read and the list cost 3-5 % of K2's time on an all-ones table
+                    # (PERF.md section 7): a looser bound that still catches a regression
+                    lim = 1.10 if DECODE_MAX_M < Mr < 128 else 1.05
+                    check(ms <= lim * k2_ms, f"qgemm_w8a8_sparse M={Mr} K={K} N={N} all-ones "
+                          f"table: {ms:.4f} ms, beyond {lim - 1:.0%} of K2's {k2_ms:.4f}")
+                else:
+                    check(ms < k2_ms, f"qgemm_w8a8_sparse M={Mr} K={K} N={N} {pattern}: "
+                          f"{ms:.4f} ms, not faster than K2's {k2_ms:.4f}")
+                cms = time_ms(k7, 50)
+                tile_s = ""
+                if (K, N) == (4608, 18432) and pattern in ("alt", "ones") and Mr in (4, 2048):
+                    tile = lambda i=0: qgemm_w8a8_sparse_cuda(  # noqa: E731
+                        qx, qws[i % n_copies], a, sw, occ7)
+                    for o, what in ((tile(), "eager"), (replay(tile)[0], "graph replay")):
+                        check(torch.equal(o, want) and torch.equal(o, outs[2]),
+                              f"qgemm_w8a8_sparse tile body M={Mr} {pattern} ({what}): not "
+                              f"bitwise the plain version and K2")
+                    # a qx one byte off 16-byte alignment: the wrapper routes to the tile body
+                    qxu = torch.empty(Mr * K + 1, dtype=torch.int8, device=dev)[1:].view(Mr, K)
+                    qxu.copy_(qx)
+                    before = ops.BODY_LAUNCHES["qgemm_w8a8_sparse/tile"]
+                    ou = ops.qgemm_w8a8_sparse(qxu, qws[0], a, sw, mask7, occ7)
+                    check(ops.BODY_LAUNCHES["qgemm_w8a8_sparse/tile"] == before + 1
+                          and torch.equal(ou, want), f"qgemm_w8a8_sparse M={Mr} {pattern}: "
+                          f"misaligned qx did not run the tile body bitwise")
+                    del qxu, ou
+                    tms = graph_ms(tile, reps)
+                    tile_s = (f" tile_body_ms={tms:.4f} (bitwise; a misaligned qx routes "
+                              f"there)")
+                pms = lms = None
+                if pattern == "alt":
+                    pms = graph_ms(lambda i=0: ref.qgemm_w8a8_sparse_ref(
+                        qx, qws[i % n_copies], a, sw, mask7), 3)
+                    # the dense product, qx zero-padded to 32 rows below that (as for K2)
+                    qxp = torch.zeros(max(Mr, 32), K, dtype=torch.int8, device=dev)
+                    qxp[:Mr] = qx
+                    lms = graph_ms(lambda i=0: torch._int_mm(qxp, qws[i % n_copies]), 20)
+                    del qxp
+                nbytes = Mr * K + occ_w + occ7.numel() * 4 + Mr * 4 + N * 4 + Mr * N * 4
+                bms, by = bound(nbytes, 2 * Mr * occ_w, PEAK_OPS["int8"])
+                stages = sparse_stage_ranges(occ7.cpu(), K, N, routed, splits)
+                n_st = sum(len(sh) for blk in stages for sh in blk)
+                full_st = len(stages) * -(-K // (64 if routed == "decode" else 128))
+                results[("qgemm_w8a8_sparse", Mr, K, N, pattern)] = dict(
+                    ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms,
+                    library=None if lms is None else "torch._int_mm, dense"
+                    + (", M padded to 32" if Mr < 32 else ""),
+                    bound_ms=bms, bound_by=by, max_abs_err=err, body=routed, k2_ms=k2_ms)
+                extra = ("" if pms is None else f" plain_ms={pms:.4f} library_ms={lms:.4f} "
+                         f"(torch._int_mm, dense{', M padded to 32' if Mr < 32 else ''})")
+                print(f"[3] qgemm_w8a8_sparse M={Mr} K={K} N={N} {pattern}: "
+                      f"{int(occ7.sum())}/{occ7.numel()} tiles occupied, {n_st}/{full_st} "
+                      f"stages streamed; routed to the {routed} body ({splits} splits) "
+                      f"kernel_ms={ms:.4f} k2_ms={k2_ms:.4f} (K2's {k2_routed} body, same "
+                      f"weights) ratio={ms / k2_ms:.3f} call_ms={cms:.4f}{extra} "
+                      f"bound_ms={bms:.4f} ({by}) bitwise=True (K7 and K2, eager and graph "
+                      f"replay){tile_s}")
+            del qws, mask7, occ7
 
     # K8 qgemm_w4a8 (g128) at the four linears' shapes: the decode body (split-K
     # weight stream, M <= 128), the wgmma body (M > DECODE_MAX_M) and the tile body,
@@ -878,8 +1015,9 @@ def main() -> int:
         qgemm_w8a8_sparse for masks with empty tiles); an act_quantize launch on
         the body act_quantize_plan gives its step's token rows (the step's M) and
         the linear's K (the split body up to 32 rows, the rows body above), a
-        qgemm_w8a8 or qgemm_w4a8 launch on the body its plan gives: the decode body
-        up to DECODE_MAX_M, the wgmma body above; 32 flash launches (the bf16 body) per cold
+        qgemm_w8a8, qgemm_w8a8_sparse or qgemm_w4a8 launch on the body its plan
+        gives: the decode body up to DECODE_MAX_M, the wgmma body above; the run's
+        GEMM launches at least once; 32 flash launches (the bf16 body) per cold
         admission of 128 tokens or more; 32 paged decode launches per decode step of
         a paged engine; 32 verify launches per speculative step; on a chunked engine
         32 ragged launches per packed step and 32 paged decode launches per
@@ -951,6 +1089,7 @@ def main() -> int:
                   f"(prefill_calls={c['prefill_calls']} decode_steps={c['decode_steps']} "
                   f"spec_steps={c['spec_steps']} chunk_steps={c['chunk_steps']} decode-only "
                   f"steps={c['chunk_decode_only_steps']} cold buckets={cold_buckets})")
+        check(counts[gemm] > 0, f"{label}: no {gemm} launch")
         check(len(step_rows) == steps, f"{label}: {len(step_rows)} model calls != {steps} steps")
         want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
         for rows in step_rows:
@@ -958,6 +1097,9 @@ def main() -> int:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
                 if gemm == "qgemm_w8a8":
                     want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
+                elif gemm == "qgemm_w8a8_sparse":
+                    body = qgemm_w8a8_sparse_plan(rows, K, N)[0]
+                    want_bodies[f"qgemm_w8a8_sparse/{body}"] += L
                 elif gemm == "qgemm_w4a8":
                     want_bodies[f"qgemm_w4a8/{qgemm_w4a8_plan(rows, K, N, q.w_group)[0]}"] += L
         want_bodies["flash_attention/bf16_mma"] = want["flash_attention"]
@@ -1052,15 +1194,21 @@ def main() -> int:
                   "cudaMemcpy"}
 
     def family(name: str):
-        """The hand-written GEMM or quantize kernel a profiler kernel name belongs to."""
+        """The hand-written GEMM or quantize kernel a profiler kernel name belongs to:
+        the decode body's template arguments are <MT, W4, SKIP>, the wgmma body's
+        <BM, SKIP>, the tile body's <MODE> (0 K2, 1 K7, 2 K8)."""
         if "act_quant" in name:
             return "K1 act_quantize"
-        if ("qgemm_w4a8_wgmma" in name or "qgemm_kernel<2>" in name
-                or ("qgemm_decode_kernel<" in name and "true>" in name)):
+        if "qgemm_w4a8_wgmma" in name:
             return "K8 qgemm_w4a8"
-        if ("qgemm_wgmma_kernel" in name or "qgemm_kernel<0>" in name
-                or ("qgemm_decode_kernel<" in name and "false>" in name)):
-            return "K2 qgemm_w8a8"
+        for kern in ("qgemm_decode_kernel<", "qgemm_wgmma_kernel<", "qgemm_kernel<"):
+            if kern in name:
+                args = [t.strip() for t in name.split(kern)[1].split(">")[0].split(",")]
+                if args == ["2"] or (kern == "qgemm_decode_kernel<" and args[1] == "true"):
+                    return "K8 qgemm_w4a8"
+                if args == ["1"] or args[-1] == "true":
+                    return "K7 qgemm_w8a8_sparse"
+                return "K2 qgemm_w8a8"
         return None
 
     def trace(label, reqs, ready, n_steps=3, tree=None, q=quant, **kw):
@@ -1156,7 +1304,12 @@ def main() -> int:
     empty_odd_k_tiles(sparse_tree)
     engine, _ = serve("dense fused-int8 kv=fp block-sparse", prompts[:BATCH], tree=sparse_tree,
                       sparsity="2:4", gemm="qgemm_w8a8_sparse")
-    del engine, sparse_tree
+    del engine
+    # a profiler window over 3 of its decode steps: K7's device time per step
+    trace("dense fused-int8 kv=fp block-sparse, decode steps", prompts[:BATCH],
+          lambda e: not e.queue and e.counters["decode_steps"] > 0, tree=sparse_tree,
+          kv_cache="fp", sparsity="2:4")
+    del sparse_tree
 
     # W4A8 g128 (int mode) from the same calibration tables, then a profiler window
     # over 3 of its decode steps
@@ -1432,9 +1585,8 @@ def main() -> int:
     reset5()
     # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
     # bodies of the main path count their phase-4 launches; the f32 bodies serve
-    # only the phase-5 parity runs and count those. The tile body, which no aligned
-    # main-path shape of K2 or K8 reaches any more, is the body of K7 (row below); K1's
-    # sweep body serves no main-path shape either.
+    # only the phase-5 parity runs and count those. No run launches the tile body
+    # (no aligned main-path shape of K2, K7 or K8 reaches it) or K1's sweep body.
     kernel_rows = [
         ("act_quantize/split", "src/repro_torch/csrc/act_quantize.cu",
          "src/repro/kernels/act_quantize.py:29", ("act_quantize/split", 4, 4608),
@@ -1474,9 +1626,14 @@ def main() -> int:
          ("paged_decode_attention", "f32", "f32", 8),
          "B=4 H=36/4 D=128 ps=8 q f32 pool f32 kv_len=[700,517,130,1], CUDA-core body "
          "(decode; it serves verify and ragged f32 q too)", "phase 5"),
-        ("qgemm_w8a8_sparse", "src/repro_torch/csrc/qgemm_w8a8.cu",
-         "src/repro/kernels/qgemm.py:91", ("qgemm_w8a8_sparse", 4),
-         "M=4 K=4608 N=18432, half the 64-row k-tiles empty", "phase 4"),
+        ("qgemm_w8a8_sparse/decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:91", ("qgemm_w8a8_sparse", 4, 4608, 18432, "alt"),
+         "M=4 K=4608 N=18432, every other 64-row k-tile empty, split-K decode body with "
+         "the tile skip", "phase 4"),
+        ("qgemm_w8a8_sparse/wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
+         "src/repro/kernels/qgemm.py:91", ("qgemm_w8a8_sparse", 2048, 4608, 18432, "alt"),
+         "M=2048 K=4608 N=18432, every other 64-row k-tile empty, wgmma body with the "
+         "tile skip", "phase 4"),
         ("qgemm_w4a8/decode", "src/repro_torch/csrc/qgemm_decode.cu",
          "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/decode", 4, 4608, 18432),
          "M=4 K=4608 N=18432 g128, split-K decode body", "phase 4"),
@@ -1498,8 +1655,8 @@ def main() -> int:
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape,
-                        **{k: r[k] for k in ("library", "body_ms", "gb_s", "f32_body_ms")
-                           if r.get(k) is not None}})
+                        **{k: r[k] for k in ("library", "body_ms", "gb_s", "f32_body_ms",
+                                             "k2_ms") if r.get(k) is not None}})
     print("[6] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
           + f"; total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

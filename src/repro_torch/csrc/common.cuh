@@ -73,6 +73,64 @@ __device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
   return ((p >> 4) & 0x0F0F0F0Fu) | (((p >> 4) & 0x08080808u) * 30u);
 }
 
+// K7's tile skip (qgemm_decode.cu, qgemm_wgmma.cu): the ascending list of the
+// 64-row k-tiles kt < KT in which either of a block's two 64-column occupancy
+// columns nt0 and nt0 + 1 (the second may lie past the table's NT columns) is
+// nonzero, compacted into shared memory; returns its length. Every thread of the
+// block calls it (it synchronises the block); counts holds blockDim.x / 32 ints of
+// shared scratch. A pass gives each thread kPer consecutive k-tiles, whose table
+// entries it loads at once (one 8-byte load per row where both columns exist, NT
+// is even and the table 8-byte aligned); a warp scan of the per-thread counts and
+// one prefix over the warps place them, two block barriers per pass (one pass
+// covers kPer * blockDim.x rows).
+__device__ __forceinline__ int occupied_k_tiles(const int* __restrict__ occ, int KT, int NT,
+                                                int nt0, int* list, int* counts) {
+  constexpr int kPer = 4;
+  const int nthr = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool two = nt0 + 1 < NT;
+  const bool pair = two && (NT & 1) == 0 && (reinterpret_cast<uintptr_t>(occ) & 7) == 0;
+  int total = 0;
+  for (int base = 0; base < KT; base += kPer * nthr) {
+    const int kt0 = base + kPer * tid;
+    int v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int* row = occ + (size_t)(kt0 + i) * NT + nt0;
+      v[i] = 0;
+      if (kt0 + i < KT) {
+        if (pair) {
+          const int2 p = *reinterpret_cast<const int2*>(row);
+          v[i] = p.x | p.y;
+        } else {
+          v[i] = row[0] | (two ? row[1] : 0);
+        }
+      }
+    }
+    unsigned bits = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) bits |= (v[i] != 0 ? 1u : 0u) << i;
+    const int cnt = __popc(bits);
+    int incl = cnt;                                  // inclusive scan over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (lane == 31) counts[warp] = incl;
+    __syncthreads();
+    int off = total + incl - cnt;
+    for (int w = 0; w < (nthr >> 5); ++w) {
+      if (w < warp) off += counts[w];
+      total += counts[w];
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if ((bits >> i) & 1u) list[off++] = kt0 + i;
+    __syncthreads();                                 // the list is complete; counts free
+  }
+  return total;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));

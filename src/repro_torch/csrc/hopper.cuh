@@ -63,6 +63,19 @@ __device__ __forceinline__ uint64_t desc_k_sw128(const void* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
 }
+// The same for TMA's 64-byte swizzle: 64-byte rows, 8-row groups 512 bytes apart,
+// the tile base 512-byte aligned
+__device__ __forceinline__ uint64_t desc_k_sw64(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(512 >> 4) << 32) | (2ull << 62);
+}
+// desc_k_sw128 (pair 1) or desc_k_sw64 (pair 0) of shared address addr, computed
+// from pair rather than branched on, so a per-stage choice puts no branch between
+// a stage's wgmma
+__device__ __forceinline__ uint64_t desc_k_sw(uint32_t addr, int pair) {
+  return (uint64_t(addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(32 + 32 * pair) << 32) |
+         (uint64_t(2 - pair) << 62);
+}
 
 // D (64 x N, s32) = A (64 x 32 s8, registers: a warp's 16 rows in the
 // mma.m16n8k32 A-fragment layout) * B (32 x N s8, K-major, descriptor) + D, or

@@ -1,16 +1,22 @@
-// K2 qgemm_w8a8 and K8 qgemm_w4a8, decode body: the int8 x int8 -> int32 GEMMs
-// with the separable CrossQuant dequant for few activation rows (M <= 128; the
-// wrappers route M <= 32 here, kernels/qgemm.py::qgemm_w8a8_plan and
-// qgemm_w4a8_plan), as a split-K, pipelined weight stream.
+// K2 qgemm_w8a8, K7 qgemm_w8a8_sparse and K8 qgemm_w4a8, decode body: the int8 x
+// int8 -> int32 GEMMs with the separable CrossQuant dequant for few activation
+// rows (M <= 128; the wrappers route M <= 32 here, kernels/qgemm.py::
+// qgemm_w8a8_plan, qgemm_w8a8_sparse_plan and qgemm_w4a8_plan), as a split-K,
+// pipelined weight stream.
 //
 // Replaces, for small M, the TPU kernels in repro/kernels/qgemm.py:
-//   _w8a8_kernel (launcher qgemm_w8a8_pallas, pallas_call at :71)  -> K2 (W4 false)
-//   _w4a8_kernel (launcher qgemm_w4a8_pallas, pallas_call at :209) -> K8 (W4 true)
+//   _w8a8_kernel        (launcher qgemm_w8a8_pallas,        pallas_call at :71)  -> K2
+//   _w8a8_sparse_kernel (launcher qgemm_w8a8_sparse_pallas, pallas_call at :149) -> K7 (SKIP)
+//   _w4a8_kernel        (launcher qgemm_w4a8_pallas,        pallas_call at :209) -> K8 (W4)
 // Larger M runs the wgmma bodies in qgemm_wgmma.cu, shapes neither takes the 64 x
 // 64 tile body in qgemm_w8a8.cu.
 //
 //   K2: out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * a[m] * sw[n]
 //   K8: out[m, n] = (sum_g float(sum_{k in g} qx[m, k] * w[k, n]) * sw[g, n]) * a[m]
+//   K7: K2's sum over the 64-row k-tiles a (ceil(K/64), ceil(N/64)) int32 occupancy
+//       table marks occupied; qw is zero in every empty (64 x 64) tile (the caller
+//       guarantees it), so skipping one is exact and K7 is bitwise K2 and the plain
+//       version.
 //
 // qx (M, K) int8 row-major, a (M,) f32, out (M, N) f32. K2: qw (K, N) int8
 // row-major (the reference's layout), sw (N,) f32; K and N multiples of 16, qx and
@@ -64,6 +70,19 @@
 //   order, runs the epilogue and stores; a second barrier keeps the other blocks'
 //   shared memory alive until it has read them. No workspace, no atomics,
 //   deterministic, and a launch replays unchanged under CUDA-graph capture.
+// - K7 (SKIP) streams only the occupied part of K2's work: at block start the
+//   block reads the occupancy of its own 128 columns (two 64-column table
+//   columns) and compacts the ascending list of the 64-row stages occupied in
+//   either (common.cuh::occupied_k_tiles); split s then takes list entries
+//   [s*L/S, (s+1)*L/S), so the cluster shares the occupied stages evenly, not K,
+//   and load(step) indexes the list. A split (or a whole block) whose share is
+//   empty still writes zero partials and reaches both cluster barriers, and the
+//   epilogue writes 0 * a * sw where nothing was occupied. After the first
+//   barrier every rank, not only the leader, sums and stores its own 1/S of the
+//   block's columns, reading the S partials at once. The host never reads the
+//   table: the plan is a function of (M, K, N), so a launch replays unchanged
+//   under CUDA-graph capture, as K2's does. A deeper ring (6 or 8 stages) measured
+//   slower on the H100 at every decode shape: fewer blocks fit an SM.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -97,11 +116,16 @@ __device__ __forceinline__ int swz(int r, int ch) {
   return W4 ? ch ^ (((r >> 1) & 3) << 1) : ch ^ (((r >> 2) & 3) << 1);
 }
 
-template <int MT, bool W4>
+// K7's shared memory past the ring: warp counts, then the list of occupied k-tiles
+constexpr int kListHead = kThreads / 32;
+
+template <int MT, bool W4, bool SKIP>
 __global__ void __launch_bounds__(kThreads)
 qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
                     const float* __restrict__ a, const float* __restrict__ sw,
-                    float* __restrict__ out, int M, int N, int K, int group) {
+                    const int* __restrict__ occ, float* __restrict__ out, int M, int N, int K,
+                    int group) {
+  static_assert(!(SKIP && W4), "the tile skip is K7's, a W8 product");
   constexpr int MR = 8 * MT;              // qx rows staged: M padded to the n8 tiles
   extern __shared__ __align__(16) int8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -110,22 +134,30 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   const int g = lane >> 2, tg = lane & 3;
   const int n0 = blockIdx.x * BN;
   const int S = gridDim.y, split = blockIdx.y;   // cluster (1, S, 1): rank == split
-  int kbeg, kend;
-  if (W4) {                       // whole groups per split; K % group == 0, group % 64 == 0
-    const int G = K / group;
-    kbeg = split * G / S * group;
-    kend = (split + 1) * G / S * group;
-  } else {                        // whole 64-row k-tiles per split, the last cut at K
-    const int KT = (K + BK - 1) / BK;
-    kbeg = split * KT / S * BK;
-    kend = min(K, (split + 1) * KT / S * BK);
+  int kbeg = 0, kend = K, steps;
+  int* list = reinterpret_cast<int*>(smem + smem_bytes<MT, W4>()) + kListHead;   // K7
+  if constexpr (SKIP) {           // this split's share of the block's occupied k-tiles
+    const int L = occupied_k_tiles(occ, (K + BK - 1) / BK, (N + 63) / 64, 2 * blockIdx.x, list,
+                                   list - kListHead);
+    kbeg = split * L / S;         // list entries [kbeg, kbeg + steps)
+    steps = (split + 1) * L / S - kbeg;
+  } else {
+    if (W4) {                     // whole groups per split; K % group == 0, group % 64 == 0
+      const int G = K / group;
+      kbeg = split * G / S * group;
+      kend = (split + 1) * G / S * group;
+    } else {                      // whole 64-row k-tiles per split, the last cut at K
+      const int KT = (K + BK - 1) / BK;
+      kbeg = split * KT / S * BK;
+      kend = min(K, (split + 1) * KT / S * BK);
+    }
+    steps = (kend - kbeg + BK - 1) / BK;
   }
-  const int steps = (kend - kbeg + BK - 1) / BK;
 
   auto load = [&](int step, int buf) {
     int8_t* sW = smem + buf * stage_bytes<MT, W4>();
     int8_t* sX = sW + w_bytes<W4>();
-    const int k0 = kbeg + step * BK;
+    const int k0 = SKIP ? list[kbeg + step] * BK : kbeg + step * BK;
     if (W4) {                     // 32 packed rows: k-rows k0 .. k0 + 63
 #pragma unroll
       for (int c = tid; c < (BK / 2) * BN / 16; c += kThreads) {
@@ -265,7 +297,23 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
         }
   cluster.sync();                // every split's partials are written (release/acquire)
 
-  if (split == 0) {
+  if constexpr (SKIP) {
+    // K7: every rank sums and stores its own slice of the block's columns, its S
+    // partials read at once
+    const int c0 = split * BN / S, nc = (split + 1) * BN / S - c0;
+    for (int idx = tid; idx < M * nc; idx += kThreads) {
+      const int m = idx / nc, cl = c0 + idx % nc, n = n0 + cl;
+      if (n >= N) continue;
+      int part[kMaxSplits];
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r)
+        part[r] = r < S ? cluster.map_shared_rank(sRed, r)[m * BN + cl] : 0;
+      int sum = 0;
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r) sum += part[r];
+      out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), sw[n]);
+    }
+  } else if (split == 0) {
     const int n = n0 + tid;      // one output column per thread (BN == kThreads)
     if (n < N) {
       if (W4) {
@@ -288,11 +336,11 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   cluster.sync();                // the leader has read every block's shared memory
 }
 
-template <int MT, bool W4>
-int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, float* out,
-           int M, int N, int K, int group, int splits, cudaStream_t s) {
-  constexpr int smem = smem_bytes<MT, W4>();
-  cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT, W4>,
+template <int MT, bool W4, bool SKIP>
+int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, const int* occ,
+           float* out, int M, int N, int K, int group, int splits, cudaStream_t s) {
+  const int smem = smem_bytes<MT, W4>() + (SKIP ? 4 * (kListHead + (K + BK - 1) / BK) : 0);
+  cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT, W4, SKIP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -307,20 +355,21 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qgemm_decode_kernel<MT, W4>, qx, qw, a, sw, out, M, N, K,
-                           group);
+  err = cudaLaunchKernelEx(&cfg, qgemm_decode_kernel<MT, W4, SKIP>, qx, qw, a, sw, occ, out, M,
+                           N, K, group);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool W4>
-int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, float* out,
-             int M, int N, int K, int group, int splits, cudaStream_t s) {
-  if (M <= 8) return launch<1, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
-  if (M <= 16) return launch<2, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
-  if (M <= 32) return launch<4, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
-  if (M <= 64) return launch<8, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
-  return launch<16, W4>(qx, qw, a, sw, out, M, N, K, group, splits, s);
+template <bool W4, bool SKIP>
+int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
+             const int* occ, float* out, int M, int N, int K, int group, int splits,
+             cudaStream_t s) {
+  if (M <= 8) return launch<1, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
+  if (M <= 16) return launch<2, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
+  if (M <= 32) return launch<4, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
+  if (M <= 64) return launch<8, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
+  return launch<16, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
 }
 
 }  // namespace
@@ -335,8 +384,24 @@ REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const 
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || splits > KT)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<false>(qx, qw, a, sw, out, M, N, K, 0, splits,
-                         static_cast<cudaStream_t>(stream));
+  return launch_m<false, false>(qx, qw, a, sw, nullptr, out, M, N, K, 0, splits,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero
+// in every empty tile; splits 1..8 (a split whose share of a block's occupied
+// k-tiles is empty writes zero partials); M in 1..128; K and N multiples of 16; qx
+// and qw 16-byte aligned. The wrapper picks splits
+// (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
+REPRO_API int repro_qgemm_w8a8_sparse_decode(const int8_t* qx, const int8_t* qw,
+                                             const float* a, const float* sw, const int* occ,
+                                             float* out, int M, int N, int K, int splits,
+                                             void* stream) {
+  if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
+      splits > kMaxSplits || occ == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_m<false, true>(qx, qw, a, sw, occ, out, M, N, K, 0, splits,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // qw4 (K/2, N) packed int4, sw (K/group, N) f32; group a positive multiple of 64
@@ -349,6 +414,6 @@ REPRO_API int repro_qgemm_w4a8_decode(const int8_t* qx, const int8_t* qw4, const
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || group <= 0 || group % BK != 0 ||
       K % group != 0 || splits < 1 || splits > kMaxSplits || splits > K / group)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<true>(qx, qw4, a, sw, out, M, N, K, group, splits,
-                        static_cast<cudaStream_t>(stream));
+  return launch_m<true, false>(qx, qw4, a, sw, nullptr, out, M, N, K, group, splits,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -47,10 +47,10 @@
 // epilogue stores; there is no padding.
 //
 // At decode this body is slow: with M = 4 a 64-row tile wastes 15/16 of the MMA,
-// and N/64 blocks (8 for the 512-wide wk/wv) cannot keep 132 SMs streaming. K2
-// and K8 route M <= 32 to the split-K weight stream in qgemm_decode.cu and larger
-// M to the wgmma bodies in qgemm_wgmma.cu, and run this body only for shapes those
-// do not take; K7 runs it at every M.
+// and N/64 blocks (8 for the 512-wide wk/wv) cannot keep 132 SMs streaming. K2,
+// K7 and K8 route M <= 32 to the split-K weight stream in qgemm_decode.cu and
+// larger M to the wgmma bodies in qgemm_wgmma.cu (K7 through their tile-skipping
+// instantiations), and run this body only for shapes those do not take.
 #include "common.cuh"
 
 namespace {

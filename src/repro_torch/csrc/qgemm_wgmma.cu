@@ -1,13 +1,14 @@
 // K2 qgemm_w8a8, wgmma body: the int8 x int8 -> int32 GEMM with the separable
 // CrossQuant dequant for more activation rows than the decode body takes (the
-// wrapper routes M > DECODE_MAX_M here, kernels/qgemm.py::qgemm_w8a8_plan). K8's
-// wgmma body (W4A8, grouped scales) follows it below, on the same TMA and wgmma
-// helpers.
+// wrapper routes M > DECODE_MAX_M here, kernels/qgemm.py::qgemm_w8a8_plan). K7's
+// wgmma body is its SKIP instantiation (below the design notes); K8's wgmma body
+// (W4A8, grouped scales) follows it, on the same TMA and wgmma helpers.
 //
 // Replaces the TPU kernel repro/kernels/qgemm.py::_w8a8_kernel (launcher
-// qgemm_w8a8_pallas, pallas_call at :71) for packed chunked steps and prefills;
-// few rows run qgemm_decode.cu, shapes this body does not take the 64 x 64 tile
-// body in qgemm_w8a8.cu.
+// qgemm_w8a8_pallas, pallas_call at :71) for packed chunked steps and prefills,
+// and with SKIP _w8a8_sparse_kernel (launcher qgemm_w8a8_sparse_pallas,
+// pallas_call at :149); few rows run qgemm_decode.cu, shapes this body does not
+// take the 64 x 64 tile body in qgemm_w8a8.cu.
 //
 //   out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * a[m] * sw[n]
 //
@@ -53,6 +54,40 @@
 //   through distributed shared memory in rank order and runs the epilogue. No
 //   workspace, no atomics, deterministic, and a launch replays unchanged under
 //   CUDA-graph capture.
+//
+// K7 (SKIP): K2's sum over the 64-row k-tiles that a (ceil(K/64), ceil(N/64))
+// int32 occupancy table marks occupied in either of the block's two 64-column
+// table columns; qw is zero in every empty (64 x 64) tile, so the skip is exact
+// and the result bitwise K2's and the plain version's. At block start every
+// thread takes part in compacting the ascending list of those k-tiles in shared
+// memory (common.cuh::occupied_k_tiles); split s takes list entries [s*L/S,
+// (s+1)*L/S), so the cluster shares the occupied work, not K. The host never
+// reads the table, so a launch replays unchanged under CUDA-graph capture.
+// The skip must work at 64-row k-tiles, finer than the 128-row stage: a mask that
+// empties every other 64-row tile leaves one occupied tile in every 128-row
+// stage, and a skip by stages would skip nothing there. Of the two ways to get
+// there, (a) 64-row stages behind a deeper ring or (b) a 128-row stage gathered
+// from two occupied 64-row tiles at arbitrary k offsets, this is (b): the
+// consumers keep K2's cadence (four k32 steps and one wgmma drain and stage
+// release per stage), so an all-ones table runs K2's schedule, where (a) would
+// double the drains and barrier round trips per k-row. A stage is two TMA
+// weight boxes of 64 k-rows x 128 columns, which under the 128-byte swizzle land
+// exactly as K2's one 128-row box does (the swizzle follows the 1024-byte-aligned
+// address). qx comes as one box of BM rows x 128 bytes under the 128-byte swizzle
+// (K2's layout) where the two tiles are adjacent in k, as on an all-ones table,
+// else as two boxes of BM rows x 64 bytes under the 64-byte swizzle, one per tile;
+// the consumers pick the matching descriptors per stage. A share of odd length
+// ends on a stage of one tile: its second half is loaded from wholly past K, which
+// TMA zero-fills, so every stage expects the same bytes and runs four k32 steps.
+// For BM <= 112 the descriptor is computed from the pair flag (hopper.cuh::
+// desc_k_sw), with no branch among the wgmma. For BM = 128 it is a select between
+// the two descriptors, which makes ptxas serialize the wgmma (warning C7520) and
+// fit them without the register spills of K2's instantiation; measured side by
+// side on the H100, the select ran faster at BM = 128 and slower below it, and
+// skipping a one-tile stage's empty half by a branch slower than both (PERF.md
+// §6). With a cluster split, every rank (not only the leader) sums and stores 1/S
+// of the tile's rows after the first barrier, four columns a thread, reading the
+// S partials at once.
 #include <cooperative_groups.h>
 #include <cuda.h>
 
@@ -77,11 +112,19 @@ __host__ __device__ constexpr int smem_bytes() {    // 1024 bytes of alignment s
   return 1024 + kStages * stage_bytes<BM>() + 2 * kStages * 8;
 }
 
+// K7's shared memory past the barriers: warp counts, then the list of occupied
+// k-tiles; a 64-row k-tile's qx box
+constexpr int kListHead = kThreads / 32;
 template <int BM>
+__host__ __device__ constexpr int x_half_bytes() { return BM * (BK / 2); }
+
+template <int BM, bool SKIP>
 __global__ void __launch_bounds__(kThreads, 2)
 qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
-                   const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ a,
-                   const float* __restrict__ sw, float* __restrict__ out, int M, int N, int K) {
+                   const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_xp, const float* __restrict__ a,
+                   const float* __restrict__ sw, const int* __restrict__ occ,
+                   float* __restrict__ out, int M, int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * stage_bytes<BM>());
@@ -92,8 +135,20 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int g = lane >> 2, tg = lane & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int S = gridDim.z, split = blockIdx.z;      // cluster (1, 1, S): rank == split
-  const int KT = (K + BK - 1) / BK;
-  const int kt0 = split * KT / S, steps = (split + 1) * KT / S - kt0;
+  // K2: 128-row stages [kt0, kt0 + steps); K7: list entries [kt0, lend), two a stage
+  int kt0, steps, lend = 0;
+  int* list = reinterpret_cast<int*>(empty + kStages) + kListHead;
+  if constexpr (SKIP) {
+    const int L = occupied_k_tiles(occ, (K + BK / 2 - 1) / (BK / 2), (N + 63) / 64,
+                                   2 * blockIdx.x, list, list - kListHead);
+    kt0 = split * L / S;
+    lend = (split + 1) * L / S;
+    steps = (lend - kt0 + 1) / 2;
+  } else {
+    const int KT = (K + BK - 1) / BK;
+    kt0 = split * KT / S;
+    steps = (split + 1) * KT / S - kt0;
+  }
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -118,10 +173,27 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int s = t % kStages;
         if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
         unsigned char* sW = smem + s * stage_bytes<BM>();
-        mbar_arrive_expect_tx(&full[s], stage_bytes<BM>());
-        const int k0 = (kt0 + t) * BK;
-        tma_load_2d(sW, &tm_w, &full[s], n0, k0);
-        tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, m0);
+        if constexpr (SKIP) {
+          // k-tiles e and e + 1 into the stage's halves; a stage of one tile loads its
+          // second half from past K, which TMA zero-fills, so every stage expects the
+          // same bytes. qx: one 128-byte box where the two tiles are adjacent in k
+          const int e = kt0 + 2 * t, k0 = list[e] * (BK / 2);
+          const int k1 = e + 1 < lend ? list[e + 1] * (BK / 2) : K;
+          mbar_arrive_expect_tx(&full[s], stage_bytes<BM>());
+          tma_load_2d(sW, &tm_w, &full[s], n0, k0);
+          tma_load_2d(sW + W_BYTES / 2, &tm_w, &full[s], n0, k1);
+          if (e + 1 < lend && k1 == k0 + BK / 2) {
+            tma_load_2d(sW + W_BYTES, &tm_xp, &full[s], k0, m0);
+          } else {
+            tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, m0);
+            tma_load_2d(sW + W_BYTES + x_half_bytes<BM>(), &tm_x, &full[s], k1, m0);
+          }
+        } else {
+          mbar_arrive_expect_tx(&full[s], stage_bytes<BM>());
+          const int k0 = (kt0 + t) * BK;
+          tma_load_2d(sW, &tm_w, &full[s], n0, k0);
+          tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, m0);
+        }
       }
     }
   } else {
@@ -151,11 +223,32 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         af[ks][1][0] = t0[2]; af[ks][1][1] = t0[3]; af[ks][1][2] = t1[2]; af[ks][1][3] = t1[3];
       }
       wgmma_fence();
+      if constexpr (SKIP) {
+        // K7: qx as the producer loaded it, one 128-byte-swizzled box (pair) or two
+        // 64-byte-swizzled ones; the k32 steps of a zero-filled half add nothing
+        const int e0 = kt0 + 2 * t, e1 = min(e0 + 1, lend - 1);
+        const int pair = (e1 > e0) & (list[e1] == list[e0] + 1);
 #pragma unroll
-      for (int ks = 0; ks < BK / 32; ++ks) {
-        const uint64_t db = desc_k_sw128(sX + 32 * ks);
-        WgmmaS8<BM>::mma(acc[0], af[ks][0], db);
-        WgmmaS8<BM>::mma(acc[1], af[ks][1], db);
+        for (int ks = 0; ks < BK / 32; ++ks) {
+          uint64_t db;
+          if constexpr (BM == 128) {     // chosen by a select: see the notes above
+            db = pair ? desc_k_sw128(sX + 32 * ks)
+                      : desc_k_sw64(sX + (ks >> 1) * x_half_bytes<BM>() + 32 * (ks & 1));
+          } else {
+            db = desc_k_sw(smem_u32(sX) + pair * (32 * ks) +
+                               (1 - pair) * ((ks >> 1) * x_half_bytes<BM>() + 32 * (ks & 1)),
+                           pair);
+          }
+          WgmmaS8<BM>::mma(acc[0], af[ks][0], db);
+          WgmmaS8<BM>::mma(acc[1], af[ks][1], db);
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < BK / 32; ++ks) {
+          const uint64_t db = desc_k_sw128(sX + 32 * ks);
+          WgmmaS8<BM>::mma(acc[0], af[ks][0], db);
+          WgmmaS8<BM>::mma(acc[1], af[ks][1], db);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();                   // this warp's reads of stage s are done
@@ -202,7 +295,38 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       }
   }
   cluster.sync();                        // every split's partials are written
-  if (split == 0) {
+  if constexpr (SKIP) {
+    // K7: every rank sums and stores its own 1/S of the tile's rows, four columns a
+    // thread, its S partials read at once
+    const int r0 = split * BM / S, nr = (split + 1) * BM / S - r0;
+    for (int idx = tid; idx < nr * (BN / 4); idx += kThreads) {
+      const int ml = r0 + idx / (BN / 4), nl4 = 4 * (idx % (BN / 4));
+      const int m = m0 + ml, n = n0 + nl4;
+      if (m >= M || n >= N) continue;               // N % 16 == 0: all four or none
+      int4 part[kMaxSplits];
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r)
+        part[r] = r < S ? *reinterpret_cast<const int4*>(cluster.map_shared_rank(sRed, r) +
+                                                         ml * BN + nl4)
+                        : make_int4(0, 0, 0, 0);
+      int4 sum = make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int r = 0; r < kMaxSplits; ++r) {
+        sum.x += part[r].x;
+        sum.y += part[r].y;
+        sum.z += part[r].z;
+        sum.w += part[r].w;
+      }
+      const float am = a[m];
+      const float4 swn = *reinterpret_cast<const float4*>(sw + n);
+      float4 v;
+      v.x = __fmul_rn(__fmul_rn(__int2float_rn(sum.x), am), swn.x);
+      v.y = __fmul_rn(__fmul_rn(__int2float_rn(sum.y), am), swn.y);
+      v.z = __fmul_rn(__fmul_rn(__int2float_rn(sum.z), am), swn.z);
+      v.w = __fmul_rn(__fmul_rn(__int2float_rn(sum.w), am), swn.w);
+      *reinterpret_cast<float4*>(out + (size_t)m * N + n) = v;
+    }
+  } else if (split == 0) {
     for (int idx = tid; idx < BM * BN; idx += kThreads) {
       const int ml = idx / BN, n = n0 + idx % BN, m = m0 + ml;
       if (m >= M || n >= N) continue;
@@ -211,7 +335,7 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), sw[n]);
     }
   }
-  cluster.sync();                        // the leader has read every block's partials
+  cluster.sync();                        // every rank's partials have been read
 }
 
 // ---- K8 qgemm_w4a8, wgmma body -------------------------------------------------
@@ -443,27 +567,34 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// a (rows, cols) row-major int8 matrix, box (box_rows, box_cols = 128 bytes), 128-byte swizzle
-bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// a (rows, cols) row-major int8 matrix, box (box_rows, box_cols bytes): 128 bytes
+// under the 128-byte swizzle, or 64 under the 64-byte swizzle
+bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+            int box_cols = 128) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BM>
-int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, float* out,
-           int M, int N, int K, int splits, cudaStream_t s) {
-  CUtensorMap tm_x, tm_w;
-  if (!encode(&tm_x, qx, M, K, BM) || !encode(&tm_w, qw, K, N, BK))
+template <int BM, bool SKIP>
+int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, const int* occ,
+           float* out, int M, int N, int K, int splits, cudaStream_t s) {
+  // K7 loads 64-row k-tiles: weight boxes of 64 rows, qx boxes of 64 bytes and, for
+  // two k-adjacent tiles, of 128 (tm_xp; K2 does not read it)
+  CUtensorMap tm_x, tm_w, tm_xp;
+  if (!encode(&tm_x, qx, M, K, BM, SKIP ? BK / 2 : BK) ||
+      !encode(&tm_w, qw, K, N, SKIP ? BK / 2 : BK) || (SKIP && !encode(&tm_xp, qx, M, K, BM)))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = smem_bytes<BM>();
-  cudaError_t err = cudaFuncSetAttribute(qgemm_wgmma_kernel<BM>,
+  if (!SKIP) tm_xp = tm_x;
+  const int smem = smem_bytes<BM>() + (SKIP ? 4 * (kListHead + (K + BK / 2 - 1) / (BK / 2)) : 0);
+  cudaError_t err = cudaFuncSetAttribute(qgemm_wgmma_kernel<BM, SKIP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -478,7 +609,8 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qgemm_wgmma_kernel<BM>, tm_x, tm_w, a, sw, out, M, N, K);
+  err = cudaLaunchKernelEx(&cfg, qgemm_wgmma_kernel<BM, SKIP>, tm_x, tm_w, tm_xp, a, sw, occ,
+                           out, M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -513,6 +645,21 @@ int launch_w4(const int8_t* qx, const int8_t* qw4, const float* a, const float* 
 
 }  // namespace
 
+template <bool SKIP>
+int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
+             const int* occ, float* out, int M, int N, int K, int splits, cudaStream_t s) {
+  const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
+  switch (bm) {
+    case 16: case 32: case 48:
+      return launch<48, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+    case 64: return launch<64, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+    case 80: return launch<80, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+    case 96: return launch<96, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+    case 112: return launch<112, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+    default: return launch<128, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+  }
+}
+
 // splits: 1..8 and at most ceil(K/128); M >= 1; K and N multiples of 16; qx and qw
 // 16-byte aligned. The token tile is M rounded up to 16 for M <= 128, else 128
 // rows. The wrapper picks splits (kernels/qgemm.py::wgmma_splits) and checks the rest.
@@ -523,16 +670,24 @@ REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const f
   if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || splits > KT)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
-  switch (bm) {
-    case 16: case 32: case 48: return launch<48>(qx, qw, a, sw, out, M, N, K, splits, s);
-    case 64: return launch<64>(qx, qw, a, sw, out, M, N, K, splits, s);
-    case 80: return launch<80>(qx, qw, a, sw, out, M, N, K, splits, s);
-    case 96: return launch<96>(qx, qw, a, sw, out, M, N, K, splits, s);
-    case 112: return launch<112>(qx, qw, a, sw, out, M, N, K, splits, s);
-    default: return launch<128>(qx, qw, a, sw, out, M, N, K, splits, s);
-  }
+  return launch_m<false>(qx, qw, a, sw, nullptr, out, M, N, K, splits,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero
+// in every empty tile; splits 1..8 (a split whose share of a block's occupied
+// k-tiles is empty writes zero partials); M >= 1; K and N multiples of 16; qx and
+// qw 16-byte aligned. The wrapper picks splits
+// (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
+REPRO_API int repro_qgemm_w8a8_sparse_wgmma(const int8_t* qx, const int8_t* qw,
+                                            const float* a, const float* sw, const int* occ,
+                                            float* out, int M, int N, int K, int splits,
+                                            void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
+      splits > kMaxSplits || occ == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_m<true>(qx, qw, a, sw, occ, out, M, N, K, splits,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // qw4 (K/2, N) packed int4; sw (K/group, N) f32; group 64 or a positive multiple of

@@ -41,6 +41,10 @@ SIGNATURES = {
     "repro_qgemm_w8a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, occ, out, M, N, K, splits, stream
+    "repro_qgemm_w8a8_sparse_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, occ, out, M, N, K, splits, stream
+    "repro_qgemm_w8a8_sparse_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # qx, qw4, a, sw, out, M, N, K, group, vec_a, vec_b, stream
     "repro_qgemm_w4a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qx, qw4, a, sw, out, M, N, K, group, splits, stream

@@ -13,21 +13,23 @@ The sparse GEMM routes as the reference's ``lax.cond`` does: a leaf whose mask
 leaves no weight tile empty runs the dense K2 (bitwise the same result), any
 other runs K7 with the tile-occupancy table. The table is derived once per leaf
 where the served tree is prepared (``models.quantize.with_tile_occupancy``) and
-passed in, so a serving step does not sync the host once per linear.
+passed in, so a serving step does not sync the host once per linear; K7's bodies
+read it on the card.
 
 K1 has three bodies (:func:`repro_torch.kernels.act_quantize.act_quantize_plan`:
 a cluster-split row for few rows, register-resident rows for more, two sweeps
-beyond the registers). K2 and K8 have three each:
-:func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan` and ``qgemm_w4a8_plan`` send
-few activation rows to the split-K weight stream, more to the ``wgmma`` body and
-shapes neither takes to the 64 × 64 tile body; K3 and K4–K6 run a bf16
-tensor-core body or an f32 body by dtype.
+beyond the registers). K2, K7 and K8 have three each:
+:func:`repro_torch.kernels.qgemm.qgemm_w8a8_plan`, ``qgemm_w8a8_sparse_plan`` and
+``qgemm_w4a8_plan`` send few activation rows to the split-K weight stream, more to
+the ``wgmma`` body and shapes neither takes to the 64 × 64 tile body (K7's decode
+and wgmma bodies skip the empty tiles); K3 and K4–K6 run a bf16 tensor-core body
+or an f32 body by dtype.
 
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
-per body of the ops that have several (K1; K2; K8; K3; K4–K6, whose bf16 body is
+per body of the ops that have several (K1; K2; K7; K8; K3; K4–K6, whose bf16 body is
 split tensor-core attention and whose f32 body runs on the CUDA cores).
 """
 from __future__ import annotations
@@ -46,7 +48,8 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.qgemm import (
     TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
     qgemm_w4a8_wgmma_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
-    qgemm_w8a8_sparse_cuda, qgemm_w8a8_wgmma_cuda,
+    qgemm_w8a8_sparse_cuda, qgemm_w8a8_sparse_decode_cuda, qgemm_w8a8_sparse_plan,
+    qgemm_w8a8_sparse_wgmma_cuda, qgemm_w8a8_wgmma_cuda,
 )
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
@@ -54,6 +57,8 @@ LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
             "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
 BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/sweep": 0,
                  "qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
+                 "qgemm_w8a8_sparse/decode": 0, "qgemm_w8a8_sparse/wgmma": 0,
+                 "qgemm_w8a8_sparse/tile": 0,
                  "qgemm_w4a8/decode": 0, "qgemm_w4a8/wgmma": 0, "qgemm_w4a8/tile": 0,
                  "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
                  "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
@@ -163,9 +168,10 @@ def qgemm_w8a8_sparse(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     (K, N) int8, zero wherever ``mask`` is; a (M, 1) f32; sw (N,) f32; ``mask``
     the leaf's (ceil(K/8), N) bit-packed uint8 keep-mask (the reference's wrapper
     takes it unpacked); ``occ`` its :func:`tile_occupancy`, given where some
-    (64, 64) weight tile is empty. → (M, N) f32. With ``occ`` the card runs K7,
-    which skips the empty tiles; without it K2, exact as well since qw is zero
-    wherever the mask is. The plain version reads the mask."""
+    (64, 64) weight tile is empty. → (M, N) f32. With ``occ`` the card runs K7 on
+    the body ``qgemm_w8a8_sparse_plan`` picks, which skips the empty tiles; without
+    it K2, exact as well since qw is zero wherever the mask is. The plain version
+    reads the mask."""
     _require(qx.ndim == 2 and qw.ndim == 2, "qx and qw must be 2-D")
     M, K = qx.shape
     _require(qw.shape[0] == K, f"contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
@@ -185,8 +191,16 @@ def qgemm_w8a8_sparse(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
     _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
     _contiguous(qx=qx, qw=qw, a=a, sw=sw, occ=occ)
-    out = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, occ)
+    aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+    body, splits = qgemm_w8a8_sparse_plan(M, K, N, aligned=aligned)
+    if body == "decode":
+        out = qgemm_w8a8_sparse_decode_cuda(qx, qw, a, sw, occ, splits)
+    elif body == "wgmma":
+        out = qgemm_w8a8_sparse_wgmma_cuda(qx, qw, a, sw, occ, splits)
+    else:
+        out = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, occ)
     LAUNCHES["qgemm_w8a8_sparse"] += 1
+    BODY_LAUNCHES[f"qgemm_w8a8_sparse/{body}"] += 1
     return out
 
 

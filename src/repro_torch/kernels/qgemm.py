@@ -1,11 +1,13 @@
 """Launchers of the CUDA kernels K2 ``qgemm_w8a8``, K7 ``qgemm_w8a8_sparse`` and
 K8 ``qgemm_w4a8``, the counterparts of the reference's W8A8, block-sparse W8A8 and
-W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. K2 and K8 have three bodies
-each: the 64 × 64 tile body in ``csrc/qgemm_w8a8.cu`` (shared with K7), for few
-activation rows the split-K weight stream in ``csrc/qgemm_decode.cu``, and for more
-rows the ``wgmma`` bodies in ``csrc/qgemm_wgmma.cu`` (TMA ring, register-sourced
-weight operand, cluster split-K where few output tiles would idle the card);
-:func:`qgemm_w8a8_plan` and :func:`qgemm_w4a8_plan` pick one.
+W4A8 Pallas kernels in ``repro/kernels/qgemm.py``. Each has three bodies: the 64 ×
+64 tile body in ``csrc/qgemm_w8a8.cu``, for few activation rows the split-K weight
+stream in ``csrc/qgemm_decode.cu``, and for more rows the ``wgmma`` bodies in
+``csrc/qgemm_wgmma.cu`` (TMA ring, register-sourced weight operand, cluster split-K
+where few output tiles would idle the card); :func:`qgemm_w8a8_plan`,
+:func:`qgemm_w8a8_sparse_plan` and :func:`qgemm_w4a8_plan` pick one. K7's decode
+and wgmma bodies are K2's with a tile skip: each block compacts the list of its
+occupied 64-row k-tiles on the card (:func:`sparse_stage_ranges` models it).
 
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
@@ -83,6 +85,39 @@ def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, 
     if M <= DECODE_MAX_M:
         return "decode", decode_splits(K, N)
     return "wgmma", wgmma_splits(M, K, N)
+
+
+def qgemm_w8a8_sparse_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, int]:
+    """K7's body for an (M, K) × (K, N) product with a tile-occupancy table: K2's
+    plan (:func:`qgemm_w8a8_plan`), since its decode and wgmma bodies take the skip.
+    The table is read on the card only, so the plan, like K2's, depends on (M, K, N)
+    alone and a launch replays unchanged under CUDA-graph capture."""
+    return qgemm_w8a8_plan(M, K, N, aligned)
+
+
+def sparse_stage_ranges(occ, K: int, N: int, body: str,
+                        splits: int) -> List[List[List[Tuple[int, ...]]]]:
+    """Plain-Python model of what K7's decode and wgmma bodies stream. For each
+    128-column block ``b`` and split ``s``, ``[b][s]`` lists the block's stages in
+    order, each a tuple of the 64-row k-tiles it loads: one per stage in the decode
+    body, two (one for the last stage of an odd share) in the wgmma body. A block's
+    list holds, in ascending order, every k-tile occupied in either of its two
+    64-column table columns; split s takes its entries [s·L/S, (s+1)·L/S).
+    ``occ`` is the (ceil(K/64), ceil(N/64)) table (a tensor or nested sequence)."""
+    rows = [[int(v) for v in row] for row in (occ.tolist() if hasattr(occ, "tolist") else occ)]
+    KT, NT = -(-K // TILE_K), -(-N // TILE_N)
+    if len(rows) != KT or any(len(r) != NT for r in rows):
+        raise ValueError(f"occ must be ({KT}, {NT}) for K={K}, N={N}")
+    per = {"decode": 1, "wgmma": 2}[body]
+    cols = DECODE_TILE_N // TILE_N                  # table columns per block (both bodies: 2)
+    out = []
+    for b in range(-(-N // DECODE_TILE_N)):
+        lst = [kt for kt in range(KT) if any(rows[kt][n] for n in range(b * cols, (b + 1) * cols)
+                                              if n < NT)]
+        L = len(lst)
+        shares = [lst[s * L // splits:(s + 1) * L // splits] for s in range(splits)]
+        out.append([[tuple(sh[i:i + per]) for i in range(0, len(sh), per)] for sh in shares])
+    return out
 
 
 def w4a8_decode_splits(K: int, N: int, group: int) -> int:
@@ -178,8 +213,8 @@ def _vec(qx: torch.Tensor, qw: torch.Tensor):
 
 def qgemm_w8a8_sparse_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                            sw: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-    """K2 with a (ceil(K/64), ceil(N/64)) int32 tile-occupancy table: empty tiles
-    skip their loads and MMAs. → (M, N) f32."""
+    """K7's tile body: K2's tile body with a (ceil(K/64), ceil(N/64)) int32
+    tile-occupancy table, whose empty tiles skip their loads and MMAs. → (M, N) f32."""
     M, K = qx.shape
     N = qw.shape[1]
     vec_a, vec_b = _vec(qx, qw)
@@ -189,6 +224,41 @@ def qgemm_w8a8_sparse_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out.data_ptr(), M, N, K, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8_sparse")
     return out
+
+
+def _sparse_body_cuda(entry: str, what: str, qx: torch.Tensor, qw: torch.Tensor,
+                      a: torch.Tensor, sw: torch.Tensor, occ: torch.Tensor,
+                      splits: int) -> torch.Tensor:
+    M, K = qx.shape
+    N = qw.shape[1]
+    if qx.data_ptr() % 16 or qw.data_ptr() % 16:
+        raise ValueError(f"K7's {what} reads qx and qw in 16-byte chunks: align both")
+    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    rc = getattr(build.library(), entry)(
+        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), occ.data_ptr(),
+        out.data_ptr(), M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+    build.check(rc, f"qgemm_w8a8_sparse {what}")
+    return out
+
+
+def qgemm_w8a8_sparse_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                                  sw: torch.Tensor, occ: torch.Tensor,
+                                  splits: int) -> torch.Tensor:
+    """K7's decode body: K2's split-K weight stream over the block's occupied
+    64-row k-tiles only, shared evenly by ``splits`` cluster ranks; qx (M ≤ 128, K)
+    int8, qw (K, N) int8 zero in every tile ``occ`` marks empty, K and N multiples
+    of 16, qx and qw 16-byte aligned, all contiguous on one card. → (M, N) f32."""
+    return _sparse_body_cuda("repro_qgemm_w8a8_sparse_decode", "decode body", qx, qw, a, sw,
+                             occ, splits)
+
+
+def qgemm_w8a8_sparse_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                                 sw: torch.Tensor, occ: torch.Tensor,
+                                 splits: int) -> torch.Tensor:
+    """K7's wgmma body: K2's wgmma body over stages of two occupied 64-row k-tiles
+    each; as :func:`qgemm_w8a8_sparse_decode_cuda` for any M ≥ 1."""
+    return _sparse_body_cuda("repro_qgemm_w8a8_sparse_wgmma", "wgmma body", qx, qw, a, sw,
+                             occ, splits)
 
 
 def qgemm_w4a8_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,

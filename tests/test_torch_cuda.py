@@ -742,3 +742,144 @@ def test_qgemm_w4a8_graph_replay(dev):
             torch.cuda.synchronize()
             assert torch.equal(out, eager)
             _check_w4a8(out, want)
+
+
+# ---------------------------------------------------------------- K7 decode and wgmma bodies
+
+def _tile_pattern(name, KT, NT, splits, seed):
+    """A (KT, NT) bool table of occupied (64, 64) weight tiles: every other k-tile
+    empty ("alt"), a seeded half of the tiles empty ("random"), "alt" with the
+    first 128-column block empty and the second holding one tile ("block_empty",
+    fewer occupied stages than splits), "alt" with K2's second contiguous split of
+    64-row k-tiles empty ("split_empty"), every tile ("ones") or none ("none")."""
+    t = torch.ones(KT, NT, dtype=torch.bool)
+    if name in ("alt", "block_empty", "split_empty"):
+        t[1::2] = False
+    if name == "random":
+        t = torch.rand(KT, NT, generator=torch.Generator().manual_seed(seed)) < 0.5
+    elif name == "block_empty":
+        t[:, :4] = False
+        if NT > 2:
+            t[KT - 1, 2] = True
+    elif name == "split_empty":
+        t[KT // splits: 2 * KT // splits] = False
+    elif name == "none":
+        t[:] = False
+    return t
+
+
+def _sparse_inputs(dev, M, K, N, pattern, splits, seed):
+    """qx, qw, a, sw, the packed mask and its occupancy table, with qw zero in every
+    tile the pattern marks empty."""
+    from repro_torch.core import packing
+    ops, _ = _ops()
+    KT, NT = -(-K // 64), -(-N // 64)
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, seed)
+    tiles = _tile_pattern(pattern, KT, NT, splits, seed).to(dev)
+    keep = tiles.repeat_interleave(64, 0).repeat_interleave(64, 1)[:K, :N].to(torch.uint8)
+    qw = qw * keep.to(torch.int8)
+    mask = packing.pack_mask(keep, axis=0)
+    return qx, qw, a, sw, mask, ops.tile_occupancy(mask, K)
+
+
+SPARSE_BODY_CASES = [
+    ("decode", 4, 4608, 18432, 4), ("decode", 4, 18432, 4608, 8),
+    ("decode", 20, 4608 + 48, 496, 5),   # ragged K and N: a partial last k-tile and n-tile
+    ("decode", 1, 64 * 9 + 32, 1008, 7), ("decode", 32, 1040, 144, 8),
+    ("wgmma", 33, 18432, 4608, 4), ("wgmma", 128, 4608, 18432, 1),
+    ("wgmma", 2048, 4608, 512, 1), ("wgmma", 100, 4608 + 48, 496, 5),
+    ("wgmma", 300, 1040, 144, 3),        # two token tiles, odd shares
+    ("wgmma", 64, 1040, 144, 2), ("wgmma", 80, 4608 + 48, 496, 3),
+]
+
+
+@pytest.mark.parametrize("pattern", ["alt", "random", "block_empty", "split_empty", "ones",
+                                     "none"])
+@pytest.mark.parametrize("body,M,K,N,splits", SPARSE_BODY_CASES)
+def test_qgemm_w8a8_sparse_bodies_bitwise(dev, body, M, K, N, splits, pattern):
+    """K7's decode and wgmma bodies, launched directly at every split count they
+    take, over occupancy patterns that leave whole stages, whole blocks and whole
+    split shares empty: bitwise the plain version, and bitwise K2's same body (on
+    the same zeroed weights) and K7's with an all-ones table."""
+    from repro_torch.kernels.qgemm import (
+        qgemm_w8a8_decode_cuda, qgemm_w8a8_sparse_decode_cuda, qgemm_w8a8_sparse_wgmma_cuda,
+        qgemm_w8a8_wgmma_cuda,
+    )
+    _, ref = _ops()
+    qx, qw, a, sw, mask, occ = _sparse_inputs(dev, M, K, N, pattern, splits, M + K + N)
+    k7 = qgemm_w8a8_sparse_decode_cuda if body == "decode" else qgemm_w8a8_sparse_wgmma_cuda
+    k2 = qgemm_w8a8_decode_cuda if body == "decode" else qgemm_w8a8_wgmma_cuda
+    out = k7(qx, qw, a, sw, occ, splits)
+    full = k7(qx, qw, a, sw, torch.ones_like(occ), splits)
+    dense = k2(qx, qw, a, sw, min(splits, -(-K // (64 if body == "decode" else 128))))
+    want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(full, want) and torch.equal(dense, want)
+
+
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+@pytest.mark.parametrize("M", [1, 4, 32, 33, 128, 2047])
+def test_qgemm_w8a8_sparse_routed(dev, M, K, N):
+    """Through ops.qgemm_w8a8_sparse's routing (decode body up to DECODE_MAX_M, wgmma
+    body above) at the four linears with every other 64-row k-tile empty: the
+    routed body counted, bitwise the plain version."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_sparse_plan
+    ops, ref = _ops()
+    body, splits = qgemm_w8a8_sparse_plan(M, K, N)
+    assert body == ("decode" if M <= _decode_max_m() else "wgmma")
+    qx, qw, a, sw, mask, occ = _sparse_inputs(dev, M, K, N, "alt", splits, 2 * M + K)
+    before = ops.BODY_LAUNCHES[f"qgemm_w8a8_sparse/{body}"]
+    out = ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask, occ)
+    want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8_sparse/{body}"] == before + 1
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("M,K,N,offset", [(4, 4608, 512, 1), (2048, 4608, 512, 1),
+                                           (4, 4600, 512, 0), (40, 1040, 136, 0)])
+def test_qgemm_w8a8_sparse_tile_body_routed(dev, M, K, N, offset):
+    """Operands the new bodies do not take (qx off 16-byte alignment, K or N not a
+    multiple of 16) route to K7's tile body, counted, bitwise the plain version."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_sparse_plan
+    ops, ref = _ops()
+    qx, qw, a, sw, mask, occ = _sparse_inputs(dev, M, K, N, "alt", 1, M + K + N)
+    qxu = torch.empty(M * K + offset, dtype=torch.int8, device=dev)[offset:].view(M, K)
+    qxu.copy_(qx)
+    assert qgemm_w8a8_sparse_plan(M, K, N, aligned=qxu.data_ptr() % 16 == 0)[0] == "tile"
+    before = ops.BODY_LAUNCHES["qgemm_w8a8_sparse/tile"]
+    out = ops.qgemm_w8a8_sparse(qxu, qw, a, sw, mask, occ)
+    want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["qgemm_w8a8_sparse/tile"] == before + 1
+    assert torch.equal(out, want)
+
+
+def test_qgemm_w8a8_sparse_graph_replay(dev):
+    """Captured in a CUDA graph, both new K7 bodies (cluster split and not) build
+    their tile lists on the card at every replay: the same bits on every replay,
+    the plain version's, and again after the table changes between replays."""
+    ops, ref = _ops()
+    for M, K, N in ((4, 18432, 4608), (4, 4608, 512), (128, 18432, 4608), (2048, 4608, 512)):
+        qx, qw, a, sw, mask, occ = _sparse_inputs(dev, M, K, N, "alt", 4, M + N)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask, occ)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask, occ)
+        want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask)
+        for _ in range(3):
+            out.fill_(float("nan"))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+        # every tile marked occupied: the replay streams them all, same result
+        occ.fill_(1)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)

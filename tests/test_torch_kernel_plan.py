@@ -1,10 +1,11 @@
-"""K2's and K8's body routing and K-split plans (``repro_torch.kernels.qgemm``),
+"""K2's, K7's and K8's body routing and K-split plans (``repro_torch.kernels.qgemm``),
 K1's body plan (``repro_torch.kernels.act_quantize``) and the paged bf16 body's
 key-walk split (``repro_torch.kernels.paged_attention``), on the CPU.
 
 The decode and wgmma bodies split K across a thread-block cluster, K1's split body
 a row; the plans that pick the body and the splits are plain Python, checked here
-for every linear shape of every registered config. The paged body cuts each slot's
+for every linear shape of every registered config, and K7's on-card compaction of
+each block's occupied k-tiles through its plain-Python model. The paged body cuts each slot's
 key walk into partitions sized from shapes alone. CPU tensors take the plain
 versions and move no launch count; the plain K1 and K8 versions hold to the JAX
 reference's own plain functions.
@@ -20,12 +21,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 
 from repro_torch.configs import all_archs, get  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import act_quantize as K1, ops, ref  # noqa: E402
 from repro_torch.kernels.paged_attention import SPLIT_CHUNK, SPLIT_MAX, split_plan  # noqa: E402
 from repro_torch.kernels.qgemm import (  # noqa: E402
     DECODE_MAX_M, MAX_SPLITS, TILE_K, WGMMA_MIN_SPLIT_K_TILES, WGMMA_TILE_K,
-    WGMMA_TILE_N, decode_splits, qgemm_w4a8_plan, qgemm_w8a8_plan, split_bounds,
-    w4a8_decode_splits, w4a8_split_unit, w4a8_wgmma_splits, wgmma_splits, wgmma_tile_m,
+    WGMMA_TILE_N, decode_splits, qgemm_w4a8_plan, qgemm_w8a8_plan, qgemm_w8a8_sparse_plan,
+    sparse_stage_ranges, split_bounds, w4a8_decode_splits, w4a8_split_unit, w4a8_wgmma_splits,
+    wgmma_splits, wgmma_tile_m,
 )
 
 
@@ -186,6 +189,14 @@ def test_cpu_tensors_take_the_plain_versions(M):
     bcol = torch.from_numpy(rng.random(K).astype(np.float32) + 0.5)
     for got, want in zip(ops.act_quantize(xs, bcol, 0.15), ref.act_quantize_ref(xs, bcol, 8, 0.15)):
         assert torch.equal(got, want)
+    keep = np.ones((K, N), np.uint8)
+    keep[64:128] = 0                                   # one empty k-tile: K7 on a card
+    qws = torch.from_numpy(qw.numpy() * keep)
+    mask = packing.pack_mask(torch.from_numpy(keep), axis=0)
+    occ = ops.tile_occupancy(mask, K)
+    assert not bool(occ.all())
+    assert torch.equal(ops.qgemm_w8a8_sparse(qx, qws, a, sw, mask, occ),
+                       ref.qgemm_w8a8_sparse_ref(qx, qws, a, sw, mask))
     qw4 = torch.from_numpy(rng.integers(-128, 128, (K // 2, N)).astype(np.int8))
     sw4 = torch.from_numpy(rng.random((K // 64, N)).astype(np.float32) * 0.01)
     assert torch.equal(ops.qgemm_w4a8(qx, qw4, a, sw4, group=64),
@@ -345,3 +356,88 @@ def test_qgemm_w4a8_ref_matches_jax(M, K, N, group):
     got = ref.qgemm_w4a8_ref(*(torch.from_numpy(t) for t in (qx, qw4, a, sw)), group).numpy()
     tol = 2e-4 * np.abs(want) + 1e-5 * np.abs(want).max()
     assert (np.abs(got - want) <= tol).all()
+
+
+# ---------------------------------------------------------------- K7 body plan and tile lists
+
+@pytest.mark.parametrize("name,smoke,K,N", CONFIG_SHAPES)
+def test_sparse_plan_routes_like_k2(name, smoke, K, N):
+    """K7 takes K2's body and split count at every row count a step gives (its
+    decode and wgmma bodies carry the skip), and the tile body where K2 does."""
+    for M in (0, 1, 4, DECODE_MAX_M, DECODE_MAX_M + 1, 128, 2048):
+        assert qgemm_w8a8_sparse_plan(M, K, N) == qgemm_w8a8_plan(M, K, N)
+        assert qgemm_w8a8_sparse_plan(M, K, N, aligned=False) == ("tile", 1)
+
+
+def _occ_table(kind, KT, NT, splits, seed):
+    """(KT, NT) int32 occupancy tables: seeded random at a few densities, every
+    tile, none, every other k-tile, the first 128-column block empty and the second
+    holding one tile, and the k-tiles of one contiguous split empty."""
+    rng = np.random.default_rng(seed)
+    if kind.startswith("random"):
+        return (rng.random((KT, NT)) < float(kind[6:])).astype(np.int32)
+    t = np.ones((KT, NT), np.int32)
+    if kind == "none":
+        t[:] = 0
+    elif kind == "alt":
+        t[1::2] = 0
+    elif kind == "block_empty":
+        t[1::2] = 0
+        t[:, :4] = 0
+        if NT > 2:
+            t[KT - 1, 2] = 1
+    elif kind == "split_empty":
+        t[KT // splits: 2 * KT // splits] = 0
+    return t
+
+
+@pytest.mark.parametrize("kind", ["random0.5", "random0.1", "random0.9", "ones", "none", "alt",
+                                  "block_empty", "split_empty"])
+@pytest.mark.parametrize("K,N,splits", [(4608, 18432, 4), (18432, 4608, 8), (4608, 512, 8),
+                                        (4608 + 48, 496, 5), (1040, 144, 3), (64, 16, 1),
+                                        (576, 128, 7)])
+def test_sparse_stage_ranges_cover_each_block_once(K, N, splits, kind):
+    """The model of K7's on-card lists: for every 128-column block, the splits'
+    stages taken in order hold exactly the block's occupied k-tiles (occupied in
+    either of its two table columns), each once and ascending; split s holds
+    entries [s·L/S, (s+1)·L/S) of the L, so shares differ by at most one; a decode
+    stage is one k-tile, a wgmma stage two, but for the last stage of an odd
+    share. Empty blocks and splits get empty lists."""
+    KT, NT = -(-K // TILE_K), -(-N // 64)
+    occ = _occ_table(kind, KT, NT, splits, K + N + splits)
+    for body, per in (("decode", 1), ("wgmma", 2)):
+        ranges = sparse_stage_ranges(torch.from_numpy(occ), K, N, body, splits)
+        assert len(ranges) == -(-N // 128)
+        for b, shares in enumerate(ranges):
+            want = np.nonzero(occ[:, 2 * b:2 * b + 2].any(axis=1))[0].tolist()
+            assert len(shares) == splits
+            got = [kt for share in shares for stage in share for kt in stage]
+            assert got == want
+            sizes = [sum(len(st) for st in share) for share in shares]
+            assert sizes == [(s + 1) * len(want) // splits - s * len(want) // splits
+                             for s in range(splits)]
+            for share, size in zip(shares, sizes):
+                assert [len(st) for st in share] == [per] * (size // per) + [1] * (size % per)
+        if kind == "none":
+            assert all(share == [] for shares in ranges for share in shares)
+        if kind == "ones":
+            assert [kt for share in ranges[0] for st in share for kt in st] == list(range(KT))
+
+
+def test_sparse_stage_ranges_main_path():
+    """The block-sparse serving tree's up projection (every other 64-row k-tile
+    empty, K = 4608): each 128-column block streams 36 of its 72 k-tiles, 9 per
+    split on the decode body's 4 splits and 18 two-tile stages on the wgmma body's
+    one, half of K2's 72 and 36 stages; a block with one occupied tile leaves three
+    of four decode splits empty; the table's shape is checked."""
+    K, N = 4608, 18432
+    occ = _occ_table("alt", K // 64, N // 64, 4, 0)
+    dec = sparse_stage_ranges(occ, K, N, "decode", decode_splits(K, N))
+    assert decode_splits(K, N) == 4 and all([len(sh) for sh in blk] == [9] * 4 for blk in dec)
+    wg = sparse_stage_ranges(occ, K, N, "wgmma", wgmma_splits(2048, K, N))
+    assert all(len(blk) == 1 and len(blk[0]) == 18 for blk in wg)
+    one = np.zeros((K // 64, 2), np.int32)
+    one[5, 1] = 1
+    assert sparse_stage_ranges(one, K, 128, "decode", 4) == [[[], [], [], [(5,)]]]
+    with pytest.raises(ValueError):
+        sparse_stage_ranges(occ[:-1], K, N, "decode", 4)
