@@ -52,9 +52,24 @@ Phases (any failure raises and exits non-zero):
    over motif-tiled prompts; chunked (token budget 128) over the shared-prefix
    traffic, fp and int8 KV; with ``sparsity="2:4"`` (K2 serves it), then with
    every other 64-row k-tile of those masks emptied (K7 serves it, 4 requests);
-   and the W4A8 tree (K8). Each run's kernel launch counts must equal what its
-   schedule implies, per body too: K1's split body serves the steps of at most
-   32 token rows, its rows body the rest; K2's, K7's and K8's decode bodies serve
+   and the W4A8 tree (K8). The paper's own paths (no kernel of their own): on the
+   f32 tree, before it is freed, ``make_sparsity_plan`` over the launcher's
+   calibration traffic (every linear's §4.1 CrossQuant kernel fraction beside its
+   per-token one, min / median / max per kind, ``table1_stats`` of layer 0's wq
+   and down inputs, whose kernel count on the card must equal the CPU's under the
+   same scale tensor), fake W8A8 CrossQuant serving (dense fp KV; paged int8 KV
+   behind the shared prefix) and the W8-Remove-Kernel ablation over one admission
+   whose down-projection input exceeds 2^24 elements; then ``path="dequant-fp"``
+   on the W8A8 tree (dense fp KV, paged int8 KV), the fake twin
+   (``dequantize_tree``, static c, prequantized weights) served, twin and
+   dequant-fp logits held against fused-int8's (d on the first decode step within
+   5 % of max|logit|, greedy choices equal where fused-int8's top-1/top-2 margin
+   exceeds 2d), 2:4 restricted to the plan's layers (``sparsity_plan=``) and the
+   grouped scheduler. The fake and dequant-fp runs launch no K1, K2, K7, K8 or
+   flash kernel; their paged decode steps launch K4. Each run's kernel launch
+   counts must equal what its schedule implies, per body too: K1's split body
+   serves the steps of at most 32 token rows, its rows body the rest; K2's, K7's
+   and K8's decode bodies serve
    the steps of at most DECODE_MAX_M token rows, their wgmma bodies the rest, K3's
    bf16 body every flash launch, the paged bf16 body every K4/K5/K6 launch.
    Between the runs, torch.profiler windows over a few decode steps of the dense
@@ -74,7 +89,12 @@ Phases (any failure raises and exits non-zero):
    greedy choices equal wherever the CPU's top-1/top-2 margin exceeds 2e, where e
    is what bf16 instead of f32 moves the card's first decode step. Then the
    engine on the card: paged ≡ dense, speculate=4 ≡ speculate=1 and chunked ≡
-   bucketed in greedy tokens.
+   bucketed in greedy tokens. The paper's paths at that size, card vs CPU with
+   equal greedy tokens: fake W8A8 CrossQuant (dense fp KV), dequant-fp (paged
+   int8 KV) and the grouped scheduler through the engine; and
+   ``make_sparsity_plan``'s per-linear fractions within 1e-6 of the CPU's over
+   the same activations (the card's observer pass replayed into the CPU's plan;
+   the CPU's own forward pass printed beside).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -189,6 +209,43 @@ def empty_odd_k_tiles(tree) -> None:
             leaf["mask"].view(L, K // 64, 8, -1)[:, 1::2] = 0
 
 
+#: the quantizable linears of a starcoder2 layer, in the order a forward pass calls them
+KINDS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/up", "mlp/down")
+
+
+def recorded_plan(make_plan, KA, cfg, params, batches, **kw):
+    """``make_plan(cfg, params, batches, **kw)`` (``make_sparsity_plan``) with every
+    activation its observer pass measures recorded: ``KA.crossquant_kernel_fraction``
+    is wrapped for the call. Returns (plan, records), one record per measured
+    linear input in call order (batch, layer, KINDS): the 2-D f32 input, its
+    CrossQuant kernel fraction and its per-token (α = 1) one."""
+    import torch
+
+    records = []
+    measure = KA.crossquant_kernel_fraction
+
+    def recording(x2, bits=8, alpha=0.15):
+        frac = measure(x2, bits=bits, alpha=alpha)
+        records.append((x2, float(frac), float(KA.per_token_kernel_fraction(x2, bits))))
+        return frac
+
+    KA.crossquant_kernel_fraction = recording
+    try:
+        with torch.no_grad():
+            plan = make_plan(cfg, params, batches, **kw)
+    finally:
+        KA.crossquant_kernel_fraction = measure
+    L = cfg.n_layers
+    check(len(records) == len(batches) * L * len(KINDS), f"plan pass measured {len(records)} "
+          f"linear inputs, not {len(batches)} x {L} x {len(KINDS)}")
+    d_in = {"attn/wo": cfg.n_heads * cfg.head_dim, "mlp/down": cfg.d_ff}
+    for i, (x2, _, _) in enumerate(records):
+        kind = KINDS[i % len(KINDS)]
+        check(x2.shape[-1] == d_in.get(kind, cfg.d_model), f"record {i} ({kind}) has "
+              f"width {x2.shape[-1]}")
+    return plan, records
+
+
 def main() -> int:
     import torch
 
@@ -217,11 +274,13 @@ def main() -> int:
         w4a8_wgmma_splits, wgmma_splits,
     )
     from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
-    from repro_torch.launch.serve import calibrate, make_prompts
+    from repro_torch.core import kernel_analysis as KA, quantizers as Q
+    from repro_torch.launch.serve import calibrate, calibration_batches, make_prompts
     from repro_torch.models import model as M
     from repro_torch.models.layers import QuantContext
     from repro_torch.models.quantize import (
-        SparsityPlan, quantize_tree, quantized_bytes, sparsify_tree, with_tile_occupancy,
+        SparsityPlan, dequantize_tree, make_sparsity_plan, quantize_tree, quantized_bytes,
+        sparsify_tree, sparsity_summary, with_tile_occupancy,
     )
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServeEngine
@@ -990,7 +1049,6 @@ def main() -> int:
     tables = calibrate(params, cfg, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0)
     qparams = quantize_tree(params, quant, tables=tables)
     q4params = quantize_tree(params, quant4, tables=tables)      # the same calibration
-    del params
     torch.cuda.synchronize()
     q_bytes, q4_bytes = quantized_bytes(qparams), quantized_bytes(q4params)
     print(f"[4] {cfg.name} FULL: {cfg.n_layers} layers d_model={cfg.d_model} "
@@ -1007,10 +1065,14 @@ def main() -> int:
     body_launches = {name: 0 for name in ops.BODY_LAUNCHES}
     e2e = {}
 
-    def serve(label: str, reqs, tree=None, q=quant, gemm="qgemm_w8a8", **kw):
+    def serve(label: str, reqs, tree=None, q=quant, gemm="qgemm_w8a8", path="fused-int8",
+              plan=None, max_new=MAX_NEW, **kw):
         """One serving run of ``reqs`` at full width and depth. The kernel counts are
         zeroed just before the run and read just after, and must equal what its
-        schedule implies: per model step 192 act_quantize launches and 192 of the
+        schedule implies. On the ``fake`` and ``dequant-fp`` paths the linears are
+        plain torch and prefill attention the plain path: no act_quantize, GEMM or
+        flash launch at all, 32 paged decode launches per decode step of a paged
+        engine. On ``fused-int8``: per model step 192 act_quantize launches and 192 of the
         tree's GEMM (qgemm_w8a8, or qgemm_w4a8 for a W4A8 tree, or
         qgemm_w8a8_sparse for masks with empty tiles); an act_quantize launch on
         the body act_quantize_plan gives its step's token rows (the step's M) and
@@ -1023,10 +1085,12 @@ def main() -> int:
         32 ragged launches per packed step and 32 paged decode launches per
         pure-decode step, and no flash launch. A chunked engine with fp KV and
         speculate=1 serves its decode-only steps (the traffic ends in a decode-only
-        tail) through the decode step, one with int8 KV never does."""
+        tail) through the decode step, one with int8 KV never does. ``plan``: the
+        engine's ``sparsity_plan``."""
+        kernels = path == "fused-int8"
         engine = ServeEngine(cfg, qparams if tree is None else tree, quant=q, device=dev,
                              config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
-                                                 path="fused-int8", **kw))
+                                                 path=path, **kw), sparsity_plan=plan)
         cold_buckets = []                      # flash serves cold prefills only
         attr = "_admit_cold" if engine.paged else "_admit_step"
         admit = getattr(engine, attr)
@@ -1047,7 +1111,7 @@ def main() -> int:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
-        engine.submit(reqs, max_new=MAX_NEW)
+        engine.submit(reqs, max_new=max_new)
         torch.cuda.synchronize()
         ops.reset_launches()
         M.apply = apply_counted
@@ -1071,16 +1135,18 @@ def main() -> int:
         else:
             steps = c["prefill_calls"] + c["decode_steps"]
         n_tok = sum(len(r.out) for r in done)
-        check(len(done) == len(reqs) and all(len(r.out) == MAX_NEW for r in done),
-              f"{label}: every request gets {MAX_NEW} tokens")
+        check(len(done) == len(reqs) and all(len(r.out) == max_new for r in done),
+              f"{label}: every request gets {max_new} tokens")
         check(all(0 <= t < cfg.vocab for r in done for t in r.out), f"{label}: token ids")
         want = {name: 0 for name in ops.LAUNCHES}
-        want.update({"act_quantize": per_layer * L * steps, gemm: per_layer * L * steps})
+        if kernels:
+            want.update({"act_quantize": per_layer * L * steps, gemm: per_layer * L * steps})
         if engine.chunked:
             want["ragged_prefill_attention"] = L * c["chunk_steps"]
             want["paged_decode_attention"] = L * c["chunk_decode_only_steps"]
         else:
-            want["flash_attention"] = L * sum(b >= 128 for b in cold_buckets)
+            if kernels:
+                want["flash_attention"] = L * sum(b >= 128 for b in cold_buckets)
             if engine.paged:
                 want["paged_decode_attention"] = L * c["decode_steps"] if engine.spec == 1 else 0
                 want["paged_verify_attention"] = L * c["spec_steps"] if engine.spec > 1 else 0
@@ -1089,10 +1155,10 @@ def main() -> int:
                   f"(prefill_calls={c['prefill_calls']} decode_steps={c['decode_steps']} "
                   f"spec_steps={c['spec_steps']} chunk_steps={c['chunk_steps']} decode-only "
                   f"steps={c['chunk_decode_only_steps']} cold buckets={cold_buckets})")
-        check(counts[gemm] > 0, f"{label}: no {gemm} launch")
+        check(counts[gemm] > 0 or not kernels, f"{label}: no {gemm} launch")
         check(len(step_rows) == steps, f"{label}: {len(step_rows)} model calls != {steps} steps")
         want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
-        for rows in step_rows:
+        for rows in step_rows if kernels else ():
             for K, N in linears:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
                 if gemm == "qgemm_w8a8":
@@ -1121,7 +1187,7 @@ def main() -> int:
               f"with <= {DECODE_MAX_M} token rows {med(small)}, of {len(large)} larger "
               f"{med(large)}; all calls {sum(step_ms) / 1e3:.2f}s of {dt:.2f}s")
         pool_dt = engine.caches["blocks"][0]["k_pages" if engine.paged else "k"].dtype
-        print(f"[4] serve {label}: {len(done)} requests, {n_tok} tokens in {dt:.2f}s = "
+        print(f"[4] serve {label}: path={path} {len(done)} requests, {n_tok} tokens in {dt:.2f}s = "
               f"{n_tok / dt:.1f} tok/s; prefill_calls={c['prefill_calls']} (cold buckets "
               f"{cold_buckets}) decode_steps={c['decode_steps']} occupancy="
               f"{engine.occupancy():.2f} kv pool dtype={pool_dt} launches="
@@ -1129,16 +1195,96 @@ def main() -> int:
               f"{ {k: v for k, v in bodies.items() if v} }; req0 out[:8]={done[0].out[:8]}")
         return engine, done
 
+    # paged traffic: 8 requests behind one 389-token system prefix
+    rng = np.random.default_rng(4)
+    system = rng.integers(1, cfg.vocab, size=SYSTEM_PREFIX).astype(np.int32)
+    shared = [np.concatenate([system, rng.integers(1, cfg.vocab, size=n).astype(np.int32)])
+              for n in SUFFIXES]
+
+    # The paper's §4.1 quantization kernel on the card: make_sparsity_plan over the
+    # launcher's calibration traffic (2 batches of 4 x 16 tokens), its observer pass
+    # in fake W8A8 CrossQuant mode on the f32 tree, every measured input recorded
+    t0 = time.perf_counter()
+    calib = calibration_batches(cfg, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0,
+                                device=dev)
+    plan, records = recorded_plan(make_sparsity_plan, KA, cfg, params, calib, threshold=0.05)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    L = cfg.n_layers
+    per = {}                                 # (layer, kind) -> (cq fractions, pt fractions)
+    for i, (_, cq, pt) in enumerate(records):
+        key = ((i // len(KINDS)) % L, KINDS[i % len(KINDS)])
+        per.setdefault(key, ([], []))
+        per[key][0].append(cq)
+        per[key][1].append(pt)
+    cq_of = {k: float(np.float32(np.mean(v[0]))) for k, v in per.items()}
+    pt_of = {k: float(np.float32(np.mean(v[1]))) for k, v in per.items()}
+    for kind in KINDS:                       # the plan gates a stacked leaf on its worst layer
+        worst = max(cq_of[(b, kind)] for b in range(L))
+        check(plan.fractions[f"blocks/0/{kind}"] == worst,
+              f"plan fraction of {kind} {plan.fractions[f'blocks/0/{kind}']} != worst layer "
+              f"{worst}")
+    print(f"[4] §4.1 make_sparsity_plan (fake W8A8 CrossQuant observer pass, 2 x {BATCH}x16 "
+          f"tokens, {len(records)} linear inputs) in {t_plan:.2f}s; threshold 0.05: plan "
+          f"layers {list(plan.layers)}")
+    for kind in KINDS:
+        cqs = [cq_of[(b, kind)] for b in range(L)]
+        pts = [pt_of[(b, kind)] for b in range(L)]
+        under = [b for b in range(L) if cq_of[(b, kind)] <= 0.05]
+        print(f"[4]   kernel fraction {kind:9s} CrossQuant a=0.15 min/median/max "
+              f"{min(cqs):.6f}/{float(np.median(cqs)):.6f}/{max(cqs):.6f}; per-token a=1 "
+              f"{min(pts):.6f}/{float(np.median(pts)):.6f}/{max(pts):.6f}; "
+              f"{len(under)} of {L} layers <= 0.05")
+    n_smaller = sum(cq_of[k] < pt_of[k] for k in cq_of)
+    print(f"[4]   CrossQuant's kernel is smaller than per-token's on {n_smaller} of {len(cq_of)} "
+          f"linears (the paper's prediction; random weights, nothing claimed)")
+    for kind in ("attn/wq", "mlp/down"):
+        x2 = records[KINDS.index(kind)][0]          # layer 0, first calibration batch
+        stats = {k: round(float(v), 6) for k, v in KA.table1_stats(x2).items()}
+        scale = Q.crossquant_scale(x2, 8, 0.15)
+        n_card = int(KA.kernel_count(x2, scale))
+        n_cpu = int(KA.kernel_count(x2.cpu(), scale.cpu()))
+        check(n_card == n_cpu, f"{kind} layer 0: kernel count card {n_card} != CPU {n_cpu}")
+        print(f"[4]   layer 0 {kind} input {tuple(x2.shape)}: table1_stats {stats}; kernel "
+              f"count card {n_card} == CPU {n_cpu} under the same scale tensor")
+    del records
+
+    # the paper's evaluation path on the f32 tree: fake W8A8 CrossQuant (dynamic c),
+    # dense fp KV and paged int8 KV behind the shared prefix; then the W8-Remove
+    # Kernel ablation (10 %) over one admission of two 512-token rows, whose down
+    # projection input (2 x 512 x 18432) exceeds 2^24 elements
+    fake = ql.W8A8_CROSSQUANT
+    serve("dense fake W8A8-CrossQuant kv=fp", prompts[:BATCH], tree=params, q=fake, path="fake",
+          kv_cache="fp")
+    serve("paged fake W8A8-CrossQuant kv=int8", shared, tree=params, q=fake, path="fake",
+          kv_cache="int8", cache_layout="paged")
+    sizes = []
+    quantile_cut = KA.remove_kernel_fraction
+
+    def cut_counted(x, fraction):
+        sizes.append(x.numel())
+        return quantile_cut(x, fraction)
+
+    KA.remove_kernel_fraction = cut_counted
+    try:
+        engine, _ = serve("dense fake remove-kernel 0.1 kv=fp", prompts[2:4], tree=params,
+                          q=ql.remove_kernel_cfg(0.1), path="fake", max_new=4)
+    finally:
+        KA.remove_kernel_fraction = quantile_cut
+    check(engine.counters["prefill_calls"] == 1 and max(sizes) > 2 ** 24,
+          f"remove-kernel run: {engine.counters['prefill_calls']} admissions, largest "
+          f"quantile input {max(sizes)} elements")
+    print(f"[4]   remove-kernel: {len(sizes)} quantile cuts, the largest over {max(sizes)} "
+          f"elements (2^24 = {2 ** 24})")
+    del engine, params
+    torch.cuda.empty_cache()
+
     # the dense, 2:4 and W4A8 runs serve the first 4 prompts, to hold the script's
     # time
     for kv in ("fp", "int8"):
         serve(f"dense fused-int8 kv={kv}", prompts[:BATCH], kv_cache=kv)
 
-    # paged with radix reuse: 8 requests behind one 389-token system prefix
-    rng = np.random.default_rng(4)
-    system = rng.integers(1, cfg.vocab, size=SYSTEM_PREFIX).astype(np.int32)
-    shared = [np.concatenate([system, rng.integers(1, cfg.vocab, size=n).astype(np.int32)])
-              for n in SUFFIXES]
+    # paged with radix reuse over the shared-prefix traffic
     for kv in ("fp", "int8"):
         engine, _ = serve(f"paged fused-int8 kv={kv}", shared, kv_cache=kv,
                           cache_layout="paged")
@@ -1318,7 +1464,90 @@ def main() -> int:
     trace("dense W4A8-g128 kv=fp, decode steps", prompts[:BATCH],
           lambda e: not e.queue and e.counters["decode_steps"] > 0, tree=q4params, q=quant4,
           kv_cache="fp")
-    del q4params, qparams
+    del q4params
+
+    # dequant-fp on the calibrated W8A8 tree: the codes scaled back to f32 before an
+    # fp product, dense fp KV and paged int8 KV behind the shared prefix
+    serve("dense dequant-fp kv=fp", prompts[:BATCH], path="dequant-fp", kv_cache="fp")
+    serve("paged dequant-fp kv=int8", shared, path="dequant-fp", kv_cache="int8",
+          cache_layout="paged")
+
+    # The fake twin: dequantize_tree of the W8A8 tree (f32 weights carrying the int
+    # path's rounding, cmax from the folded b), served with static c and prequantized
+    # weights, and held with dequant-fp against fused-int8 on the same inputs: a
+    # prefill of the 4 dense prompts and 3 decode steps fed fused-int8's greedy
+    # tokens. d = max|logit difference| on the first decode step must stay within 5 %
+    # of max|logit|; the greedy choices must agree wherever fused-int8's top-1/top-2
+    # margin exceeds 2d.
+    twin = dequantize_tree(qparams, quant)
+    twin_q = dataclasses.replace(ql.W8A8_CROSSQUANT, static_c=True, w_prequantized=True)
+    serve("dense fake twin kv=fp", prompts[:BATCH], tree=twin, q=twin_q, path="fake",
+          kv_cache="fp")
+    lens4 = np.array([len(p) for p in prompts[:BATCH]], np.int32)
+    toks4 = np.zeros((BATCH, 512), np.int64)
+    for b, p in enumerate(prompts[:BATCH]):
+        toks4[b, :len(p)] = p
+
+    def first_steps(tree, ctx_, forced=None, steps=3):
+        caches = M.init_cache(cfg, BATCH, MAX_LEN, dtype=torch.float32, device=dev)
+        logits, _ = M.apply(tree, {"tokens": torch.as_tensor(toks4, device=dev)}, cfg,
+                            ctx=ctx_, mode="prefill", caches=caches,
+                            cur_len=torch.as_tensor(lens4, device=dev))
+        out, fed = [logits[:, -1].float()], []
+        for i in range(steps):
+            tok = torch.argmax(out[-1], dim=-1) if forced is None else forced[i]
+            fed.append(tok)
+            logits, _ = M.apply(tree, {"tokens": tok[:, None]}, cfg, ctx=ctx_, mode="decode",
+                                caches=caches, cur_len=torch.as_tensor(lens4 + i + 1, device=dev))
+            out.append(logits[:, -1].float())
+        return torch.stack(out), fed
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        fused_l, fed = first_steps(qparams, QuantContext(quant, use_kernels=True,
+                                                         int_exec="kernel"))
+        top2 = torch.topk(fused_l, 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        scale_l = float(fused_l.abs().max())
+        for label, tree, ctx_ in (("fake twin", twin, QuantContext(twin_q)),
+                                  ("dequant-fp", qparams, QuantContext(quant,
+                                                                       int_exec="dequant"))):
+            other, _ = first_steps(tree, ctx_, forced=fed)
+            d = float((other[1] - fused_l[1]).abs().max())
+            sure = margin > 2 * d
+            same = torch.argmax(other, dim=-1) == torch.argmax(fused_l, dim=-1)
+            check(d <= 0.05 * scale_l, f"{label} vs fused-int8: d = {d} > 5 % of max|logit| "
+                  f"{scale_l}")
+            check(bool(same[sure].all()), f"{label} vs fused-int8: greedy choice differs "
+                  f"where the margin exceeds 2d = {2 * d}")
+            print(f"[4]   {label} vs fused-int8 (prefill of 4 prompts + 3 decode steps fed "
+                  f"fused-int8's tokens): d = {d:.4e} on the first decode step, {d / scale_l:.4f} "
+                  f"of max|logit| {scale_l:.3f} (bar 0.05); max over all steps "
+                  f"{float((other - fused_l).abs().max()):.4e}; greedy equal at "
+                  f"{int(same[sure].sum())} of {int(sure.sum())} (step, row) pairs with margin "
+                  f"> 2d, at {int(same.sum())} of all {same.numel()}")
+        torch.cuda.synchronize()
+        print(f"[4]   twin/dequant-fp/fused-int8 logit comparison in "
+              f"{time.perf_counter() - t0:.1f}s")
+    del twin
+
+    # 2:4 restricted to the §4.1 plan's layers (sparsity_plan=): K2 as in the
+    # unrestricted 2:4 run; the plan's leaves, and only they, carry masks
+    engine, _ = serve("dense fused-int8 kv=fp sparsity=2:4 §4.1 plan", prompts[:BATCH],
+                      sparsity="2:4", plan=plan)
+    masked = sorted(sparsity_summary(engine.params))
+    check(masked == sorted(plan.layers), f"masked leaves {masked} != plan layers {plan.layers}")
+    print(f"[4]   2:4 with the plan: masked leaves {masked}")
+    del engine
+
+    # the grouped baseline scheduler: one whole-batch group of 4 equal-length prompts,
+    # drained before the next admission
+    engine, _ = serve("dense fused-int8 kv=fp grouped", make_prompts(cfg.vocab, [300], BATCH,
+                                                                     seed=6),
+                      scheduler="grouped")
+    check(engine.counters["prefill_calls"] == 1 and engine.counters["mid_decode_admissions"] == 0,
+          f"grouped: {engine.counters['prefill_calls']} admissions")
+    del engine, qparams
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- phase 5
@@ -1341,7 +1570,6 @@ def main() -> int:
     tables2 = calibrate(p2f, cfg2, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=1)
     p2 = quantize_tree(p2f, quant, tables=tables2)
     p2w4 = quantize_tree(p2f, quant4, tables=tables2)
-    del p2f
     p2_cpu = M.map_tensors(p2, lambda t: t.cpu())
     rng = np.random.default_rng(2)
     lens = np.array([150, 131], np.int32)                    # bucket 256: flash path
@@ -1362,13 +1590,15 @@ def main() -> int:
         toks_s[b, :n] = toks[b, :n]
     steps5 = 4
 
-    def greedy(params, device, forced=None, layout="dense", steps=8, short=False, c=cfg2):
-        """Prefill + ``steps`` decode steps of config ``c``, feeding its own argmax (or
-        ``forced`` tokens); ``short``: the two shorter prompts. The fp KV pool is f32
-        at either activation dtype, as the engine gives the tree's first float leaf."""
+    def greedy(params, device, forced=None, layout="dense", steps=8, short=False, c=cfg2,
+               ctx=ctx, kv_int8=False):
+        """Prefill + ``steps`` decode steps of config ``c`` under ``ctx``, feeding its
+        own argmax (or ``forced`` tokens); ``short``: the two shorter prompts. The fp
+        KV pool is f32 at either activation dtype, as the engine gives the tree's
+        first float leaf."""
         tk, ln = (toks_s, lens_s) if short else (toks, lens)
         caches = M.init_cache(c, 2, 512, dtype=torch.float32, layout=layout, page_size=8,
-                              device=device)
+                              kv_int8=kv_int8, device=device)
         if layout == "paged":
             caches["page_table"] = perm.reshape(2, 64).to(device)
         logits, _ = M.apply(params, {"tokens": torch.as_tensor(tk, device=device)}, c,
@@ -1546,6 +1776,84 @@ def main() -> int:
         print(f"[5] {label} paged card vs CPU ({kernel} x{n_gemm}): tokens equal "
               f"{bgt.T.tolist()}, logits max_abs_err={berr:.3e}, tol 5e-2*max|logit|={btol:.3e}")
     del p2bs, p2w4
+
+    # the paper's paths on the card against the CPU: fake W8A8 CrossQuant (dynamic c)
+    # on the f32 tree, dense fp KV, and dequant-fp on the W8A8 tree, paged int8 KV;
+    # both plain torch (no act_quantize, GEMM or flash launch; K4 on the paged decode)
+    p2f_cpu = M.map_tensors(p2f, lambda t: t.cpu())
+    for label, trees, ctx_, layout, kv_int8 in (
+            ("fake W8A8-CrossQuant dense fp KV", (p2f, p2f_cpu),
+             QuantContext(ql.W8A8_CROSSQUANT), "dense", False),
+            ("dequant-fp paged int8 KV", (p2, p2_cpu), QuantContext(quant, int_exec="dequant"),
+             "paged", True)):
+        with torch.no_grad():
+            reset5()
+            t0 = time.perf_counter()
+            fgl, fgt = greedy(trees[0], dev, layout=layout, steps=steps5, short=True, ctx=ctx_,
+                              kv_int8=kv_int8)
+            want = {name: 0 for name in ops.LAUNCHES}
+            if layout == "paged":
+                want["paged_decode_attention"] = steps5 * cfg2.n_layers
+            check(dict(ops.LAUNCHES) == want, f"{label} parity launches {ops.LAUNCHES}")
+            t_card = time.perf_counter() - t0
+            fcl, fct = greedy(trees[1], cpu, layout=layout, steps=steps5, short=True, ctx=ctx_,
+                              kv_int8=kv_int8)
+        ferr = float((fgl - fcl).abs().max())
+        ftol = 5e-2 * float(fcl.abs().max())
+        check(torch.equal(fgt, fct), f"{label} card vs CPU tokens differ: {fgt.T} vs {fct.T}")
+        check(ferr <= ftol, f"{label} card vs CPU logits: max err {ferr} > {ftol}")
+        print(f"[5] {label} card vs CPU: tokens equal {fgt.T.tolist()}, logits max_abs_err="
+              f"{ferr:.3e}, tol 5e-2*max|logit|={ftol:.3e}; card {t_card:.1f}s")
+
+    # the grouped scheduler through the engine, card vs CPU: two 40-token prompts
+    # form one group, a 27-token one the next
+    gp = [toks[0, :40].astype(np.int32), toks[1, :40].astype(np.int32),
+          toks[0, 40:67].astype(np.int32)]
+    gouts = []
+    for device, tree in ((dev, p2), (cpu, p2_cpu)):
+        geng = ServeEngine(cfg2, tree, quant=quant, device=device,
+                           config=EngineConfig(batch_size=2, max_len=64, path="fused-int8",
+                                               scheduler="grouped"))
+        geng.submit([p.copy() for p in gp], max_new=steps5)
+        gouts.append(([r.out for r in geng.run()], geng.counters["prefill_calls"]))
+    check(gouts[0] == gouts[1] and gouts[0][1] == 2,
+          f"grouped card vs CPU: {gouts[0]} vs {gouts[1]}")
+    print(f"[5] grouped scheduler (2 groups) card vs CPU: tokens equal {gouts[0][0]}")
+
+    # make_sparsity_plan: the card's per-linear §4.1 fractions against the CPU's over
+    # the same activations (the card's observer pass replayed into the CPU's plan);
+    # the CPU's own forward pass is printed beside, not gated: its fake-quant codes
+    # move with the CPU's float sums, and each move shifts kernel elements
+    calib2 = calibration_batches(cfg2, calib_batches=2, seq_len=16, batch_size=BATCH, seed=1,
+                                 device=dev)
+    reset5()
+    plan_card, recs2 = recorded_plan(make_sparsity_plan, KA, cfg2, p2f, calib2, threshold=0.05)
+    apply = M.apply
+    replay = iter([x2.cpu() for x2, _, _ in recs2])
+
+    def replayed(params, batch, c, *, ctx, **kw):
+        for b in range(c.n_layers):
+            for kind in KINDS:
+                ctx.observer.observe(f"/L{b}/S0/{kind}", next(replay))
+        return None, {}
+
+    M.apply = replayed
+    try:
+        plan_cpu = make_sparsity_plan(cfg2, p2f_cpu, [{}, {}], threshold=0.05)
+    finally:
+        M.apply = apply
+    plan_own = make_sparsity_plan(cfg2, p2f_cpu, [{"tokens": b["tokens"].cpu()} for b in calib2],
+                                  threshold=0.05)
+    perr = max(abs(plan_cpu.fractions[k] - f) for k, f in plan_card.fractions.items())
+    oerr = max(abs(plan_own.fractions[k] - f) for k, f in plan_card.fractions.items())
+    check(set(plan_cpu.fractions) == set(plan_card.fractions) and perr <= 1e-6
+          and plan_cpu.layers == plan_card.layers,
+          f"plan card vs CPU: fractions differ by {perr}, layers {plan_card.layers} vs "
+          f"{plan_cpu.layers}")
+    print(f"[5] make_sparsity_plan card vs CPU on the same activations: {len(recs2)} inputs, "
+          f"fractions max diff {perr:.3e} (bar 1e-6), layers equal {list(plan_card.layers)}; "
+          f"the CPU's own forward pass: max diff {oerr:.3e}, layers {list(plan_own.layers)}")
+    del recs2, p2f, p2f_cpu
 
     # the engine on the card: paged ≡ dense over shared-prefix traffic (warm
     # admissions and copy-on-write at batch 2), speculate=4 ≡ speculate=1 (paged)

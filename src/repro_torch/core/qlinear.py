@@ -1,19 +1,31 @@
-"""Quantized linear layer (port of ``repro/core/qlinear.py``: the fp and int8 modes).
+"""Quantized linear layer (port of ``repro/core/qlinear.py``).
 
 Params are plain dicts of tensors. A raw linear is ``{"w": (d_in, d_out)}`` (or a
-stacked ``(L, d_in, d_out)``); :func:`prepare_int8` turns it into the prepared
-``{"qw", "sw", "bcol", "qalpha"}`` leaves of static-c CrossQuant.
+stacked ``(L, d_in, d_out)``), optionally with a calibrated ``cmax`` (d_in,);
+:func:`prepare_int8` turns it into the prepared ``{"qw", "sw", "bcol", "qalpha"}``
+leaves of static-c CrossQuant.
+
+Modes of a raw linear (``QuantConfig.mode``):
+
+* ``fp``   — the fp product (the FP16 baseline of every paper table).
+* ``fake`` — the paper's evaluation path: dynamic activation scales (per-token or
+  CrossQuant eq. 5), per-channel / group weight scales, quantize → dequantize →
+  fp product; SmoothQuant, AWQ and the "remove kernel" ablations ride on it.
+* ``int8`` — static-c CrossQuant prepared on the fly from this batch's columns.
 
 Execution of a prepared linear (``int_exec``):
 
 * ``"ref"`` (default) — :func:`quantize_act_int8` then :func:`_int8_matmul_ref`, an
   exact integer product formed in float64 (|acc| < 2^53) outside any kernel.
+* ``"dequant"``      — the same codes scaled back to f32 before an fp product
+  (:func:`_int8_dequant_fp`, :func:`_int4_dequant_fp`): the dequant-fp serving
+  baseline, plain torch.
 * ``"kernel"``       — :func:`_int8_kernel`: ``act_quantize`` then the GEMM the
   leaf asks for in ``kernels/ops.py`` (hand-written CUDA on the card, plain torch
   on CPU): ``qgemm_w8a8``, ``qgemm_w8a8_sparse`` for a leaf with an N:M ``mask``,
   ``qgemm_w4a8`` for a packed-int4 ``qw4`` leaf (:func:`prepare_int4`).
 
-The reference's ``fake`` mode and ``dequant`` backend are not ported yet.
+Stacked-expert (3-D) products wait for the MoE port and raise.
 """
 from __future__ import annotations
 
@@ -34,9 +46,15 @@ class QuantConfig:
     a_bits: int = 8
     w_bits: int = 8
     alpha: float = 0.15              # CrossQuant activation exponent
-    act_quant: str = "crossquant"    # per_token | crossquant | none
-    w_quant: str = "per_channel"     # per_channel | group | crossquant_w
-    w_group: int = 128
+    act_quant: str = "crossquant"    # per_token | crossquant | smoothquant | none |
+                                     # remove_kernel | remove_true_kernel
+    w_quant: str = "per_channel"     # per_channel | group | crossquant_w | awq
+    w_group: int = 128               # group size for w_quant="group" (g128)
+    alpha_w: float = 0.55            # CrossQuant-on-weights exponent (App. B.1)
+    static_c: bool = False           # use calibrated cmax when present (fake mode)
+    w_prequantized: bool = False     # weights fake-quantized offline: skip in-graph
+                                     # weight quantization
+    remove_frac: float = 0.0         # act_quant="remove_kernel": fraction zeroed
 
     def tag(self) -> str:
         if self.mode == "fp":
@@ -46,14 +64,108 @@ class QuantConfig:
 
 
 FP = QuantConfig(mode="fp")
+W8A8_CROSSQUANT = QuantConfig(mode="fake", a_bits=8, w_bits=8)
+W8A8_PER_TOKEN = QuantConfig(mode="fake", a_bits=8, w_bits=8, act_quant="per_token")
+W8A8_SMOOTHQUANT = QuantConfig(mode="fake", a_bits=8, w_bits=8, act_quant="smoothquant")
 W4A8_G128 = QuantConfig(mode="fake", a_bits=8, w_bits=4, w_quant="group")
+W4A8_G128_PER_TOKEN = QuantConfig(mode="fake", a_bits=8, w_bits=4, w_quant="group",
+                                  act_quant="per_token")
+# AWQ weight-only baseline (paper Table 2) with per-token activations, and the
+# paper's CrossQuant+AWQ combination
+W4A8_G128_AWQ = QuantConfig(mode="fake", a_bits=8, w_bits=4, w_quant="awq",
+                            act_quant="per_token")
+W4A8_G128_CQ_AWQ = QuantConfig(mode="fake", a_bits=8, w_bits=4, w_quant="awq")
+# App. B.1 rescue: CrossQuant applied to the weights themselves at W4A4
+W4A4_CQW = QuantConfig(mode="fake", a_bits=4, w_bits=4, w_quant="crossquant_w")
+W4A4 = QuantConfig(mode="fake", a_bits=4, w_bits=4)
+W4A4_PER_TOKEN = QuantConfig(mode="fake", a_bits=4, w_bits=4, act_quant="per_token")
 W8A8_INT8 = QuantConfig(mode="int8", a_bits=8, w_bits=8)
+
+
+def remove_kernel_cfg(frac: float, w_bits: int = 8) -> QuantConfig:
+    """'W8-Remove Kernel' of Fig. 6/7: quantize the weights, zero the smallest
+    ``frac`` of activation entries, quantize nothing else."""
+    return QuantConfig(mode="fake", w_bits=w_bits, act_quant="remove_kernel",
+                       remove_frac=frac)
+
+
+REMOVE_TRUE_KERNEL = QuantConfig(mode="fake", w_bits=8, act_quant="remove_true_kernel")
 
 
 def init(gen: torch.Generator, d_in: int, d_out: int, *, n_stack: Optional[int] = None,
          device: torch.device) -> dict:
     shape = (d_in, d_out) if n_stack is None else (n_stack, d_in, d_out)
     return {"w": torch.randn(shape, generator=gen, device=device) * d_in ** -0.5}
+
+
+# ======================================================================================
+# Fake-quant application (the paper's evaluation path)
+# ======================================================================================
+
+def _fake_act(x: torch.Tensor, cfg: QuantConfig, cmax) -> torch.Tensor:
+    if cfg.act_quant == "none":
+        return x
+    if cfg.act_quant == "per_token":
+        return Q.fake_per_token(x, cfg.a_bits)
+    if cfg.act_quant == "crossquant":
+        col = cmax if (cfg.static_c and cmax is not None) else None
+        return Q.fake_crossquant(x, cfg.a_bits, cfg.alpha, col_max=col)
+    raise ValueError(cfg.act_quant)
+
+
+def _fake_weight(w: torch.Tensor, cfg: QuantConfig, cmax=None) -> torch.Tensor:
+    if cfg.w_quant == "per_channel":
+        # paper eq. (2): reduce over the output axis -> per-input-channel scale
+        return Q.fake_per_channel(w, cfg.w_bits, axis=-1)
+    if cfg.w_quant == "group":
+        return Q.fake_group(w, cfg.w_bits, cfg.w_group)
+    if cfg.w_quant == "crossquant_w":
+        # App. B.1: CrossQuant on the weight matrix itself (rows = input channels)
+        return Q.fake_crossquant(w, cfg.w_bits, cfg.alpha_w)
+    if cfg.w_quant == "awq":
+        from repro_torch.core import awq
+        if cmax is None:
+            cmax = torch.ones(w.shape[-2], dtype=torch.float32, device=w.device)
+        return awq.awq_weight(w, cmax, bits=cfg.w_bits, group=cfg.w_group)
+    raise ValueError(cfg.w_quant)
+
+
+def _col_absmax(x: torch.Tensor) -> torch.Tensor:
+    """This batch's column absmax over every token row (dynamic column stats)."""
+    return x.abs().amax(dim=tuple(range(x.ndim - 1)))
+
+
+def _apply_fake(params: dict, x: torch.Tensor, cfg: QuantConfig):
+    """(x, w) after the fake-quant mode's activation and weight treatment."""
+    w = params["w"]
+    cm = params.get("cmax")
+    if cfg.act_quant == "smoothquant":
+        # SmoothQuant: migrate difficulty to the weights through s_j, then
+        # per-token A-quant and per-channel W-quant; column stats from calibration
+        # when present, else this batch's
+        from repro_torch.core import smoothquant as sq
+        if cm is None:
+            cm = _col_absmax(x)
+        s = sq.smoothing_scale(cm.to(torch.float32),
+                               w.abs().amax(dim=-1).to(torch.float32), alpha=0.5)
+        x = Q.fake_per_token(x / s.to(x.dtype), cfg.a_bits)
+        w = Q.fake_per_channel(w * s[..., :, None].to(w.dtype), cfg.w_bits, axis=-1)
+        return x, w
+    if cfg.act_quant in ("remove_kernel", "remove_true_kernel"):
+        from repro_torch.core import kernel_analysis as KA
+        if cfg.act_quant == "remove_kernel":
+            # Fig. 6/7: zero ONLY the smallest-|x| fraction; quantize nothing else
+            x = KA.remove_kernel_fraction(x, cfg.remove_frac)
+        else:
+            # Fig. 1/9: zero exactly K(Q) under the per-token scale, leave every
+            # other element unquantized
+            x = KA.remove_kernel(x, Q.per_token_scale(x, cfg.a_bits))
+        return x, (w if cfg.w_prequantized else _fake_weight(w, cfg))
+    x_cm = cm
+    if cfg.w_quant == "awq" and x_cm is None:
+        x_cm = _col_absmax(x)
+    x = _fake_act(x, cfg, cm)
+    return x, (w if cfg.w_prequantized else _fake_weight(w, cfg, cmax=x_cm))
 
 
 # ======================================================================================
@@ -173,14 +285,35 @@ def _int8_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tenso
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 
+def _no_experts(w: torch.Tensor, what: str) -> None:
+    if w.ndim != 2:
+        raise NotImplementedError(f"stacked-expert {what} are not ported yet")
+
+
+def _int8_dequant_fp(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                     sw: torch.Tensor) -> torch.Tensor:
+    """Dequantize-then-fp-product baseline: the codes are scaled back to f32 before
+    the contraction (xdq ≈ x/b rows, wdq ≈ w·b columns; the b factors cancel).
+    It carries the integer path's quantization error at fp throughput."""
+    _no_experts(qw, "dequant GEMMs")
+    return (qx.to(torch.float32) * a) @ qw.to(torch.float32) * sw
+
+
+def _int4_dequant_fp(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
+                     sw: torch.Tensor, group: int) -> torch.Tensor:
+    """W4 variant of :func:`_int8_dequant_fp`: unpack the nibbles and apply the
+    group scales to the weight, then the fp product."""
+    _no_experts(qw4, "dequant GEMMs")
+    return (qx.to(torch.float32) * a) @ dequant_int4_weight(qw4, sw, group)
+
+
 def _int8_matmul_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                      sw: torch.Tensor) -> torch.Tensor:
     """Reference int8 GEMM + separable dequant: y = (qx·qw) * a_i * sw_k.
 
     The int32 accumulator is formed as a float64 product of the codes: exact,
     since |acc| ≤ 127²·K < 2^53, and its f32 conversion rounds as int32→f32 does."""
-    if qw.ndim != 2:
-        raise NotImplementedError("stacked-expert int8 GEMMs are not ported yet")
+    _no_experts(qw, "int8 GEMMs")
     acc = torch.matmul(qx.to(torch.float64), qw.to(torch.float64))
     return acc.to(torch.float32) * a * sw
 
@@ -190,8 +323,7 @@ def _int4_matmul_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
     """Reference W4 GEMM: unpack the nibbles, per-group int32 partial sums (an
     exact float64 product), group dequant by ``sw`` (G, d_out), sum over the
     groups, then the row scale."""
-    if qw4.ndim != 2:
-        raise NotImplementedError("stacked-expert W4 GEMMs are not ported yet")
+    _no_experts(qw4, "W4 GEMMs")
     qw = unpack_int4_weight(qw4)
     ngroups = qw.shape[-2] // group
     qx_g = qx.reshape(*qx.shape[:-1], ngroups, group).to(torch.float64)
@@ -203,16 +335,17 @@ def _int4_matmul_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
 def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "",
           observer=None, use_kernels: bool = False,
           int_exec: Optional[str] = None) -> torch.Tensor:
-    """y = x @ W under the configured quantization mode (fp | int8).
+    """y = x @ W under the configured quantization mode (fp | fake | int8).
 
     ``observer`` (calibration) records column absmax. Prepared trees run on the
-    ``int_exec`` backend (``"ref"`` | ``"kernel"``); ``use_kernels=True`` is
-    shorthand for ``"kernel"`` (it also routes prefill attention to the flash
-    kernel — see models/layers.py)."""
+    ``int_exec`` backend (``"ref"`` | ``"dequant"`` | ``"kernel"``);
+    ``use_kernels=True`` is shorthand for ``"kernel"`` (it also routes prefill
+    attention to the flash kernel — see models/layers.py)."""
     if observer is not None:
         observer.observe(name, x)
-    if int_exec not in (None, "ref", "kernel"):
-        raise ValueError(f"unknown int_exec {int_exec!r}; pick one of 'ref', 'kernel'")
+    if int_exec not in (None, "ref", "dequant", "kernel"):
+        raise ValueError(f"unknown int_exec {int_exec!r}; "
+                         "pick one of 'ref', 'dequant', 'kernel'")
     if "qw" in params or "qw4" in params:
         exec_mode = "kernel" if use_kernels else (int_exec or "ref")
         wq = params.get("qw", params.get("qw4"))
@@ -220,19 +353,24 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
             return _int8_kernel(params, x, cfg)
         qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=params.get("qalpha"))
         if "qw" in params:
+            if exec_mode == "dequant":
+                return _int8_dequant_fp(qx, params["qw"], a, params["sw"]).to(x.dtype)
             return _int8_matmul_ref(qx, params["qw"], a, params["sw"]).to(x.dtype)
+        if exec_mode == "dequant":
+            return _int4_dequant_fp(qx, params["qw4"], a, params["sw"],
+                                    cfg.w_group).to(x.dtype)
         return _int4_matmul_ref(qx, params["qw4"], a, params["sw"],
                                 cfg.w_group).to(x.dtype)
 
-    w = params["w"]
-    if cfg.mode == "fp":
-        return x @ w.to(x.dtype)
     if cfg.mode == "int8":
         # int8 on unprepared weights (calibration): dynamic-c preparation on the fly
-        if "cmax" in params:
-            cmax = params["cmax"]
-        else:
-            cmax = x.abs().amax(dim=tuple(range(x.ndim - 1)))
-        prepared = prepare_int8({"w": w}, cfg, cmax=cmax)
+        cmax = params["cmax"] if "cmax" in params else _col_absmax(x)
+        prepared = prepare_int8({"w": params["w"]}, cfg, cmax=cmax)
         return apply(prepared, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
-    raise NotImplementedError(f"quant mode {cfg.mode!r} is not ported yet")
+    if cfg.mode == "fp":
+        w = params["w"]
+    elif cfg.mode == "fake":
+        x, w = _apply_fake(params, x, cfg)
+    else:
+        raise ValueError(cfg.mode)
+    return x @ w.to(x.dtype)

@@ -12,6 +12,10 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path fused-int8 --cache-layout paged --chunked --token-budget 128
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
         --quant int8 --path fused-int8 --sparsity 2:4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --quant fake                 # the paper's fake-quant W8A8 CrossQuant path
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+        --quant int8 --path dequant-fp --scheduler grouped
 """
 from __future__ import annotations
 
@@ -33,7 +37,22 @@ from repro_torch.models.quantize import quantize_tree, quantized_bytes
 from repro_torch.serving.config import SPARSITY_CHOICES, EngineConfig
 from repro_torch.serving.engine import ServeEngine
 
-QUANTS = {"fp": ql.FP, "int8": ql.W8A8_INT8}
+QUANTS = {
+    "fp": ql.FP,
+    "fake": ql.W8A8_CROSSQUANT,
+    "fake_pt": ql.W8A8_PER_TOKEN,
+    "w4a8": ql.W4A8_G128,
+    "int8": ql.W8A8_INT8,
+}
+
+
+def calibration_batches(cfg: ModelConfig, *, calib_batches: int, seq_len: int,
+                        batch_size: int, seed: int, device) -> List[dict]:
+    """The launcher's calibration traffic: ``calib_batches`` seeded Markov-corpus
+    batches of (batch_size, seq_len) tokens on ``device``."""
+    batch_fn = make_train_batches(cfg.vocab, seq_len, batch_size, seed=seed + 1)
+    return [{"tokens": torch.as_tensor(batch_fn(b)["tokens"], dtype=torch.int64,
+                                       device=device)} for b in range(calib_batches)]
 
 
 @torch.no_grad()
@@ -44,12 +63,11 @@ def calibrate(params: dict, cfg: ModelConfig, quant: ql.QuantConfig, *, calib_ba
     i.e. the ``ref`` integer GEMM). Returns the stacked tables ``quantize_tree``
     reads."""
     obs = calibration.Observer()
-    batch_fn = make_train_batches(cfg.vocab, seq_len, batch_size, seed=seed + 1)
     ctx = QuantContext(quant, observer=obs)
     dev = next(iter(params["embed"].values())).device
-    for b in range(calib_batches):
-        tokens = torch.as_tensor(batch_fn(b)["tokens"], dtype=torch.int64, device=dev)
-        M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="train", unroll=True)
+    for batch in calibration_batches(cfg, calib_batches=calib_batches, seq_len=seq_len,
+                                     batch_size=batch_size, seed=seed, device=dev):
+        M.apply(params, batch, cfg, ctx=ctx, mode="train", unroll=True)
     return calibration.stack_tables(obs.tables())
 
 
@@ -87,8 +105,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
                     help="EOS token id; default: no EOS (token 0 is the PAD token)")
     ap.add_argument("--calib-batches", type=int, default=2,
                     help="calibration batches for the int8 static-c path")
-    ap.add_argument("--path", default="ref", choices=["ref", "fused-int8"],
-                    help="integer execution backend: plain ref GEMM or the kernels")
+    ap.add_argument("--scheduler", default="continuous", choices=["continuous", "grouped"],
+                    help="continuous slot refill mid-decode, or the grouped baseline "
+                         "(equal-length groups, drained)")
+    ap.add_argument("--path", default="ref", choices=["ref", "dequant-fp", "fused-int8"],
+                    help="integer execution backend (int8 quant): plain ref GEMM, "
+                         "dequantize + fp product, or the kernels")
     ap.add_argument("--kv-cache", default="fp", choices=["fp", "int8"])
     ap.add_argument("--cache-layout", default="dense", choices=["dense", "paged"],
                     help="dense slot table, or page pool + radix prefix reuse")
@@ -125,7 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
                           kv_cache=args.kv_cache, eos_id=args.eos_id,
                           cache_layout=args.cache_layout, speculate=args.speculate,
                           chunked=args.chunked, token_budget=args.token_budget,
-                          sparsity=args.sparsity)
+                          sparsity=args.sparsity, scheduler=args.scheduler)
     engine = ServeEngine(cfg, params, config=config, quant=quant, device=device)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
@@ -142,7 +164,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
           f"kv={args.kv_cache} layout={args.cache_layout} device={device} "
           f"occupancy={engine.occupancy():.2f} prefix_hit_rate={engine.prefix_hit_rate():.3f} "
           f"accept_rate={engine.accept_rate():.3f} tokens_per_step={engine.tokens_per_step():.3f} "
-          f"chunk_steps={engine.counters['chunk_steps']} sparsity={args.sparsity}")
+          f"chunk_steps={engine.counters['chunk_steps']} sparsity={args.sparsity} "
+          f"scheduler={args.scheduler}")
     for r in done[:4]:
         print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out={r.out[:8]}")
     return done

@@ -25,8 +25,8 @@ class QuantContext:
     """Threaded through every layer: quant behaviour + (eager) calibration.
 
     ``int_exec`` picks the backend for prepared integer linears (None/"ref" |
-    "kernel"); ``use_kernels=True`` additionally routes prefill attention of 128
-    tokens or more through the flash kernel."""
+    "dequant" | "kernel"); ``use_kernels=True`` additionally routes prefill
+    attention of 128 tokens or more through the flash kernel."""
     cfg: ql.QuantConfig
     observer: object = None
     prefix: str = ""

@@ -1,23 +1,24 @@
 """Whole-model weight quantization and N:M structured sparsity (port of
-``repro/models/quantize.py``: ``quantize_tree``, ``quantized_bytes``,
-``parse_nm``, ``SparsityPlan``, ``nm_keep_mask``, ``sparsify_tree`` and
+``repro/models/quantize.py``: ``quantize_tree``, ``dequantize_tree``,
+``fake_quantize_weights``, ``quantized_bytes``, ``parse_nm``, ``SparsityPlan``,
+``nm_keep_mask``, ``sparsify_tree``, ``make_sparsity_plan`` and
 ``sparsity_summary``), and ``with_tile_occupancy``, which routes masked leaves
 to the sparse kernel on the card.
 
 The offline PTQ step of a deployment: every quantizable linear becomes its
 prepared int8 static-c CrossQuant form (or packed int4 groups at ``w_bits <=
 4``); embeddings and norms stay fp. ``sparsify_tree`` prunes prepared or fp
-linears to N:M and attaches a bit-packed ``mask`` leaf.
+linears to N:M and attaches a bit-packed ``mask`` leaf; ``make_sparsity_plan``
+picks the linears to prune by their §4.1 quantization-kernel proportion.
 
 Stacked ``(L, d_in, d_out)`` leaves are prepared and pruned one layer at a time:
 every step is per layer, so this equals the stacked call while the f32
-temporaries stay one layer large. ``make_sparsity_plan`` (the §4.1
-kernel-proportion gate) needs ``core/kernel_analysis.py`` and is not ported yet.
+temporaries stay one layer large.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +70,70 @@ def quantize_tree(params, cfg: ql.QuantConfig,
     return convert(params, "")
 
 
+def dequantize_tree(qparams, cfg: ql.QuantConfig):
+    """Invert :func:`quantize_tree`'s *weight* quantization: every prepared linear
+    becomes ``{"w": dequant(q)/b, "cmax": ...}``, an fp tree whose weights carry
+    exactly the integer path's weight rounding.
+
+    Served with ``mode="fake", act_quant="crossquant", static_c=True,
+    w_prequantized=True`` it is the fake-quant twin of the fused int path: the
+    activation fake-quant applies the same ``t_i^α · c_j^(1-α)`` grid the kernels
+    use, so logits agree up to f32 association. Leaves prepared without
+    calibration (``qalpha == 1``) get ``cmax = 1``: their twin is per-token
+    activation quantization. Stacked leaves convert one layer at a time."""
+    def one(node):
+        b = node["bcol"]
+        if "qw" in node:
+            wb = node["qw"].to(torch.float32) * node["sw"][..., None, :]
+        else:
+            wb = ql.dequant_int4_weight(node["qw4"], node["sw"], cfg.w_group)
+        alpha = node["qalpha"][..., None]
+        denom = torch.where(alpha < 1.0, 1.0 - alpha, torch.ones_like(alpha))
+        cmax = torch.where(alpha < 1.0, b ** (1.0 / denom), torch.ones_like(b))
+        return {"w": wb / b[..., :, None], "cmax": cmax}
+
+    def convert(node):
+        if isinstance(node, dict):
+            if "qw" in node or "qw4" in node:
+                q = node.get("qw", node.get("qw4"))
+                return _per_layer(one, node) if q.ndim == 3 else one(node)
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        return node
+
+    return convert(qparams)
+
+
+def fake_quantize_weights(params, cfg: ql.QuantConfig):
+    """Offline PTQ for the fake-quant evaluation path: every quantizable linear's
+    ``w`` becomes its fake-quantized value. Serving with ``cfg.w_prequantized``
+    is then identical to in-graph weight fake quantization with no weight-quant
+    work per step."""
+    def one(w):
+        # per_channel and group scales never reach across layers (a flat group
+        # stays inside one layer when it divides d_in·d_out), so a stacked leaf
+        # quantizes one layer at a time; crossquant_w and awq take statistics
+        # over the whole leaf, as the reference does
+        per_layer = w.ndim == 3 and (cfg.w_quant == "per_channel" or (
+            cfg.w_quant == "group" and w[0].numel() % cfg.w_group == 0))
+        if per_layer:
+            return torch.stack([ql._fake_weight(wi, cfg) for wi in w])
+        return ql._fake_weight(w, cfg)
+
+    def convert(node, prefix):
+        if isinstance(node, dict):
+            if ("w" in node and prefix and prefix.split("/")[-1] in QUANTIZABLE_PARENTS
+                    and node["w"].ndim >= 2):
+                return {**node, "w": one(node["w"])}
+            return {k: convert(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v, f"{prefix}/{i}") for i, v in enumerate(node)]
+        return node
+
+    return convert(params, "")
+
+
 # --------------------------------------------------------------------------------------
 # N:M structured sparsity
 # --------------------------------------------------------------------------------------
@@ -86,13 +151,18 @@ def parse_nm(spec: str) -> Tuple[int, int]:
 
 @dataclasses.dataclass
 class SparsityPlan:
-    """Which linears to prune, and at what N:M. ``layers=None`` prunes every
-    eligible leaf; otherwise only the listed leaf paths (``blocks/0/attn/wq``).
-    The reference's plan also records the §4.1 evidence of
-    ``make_sparsity_plan``, which is not ported yet."""
+    """Which linears to prune, at what N:M, and the §4.1 evidence for the choice.
+
+    ``layers=None`` prunes every eligible leaf; otherwise only the listed leaf
+    paths (``blocks/0/attn/wq``). :func:`make_sparsity_plan` lists the layers
+    whose CrossQuant quantization-kernel proportion (``fractions``) stays at or
+    under ``threshold``: a small kernel says the activation grid already keeps
+    the layer's information, so extra weight compression is safest there."""
 
     nm: Tuple[int, int] = (2, 4)
     layers: Optional[Tuple[str, ...]] = None
+    fractions: Dict[str, float] = dataclasses.field(default_factory=dict)
+    threshold: float = 0.0
 
     def wants(self, prefix: str) -> bool:
         return self.layers is None or prefix in self.layers
@@ -182,6 +252,42 @@ def sparsify_tree(qparams, plan: SparsityPlan,
         return node
 
     return convert(qparams, "")
+
+
+def make_sparsity_plan(cfg, params, batches: Iterable, *, nm: Tuple[int, int] = (2, 4),
+                       threshold: float = 0.05, bits: int = 8, alpha: float = 0.15,
+                       ) -> SparsityPlan:
+    """Measure each linear's §4.1 quantization-kernel proportion on calibration
+    traffic and plan N:M pruning for the layers where it stays at or under
+    ``threshold``.
+
+    The proportion is ``|K(Q)| / |X|`` under the CrossQuant grid, averaged over
+    ``batches`` (dicts with ``tokens``) in an eager observer pass of fake
+    ``W8A8_CROSSQUANT`` mode (``mode="train", unroll=True``, as calibration
+    runs); a stacked leaf is gated on its **worst** layer, so one outlier-heavy
+    layer keeps the whole leaf dense."""
+    from repro_torch.core import kernel_analysis as KA
+    from repro_torch.core.calibration import stack_tables
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import QuantContext
+
+    per_name: Dict[str, list] = {}
+
+    class _Shim:
+        def observe(self, name, x):
+            x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+            frac = float(KA.crossquant_kernel_fraction(x2, bits=bits, alpha=alpha))
+            per_name.setdefault(name, []).append(frac)
+
+    ctx = QuantContext(ql.W8A8_CROSSQUANT, observer=_Shim())
+    with torch.no_grad():
+        for batch in batches:
+            M.apply(params, batch, cfg, ctx=ctx, mode="train", unroll=True)
+    stacked = stack_tables({k: np.float32(np.mean(v)) for k, v in per_name.items()})
+    fractions = {path: float(np.max(v)) for path, v in stacked.items()}
+    layers = tuple(sorted(p for p, f in fractions.items()
+                          if f <= threshold and p.split("/")[-1] in QUANTIZABLE_PARENTS))
+    return SparsityPlan(nm=nm, layers=layers, fractions=fractions, threshold=threshold)
 
 
 def with_tile_occupancy(qparams):

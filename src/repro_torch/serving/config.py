@@ -1,10 +1,11 @@
 """Validated serving configuration + engine statistics (port of
 ``repro/serving/config.py``: ``SERVE_PATHS``, ``EngineConfig``, ``EngineStats``).
 
-``EngineConfig`` keeps the reference's fields and cross-field validation, then
-rejects with :class:`NotPortedError` what this port does not serve yet: the
-grouped scheduler and the ``fake``/``dequant-fp`` paths. The dense and paged
-layouts, speculative decoding, chunked prefill and N:M sparsity are served.
+``EngineConfig`` keeps the reference's fields and cross-field validation: the
+``fp``, ``fake``, ``dequant-fp`` and ``fused-int8`` paths, the continuous and
+grouped schedulers, the dense and paged layouts, speculative decoding, chunked
+prefill and N:M sparsity are served. :meth:`EngineConfig.check_model` rejects
+with :class:`NotPortedError` the model families this port does not serve yet.
 """
 from __future__ import annotations
 
@@ -18,10 +19,10 @@ import torch
 SERVE_PATHS: Dict[Optional[str], Dict[str, Any]] = {
     None: {},
     "fp": {},
+    "fake": {},
+    "dequant-fp": {"int_exec": "dequant"},
     "fused-int8": {"int_exec": "kernel", "use_kernels": True},
 }
-#: paths the reference serves that this port does not yet
-NOT_PORTED_PATHS = ("fake", "dequant-fp")
 #: fp KV-cache dtypes by canonical name (``cache_dtype`` is stored as a name):
 #: the ones the paged kernel reads
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -30,13 +31,13 @@ SPARSITY_CHOICES = ("none", "2:4", "4:8")
 
 
 class NotPortedError(NotImplementedError):
-    """A configuration the reference engine serves but this port does not yet."""
+    """A model family the reference engine serves but this port does not yet."""
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Frozen serving configuration: the reference's fields that this port
-    serves or rejects, with the reference's defaults. ``cache_dtype`` is stored
+    serves, with the reference's defaults. ``cache_dtype`` is stored
     as a canonical dtype name (``"bfloat16"``); ``None`` follows the params."""
 
     batch_size: int
@@ -75,7 +76,7 @@ class EngineConfig:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
         if self.max_len < 1:
             raise ValueError(f"max_len must be >= 1, got {self.max_len}")
-        if self.path not in SERVE_PATHS and self.path not in NOT_PORTED_PATHS:
+        if self.path not in SERVE_PATHS:
             raise ValueError(f"unknown serving path {self.path!r}; "
                              f"pick one of {sorted(k for k in SERVE_PATHS if k)}")
         if self.kv_cache not in ("fp", "int8"):
@@ -116,15 +117,6 @@ class EngineConfig:
             if self.scheduler != "continuous":
                 raise ValueError("speculate > 1 requires the continuous "
                                  "scheduler (per-slot draft windows)")
-        not_ported = [
-            (self.path in NOT_PORTED_PATHS, f"serving path {self.path!r}"),
-            (self.scheduler == "grouped", "the grouped scheduler"),
-        ]
-        for hit, what in not_ported:
-            if hit:
-                raise NotPortedError(f"{what} is not ported yet; the port serves the "
-                                     "continuous scheduler on the dense and paged "
-                                     "layouts")
 
     def check_model(self, cfg) -> None:
         """Model-dependent validation: only dense global decoders are ported."""

@@ -1,6 +1,6 @@
 """Serving engine: admission/decode/verify step builders and the slot-table
 continuous batcher (port of ``repro/serving/engine.py``, dense and paged layouts,
-with speculative decoding).
+with speculative decoding), and the grouped baseline scheduler.
 
 ``ServeEngine`` keeps a fixed slot table of ``batch_size`` sequences with per-slot
 lengths. Requests are admitted into free slots mid-decode through length-bucketed
@@ -26,7 +26,13 @@ at most ``token_budget`` tokens: every generating slot's decode row (or draft
 window) first, then prefill chunks of admitted prompts, FIFO, ending on page
 boundaries where they can, so an admission never stalls the decodes behind a
 whole-prompt prefill. ``sparsity="2:4"|"4:8"`` prunes the served tree to N:M at
-engine build.
+engine build. ``scheduler="grouped"`` is the legacy baseline: whole-batch groups
+of one exact prompt length, drained before the next group is admitted.
+
+Under fake quantization an activation's dynamic statistics (CrossQuant's column
+max, SmoothQuant's and AWQ's columns, the remove-kernel quantile) reduce over
+every token row of a step, padding rows and idle slots included, so each step
+hands the model the rows the reference's engine does, padded the same way.
 """
 from __future__ import annotations
 
@@ -285,30 +291,39 @@ class ServeEngine:
     ``chunked=True``: admission plans pages as the paged layout does but runs no
     prefill; the admitted slot's prompt is served chunk by chunk from each step's
     leftover token budget, and its pages join the radix index at the final chunk.
-    A packed step launches only its live rows (at most ``token_budget``). A step
+    A packed step launches only its live rows (at most ``token_budget``; all of
+    them under fake quantization, as the reference does). A step
     with no prefill work, fp KV and ``speculate == 1`` runs the lean decode step
     (K4) instead of the packed launch (K6); their q_len == 1 numerics are the
     same, so tokens do not depend on the branch. int8 KV and speculative chunked
     serving stay on the packed launch, as in the reference.
 
-    ``sparsity``: every quantizable linear of the tree is pruned to N:M at build
-    (``sparsify_tree``); prepared int8 leaves gain a packed ``mask`` the fused
-    path's sparse GEMM reads, and leaves that already carry one pass through.
+    ``sparsity``: the quantizable linears of the tree are pruned to N:M at build
+    (``sparsify_tree``): those ``sparsity_plan`` lists
+    (``models.quantize.make_sparsity_plan``), or every one without a plan.
+    Prepared int8 leaves gain a packed ``mask`` the fused path's sparse GEMM
+    reads, and leaves that already carry one pass through.
     Every masked leaf's tile occupancy is derived at build
     (``with_tile_occupancy``): masks with empty tiles run K7, the rest K2.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, config: EngineConfig,
-                 quant: Optional[ql.QuantConfig] = None, device="cuda"):
+                 quant: Optional[ql.QuantConfig] = None, device="cuda",
+                 sparsity_plan: Optional[MQ.SparsityPlan] = None):
         config.check_model(cfg)
         self.config = config
         self.device = resolve_device(device)
         if _first_tensor(params).device != self.device:
             raise ValueError(f"params live on {_first_tensor(params).device}, "
                              f"engine device is {self.device}")
+        self.sparsity_plan = sparsity_plan
         if config.sparsity != "none":
-            params = MQ.sparsify_tree(params, MQ.SparsityPlan(nm=MQ.parse_nm(config.sparsity)))
+            if sparsity_plan is None:
+                self.sparsity_plan = MQ.SparsityPlan(nm=MQ.parse_nm(config.sparsity))
+            params = MQ.sparsify_tree(params, self.sparsity_plan)
         params = MQ.with_tile_occupancy(params)
+        # fake quantization couples the token rows of a step (module docstring)
+        self._rows_coupled = (quant or cfg.quant).mode == "fake"
         self.cfg, self.params = cfg, params
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id
@@ -608,10 +623,25 @@ class ServeEngine:
         same-bucket group over the whole queue (ties to the bucket whose first
         request arrived earliest), so one odd-length head-of-line request does
         not split the majority bucket behind it. Paged requests bucket by their
-        suffix after the cached prefix."""
+        suffix after the cached prefix. The grouped scheduler admits only into
+        an empty table: the queue head's exact length, unpadded, and every
+        queued request of that length that fits."""
         while self.queue:
             free = [i for i, s in enumerate(self._slots) if s is None]
             if not free:
+                return
+            if self.config.scheduler == "grouped":
+                # whole-batch groups of one exact length, drained to completion
+                # before the next group starts
+                if len(free) < self.B:
+                    return
+                length = len(self.queue[0].prompt)
+                batch, rest = [], []
+                for r in self.queue:
+                    (batch if len(batch) < len(free) and len(r.prompt) == length
+                     else rest).append(r)
+                self.queue = rest
+                self._admit_dense_batch(batch, length, free, finished)
                 return
             groups: dict = {}
             first: dict = {}
@@ -811,12 +841,15 @@ class ServeEngine:
             slot_ids[off: off + end - start] = i
             q_start[i], q_len[i], kv_len[i] = off, end - start, end
             off += end - start
+        # the live rows only, unless the rows are coupled: then all Nt, as the
+        # reference launches them
+        n = Nt if self._rows_coupled else off
         dev = self.device
         as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         tok, rowmax, self.caches = self._chunk_step(
-            self.params, torch.as_tensor(toks[None, :off], dtype=torch.int64, device=dev),
-            as_dev(q_start), as_dev(q_len), as_dev(kv_len), as_dev(positions[:off]),
-            as_dev(slot_ids[:off]), self.caches, self._gen)
+            self.params, torch.as_tensor(toks[None, :n], dtype=torch.int64, device=dev),
+            as_dev(q_start), as_dev(q_len), as_dev(kv_len), as_dev(positions[:n]),
+            as_dev(slot_ids[:n]), self.caches, self._gen)
         tok, rowmax = tok.cpu().numpy(), rowmax.cpu().numpy()
         self.counters["chunk_steps"] += 1
         self.counters["chunk_decode_rows"] += int(sum(wl[i] for i in gen))

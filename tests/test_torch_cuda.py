@@ -883,3 +883,47 @@ def test_qgemm_w8a8_sparse_graph_replay(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------- fake / dequant paths
+# (plain torch, no hand-written kernel: the card must give the CPU's answer)
+
+def test_kernel_analysis_past_2_24_matches_cpu(dev):
+    """The §4.1 kernel count and the remove-kernel quantile on the card equal the
+    CPU's on a tensor of more than 2^24 elements (a full-width prefill's down
+    projection input)."""
+    from repro_torch.core import kernel_analysis as KA, quantizers as Q
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn(4, 450, 9400, generator=g) * torch.exp(torch.randn(9400, generator=g))
+    assert x.numel() > 1 << 24
+    xd = x.to(dev)
+    scale = Q.crossquant_scale(x, 8, 0.15)
+    assert int(KA.kernel_count(xd, scale.to(dev))) == int(KA.kernel_count(x, scale))
+    assert float(KA.kernel_fraction(xd, scale.to(dev))) == float(KA.kernel_fraction(x, scale))
+    for frac in (0.1, 0.5):
+        got = KA.remove_kernel_fraction(xd, frac)
+        assert torch.equal(got.cpu(), KA.remove_kernel_fraction(x, frac))
+
+
+def test_fake_and_dequant_linear_match_cpu(dev):
+    from repro_torch.core import qlinear as ql
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn(4, 33, 512, generator=g) * torch.exp(torch.randn(512, generator=g))
+    p = {"w": torch.randn(512, 768, generator=g) * 512 ** -0.5}
+    pd = {k: v.to(dev) for k, v in p.items()}
+    ops, _ = _ops()
+    ops.reset_launches()
+    for cfg in (ql.W8A8_PER_TOKEN, ql.W8A8_CROSSQUANT, ql.W4A8_G128):
+        got = ql.apply(pd, x.to(dev), cfg).cpu()
+        want = ql.apply(p, x, cfg)
+        assert float((got - want).norm() / want.norm()) <= (2e-6 if cfg is ql.W8A8_PER_TOKEN
+                                                            else 2e-3)
+    # dequant-fp: uncalibrated (α = 1, no pow) to f32 association, calibrated
+    # (t^0.15 in the row scale, where CUDA's and the CPU's pow may part by an ulp)
+    for cmax, tol in ((None, 2e-6), (x.abs().amax(dim=(0, 1)), 2e-3)):
+        prep = ql.prepare_int8(p, ql.W8A8_INT8, cmax=cmax)
+        got = ql.apply({k: v.to(dev) for k, v in prep.items()}, x.to(dev), ql.W8A8_INT8,
+                       int_exec="dequant").cpu()
+        want = ql.apply(prep, x, ql.W8A8_INT8, int_exec="dequant")
+        assert float((got - want).norm() / want.norm()) <= tol
+    assert all(n == 0 for n in ops.LAUNCHES.values())     # no hand-written kernel ran

@@ -177,12 +177,26 @@ def test_seeded_temperature_serving_is_reproducible(small):
 
 @pytest.mark.parametrize("kw", [dict(scheduler="grouped"), dict(path="dequant-fp"),
                                 dict(path="fake")])
-def test_unported_configs_raise_typed(kw):
-    with pytest.raises(NotPortedError):
-        EngineConfig(batch_size=2, max_len=32, **kw)
+def test_unported_configs_raise_typed(small, kw):
+    """The three configurations this port once refused with ``NotPortedError`` now
+    build and serve a request on the CPU (token parity: tests/test_torch_fake.py):
+    the grouped scheduler and dequant-fp on the int8 tree, fake on the raw tree."""
+    _, cfg_t, _, tparams = small
+    if kw.get("path") == "fake":
+        tree, quant = convert.params_from_numpy(jax.tree_util.tree_map(
+            np.asarray, JM.init_params(jax.random.PRNGKey(0), small[0])),
+            device="cpu"), tql.W8A8_CROSSQUANT
+    else:
+        tree, quant = tparams, tql.W8A8_INT8
+    eng = TE.ServeEngine(cfg_t, tree, quant=quant, device="cpu",
+                         config=EngineConfig(batch_size=2, max_len=32, **kw))
+    eng.submit([np.arange(1, 8, dtype=np.int32)], max_new=3)
+    done = eng.run()
+    assert len(done) == 1 and len(done[0].out) == 3
+    assert all(0 <= t < cfg_t.vocab for t in done[0].out)
 
 
 def test_unported_family_raises():
     for arch in ("gemma2-9b", "mamba2-130m", "granite-moe-3b-a800m"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotPortedError):
             EngineConfig(batch_size=2, max_len=32).check_model(tget(arch, smoke=True))
