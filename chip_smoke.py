@@ -41,6 +41,12 @@ Phases (any failure raises and exits non-zero):
    2048 x the four linears, its decode, wgmma and tile bodies f32-close eagerly
    and under graph replay and timed side by side; a body the plan routes to
    must have beaten the tile body.
+   The dense zoo's shapes: K3 at gemma2-9b's local layers (S=4608, D=256, window
+   4096, softcap 50) and at hubert-xlarge's encoder (D=80, not causal, both bodies,
+   SDPA with a boolean mask beside it); K4, K5 and K6 at gemma2's local layers over
+   an int8 pool where the leading split partitions lie wholly behind the window;
+   K2 at nemotron-4-15b's untied head (K=6144, N=256000, M=4 and 128) on weights
+   prepared on the fly, with torch._int_mm beside it.
    bf16 outputs (K3, K4-K6 with bf16 q) pass where within 2e-2 of the plain
    version or within one bf16 ulp of it rounded to bf16.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
@@ -77,6 +83,16 @@ Phases (any failure raises and exits non-zero):
    the block-sparse and of the W4A8 one print the device-busy share, the longest
    device ops, K1's, K2's, K7's and K8's device time per step, the host ops with
    the most self time, and kernel launches and host syncs per step.
+   Then the rest of the dense zoo, each model's trees freed before the next, with
+   its peak device memory: gemma2-9b FULL (42 layers, local/global attention with
+   softcaps) calibrated, quantized and served fused-int8 dense (fp KV), paged with
+   int8 KV over a 4600- and a 300-token prompt at max_len 8192 (the window binds in
+   K3 and K4) and chunked (int8 KV, budget 512, K6 past the window);
+   nemotron-4-15b at full width cut to 8 of its 32 layers (calibration needs the f32
+   tree), whose untied head is prepared on the fly every step (one more K1 and K2
+   per model step; its cost printed beside a tied twin); hubert-xlarge FULL through
+   ``make_prefill_step`` over 4 x 512 seeded frames (K3 at D=80, not causal), its
+   logits held against dequant-fp's. Each with launch counts per body.
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
@@ -94,7 +110,16 @@ Phases (any failure raises and exits non-zero):
    int8 KV) and the grouped scheduler through the engine; and
    ``make_sparsity_plan``'s per-linear fractions within 1e-6 of the CPU's over
    the same activations (the card's observer pass replayed into the CPU's plan;
-   the CPU's own forward pass printed beside).
+   the CPU's own forward pass printed beside). The zoo at 2 layers, card against
+   CPU: gemma2-9b with its window cut to 48 (dense, paged ≡ dense, chunked fp and
+   int8 KV, chunked fp ≡ bucketed, bf16 paged under the self-calibrated bar, and
+   speculate=4 ≡ 1 on the card), deepseek-coder-33b (a prefill and 8 decode steps,
+   and a chunked engine on the card whose packed steps launch all token_budget rows
+   into the on-the-fly head), pixtral-12b (a 320-token prefill whose first 256
+   positions are bf16 patch embeddings, 4 decode steps) and hubert-xlarge (encoder
+   logits). The untied heads' runs feed the CPU the card's tokens and hubert's
+   compare position by position: greedy choices equal wherever the CPU's top-1/
+   top-2 margin exceeds twice the largest logit gap.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -211,6 +236,14 @@ def empty_odd_k_tiles(tree) -> None:
 
 #: the quantizable linears of a starcoder2 layer, in the order a forward pass calls them
 KINDS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/up", "mlp/down")
+
+
+def linear_shapes(cfg):
+    """(K, N) of a layer's quantized linears in the order a forward pass calls them:
+    wq, wk, wv, wo, up, gate (GLU activations only), down."""
+    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    glu = [(d, cfg.d_ff)] if cfg.act.endswith("_glu") else []
+    return [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, cfg.d_ff)] + glu + [(cfg.d_ff, d)]
 
 
 def recorded_plan(make_plan, KA, cfg, params, batches, **kw):
@@ -1031,6 +1064,229 @@ def main() -> int:
                   f"(tol 2e-4*|plain| + 1e-5*max|plain|, every body, eager and graph replay)")
             del qws
 
+    # The dense zoo's new shapes, from a generator of their own so every case above
+    # keeps its inputs. K3 at gemma2-9b's local layers (D = 256, window 4096, softcap
+    # 50; no PyTorch call computes a softcap) and at hubert-xlarge's encoder (D = 80,
+    # not causal; SDPA with a boolean mask beside it); K4, K5 and K6 at gemma2's
+    # local layers over an int8 pool, where the leading split partitions of the long
+    # slot lie wholly behind the window; K2 at nemotron-4-15b's untied head (K =
+    # 6144, N = 256000) on weights prepared on the fly from a seeded f32 head, as
+    # ``mode="int8"`` serves it. Bounds count the keys each row can see.
+    gz = torch.Generator(device=dev)
+    gz.manual_seed(1909)
+
+    def visible_keys(S, kv_lens, causal, window):
+        """(per-(batch, row) visible key counts (B, S), whether each row has one)."""
+        i = np.arange(S)[None, :]
+        kv = np.asarray(kv_lens)[:, None]
+        if not causal:
+            n = np.broadcast_to(kv, (len(kv_lens), S))
+        else:
+            lo = np.zeros_like(i) if window is None else np.maximum(i - window + 1, 0)
+            n = np.maximum(np.minimum(i, kv - 1) - lo + 1, 0)
+        return n, n > 0
+
+    zoo_flash = [("gemma2 local", torch.bfloat16, 2, 16, 8, 4608, 256, [4608, 300], True, 4096,
+                  50.0),
+                 ("hubert", torch.bfloat16, 4, 16, 16, 512, 80, [512, 400, 130, 1], False, None,
+                  None),
+                 ("hubert", torch.float32, 4, 16, 16, 512, 80, [512, 400, 130, 1], False, None,
+                  None)]
+    for label, dtype, B, H, Hkv, S, D, kvl_list, causal, window, softcap in zoo_flash:
+        pk = "bf16" if dtype == torch.bfloat16 else "f32"
+        q = torch.randn(B, H, S, D, generator=gz, device=dev).to(dtype)
+        k = torch.randn(B, Hkv, S, D, generator=gz, device=dev).to(dtype)
+        v = torch.randn(B, Hkv, S, D, generator=gz, device=dev).to(dtype)
+        kv_len = torch.tensor(kvl_list, device=dev, dtype=torch.int32)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        body = f"flash_attention/{'bf16_mma' if dtype == torch.bfloat16 else 'f32'}"
+        before = ops.BODY_LAUNCHES[body]
+        out = ops.flash_attention(q, k, v, kv_len, **kw)
+        check(ops.BODY_LAUNCHES[body] == before + 1, f"flash_attention {label} {pk} ran {body}")
+        want = ref.flash_attention_ref(q, k, v, kv_len, **kw)
+        torch.cuda.synchronize()
+        n_vis, has = visible_keys(S, kvl_list, causal, window)
+        rows = torch.as_tensor(has, device=dev)[:, None, :, None].expand_as(out)
+        check(bool(torch.isfinite(out.float()).all()), f"flash_attention {label}: non-finite")
+        err = float((out.float() - want.float()).abs()[rows].max())
+        if dtype == torch.bfloat16:
+            ok, n_ulp = bf16_bar(out[rows], want[rows])
+            check(ok, f"flash_attention {label} bf16: max err {err} beyond 2e-2 or one bf16 ulp")
+        else:
+            n_ulp = 0
+            check(err <= 1e-4, f"flash_attention {label} f32: max err {err} > 1e-4")
+        fa = once(lambda: ops.flash_attention(q, k, v, kv_len, **kw))
+        ms = graph_ms(fa, 10)
+        cms = time_ms(fa, 10)
+        pms = time_ms(once(lambda: ref.flash_attention_ref(q, k, v, kv_len, **kw)), 2)
+        lms = None
+        if softcap is None and window is None and not causal:
+            mask = (torch.arange(S, device=dev)[None, None, None, :]
+                    < kv_len.view(-1, 1, 1, 1)).expand(B, 1, S, S)
+            lms = graph_ms(lambda i=0: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), 10)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * B
+        bms, by = bound(nbytes, 4 * D * H * float(n_vis.sum()), PEAK_OPS[pk])
+        results[("flash_attention", label, pk)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
+            max_abs_err=err)
+        lib = "None" if lms is None else f"{lms:.4f} (sdpa, boolean mask)"
+        print(f"[3] flash_attention ({body}) {label}: B={B} H={H}/{Hkv} S={S} D={D} {pk} "
+              f"causal={causal} window={window} softcap={softcap} kv_len={kvl_list}: "
+              f"kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} library_ms={lib} "
+              f"bound_ms={bms:.4f} ({by}) max_abs_err={err:.2e} (rows with a visible key)"
+              + (f" tol 2e-2 or one bf16 ulp ({n_ulp} by the ulp)" if pk == "bf16"
+                 else " tol 1e-4"))
+        del q, k, v, out, want
+
+    # K4 / K5 / K6 at gemma2-9b's local layers: bf16 q, int8 pool + f32 scales, ps 16,
+    # a max_len 8192 table; slot 0 holds 4616 positions, of which the first 520 are
+    # behind the window
+    from repro_torch.kernels.paged_attention import split_plan
+    Hkv_g, G_g, D_g, ps_g, W_g = 8, 2, 256, 16, 4
+    kv_g = [4616, 317]
+    maxP_g = 8192 // ps_g
+    n_parts_g, part_len_g = split_plan(maxP_g, ps_g)
+    behind = sum((p + 1) * part_len_g <= kv_g[0] - 4096 for p in range(n_parts_g))
+    check(behind >= 1, f"gemma2 paged case: no split partition ({n_parts_g} of {part_len_g}) "
+          f"lies wholly behind the window")
+    P_g = sum(-(-n // ps_g) for n in kv_g) + 8
+    tab_g = torch.full((2, maxP_g), P_g, dtype=torch.int32, device=dev)
+    perm_g = torch.randperm(P_g, generator=gz, device=dev).to(torch.int32)
+    off = 0
+    for b, n in enumerate(kv_g):
+        n = -(-n // ps_g)
+        tab_g[b, :n] = perm_g[off: off + n]
+        off += n
+    shape_g = (P_g, ps_g, Hkv_g, D_g)
+    kp_g = torch.randint(-127, 128, shape_g, generator=gz, device=dev, dtype=torch.int8)
+    vp_g = torch.randint(-127, 128, shape_g, generator=gz, device=dev, dtype=torch.int8)
+    ks_g = torch.rand(shape_g[:3] + (1,), generator=gz, device=dev) * 0.05 + 2e-3
+    vs_g = torch.rand(shape_g[:3] + (1,), generator=gz, device=dev) * 0.05 + 2e-3
+    kv_len_g = torch.tensor(kv_g, device=dev, dtype=torch.int32)
+    kw_g = dict(k_scale_pages=ks_g, v_scale_pages=vs_g, window=4096, softcap=50.0)
+    row_bytes_g = Hkv_g * D_g * 2 + 8 * Hkv_g          # int8 K and V rows, two f32 scales
+    q_g = torch.randn(2, 1, Hkv_g * G_g, D_g, generator=gz, device=dev).to(torch.bfloat16)
+    qw_g = torch.randn(2, W_g, Hkv_g * G_g, D_g, generator=gz, device=dev).to(torch.bfloat16)
+    qln_g = torch.tensor([4, 3], device=dev, dtype=torch.int32)
+    # K6: the long slot's 200-row chunk ending at 4616 beside the short slot's decode row
+    rq_g, rkv_g = [200, 1], [4616, 317]
+    Nt_g = sum(rq_g)
+    qr_g = torch.randn(Nt_g, Hkv_g * G_g, D_g, generator=gz, device=dev).to(torch.bfloat16)
+    kn_g = torch.randn(Nt_g, Hkv_g, D_g, generator=gz, device=dev).to(torch.bfloat16)
+    vn_g = torch.randn(Nt_g, Hkv_g, D_g, generator=gz, device=dev).to(torch.bfloat16)
+    rqs_g = torch.tensor([0, rq_g[0]], device=dev, dtype=torch.int32)
+    rql_g = torch.tensor(rq_g, device=dev, dtype=torch.int32)
+    rkl_g = torch.tensor(rkv_g, device=dev, dtype=torch.int32)
+
+    def win_keys(pos):                      # keys a query at ``pos`` sees: window 4096
+        return min(pos + 1, 4096)
+
+    # per case: (wrapper, id, kernel call, plain call, query positions, pool rows some
+    # query sees: a decode row at p sees (p - 4096, p], a window of w rows ending at
+    # kv_len - 1 the union of theirs; a K6 chunk reads only positions before it)
+
+    zoo_paged = [
+        ("paged_decode_attention", "K4",
+         lambda: ops.paged_decode_attention(q_g, kp_g, vp_g, tab_g, kv_len_g, **kw_g),
+         lambda: ref.paged_decode_attention_ref(q_g.reshape(2, Hkv_g, G_g, D_g), kp_g, vp_g,
+                                                tab_g, kv_len_g, **kw_g).reshape(q_g.shape),
+         [n - 1 for n in kv_g], sum(min(n, 4096) for n in kv_g)),
+        ("paged_verify_attention", "K5",
+         lambda: ops.paged_verify_attention(qw_g, kp_g, vp_g, tab_g, kv_len_g, qln_g, **kw_g),
+         lambda: ref.paged_verify_attention_ref(
+             qw_g.reshape(2, W_g, Hkv_g, G_g, D_g).permute(0, 2, 1, 3, 4), kp_g, vp_g, tab_g,
+             kv_len_g, qln_g, **kw_g).permute(0, 2, 1, 3, 4).reshape(qw_g.shape),
+         [n - w + i for n, w in zip(kv_g, (4, 3)) for i in range(w)],
+         sum(min(n, 4095 + w) for n, w in zip(kv_g, (4, 3)))),
+        ("ragged_prefill_attention", "K6",
+         lambda: ops.ragged_prefill_attention(qr_g, kn_g, vn_g, kp_g, vp_g, tab_g, rqs_g, rql_g,
+                                              rkl_g, chunk_cap=Nt_g, **kw_g),
+         lambda: ref.ragged_prefill_attention_ref(
+             qr_g.reshape(Nt_g, Hkv_g, G_g, D_g), kn_g, vn_g, kp_g, vp_g, tab_g, rqs_g, rql_g,
+             rkl_g, chunk_cap=Nt_g, **kw_g).reshape(qr_g.shape),
+         [n - w + i for n, w in zip(rkv_g, rq_g) for i in range(w)],
+         sum(min(n - w, 4095) for n, w in zip(rkv_g, rq_g))),
+    ]
+    for name, kid, call, plain, q_pos, pool_rows in zoo_paged:
+        before = ops.BODY_LAUNCHES["paged_attention/bf16_mma"]
+        out = call()
+        want = plain()
+        torch.cuda.synchronize()
+        check(ops.BODY_LAUNCHES["paged_attention/bf16_mma"] > before,
+              f"{name} gemma2: did not run the split bf16 body")
+        check(bool(torch.isfinite(out.float()).all()), f"{name} gemma2: non-finite output")
+        if name == "paged_verify_attention":
+            valid = (torch.arange(W_g, device=dev)[None, :] < qln_g[:, None])
+            o, w = out[valid], want[valid]
+        else:
+            o, w = out, want
+        err = float((o.float() - w.float()).abs().max())
+        ok, n_ulp = bf16_bar(o, w)
+        check(ok, f"{name} gemma2 window case: max err {err} beyond 2e-2 or one bf16 ulp")
+        ms = graph_ms(once(call), 20)
+        cms = time_ms(once(call), 20)
+        pms = graph_ms(once(plain), 2)
+        q_rows = out.numel() // (Hkv_g * G_g * D_g)
+        flops = 4 * G_g * D_g * Hkv_g * sum(win_keys(p) for p in q_pos)
+        nbytes = (pool_rows * row_bytes_g + 2 * out.numel() * 2 + tab_g.numel() * 4 + 16
+                  + (2 * kn_g.numel() * 2 if kid == "K6" else 0))
+        bms, by = bound(nbytes, flops, PEAK_OPS["bf16"])
+        results[(name, "gemma2 local")] = dict(ms=ms, call_ms=cms, plain_ms=pms, library_ms=None,
+                                              bound_ms=bms, bound_by=by, max_abs_err=err)
+        print(f"[3] {name} ({kid}, bf16_mma body) gemma2 local: H={Hkv_g * G_g}/{Hkv_g} D={D_g} "
+              f"ps={ps_g} q bf16 pool int8 window=4096 softcap=50 kv_len={kv_g} ({q_rows} query "
+              f"rows; split {n_parts_g} x {part_len_g}, {behind} partitions wholly behind the "
+              f"window): kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} library_ms=None "
+              f"bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol 2e-2 or one bf16 ulp "
+              f"({n_ulp} by the ulp)")
+    del kp_g, vp_g, ks_g, vs_g
+
+    # K2 at nemotron-4-15b's untied head: the fp head prepared on the fly from the
+    # column max of the step's rows (bf16 activations), then K1 and K2, as
+    # ``mode="int8"`` runs it every step
+    Kh, Nh = 6144, 256000
+    w_head = torch.randn(Kh, Nh, generator=gz, device=dev) * Kh ** -0.5
+    for Mr in (4, 128):
+        xh = (torch.randn(Mr, Kh, generator=gz, device=dev) * 2).to(torch.bfloat16)
+        prep = ql.prepare_int8({"w": w_head}, ql.W8A8_INT8, cmax=ql._col_absmax(xh),
+                               jitted=True)
+        qx, a = ops.act_quantize(xh, prep["bcol"], prep["qalpha"])
+        qw, sw = prep["qw"], prep["sw"]
+        del prep
+        routed, _ = qgemm_w8a8_plan(Mr, Kh, Nh)
+        before = ops.BODY_LAUNCHES[f"qgemm_w8a8/{routed}"]
+        out = ops.qgemm_w8a8(qx, qw, a, sw)
+        check(ops.BODY_LAUNCHES[f"qgemm_w8a8/{routed}"] == before + 1,
+              f"qgemm_w8a8 head M={Mr}: did not run the {routed} body")
+        errs = []
+        for n0 in range(0, Nh, 32000):
+            want = ref.qgemm_w8a8_ref(qx, qw[:, n0:n0 + 32000], a, sw[n0:n0 + 32000])
+            errs.append(float((out[:, n0:n0 + 32000] - want).abs().max()))
+            check(torch.equal(out[:, n0:n0 + 32000], want),
+                  f"qgemm_w8a8 head M={Mr} columns {n0}+: not bitwise ({errs[-1]})")
+        del want
+        ms = graph_ms(once(lambda: ops.qgemm_w8a8(qx, qw, a, sw)), 10)
+        cms = time_ms(once(lambda: ops.qgemm_w8a8(qx, qw, a, sw)), 10)
+        pms = time_ms(once(lambda: ref.qgemm_w8a8_ref(qx, qw, a, sw)), 1)
+        Mp = max(Mr, 32)
+        qxp = torch.zeros(Mp, Kh, dtype=torch.int8, device=dev)
+        qxp[:Mr] = qx
+        lms = graph_ms(lambda i=0: torch._int_mm(qxp, qw), 10)
+        nbytes = Mr * Kh + Kh * Nh + Mr * 4 + Nh * 4 + Mr * Nh * 4
+        bms, by = bound(nbytes, 2 * Mr * Nh * Kh, PEAK_OPS["int8"])
+        results[("qgemm_w8a8", "head", Mr)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
+            max_abs_err=max(errs))
+        print(f"[3] qgemm_w8a8 nemotron head M={Mr} K={Kh} N={Nh} (weights prepared on the fly, "
+              f"{-(-Nh // 128)} column tiles): routed to the {routed} body kernel_ms={ms:.4f} "
+              f"call_ms={cms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} (torch._int_mm"
+              f"{f', M padded to {Mp}' if Mp != Mr else ''}) bound_ms={bms:.4f} ({by}) "
+              f"bitwise=True GB/s={nbytes / ms / 1e6:.0f}")
+        del qx, a, qw, sw, out, qxp
+    del w_head
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- phase 4
     print(f"[4] start at {time.perf_counter() - t_start:.1f}s")
     cfg = get("starcoder2-7b")
@@ -1058,15 +1314,13 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     check(min(LENS) >= 128, "every prompt's bucket reaches the flash kernel")
     prompts = make_prompts(cfg.vocab, LENS, len(LENS), seed=0)
-    per_layer = 6                                   # wq wk wv wo up down
-    d, hd, kvd = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    linears = [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, cfg.d_ff), (cfg.d_ff, d)]
+    linears = linear_shapes(cfg)                    # wq wk wv wo up down
     launches = {name: 0 for name in ops.LAUNCHES}
     body_launches = {name: 0 for name in ops.BODY_LAUNCHES}
-    e2e = {}
+    e2e, call_ms = {}, {}
 
     def serve(label: str, reqs, tree=None, q=quant, gemm="qgemm_w8a8", path="fused-int8",
-              plan=None, max_new=MAX_NEW, **kw):
+              plan=None, max_new=MAX_NEW, model=None, **kw):
         """One serving run of ``reqs`` at full width and depth. The kernel counts are
         zeroed just before the run and read just after, and must equal what its
         schedule implies. On the ``fake`` and ``dequant-fp`` paths the linears are
@@ -1086,10 +1340,17 @@ def main() -> int:
         pure-decode step, and no flash launch. A chunked engine with fp KV and
         speculate=1 serves its decode-only steps (the traffic ends in a decode-only
         tail) through the decode step, one with int8 KV never does. ``plan``: the
-        engine's ``sparsity_plan``."""
+        engine's ``sparsity_plan``. ``model``: (cfg, linears per layer, head, batch
+        size, max_len) of another model than starcoder2-7b, whose prepared tree is
+        ``tree``; every count above then scales with its layers and linears, and an
+        untied head (``head``: its (K, N), prepared on the fly) adds one K1 and one
+        K2 launch per model step, on the bodies its rows give (a prefill's last
+        positions, every row of the other steps)."""
         kernels = path == "fused-int8"
-        engine = ServeEngine(cfg, qparams if tree is None else tree, quant=q, device=dev,
-                             config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
+        mcfg, mlinears, mhead, mbatch, mmax_len = model or (cfg, linears, None, BATCH,
+                                                            MAX_LEN)
+        engine = ServeEngine(mcfg, qparams if tree is None else tree, quant=q, device=dev,
+                             config=EngineConfig(batch_size=mbatch, max_len=mmax_len,
                                                  path=path, **kw), sparsity_plan=plan)
         cold_buckets = []                      # flash serves cold prefills only
         attr = "_admit_cold" if engine.paged else "_admit_step"
@@ -1101,6 +1362,7 @@ def main() -> int:
 
         setattr(engine, attr, counted)
         step_rows, step_ms = [], []            # every model step's token rows (GEMM M), wall ms
+        head_rows = []                         # the rows the head sees: the last ones at prefill
         apply = M.apply
 
         def apply_counted(p, inputs, *rest, **kw):
@@ -1108,6 +1370,8 @@ def main() -> int:
             out = apply(p, inputs, *rest, **kw)
             torch.cuda.synchronize()               # the engine syncs each step for its tokens
             step_rows.append(inputs["tokens"].numel())
+            head_rows.append(inputs["tokens"].shape[0] if kw.get("mode") == "prefill"
+                             else inputs["tokens"].numel())
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
@@ -1125,7 +1389,7 @@ def main() -> int:
         counts = dict(ops.LAUNCHES)
         bodies = dict(ops.BODY_LAUNCHES)
         c = engine.counters
-        L = cfg.n_layers
+        L = mcfg.n_layers
         if engine.chunked:
             steps = c["chunk_steps"] + c["chunk_decode_only_steps"]
             k4_expected = engine.spec == 1 and not engine.kv_int8
@@ -1137,10 +1401,11 @@ def main() -> int:
         n_tok = sum(len(r.out) for r in done)
         check(len(done) == len(reqs) and all(len(r.out) == max_new for r in done),
               f"{label}: every request gets {max_new} tokens")
-        check(all(0 <= t < cfg.vocab for r in done for t in r.out), f"{label}: token ids")
+        check(all(0 <= t < mcfg.vocab for r in done for t in r.out), f"{label}: token ids")
         want = {name: 0 for name in ops.LAUNCHES}
+        per_step = len(mlinears) * L + (mhead is not None)
         if kernels:
-            want.update({"act_quantize": per_layer * L * steps, gemm: per_layer * L * steps})
+            want.update({"act_quantize": per_step * steps, gemm: per_step * steps})
         if engine.chunked:
             want["ragged_prefill_attention"] = L * c["chunk_steps"]
             want["paged_decode_attention"] = L * c["chunk_decode_only_steps"]
@@ -1158,8 +1423,12 @@ def main() -> int:
         check(counts[gemm] > 0 or not kernels, f"{label}: no {gemm} launch")
         check(len(step_rows) == steps, f"{label}: {len(step_rows)} model calls != {steps} steps")
         want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
-        for rows in step_rows if kernels else ():
-            for K, N in linears:
+        for rows, hrows in zip(step_rows, head_rows) if kernels else ():
+            if mhead is not None:
+                K, N = mhead
+                want_bodies[f"act_quantize/{act_quantize_plan(hrows, K)[0]}"] += 1
+                want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(hrows, K, N)[0]}"] += 1
+            for K, N in mlinears:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
                 if gemm == "qgemm_w8a8":
                     want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
@@ -1182,6 +1451,7 @@ def main() -> int:
         e2e[label] = n_tok / dt
         small = [t for r, t in zip(step_rows, step_ms) if r <= DECODE_MAX_M]
         large = [t for r, t in zip(step_rows, step_ms) if r > DECODE_MAX_M]
+        call_ms[label] = float(np.median(small)) if small else None
         med = lambda x: f"{float(np.median(x)):.1f}" if x else "-"  # noqa: E731
         print(f"[4]   {label}: model call wall ms (synchronised), median of {len(small)} "
               f"with <= {DECODE_MAX_M} token rows {med(small)}, of {len(large)} larger "
@@ -1550,6 +1820,177 @@ def main() -> int:
     del engine, qparams
     torch.cuda.empty_cache()
 
+    # The rest of the dense zoo at full width, each model's trees freed before the
+    # next. gemma2-9b FULL (42 layers: 21 local, 21 global; window 4096, softcaps 50
+    # and 30): calibrated with the launcher's traffic, W8A8 static-c CrossQuant, served
+    # fused-int8 on the dense layout (fp KV, 4 prompts of 130-450 tokens: the window
+    # does not bind), paged with int8 KV at max_len 8192 over a 4600- and a 300-token
+    # prompt (the window binds: the local layers mask keys older than 4096 in K3 at
+    # the cold admission and in K4 at every decode step) and chunked (int8 KV, budget
+    # 512: the long prompt in 9 chunks, K6 past 4096 in the later ones)
+    print(f"[4z] start at {time.perf_counter() - t_start:.1f}s")
+    t_zoo = time.perf_counter()
+    from repro_torch.core import calibration as calib_lib
+    from repro_torch.serving.config import NotPortedError
+    from repro_torch.serving.engine import make_prefill_step
+
+    def build(name, seed, frames=0, **cut):
+        """A FULL config (cut by ``cut``: depth, dtype, window), its f32 tree from a
+        seeded generator on the card, calibrated with the launcher's traffic (an
+        audio model: 2 batches of 4 x ``frames`` seeded frames) and quantized to
+        W8A8 static-c CrossQuant; the f32 tree is freed. Returns (cfg, W8A8 tree)."""
+        c = dataclasses.replace(get(name), **cut)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        params = M.init_params(g, c, device=dev)
+        fp_b = quantized_bytes(params)
+        if frames:
+            obs = calib_lib.Observer()
+            with torch.no_grad():
+                for _ in range(2):
+                    fr = torch.randn(BATCH, frames, c.frontend_dim, generator=g, device=dev)
+                    M.apply(params, {"frames": fr}, c, ctx=QuantContext(quant, observer=obs),
+                            mode="train", unroll=True)
+            tables_ = calib_lib.stack_tables(obs.tables())
+        else:
+            tables_ = calibrate(params, c, quant, calib_batches=2, seq_len=16,
+                                batch_size=BATCH, seed=seed)
+        qtree = quantize_tree(params, quant, tables=tables_)
+        del params, tables_
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[4z] {c.name}: {c.n_layers} layers d_model={c.d_model} heads={c.n_heads}/"
+              f"{c.n_kv_heads}x{c.head_dim} d_ff={c.d_ff} vocab={c.vocab} tied="
+              f"{c.tie_embeddings} {c.dtype} params={fp_b / 4 / 1e9:.2f}B: init+calibrate"
+              f"{'(frames)' if frames else ''}+PTQ {time.perf_counter() - t0:.1f}s, f32 "
+              f"{fp_b / 2**30:.2f} GiB -> W8A8 {quantized_bytes(qtree) / 2**30:.2f} GiB; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return c, qtree
+
+    cfg_g, qparams_g = build("gemma2-9b", 9)
+    check(cfg_g.n_layers == 42 and cfg_g.d_model == 3584 and cfg_g.head_dim == 256
+          and cfg_g.window == 4096 and cfg_g.attn_softcap == 50.0
+          and cfg_g.final_softcap == 30.0 and cfg_g.layer_pattern == "local_global",
+          "gemma2-9b FULL config")
+    model_g = (cfg_g, linear_shapes(cfg_g), None, BATCH, MAX_LEN)
+    serve("gemma2-9b dense fused-int8 kv=fp", make_prompts(cfg_g.vocab, LENS[:BATCH], BATCH,
+                                                          seed=9),
+          tree=qparams_g, model=model_g, kv_cache="fp")
+    long_g = make_prompts(cfg_g.vocab, [4600, 300], 2, seed=10)
+    model_gl = (cfg_g, linear_shapes(cfg_g), None, 2, 8192)
+    engine, _ = serve("gemma2-9b paged fused-int8 kv=int8 long context", long_g,
+                      tree=qparams_g, model=model_gl, kv_cache="int8", cache_layout="paged",
+                      page_size=16)
+    engine.pool.check()
+    del engine
+    engine, _ = serve("gemma2-9b chunked fused-int8 kv=int8 long context", long_g,
+                      tree=qparams_g, model=model_gl, kv_cache="int8", cache_layout="paged",
+                      page_size=16, chunked=True, token_budget=512)
+    c = engine.counters
+    check(c["chunk_prefill_rows"] == 4900 and c["chunk_steps"] >= 9,
+          f"gemma2 chunked: {c['chunk_prefill_rows']} prefill rows in {c['chunk_steps']} steps")
+    print(f"[4z]   gemma2-9b chunked: chunk_steps={c['chunk_steps']} chunk_prefill_rows="
+          f"{c['chunk_prefill_rows']} decode_steps={c['decode_steps']}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine, qparams_g
+    torch.cuda.empty_cache()
+
+    # nemotron-4-15b at full width, depth cut to 8 of 32 layers (calibration needs the
+    # f32 tree: 62 GB at full depth): relu2, layernorm and the untied head at N =
+    # 256000, its fp weights prepared on the fly every step (one more K1 and K2 per
+    # model step); then what that preparation costs: the head's linear on 4 decode
+    # rows with and without it, and the same tree served with a tied head
+    cfg_n, qparams_n = build("nemotron-4-15b", 15, n_layers=8)
+    head_n = (cfg_n.d_model, cfg_n.vocab_padded)
+    check(cfg_n.d_model == 6144 and head_n[1] == 256000 and not cfg_n.tie_embeddings
+          and "cmax" not in qparams_n["lm_head"], "nemotron-4-15b: untied fp head, N=256000")
+    prompts_n = make_prompts(cfg_n.vocab, LENS[:BATCH], BATCH, seed=15)
+    serve("nemotron-4-15b (8 layers) dense fused-int8 kv=fp", prompts_n, tree=qparams_n,
+          model=(cfg_n, linear_shapes(cfg_n), head_n, BATCH, MAX_LEN), kv_cache="fp")
+    tied_n = dataclasses.replace(cfg_n, tie_embeddings=True)
+    serve("nemotron-4-15b (8 layers) tied twin dense fused-int8 kv=fp", prompts_n,
+          tree={k: v for k, v in qparams_n.items() if k != "lm_head"},
+          model=(tied_n, linear_shapes(cfg_n), None, BATCH, MAX_LEN), kv_cache="fp")
+    xh = torch.randn(BATCH, 1, cfg_n.d_model, generator=gz, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        fly = once(lambda: ql.apply(qparams_n["lm_head"], xh, quant, use_kernels=True))
+        prepared = ql.prepare_int8(qparams_n["lm_head"], quant, cmax=ql._col_absmax(xh),
+                                   jitted=True)
+        fixed = once(lambda: ql.apply(prepared, xh, quant, use_kernels=True))
+        check(torch.equal(fly(), fixed()), "nemotron head: on-the-fly != prepared once")
+        t_fly, t_fixed = time_ms(fly, 5), time_ms(fixed, 5)
+    del prepared
+    print(f"[4z]   nemotron-4-15b head (K={head_n[0]} N={head_n[1]}) on {BATCH} decode rows: "
+          f"prepared on the fly {t_fly:.3f} ms, K1+K2 on a head prepared once {t_fixed:.3f} "
+          f"ms: the per-step preparation costs {t_fly - t_fixed:.3f} ms; model-call median "
+          f"untied {call_ms['nemotron-4-15b (8 layers) dense fused-int8 kv=fp']:.1f} ms, tied "
+          f"twin {call_ms['nemotron-4-15b (8 layers) tied twin dense fused-int8 kv=fp']:.1f} "
+          f"ms (its tied head casts the f32 embedding to bf16 every step)")
+    del qparams_n
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge FULL (48 layers, d_model 1280, 16 heads of 80, not causal): an
+    # encoder, served by make_prefill_step (the slot-table engine refuses it),
+    # calibrated on seeded frames (2 batches of 4 x 512 frames of 512 features), then
+    # one fused-int8 prefill step over 4 x 512 frames: per layer 6 K1 and K2 launches
+    # and one K3 (D = 80, non-causal, bf16 body), one more K1 and K2 for the untied
+    # head (prepared on the fly over all 2048 rows); its logits held against the
+    # dequant-fp path's on the same tree (within 5 % of max|logit|)
+    cfg_h, qparams_h = build("hubert-xlarge", 48, frames=512)
+    check(cfg_h.n_layers == 48 and cfg_h.head_dim == 80 and not cfg_h.causal,
+          "hubert-xlarge FULL config")
+    try:
+        EngineConfig(batch_size=BATCH, max_len=MAX_LEN).check_model(cfg_h)
+        check(False, "the engine accepts an encoder-only model")
+    except NotPortedError:
+        pass
+    gh = torch.Generator(device=dev)
+    gh.manual_seed(49)
+    batch_h = {"frames": torch.randn(BATCH, 512, cfg_h.frontend_dim, generator=gh, device=dev)}
+    step_h = make_prefill_step(cfg_h, quant, path="fused-int8")
+    with torch.no_grad():
+        step_h(qparams_h, batch_h, None)                  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits_h, _ = step_h(qparams_h, batch_h, None)
+        torch.cuda.synchronize()
+        ms_h = (time.perf_counter() - t0) * 1e3
+        counts, bodies = dict(ops.LAUNCHES), dict(ops.BODY_LAUNCHES)
+        deq_h, _ = make_prefill_step(cfg_h, quant, path="dequant-fp")(qparams_h, batch_h, None)
+    rows_h = BATCH * 512
+    lin_h = linear_shapes(cfg_h) * cfg_h.n_layers + [(cfg_h.d_model, cfg_h.vocab_padded)]
+    want = {name: 0 for name in ops.LAUNCHES}
+    want.update(act_quantize=len(lin_h), qgemm_w8a8=len(lin_h), flash_attention=cfg_h.n_layers)
+    want_b = {name: 0 for name in ops.BODY_LAUNCHES}
+    for K, N in lin_h:
+        want_b[f"act_quantize/{act_quantize_plan(rows_h, K)[0]}"] += 1
+        want_b[f"qgemm_w8a8/{qgemm_w8a8_plan(rows_h, K, N)[0]}"] += 1
+    want_b["flash_attention/bf16_mma"] = cfg_h.n_layers
+    check(counts == want and bodies == want_b,
+          f"hubert prefill step launches {counts} / {bodies} != {want} / {want_b}")
+    for name in launches:
+        launches[name] += counts[name]
+    for name in body_launches:
+        body_launches[name] += bodies[name]
+    check(logits_h.shape == (BATCH, 1, cfg_h.vocab_padded)
+          and bool(torch.isfinite(logits_h).all()), f"hubert logits {tuple(logits_h.shape)}")
+    d_h = float((logits_h - deq_h).abs()[..., :cfg_h.vocab].max())
+    s_h = float(logits_h[..., :cfg_h.vocab].abs().max())
+    check(d_h <= 0.05 * s_h, f"hubert fused-int8 vs dequant-fp: {d_h} > 5 % of {s_h}")
+    print(f"[4z]   hubert-xlarge make_prefill_step fused-int8 over {BATCH} x 512 frames: "
+          f"model call {ms_h:.1f} ms (synchronised); launches "
+          f"{ {k: v for k, v in counts.items() if v} } bodies "
+          f"{ {k: v for k, v in bodies.items() if v} }; logits {tuple(logits_h.shape)}, "
+          f"against dequant-fp d = {d_h:.4e} = {d_h / s_h:.4f} of max|logit| {s_h:.3f}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del qparams_h, logits_h, deq_h, batch_h
+    torch.cuda.empty_cache()
+    print(f"[4z] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_zoo:.1f}s "
+          f"for the zoo)")
+
     # ---------------------------------------------------------------- phase 5
     print(f"[5] start at {time.perf_counter() - t_start:.1f}s")
     p5_launches = {name: 0 for name in ops.LAUNCHES}
@@ -1591,18 +2032,21 @@ def main() -> int:
     steps5 = 4
 
     def greedy(params, device, forced=None, layout="dense", steps=8, short=False, c=cfg2,
-               ctx=ctx, kv_int8=False):
+               ctx=ctx, kv_int8=False, tl=None, extra=None):
         """Prefill + ``steps`` decode steps of config ``c`` under ``ctx``, feeding its
-        own argmax (or ``forced`` tokens); ``short``: the two shorter prompts. The fp
-        KV pool is f32 at either activation dtype, as the engine gives the tree's
+        own argmax (or ``forced`` tokens); ``short``: the two shorter prompts; ``tl``:
+        other (tokens, lens), ``extra``: more prefill inputs (patch embeddings). The
+        fp KV pool is f32 at either activation dtype, as the engine gives the tree's
         first float leaf."""
-        tk, ln = (toks_s, lens_s) if short else (toks, lens)
-        caches = M.init_cache(c, 2, 512, dtype=torch.float32, layout=layout, page_size=8,
+        tk, ln = tl if tl is not None else ((toks_s, lens_s) if short else (toks, lens))
+        B = tk.shape[0]
+        caches = M.init_cache(c, B, 512, dtype=torch.float32, layout=layout, page_size=8,
                               kv_int8=kv_int8, device=device)
         if layout == "paged":
-            caches["page_table"] = perm.reshape(2, 64).to(device)
-        logits, _ = M.apply(params, {"tokens": torch.as_tensor(tk, device=device)}, c,
-                            ctx=ctx, mode="prefill", caches=caches,
+            caches["page_table"] = perm.reshape(2, 64)[:B].to(device)
+        batch = {"tokens": torch.as_tensor(tk, device=device),
+                 **{k: v.to(device) for k, v in (extra or {}).items()}}
+        logits, _ = M.apply(params, batch, c, ctx=ctx, mode="prefill", caches=caches,
                             cur_len=torch.as_tensor(ln, device=device))
         out_logits, out_toks = [logits[:, -1].float().cpu()], []
         for i in range(steps):
@@ -1701,8 +2145,11 @@ def main() -> int:
     # chunked prefill: the two shorter prompts through packed steps (each prompt in
     # two chunks, the second starting mid-page), then 4 steps of one-token rows, all
     # through mode="chunked" (K6), fp and int8 KV
-    def chunked_greedy(params, device, kv_int8):
-        caches = M.init_cache(cfg2, 2, 512, dtype=torch.float32, kv_int8=kv_int8,
+    def chunked_greedy(params, device, kv_int8, c=cfg2, tk=toks_s, ln=lens_s, cut=(20, 12)):
+        """The two prompts ``tk``/``ln`` of config ``c`` through packed steps: the
+        first ``cut`` tokens of each, then the rest (starting mid-page), then
+        ``steps5`` one-token rows."""
+        caches = M.init_cache(c, 2, 512, dtype=torch.float32, kv_int8=kv_int8,
                               layout="paged", page_size=8, device=device)
         caches["page_table"] = perm.reshape(2, 64).to(device)
 
@@ -1718,17 +2165,16 @@ def main() -> int:
             chunk = dict(q_start=t(qs), q_len=t(qln), kv_len=t(kvl), positions=t(pos),
                          slot_ids=t(sid))
             logits, _ = M.apply(params, {"tokens": torch.as_tensor([flat], device=device)},
-                                cfg2, ctx=ctx, mode="chunked", caches=caches, chunk=chunk)
+                                c, ctx=ctx, mode="chunked", caches=caches, chunk=chunk)
             return logits[0, [qs[0] + qln[0] - 1, qs[1] + qln[1] - 1]]
 
-        cut = [20, 12]
-        step([(b, toks_s[b, :cut[b]], 0) for b in (0, 1)])
-        logits = step([(b, toks_s[b, cut[b]:lens_s[b]], cut[b]) for b in (0, 1)])
+        step([(b, tk[b, :cut[b]], 0) for b in (0, 1)])
+        logits = step([(b, tk[b, cut[b]:ln[b]], cut[b]) for b in (0, 1)])
         out_logits, out_toks = [logits.float().cpu()], []
         for i in range(steps5):
             tok = torch.argmax(logits, dim=-1)
             out_toks.append(tok.cpu())
-            logits = step([(b, [int(tok[b])], int(lens_s[b]) + i) for b in (0, 1)])
+            logits = step([(b, [int(tok[b])], int(ln[b]) + i) for b in (0, 1)])
             out_logits.append(logits.float().cpu())
         return torch.stack(out_logits), torch.stack(out_toks)
 
@@ -1888,6 +2334,241 @@ def main() -> int:
           f"motif prompts (accept_rate={seng.accept_rate():.3f} tokens_per_step="
           f"{seng.tokens_per_step():.3f}); chunked (budget 64, fp KV) == bucketed "
           f"(chunk_steps={ceng.counters['chunk_steps']})")
+
+    # The rest of the dense zoo at full width, cut to 2 layers, float32, card against
+    # CPU under the bars above: equal greedy tokens, logits within 5e-2 of max|logit|.
+    # gemma2-9b (one local and one global sublayer; window cut to 48 so that short
+    # prompts bind it): dense, paged through a permuted table (== dense), chunked fp
+    # and int8 KV (fp == bucketed), speculate=4 == 1 on the card, and the paged run in
+    # bf16 under the self-calibrated bar; deepseek-coder-33b (untied head prepared on
+    # the fly): a prefill and 8 decode steps, the CPU fed the card's tokens (greedy
+    # equal wherever its margin is decidable), and a chunked engine on the card whose
+    # packed steps launch all token_budget rows into the head; pixtral-12b: a
+    # 320-token prefill whose first 256 positions are seeded bf16 patch embeddings,
+    # then 4 decode steps, compared as deepseek's; hubert-xlarge: the encoder's
+    # logits (not causal; flash at D = 80)
+    del p2, p2_cpu
+    torch.cuda.empty_cache()
+    print(f"[5z] start at {time.perf_counter() - t_start:.1f}s")
+    t_z5 = time.perf_counter()
+
+    def build2(name, seed, frames=0, **cut):
+        """(cfg, W8A8 tree on the card, its CPU copy) of a FULL config cut to 2 layers,
+        float32 (:func:`build`)."""
+        c, qt = build(name, seed, frames, n_layers=2, dtype="float32", **cut)
+        return c, qt, M.map_tensors(qt, lambda t: t.cpu())
+
+    def card_vs_cpu(label, card, host):
+        (gl_, gt_), (cl_, ct_) = card, host
+        err_, tol_ = float((gl_ - cl_).abs().max()), 5e-2 * float(cl_.abs().max())
+        check(torch.equal(gt_, ct_), f"{label} card vs CPU tokens differ: {gt_.T} vs {ct_.T}")
+        check(err_ <= tol_, f"{label} card vs CPU logits: max err {err_} > {tol_}")
+        print(f"[5z] {label} card vs CPU: tokens equal {gt_.T.tolist()}, logits max_abs_err="
+              f"{err_:.3e}, tol 5e-2*max|logit|={tol_:.3e}")
+        return err_
+
+    def nudged(tree):
+        """``tree`` with every embedding weight moved by one ulp, up or down (seeded):
+        how far an ulp-level float difference carries through the int8 path."""
+        emb = tree["embed"]["w"]
+        up = torch.rand(emb.shape, generator=torch.Generator().manual_seed(3)) < 0.5
+        return {**tree, "embed": {"w": torch.where(
+            up, torch.nextafter(emb, torch.full_like(emb, 1.0)),
+            torch.nextafter(emb, torch.full_like(emb, -1.0)))}}
+
+    def card_vs_cpu_forced(label, card, host, nudge=None):
+        """The card's free greedy run against the CPU fed the card's tokens: logits
+        within 5e-2 of max|logit|, and the CPU's greedy choice equal to the card's
+        token wherever the CPU's top-1/top-2 margin exceeds twice the largest gap.
+        For the untied heads: each is prepared on the fly from its rows' column max,
+        whose c^(1-α) the card's and the CPU's pow round apart by an ulp, so a code
+        of the head may move a step and a near tie flip."""
+        (gl_, gt_), (cl_, _) = card, host
+        err_, tol_ = float((gl_ - cl_).abs().max()), 5e-2 * float(cl_.abs().max())
+        top2_ = torch.topk(cl_[:-1], 2, dim=-1).values
+        sure_ = (top2_[..., 0] - top2_[..., 1]) > 2 * err_
+        same_ = torch.argmax(cl_[:-1], dim=-1) == gt_
+        check(err_ <= tol_, f"{label} card vs CPU logits: max err {err_} > {tol_}")
+        check(bool(same_[sure_].all()), f"{label}: the CPU's greedy choice differs from the "
+              f"card's token at a margin > 2 x {err_}")
+        moved = "" if nudge is None else (f" (a one-ulp nudge of the embedding moves the "
+                                          f"CPU's {float((nudge - cl_).abs().max()):.3e})")
+        print(f"[5z] {label} card vs CPU (the CPU fed the card's tokens {gt_.T.tolist()}): "
+              f"logits max_abs_err={err_:.3e}{moved}, tol 5e-2*max|logit|={tol_:.3e}; greedy "
+              f"equal at "
+              f"{int(same_[sure_].sum())} of the {int(sure_.sum())} of {sure_.numel()} (step, "
+              f"row) pairs whose margin exceeds 2 x err, at {int(same_.sum())} of all")
+        return err_
+
+    def prompts_for(c, lens_, width, seed):
+        rng_ = np.random.default_rng(seed)
+        tk_ = np.zeros((len(lens_), width), np.int64)
+        for b, n in enumerate(lens_):
+            tk_[b, :n] = rng_.integers(1, c.vocab, size=n)
+        return tk_, np.asarray(lens_, np.int32)
+
+    # gemma2-9b
+    cfg_g2, p2g, p2g_cpu = build2("gemma2-9b", 21, window=48)
+    check(M.block_spec(cfg_g2).sublayers == ("attn_local", "attn"), "gemma2: local + global")
+    tl_g = prompts_for(cfg_g2, [100, 70], 128, 21)          # bucket 128: flash at admission
+    with torch.no_grad():
+        reset5()
+        ggl, ggt = greedy(p2g, dev, c=cfg_g2, tl=tl_g)
+        check(ops.BODY_LAUNCHES["flash_attention/f32"] == 2, "gemma2 parity prefill: flash f32")
+        ggc = greedy(p2g_cpu, cpu, c=cfg_g2, tl=tl_g)
+        card_vs_cpu("gemma2-9b 2-layer (window 48) dense, 1 prefill (bucket 128) + 8 decode "
+                    "steps", (ggl, ggt), ggc)
+        reset5()
+        gpl, gpt = greedy(p2g, dev, c=cfg_g2, tl=tl_g, layout="paged")
+        check(ops.LAUNCHES["paged_decode_attention"] == 8 * cfg_g2.n_layers,
+              f"gemma2 paged parity decode launches {ops.LAUNCHES['paged_decode_attention']}")
+        card_vs_cpu("gemma2-9b paged (permuted table)", (gpl, gpt),
+                    greedy(p2g_cpu, cpu, c=cfg_g2, tl=tl_g, layout="paged"))
+        check(torch.equal(gpt, ggt), f"gemma2 paged vs dense tokens differ: {gpt.T} vs {ggt.T}")
+        for kv_int8 in (False, True):
+            reset5()
+            kw_c = dict(c=cfg_g2, tk=tl_g[0], ln=tl_g[1], cut=(60, 36))
+            kgl, kgt = chunked_greedy(p2g, dev, kv_int8, **kw_c)
+            check(ops.LAUNCHES["ragged_prefill_attention"] == (2 + steps5) * cfg_g2.n_layers
+                  and ops.LAUNCHES["flash_attention"] == 0,
+                  f"gemma2 chunked parity launches {ops.LAUNCHES}")
+            kv = "int8" if kv_int8 else "fp"
+            card_vs_cpu(f"gemma2-9b chunked kv={kv} (2 packed prefill steps, {steps5} one-token "
+                        f"steps)", (kgl, kgt), chunked_greedy(p2g_cpu, cpu, kv_int8, **kw_c))
+            if not kv_int8:
+                check(torch.equal(kgt, gpt[:steps5]), f"gemma2 chunked fp KV vs bucketed paged "
+                      f"tokens differ: {kgt.T} vs {gpt[:steps5].T}")
+        # bf16 activations on the paged layout: flash's and the paged bf16 bodies at D =
+        # 256 with the window and both softcaps, under the bar of the starcoder2 run
+        cfg_g2b = dataclasses.replace(cfg_g2, dtype="bfloat16")
+        reset5()
+        bfl, _ = greedy(p2g, dev, forced=gpt, layout="paged", c=cfg_g2b, tl=tl_g)
+        check(ops.BODY_LAUNCHES["flash_attention/bf16_mma"] == cfg_g2.n_layers
+              and ops.BODY_LAUNCHES["paged_attention/bf16_mma"] == 8 * cfg_g2.n_layers,
+              f"gemma2 bf16 parity: attention launches by body {ops.BODY_LAUNCHES}")
+        bcl, bct = greedy(p2g_cpu, cpu, layout="paged", c=cfg_g2b, tl=tl_g)
+        bgl, _ = greedy(p2g, dev, forced=bct, layout="paged", c=cfg_g2b, tl=tl_g)
+    e_g = float((bfl[1] - gpl[1]).abs().max())
+    berr = float((bgl - bcl).abs().max())
+    top2 = torch.topk(bcl, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * e_g
+    same = torch.argmax(bgl, dim=-1) == torch.argmax(bcl, dim=-1)
+    check(e_g > 0 and berr <= e_g, f"gemma2 bf16 card vs CPU logits: max err {berr} > e {e_g}")
+    check(int(sure.sum()) > 0 and bool(same[sure].all()),
+          f"gemma2 bf16 card vs CPU greedy choice at a margin > 2e: {int(sure.sum())} sure, "
+          f"{int(same[sure].sum())} equal")
+    print(f"[5z] gemma2-9b bf16 paged card vs CPU: e = {e_g:.3e}; logits max_abs_err={berr:.3e} "
+          f"({berr / e_g:.2f} e, bar e); greedy equal at {int(same[sure].sum())} of the "
+          f"{int(sure.sum())} of {sure.numel()} (step, row) pairs whose margin exceeds 2e")
+    # speculate=4 == 1 on the card, over motif prompts that bind the window
+    rng = np.random.default_rng(22)
+    motifs_g = [np.tile(rng.integers(1, cfg_g2.vocab, size=MOTIF).astype(np.int32),
+                        -(-n // MOTIF))[:n] for n in (70, 90)]
+    outs_g = []
+    for spec in (1, 4):
+        eng = ServeEngine(cfg_g2, p2g, quant=quant, device=dev,
+                          config=EngineConfig(batch_size=2, max_len=256, path="fused-int8",
+                                              cache_layout="paged", speculate=spec))
+        eng.submit([m.copy() for m in motifs_g], max_new=8)
+        outs_g.append([r.out for r in eng.run()])
+    check(outs_g[0] == outs_g[1] and eng.counters["spec_steps"] > 0,
+          f"gemma2 speculate=4 vs 1 tokens differ: {outs_g[1]} vs {outs_g[0]}")
+    print(f"[5z] gemma2-9b speculate=4 == speculate=1 on the card (accept_rate="
+          f"{eng.accept_rate():.3f})")
+    del p2g, p2g_cpu, eng
+    torch.cuda.empty_cache()
+
+    # deepseek-coder-33b: the untied head (K = 7168, N = 32256) prepared on the fly
+    cfg_d2, p2d, p2d_cpu = build2("deepseek-coder-33b", 33)
+    check(not cfg_d2.tie_embeddings and "lm_head" in p2d, "deepseek: untied head")
+    tl_d = prompts_for(cfg_d2, [40, 27], 64, 33)
+    n_lin = len(linear_shapes(cfg_d2)) * cfg_d2.n_layers + 1
+    with torch.no_grad():
+        reset5()
+        dgl, dgt = greedy(p2d, dev, c=cfg_d2, tl=tl_d)
+        check(ops.LAUNCHES["qgemm_w8a8"] == 9 * n_lin, f"deepseek parity GEMM launches "
+              f"{ops.LAUNCHES['qgemm_w8a8']} != 9 x {n_lin} (head included)")
+        card_vs_cpu_forced("deepseek-coder-33b 2-layer fused-int8, 1 prefill + 8 decode steps",
+                           (dgl, dgt), greedy(p2d_cpu, cpu, forced=dgt, c=cfg_d2, tl=tl_d),
+                           greedy(nudged(p2d_cpu), cpu, forced=dgt, c=cfg_d2, tl=tl_d)[0])
+    # a chunked engine on the card (budget 32, int8 KV: every step packed): the head,
+    # prepared on the fly, sees all token_budget rows of every packed step
+    heads = []
+    col_absmax = ql._col_absmax
+
+    def head_rows(x):
+        heads.append(x.shape[:-1].numel())
+        return col_absmax(x)
+
+    ql._col_absmax = head_rows
+    try:
+        eng = ServeEngine(cfg_d2, p2d, quant=quant, device=dev,
+                          config=EngineConfig(batch_size=2, max_len=64, path="fused-int8",
+                                              cache_layout="paged", kv_cache="int8",
+                                              chunked=True, token_budget=32))
+        eng.submit([tl_d[0][0, :30].astype(np.int32), tl_d[0][1, :20].astype(np.int32)],
+                   max_new=4)
+        outs_d = [r.out for r in eng.run()]
+    finally:
+        ql._col_absmax = col_absmax
+    n_steps = eng.counters["chunk_steps"]
+    check(all(len(o) == 4 and all(0 <= t < cfg_d2.vocab for t in o) for o in outs_d),
+          f"deepseek chunked: {outs_d}")
+    check(eng._rows_coupled and len(heads) == n_steps and set(heads) == {32},
+          f"deepseek chunked: the head saw {heads} rows over {n_steps} packed steps, not "
+          f"token_budget (32) each")
+    print(f"[5z] deepseek-coder-33b chunked (budget 32, int8 KV) on the card: tokens "
+          f"{outs_d}; the head, prepared on the fly, saw all 32 rows in each of the "
+          f"{n_steps} packed steps (rows coupled)")
+    del p2d, p2d_cpu, eng
+    torch.cuda.empty_cache()
+
+    # pixtral-12b: patch embeddings replace the first 256 of 320 positions at prefill
+    cfg_p2, p2p, p2p_cpu = build2("pixtral-12b", 12)
+    check(cfg_p2.n_patches == 256 and cfg_p2.frontend_dim == 1024 and "frontend" in p2p,
+          "pixtral-12b vision stub")
+    tl_p = prompts_for(cfg_p2, [320], 320, 12)
+    pe = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (1, cfg_p2.n_patches, cfg_p2.frontend_dim)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        reset5()
+        xgl = greedy(p2p, dev, c=cfg_p2, tl=tl_p, extra={"patch_embeds": pe}, steps=4)
+        check(ops.BODY_LAUNCHES["flash_attention/f32"] == cfg_p2.n_layers,
+              "pixtral parity prefill: flash f32")
+        card_vs_cpu_forced("pixtral-12b 2-layer fused-int8, a 320-token prefill with 256 bf16 "
+                           "patch embeddings + 4 decode steps", xgl,
+                           greedy(p2p_cpu, cpu, forced=xgl[1], c=cfg_p2, tl=tl_p,
+                                  extra={"patch_embeds": pe}, steps=4))
+    del p2p, p2p_cpu
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge: the encoder's logits over 2 x 128 seeded frames (flash f32 body at D
+    # = 80, not causal); argmax equal wherever the CPU's top-1/top-2 margin exceeds
+    # twice the largest gap
+    cfg_h2, p2h, p2h_cpu = build2("hubert-xlarge", 80, frames=128)
+    fr = torch.from_numpy(np.random.default_rng(81).standard_normal(
+        (2, 128, cfg_h2.frontend_dim)).astype(np.float32))
+    with torch.no_grad():
+        reset5()
+        hgl = M.apply(p2h, {"frames": fr.to(dev)}, cfg_h2, ctx=ctx)[0].cpu()
+        check(ops.BODY_LAUNCHES["flash_attention/f32"] == cfg_h2.n_layers,
+              "hubert parity: flash f32 at D = 80")
+        hcl = M.apply(p2h_cpu, {"frames": fr}, cfg_h2, ctx=ctx)[0]
+    hl, hc = hgl[..., :cfg_h2.vocab], hcl[..., :cfg_h2.vocab]
+    herr, htol = float((hl - hc).abs().max()), 5e-2 * float(hc.abs().max())
+    top2 = torch.topk(hc, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * herr
+    same = torch.argmax(hl, dim=-1) == torch.argmax(hc, dim=-1)
+    check(herr <= htol, f"hubert card vs CPU logits: max err {herr} > {htol}")
+    check(bool(same[sure].all()), f"hubert card vs CPU argmax at a margin > 2 x {herr}")
+    print(f"[5z] hubert-xlarge 2-layer encoder logits (2 x 128 frames) card vs CPU: max_abs_err="
+          f"{herr:.3e}, tol 5e-2*max|logit|={htol:.3e}; argmax equal at {int(same[sure].sum())} "
+          f"of the {int(sure.sum())} of {sure.numel()} positions whose margin exceeds 2 x err "
+          f"(at {int(same.sum())} of all)")
+    del p2h, p2h_cpu
+    torch.cuda.empty_cache()
+    print(f"[5z] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_z5:.1f}s "
+          f"for the zoo)")
 
     # ---------------------------------------------------------------- result
     reset5()

@@ -173,10 +173,15 @@ def _apply_fake(params: dict, x: torch.Tensor, cfg: QuantConfig):
 # ======================================================================================
 
 def prepare_int8(params: dict, cfg: QuantConfig,
-                 cmax: Optional[torch.Tensor] = None) -> dict:
+                 cmax: Optional[torch.Tensor] = None, *, jitted: bool = False) -> dict:
     """Offline weight preparation: fold b_j = c_j^(1-α) into W, per-output-channel
     int8 quantization. Returns a prepared parameter dict (raw ``w`` dropped).
-    Without column statistics α degrades to 1 (exact per-token int8)."""
+    Without column statistics α degrades to 1 (exact per-token int8).
+
+    ``jitted=True`` divides by qmax as the reference does inside a jitted step
+    (XLA multiplies by the f32 reciprocal): the form of the on-the-fly
+    preparation in :func:`apply`, which the reference runs inside its serving
+    steps; offline ``quantize_tree`` runs eagerly there, a true division."""
     w = params["w"]
     cm = cmax if cmax is not None else params.get("cmax")
     alpha_eff = cfg.alpha if cm is not None else 1.0
@@ -188,7 +193,8 @@ def prepare_int8(params: dict, cfg: QuantConfig,
         b = b[..., None, :]
     b = b.expand(w.shape[:-1])
     wb = w * b[..., :, None]
-    sw = torch.clamp_min(wb.abs().amax(dim=-2, keepdim=True), Q.EPS) / Q.qmax(cfg.w_bits)
+    wmax = torch.clamp_min(wb.abs().amax(dim=-2, keepdim=True), Q.EPS)
+    sw = wmax * (1.0 / Q.qmax(cfg.w_bits)) if jitted else wmax / Q.qmax(cfg.w_bits)
     qm = Q.qmax(cfg.w_bits)
     qw = torch.clamp(torch.round(wb / sw), -qm, qm).to(torch.int8)
     return {"qw": qw, "sw": sw.squeeze(-2).to(torch.float32),
@@ -363,9 +369,10 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
                                 cfg.w_group).to(x.dtype)
 
     if cfg.mode == "int8":
-        # int8 on unprepared weights (calibration): dynamic-c preparation on the fly
+        # int8 on unprepared weights (an untied lm_head, calibration): dynamic-c
+        # preparation on the fly, in the form the reference's jitted steps run
         cmax = params["cmax"] if "cmax" in params else _col_absmax(x)
-        prepared = prepare_int8({"w": params["w"]}, cfg, cmax=cmax)
+        prepared = prepare_int8({"w": params["w"]}, cfg, cmax=cmax, jitted=True)
         return apply(prepared, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
     if cfg.mode == "fp":
         w = params["w"]

@@ -13,6 +13,12 @@
 // key (past kv_len) averages the v rows of the tiles its block visits, as the
 // reference kernel's row does (it gives 0 where no tile is visited, kv_len 0).
 //
+// Head sizes: D = 16, 32, 64, 80, 128 and 256, each its own instantiation. D = 80
+// (hubert-xlarge) is not a power of two but a multiple of 16: the bf16 body runs 5
+// k16 steps of Q K^T and 10 n8 tiles of P V, and its 88-element (176-byte) shared
+// rows keep cp.async and ldmatrix 16-byte aligned and map ldmatrix's 8 rows to 8
+// distinct 4-bank groups; the f32 body gives each thread 5 columns of 16.
+//
 // What bounds it on an H100: at these shapes (S <= 1024, D = 128) the causal
 // score and PV products are ~2*S*D operations per query row per head against
 // ~4*D bytes of q/o and a shared k/v stream: operation-bound. Two bodies,
@@ -510,6 +516,7 @@ REPRO_API int repro_flash_attention(const void* q, const void* k, const void* v,
     case 16: return launch<16>(REPRO_FA_ARGS);
     case 32: return launch<32>(REPRO_FA_ARGS);
     case 64: return launch<64>(REPRO_FA_ARGS);
+    case 80: return launch<80>(REPRO_FA_ARGS);
     case 128: return launch<128>(REPRO_FA_ARGS);
     case 256: return launch<256>(REPRO_FA_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -54,10 +54,11 @@
 // block; here blocks run in any order and each writes only its own rows. The
 // block walks its slot's logical positions 32 at a time. A chunk's K and V rows
 // are gathered through the page table straight into shared memory with cp.async,
-// in the pool's own type (16-byte copies; the int8 scales 4 bytes each), and the
-// chunk's own tokens from k_new/v_new into a second pair of buffers,
+// in the pool's own type (16-byte copies; the int8 scales 4 bytes each),
 // double-buffered: chunk c + 1 is in flight while chunk c computes, the
-// counterpart of the TPU kernel's two DMA slots. Warp w owns query rows w, w + 8,
+// counterpart of the TPU kernel's two DMA slots. The chunk's own tokens (ragged
+// mode) are read from k_new/v_new in place, through the caches: staging them too
+// would not fit shared memory at D = 256 with f32 q (gemma2-9b's parity runs). Warp w owns query rows w, w + 8,
 // ...; for each, lane t scores key t against the row (a D-long dot product,
 // 16-byte reads of the K row, whose padded stride keeps a quarter-warp's reads on
 // distinct banks, four partial sums to break the latency chain), the warp reduces
@@ -74,15 +75,14 @@ constexpr int kRowTile = 32;    // ragged mode: query rows per block
 constexpr float kNegInf = -1e30f;
 
 // Shared memory, in bytes: sQ and sAcc (f32 [rows][D]); two buffers of K rows
-// (stride D * sizeof(TKV) + 16) and V rows (stride D * sizeof(TKV)); in ragged mode
-// two more of the overlay's K and V rows in q's type; two buffers of K and V
-// scales [KC]; sP [warps][KC]; sM, sL and the rows' query positions [rows].
-template <typename TQ, typename TKV, bool RAGGED>
+// (stride D * sizeof(TKV) + 16) and V rows (stride D * sizeof(TKV)); two buffers
+// of K and V scales [KC]; sP [warps][KC]; sM, sL and the rows' query positions
+// [rows]. At most 200 KB (ragged, f32 q and pool, D = 256).
+template <typename TKV>
 size_t smem_bytes(int rows, int D) {
   const size_t row = (size_t)D * sizeof(TKV);
-  const size_t nrow = RAGGED ? (size_t)D * sizeof(TQ) : 0;
   return sizeof(float) * (2 * (size_t)rows * D + 4 * KC + kWarps * KC + 3 * rows) +
-         2 * KC * (2 * row + 16) + (RAGGED ? 2 * KC * (2 * nrow + 16) : 0);
+         2 * KC * (2 * row + 16);
 }
 
 template <typename TKV> __device__ __forceinline__ float kv_f32(TKV v);
@@ -197,15 +197,12 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args args) {
 
   const int row_bytes = D * sizeof(TKV);
   const int k_stride = row_bytes + 16;            // padded: conflict-free 16-byte reads
-  const int nrow_bytes = RAGGED ? D * (int)sizeof(TQ) : 0;
-  const int nk_stride = nrow_bytes + 16;
+  const int nrow_stride = Hkv * D;                 // k_new/v_new elements per token
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sAcc = sQ + rows * D;
   unsigned char* sK = reinterpret_cast<unsigned char*>(sAcc + rows * D);  // [2][KC][k_stride]
   unsigned char* sV = sK + 2 * KC * k_stride;                            // [2][KC][row_bytes]
-  unsigned char* sKn = sV + 2 * KC * row_bytes;                          // [2][KC][nk_stride]
-  unsigned char* sVn = sKn + (RAGGED ? 2 * KC * nk_stride : 0);          // [2][KC][nrow_bytes]
-  float* sKs = reinterpret_cast<float*>(sVn + (RAGGED ? 2 * KC * nrow_bytes : 0));  // [2][KC]
+  float* sKs = reinterpret_cast<float*>(sV + 2 * KC * row_bytes);        // [2][KC]
   float* sVs = sKs + 2 * KC;                                             // [2][KC]
   float* sP = sVs + 2 * KC;                                              // [warps][KC]
   float* sM = sP + kWarps * KC;
@@ -241,20 +238,10 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args args) {
         cp_async4(sVs + buf * KC + t, args.v_scale + row);
       }
     }
-    if (RAGGED) {
-      const int npieces = D * (int)sizeof(TQ) / 16;
-      for (int i = tid; i < (n - n_pool) * npieces; i += kThreads) {
-        const int tt = i / npieces, j = i - tt * npieces, t = n_pool + tt;
-        const int orow = min(max(q0 + (t0 + t - cs), 0), args.Nt - 1);
-        const size_t row = (size_t)orow * Hkv + h;
-        const unsigned char* kg =
-            reinterpret_cast<const unsigned char*>(args.k_new) + row * nrow_bytes;
-        const unsigned char* vg =
-            reinterpret_cast<const unsigned char*>(args.v_new) + row * nrow_bytes;
-        cp_async16(sKn + ((size_t)buf * KC + t) * nk_stride + j * 16, kg + j * 16);
-        cp_async16(sVn + ((size_t)buf * KC + t) * nrow_bytes + j * 16, vg + j * 16);
-      }
-    }
+  };
+  // the chunk's own token at chunk offset t >= n_pool: its packed k_new/v_new row
+  auto new_row = [&](int t0, int t) -> size_t {
+    return ((size_t)min(max(q0 + (t0 + t - cs), 0), args.Nt - 1) * Hkv + h) * D;
   };
 
   // q row r (local) of this block, and where its output goes
@@ -288,9 +275,11 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args args) {
     __syncthreads();                      // ... and every thread's
 
     const unsigned char* kr = sK + ((size_t)buf * KC + lane) * k_stride;
-    const unsigned char* knr = sKn + ((size_t)buf * KC + lane) * nk_stride;
     const unsigned char* vbuf = sV + (size_t)buf * KC * row_bytes;
-    const unsigned char* vnbuf = sVn + (size_t)buf * KC * nrow_bytes;
+    const TQ* knr = RAGGED && lane >= n_pool && lane < n
+                        ? static_cast<const TQ*>(args.k_new) + new_row(t0, lane) : nullptr;
+    const TQ* vnr = RAGGED && n_pool < n
+                        ? static_cast<const TQ*>(args.v_new) + new_row(t0, n_pool) : nullptr;
     const bool pool_key = !RAGGED || lane < n_pool;   // decode/verify: every key
     const int k_pos = t0 + lane;
     for (int r = warp; r < rows; r += kWarps) {
@@ -298,7 +287,7 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args args) {
       float s = 0.f;
       if (lane < n) {
         s = (pool_key ? dot_row(qr, reinterpret_cast<const TKV*>(kr), D)
-                      : dot_row(qr, reinterpret_cast<const TQ*>(knr), D)) * scale;
+                      : dot_row(qr, knr, D)) * scale;
         if (int8_kv && pool_key) s *= sKs[buf * KC + lane];
         if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       }
@@ -319,7 +308,9 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args args) {
 #pragma unroll
       for (int j = 0; j < kMaxCols; ++j) pv[j] = 0.f;
       pv_rows<TKV>(pv, sP + warp * KC, vbuf, row_bytes, 0, n_pool, lane, D);
-      if (RAGGED) pv_rows<TQ>(pv, sP + warp * KC, vnbuf, nrow_bytes, n_pool, n, lane, D);
+      if (RAGGED && vnr != nullptr)     // the chunk's own tokens, consecutive packed rows
+        pv_rows<TQ>(pv, sP + warp * KC + n_pool, reinterpret_cast<const unsigned char*>(vnr),
+                    nrow_stride * (int)sizeof(TQ), 0, n - n_pool, lane, D);
 #pragma unroll
       for (int j = 0; j < kMaxCols; ++j) {
         const int d = lane + 32 * j;
@@ -346,7 +337,7 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(const Args args) {
 
 template <typename TQ, typename TKV, bool RAGGED>
 int launch(const Args& args, int B, int rows, dim3 grid, cudaStream_t s) {
-  const size_t smem = smem_bytes<TQ, TKV, RAGGED>(rows, args.D);
+  const size_t smem = smem_bytes<TKV>(rows, args.D);
   cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<TQ, TKV, RAGGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

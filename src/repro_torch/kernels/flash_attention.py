@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.act_quantize import DTYPE_CODE
 
-HEAD_DIMS = (16, 32, 64, 128, 256)      # the head sizes the kernel is built for
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # the head sizes the kernel is built for
 #: the body each dtype runs
 BODIES = {torch.bfloat16: "bf16_mma", torch.float32: "f32"}
 

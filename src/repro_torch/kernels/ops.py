@@ -43,7 +43,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda, act_quantize_plan
 from repro_torch.kernels.flash_attention import BODIES, HEAD_DIMS, flash_attention_cuda
 from repro_torch.kernels.paged_attention import (
-    BODIES as PAGED_BODIES, POOL_CODE, paged_attention_cuda, ragged_prefill_cuda,
+    BODIES as PAGED_BODIES, HEAD_DIMS as PAGED_HEAD_DIMS, POOL_CODE, paged_attention_cuda,
+    ragged_prefill_cuda,
 )
 from repro_torch.kernels.qgemm import (
     TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
@@ -305,7 +306,8 @@ def _check_pools_cuda(q, k_pages, v_pages, k_scale_pages, v_scale_pages) -> None
         _require(k_scale_pages.dtype == torch.float32 == v_scale_pages.dtype,
                  "scale pools must be f32")
         _contiguous(k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
-    _require(q.shape[-1] in HEAD_DIMS, f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    _require(q.shape[-1] in PAGED_HEAD_DIMS,
+             f"head_dim {q.shape[-1]} not in {PAGED_HEAD_DIMS}")
     _contiguous(k_pages=k_pages, v_pages=v_pages)
 
 

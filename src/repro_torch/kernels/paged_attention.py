@@ -24,6 +24,7 @@ from repro_torch.kernels.act_quantize import DTYPE_CODE
 
 POOL_CODE = {**DTYPE_CODE, torch.int8: 2}    # pool element types the kernel reads
 BODIES = {torch.bfloat16: "bf16_mma", torch.float32: "f32"}
+HEAD_DIMS = (16, 32, 64, 128, 256)      # the head sizes the bf16 body is built for
 
 #: the bf16 body's key chunk, target partition length and most partitions
 SPLIT_CHUNK, SPLIT_TARGET, SPLIT_MAX = 32, 128, 32

@@ -16,6 +16,12 @@ greedy decoding through the continuous-batching engine.
         --quant fake                 # the paper's fake-quant W8A8 CrossQuant path
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
         --quant int8 --path dequant-fp --scheduler grouped
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --quant int8 --path fused-int8 --kv-cache int8
+
+``--arch`` takes the dense decoders (starcoder2-7b, gemma2-9b, nemotron-4-15b,
+deepseek-coder-33b) and pixtral-12b, served text-only. Encoder-only and not yet
+ported models are refused with the engine's ``NotPortedError`` before any work.
 """
 from __future__ import annotations
 
@@ -129,6 +135,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     device = resolve_device(args.device)
     cfg = get(args.arch, smoke=args.smoke)
     quant = QUANTS[args.quant]
+    path = None if (args.quant != "int8" or args.path == "ref") else args.path
+    config = EngineConfig(batch_size=args.batch_size, max_len=args.max_len, path=path,
+                          kv_cache=args.kv_cache, eos_id=args.eos_id,
+                          cache_layout=args.cache_layout, speculate=args.speculate,
+                          chunked=args.chunked, token_budget=args.token_budget,
+                          sparsity=args.sparsity, scheduler=args.scheduler)
+    config.check_model(cfg)              # refuse before init and calibration
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = M.init_params(gen, cfg, device=device)
@@ -142,12 +155,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
         print(f"quantized weights: {base_bytes / 2**20:.1f} MiB -> "
               f"{q_bytes / 2**20:.1f} MiB ({base_bytes / q_bytes:.2f}x smaller)")
 
-    path = None if (args.quant != "int8" or args.path == "ref") else args.path
-    config = EngineConfig(batch_size=args.batch_size, max_len=args.max_len, path=path,
-                          kv_cache=args.kv_cache, eos_id=args.eos_id,
-                          cache_layout=args.cache_layout, speculate=args.speculate,
-                          chunked=args.chunked, token_budget=args.token_budget,
-                          sparsity=args.sparsity, scheduler=args.scheduler)
     engine = ServeEngine(cfg, params, config=config, quant=quant, device=device)
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])

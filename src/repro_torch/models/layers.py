@@ -472,8 +472,11 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
                     page_table: Optional[torch.Tensor] = None,
                     prefix_len: Optional[torch.Tensor] = None,
                     q_len: Optional[torch.Tensor] = None,
-                    chunk: Optional[dict] = None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full (global, causal) attention sublayer; the cache is updated in place.
+                    chunk: Optional[dict] = None,
+                    local: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Attention sublayer (causal unless ``cfg.causal`` is False); the cache is
+    updated in place. ``local=True`` (gemma2's local sublayers) masks keys
+    ``cfg.window`` or more positions behind each query, on every path.
 
     Dense ``cache`` {"k", "v"[, "k_scale", "v_scale"]}: (B, T, Hkv, D) rows.
     Prefill (S > 1) writes each row's prefix and zeroes the rest; decode (S == 1)
@@ -524,7 +527,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
-    window = None                    # global layers; local (windowed) ones are not ported
+    window = cfg.window if local else None
     if is_chunked:
         out = _chunked_attention(q, k, v, cache, page_table, cfg, chunk, window=window)
         y = ctx.linear(params["wo"], out.reshape(B, S, H * D), "wo")

@@ -1,5 +1,11 @@
-"""Dense decoder language model (port of ``repro/models/model.py`` for the dense
-global-attention family, on the dense and paged cache layouts).
+"""Dense decoder language model (port of ``repro/models/model.py`` for the dense,
+``vlm`` and ``audio`` families, on the dense and paged cache layouts).
+
+The block spec is ``[attn] × L`` for global attention and ``[attn_local, attn] ×
+L/2`` for gemma2's local/global alternation (a local sublayer attends a sliding
+window of ``cfg.window`` keys). Untied heads (``lm_head``) run through the
+quantized linear; the ``vision_stub``/``audio_stub`` frontends project
+precomputed patch or frame features (:mod:`repro_torch.models.frontends`).
 
 Parameters keep the reference's layout: ``blocks`` is a list (one entry per
 sublayer kind of the block spec) of dicts whose leaves carry a leading
@@ -15,7 +21,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import qlinear as ql
 from repro_torch.device import resolve_device
+from repro_torch.models import frontends
 from repro_torch.models import state as state_lib
 from repro_torch.models.layers import (
     QuantContext, attention_apply, init_attention, init_mlp, init_norm, mlp_apply,
@@ -30,14 +38,19 @@ class BlockSpec:
 
 
 def block_spec(cfg: ModelConfig) -> BlockSpec:
-    """Dense global attention only: ``[attn] × L``. Other families and layer
-    patterns are not ported yet and raise rather than serve them wrongly."""
-    if cfg.family != "dense" or cfg.layer_pattern != "global" or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} layer_pattern={cfg.layer_pattern!r} "
-            f"frontend={cfg.frontend!r} is not ported yet (dense global decoders only)")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: untied lm_head is not ported yet")
+    """``[attn] × L``, or ``[attn_local, attn] × L/2`` for ``local_global``, for the
+    dense, vlm and audio families. MoE, SSM and hybrid stacks are not ported yet
+    and raise rather than serve them wrongly."""
+    if cfg.family not in ("dense", "vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                                  f"(dense, vlm and audio stacks only)")
+    if cfg.layer_pattern == "local_global":
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: local_global needs an even n_layers, "
+                             f"got {cfg.n_layers}")
+        return BlockSpec(("attn_local", "attn"), cfg.n_layers // 2)
+    if cfg.layer_pattern != "global":
+        raise ValueError(f"{cfg.name}: unknown layer_pattern {cfg.layer_pattern!r}")
     return BlockSpec(("attn",), cfg.n_layers)
 
 
@@ -51,11 +64,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> dic
     spec = block_spec(cfg)
     L = spec.n_blocks
     embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen, device=dev) * 0.02
-    block = {"norm1": init_norm(cfg, device=dev, n_stack=L),
-             "attn": init_attention(gen, cfg, device=dev, n_stack=L),
-             "norm2": init_norm(cfg, device=dev, n_stack=L),
-             "mlp": init_mlp(gen, cfg, device=dev, n_stack=L)}
-    return {"embed": {"w": embed}, "blocks": [block], "final_norm": init_norm(cfg, device=dev)}
+    blocks = [{"norm1": init_norm(cfg, device=dev, n_stack=L),
+               "attn": init_attention(gen, cfg, device=dev, n_stack=L),
+               "norm2": init_norm(cfg, device=dev, n_stack=L),
+               "mlp": init_mlp(gen, cfg, device=dev, n_stack=L)} for _ in spec.sublayers]
+    params = {"embed": {"w": embed}, "blocks": blocks, "final_norm": init_norm(cfg, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ql.init(gen, cfg.d_model, cfg.vocab_padded, device=dev)
+    if cfg.frontend != "none":
+        params["frontend"] = frontends.init_frontend(gen, cfg, device=dev)
+    return params
 
 
 def map_tensors(tree, fn):
@@ -103,16 +121,32 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=torch.bflo
 
 
 def _embed(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    x = params["embed"]["w"][batch["tokens"]]
+    """Token embeddings (or projected audio frames); under ``vision_stub`` a batch
+    carrying ``patch_embeds`` (prefill) has its first ``n_patches`` positions
+    replaced by the projected patches. ``embed_scale`` multiplies by sqrt(d_model)
+    rounded to the embedding's dtype, as the reference does."""
+    if cfg.frontend == "audio_stub":
+        x = frontends.audio_stub_apply(params["frontend"], batch["frames"])
+    else:
+        x = params["embed"]["w"][batch["tokens"]]
+        if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+            x = frontends.vision_stub_apply(params["frontend"], x, batch["patch_embeds"], cfg)
     if cfg.embed_scale:
-        x = x * (cfg.d_model ** 0.5)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
 
-def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Logits over cfg.vocab_padded (tied embedding); padded ids carry -1e9."""
+def _lm_head(params, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext) -> torch.Tensor:
+    """Logits over cfg.vocab_padded; padded ids carry -1e9. A tied head multiplies
+    by the embedding; an untied one runs ``lm_head`` through the top-level ctx's
+    linear (under ``mode="int8"`` its fp ``{"w"}`` is prepared on the fly, with the
+    column max of this call's rows)."""
     x = norm_apply(params["final_norm"], x, cfg)
-    logits = (x @ params["embed"]["w"].T.to(x.dtype)).to(torch.float32)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["w"].T.to(x.dtype)
+    else:
+        logits = ctx.linear(params["lm_head"], x, "lm_head")
+    logits = logits.to(torch.float32)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab:
@@ -126,6 +160,10 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
           caches: Optional[dict] = None, cur_len=None, prefix_len=None, q_len=None,
           chunk: Optional[dict] = None, unroll: bool = False) -> Tuple[torch.Tensor, dict]:
     """Returns (logits, {"caches": caches-or-None}).
+
+    ``batch`` holds ``tokens`` (B, S); under ``audio_stub`` ``frames`` (B, S,
+    frontend_dim) instead; under ``vision_stub`` a prefill may add
+    ``patch_embeds`` (B, n_patches, frontend_dim).
 
     mode: train (full logits, no caches) | prefill (writes caches; logits at each
     slot's last valid position) | decode (one token per slot against caches) |
@@ -183,12 +221,12 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
     for b in range(spec.n_blocks):
         # per-layer names /L{b}/S{i}/... are what calibration.stack_tables reads
         bctx = ctx.sub(f"L{b}") if unroll else ctx
-        for i in range(len(spec.sublayers)):
+        for i, kind in enumerate(spec.sublayers):
             p = layer_slice(params["blocks"][i], b)
             c = layer_slice(caches["blocks"][i], b) if use_cache else None
             sctx = bctx.sub(f"S{i}")
             h, _ = attention_apply(p["attn"], norm_apply(p["norm1"], x, cfg), cfg,
-                                   sctx.sub("attn"), cache=c,
+                                   sctx.sub("attn"), local=kind == "attn_local", cache=c,
                                    cur_len=cur_len if use_cache else None,
                                    page_table=page_table, prefix_len=prefix_len,
                                    q_len=q_len, chunk=chunk)
@@ -201,4 +239,4 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
         else:
             last = torch.clamp(cur_len.to(torch.int64) - 1, 0, S - 1)
             x = x[torch.arange(B, device=x.device), last][:, None]
-    return _lm_head(params, x, cfg), {"caches": caches if use_cache else None}
+    return _lm_head(params, x, cfg, ctx), {"caches": caches if use_cache else None}

@@ -5,7 +5,8 @@
 ``fp``, ``fake``, ``dequant-fp`` and ``fused-int8`` paths, the continuous and
 grouped schedulers, the dense and paged layouts, speculative decoding, chunked
 prefill and N:M sparsity are served. :meth:`EngineConfig.check_model` rejects
-with :class:`NotPortedError` the model families this port does not serve yet.
+with :class:`NotPortedError` the models the engine does not serve: encoder-only
+ones and the families this port does not serve yet.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ SPARSITY_CHOICES = ("none", "2:4", "4:8")
 
 
 class NotPortedError(NotImplementedError):
-    """A model family the reference engine serves but this port does not yet."""
+    """A model the slot-table engine does not serve: a family this port does not
+    serve yet, or an encoder-only model (no decode step)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +121,17 @@ class EngineConfig:
                                  "scheduler (per-slot draft windows)")
 
     def check_model(self, cfg) -> None:
-        """Model-dependent validation: only dense global decoders are ported."""
-        if cfg.family != "dense" or cfg.layer_pattern != "global":
-            raise NotPortedError(f"{cfg.name}: family {cfg.family!r} with layer "
-                                 f"pattern {cfg.layer_pattern!r} is not ported yet")
+        """Model-dependent validation: the engine serves dense and vlm decoders
+        (global or local/global attention, tied or untied heads; a vlm serves
+        text-only). Audio (encoder-only) models have no decode step; MoE, SSM and
+        hybrid stacks are not ported yet."""
+        if cfg.family not in ("dense", "vlm", "audio"):
+            raise NotPortedError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
+        if not cfg.causal or cfg.frontend == "audio_stub":
+            raise NotPortedError(
+                f"{cfg.name} takes frames and has no decode step (causal={cfg.causal}): "
+                f"the slot-table engine serves decoders from token prompts; run it with "
+                f"serving.engine.make_prefill_step on a frames batch")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,14 @@ of one exact prompt length, drained before the next group is admitted.
 Under fake quantization an activation's dynamic statistics (CrossQuant's column
 max, SmoothQuant's and AWQ's columns, the remove-kernel quantile) reduce over
 every token row of a step, padding rows and idle slots included, so each step
-hands the model the rows the reference's engine does, padded the same way.
+hands the model the rows the reference's engine does, padded the same way. The
+same holds under ``mode="int8"`` for a linear whose fp weights are prepared on the
+fly (an untied ``lm_head``, or any unprepared leaf): its column max is this
+step's.
+
+:func:`make_prefill_step` and :func:`make_decode_step` are the reference's raw
+step builders; for an encoder-only model the prefill step is the serving entry
+(its logits, no cache).
 """
 from __future__ import annotations
 
@@ -77,6 +84,65 @@ def _make_sampler(temperature: float, top_k: int):
         return torch.multinomial(probs, 1, generator=gen)[..., 0].to(torch.int32)
 
     return sample
+
+
+def make_prefill_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
+                      path: Optional[str] = None):
+    ctx = _make_ctx(cfg, quant, path)
+
+    def prefill_step(params, batch, caches):
+        """batch["tokens"] (B, S) right-padded prompts (or ``frames`` (B, S,
+        frontend_dim) for an audio model) → (last-valid-position logits (B, 1, V),
+        filled caches). An optional batch["lens"] (B,) gives per-slot prompt
+        lengths (absent: every slot is S long). An encoder-only model runs
+        ``mode="train"`` and returns its last-position logits with ``caches``
+        unchanged."""
+        S = batch["frames"].shape[1] if "frames" in batch else batch["tokens"].shape[1]
+        if not cfg.causal:
+            logits, _ = M.apply(params, batch, cfg, ctx=ctx, mode="train")
+            return logits[:, -1:], caches
+        lens = batch.get("lens")
+        logits, ex = M.apply(params, batch, cfg, ctx=ctx, mode="prefill", caches=caches,
+                             cur_len=S if lens is None else lens)
+        return logits, ex["caches"]
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
+                     path: Optional[str] = None):
+    ctx = _make_ctx(cfg, quant, path)
+
+    def decode_step(params, tokens, caches, cur_len):
+        """tokens (B, 1) + caches + cur_len (scalar or (B,) per-slot post-append
+        lengths) → (logits (B, 1, V), caches updated in place)."""
+        logits, ex = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="decode",
+                             caches=caches, cur_len=cur_len)
+        return logits, ex["caches"]
+
+    return decode_step
+
+
+def _rows_coupled(params, quant: ql.QuantConfig) -> bool:
+    """Whether a step's token rows share a dynamic statistic: every linear under
+    fake quantization, and under ``mode="int8"`` any linear (``lm_head`` or a
+    quantizable parent) still holding fp weights without a static ``cmax``, which
+    is prepared on the fly with the column max of the step's rows."""
+    if quant.mode == "fake":
+        return True
+    if quant.mode != "int8":
+        return False
+
+    def dynamic(node, name: str) -> bool:
+        if isinstance(node, dict):
+            if (name in MQ.QUANTIZABLE_PARENTS or name == "lm_head") and "w" in node:
+                return "cmax" not in node
+            return any(dynamic(v, k) for k, v in node.items())
+        if isinstance(node, list):
+            return any(dynamic(v, name) for v in node)
+        return False
+
+    return dynamic(params, "")
 
 
 def _slot_scatter(live: dict, new: dict, slots: torch.Tensor) -> dict:
@@ -292,7 +358,8 @@ class ServeEngine:
     prefill; the admitted slot's prompt is served chunk by chunk from each step's
     leftover token budget, and its pages join the radix index at the final chunk.
     A packed step launches only its live rows (at most ``token_budget``; all of
-    them under fake quantization, as the reference does). A step
+    them where the rows are coupled, as the reference does: under fake
+    quantization, or a linear prepared on the fly). A step
     with no prefill work, fp KV and ``speculate == 1`` runs the lean decode step
     (K4) instead of the packed launch (K6); their q_len == 1 numerics are the
     same, so tokens do not depend on the branch. int8 KV and speculative chunked
@@ -322,8 +389,8 @@ class ServeEngine:
                 self.sparsity_plan = MQ.SparsityPlan(nm=MQ.parse_nm(config.sparsity))
             params = MQ.sparsify_tree(params, self.sparsity_plan)
         params = MQ.with_tile_occupancy(params)
-        # fake quantization couples the token rows of a step (module docstring)
-        self._rows_coupled = (quant or cfg.quant).mode == "fake"
+        # dynamic statistics couple the token rows of a step (module docstring)
+        self._rows_coupled = _rows_coupled(params, quant or cfg.quant)
         self.cfg, self.params = cfg, params
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id

@@ -927,3 +927,119 @@ def test_fake_and_dequant_linear_match_cpu(dev):
         want = ql.apply(prep, x, ql.W8A8_INT8, int_exec="dequant")
         assert float((got - want).norm() / want.norm()) <= tol
     assert all(n == 0 for n in ops.LAUNCHES.values())     # no hand-written kernel ran
+
+
+# ---------------------------------------------------------------- the dense zoo's shapes
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("S", [128, 200])
+def test_flash_attention_d80(dev, causal, dtype, atol, S):
+    """K3 at hubert-xlarge's head size 80 (its own instantiation, no padding):
+    both bodies, causal and not (the encoder), kv_len S, a ragged length, 65 and
+    1, 16 heads over 16 and over 4 kv heads; rows with a visible key within the
+    tolerance of the plain version."""
+    ops, ref = _ops()
+    for H, Hkv in ((16, 16), (16, 4)):
+        g = torch.Generator(device=dev).manual_seed(80 * S + H + Hkv + causal)
+        q = torch.randn(4, H, S, 80, generator=g, device=dev).to(dtype)
+        k = torch.randn(4, Hkv, S, 80, generator=g, device=dev).to(dtype)
+        v = torch.randn(4, Hkv, S, 80, generator=g, device=dev).to(dtype)
+        kv_len = torch.tensor([S, S - 37, 65, 1], device=dev, dtype=torch.int32)
+        body = f"flash_attention/{'bf16_mma' if dtype == torch.bfloat16 else 'f32'}"
+        before = ops.BODY_LAUNCHES[body]
+        out = ops.flash_attention(q, k, v, kv_len, causal=causal)
+        assert ops.BODY_LAUNCHES[body] == before + 1
+        want = ref.flash_attention_ref(q, k, v, kv_len, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        err = (out.float() - want.float()).abs()
+        if causal:       # a row past kv_len has no visible key: compare the others
+            err = err[:, :, :int(kv_len.min())]
+        assert float(err.max()) <= atol, (H, Hkv, float(err.max()))
+
+
+def _window_paged(dev, pool_dtype, kv_lens, ps=16, Hkv=8, D=256, seed=0):
+    """Pools for gemma2-9b's local layers (8 kv heads, D = 256, ps 16) holding two
+    slots at ``kv_lens``, an injective page table, and the table's span."""
+    maxP = -(-max(kv_lens) // ps) + 2
+    P = sum(-(-n // ps) for n in kv_lens) + 3
+    kp, vp, ks, vs, _, _ = _paged_inputs(dev, 1, Hkv, D, P, ps, maxP, pool_dtype, seed)
+    rng = np.random.default_rng(seed)
+    tab = np.full((len(kv_lens), maxP), P, np.int32)
+    perm, off = rng.permutation(P), 0
+    for b, n in enumerate(kv_lens):
+        n = -(-n // ps)
+        tab[b, :n] = perm[off: off + n]
+        off += n
+    t = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)  # noqa: E731
+    return kp, vp, ks, vs, t(tab), t(kv_lens), maxP
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_window_masks_whole_partitions(dev, pool_dtype, q_dtype):
+    """K4, K5 (q_win 4) and K6 at gemma2-9b's local layers: D = 256, 16 heads over
+    8, window 4096, softcap 50, kv_len 4616 and 317. The first 520 positions of the
+    long slot are behind the window, so the split body's leading partitions see
+    no key: they must combine with weight 0 (finite, within the tolerance of the
+    plain version)."""
+    from repro_torch.kernels.paged_attention import split_plan
+    ops, ref = _ops()
+    G, Hkv, D, W = 2, 8, 256, 4
+    kp, vp, ks, vs, tab, kvl, maxP = _window_paged(dev, pool_dtype, [4616, 317])
+    n_parts, part_len = split_plan(maxP, 16)
+    assert n_parts > 1 and part_len < 4616 - 4096       # partition 0 lies wholly behind
+    kw = dict(k_scale_pages=ks, v_scale_pages=vs, window=4096, softcap=50.0)
+    tol = 2e-2 if q_dtype == torch.bfloat16 else 2e-5
+    g = torch.Generator(device=dev).manual_seed(4616)
+    q = torch.randn(2, 1, Hkv * G, D, generator=g, device=dev).to(q_dtype)
+    out = ops.paged_decode_attention(q, kp, vp, tab, kvl, **kw)
+    want = ref.paged_decode_attention_ref(q.reshape(2, Hkv, G, D), kp, vp, tab, kvl, **kw)
+    qw = torch.randn(2, W, Hkv * G, D, generator=g, device=dev).to(q_dtype)
+    qln = torch.tensor([4, 3], dtype=torch.int32, device=dev)
+    outw = ops.paged_verify_attention(qw, kp, vp, tab, kvl, qln, **kw)
+    wantw = ref.paged_verify_attention_ref(qw.reshape(2, W, Hkv, G, D).permute(0, 2, 1, 3, 4),
+                                           kp, vp, tab, kvl, qln, **kw).permute(0, 2, 1, 3, 4)
+    # K6: a decode row of the long slot and a 48-token chunk of the short one
+    q_lens, kv_lens = [1, 48], [4616, 317]
+    qs = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    qr = torch.randn(49, Hkv * G, D, generator=g, device=dev).to(q_dtype)
+    kn = torch.randn(49, Hkv, D, generator=g, device=dev).to(q_dtype)
+    vn = torch.randn(49, Hkv, D, generator=g, device=dev).to(q_dtype)
+    qlr = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+    kvr = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    outr = ops.ragged_prefill_attention(qr, kn, vn, kp, vp, tab, qs, qlr, kvr, chunk_cap=49,
+                                        **kw)
+    wantr = ref.ragged_prefill_attention_ref(qr.reshape(49, Hkv, G, D), kn, vn, kp, vp, tab,
+                                             qs, qlr, kvr, chunk_cap=49, **kw)
+    torch.cuda.synchronize()
+    for o in (out, outw, outr):
+        assert torch.isfinite(o.float()).all()
+    assert float((out.reshape(2, Hkv, G, D).float() - want.float()).abs().max()) <= tol
+    for b, n in enumerate(qln.tolist()):
+        errw = (outw[b, :n].reshape(n, Hkv, G, D).float() - wantw[b, :n].float()).abs()
+        assert float(errw.max()) <= tol
+    assert float((outr.reshape(49, Hkv, G, D).float() - wantr.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("M", [4, 128])
+def test_qgemm_w8a8_vocab_head(dev, M):
+    """K2 at nemotron-4-15b's untied head, K = 6144 and N = 256000 (2000 column
+    tiles), routed (decode body at M = 4, wgmma at 128): bitwise against the plain
+    version, taken in column slices to bound its float64 product."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_plan
+    ops, ref = _ops()
+    K, N = 6144, 256000
+    g = torch.Generator(device=dev).manual_seed(M)
+    qx = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+    a = torch.rand(M, 1, generator=g, device=dev) * 0.1 + 1e-3
+    sw = torch.rand(N, generator=g, device=dev) * 0.1 + 1e-3
+    body = qgemm_w8a8_plan(M, K, N)[0]
+    before = ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"]
+    out = ops.qgemm_w8a8(qx, qw, a, sw)
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"] == before + 1
+    for n0 in range(0, N, 32000):
+        want = ref.qgemm_w8a8_ref(qx, qw[:, n0:n0 + 32000], a, sw[n0:n0 + 32000])
+        assert torch.equal(out[:, n0:n0 + 32000], want), n0

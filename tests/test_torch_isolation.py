@@ -26,7 +26,8 @@ def test_imports_without_jax_triton_or_repro():
         leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked
         for name in ("launch.serve", "kernels.ops", "core.kernel_analysis", "core.smoothquant",
-                     "core.awq", "core.quantizers", "core.qlinear", "models.quantize"):
+                     "core.awq", "core.quantizers", "core.qlinear", "models.quantize",
+                     "models.frontends"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
