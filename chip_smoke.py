@@ -47,6 +47,12 @@ Phases (any failure raises and exits non-zero):
    an int8 pool where the leading split partitions lie wholly behind the window;
    K2 at nemotron-4-15b's untied head (K=6144, N=256000, M=4 and 128) on weights
    prepared on the fly, with torch._int_mm beside it.
+   The MoE slice's expert-batched modes ([3m]): K1's rows body over granite's 40
+   experts x 8 decode rows (K=1536, per-expert column factors; bitwise at α=1,
+   the dense bar at α=0.15), K2's decode body at granite's up/gate and down and
+   llama4-scout's up (E=16, K=5120, N=8192), its wgmma body at granite's C=512
+   and C=128 dispatch buffers, and the tile body beside them, each bitwise
+   against the per-expert plain version eagerly and under graph replay.
    bf16 outputs (K3, K4-K6 with bf16 q) pass where within 2e-2 of the plain
    version or within one bf16 ulp of it rounded to bf16.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
@@ -93,6 +99,12 @@ Phases (any failure raises and exits non-zero):
    per model step; its cost printed beside a tied twin); hubert-xlarge FULL through
    ``make_prefill_step`` over 4 x 512 seeded frames (K3 at D=80, not causal), its
    logits held against dequant-fp's. Each with launch counts per body.
+   The MoE slice ([4m]): granite-moe-3b-a800m FULL (32 layers, 40 experts top-8)
+   calibrated, quantized and served fused-int8 dense (fp and int8 KV), paged
+   behind the shared prefix (int8 KV), paged speculate=4 and chunked (int8 KV,
+   budget 512), 224 K1 and 224 K2 launches per model call (96 of them
+   expert-batched, one per stacked linear); llama4-scout-17b-a16e at full width
+   cut to 4 of 48 layers, dense fp KV (10 K1 and 10 K2 a layer).
 5. The same width cut to 2 layers (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
@@ -119,7 +131,13 @@ Phases (any failure raises and exits non-zero):
    positions are bf16 patch embeddings, 4 decode steps) and hubert-xlarge (encoder
    logits). The untied heads' runs feed the CPU the card's tokens and hubert's
    compare position by position: greedy choices equal wherever the CPU's top-1/
-   top-2 margin exceeds twice the largest logit gap.
+   top-2 margin exceeds twice the largest logit gap. The MoE models ([5m]):
+   granite at 2 layers (dense; paged ≡ dense on the card; capacity_factor 0.25,
+   an admission that drops (token, k) pairs) and llama4-scout at 1 layer, each
+   held three ways, since an int8 code one step apart swaps a near-tied expert:
+   every routing the card met equals the CPU's on the same inputs, the card's
+   kernels give its plain path's greedy tokens, and the CPU fed the card's
+   tokens stays within twice what a one-ulp nudge of the embedding moves it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -310,7 +328,9 @@ def main() -> int:
     from repro_torch.core import kernel_analysis as KA, quantizers as Q
     from repro_torch.launch.serve import calibrate, calibration_batches, make_prompts
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models.layers import QuantContext
+    from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.models.quantize import (
         SparsityPlan, dequantize_tree, make_sparsity_plan, quantize_tree, quantized_bytes,
         sparsify_tree, sparsity_summary, with_tile_occupancy,
@@ -1287,6 +1307,128 @@ def main() -> int:
     del w_head
     torch.cuda.empty_cache()
 
+    # [3m] The MoE slice's expert-batched K1 and K2 (one launch per stacked-expert
+    # linear, all E experts on the grid), at the shapes granite-moe-3b-a800m and
+    # llama4-scout-17b-a16e give them: K1's rows body over E=40 experts' C=8 decode
+    # rows, K=1536 bf16, per-expert column factors, at α=1 (bitwise) and the
+    # calibrated α=0.15 (the dense linears' bar: torch's pow and powf part by an ulp
+    # on a few inputs); K2's decode body at C=8 for granite's up/gate (K=1536,
+    # N=512) and down (K=512, N=1536) and llama4's up (E=16, K=5120, N=8192); its
+    # wgmma body at granite's admission (C=512, the 4 x 512 bucket) and chunked
+    # (C=128, budget 512) dispatch buffers; its tile body beside them. Each bitwise
+    # against the per-expert plain version, eagerly and under graph replay. Empty
+    # capacity rows (zeros) are part of every buffer. Inputs from a generator of
+    # their own. No single PyTorch call computes a batched int8 product, so
+    # library_ms is null.
+    gen_e = torch.Generator(device=dev)
+    gen_e.manual_seed(2020)
+    E1, C1, K1 = 40, 8, 1536
+    xe = (torch.randn(E1, C1, K1, generator=gen_e, device=dev) * 2).to(torch.bfloat16)
+    xe[:, :, torch.randperm(K1, generator=gen_e, device=dev)[:8]] *= 30
+    xe[3, 5:] = 0                                   # empty capacity rows
+    bcol_e = torch.rand(E1, K1, generator=gen_e, device=dev) * 3 + 0.25
+    for alpha_v in (1.0, 0.15):
+        alpha_e = torch.full((E1,), alpha_v, device=dev)
+        routed, splits = act_quantize_plan(E1 * C1, K1)
+        before = dict(ops.BODY_LAUNCHES)
+        q, a = ops.act_quantize_experts(xe, bcol_e, alpha_e)
+        check(ops.BODY_LAUNCHES[f"act_quantize/experts_{routed}"]
+              == before[f"act_quantize/experts_{routed}"] + 1,
+              f"act_quantize_experts did not run the {routed} body")
+        qr, ar = ref.act_quantize_experts_ref(xe, bcol_e, 8, alpha_e)
+        call = (lambda: act_quantize_cuda(xe.reshape(E1 * C1, K1), bcol_e, alpha_e, 0.0, 8,
+                                          routed, splits, rows_per_expert=C1))
+        worst = (0, 0, 0)
+        for qb, ab in ((q, a), replay(call)):
+            torch.cuda.synchronize()
+            qb, ab = qb.reshape(qr.shape), ab.reshape(ar.shape)
+            d = (qb.int() - qr.int()).abs()
+            n_off = int((d > 0).sum())
+            a_ulps = int((ab.view(torch.int32) - ar.view(torch.int32)).abs().max())
+            if alpha_v == 1.0:
+                check(n_off == 0 and a_ulps == 0, f"act_quantize_experts α=1: {n_off} codes "
+                      f"and {a_ulps}-ulp scales differ from the plain version")
+            else:
+                check(int(d.max()) <= 1 and n_off <= 1e-5 * q.numel() and a_ulps <= 1,
+                      f"act_quantize_experts α={alpha_v}: max |dq|={int(d.max())}, off="
+                      f"{n_off}, a {a_ulps} ulp")
+            worst = max(worst, (int(d.max()), n_off, a_ulps))
+        ms = graph_ms(once(call), 200)
+        cms = time_ms(once(lambda: ops.act_quantize_experts(xe, bcol_e, alpha_e)), 200)
+        pms = time_ms(once(lambda: ref.act_quantize_experts_ref(xe, bcol_e, 8, alpha_e)), 5)
+        nbytes = E1 * C1 * K1 * 2 + E1 * K1 * 4 + E1 * 4 + E1 * C1 * K1 + E1 * C1 * 4
+        bms, by = bound(nbytes, 6 * E1 * C1 * K1, PEAK_OPS["f32"])
+        results[(f"act_quantize/experts_{routed}", E1, C1, K1, alpha_v)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+            max_abs_err=float(worst[0]))
+        print(f"[3m] act_quantize_experts E={E1} C={C1} K={K1} bf16 α={alpha_v}: routed to the "
+              f"{routed} body (E·C={E1 * C1} rows) kernel_ms={ms:.4f} call_ms={cms:.4f} "
+              f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.4f} ({by}) "
+              f"GB/s={nbytes / ms / 1e6:.0f} max|dq|={worst[0]} off_by_one<={worst[1]}/"
+              f"{q.numel()} a_max_ulp={worst[2]} (eager and graph replay)")
+    del xe, bcol_e, q, a, qr, ar
+
+    k2e_shapes = [(40, 8, 1536, 512), (40, 8, 512, 1536), (16, 8, 5120, 8192),
+                  (40, 512, 1536, 512), (40, 512, 512, 1536), (40, 128, 1536, 512),
+                  (40, 128, 512, 1536)]
+    for (E2, C2, K2, N2) in k2e_shapes:
+        qx = torch.randint(-127, 128, (E2, C2, K2), generator=gen_e, device=dev,
+                           dtype=torch.int8)
+        qx[1, C2 // 2:] = 0                         # empty capacity rows
+        # rotate through copies of the expert weights so the timed loop reads them
+        # from device memory, as a serving step does
+        n_copies = max(1, min(8, math.ceil(3 * L2_BYTES / (E2 * K2 * N2))))
+        qws = [torch.randint(-127, 128, (E2, K2, N2), generator=gen_e, device=dev,
+                             dtype=torch.int8) for _ in range(n_copies)]
+        qw = qws[0]
+        a = torch.rand(E2, C2, 1, generator=gen_e, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(E2, N2, generator=gen_e, device=dev) * 0.1 + 1e-3
+        routed, splits = qgemm_w8a8_plan(C2, K2, N2, experts=E2)
+        bodies = {"tile": lambda i=0: qgemm_w8a8_cuda(qx, qws[i % n_copies], a, sw,
+                                                       experts=E2)}
+        if routed == "decode":
+            bodies["decode"] = lambda i=0: qgemm_w8a8_decode_cuda(
+                qx, qws[i % n_copies], a, sw, splits, experts=E2)
+        else:
+            bodies["wgmma"] = lambda i=0: qgemm_w8a8_wgmma_cuda(
+                qx, qws[i % n_copies], a, sw, splits, experts=E2)
+        before = dict(ops.BODY_LAUNCHES)
+        out = ops.qgemm_w8a8_experts(qx, qw, a, sw)
+        check(ops.BODY_LAUNCHES[f"qgemm_w8a8/experts_{routed}"]
+              == before[f"qgemm_w8a8/experts_{routed}"] + 1,
+              f"qgemm_w8a8_experts E={E2} C={C2} K={K2} N={N2} did not run the {routed} body")
+        want = ref.qgemm_w8a8_experts_ref(qx, qw, a, sw)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        check(torch.equal(out, want), f"qgemm_w8a8_experts E={E2} C={C2} K={K2} N={N2} not "
+              f"bitwise: {err}")
+        for b, fn in bodies.items():
+            for o in (fn(), replay(once(fn))[0]):
+                torch.cuda.synchronize()
+                check(torch.equal(o, want), f"qgemm_w8a8_experts {b} body E={E2} C={C2} K={K2} "
+                      f"N={N2} not bitwise (eager or graph replay)")
+        body_ms = {}
+        for b in [routed, "tile", routed]:
+            t = graph_ms(bodies[b], 10 if C2 >= 128 else 30)
+            body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+        ms = body_ms[routed]
+        cms = time_ms(lambda i=0: ops.qgemm_w8a8_experts(qx, qws[i % n_copies], a, sw), 20)
+        pms = time_ms(lambda i=0: ref.qgemm_w8a8_experts_ref(qx, qws[i % n_copies], a, sw), 2)
+        nbytes = E2 * (C2 * K2 + K2 * N2 + C2 * 4 + N2 * 4 + C2 * N2 * 4)
+        bms, by = bound(nbytes, 2 * E2 * C2 * N2 * K2, PEAK_OPS["int8"])
+        for b, t in body_ms.items():
+            results[(f"qgemm_w8a8/experts_{b}", E2, C2, K2, N2)] = dict(
+                ms=t, call_ms=cms if b == routed else None, plain_ms=pms, library_ms=None,
+                bound_ms=bms, bound_by=by, max_abs_err=err)
+        times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+        print(f"[3m] qgemm_w8a8_experts E={E2} C={C2} K={K2} N={N2}: routed to the {routed} "
+              f"body ({splits} splits) kernel_ms={ms:.4f} ({times}) call_ms={cms:.4f} "
+              f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.4f} ({by}) bitwise=True "
+              f"GB/s={nbytes / ms / 1e6:.0f} tops={2 * E2 * C2 * N2 * K2 / ms / 1e9:.1f}")
+        del qx, qws, qw, a, sw, out, want
+    torch.cuda.empty_cache()
+    # [3m] end
+
     # ---------------------------------------------------------------- phase 4
     print(f"[4] start at {time.perf_counter() - t_start:.1f}s")
     cfg = get("starcoder2-7b")
@@ -1320,7 +1462,7 @@ def main() -> int:
     e2e, call_ms = {}, {}
 
     def serve(label: str, reqs, tree=None, q=quant, gemm="qgemm_w8a8", path="fused-int8",
-              plan=None, max_new=MAX_NEW, model=None, **kw):
+              plan=None, max_new=MAX_NEW, model=None, experts=(), **kw):
         """One serving run of ``reqs`` at full width and depth. The kernel counts are
         zeroed just before the run and read just after, and must equal what its
         schedule implies. On the ``fake`` and ``dequant-fp`` paths the linears are
@@ -1345,7 +1487,12 @@ def main() -> int:
         ``tree``; every count above then scales with its layers and linears, and an
         untied head (``head``: its (K, N), prepared on the fly) adds one K1 and one
         K2 launch per model step, on the bodies its rows give (a prefill's last
-        positions, every row of the other steps)."""
+        positions, every row of the other steps). ``experts``: the (K, N) of a
+        mixture of experts' stacked linears (up, gate, down), each one expert-batched
+        K1 and K2 launch per layer and model step, K1 on the body act_quantize_plan
+        gives E·C rows and K2 on the body qgemm_w8a8_plan gives C rows per expert,
+        C the capacity of the step's token rows; ``mlinears`` then lists the
+        attention's linears and a shared expert's."""
         kernels = path == "fused-int8"
         mcfg, mlinears, mhead, mbatch, mmax_len = model or (cfg, linears, None, BATCH,
                                                             MAX_LEN)
@@ -1403,7 +1550,7 @@ def main() -> int:
               f"{label}: every request gets {max_new} tokens")
         check(all(0 <= t < mcfg.vocab for r in done for t in r.out), f"{label}: token ids")
         want = {name: 0 for name in ops.LAUNCHES}
-        per_step = len(mlinears) * L + (mhead is not None)
+        per_step = (len(mlinears) + len(experts)) * L + (mhead is not None)
         if kernels:
             want.update({"act_quantize": per_step * steps, gemm: per_step * steps})
         if engine.chunked:
@@ -1428,6 +1575,10 @@ def main() -> int:
                 K, N = mhead
                 want_bodies[f"act_quantize/{act_quantize_plan(hrows, K)[0]}"] += 1
                 want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(hrows, K, N)[0]}"] += 1
+            E, C = mcfg.n_experts, moe_capacity(rows, mcfg) if experts else 0
+            for K, N in experts:
+                want_bodies[f"act_quantize/experts_{act_quantize_plan(E * C, K)[0]}"] += L
+                want_bodies[f"qgemm_w8a8/experts_{qgemm_w8a8_plan(C, K, N, experts=E)[0]}"] += L
             for K, N in mlinears:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
                 if gemm == "qgemm_w8a8":
@@ -1627,8 +1778,9 @@ def main() -> int:
                 return "K2 qgemm_w8a8"
         return None
 
-    def trace(label, reqs, ready, n_steps=3, tree=None, q=quant, **kw):
-        engine = ServeEngine(cfg, qparams if tree is None else tree, quant=q, device=dev,
+    def trace(label, reqs, ready, n_steps=3, tree=None, q=quant, model_cfg=None, **kw):
+        engine = ServeEngine(model_cfg or cfg, qparams if tree is None else tree, quant=q,
+                             device=dev,
                              config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
                                                  path="fused-int8", **kw))
         engine.submit(reqs, max_new=MAX_NEW)
@@ -1990,6 +2142,78 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[4z] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_zoo:.1f}s "
           f"for the zoo)")
+
+    # [4m] The MoE slice: granite-moe-3b-a800m FULL (32 layers, d_model 1536, 24/8
+    # heads of 64, 40 experts top-8 of width 512, vocab 49155) calibrated with the
+    # launcher's traffic, W8A8 static-c CrossQuant, served fused-int8: dense with fp
+    # and int8 KV, paged (int8 KV) behind a 389-token shared prefix, paged
+    # speculate=4 over motif-tiled prompts, chunked (int8 KV, budget 512). Per model
+    # call 224 K1 and 224 K2 launches: 4 x 32 on the attention's linears (bodies by
+    # the step's rows) and 3 x 32 expert-batched ones, one per stacked linear (K1's
+    # body by E·C rows, K2's by the C rows per expert). Then llama4-scout-17b-a16e at
+    # full width, depth cut to 4 of its 48 layers (its f32 tree is 2.2 G parameters
+    # a layer: 35 GB at 4, with the 4.1 GB embedding), dense fp KV: top-1 routing
+    # over 16 experts of width 8192 and a shared expert, 10 K1 and 10 K2 launches a
+    # layer (4 attention, 3 shared, 3 expert-batched).
+    print(f"[4m] start at {time.perf_counter() - t_start:.1f}s")
+    t_moe = time.perf_counter()
+    cfg_m, qparams_m = build("granite-moe-3b-a800m", 30)
+    check(cfg_m.n_layers == 32 and cfg_m.d_model == 1536 and cfg_m.n_experts == 40
+          and cfg_m.top_k == 8 and cfg_m.d_ff_expert == 512 and cfg_m.head_dim == 64
+          and M.block_spec(cfg_m).sublayers == ("attn_moe",), "granite-moe-3b-a800m FULL")
+    d_m, f_m = cfg_m.d_model, cfg_m.d_ff_expert
+    experts_m = [(d_m, f_m), (d_m, f_m), (f_m, d_m)]          # up, gate, down
+    up_m = qparams_m["blocks"][0]["moe"]["up"]
+    check(up_m["qw"].shape == (32, 40, d_m, f_m) and up_m["qalpha"].shape == (32, 40)
+          and float(up_m["qalpha"].max()) < 1.0, "granite experts: calibrated (L, E) stacks")
+    model_m = (cfg_m, linear_shapes(cfg_m)[:4], None, BATCH, MAX_LEN)
+    prompts_m = make_prompts(cfg_m.vocab, LENS, len(LENS), seed=30)
+    rng_m = np.random.default_rng(31)
+    system_m = rng_m.integers(1, cfg_m.vocab, size=SYSTEM_PREFIX).astype(np.int32)
+    shared_m = [np.concatenate([system_m, rng_m.integers(1, cfg_m.vocab, size=n)
+                                .astype(np.int32)]) for n in SUFFIXES]
+    motif_m = [np.tile(rng_m.integers(1, cfg_m.vocab, size=MOTIF).astype(np.int32), n // MOTIF)
+               for n in (160, 240, 320, 480)]
+    runs_m = [("dense fused-int8 kv=fp", prompts_m[:BATCH], dict(kv_cache="fp")),
+              ("dense fused-int8 kv=int8", prompts_m[:BATCH], dict(kv_cache="int8")),
+              ("paged fused-int8 kv=int8 shared prefix", shared_m,
+               dict(kv_cache="int8", cache_layout="paged")),
+              ("paged fused-int8 speculate=4", motif_m,
+               dict(kv_cache="fp", cache_layout="paged", speculate=4)),
+              ("chunked fused-int8 kv=int8 budget 512", shared_m[:BATCH],
+               dict(kv_cache="int8", cache_layout="paged", chunked=True, token_budget=512))]
+    for label, reqs, kw in runs_m:
+        engine, _ = serve(f"granite-moe {label}", reqs, tree=qparams_m, model=model_m,
+                          experts=experts_m, **kw)
+        if label == "dense fused-int8 kv=fp":      # where a decode step's time goes
+            trace("granite-moe dense fused-int8 kv=fp, decode steps", reqs,
+                  lambda e: not e.queue and e.counters["decode_steps"] > 0, tree=qparams_m,
+                  model_cfg=cfg_m, kv_cache="fp")
+        c = engine.counters
+        if engine.paged and engine.radix is not None and "shared" in label:
+            check(c["prefix_hits"] > 0, f"granite-moe {label}: no prefix hit")
+        print(f"[4m]   granite-moe {label}: prefix_hits={c['prefix_hits']} accept_rate="
+              f"{engine.accept_rate():.3f} chunk_steps={c['chunk_steps']}; "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del engine
+    del qparams_m
+    torch.cuda.empty_cache()
+
+    cfg_l, qparams_l = build("llama4-scout-17b-a16e", 17, n_layers=4)
+    check(cfg_l.d_model == 5120 and cfg_l.n_experts == 16 and cfg_l.top_k == 1
+          and cfg_l.n_shared_experts == 1 and cfg_l.rope_theta == 500000.0
+          and "shared" in qparams_l["blocks"][0]["moe"], "llama4-scout FULL width, shared expert")
+    d_l, f_l = cfg_l.d_model, cfg_l.d_ff_expert
+    serve("llama4-scout (4 layers) dense fused-int8 kv=fp",
+          make_prompts(cfg_l.vocab, LENS[:BATCH], BATCH, seed=17), tree=qparams_l,
+          model=(cfg_l, linear_shapes(cfg_l), None, BATCH, MAX_LEN),
+          experts=[(d_l, f_l), (d_l, f_l), (f_l, d_l)], kv_cache="fp")
+    print(f"[4m]   llama4-scout: max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del qparams_l
+    torch.cuda.empty_cache()
+    print(f"[4m] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_moe:.1f}s "
+          f"for the MoE models)")
 
     # ---------------------------------------------------------------- phase 5
     print(f"[5] start at {time.perf_counter() - t_start:.1f}s")
@@ -2355,7 +2579,7 @@ def main() -> int:
     def build2(name, seed, frames=0, **cut):
         """(cfg, W8A8 tree on the card, its CPU copy) of a FULL config cut to 2 layers,
         float32 (:func:`build`)."""
-        c, qt = build(name, seed, frames, n_layers=2, dtype="float32", **cut)
+        c, qt = build(name, seed, frames, **{"n_layers": 2, "dtype": "float32", **cut})
         return c, qt, M.map_tensors(qt, lambda t: t.cpu())
 
     def card_vs_cpu(label, card, host):
@@ -2570,6 +2794,112 @@ def main() -> int:
     print(f"[5z] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_z5:.1f}s "
           f"for the zoo)")
 
+    # [5m] The MoE slice at 2 layers (granite-moe) and 1 layer (llama4-scout), full
+    # width, float32. The router's top-k is a step function of its input: an int8
+    # code that moves by one where a value sits within an ulp of a rounding boundary
+    # (the card's and the CPU's float sums part there, as in the dense runs) moves a
+    # router input by ~1e-2, enough to swap a token's k-th and (k+1)-th expert. So
+    # card against CPU is held three ways: (1) the routing itself, on the same
+    # inputs: every router input the card's run met, routed on the CPU, gives the
+    # card's experts, slots and drops exactly (gates within 1e-6); (2) the kernels
+    # end to end on one machine: the card's kernel path against the card's plain
+    # path (plain torch linears, no flash), equal greedy tokens and logits within
+    # 5e-2 of max|logit|; (3) the CPU fed the card's tokens: logits within the
+    # larger of 5e-2·max|logit| and twice what a one-ulp nudge of the embedding
+    # moves the CPU's own, and equal greedy choices wherever the CPU's top-1/top-2
+    # margin exceeds twice the gap. Logits compare over the real vocabulary (the
+    # padded ids carry -1e9). granite: dense prefill of two prompts in bucket 256
+    # (each expert's buffer C = 128 rows) + 8 decode steps; paged ≡ dense on the
+    # card; capacity_factor 0.25, whose admission prefill drops (token, k) pairs
+    # (keep is false somewhere). llama4: top-1, the shared expert, 16 experts of
+    # width 8192, the two shorter prompts and 4 decode steps.
+    print(f"[5m] start at {time.perf_counter() - t_start:.1f}s")
+    t_m5 = time.perf_counter()
+    ref_ctx = QuantContext(quant, int_exec="ref")
+    route = moe_lib._route_group
+
+    def moe_vs_cpu(label, c, tree, tree_cpu, tl, steps):
+        seen = []
+
+        def recording(xf, w, c_):
+            out = route(xf, w, c_)
+            seen.append((xf, w, out))
+            return out
+
+        moe_lib._route_group = recording
+        try:
+            gl_, gt_ = greedy(tree, dev, c=c, tl=tl, steps=steps)
+        finally:
+            moe_lib._route_group = route
+        n_drop = sum(int((~o[3]).sum()) for _, _, o in seen)
+        for xf, w, out in seen:                         # (1) routing on the same input
+            host = route(xf.cpu(), w.cpu(), c)
+            check(all(torch.equal(a_.cpu(), b_) for a_, b_ in zip(out[1:4], host[1:4]))
+                  and float((out[0].cpu() - host[0]).abs().max()) <= 1e-6,
+                  f"{label}: the card's routing of {tuple(xf.shape)} rows differs from the CPU's")
+        pgl_, pgt_ = greedy(tree, dev, c=c, tl=tl, steps=steps, ctx=ref_ctx)   # (2)
+        V = c.vocab
+        kerr = float((gl_[..., :V] - pgl_[..., :V]).abs().max())
+        ktol = 5e-2 * float(pgl_[..., :V].abs().max())
+        check(torch.equal(gt_, pgt_) and kerr <= ktol, f"{label}: card kernels vs card plain "
+              f"path: tokens {gt_.T} vs {pgt_.T}, logits err {kerr} (tol {ktol})")
+        cl_, _ = greedy(tree_cpu, cpu, forced=gt_, c=c, tl=tl, steps=steps)  # (3)
+        ul_, _ = greedy(nudged(tree_cpu), cpu, forced=gt_, c=c, tl=tl, steps=steps)
+        gl_, cl_, ul_ = gl_[..., :V], cl_[..., :V], ul_[..., :V]
+        err_, nerr = float((gl_ - cl_).abs().max()), float((ul_ - cl_).abs().max())
+        tol_ = max(5e-2 * float(cl_.abs().max()), 2 * nerr)
+        top2_ = torch.topk(cl_[:-1], 2, dim=-1).values
+        sure_ = (top2_[..., 0] - top2_[..., 1]) > 2 * err_
+        same_ = torch.argmax(cl_[:-1], dim=-1) == gt_
+        check(err_ <= tol_, f"{label} card vs CPU logits: max err {err_} > {tol_}")
+        check(bool(same_[sure_].all()), f"{label}: the CPU's greedy choice differs from the "
+              f"card's token at a margin > 2 x {err_}")
+        print(f"[5m] {label}: {len(seen)} routings ({sum(x.shape[0] for x, _, _ in seen)} token "
+              f"rows, {n_drop} (token, k) pairs dropped) equal to the CPU's on the same inputs; "
+              f"card kernels == card plain path in tokens {gt_.T.tolist()}, logits max_abs_err="
+              f"{kerr:.3e}; CPU fed the card's tokens: logits max_abs_err={err_:.3e} (a one-ulp "
+              f"nudge of the embedding moves the CPU's {nerr:.3e}; tol {tol_:.3e}), greedy equal "
+              f"at {int(same_[sure_].sum())} of the {int(sure_.sum())} of {sure_.numel()} (step, "
+              f"row) pairs whose margin exceeds 2 x err, at {int(same_.sum())} of all")
+        return gt_, n_drop
+
+    cfg_m2, p2m, p2m_cpu = build2("granite-moe-3b-a800m", 40)
+    tl_m = prompts_for(cfg_m2, [150, 131], 256, 40)
+    with torch.no_grad():
+        reset5()
+        mgl, mgt = greedy(p2m, dev, c=cfg_m2, tl=tl_m)
+        n_lin = 7 * cfg_m2.n_layers * 9
+        check(ops.LAUNCHES["act_quantize"] == n_lin == ops.LAUNCHES["qgemm_w8a8"]
+              and ops.BODY_LAUNCHES["qgemm_w8a8/experts_wgmma"] == 3 * cfg_m2.n_layers
+              and ops.BODY_LAUNCHES["qgemm_w8a8/experts_decode"] == 3 * cfg_m2.n_layers * 8,
+              f"granite parity launches {ops.LAUNCHES} {ops.BODY_LAUNCHES}")
+        moe_vs_cpu("granite-moe 2-layer dense, 1 prefill (bucket 256, C = 128) + 8 decode "
+                   "steps", cfg_m2, p2m, p2m_cpu, tl_m, 8)
+        reset5()
+        _, mpt = greedy(p2m, dev, c=cfg_m2, tl=tl_m, layout="paged")
+        check(torch.equal(mpt, mgt), f"granite paged vs dense tokens differ: {mpt.T} vs {mgt.T}")
+        cfg_mo = dataclasses.replace(cfg_m2, capacity_factor=0.25)
+        reset5()
+        _, n_drop = moe_vs_cpu(f"granite-moe capacity_factor 0.25 (C = "
+                               f"{moe_capacity(512, cfg_mo)} at the admission), {steps5} "
+                               f"decode steps", cfg_mo, p2m, p2m_cpu, tl_m, steps5)
+        check(n_drop > 0, "granite capacity_factor 0.25: no (token, k) pair dropped")
+    del p2m, p2m_cpu
+    torch.cuda.empty_cache()
+    cfg_l1, p1l, p1l_cpu = build2("llama4-scout-17b-a16e", 41, n_layers=1)
+    tl_l = prompts_for(cfg_l1, [40, 27], 64, 41)
+    with torch.no_grad():
+        reset5()
+        greedy(p1l, dev, c=cfg_l1, tl=tl_l, steps=steps5)
+        check(ops.LAUNCHES["act_quantize"] == 10 * (1 + steps5) == ops.LAUNCHES["qgemm_w8a8"],
+              f"llama4 parity launches {ops.LAUNCHES}")
+        moe_vs_cpu(f"llama4-scout 1-layer dense (top-1, shared expert), 1 prefill (bucket 64) "
+                   f"+ {steps5} decode steps", cfg_l1, p1l, p1l_cpu, tl_l, steps5)
+    del p1l, p1l_cpu
+    torch.cuda.empty_cache()
+    print(f"[5m] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_m5:.1f}s "
+          f"for the MoE models)")
+
     # ---------------------------------------------------------------- result
     reset5()
     # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
@@ -2589,6 +2919,18 @@ def main() -> int:
         ("qgemm_w8a8/wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
          "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/wgmma", 2048, 4608, 18432),
          "M=2048 K=4608 N=18432, wgmma body", "phase 4"),
+        ("act_quantize/experts_rows", "src/repro_torch/csrc/act_quantize.cu",
+         "src/repro/kernels/act_quantize.py:29",
+         ("act_quantize/experts_rows", 40, 8, 1536, 0.15),
+         "E=40 C=8 K=1536 bf16 alpha=0.15, expert-batched rows body (granite decode)",
+         "phase 4"),
+        ("qgemm_w8a8/experts_decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/experts_decode", 40, 8, 1536, 512),
+         "E=40 C=8 K=1536 N=512, expert-batched split-K decode body (granite up)", "phase 4"),
+        ("qgemm_w8a8/experts_wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
+         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/experts_wgmma", 40, 512, 1536, 512),
+         "E=40 C=512 K=1536 N=512, expert-batched wgmma body (granite 4 x 512 admission)",
+         "phase 4"),
         ("flash_attention/bf16_mma", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:33", ("flash_attention", 512, "bf16"),
          "B=4 H=36/4 S=512 D=128 bf16, tensor-core body", "phase 4"),

@@ -5,8 +5,10 @@ arrays — raw (``repro.models.model.init_params``) or prepared
 (``repro.models.quantize.quantize_tree``), e.g. after
 ``jax.tree_util.tree_map(np.asarray, params)``. The output is the same tree of
 torch tensors on ``device``: leaf names (``blocks/0/attn/wq/{qw,sw,bcol,qalpha}``,
-``embed/w``, ``final_norm/...``) and the stacked ``(n_blocks, ...)`` layer axis
-are kept, so the port's model reads it as it reads its own ``init_params``.
+``embed/w``, ``final_norm/...``; an MoE's ``blocks/0/moe/router/w``, its stacked
+``(n_blocks, E, d_in, d_out)`` experts and its ``shared`` MLP) and the stacked
+``(n_blocks, ...)`` layer axis are kept, so the port's model reads it as it reads
+its own ``init_params``.
 This module takes numpy only; it imports nothing of the reference.
 """
 from __future__ import annotations

@@ -25,7 +25,11 @@ Execution of a prepared linear (``int_exec``):
   on CPU): ``qgemm_w8a8``, ``qgemm_w8a8_sparse`` for a leaf with an N:M ``mask``,
   ``qgemm_w4a8`` for a packed-int4 ``qw4`` leaf (:func:`prepare_int4`).
 
-Stacked-expert (3-D) products wait for the MoE port and raise.
+Stacked-expert linears (an MoE layer's ``(E, d_in, d_out)`` weights against its
+``(E, C, d_in)`` dispatch buffer) take every mode and backend. On the kernel
+backend a prepared W8A8 expert stack runs :func:`_int8_experts_kernel`, the
+expert-batched K1 and K2 (one launch each for all E experts); a W4 stack runs the
+plain group product on every device, as the reference's kernel path does.
 """
 from __future__ import annotations
 
@@ -291,47 +295,71 @@ def _int8_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tenso
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
 
 
-def _no_experts(w: torch.Tensor, what: str) -> None:
-    if w.ndim != 2:
-        raise NotImplementedError(f"stacked-expert {what} are not ported yet")
+def _int8_experts_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Kernel pipeline for a prepared W8A8 expert stack: x (E, C, d_in) through
+    the expert-batched ``act_quantize`` (each expert's ``bcol`` and ``qalpha``)
+    into the expert-batched W8A8 GEMM, one launch each. The reference quantizes
+    experts with its jnp quantizer and multiplies in an int32 einsum, outside any
+    Pallas kernel; both are exact integer arithmetic with the same epilogue."""
+    from repro_torch.kernels import ops
+
+    alpha = params.get("qalpha")
+    qx, a = ops.act_quantize_experts(x.contiguous(), params["bcol"],
+                                     cfg.alpha if alpha is None else alpha, bits=cfg.a_bits)
+    return ops.qgemm_w8a8_experts(qx, params["qw"], a, params["sw"]).to(x.dtype)
+
+
+def _stacked(qx: torch.Tensor, w: torch.Tensor) -> bool:
+    """An expert stack: (E, C, d_in) codes against (E, d_in, d_out) weights."""
+    return w.ndim == 3 and qx.ndim == 3
 
 
 def _int8_dequant_fp(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                      sw: torch.Tensor) -> torch.Tensor:
     """Dequantize-then-fp-product baseline: the codes are scaled back to f32 before
     the contraction (xdq ≈ x/b rows, wdq ≈ w·b columns; the b factors cancel).
-    It carries the integer path's quantization error at fp throughput."""
-    _no_experts(qw, "dequant GEMMs")
-    return (qx.to(torch.float32) * a) @ qw.to(torch.float32) * sw
+    It carries the integer path's quantization error at fp throughput. An expert
+    stack scales each expert's weight columns by its ``sw`` (E, d_out) first."""
+    xdq = qx.to(torch.float32) * a
+    if _stacked(qx, qw):
+        return xdq @ (qw.to(torch.float32) * sw[:, None, :])
+    return xdq @ qw.to(torch.float32) * sw
 
 
 def _int4_dequant_fp(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
                      sw: torch.Tensor, group: int) -> torch.Tensor:
     """W4 variant of :func:`_int8_dequant_fp`: unpack the nibbles and apply the
-    group scales to the weight, then the fp product."""
-    _no_experts(qw4, "dequant GEMMs")
+    group scales to the weight, then the fp product (batched over an expert
+    stack's leading axis)."""
     return (qx.to(torch.float32) * a) @ dequant_int4_weight(qw4, sw, group)
 
 
 def _int8_matmul_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                      sw: torch.Tensor) -> torch.Tensor:
-    """Reference int8 GEMM + separable dequant: y = (qx·qw) * a_i * sw_k.
+    """Reference int8 GEMM + separable dequant: y = (qx·qw) * a_i * sw_k; an
+    expert stack (qx (E, C, d_in), qw (E, d_in, d_out), sw (E, d_out)) multiplies
+    per expert.
 
     The int32 accumulator is formed as a float64 product of the codes: exact,
     since |acc| ≤ 127²·K < 2^53, and its f32 conversion rounds as int32→f32 does."""
-    _no_experts(qw, "int8 GEMMs")
     acc = torch.matmul(qx.to(torch.float64), qw.to(torch.float64))
-    return acc.to(torch.float32) * a * sw
+    return acc.to(torch.float32) * a * sw[..., None, :]
 
 
 def _int4_matmul_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
                      sw: torch.Tensor, group: int) -> torch.Tensor:
     """Reference W4 GEMM: unpack the nibbles, per-group int32 partial sums (an
     exact float64 product), group dequant by ``sw`` (G, d_out), sum over the
-    groups, then the row scale."""
-    _no_experts(qw4, "W4 GEMMs")
+    groups, then the row scale. An expert stack (qx (E, C, d_in), qw4 (E, d_in/2,
+    d_out), sw (E, G, d_out)) multiplies per expert."""
     qw = unpack_int4_weight(qw4)
     ngroups = qw.shape[-2] // group
+    if _stacked(qx, qw):
+        E, C, _ = qx.shape
+        qx_g = qx.reshape(E, C, ngroups, group).to(torch.float64)
+        qw_g = qw.reshape(E, ngroups, group, qw.shape[-1]).to(torch.float64)
+        acc = torch.einsum("ecgk,egko->ecgo", qx_g, qw_g)
+        return (acc.to(torch.float32) * sw[:, None]).sum(dim=-2) * a
     qx_g = qx.reshape(*qx.shape[:-1], ngroups, group).to(torch.float64)
     qw_g = qw.reshape(ngroups, group, qw.shape[-1]).to(torch.float64)
     acc = torch.einsum("...gk,gko->...go", qx_g, qw_g)
@@ -357,6 +385,8 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
         wq = params.get("qw", params.get("qw4"))
         if exec_mode == "kernel" and wq.ndim == 2 and x.ndim >= 2:
             return _int8_kernel(params, x, cfg)
+        if exec_mode == "kernel" and "qw" in params and _stacked(x, wq):
+            return _int8_experts_kernel(params, x, cfg)
         qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=params.get("qalpha"))
         if "qw" in params:
             if exec_mode == "dequant":

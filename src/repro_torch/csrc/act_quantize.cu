@@ -33,6 +33,11 @@
 //   loads. The register limit: 16 units of 8 per thread, K <= 32768.
 // - sweep: beyond that limit, one block per row reduces, then sweeps the row again
 //   (the first design); no serving shape reaches it.
+// Expert-batched (a stacked-expert linear, E experts' dispatch buffers of C rows
+// each, one launch): every body takes the (E*C, K) rows as they lie and row r reads
+// the column factors bcol[r / C] and exponent alpha[r / C] of its expert; the rows
+// are independent, so the plan picks the body for E*C rows (granite decode: 40 x
+// 8 = 320 rows, the rows body).
 // A unit is 8 elements: one 16-byte load of bf16 x or two of f32 x, two float4
 // loads of bcol, one 8-byte store of codes. Where K % 8 != 0 or a pointer is not
 // aligned for that, the same units are loaded and stored element by element,
@@ -157,7 +162,7 @@ __global__ void __launch_bounds__(kRowThreads, sizeof(T) == 2 ? 4 : 2)
 act_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
                       const float* __restrict__ alpha_ptr, float alpha_val,
                       int8_t* __restrict__ q, float* __restrict__ a_out, int M, int K,
-                      float qmax, float inv_qmax, int vec) {
+                      int C, float qmax, float inv_qmax, int vec) {
   constexpr int TPR = kRowThreads / ROWS, WPR = TPR / 32;
   __shared__ float red[kRowThreads / 32];
   const int sub = threadIdx.x / TPR, lt = threadIdx.x % TPR;
@@ -184,13 +189,16 @@ act_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
   for (int w = 0; w < WPR; ++w) t = fmaxf(t, red[sub * WPR + w]);
   if (!live) return;
 
-  const float a = row_scale(t, alpha_ptr, alpha_val, inv_qmax);
+  const int e = row / C;        // the row's expert (0 for a 2-D activation)
+  const float a = row_scale(t, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
+                            inv_qmax);
   if (lt == 0) a_out[row] = a;
   int8_t* qr = q + (size_t)row * K;
+  const float* br = bcol + (size_t)e * K;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int j = (lt + i * TPR) * kUnit;
-    if (j < K) quantize_unit(r[i], bcol, qr, j, K, vec, a, qmax);
+    if (j < K) quantize_unit(r[i], br, qr, j, K, vec, a, qmax);
   }
 }
 
@@ -199,8 +207,8 @@ template <typename T, int NV>
 __global__ void __launch_bounds__(kSplitThreads)
 act_quant_split_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
                        const float* __restrict__ alpha_ptr, float alpha_val,
-                       int8_t* __restrict__ q, float* __restrict__ a_out, int K, float qmax,
-                       float inv_qmax, int vec) {
+                       int8_t* __restrict__ q, float* __restrict__ a_out, int K, int C,
+                       float qmax, float inv_qmax, int vec) {
   __shared__ float red[kSplitThreads / 32];
   __shared__ float part;        // this block's absmax, read by every rank of the cluster
   __shared__ float t_row;
@@ -239,13 +247,16 @@ act_quant_split_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
   }
   __syncthreads();
 
-  const float a = row_scale(t_row, alpha_ptr, alpha_val, inv_qmax);
+  const int e = row / C;
+  const float a = row_scale(t_row, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
+                            inv_qmax);
   if (split == 0 && tid == 0) a_out[row] = a;
   int8_t* qr = q + (size_t)row * K;
+  const float* br = bcol + (size_t)e * K;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int u = u0 + tid + i * kSplitThreads;
-    if (u < u1) quantize_unit(r[i], bcol, qr, u * kUnit, K, vec, a, qmax);
+    if (u < u1) quantize_unit(r[i], br, qr, u * kUnit, K, vec, a, qmax);
   }
   cluster.sync();               // every rank has read this block's partial
 }
@@ -255,10 +266,10 @@ template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 act_quant_sweep_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
                        const float* __restrict__ alpha_ptr, float alpha_val,
-                       int8_t* __restrict__ q, float* __restrict__ a_out, int K, float qmax,
-                       float inv_qmax) {
+                       int8_t* __restrict__ q, float* __restrict__ a_out, int K, int C,
+                       float qmax, float inv_qmax) {
   __shared__ float red[kRowThreads / 32];
-  const int row = blockIdx.x;
+  const int row = blockIdx.x, e = row / C;
   const T* xr = x + (size_t)row * K;
   int8_t* qr = q + (size_t)row * K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -272,10 +283,12 @@ act_quant_sweep_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
 #pragma unroll
   for (int w = 0; w < kRowThreads / 32; ++w) t = fmaxf(t, red[w]);
 
-  const float a = row_scale(t, alpha_ptr, alpha_val, inv_qmax);
+  const float a = row_scale(t, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
+                            inv_qmax);
   if (threadIdx.x == 0) a_out[row] = a;
+  const float* br = bcol + (size_t)e * K;
   for (int j = threadIdx.x; j < K; j += kRowThreads) {
-    float v = rintf(__fdiv_rn(to_f32(xr[j]), __fmul_rn(a, bcol[j])));
+    float v = rintf(__fdiv_rn(to_f32(xr[j]), __fmul_rn(a, br[j])));
     v = fminf(fmaxf(v, -qmax), qmax);
     qr[j] = static_cast<int8_t>(static_cast<int>(v));
   }
@@ -296,7 +309,7 @@ struct Args {
   float alpha_val;
   int8_t* q;
   float* a;
-  int M, K;
+  int M, K, C;
   float qmax, inv_qmax;
   int vec;
   cudaStream_t s;
@@ -305,7 +318,7 @@ struct Args {
 template <typename T, int NV, int ROWS>
 int launch_rows(const Args& g) {
   act_quant_rows_kernel<T, NV, ROWS><<<(g.M + ROWS - 1) / ROWS, kRowThreads, 0, g.s>>>(
-      static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.q, g.a, g.M, g.K,
+      static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.q, g.a, g.M, g.K, g.C,
       g.qmax, g.inv_qmax, g.vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -348,7 +361,7 @@ int launch_split(const Args& g, int splits) {
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, act_quant_split_kernel<T, NV>, static_cast<const T*>(g.x), g.bcol, g.alpha_ptr,
-      g.alpha_val, g.q, g.a, g.K, g.qmax, g.inv_qmax, g.vec);
+      g.alpha_val, g.q, g.a, g.K, g.C, g.qmax, g.inv_qmax, g.vec);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -371,8 +384,8 @@ template <typename T>
 int launch_body(const Args& g, int body, int splits) {
   if (body == 0) {
     act_quant_sweep_kernel<T><<<g.M, kRowThreads, 0, g.s>>>(
-        static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.q, g.a, g.K, g.qmax,
-        g.inv_qmax);
+        static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.q, g.a, g.K, g.C,
+        g.qmax, g.inv_qmax);
     return static_cast<int>(cudaGetLastError());
   }
   if (body == 1) return launch_rows_body<T>(g);
@@ -390,13 +403,18 @@ REPRO_API const char* repro_cuda_error_string(int code) {
 // Writes q (M, K) int8 and a (M,) f32. body: 0 sweep, 1 rows (K <= 32768), 2 split
 // over `splits` (2..8, at most one per 8-element unit) cluster ranks, each slice at
 // most 2048 units; the wrapper picks both (kernels/act_quantize.py::act_quantize_plan).
+// Expert-batched (a stacked-expert linear): the M rows are E experts' C rows each
+// (rows_per_expert = C, M = E*C), bcol is (E, K) and *alpha_ptr (E,): row r takes
+// expert r / C's factors. A 2-D activation passes rows_per_expert = M.
 REPRO_API int repro_act_quantize(const void* x, int x_dtype, const float* bcol,
                                  const float* alpha_ptr, float alpha_val, int8_t* q,
-                                 float* a, int M, int K, int bits, int body, int splits,
-                                 void* stream) {
+                                 float* a, int M, int K, int rows_per_expert, int bits,
+                                 int body, int splits, void* stream) {
   const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
   const float inv_qmax = 1.0f / qmax;   // correctly rounded, as XLA folds the constant
   if (M <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows_per_expert < 1 || M % rows_per_expert != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int units = (K + kUnit - 1) / kUnit;
   if (body < 0 || body > 2 || (body == 1 && units > kRowThreads * kMaxUnits) ||
       (body == 2 && (splits < 2 || splits > kMaxSplits || splits > units ||
@@ -405,8 +423,8 @@ REPRO_API int repro_act_quantize(const void* x, int x_dtype, const float* bcol,
   const uintptr_t xp = reinterpret_cast<uintptr_t>(x), bp = reinterpret_cast<uintptr_t>(bcol),
                   qp = reinterpret_cast<uintptr_t>(q);
   const int vec = K % kUnit == 0 && xp % 16 == 0 && bp % 16 == 0 && qp % 8 == 0;
-  const Args g{x, bcol, alpha_ptr, alpha_val, q, a, M, K, qmax, inv_qmax, vec,
-               static_cast<cudaStream_t>(stream)};
+  const Args g{x, bcol, alpha_ptr, alpha_val, q, a, M, K, rows_per_expert, qmax, inv_qmax,
+               vec, static_cast<cudaStream_t>(stream)};
   if (x_dtype == kF32) return launch_body<float>(g, body, splits);
   if (x_dtype == kBF16) return launch_body<__nv_bfloat16>(g, body, splits);
   return static_cast<int>(cudaErrorInvalidValue);

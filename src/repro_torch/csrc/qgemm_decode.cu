@@ -61,6 +61,12 @@
 //   XOR-swizzled by row so the lanes' 4-byte reads hit 32 distinct banks (by k-row
 //   / 4 for int8 rows, by packed row / 2 for int4 rows); qx rows are padded to 80
 //   bytes.
+// - Expert-batched K2 (a stacked-expert linear: E experts' (C, K) dispatch rows, C
+//   = 8 at every granite and llama4-scout decode step): one launch, expert e on grid
+//   z, each block offsetting qx, qw, a, sw and out to its expert's; the clusters
+//   and the split-K reduction stay within one expert. The plan counts all E
+//   experts' output tiles when it picks the splits (granite up/gate: 4 column
+//   blocks x 40 experts = 160, so 4 splits; down: 12 x 40 = 480, so 2).
 // - Split-K across a thread-block cluster: the grid is (ceil(N/128), S) with
 //   cluster (1, S, 1), S <= 8 splits of whole 64-row k-tiles (K2: split s takes
 //   k-tiles [s*KT/S, (s+1)*KT/S)) or of whole groups (K8: groups [s*G/S,
@@ -134,6 +140,14 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   const int g = lane >> 2, tg = lane & 3;
   const int n0 = blockIdx.x * BN;
   const int S = gridDim.y, split = blockIdx.y;   // cluster (1, S, 1): rank == split
+  // expert-batched K2 (grid z = E): expert z's (M, K) rows, (K, N) weight, scales and
+  // (M, N) output; z = 0 for a 2-D product
+  const size_t ez = blockIdx.z;
+  qx += ez * M * K;
+  qw += ez * K * N;
+  a += ez * M;
+  sw += ez * N;
+  out += ez * M * N;
   int kbeg = 0, kend = K, steps;
   int* list = reinterpret_cast<int*>(smem + smem_bytes<MT, W4>()) + kListHead;   // K7
   if constexpr (SKIP) {           // this split's share of the block's occupied k-tiles
@@ -338,13 +352,14 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
 
 template <int MT, bool W4, bool SKIP>
 int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, const int* occ,
-           float* out, int M, int N, int K, int group, int splits, cudaStream_t s) {
+           float* out, int M, int N, int K, int group, int splits, cudaStream_t s,
+           int experts) {
   const int smem = smem_bytes<MT, W4>() + (SKIP ? 4 * (kListHead + (K + BK - 1) / BK) : 0);
   cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT, W4, SKIP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN, splits, 1);
+  cfg.gridDim = dim3((N + BN - 1) / BN, splits, experts);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -364,28 +379,34 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
 template <bool W4, bool SKIP>
 int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
              const int* occ, float* out, int M, int N, int K, int group, int splits,
-             cudaStream_t s) {
-  if (M <= 8) return launch<1, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
-  if (M <= 16) return launch<2, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
-  if (M <= 32) return launch<4, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
-  if (M <= 64) return launch<8, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
-  return launch<16, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s);
+             cudaStream_t s, int experts = 1) {
+  if (M <= 8)
+    return launch<1, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
+  if (M <= 16)
+    return launch<2, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
+  if (M <= 32)
+    return launch<4, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
+  if (M <= 64)
+    return launch<8, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
+  return launch<16, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
 }
 
 }  // namespace
 
 // splits: 1..8 and at most ceil(K/64), so no split is empty; M in 1..128; K and N
-// multiples of 16; qx and qw 16-byte aligned. The wrapper picks splits
-// (kernels/qgemm.py::decode_splits) and checks the rest.
+// multiples of 16; qx and qw 16-byte aligned. experts = E > 1: a stacked-expert
+// linear, qx (E, M, K), qw (E, K, N), a (E, M), sw (E, N), out (E, M, N), expert e
+// on grid z. The wrapper picks splits (kernels/qgemm.py::decode_splits) and checks
+// the rest.
 REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const float* a,
                                       const float* sw, float* out, int M, int N, int K,
-                                      int splits, void* stream) {
+                                      int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
-      splits > kMaxSplits || splits > KT)
+      splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<false, false>(qx, qw, a, sw, nullptr, out, M, N, K, 0, splits,
-                                static_cast<cudaStream_t>(stream));
+                                static_cast<cudaStream_t>(stream), experts);
 }
 
 // K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero

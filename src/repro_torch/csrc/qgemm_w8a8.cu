@@ -22,7 +22,9 @@
 // a (M,) f32, sw (N,) f32, out (M, N) f32. The W8 epilogue multiplies in the
 // reference's order (acc -> f32, * a, * sw), so the result is bitwise equal to
 // the plain version: the int32 sum is exact and every float step is one IEEE
-// rounding.
+// rounding. Expert-batched K2 (a stacked-expert linear of a shape the decode and
+// wgmma bodies do not take): qx (E, M, K), qw (E, K, N), a (E, M), sw (E, N), out
+// (E, M, N), expert e on grid z, each block's operands offset to its expert's.
 //
 // What bounds it on an H100 depends on M. At prefill (M = rows x bucket, up to
 // 4096) the work is 2*M*N*K int8 operations against M*K + K*N bytes: operation-
@@ -84,6 +86,14 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
   const int g = lane >> 2, tg = lane & 3;              // mma fragment coordinates
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // expert-batched K2 (grid z = E): expert z's (M, K) rows, (K, N) weight, scales
+  // and (M, N) output; z = 0 for a 2-D product
+  const size_t ez = blockIdx.z;
+  qx += ez * M * K;
+  qw += ez * K * N;
+  a += ez * M;
+  sw += ez * N;
+  out += ez * M * N;
 
   int acc[2][4][4];
   float accf[2][4][4];        // K8: the group-dequantized sum
@@ -219,9 +229,9 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
 template <int MODE>
 int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
            const int* occ, float* out, int M, int N, int K, int vec_a, int vec_b, int group,
-           void* stream) {
+           void* stream, int experts = 1) {
   if (M > 0 && N > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, experts);
     qgemm_kernel<MODE><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, group);
   }
@@ -232,10 +242,13 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
 
 // vec_a: qx rows may be read as 16-byte vectors (K % 16 == 0, 16-byte aligned);
 // vec_b: weight rows as 4-byte words (N % 4 == 0, 4-byte aligned). The wrapper decides.
+// experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E, M),
+// sw (E, N), out (E, M, N), expert e on grid z.
 REPRO_API int repro_qgemm_w8a8(const int8_t* qx, const int8_t* qw, const float* a,
-                               const float* sw, float* out, int M, int N, int K,
+                               const float* sw, float* out, int M, int N, int K, int experts,
                                int vec_a, int vec_b, void* stream) {
-  return launch<kW8>(qx, qw, a, sw, nullptr, out, M, N, K, vec_a, vec_b, 0, stream);
+  if (experts < 1 || experts > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<kW8>(qx, qw, a, sw, nullptr, out, M, N, K, vec_a, vec_b, 0, stream, experts);
 }
 
 // occ: (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major.

@@ -55,6 +55,17 @@
 //   workspace, no atomics, deterministic, and a launch replays unchanged under
 //   CUDA-graph capture.
 //
+// Expert-batched K2 (a stacked-expert linear at prefill and packed chunked steps,
+// C = 512 rows per expert at granite's 4 x 512 admission, 128 at a 512-token chunk
+// budget): one launch for all E experts. The 2-D TMA loads stay 2-D: qx is viewed
+// as (E*C, K) and expert e's m-tiles start at row e*C; qw as (E*K, N) and its
+// k-tiles at row e*K. Clusters sit on grid z, so the expert is folded into grid y
+// with the m-tiles (y = e * mtiles + mt). The epilogue stores no row >= C of its
+// expert, and a, sw and out are offset to the expert's. Where K is not a multiple
+// of 128 the last weight box reads the next expert's first rows (or, for the last
+// expert, rows past E*K, zero-filled), against qx columns past K, which TMA
+// zero-fills: they add exact zeros.
+//
 // K7 (SKIP): K2's sum over the 64-row k-tiles that a (ceil(K/64), ceil(N/64))
 // int32 occupancy table marks occupied in either of the block's two 64-column
 // table columns; qw is zero in every empty (64 x 64) tile, so the skip is exact
@@ -133,7 +144,15 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // grid y: the m-tiles of expert 0, then of expert 1, ... (one expert for a 2-D
+  // product). m0 is the tile's first row within its expert; qx's tensor map holds
+  // the E experts' rows one after the other, the weight's their K-row blocks
+  const int mtiles = (M + BM - 1) / BM, ex = blockIdx.y / mtiles;
+  const int n0 = blockIdx.x * BN, m0 = (blockIdx.y % mtiles) * BM;
+  const int xm0 = ex * M + m0, wk0 = ex * K;
+  a += (size_t)ex * M;
+  sw += (size_t)ex * N;
+  out += (size_t)ex * M * N;
   const int S = gridDim.z, split = blockIdx.z;      // cluster (1, 1, S): rank == split
   // K2: 128-row stages [kt0, kt0 + steps); K7: list entries [kt0, lend), two a stage
   int kt0, steps, lend = 0;
@@ -183,16 +202,18 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
           tma_load_2d(sW, &tm_w, &full[s], n0, k0);
           tma_load_2d(sW + W_BYTES / 2, &tm_w, &full[s], n0, k1);
           if (e + 1 < lend && k1 == k0 + BK / 2) {
-            tma_load_2d(sW + W_BYTES, &tm_xp, &full[s], k0, m0);
+            tma_load_2d(sW + W_BYTES, &tm_xp, &full[s], k0, xm0);
           } else {
-            tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, m0);
-            tma_load_2d(sW + W_BYTES + x_half_bytes<BM>(), &tm_x, &full[s], k1, m0);
+            tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, xm0);
+            tma_load_2d(sW + W_BYTES + x_half_bytes<BM>(), &tm_x, &full[s], k1, xm0);
           }
         } else {
+          // expert-batched: a weight box past the expert's K rows reads the next
+          // expert's rows, against qx columns past K, which TMA zero-fills
           mbar_arrive_expect_tx(&full[s], stage_bytes<BM>());
           const int k0 = (kt0 + t) * BK;
-          tma_load_2d(sW, &tm_w, &full[s], n0, k0);
-          tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, m0);
+          tma_load_2d(sW, &tm_w, &full[s], n0, wk0 + k0);
+          tma_load_2d(sW + W_BYTES, &tm_x, &full[s], k0, xm0);
         }
       }
     }
@@ -585,12 +606,14 @@ bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows
 
 template <int BM, bool SKIP>
 int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, const int* occ,
-           float* out, int M, int N, int K, int splits, cudaStream_t s) {
+           float* out, int M, int N, int K, int splits, cudaStream_t s, int experts) {
   // K7 loads 64-row k-tiles: weight boxes of 64 rows, qx boxes of 64 bytes and, for
-  // two k-adjacent tiles, of 128 (tm_xp; K2 does not read it)
+  // two k-adjacent tiles, of 128 (tm_xp; K2 does not read it). Expert-batched K2:
+  // qx viewed as (E*M, K), qw as (E*K, N)
   CUtensorMap tm_x, tm_w, tm_xp;
-  if (!encode(&tm_x, qx, M, K, BM, SKIP ? BK / 2 : BK) ||
-      !encode(&tm_w, qw, K, N, SKIP ? BK / 2 : BK) || (SKIP && !encode(&tm_xp, qx, M, K, BM)))
+  if (!encode(&tm_x, qx, experts * M, K, BM, SKIP ? BK / 2 : BK) ||
+      !encode(&tm_w, qw, experts * K, N, SKIP ? BK / 2 : BK) ||
+      (SKIP && !encode(&tm_xp, qx, M, K, BM)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!SKIP) tm_xp = tm_x;
   const int smem = smem_bytes<BM>() + (SKIP ? 4 * (kListHead + (K + BK / 2 - 1) / (BK / 2)) : 0);
@@ -598,7 +621,7 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cfg.gridDim = dim3((N + BN - 1) / BN, experts * ((M + BM - 1) / BM), splits);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -647,31 +670,35 @@ int launch_w4(const int8_t* qx, const int8_t* qw4, const float* a, const float* 
 
 template <bool SKIP>
 int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
-             const int* occ, float* out, int M, int N, int K, int splits, cudaStream_t s) {
+             const int* occ, float* out, int M, int N, int K, int splits, cudaStream_t s,
+             int experts = 1) {
   const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
   switch (bm) {
     case 16: case 32: case 48:
-      return launch<48, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
-    case 64: return launch<64, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
-    case 80: return launch<80, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
-    case 96: return launch<96, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
-    case 112: return launch<112, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
-    default: return launch<128, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s);
+      return launch<48, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
+    case 64: return launch<64, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
+    case 80: return launch<80, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
+    case 96: return launch<96, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
+    case 112: return launch<112, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
+    default: return launch<128, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
   }
 }
 
 // splits: 1..8 and at most ceil(K/128); M >= 1; K and N multiples of 16; qx and qw
 // 16-byte aligned. The token tile is M rounded up to 16 for M <= 128, else 128
-// rows. The wrapper picks splits (kernels/qgemm.py::wgmma_splits) and checks the rest.
+// rows. experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E,
+// M), sw (E, N), out (E, M, N), E*M and E*K below 2^31. The wrapper picks splits
+// (kernels/qgemm.py::wgmma_splits) and checks the rest.
 REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const float* a,
                                      const float* sw, float* out, int M, int N, int K,
-                                     int splits, void* stream) {
+                                     int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
   if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
-      splits > kMaxSplits || splits > KT)
+      splits > kMaxSplits || splits > KT || experts < 1 ||
+      (long long)experts * ((M + 47) / 48) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<false>(qx, qw, a, sw, nullptr, out, M, N, K, splits,
-                         static_cast<cudaStream_t>(stream));
+                         static_cast<cudaStream_t>(stream), experts);
 }
 
 // K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero

@@ -31,14 +31,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 SIGNATURES = {
-    # x, x_dtype, bcol, alpha_ptr, alpha_val, q, a, M, K, bits, body, splits, stream
-    "repro_act_quantize": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, out, M, N, K, vec_a, vec_b, stream
-    "repro_qgemm_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, out, M, N, K, splits, stream
-    "repro_qgemm_w8a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, out, M, N, K, splits, stream
-    "repro_qgemm_w8a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_dtype, bcol, alpha_ptr, alpha_val, q, a, M, K, rows_per_expert, bits, body,
+    # splits, stream
+    "repro_act_quantize": [_P, _I, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, experts, vec_a, vec_b, stream
+    "repro_qgemm_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, experts, splits, stream
+    "repro_qgemm_w8a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, experts, splits, stream
+    "repro_qgemm_w8a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, splits, stream

@@ -27,6 +27,12 @@ or an f32 body by dtype.
 
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
+``act_quantize_experts`` and ``qgemm_w8a8_experts`` are K1's and K2's
+expert-batched modes for an MoE's stacked linears: one launch per stacked linear
+for all E experts (K1's rows carry their expert's column factors and exponent,
+K2's grid carries the expert), counted under ``act_quantize`` and ``qgemm_w8a8``
+and, per body, under ``act_quantize/experts_*`` and ``qgemm_w8a8/experts_*``.
+
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
 per body of the ops that have several (K1; K2; K7; K8; K3; K4–K6, whose bf16 body is
@@ -57,7 +63,11 @@ LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
             "paged_decode_attention": 0, "paged_verify_attention": 0,
             "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
 BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/sweep": 0,
+                 "act_quantize/experts_split": 0, "act_quantize/experts_rows": 0,
+                 "act_quantize/experts_sweep": 0,
                  "qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
+                 "qgemm_w8a8/experts_decode": 0, "qgemm_w8a8/experts_wgmma": 0,
+                 "qgemm_w8a8/experts_tile": 0,
                  "qgemm_w8a8_sparse/decode": 0, "qgemm_w8a8_sparse/wgmma": 0,
                  "qgemm_w8a8_sparse/tile": 0,
                  "qgemm_w4a8/decode": 0, "qgemm_w4a8/wgmma": 0, "qgemm_w4a8/tile": 0,
@@ -144,6 +154,69 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_cuda(qx, qw, a, sw)
     LAUNCHES["qgemm_w8a8"] += 1
     BODY_LAUNCHES[f"qgemm_w8a8/{body}"] += 1
+    return out
+
+
+def act_quantize_experts(x: torch.Tensor, bcol: torch.Tensor,
+                         alpha: Union[float, torch.Tensor] = 0.15, *, bits: int = 8):
+    """Expert-batched K1 for a stacked-expert linear: each expert's (C, K) rows
+    quantized with its own column factors and exponent, in one launch. x (E, C, K)
+    f32|bf16; bcol (E, K) f32; ``alpha`` a float or the prepared tree's (E,) f32
+    ``qalpha`` on x's device. Returns (codes (E, C, K) int8, a (E, C, 1) f32). The
+    body is :func:`act_quantize_plan`'s for the launch's E·C independent rows."""
+    _require(x.ndim == 3, f"x must be (E, C, K), got {tuple(x.shape)}")
+    E, C, K = x.shape
+    _require(bcol.shape == (E, K), f"bcol must be ({E}, {K}), got {tuple(bcol.shape)}")
+    alpha_t = alpha if isinstance(alpha, torch.Tensor) else None
+    if alpha_t is not None:
+        _require(alpha_t.shape == (E,), f"alpha must be ({E},), got {tuple(alpha_t.shape)}")
+    if not _on_cuda(x, bcol, *(() if alpha_t is None else (alpha_t,))):
+        return ref.act_quantize_experts_ref(x, bcol, bits, alpha)
+    _require(x.dtype in DTYPE_CODE, f"x dtype {x.dtype} not in f32/bf16")
+    _require(bcol.dtype == torch.float32, f"bcol dtype {bcol.dtype} is not f32")
+    _contiguous(x=x, bcol=bcol)
+    _require(2 <= bits <= 8, f"bits={bits} outside 2..8")
+    if alpha_t is not None:
+        _require(alpha_t.dtype == torch.float32, "alpha must be f32")
+        _contiguous(alpha=alpha_t)
+    body, splits = act_quantize_plan(E * C, K)
+    q, a = act_quantize_cuda(x.reshape(E * C, K), bcol, alpha_t,
+                             0.0 if alpha_t is not None else float(alpha), bits, body, splits,
+                             rows_per_expert=C)
+    LAUNCHES["act_quantize"] += 1
+    BODY_LAUNCHES[f"act_quantize/experts_{body}"] += 1
+    return q.reshape(E, C, K), a.reshape(E, C, 1)
+
+
+def qgemm_w8a8_experts(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                       sw: torch.Tensor) -> torch.Tensor:
+    """Expert-batched K2 for a stacked-expert linear: every expert's int8 GEMM and
+    separable dequant in one launch, the expert on the grid. qx (E, C, K) int8; qw
+    (E, K, N) int8; a (E, C, 1) f32; sw (E, N) f32 → (E, C, N) f32 = (qx[e] ·
+    qw[e]) * a[e] * sw[e]. The body is :func:`qgemm_w8a8_plan`'s for an expert's
+    C rows, its K splits counted over all E experts' output tiles."""
+    _require(qx.ndim == 3 and qw.ndim == 3, "qx and qw must be (E, C, K) and (E, K, N)")
+    E, C, K = qx.shape
+    _require(qw.shape[:2] == (E, K),
+             f"expert/contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
+    N = qw.shape[2]
+    _require(a.shape == (E, C, 1), f"a must be ({E}, {C}, 1), got {tuple(a.shape)}")
+    _require(sw.shape == (E, N), f"sw must be ({E}, {N}), got {tuple(sw.shape)}")
+    if not _on_cuda(qx, qw, a, sw):
+        return ref.qgemm_w8a8_experts_ref(qx, qw, a, sw)
+    _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
+    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
+    _contiguous(qx=qx, qw=qw, a=a, sw=sw)
+    aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+    body, splits = qgemm_w8a8_plan(C, K, N, aligned=aligned, experts=E)
+    if body == "decode":
+        out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits, experts=E)
+    elif body == "wgmma":
+        out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits, experts=E)
+    else:
+        out = qgemm_w8a8_cuda(qx, qw, a, sw, experts=E)
+    LAUNCHES["qgemm_w8a8"] += 1
+    BODY_LAUNCHES[f"qgemm_w8a8/experts_{body}"] += 1
     return out
 
 

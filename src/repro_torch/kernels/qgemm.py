@@ -9,6 +9,12 @@ where few output tiles would idle the card); :func:`qgemm_w8a8_plan`,
 and wgmma bodies are K2's with a tile skip: each block compacts the list of its
 occupied 64-row k-tiles on the card (:func:`sparse_stage_ranges` models it).
 
+K2's three bodies also run expert-batched (``experts`` = E): an MoE's stacked
+(E, C, K) × (E, K, N) product in one launch, the decode body with the expert on
+grid z, the wgmma body with it folded into grid y beside the m-tiles, the tile
+body on grid z; the plan picks the body for C rows and the splits for all E
+experts' output tiles.
+
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
 """
@@ -38,10 +44,11 @@ WGMMA_MAX_TILE_M = 128   # token rows per block: M rounded up to 16 up to here
 WGMMA_MIN_SPLIT_K_TILES = 36   # k-tiles a wgmma K split keeps at least (K = 4608)
 
 
-def decode_splits(K: int, N: int) -> int:
-    """K splits of the decode body for a (K, N) weight: enough blocks for about
-    four per SM, at most one cluster (8) and one 64-row k-tile per split."""
-    n_tiles = -(-N // DECODE_TILE_N)
+def decode_splits(K: int, N: int, experts: int = 1) -> int:
+    """K splits of the decode body for a (K, N) weight (``experts`` of them in an
+    expert-batched launch): enough blocks for about four per SM, at most one
+    cluster (8) and one 64-row k-tile per split."""
+    n_tiles = -(-N // DECODE_TILE_N) * experts
     k_tiles = -(-K // TILE_K)
     want = math.ceil(_BLOCKS_PER_SM * _SMS / n_tiles)
     return max(1, min(MAX_SPLITS, k_tiles, want))
@@ -62,29 +69,33 @@ def wgmma_tile_m(M: int) -> int:
     return WGMMA_MAX_TILE_M if M > WGMMA_MAX_TILE_M else max(48, -(-M // 16) * 16)
 
 
-def wgmma_splits(M: int, K: int, N: int) -> int:
-    """K splits of the wgmma body: 1 where its output tiles fill the card, else
+def wgmma_splits(M: int, K: int, N: int, experts: int = 1) -> int:
+    """K splits of the wgmma body (M rows per expert, ``experts`` of them in an
+    expert-batched launch): 1 where its output tiles fill the card, else
     enough for about one block per SM, at most one cluster (8), and never fewer
     than WGMMA_MIN_SPLIT_K_TILES k-tiles per split: on the H100 a split of K =
     4608 (36 k-tiles) lost more to the cluster reduction than it gained, at every
     M from 33 to 128 and N from 512 to 18432, while K = 18432 gained from 2-4."""
-    tiles = -(-N // WGMMA_TILE_N) * -(-M // wgmma_tile_m(M))
+    tiles = -(-N // WGMMA_TILE_N) * -(-M // wgmma_tile_m(M)) * experts
     want = math.ceil(_SMS / tiles)
     by_k = -(-K // WGMMA_TILE_K) // WGMMA_MIN_SPLIT_K_TILES
     return max(1, min(MAX_SPLITS, by_k, want))
 
 
-def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, int]:
+def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True,
+                    experts: int = 1) -> Tuple[str, int]:
     """K2's body for an (M, K) × (K, N) product, where K and N are multiples of 16
     and both operands 16-byte aligned (``aligned``): ``("decode", splits)`` for 1 ≤
     M ≤ DECODE_MAX_M, ``("wgmma", splits)`` above (chip_smoke phase 3 measured it
     faster than the tile body at every M from 33 to 2048 on the H100, PERF.md);
-    every other product ``("tile", 1)``."""
+    every other product ``("tile", 1)``. An expert-batched launch passes its C rows
+    per expert as M and ``experts`` = E: the body is chosen as for one expert, the
+    splits for all E experts' output tiles."""
     if not (M >= 1 and K > 0 and K % 16 == 0 and N > 0 and N % 16 == 0 and aligned):
         return "tile", 1
     if M <= DECODE_MAX_M:
-        return "decode", decode_splits(K, N)
-    return "wgmma", wgmma_splits(M, K, N)
+        return "decode", decode_splits(K, N, experts)
+    return "wgmma", wgmma_splits(M, K, N, experts)
 
 
 def qgemm_w8a8_sparse_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, int]:
@@ -155,51 +166,60 @@ def qgemm_w4a8_plan(M: int, K: int, N: int, group: int,
     return "tile", 1
 
 
+def _gemm_dims(qx: torch.Tensor, qw: torch.Tensor, experts: int):
+    """(M, K, N) of a 2-D product (``experts`` = 1) or of one expert's product in
+    an expert-batched launch (qx (E, C, K), qw (E, K, N); M = C)."""
+    if (qx.ndim, qw.ndim) != ((2, 2) if experts == 1 else (3, 3)):
+        raise ValueError(f"qx {tuple(qx.shape)} and qw {tuple(qw.shape)} do not fit "
+                         f"experts={experts}")
+    return qx.shape[-2], qx.shape[-1], qw.shape[-1]
+
+
 def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
-                    sw: torch.Tensor) -> torch.Tensor:
+                    sw: torch.Tensor, experts: int = 1) -> torch.Tensor:
     """qx (M, K) int8 · qw (K, N) int8 → (M, N) f32 = acc · a · sw, all contiguous
-    on one card."""
-    M, K = qx.shape
-    N = qw.shape[1]
+    on one card; expert-batched (``experts`` = E): qx (E, M, K), qw (E, K, N), a
+    (E, M, 1), sw (E, N) → (E, M, N), the expert on the grid."""
+    M, K, N = _gemm_dims(qx, qw, experts)
     vec_a, vec_b = _vec(qx, qw)
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
     rc = build.library().repro_qgemm_w8a8(
         qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
-        M, N, K, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
+        M, N, K, experts, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8")
     return out
 
 
 def qgemm_w8a8_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
-                           sw: torch.Tensor, splits: int) -> torch.Tensor:
+                           sw: torch.Tensor, splits: int, experts: int = 1) -> torch.Tensor:
     """K2's decode body: qx (M ≤ 128, K) int8 · qw (K, N) int8 → (M, N) f32 = acc ·
     a · sw, over ``splits`` K splits; K and N multiples of 16, qx and qw 16-byte
-    aligned, all contiguous on one card."""
-    M, K = qx.shape
-    N = qw.shape[1]
+    aligned, all contiguous on one card. Expert-batched as :func:`qgemm_w8a8_cuda`
+    (the expert on grid z)."""
+    M, K, N = _gemm_dims(qx, qw, experts)
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("the decode body reads qx and qw in 16-byte chunks: align both")
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
     rc = build.library().repro_qgemm_w8a8_decode(
         qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
-        M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+        M, N, K, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 decode body")
     return out
 
 
 def qgemm_w8a8_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
-                          sw: torch.Tensor, splits: int) -> torch.Tensor:
+                          sw: torch.Tensor, splits: int, experts: int = 1) -> torch.Tensor:
     """K2's wgmma body: qx (M, K) int8 · qw (K, N) int8 → (M, N) f32 = acc · a ·
     sw, over ``splits`` K splits; K and N multiples of 16, qx and qw 16-byte
-    aligned, all contiguous on one card."""
-    M, K = qx.shape
-    N = qw.shape[1]
+    aligned, all contiguous on one card. Expert-batched as :func:`qgemm_w8a8_cuda`
+    (the expert folded into grid y with the m-tiles)."""
+    M, K, N = _gemm_dims(qx, qw, experts)
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("the wgmma body loads qx and qw with TMA: align both to 16 bytes")
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
     rc = build.library().repro_qgemm_w8a8_wgmma(
         qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
-        M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+        M, N, K, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 wgmma body")
     return out
 
@@ -207,8 +227,8 @@ def qgemm_w8a8_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
 def _vec(qx: torch.Tensor, qw: torch.Tensor):
     """16-byte loads of qx rows and 4-byte loads of weight rows, where the shapes
     and addresses allow them."""
-    return (int(qx.shape[1] % 16 == 0 and qx.data_ptr() % 16 == 0),
-            int(qw.shape[1] % 4 == 0 and qw.data_ptr() % 4 == 0))
+    return (int(qx.shape[-1] % 16 == 0 and qx.data_ptr() % 16 == 0),
+            int(qw.shape[-1] % 4 == 0 and qw.data_ptr() % 4 == 0))
 
 
 def qgemm_w8a8_sparse_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,

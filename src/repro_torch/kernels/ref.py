@@ -66,6 +66,23 @@ def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0
     return q.to(torch.int8), a
 
 
+def act_quantize_experts_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15):
+    """Expert-batched K1: :func:`act_quantize_ref` on each expert's (C, K) rows with
+    its own ``bcol[e]`` (K,) and ``alpha[e]`` (``alpha`` a float or an (E,) f32
+    tensor). x (E, C, K) → (codes (E, C, K) int8, a (E, C, 1) f32)."""
+    outs = [act_quantize_ref(x[e], bcol[e], bits,
+                             alpha[e] if isinstance(alpha, torch.Tensor) else alpha)
+            for e in range(x.shape[0])]
+    return torch.stack([q for q, _ in outs]), torch.stack([a for _, a in outs])
+
+
+def qgemm_w8a8_experts_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
+                           sw: torch.Tensor) -> torch.Tensor:
+    """Expert-batched K2: :func:`qgemm_w8a8_ref` per expert. qx (E, C, K) int8; qw
+    (E, K, N) int8; a (E, C, 1) f32; sw (E, N) f32 → (E, C, N) f32."""
+    return torch.stack([qgemm_w8a8_ref(qx[e], qw[e], a[e], sw[e]) for e in range(qx.shape[0])])
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[torch.Tensor] = None, *, causal: bool = True,
                         window: Optional[int] = None,

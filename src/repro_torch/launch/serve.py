@@ -18,10 +18,14 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path dequant-fp --scheduler grouped
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --quant int8 --path fused-int8 --kv-cache int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
+        --quant int8 --path fused-int8   # MoE: the experts on expert-batched K1/K2
 
 ``--arch`` takes the dense decoders (starcoder2-7b, gemma2-9b, nemotron-4-15b,
-deepseek-coder-33b) and pixtral-12b, served text-only. Encoder-only and not yet
-ported models are refused with the engine's ``NotPortedError`` before any work.
+deepseek-coder-33b), pixtral-12b, served text-only, and the mixtures of experts
+(granite-moe-3b-a800m, llama4-scout-17b-a16e). Encoder-only and not yet ported
+models (SSM, hybrid) are refused with the engine's ``NotPortedError`` before any
+work.
 """
 from __future__ import annotations
 

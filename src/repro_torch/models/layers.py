@@ -38,6 +38,8 @@ class QuantContext:
                             self.use_kernels, self.int_exec)
 
     def linear(self, params: dict, x: torch.Tensor, name: str) -> torch.Tensor:
+        """x @ W of a quantized linear: x (..., d_in) against a 2-D weight, or an
+        MoE's (E, C, d_in) dispatch buffer against its (E, d_in, d_out) experts."""
         return ql.apply(params, x, self.cfg, name=f"{self.prefix}/{name}",
                         observer=self.observer, use_kernels=self.use_kernels,
                         int_exec=self.int_exec)
@@ -580,8 +582,10 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
 # ======================================================================================
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, *, device,
-             n_stack: Optional[int] = None) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+             n_stack: Optional[int] = None, d_ff: Optional[int] = None) -> dict:
+    """An MLP of width ``d_ff`` (default ``cfg.d_ff``; an MoE's shared expert is
+    wider)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {"up": ql.init(gen, d, f, n_stack=n_stack, device=device),
          "down": ql.init(gen, f, d, n_stack=n_stack, device=device)}
     if cfg.act.endswith("_glu"):

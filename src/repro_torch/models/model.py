@@ -1,9 +1,11 @@
-"""Dense decoder language model (port of ``repro/models/model.py`` for the dense,
-``vlm`` and ``audio`` families, on the dense and paged cache layouts).
+"""Decoder language model (port of ``repro/models/model.py`` for the dense, ``vlm``,
+``audio`` and ``moe`` families, on the dense and paged cache layouts).
 
-The block spec is ``[attn] × L`` for global attention and ``[attn_local, attn] ×
+The block spec is ``[attn] × L`` for global attention, ``[attn_local, attn] ×
 L/2`` for gemma2's local/global alternation (a local sublayer attends a sliding
-window of ``cfg.window`` keys). Untied heads (``lm_head``) run through the
+window of ``cfg.window`` keys) and ``[attn_moe] × L`` for a mixture of experts,
+whose sublayers run attention then :func:`repro_torch.models.moe.moe_apply` where
+the others run the MLP. Untied heads (``lm_head``) run through the
 quantized linear; the ``vision_stub``/``audio_stub`` frontends project
 precomputed patch or frame features (:mod:`repro_torch.models.frontends`).
 
@@ -24,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qlinear as ql
 from repro_torch.device import resolve_device
 from repro_torch.models import frontends
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import state as state_lib
 from repro_torch.models.layers import (
     QuantContext, attention_apply, init_attention, init_mlp, init_norm, mlp_apply,
@@ -39,11 +42,13 @@ class BlockSpec:
 
 def block_spec(cfg: ModelConfig) -> BlockSpec:
     """``[attn] × L``, or ``[attn_local, attn] × L/2`` for ``local_global``, for the
-    dense, vlm and audio families. MoE, SSM and hybrid stacks are not ported yet
-    and raise rather than serve them wrongly."""
+    dense, vlm and audio families; ``[attn_moe] × L`` for moe. SSM and hybrid
+    stacks are not ported yet and raise rather than serve them wrongly."""
+    if cfg.family == "moe":
+        return BlockSpec(("attn_moe",), cfg.n_layers)
     if cfg.family not in ("dense", "vlm", "audio"):
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                                  f"(dense, vlm and audio stacks only)")
+                                  f"(dense, vlm, audio and moe stacks only)")
     if cfg.layer_pattern == "local_global":
         if cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: local_global needs an even n_layers, "
@@ -64,10 +69,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> dic
     spec = block_spec(cfg)
     L = spec.n_blocks
     embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen, device=dev) * 0.02
-    blocks = [{"norm1": init_norm(cfg, device=dev, n_stack=L),
-               "attn": init_attention(gen, cfg, device=dev, n_stack=L),
-               "norm2": init_norm(cfg, device=dev, n_stack=L),
-               "mlp": init_mlp(gen, cfg, device=dev, n_stack=L)} for _ in spec.sublayers]
+    blocks = []
+    for kind in spec.sublayers:
+        p = {"norm1": init_norm(cfg, device=dev, n_stack=L),
+             "attn": init_attention(gen, cfg, device=dev, n_stack=L),
+             "norm2": init_norm(cfg, device=dev, n_stack=L)}
+        if kind == "attn_moe":
+            p["moe"] = moe_lib.init_moe(gen, cfg, device=dev, n_stack=L)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, device=dev, n_stack=L)
+        blocks.append(p)
     params = {"embed": {"w": embed}, "blocks": blocks, "final_norm": init_norm(cfg, device=dev)}
     if not cfg.tie_embeddings:
         params["lm_head"] = ql.init(gen, cfg.d_model, cfg.vocab_padded, device=dev)
@@ -159,7 +170,8 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
           ctx: Optional[QuantContext] = None, mode: str = "train",
           caches: Optional[dict] = None, cur_len=None, prefix_len=None, q_len=None,
           chunk: Optional[dict] = None, unroll: bool = False) -> Tuple[torch.Tensor, dict]:
-    """Returns (logits, {"caches": caches-or-None}).
+    """Returns (logits, {"aux_loss": scalar, "caches": caches-or-None}); the MoE
+    load-balancing loss is summed over the layers (zero without experts).
 
     ``batch`` holds ``tokens`` (B, S); under ``audio_stub`` ``frames`` (B, S,
     frontend_dim) instead; under ``vision_stub`` a prefill may add
@@ -218,6 +230,7 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
     if q_len is not None:
         q_len = as_vec(q_len)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for b in range(spec.n_blocks):
         # per-layer names /L{b}/S{i}/... are what calibration.stack_tables reads
         bctx = ctx.sub(f"L{b}") if unroll else ctx
@@ -231,7 +244,13 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
                                    page_table=page_table, prefix_len=prefix_len,
                                    q_len=q_len, chunk=chunk)
             x = x + h
-            x = x + mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg), cfg, sctx.sub("mlp"))
+            if kind == "attn_moe":
+                h, aux = moe_lib.moe_apply(p["moe"], norm_apply(p["norm2"], x, cfg), cfg,
+                                           sctx.sub("moe"))
+                aux_total = aux_total + aux
+            else:
+                h = mlp_apply(p["mlp"], norm_apply(p["norm2"], x, cfg), cfg, sctx.sub("mlp"))
+            x = x + h
 
     if mode == "prefill":
         if cur_len is None:
@@ -239,4 +258,5 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
         else:
             last = torch.clamp(cur_len.to(torch.int64) - 1, 0, S - 1)
             x = x[torch.arange(B, device=x.device), last][:, None]
-    return _lm_head(params, x, cfg, ctx), {"caches": caches if use_cache else None}
+    return _lm_head(params, x, cfg, ctx), {"aux_loss": aux_total,
+                                           "caches": caches if use_cache else None}

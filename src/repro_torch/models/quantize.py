@@ -11,9 +11,12 @@ prepared int8 static-c CrossQuant form (or packed int4 groups at ``w_bits <=
 linears to N:M and attaches a bit-packed ``mask`` leaf; ``make_sparsity_plan``
 picks the linears to prune by their §4.1 quantization-kernel proportion.
 
-Stacked ``(L, d_in, d_out)`` leaves are prepared and pruned one layer at a time:
-every step is per layer, so this equals the stacked call while the f32
-temporaries stay one layer large.
+Stacked ``(L, d_in, d_out)`` leaves, and an MoE's ``(L, E, d_in, d_out)``
+experts, are prepared and pruned one layer at a time: every step is per layer,
+so this equals the stacked call while the f32 temporaries stay one layer large.
+An expert stack's calibrated column table is (L, d_in), shared by the layer's
+experts; its prepared ``bcol`` is broadcast to (L, E, d_in) and ``qalpha`` is (L,
+E). The router stays fp.
 """
 from __future__ import annotations
 
@@ -59,7 +62,7 @@ def quantize_tree(params, cfg: ql.QuantConfig,
                     cmax = node.get("cmax")
                     if cmax is None and prefix in tables:
                         cmax = torch.as_tensor(tables[prefix], device=w.device)
-                    if w.ndim == 3:
+                    if w.ndim >= 3:
                         return _per_layer(lambda n, c: prepare(n, cfg, c), {"w": w}, cmax)
                     return prepare({"w": w}, cfg, cmax)
             return {k: convert(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
@@ -96,7 +99,7 @@ def dequantize_tree(qparams, cfg: ql.QuantConfig):
         if isinstance(node, dict):
             if "qw" in node or "qw4" in node:
                 q = node.get("qw", node.get("qw4"))
-                return _per_layer(one, node) if q.ndim == 3 else one(node)
+                return _per_layer(one, node) if q.ndim >= 3 else one(node)
             return {k: convert(v) for k, v in node.items()}
         if isinstance(node, list):
             return [convert(v) for v in node]
@@ -115,7 +118,7 @@ def fake_quantize_weights(params, cfg: ql.QuantConfig):
         # stays inside one layer when it divides d_in·d_out), so a stacked leaf
         # quantizes one layer at a time; crossquant_w and awq take statistics
         # over the whole leaf, as the reference does
-        per_layer = w.ndim == 3 and (cfg.w_quant == "per_channel" or (
+        per_layer = w.ndim >= 3 and (cfg.w_quant == "per_channel" or (
             cfg.w_quant == "group" and w[0].numel() % cfg.w_group == 0))
         if per_layer:
             return torch.stack([ql._fake_weight(wi, cfg) for wi in w])
@@ -201,7 +204,9 @@ def sparsify_tree(qparams, plan: SparsityPlan,
     columns are known), zero the losers, refit ``sw`` to the survivors and
     requantize; fp leaves score ``|w|·cmax`` and zero the pruned weights in
     place. Either way the leaf gains a bit-packed ``mask``. Packed-int4 leaves
-    and leaves that already carry a mask pass through untouched."""
+    and leaves that already carry a mask pass through untouched. An expert stack
+    is pruned per layer, its (d_in,) column table against each expert's
+    ``qalpha``; its products stay dense over the zeros, as in the reference."""
     tables = tables or {}
     n, m = plan.nm
 
@@ -243,7 +248,7 @@ def sparsify_tree(qparams, plan: SparsityPlan,
                 if prune is not None:
                     cm = table_cmax(node, prefix)
                     ref = node["qw" if "qw" in node else "w"]
-                    if ref.ndim == 3:
+                    if ref.ndim >= 3:
                         return _per_layer(prune, node, cm)
                     return prune(node, cm)
             return {k: convert(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
@@ -294,7 +299,8 @@ def with_tile_occupancy(qparams):
     """The tree with an ``occ`` leaf beside every int8 ``mask`` that leaves a
     (64, 64) weight tile empty in some layer: the sparse GEMM's per-layer
     tile-occupancy table (``ops.tile_occupancy``), derived here once per leaf so
-    that no serving step syncs the host for it. On the card a leaf with ``occ``
+    that no serving step syncs the host for it. Expert stacks run the dense
+    expert-batched GEMM and get none. On the card a leaf with ``occ``
     runs K7, which skips the empty tiles, and one without runs K2, as the
     reference routes a mask that fills every tile. Derive it after the last edit
     of the codes; a stale ``occ`` is replaced or dropped."""
@@ -302,7 +308,7 @@ def with_tile_occupancy(qparams):
 
     def convert(node):
         if isinstance(node, dict):
-            if "mask" in node and "qw" in node:
+            if "mask" in node and "qw" in node and node["qw"].ndim <= 3:   # not experts
                 rest = {k: v for k, v in node.items() if k != "occ"}
                 K, mask = node["qw"].shape[-2], node["mask"]
                 occ = (torch.stack([tile_occupancy(m, K) for m in mask]) if mask.ndim == 3

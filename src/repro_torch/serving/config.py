@@ -6,7 +6,7 @@
 grouped schedulers, the dense and paged layouts, speculative decoding, chunked
 prefill and N:M sparsity are served. :meth:`EngineConfig.check_model` rejects
 with :class:`NotPortedError` the models the engine does not serve: encoder-only
-ones and the families this port does not serve yet.
+ones and the families this port does not serve yet (SSM and hybrid).
 """
 from __future__ import annotations
 
@@ -121,11 +121,11 @@ class EngineConfig:
                                  "scheduler (per-slot draft windows)")
 
     def check_model(self, cfg) -> None:
-        """Model-dependent validation: the engine serves dense and vlm decoders
-        (global or local/global attention, tied or untied heads; a vlm serves
-        text-only). Audio (encoder-only) models have no decode step; MoE, SSM and
-        hybrid stacks are not ported yet."""
-        if cfg.family not in ("dense", "vlm", "audio"):
+        """Model-dependent validation: the engine serves dense, vlm and moe
+        decoders (global or local/global attention, tied or untied heads; a vlm
+        serves text-only). Audio (encoder-only) models have no decode step; SSM
+        and hybrid stacks are not ported yet."""
+        if cfg.family not in ("dense", "vlm", "audio", "moe"):
             raise NotPortedError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
         if not cfg.causal or cfg.frontend == "audio_stub":
             raise NotPortedError(

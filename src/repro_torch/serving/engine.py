@@ -35,7 +35,9 @@ every token row of a step, padding rows and idle slots included, so each step
 hands the model the rows the reference's engine does, padded the same way. The
 same holds under ``mode="int8"`` for a linear whose fp weights are prepared on the
 fly (an untied ``lm_head``, or any unprepared leaf): its column max is this
-step's.
+step's. In a mixture of experts the rows are coupled under every path: the
+experts' capacity and the set of dropped (token, k) pairs depend on the step's
+row count.
 
 :func:`make_prefill_step` and :func:`make_decode_step` are the reference's raw
 step builders; for an encoder-only model the prefill step is the serving entry
@@ -123,12 +125,14 @@ def make_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *
     return decode_step
 
 
-def _rows_coupled(params, quant: ql.QuantConfig) -> bool:
-    """Whether a step's token rows share a dynamic statistic: every linear under
-    fake quantization, and under ``mode="int8"`` any linear (``lm_head`` or a
-    quantizable parent) still holding fp weights without a static ``cmax``, which
-    is prepared on the fly with the column max of the step's rows."""
-    if quant.mode == "fake":
+def _rows_coupled(params, quant: ql.QuantConfig, cfg: Optional[ModelConfig] = None) -> bool:
+    """Whether a step's token rows share a dynamic statistic: every MoE step (its
+    capacity and drop set count the step's rows, padding and idle slots
+    included), every linear under fake quantization, and under ``mode="int8"``
+    any linear (``lm_head`` or a quantizable parent) still holding fp weights
+    without a static ``cmax``, which is prepared on the fly with the column max
+    of the step's rows."""
+    if (cfg is not None and cfg.family == "moe") or quant.mode == "fake":
         return True
     if quant.mode != "int8":
         return False
@@ -358,8 +362,8 @@ class ServeEngine:
     prefill; the admitted slot's prompt is served chunk by chunk from each step's
     leftover token budget, and its pages join the radix index at the final chunk.
     A packed step launches only its live rows (at most ``token_budget``; all of
-    them where the rows are coupled, as the reference does: under fake
-    quantization, or a linear prepared on the fly). A step
+    them where the rows are coupled, as the reference does: in a mixture of
+    experts, under fake quantization, or a linear prepared on the fly). A step
     with no prefill work, fp KV and ``speculate == 1`` runs the lean decode step
     (K4) instead of the packed launch (K6); their q_len == 1 numerics are the
     same, so tokens do not depend on the branch. int8 KV and speculative chunked
@@ -390,7 +394,7 @@ class ServeEngine:
             params = MQ.sparsify_tree(params, self.sparsity_plan)
         params = MQ.with_tile_occupancy(params)
         # dynamic statistics couple the token rows of a step (module docstring)
-        self._rows_coupled = _rows_coupled(params, quant or cfg.quant)
+        self._rows_coupled = _rows_coupled(params, quant or cfg.quant, cfg)
         self.cfg, self.params = cfg, params
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id

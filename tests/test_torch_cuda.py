@@ -1043,3 +1043,69 @@ def test_qgemm_w8a8_vocab_head(dev, M):
     for n0 in range(0, N, 32000):
         want = ref.qgemm_w8a8_ref(qx, qw[:, n0:n0 + 32000], a, sw[n0:n0 + 32000])
         assert torch.equal(out[:, n0:n0 + 32000], want), n0
+
+
+# ---- expert-batched K1 and K2 (a stacked-expert linear, one launch for all experts)
+
+@pytest.mark.parametrize("E,C,K", [(40, 8, 1536), (16, 8, 5120), (3, 5, 100), (4, 9, 512)])
+@pytest.mark.parametrize("alpha", [1.0, 0.15])
+def test_act_quantize_experts(dev, E, C, K, alpha):
+    """Each expert's rows with its own bcol and α, every body (the plan's E·C rows
+    pick one; the split body at E·C ≤ 32 rows), eagerly: codes off by one on ≤ 1e-5
+    of them and a within one ulp at α < 1 (torch's pow and powf), bitwise at α = 1."""
+    ops, ref = _ops()
+    from repro_torch.kernels.act_quantize import act_quantize_cuda
+    g = torch.Generator(device=dev).manual_seed(E * C + K)
+    x = (torch.randn(E, C, K, generator=g, device=dev) * 3).to(torch.bfloat16)
+    x[0, C // 2:] = 0
+    bcol = torch.rand(E, K, generator=g, device=dev) * 3 + 0.25
+    alpha_t = torch.full((E,), alpha, device=dev)
+    alpha_t[-1] = 1.0
+    qr, ar = ref.act_quantize_experts_ref(x, bcol, 8, alpha_t)
+    bodies = [("rows", 1), ("sweep", 1)] + ([("split", 2)] if -(-K // 8) >= 2 else [])
+    for body, splits in bodies:
+        q, a = act_quantize_cuda(x.reshape(E * C, K), bcol, alpha_t, 0.0, 8, body, splits,
+                                 rows_per_expert=C)
+        torch.cuda.synchronize()
+        q, a = q.reshape(qr.shape), a.reshape(ar.shape)
+        ulps = (a.view(torch.int32) - ar.view(torch.int32)).abs().max().item()
+        assert (q.int() - qr.int()).abs().max().item() <= (0 if alpha == 1.0 else 1), body
+        assert (q != qr).float().mean().item() <= 1e-5, body
+        assert ulps <= (0 if alpha == 1.0 else 1), body
+    q, a = ops.act_quantize_experts(x, bcol, alpha_t)
+    assert q.shape == (E, C, K) and a.shape == (E, C, 1)
+
+
+@pytest.mark.parametrize("E,C,K,N", [(40, 8, 1536, 512), (40, 8, 512, 1536), (16, 8, 5120, 8192),
+                                     (40, 512, 1536, 512), (40, 128, 512, 1536),
+                                     (5, 37, 176, 48), (3, 130, 1040, 80), (4, 3, 100, 24)])
+def test_qgemm_w8a8_experts_bitwise(dev, E, C, K, N):
+    """The routed body and the tile body, bitwise against the per-expert plain
+    version, eagerly and under graph replay; (4, 3, 100, 24) has K off the 16-row
+    grid, so the plan routes it to the tile body."""
+    ops, ref = _ops()
+    from repro_torch.kernels.qgemm import (
+        qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan, qgemm_w8a8_wgmma_cuda)
+    g = torch.Generator(device=dev).manual_seed(E * C * K + N)
+    qx = torch.randint(-127, 128, (E, C, K), generator=g, device=dev, dtype=torch.int8)
+    qx[1, C // 2:] = 0
+    qw = torch.randint(-127, 128, (E, K, N), generator=g, device=dev, dtype=torch.int8)
+    a = torch.rand(E, C, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(E, N, generator=g, device=dev) + 0.01
+    want = ref.qgemm_w8a8_experts_ref(qx, qw, a, sw)
+    body, splits = qgemm_w8a8_plan(C, K, N, experts=E)
+    before = ops.BODY_LAUNCHES[f"qgemm_w8a8/experts_{body}"]
+    out = ops.qgemm_w8a8_experts(qx, qw, a, sw)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/experts_{body}"] == before + 1
+    assert torch.equal(out, want)
+    assert torch.equal(qgemm_w8a8_cuda(qx, qw, a, sw, experts=E), want)
+    fn = {"decode": qgemm_w8a8_decode_cuda, "wgmma": qgemm_w8a8_wgmma_cuda}.get(body)
+    if fn is not None:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            o = fn(qx, qw, a, sw, splits, experts=E)
+        o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(o, want)

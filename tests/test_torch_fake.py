@@ -177,10 +177,16 @@ def test_dequant_backend(small, tree):
     assert _rel(got, want) <= (2e-6 if tree == "int8" else 2e-3)
     ref = _np(tql.apply(tleaf, _t(x), tcfg, int_exec="ref"))
     assert _rel(got, ref) <= 2e-6                    # the integer path, f32-associated
-    with pytest.raises(NotImplementedError):
-        tql._int8_dequant_fp(torch.zeros(2, 3, 8, dtype=torch.int8),
-                             torch.zeros(2, 8, 4, dtype=torch.int8),
-                             torch.ones(2, 3, 1), torch.ones(2, 4))
+    # an expert stack multiplies per expert (the MoE slice; tests/test_torch_moe.py),
+    # the same product f32-associated otherwise: sw scales the weight first
+    g = torch.Generator().manual_seed(0)
+    qx = torch.randint(-127, 128, (2, 3, 8), dtype=torch.int8, generator=g)
+    qw = torch.randint(-127, 128, (2, 8, 4), dtype=torch.int8, generator=g)
+    a, sw = torch.rand(2, 3, 1, generator=g) + 0.5, torch.rand(2, 4, generator=g) + 0.5
+    got = tql._int8_dequant_fp(qx, qw, a, sw)
+    for e in range(2):
+        torch.testing.assert_close(got[e], tql._int8_dequant_fp(qx[e], qw[e], a[e], sw[e]),
+                                   rtol=2e-6, atol=0)
 
 
 def test_awq_weight():

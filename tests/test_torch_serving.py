@@ -197,10 +197,12 @@ def test_unported_configs_raise_typed(small, kw):
 
 
 def test_unported_family_raises():
-    """MoE and SSM stacks are not ported yet; an encoder-only model has no decode
-    step, and the engine points it at make_prefill_step."""
-    for arch in ("mamba2-130m", "granite-moe-3b-a800m"):
+    """SSM and hybrid stacks are not ported yet (MoE is: tests/test_torch_moe.py);
+    an encoder-only model has no decode step, and the engine points it at
+    make_prefill_step."""
+    for arch in ("mamba2-130m", "zamba2-1.2b"):
         with pytest.raises(NotPortedError):
             EngineConfig(batch_size=2, max_len=32).check_model(tget(arch, smoke=True))
+    EngineConfig(batch_size=2, max_len=32).check_model(tget("granite-moe-3b-a800m", smoke=True))
     with pytest.raises(NotPortedError, match="make_prefill_step"):
         EngineConfig(batch_size=2, max_len=32).check_model(tget("hubert-xlarge", smoke=True))
