@@ -1,9 +1,7 @@
 """Model configuration and the arch registry (port of ``repro/configs/base.py``).
 
 A copy rather than an import: the reference module imports ``core.qlinear``, which
-pulls in jax. Every registered arch is listed so ``get`` resolves the same names;
-the port's model serves only ``family="dense"`` with ``layer_pattern="global"``
-and raises ``NotImplementedError`` for the rest (models/model.py::block_spec).
+pulls in jax. Every registered arch is listed so ``get`` resolves the same names.
 """
 from __future__ import annotations
 
@@ -70,10 +68,35 @@ class ModelConfig:
         masked to -1e9 in the lm head."""
         return ((self.vocab + 255) // 256) * 256
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def subquadratic(self) -> bool:
+        """No full-attention layer whose cost is O(S^2) over a long context at
+        prefill, and decode state O(1) or O(T) linear."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense decoder (embedding + layers)."""
+        """Analytic parameter count (embedding + layers) of a dense decoder, or of
+        an SSM / hybrid stack (in_proj, conv, out_proj, A/D/dt_bias per layer, plus
+        the hybrid's one shared attention + MLP block)."""
         d, L = self.d_model, self.n_layers
         n = self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("ssm", "hybrid"):
+            di, N, G = self.d_inner, self.ssm_state, self.ssm_groups
+            per_layer = (d * (2 * di + 2 * G * N + self.ssm_heads)
+                         + (di + 2 * G * N) * self.ssm_conv + di * d + 3 * self.ssm_heads)
+            n += per_layer * L
+            if self.family == "hybrid" and self.attn_every:
+                hd, kv = self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
+                n += d * (hd + 2 * kv) + hd * d + 2 * d * self.d_ff
+            return n
         hd = self.n_heads * self.head_dim
         kv = self.n_kv_heads * self.head_dim
         gate_mult = 3 if self.act.endswith("_glu") else 2

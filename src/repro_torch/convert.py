@@ -6,7 +6,9 @@ arrays — raw (``repro.models.model.init_params``) or prepared
 ``jax.tree_util.tree_map(np.asarray, params)``. The output is the same tree of
 torch tensors on ``device``: leaf names (``blocks/0/attn/wq/{qw,sw,bcol,qalpha}``,
 ``embed/w``, ``final_norm/...``; an MoE's ``blocks/0/moe/router/w``, its stacked
-``(n_blocks, E, d_in, d_out)`` experts and its ``shared`` MLP) and the stacked
+``(n_blocks, E, d_in, d_out)`` experts and its ``shared`` MLP; a Mamba2 layer's
+``ssm/{in_proj, out_proj, conv_w, conv_b, A_log, D, dt_bias, norm_scale}``; a
+hybrid's unstacked ``tail`` list and its ``shared_attn`` block) and the stacked
 ``(n_blocks, ...)`` layer axis are kept, so the port's model reads it as it reads
 its own ``init_params``.
 This module takes numpy only; it imports nothing of the reference.

@@ -20,12 +20,18 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path fused-int8 --kv-cache int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
         --quant int8 --path fused-int8   # MoE: the experts on expert-batched K1/K2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \\
+        --quant int8 --path fused-int8 --device cpu --cache-layout paged \\
+        --no-prefix-reuse               # hybrid: one state page per slot
 
 ``--arch`` takes the dense decoders (starcoder2-7b, gemma2-9b, nemotron-4-15b,
-deepseek-coder-33b), pixtral-12b, served text-only, and the mixtures of experts
-(granite-moe-3b-a800m, llama4-scout-17b-a16e). Encoder-only and not yet ported
-models (SSM, hybrid) are refused with the engine's ``NotPortedError`` before any
-work.
+deepseek-coder-33b), pixtral-12b, served text-only, the mixtures of experts
+(granite-moe-3b-a800m, llama4-scout-17b-a16e), the SSM mamba2-130m and the
+hybrid zamba2-1.2b. The engine's ``check_model`` refuses before any work what it
+cannot serve: an encoder-only model (``NotPortedError``), and on the SSM and
+hybrid families ``--speculate`` above 1, ``--chunked`` and the paged layout
+with prefix reuse (the reference's ``UnsupportedModelError`` subclasses; pass
+``--no-prefix-reuse``).
 """
 from __future__ import annotations
 
@@ -124,6 +130,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     ap.add_argument("--kv-cache", default="fp", choices=["fp", "int8"])
     ap.add_argument("--cache-layout", default="dense", choices=["dense", "paged"],
                     help="dense slot table, or page pool + radix prefix reuse")
+    ap.add_argument("--no-prefix-reuse", dest="prefix_reuse", action="store_false",
+                    help="paged layout without the radix prefix index (required for "
+                         "SSM and hybrid models, whose state cannot restart mid-prompt)")
     ap.add_argument("--speculate", type=int, default=1,
                     help="draft-window size of speculative decoding (1: off)")
     ap.add_argument("--chunked", action="store_true",
@@ -142,7 +151,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     path = None if (args.quant != "int8" or args.path == "ref") else args.path
     config = EngineConfig(batch_size=args.batch_size, max_len=args.max_len, path=path,
                           kv_cache=args.kv_cache, eos_id=args.eos_id,
-                          cache_layout=args.cache_layout, speculate=args.speculate,
+                          cache_layout=args.cache_layout, prefix_reuse=args.prefix_reuse,
+                          speculate=args.speculate,
                           chunked=args.chunked, token_budget=args.token_budget,
                           sparsity=args.sparsity, scheduler=args.scheduler)
     config.check_model(cfg)              # refuse before init and calibration

@@ -202,7 +202,8 @@ def _pool_flat(pool: torch.Tensor) -> torch.Tensor:
 def _scatter_rows(flat_idx: torch.Tensor, n_rows: int):
     """The rows of a (N,) flat-index write that land inside a pool of ``n_rows``
     positions: (source rows, destination positions). Indices ≥ P·ps (sentinel
-    page-table entries, padding rows, verify rows ≥ q_len) write nowhere. The
+    page-table entries, padding rows, verify rows ≥ q_len; an SSM state table's
+    sentinel page id) write nowhere. The
     reference's scatter drops them (``mode="drop"``); torch's indexed write on a
     CUDA tensor would fault on them instead, so they are filtered out here."""
     keep = (flat_idx >= 0) & (flat_idx < n_rows)

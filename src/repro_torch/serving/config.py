@@ -4,9 +4,12 @@
 ``EngineConfig`` keeps the reference's fields and cross-field validation: the
 ``fp``, ``fake``, ``dequant-fp`` and ``fused-int8`` paths, the continuous and
 grouped schedulers, the dense and paged layouts, speculative decoding, chunked
-prefill and N:M sparsity are served. :meth:`EngineConfig.check_model` rejects
-with :class:`NotPortedError` the models the engine does not serve: encoder-only
-ones and the families this port does not serve yet (SSM and hybrid).
+prefill and N:M sparsity are served. :meth:`EngineConfig.check_model` does the
+model-dependent checks: SSM and hybrid families serve like the others, and only
+the combinations their recurrent state cannot support are rejected, each with
+the reference's :class:`UnsupportedModelError` subclass. Encoder-only models
+have no decode step and are refused with :class:`NotPortedError` (the reference
+admits them; here they run through ``serving.engine.make_prefill_step``).
 """
 from __future__ import annotations
 
@@ -32,8 +35,38 @@ SPARSITY_CHOICES = ("none", "2:4", "4:8")
 
 
 class NotPortedError(NotImplementedError):
-    """A model the slot-table engine does not serve: a family this port does not
-    serve yet, or an encoder-only model (no decode step)."""
+    """A model the slot-table engine does not serve: an encoder-only model (no
+    decode step)."""
+
+
+# ==========================================================================
+# Typed model-compatibility rejections (DESIGN.md §3.13)
+# ==========================================================================
+
+class UnsupportedModelError(ValueError):
+    """An :class:`EngineConfig` combination this model family cannot serve.
+
+    Subclasses carry the *reason*; all are ``ValueError`` so pre-§3.13
+    callers that caught that keep working."""
+
+
+class SpeculativeStateError(UnsupportedModelError):
+    """``speculate > 1`` on an SSM/hybrid family: the recurrence advances
+    destructively per scattered token, so rejected draft tokens cannot be
+    rewound (DESIGN.md §3.9)."""
+
+
+class PrefixReuseStateError(UnsupportedModelError):
+    """``prefix_reuse`` on a paged SSM/hybrid family: radix reuse restarts a
+    prompt from a mid-sequence page boundary, which position-indexed KV pages
+    support but a single end-of-prefix state checkpoint does not (DESIGN.md
+    §3.8/§3.13)."""
+
+
+class ChunkedStateError(UnsupportedModelError):
+    """``chunked=True`` on an SSM/hybrid family: the packed ragged step
+    scatters interleaved chunks of many slots, which needs position-indexed
+    cache writes the recurrent state does not have (DESIGN.md §3.10)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,12 +154,29 @@ class EngineConfig:
                                  "scheduler (per-slot draft windows)")
 
     def check_model(self, cfg) -> None:
-        """Model-dependent validation: the engine serves dense, vlm and moe
-        decoders (global or local/global attention, tied or untied heads; a vlm
-        serves text-only). Audio (encoder-only) models have no decode step; SSM
-        and hybrid stacks are not ported yet."""
-        if cfg.family not in ("dense", "vlm", "audio", "moe"):
-            raise NotPortedError(f"{cfg.name}: family {cfg.family!r} is not ported yet")
+        """Model-dependent validation. SSM and hybrid families serve continuous,
+        paged and grouped like attention families; the combinations their
+        recurrent state cannot support raise the reference's typed
+        :class:`UnsupportedModelError` subclasses, under the reference's
+        conditions. An encoder-only model has no decode step and raises
+        :class:`NotPortedError` (a deviation: the reference admits it; here it
+        runs through ``serving.engine.make_prefill_step``)."""
+        if cfg.family in ("ssm", "hybrid"):
+            if self.speculate > 1:
+                raise SpeculativeStateError(
+                    f"speculate > 1 cannot serve family {cfg.family!r}: the SSM "
+                    f"recurrence cannot rewind rejected draft tokens (§3.9)")
+            if self.cache_layout == "paged" and self.prefix_reuse:
+                raise PrefixReuseStateError(
+                    f"radix prefix reuse cannot serve family {cfg.family!r}: a "
+                    f"state checkpoint cannot restart a prompt from a mid-"
+                    f"sequence page boundary — pass prefix_reuse=False (§3.13)")
+            if self.chunked:
+                raise ChunkedStateError(
+                    f"chunked serving cannot serve family {cfg.family!r}: packed "
+                    f"ragged chunks need position-indexed cache writes, which "
+                    f"the recurrent state does not have (§3.10)")
+            return
         if not cfg.causal or cfg.frontend == "audio_stub":
             raise NotPortedError(
                 f"{cfg.name} takes frames and has no decode step (causal={cfg.causal}): "

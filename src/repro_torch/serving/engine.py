@@ -56,6 +56,7 @@ from repro_torch.core import qlinear as ql
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models import quantize as MQ
+from repro_torch.models import state as state_lib
 from repro_torch.models.layers import QuantContext
 from repro_torch.serving import drafter, paging
 from repro_torch.serving.api import FinishReason
@@ -149,17 +150,33 @@ def _rows_coupled(params, quant: ql.QuantConfig, cfg: Optional[ModelConfig] = No
     return dynamic(params, "")
 
 
+def _slot_groups(caches: dict):
+    """(slot axis, leaf dicts) of a cache: the stacked ``blocks`` and a hybrid's
+    ``shared`` attention hold (n_blocks, B, ...) leaves, slot axis 1; a hybrid's
+    unstacked ``tail`` holds (B, ...) leaves, slot axis 0."""
+    yield from ((1, leaves) for leaves in caches["blocks"])
+    yield from ((0, leaves) for leaves in caches.get("tail", []))
+    if "shared" in caches:
+        yield 1, caches["shared"]
+
+
 def _slot_scatter(live: dict, new: dict, slots: torch.Tensor) -> dict:
-    """Write the (n_blocks, Bp, ...) rows of ``new`` into the live slot table at
-    ``slots`` (Bp,). Sentinel indices ≥ B (padding rows of the admission batch)
-    are dropped; every other slot's rows are untouched. In place; returns live."""
-    for live_leaves, new_leaves in zip(live["blocks"], new["blocks"]):
-        B = next(iter(live_leaves.values())).shape[1]
-        keep = slots < B
-        src = torch.nonzero(keep).reshape(-1)
-        dst = slots[keep].to(torch.int64)
+    """Write the Bp-batched rows of ``new`` into the live slot table at ``slots``
+    (Bp,), along each leaf's slot axis. Sentinel indices ≥ B (padding rows of the
+    admission batch) are dropped; every other slot's rows are untouched. In place;
+    returns live."""
+    route = None
+    for (axis, live_leaves), (_, new_leaves) in zip(_slot_groups(live), _slot_groups(new)):
+        if route is None:
+            B = next(iter(live_leaves.values())).shape[axis]
+            keep = slots < B
+            route = torch.nonzero(keep).reshape(-1), slots[keep].to(torch.int64)
+        src, dst = route
         for name, leaf in live_leaves.items():
-            leaf[:, dst] = new_leaves[name][:, src]
+            if axis:
+                leaf[:, dst] = new_leaves[name][:, src]
+            else:
+                leaf[dst] = new_leaves[name][src]
     return live
 
 
@@ -177,9 +194,16 @@ def make_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
         target slot per row (≥ B ⇒ padding row). Returns (first sampled token
         (Bp,) int32, caches with the admitted slots' rows replaced)."""
         Bp = tokens.shape[0]
-        fresh = {"blocks": [
-            {k: torch.zeros((x.shape[0], Bp) + x.shape[2:], dtype=x.dtype, device=x.device)
-             for k, x in leaves.items()} for leaves in caches["blocks"]]}
+
+        def zeros(leaves, axis):
+            return {k: torch.zeros(x.shape[:axis] + (Bp,) + x.shape[axis + 1:],
+                                   dtype=x.dtype, device=x.device) for k, x in leaves.items()}
+
+        fresh = {"blocks": [zeros(leaves, 1) for leaves in caches["blocks"]]}
+        if "tail" in caches:
+            fresh["tail"] = [zeros(leaves, 0) for leaves in caches["tail"]]
+        if "shared" in caches:
+            fresh["shared"] = zeros(caches["shared"], 1)
         logits, ex = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="prefill",
                              caches=fresh, cur_len=lens)
         merged = _slot_scatter(caches, ex["caches"], slots)
@@ -200,12 +224,18 @@ def make_paged_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = No
     ctx = _make_ctx(cfg, quant, path)
     sample = _make_sampler(temperature, top_k)
 
-    def admit_step(params, tokens, lens, prefix, row_tables, caches, gen):
+    def admit_step(params, tokens, lens, prefix, row_tables, row_states, caches, gen):
         """tokens (Bp, S) right-padded suffixes; lens (Bp,) suffix lengths; prefix
         (Bp,) shared-prefix lengths (unused when cold); row_tables (Bp, maxP) the
-        admitted rows' page tables (sentinel-filled padding rows write nowhere).
-        Returns (first sampled token (Bp,) int32, caches with the live table)."""
-        c = dict(caches, page_table=row_tables)
+        admitted rows' page tables and row_states (Bp,) their state-page ids
+        (sentinel-filled padding rows write nowhere; each is used only where the
+        cache carries its routing table). Returns (first sampled token (Bp,)
+        int32, caches with the live tables)."""
+        c = dict(caches)
+        if "page_table" in c:
+            c["page_table"] = row_tables
+        if "state_table" in c:
+            c["state_table"] = row_states
         logits, _ = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="prefill",
                             caches=c, cur_len=lens, prefix_len=prefix if warm else None)
         return sample(logits[:, -1], gen), caches
@@ -403,6 +433,9 @@ class ServeEngine:
         self.chunked = config.chunked
         self.token_budget = config.token_budget
         self.spec = config.speculate
+        # which state kinds the cache carries: token-paged attention KV (page need
+        # grows with length) and fixed-size SSM checkpoints (one page per slot)
+        self.has_kv, self.has_state = state_lib.family_flags(M.block_spec(cfg))
         if self.spec > 1:
             self.drafter = drafter.NGramDrafter(max_ngram=config.drafter_ngram)
         self.buckets = sorted(b for b in (config.prefill_buckets
@@ -416,8 +449,16 @@ class ServeEngine:
             self.maxP = self.T // self.ps
             self.n_pages = config.n_pages or self.B * self.maxP
             self.pool = paging.PagePool(self.n_pages)
-            self.radix = paging.RadixIndex(self.ps) if config.prefix_reuse else None
-            self._table = np.full((self.B, self.maxP), self.n_pages, np.int32)
+            # radix reuse restarts a prompt mid-way, which a state checkpoint cannot
+            # (check_model rejects prefix_reuse on stateful families; this is the
+            # backstop)
+            self.radix = (paging.RadixIndex(self.ps)
+                          if config.prefix_reuse and not self.has_state else None)
+            if self.has_kv:
+                self._table = np.full((self.B, self.maxP), self.n_pages, np.int32)
+            if self.has_state:
+                self._state_table = np.full(self.B, self.n_pages, np.int32)
+            self._state_pages_held = 0
             self._table_dirty = False
             self._seq_pages: List[List[int]] = [[] for _ in range(self.B)]
             self.caches = M.init_cache(cfg, self.B, self.T, dtype=self.cache_dtype,
@@ -453,6 +494,10 @@ class ServeEngine:
             # paged layout; zero on dense engines
             "prefix_hits": 0, "prefix_tokens_reused": 0, "cow_copies": 0,
             "pages_evicted": 0, "peak_pages_in_use": 0,
+            # the pool's pages holding attention KV tokens and SSM state
+            # checkpoints, and their peaks; zero on dense engines
+            "kv_pages_in_use": 0, "state_pages_in_use": 0,
+            "peak_kv_pages_in_use": 0, "peak_state_pages_in_use": 0,
             # speculative decoding; zero when speculate == 1
             "spec_steps": 0, "spec_slot_steps": 0, "spec_drafted": 0,
             "spec_accepted": 0, "spec_emitted": 0,
@@ -532,10 +577,17 @@ class ServeEngine:
             self._prefill_target[slot] = 0
             if self.paged:
                 # pages the radix index retains as cached prefixes survive (the
-                # index holds its own reference); the rest return to the free list
+                # index holds its own reference); the rest, the slot's state page
+                # included, return to the free list
                 self.pool.decref(self._seq_pages[slot])
                 self._seq_pages[slot] = []
-                self._table[slot, :] = self.n_pages
+                if self.has_kv:
+                    self._table[slot, :] = self.n_pages
+                if self.has_state:
+                    # the freed checkpoint may go to the next admission, whose
+                    # prefill starts from a zero state instead of reading it
+                    self._state_table[slot] = self.n_pages
+                    self._state_pages_held -= 1
                 self._table_dirty = True
                 self._note_pool()
         else:
@@ -572,9 +624,10 @@ class ServeEngine:
         if cow_src is not None:
             self.pool.incref([cow_src])
         prefix = matched + j
-        # the final sampled token retires the request unscattered: max_new - 1
-        need = -(-min(plen + max(r.max_new - 1, 0), self.T) // ps)
-        own_n = need - len(shared)
+        # the final sampled token retires the request unscattered: max_new - 1;
+        # a state checkpoint is one more page whatever the length
+        need = -(-min(plen + max(r.max_new - 1, 0), self.T) // ps) if self.has_kv else 0
+        own_n = need - len(shared) + (1 if self.has_state else 0)
         own = self.pool.alloc(own_n)
         if own is None and self.radix is not None:
             self.counters["pages_evicted"] += self.radix.evict(self.pool, own_n)
@@ -585,8 +638,9 @@ class ServeEngine:
             self.pool.decref(shared)
             return None
         cow = (cow_src, own[0], j) if cow_src is not None else None
-        return {"prefix": prefix, "suffix": plen - prefix, "pages": shared + own,
-                "cow": cow}
+        kv_own = own[:-1] if self.has_state else own
+        return {"prefix": prefix, "suffix": plen - prefix, "pages": shared + kv_own,
+                "cow": cow, "state_page": own[-1] if self.has_state else None}
 
     def _suffix_estimate(self, r: Request) -> int:
         """Prefill-window estimate for bucketing: the prompt minus its currently
@@ -605,7 +659,8 @@ class ServeEngine:
             plan = self._plan_paged(r)
             if plan is None or plan["suffix"] > bucket:
                 if plan is not None:       # un-reserve: replanned next round
-                    self.pool.decref(plan["pages"])
+                    self.pool.decref(plan["pages"] + ([plan["state_page"]]
+                                                      if self.has_state else []))
                 deferred.append(r)
             else:
                 plans.append((r, plan))
@@ -618,6 +673,7 @@ class ServeEngine:
         lens = np.ones(rows, np.int32)
         prefixes = np.zeros(rows, np.int32)
         row_tables = np.full((rows, self.maxP), self.n_pages, np.int32)
+        row_states = np.full(rows, self.n_pages, np.int32)
         mid_decode = any(s is not None for s in self._slots)
         warm = False
         for j, (slot, (r, plan)) in enumerate(zip(free, plans)):
@@ -630,9 +686,16 @@ class ServeEngine:
                 self.caches = _page_copy(self.caches, *plan["cow"])
                 self.counters["cow_copies"] += 1
             self._slots[slot] = r
-            self._seq_pages[slot] = plan["pages"]
-            self._table[slot, :] = self.n_pages
-            self._table[slot, : len(plan["pages"])] = plan["pages"]
+            # retirement drops the KV pages and the state page together
+            self._seq_pages[slot] = plan["pages"] + (
+                [plan["state_page"]] if self.has_state else [])
+            if self.has_kv:
+                self._table[slot, :] = self.n_pages
+                self._table[slot, : len(plan["pages"])] = plan["pages"]
+            if self.has_state:
+                row_states[j] = plan["state_page"]
+                self._state_table[slot] = plan["state_page"]
+                self._state_pages_held += 1
             warm = warm or plan["prefix"] > 0
             r.prefix_reused = plan["prefix"]
             self.counters["prompt_tokens"] += len(r.prompt)
@@ -645,7 +708,8 @@ class ServeEngine:
         tok, self.caches = step(
             self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
             torch.as_tensor(lens, device=dev), torch.as_tensor(prefixes, device=dev),
-            torch.as_tensor(row_tables, device=dev), self.caches, self._gen)
+            torch.as_tensor(row_tables, device=dev), torch.as_tensor(row_states, device=dev),
+            self.caches, self._gen)
         tok = tok.cpu().numpy()
         self.counters["prefill_calls"] += 1
         if mid_decode:
@@ -734,16 +798,34 @@ class ServeEngine:
     # ---------------------------------------------------------------- main loop
 
     def _push_table(self) -> None:
-        """Sync the host page table to the device cache. Retired slots' rows are
+        """Sync the host routing tables (the page table, and the (B,) state table
+        of a model with SSM state) to the device cache. Retired slots' rows are
         sentinel before the next step: a free slot still decodes in lock-step,
         and its garbage token must write nowhere (a stale row would corrupt a
         page the allocator may have handed to another sequence or the index)."""
-        self.caches["page_table"] = torch.as_tensor(self._table, device=self.device)
+        if self.has_kv:
+            self.caches["page_table"] = torch.as_tensor(self._table, device=self.device)
+        if self.has_state:
+            self.caches["state_table"] = torch.as_tensor(self._state_table,
+                                                         device=self.device)
         self._table_dirty = False
 
     def _note_pool(self) -> None:
-        self.counters["peak_pages_in_use"] = max(self.counters["peak_pages_in_use"],
-                                                 self.pool.used_count)
+        """Pool occupancy after an alloc or decref: the one pool backs both page
+        kinds, so the KV pages are what the slots' state checkpoints are not
+        (radix-held cached prefixes count as KV)."""
+        held, c = self._state_pages_held, self.counters
+        kv = self.pool.used_count - held
+        c["state_pages_in_use"], c["kv_pages_in_use"] = held, kv
+        c["peak_state_pages_in_use"] = max(c["peak_state_pages_in_use"], held)
+        c["peak_kv_pages_in_use"] = max(c["peak_kv_pages_in_use"], kv)
+        c["peak_pages_in_use"] = max(c["peak_pages_in_use"], self.pool.used_count)
+
+    def _unmapped(self, slot: int) -> bool:
+        """A retired paged slot holds no page and its table rows are sentinel."""
+        return (not self._seq_pages[slot]
+                and not (self.has_kv and (self._table[slot] != self.n_pages).any())
+                and not (self.has_state and self._state_table[slot] != self.n_pages))
 
     def _spec_step(self, active: List[int], finished: List[Request]) -> None:
         """One speculative verify step: draft ≤ spec-1 tokens per active slot from
@@ -789,8 +871,7 @@ class ServeEngine:
                 self.counters["spec_emitted"] += 1
                 if self._slots[i] is not r:
                     if self.paged:
-                        assert (not self._seq_pages[i]
-                                and (self._table[i] == self.n_pages).all()), \
+                        assert self._unmapped(i), \
                             "mid-window retirement left stale page mappings"
                     break
 
@@ -953,9 +1034,7 @@ class ServeEngine:
                 self._emit(i, int(out_w[j]), finished)
                 self.counters["spec_emitted"] += 1
                 if self._slots[i] is not r:
-                    assert (not self._seq_pages[i]
-                            and (self._table[i] == self.n_pages).all()), \
-                        "mid-window retirement left stale page mappings"
+                    assert self._unmapped(i), "mid-window retirement left stale page mappings"
                     break
         for i in served_pre:              # the final chunk emits the first token
             end = int(kv_len[i])

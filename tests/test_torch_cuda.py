@@ -1109,3 +1109,118 @@ def test_qgemm_w8a8_experts_bitwise(dev, E, C, K, N):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(o, want)
+
+
+# ---------------------------------------------------------------- SSM and hybrid shapes
+
+def _graph_replayed(call):
+    """``call``'s output from one launch captured in a CUDA graph, replayed over an
+    output overwritten first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("M", [1, 4, 33, 2048])
+def test_qgemm_w8a8_tile_body_mamba_in_proj(dev, M):
+    """mamba2-130m's in_proj, K = 768, N = 2·1536 + 2·128 + 24 = 3352: N is off the
+    16-column grid, so the wrapper routes every M to the 64 x 64 tile body; bitwise
+    the plain version eagerly and under graph replay. Its out_proj (K = 1536,
+    N = 768) goes to the decode or the wgmma body."""
+    ops, ref = _ops()
+    from repro_torch.kernels.qgemm import qgemm_w8a8_cuda, qgemm_w8a8_plan
+    assert qgemm_w8a8_plan(M, 768, 3352)[0] == "tile"
+    qx, qw, a, sw = _w8a8_inputs(dev, M, 768, 3352, M + 3352)
+    before = ops.BODY_LAUNCHES["qgemm_w8a8/tile"]
+    out = ops.qgemm_w8a8(qx, qw, a, sw)
+    want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES["qgemm_w8a8/tile"] == before + 1
+    assert torch.equal(out, want)
+    assert torch.equal(_graph_replayed(lambda: qgemm_w8a8_cuda(qx, qw, a, sw)), want)
+    qx, qw, a, sw = _w8a8_inputs(dev, M, 1536, 768, M + 768)
+    body = qgemm_w8a8_plan(M, 1536, 768)[0]
+    before = ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"]
+    out = ops.qgemm_w8a8(qx, qw, a, sw)
+    torch.cuda.synchronize()
+    assert body != "tile" and ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"] == before + 1
+    assert torch.equal(out, ref.qgemm_w8a8_ref(qx, qw, a, sw))
+
+
+@pytest.mark.parametrize("M", [4, 2048])
+@pytest.mark.parametrize("K", [768, 1536, 2048, 4096])
+def test_act_quantize_ssm_widths(dev, M, K):
+    """K1 at the in/out projections' K of mamba2 (768, 1536) and zamba2 (2048,
+    4096), bf16 rows with outlier channels: codes off by one on <= 1e-5 of them
+    and the row scale within one ulp (torch's pow and powf), eagerly and under
+    graph replay."""
+    ops, ref = _ops()
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    x = (torch.randn(M, K, generator=g, device=dev) * 2).to(torch.bfloat16)
+    x[:, torch.randperm(K, generator=g, device=dev)[:8]] *= 30
+    bcol = torch.rand(K, generator=g, device=dev) * 3 + 0.25
+    alpha = torch.tensor(0.15, device=dev)
+    qr, ar = ref.act_quantize_ref(x, bcol, 8, alpha)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.act_quantize(x, bcol, alpha)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        qg, ag = ops.act_quantize(x, bcol, alpha)
+    qg.zero_()
+    ag.fill_(float("nan"))
+    graph.replay()
+    for q, a in (ops.act_quantize(x, bcol, alpha), (qg, ag)):
+        torch.cuda.synchronize()
+        assert (q.int() - qr.int()).abs().max().item() <= 1
+        assert (q != qr).float().mean().item() <= 1e-5
+        assert (a.view(torch.int32) - ar.view(torch.int32)).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("q_dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_paged_decode_group_size_1(dev, pool_dtype, q_dtype, atol):
+    """K4 at zamba2's shared attention: multi-head, H = Hkv = 32 (one query head per
+    KV head), D = 64, over f32, bf16 and int8 pools; bf16 q on the split
+    tensor-core body, f32 q on the CUDA-core body; eagerly and under graph
+    replay (bitwise the eager launch)."""
+    ops, ref = _ops()
+    B, Hkv, D, P, ps, maxP = 4, 32, 64, 96, 8, 24
+    kp, vp, ks, vs, tab, kvl = _paged_inputs(dev, B, Hkv, D, P, ps, maxP, pool_dtype, 32)
+    q = torch.randn(B, 1, Hkv, D, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(q_dtype)
+    call = lambda: ops.paged_decode_attention(q, kp, vp, tab, kvl, k_scale_pages=ks,  # noqa: E731
+                                              v_scale_pages=vs)
+    out = call()
+    want = ref.paged_decode_attention_ref(q.reshape(B, Hkv, 1, D), kp, vp, tab, kvl,
+                                          k_scale_pages=ks, v_scale_pages=vs)
+    torch.cuda.synchronize()
+    err = (out.reshape(B, Hkv, 1, D).float() - want.float()).abs()
+    assert float(err.max()) <= atol
+    assert torch.equal(_graph_replayed(call), out)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_flash_attention_group_size_1(dev, dtype, atol):
+    """K3 at zamba2's shared attention: B = 4, H = Hkv = 32, D = 64, S = 512, causal,
+    per-row valid lengths."""
+    ops, ref = _ops()
+    g = torch.Generator(device=dev).manual_seed(64)
+    q, k, v = (torch.randn(4, 32, 512, 64, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    kv_len = torch.tensor([512, 300, 129, 1], device=dev)
+    out = ops.flash_attention(q, k, v, kv_len)
+    want = ref.flash_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert float((out.float() - want.float()).abs().max()) <= atol

@@ -197,12 +197,41 @@ def test_unported_configs_raise_typed(small, kw):
 
 
 def test_unported_family_raises():
-    """SSM and hybrid stacks are not ported yet (MoE is: tests/test_torch_moe.py);
-    an encoder-only model has no decode step, and the engine points it at
-    make_prefill_step."""
-    for arch in ("mamba2-130m", "zamba2-1.2b"):
-        with pytest.raises(NotPortedError):
-            EngineConfig(batch_size=2, max_len=32).check_model(tget(arch, smoke=True))
-    EngineConfig(batch_size=2, max_len=32).check_model(tget("granite-moe-3b-a800m", smoke=True))
+    """The reference's typed rejections: on the SSM and hybrid families
+    ``check_model`` raises ``SpeculativeStateError`` (speculate > 1),
+    ``PrefixReuseStateError`` (paged with prefix_reuse) and ``ChunkedStateError``
+    (chunked), all ``UnsupportedModelError`` and so ``ValueError``, under exactly
+    the reference's conditions (the same type, or none, as the JAX config on
+    every combination below). Every other family passes. The encoder-only
+    hubert still raises ``NotPortedError``: a stated deviation (the reference
+    admits it; here it runs through ``make_prefill_step``)."""
+    from repro.serving import config as JC
+    from repro_torch.serving import config as TC
+
+    combos = [dict(), dict(speculate=4), dict(cache_layout="paged"),
+              dict(cache_layout="paged", prefix_reuse=False),
+              dict(cache_layout="paged", prefix_reuse=False, speculate=2),
+              dict(cache_layout="paged", prefix_reuse=False, chunked=True),
+              dict(cache_layout="paged", chunked=True, speculate=4),
+              dict(cache_layout="paged", scheduler="continuous", chunked=True,
+                   prefix_reuse=False, kv_cache="int8")]
+    names = ("SpeculativeStateError", "PrefixReuseStateError", "ChunkedStateError")
+    for n in names:
+        assert issubclass(getattr(TC, n), TC.UnsupportedModelError)
+    assert issubclass(TC.UnsupportedModelError, ValueError)
+    raised = set()
+    for arch in ("mamba2-130m", "zamba2-1.2b", "granite-moe-3b-a800m", "starcoder2-7b"):
+        for kw in combos:
+            def outcome(mod, get):
+                try:
+                    mod.EngineConfig(batch_size=2, max_len=32, **kw).check_model(
+                        get(arch, smoke=True))
+                except mod.UnsupportedModelError as e:
+                    return type(e).__name__
+                return None
+            got = outcome(TC, tget)
+            assert got == outcome(JC, jget), (arch, kw, got)
+            raised.add(got)
+    assert raised == {None, *names}
     with pytest.raises(NotPortedError, match="make_prefill_step"):
         EngineConfig(batch_size=2, max_len=32).check_model(tget("hubert-xlarge", smoke=True))

@@ -194,11 +194,19 @@ def test_calibration_names_stack_per_sublayer():
 
 
 def test_unsupported_families_still_raise():
-    for arch in ("mamba2-130m", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError):
-            TM.block_spec(tget(arch, smoke=True))
-    # MoE is served since its slice (tests/test_torch_moe.py)
-    assert TM.block_spec(tget("granite-moe-3b-a800m", smoke=True)).sublayers == ("attn_moe",)
+    """No family is refused any more: the SSM and hybrid block specs equal the
+    reference's (mamba2 [ssm] × L; zamba2 smoke 2 super-blocks of 2 and a tail of
+    1, FULL 6 super-blocks of 6 with the shared block and a 2-layer tail), as do
+    the MoE's (tests/test_torch_moe.py serves it). An unknown family raises."""
+    for arch in ("mamba2-130m", "zamba2-1.2b", "granite-moe-3b-a800m"):
+        for smoke in (True, False):
+            assert TM.block_spec(tget(arch, smoke=smoke)) == TM.BlockSpec(
+                **dataclasses.asdict(JM.block_spec(jget(arch, smoke=smoke))))
+    full = TM.block_spec(tget("zamba2-1.2b"))
+    assert (full.sublayers, full.n_blocks, full.tail, full.shared_attn) == (
+        ("ssm",) * 6, 6, ("ssm",) * 2, True)
+    with pytest.raises(ValueError, match="unknown family"):
+        TM.block_spec(dataclasses.replace(tget("mamba2-130m", smoke=True), family="rnn"))
 
 
 # ======================================================================================
