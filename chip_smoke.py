@@ -163,6 +163,23 @@ Phases (any failure raises and exits non-zero):
    CPU: equal free-running greedy tokens and logits within 5e-2 of max|logit|,
    or, where a near tie parts the tokens, [5m]'s three-way bar; the paged
    layout (state_table, page table, K4) against the dense one on the card.
+6. The async replica server (``serving.server.AsyncServer``) on phase 4's
+   calibrated starcoder2-7b FULL W8A8 tree (rebuilt from the same seed and
+   calibration, since phase 4 frees it before the zoo): fused-int8, paged, int8 KV, batch 4
+   per replica, max_len 1024, 16 requests in two prefix families (a 256-token
+   shared prefix each, suffixes of 32-192 tokens, 16 new tokens each), affinity
+   routing, with 2 replicas sharing the card (a thread and a CUDA stream each)
+   and with 1: aggregate tok/s, TTFT and TPOT p50/p95, affinity hits, the prefix
+   hit rate per replica, peak memory. Every stream equals the engine alone fed
+   the same prompts in the same per-replica order (held with ``pause()`` until
+   each replica's share is in its inbox); launch counts per body equal the
+   schedule of both threads' model calls and join phase 4's totals. Then replica
+   0 fails at its step 3 (``FailureInjector``): every request completes on the
+   survivor, its tokens before the failure equal the engine alone's and the
+   survivor's continuation equals the engine alone fed the continuations in
+   requeue order; replica 0 is live again and serves; the peak across the
+   failure and restart stays within one engine's caches of the 2-replica run's.
+   Last, a one-slot server rejects with ``pool_pressure`` and ``queue_full``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -188,6 +205,7 @@ L2_BYTES = 50 * 2 ** 20
 LENS = [130, 200, 300, 450, 520, 700, 250, 600]   # buckets 256, 512 and 1024
 BATCH, MAX_LEN, MAX_NEW = 4, 1024, 16
 SYSTEM_PREFIX = 389                                # not a page multiple: tails copy on write
+SERVER_PREFIX, SERVER_SUFFIX, SERVER_REQUESTS = 256, (32, 193), 16   # phase 6's traffic
 SUFFIXES = [20, 150, 60, 300, 40, 200, 90, 10]
 MOTIF = 16                                         # speculative traffic: tiled motifs
 CHUNK_BUDGET = 128                                 # tokens per packed chunked step
@@ -3487,6 +3505,331 @@ def main() -> int:
     print(f"[5s] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s5:.1f}s "
           f"for the SSM and hybrid models)")
 
+    # ---------------------------------------------------------------- phase 6
+    # The async replica server (AsyncServer) on phase 4's calibrated starcoder2-7b FULL
+    # W8A8 tree (rebuilt from the same seed and calibration): fused-int8, paged, int8 KV, batch 4 per replica, max_len 1024, 16
+    # requests in two prefix families (a 256-token shared prefix each, suffixes of
+    # 32-192 tokens, 16 new tokens each), affinity routing; with 2 replicas sharing
+    # the card (a thread and a CUDA stream each, FIFO turns at engine steps), with
+    # 2 free-running (the turns replaced by no-ops: what the turns buy) and with 1.
+    # Then replica 0 fails at its step 3 and restarts, and a one-slot server shows
+    # both admission bounds.
+    reset5()                                # phase 5's launches are banked
+    print(f"[6] start at {time.perf_counter() - t_start:.1f}s; {nvidia_smi_line()}")
+    t_s6 = time.perf_counter()
+    # phase 4 freed its calibrated tree before the zoo: rebuild it the same way
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = M.init_params(g, cfg, device=dev)
+    qparams = quantize_tree(params, quant, tables=calibrate(
+        params, cfg, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0))
+    del params
+    torch.cuda.empty_cache()
+    print(f"[6] {cfg.name} FULL W8A8 tree rebuilt as in phase 4 (seed 0, 2 calibration "
+          f"batches) in {time.perf_counter() - t_s6:.1f}s")
+    import asyncio
+    import contextlib
+    import gc
+
+    from repro_torch.runtime.supervisor import FailureInjector
+    from repro_torch.serving.api import AdmissionError, FinishReason, Request
+    from repro_torch.serving.server import AsyncServer
+
+    config6 = EngineConfig(batch_size=BATCH, max_len=MAX_LEN, path="fused-int8",
+                           kv_cache="int8", cache_layout="paged")
+    rng = np.random.default_rng(6)
+    families = [rng.integers(1, cfg.vocab, size=SERVER_PREFIX).astype(np.int32)
+                for _ in range(2)]
+    traffic = [np.concatenate([families[i % 2],
+                               rng.integers(1, cfg.vocab, size=int(n)).astype(np.int32)])
+               for i, n in enumerate(rng.integers(*SERVER_SUFFIX, size=SERVER_REQUESTS))]
+    records = []                            # (token rows, mode, flash?) per model call
+    apply = M.apply
+
+    def apply_recorded(p, inputs, *rest, **kw):
+        out = apply(p, inputs, *rest, **kw)
+        tok = inputs["tokens"]
+        records.append((tok.numel(), kw.get("mode"), kw.get("mode") == "prefill"
+                        and kw.get("prefix_len") is None and tok.shape[1] >= 128))
+        return out
+
+    def check_counts(label):
+        """The launches of a server run (both replica threads) against the schedule
+        its model calls imply: 192 K1 and K2 per call on the bodies their token rows
+        give, 32 K3 per cold admission of >= 128 tokens (warm suffixes run the plain
+        path), 32 K4 per paged decode step; then add them to the phase-4 totals."""
+        counts, bodies = dict(ops.LAUNCHES), dict(ops.BODY_LAUNCHES)
+        want = {name: 0 for name in ops.LAUNCHES}
+        want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
+        L = cfg.n_layers
+        for rows, mode, flash in records:
+            for K, N in linears:
+                want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
+                want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
+            want["act_quantize"] += len(linears) * L
+            want["qgemm_w8a8"] += len(linears) * L
+            want["flash_attention"] += L * flash
+            want["paged_decode_attention"] += L * (mode == "decode")
+        want_bodies["flash_attention/bf16_mma"] = want["flash_attention"]
+        want_bodies["paged_attention/bf16_mma"] = want["paged_decode_attention"]
+        check(counts == want and bodies == want_bodies,
+              f"{label}: launches {counts} / bodies {bodies} != schedule {want} / "
+              f"{want_bodies} over {len(records)} model calls")
+        check(want["flash_attention"] > 0 and want["paged_decode_attention"] > 0,
+              f"{label}: no cold admission >= 128 tokens or no paged decode step")
+        for name in launches:
+            launches[name] += counts[name]
+        for name in body_launches:
+            body_launches[name] += bodies[name]
+        return counts
+
+    async def until(cond, what, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < deadline, f"[6] timed out waiting for {what}")
+            await asyncio.sleep(0.001)
+
+    async def collect(srv, req):
+        toks, fin = [], None
+        async for ev in srv.submit(req):
+            check(ev.kind != "error", f"[6] stream ended in an error frame: {ev.error}")
+            if ev.kind == "token":
+                toks.append(ev.token)
+            else:
+                fin = ev
+        return toks, fin
+
+    async def place(srv, reqs):
+        """Hold every replica and submit ``reqs`` one by one, each once the previous
+        one sits in an inbox: each replica then drains its share in submission order,
+        as a direct engine fed the same prompts would."""
+        srv.pause()
+        tasks = []
+        for req in reqs:
+            n = sum(r.load for r in srv.replicas)
+            tasks.append(asyncio.create_task(collect(srv, req)))
+            await until(lambda: sum(r.load for r in srv.replicas) == n + 1, "an inbox")
+        return tasks
+
+    def direct(prompts, max_new):
+        """The port's engine alone on the card, fed ``prompts`` in this order."""
+        engine = ServeEngine(cfg, qparams, config=config6, quant=quant, device=dev)
+        reqs = engine.submit([np.asarray(p, np.int32) for p in prompts], max_new=max_new)
+        engine.run()
+        torch.cuda.synchronize()
+        return [r.out for r in reqs]
+
+    def cache_bytes(engine):
+        leaves = [engine.caches]
+        n = 0
+        while leaves:
+            x = leaves.pop()
+            if isinstance(x, dict):
+                leaves.extend(x.values())
+            elif isinstance(x, (list, tuple)):
+                leaves.extend(x)
+            elif isinstance(x, torch.Tensor):
+                n += x.numel() * x.element_size()
+        return n
+
+    class FreeRunning:
+        """A device's replicas step at once, each thread grabbing the GIL back at
+        every torch op the other releases it in."""
+
+        def turn(self):
+            return contextlib.nullcontext()
+
+    def baseline():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    async def served(n_rep, free=False):
+        before = baseline()
+        async with AsyncServer(cfg, qparams, config=config6, replicas=n_rep, quant=quant,
+                               max_queue=SERVER_REQUESTS) as srv:
+            if free:
+                srv._turns = {d: FreeRunning() for d in srv._turns}
+            t0 = time.perf_counter()
+            tasks = await place(srv, [Request(prompt=p.tolist(), max_new=MAX_NEW)
+                                      for p in traffic])
+            hold = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            records.clear()
+            M.apply = apply_recorded
+            try:
+                t0 = time.perf_counter()
+                srv.resume()
+                res = await asyncio.gather(*tasks)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                M.apply = apply
+            counts = check_counts(f"server {n_rep} replica(s){' free-running' if free else ''}")
+            return dict(res=res, dt=dt, hold=hold, m=srv.metrics(), counts=counts,
+                        before=before, peak=torch.cuda.max_memory_allocated(),
+                        cache=cache_bytes(srv.replicas[0].engine),
+                        streams=[r.stream for r in srv.replicas])
+
+    runs = {label: asyncio.run(served(n, free=label.endswith("free")))
+            for label, n in (("2", 2), ("2 free", 2), ("1", 1))}
+    refs = {}
+    for label, run in runs.items():
+        n = int(label[0])
+        res, m = run["res"], run["m"]
+        n_tok = sum(len(t) for t, _ in res)
+        check(n_tok == SERVER_REQUESTS * MAX_NEW and all(
+            f.finish_reason == FinishReason.LENGTH for _, f in res),
+              f"server {n}: every request gets {MAX_NEW} tokens")
+        check(m["server"]["completed"] == SERVER_REQUESTS and m["server"]["errors"] == 0
+              and m["server"]["rejected"] == 0, f"server {n}: counters {m['server']}")
+        for rep in range(n):
+            idx = [i for i, (_, f) in enumerate(res) if f.metrics.replica == rep]
+            if (n, rep) not in refs:
+                refs[(n, rep)] = (idx, direct([traffic[i] for i in idx], MAX_NEW))
+            check(idx == refs[(n, rep)][0] and [res[i][0] for i in idx] == refs[(n, rep)][1],
+                  f"server {label} replica {rep}: streams differ from the engine alone")
+        e2e[f"server {label} replica(s)"] = n_tok / run["dt"]
+        lat = m["latency"]
+        print(f"[6] server replicas={label} (paged int8 KV, affinity): {n_tok} tokens in "
+              f"{run['dt']:.2f}s = {n_tok / run['dt']:.1f} tok/s; TTFT p50/p95 "
+              f"{lat['ttft_p50_s'] * 1e3:.1f}/{lat['ttft_p95_s'] * 1e3:.1f} ms, TPOT p50/p95 "
+              f"{lat['tpot_p50_s'] * 1e3:.1f}/{lat['tpot_p95_s'] * 1e3:.1f} ms (from submission; "
+              f"the ordered hold took {run['hold'] * 1e3:.1f} ms); affinity_hits="
+              f"{m['server']['affinity_hits']}; prefix_hit_rate per replica "
+              f"{[round(r['engine']['prefix_hit_rate'], 4) for r in m['replicas']]}; peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB ({(run['peak'] - run['before']) / 2**30:.2f} "
+              f"over the {run['before'] / 2**30:.2f} held before the server; one engine's "
+              f"caches {run['cache'] / 2**30:.3f} GiB); streams token-exact vs the engine alone "
+              f"in the same per-replica order; launches "
+              f"{ {k: v for k, v in run['counts'].items() if v} } over {len(records)} calls")
+    two = runs["2"]
+    check(two["streams"][0] is not None and two["streams"][0] != two["streams"][1],
+          "each replica has a CUDA stream of its own")
+    check(two["m"]["server"]["affinity_hits"] == SERVER_REQUESTS - 2 and all(
+        f.metrics.replica == i % 2 for i, (_, f) in enumerate(two["res"])),
+          "affinity: each prefix family stays on its replica")
+    check(all(r["engine"]["prefix_hit_rate"] > 0 for r in two["m"]["replicas"]),
+          "every replica reuses its family's prefix")
+    print(f"[6] aggregate tok/s over 1 replica's: 2 replicas taking turns "
+          f"{e2e['server 2 replica(s)'] / e2e['server 1 replica(s)']:.3f}, 2 free-running "
+          f"{e2e['server 2 free replica(s)'] / e2e['server 1 replica(s)']:.3f}")
+
+    # failover: replica 0's share of the 2-replica run, every request pinned to
+    # replica 0, which fails at its step 3; replica 1 is held until the requeued
+    # continuations sit in its inbox, so it admits them together
+    idx0, ref0 = refs[(2, 0)]
+
+    async def failover():
+        before = baseline()
+        inj = {0: FailureInjector(fail_at_steps=(3,))}
+        async with AsyncServer(cfg, qparams, config=config6, replicas=2, quant=quant,
+                               injectors=inj, max_restarts=2) as srv:
+            requeued = []
+            handle = srv._handle_replica_failure
+
+            def snapshot(replica, interrupted, err):
+                requeued.extend((list(r.req.prompt), list(r.emitted)) for r in interrupted)
+                handle(replica, interrupted, err)
+
+            srv._handle_replica_failure = snapshot
+            tasks = await place(srv, [Request(prompt=traffic[i].tolist(), max_new=MAX_NEW,
+                                              replica_hint=0) for i in idx0])
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            records.clear()
+            M.apply = apply_recorded
+            try:
+                t0 = time.perf_counter()
+                srv.replicas[0].pause_flag.clear()
+                srv.replicas[0].wake.set()
+                await until(lambda: srv.counters["restarts"] == 1, "replica 0's failure")
+                await until(lambda: srv.replicas[1].load == len(requeued), "the requeue")
+                srv.resume()
+                res = await asyncio.gather(*tasks)
+                await until(lambda: srv.replicas[0].alive and srv.replicas[0].engine
+                            is not None, "replica 0's restart")
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                M.apply = apply
+            counts = check_counts("server failover")
+            peak = torch.cuda.max_memory_allocated()
+            after = torch.cuda.memory_allocated()
+            _, fin = await collect(srv, Request(prompt=traffic[idx0[0]].tolist(), max_new=4,
+                                                replica_hint=0))
+            return dict(res=res, requeued=requeued, m=srv.metrics(), dt=dt, counts=counts,
+                        peak=peak, after=after, before=before, again=fin.metrics.replica)
+
+    fo = asyncio.run(failover())
+    res, requeued, m = fo["res"], fo["requeued"], fo["m"]
+    check(len(requeued) == len(idx0) and any(e for _, e in requeued),
+          f"failover: {len(requeued)} requests requeued, some mid-decode")
+    check(all(len(t) == MAX_NEW and f.metrics.replica == 1 for t, f in res),
+          f"failover: every request gets its {MAX_NEW} tokens on the survivor")
+    emitted = {tuple(p): e for p, e in requeued}
+    for (toks, _), i, head in zip(res, idx0, ref0):
+        e = emitted[tuple(traffic[i].tolist())]
+        check(toks[:len(e)] == e == head[:len(e)],
+              "failover: replica 0's tokens before the failure equal the engine alone's")
+    cont = [(p, e) for p, e in requeued if len(e) < MAX_NEW]
+    tails = direct([p + e for p, e in cont], [MAX_NEW - len(e) for _, e in cont])
+    got = {tuple(traffic[i].tolist()): toks for (toks, _), i in zip(res, idx0)}
+    for (p, e), tail in zip(cont, tails):
+        check(got[tuple(p)][len(e):] == tail,
+              "failover: the survivor's continuation equals the engine alone fed the "
+              "continuations in requeue order")
+    check(m["server"]["restarts"] == 1 and m["replicas"][0]["state"] == "live"
+          and m["replicas"][0]["restarts"] == 1 and fo["again"] == 0,
+          f"failover: replica 0 restarted and serves again ({m['replicas'][0]})")
+    grew = (fo["peak"] - fo["before"]) - (two["peak"] - two["before"])
+    check(grew <= two["cache"],
+          f"failover: peak over the held memory grew by {grew} bytes past the 2-replica "
+          f"run's, more than one engine's caches ({two['cache']})")
+    print(f"[6] failover: replica 0 failed at its step 3 with {len(requeued)} requests "
+          f"({sum(len(e) for _, e in requeued)} tokens already streamed); the survivor "
+          f"finished them token-exact vs the engine alone fed the continuations in requeue "
+          f"order; replica 0 live again and serving; {fo['dt']:.2f}s; peak memory "
+          f"{(fo['peak'] - fo['before']) / 2**30:.3f} GiB over the {fo['before'] / 2**30:.2f} "
+          f"held, across the failure and restart (2-replica run "
+          f"{(two['peak'] - two['before']) / 2**30:.3f}, one engine's caches "
+          f"{two['cache'] / 2**30:.3f}); allocated after the restart "
+          f"{(fo['after'] - fo['before']) / 2**30:.3f} GiB over the held; launches "
+          f"{ {k: v for k, v in fo['counts'].items() if v} }")
+
+    # bounded admission on the card: a one-slot replica whose pool holds 40 pages
+    async def admission_bounds():
+        small = EngineConfig(batch_size=1, max_len=MAX_LEN, path="fused-int8",
+                             kv_cache="int8", cache_layout="paged", n_pages=40)
+        big = np.concatenate(traffic[:2])[:400]        # 400 + 15 tokens: 52 pages > 40
+        reasons = []
+        async with AsyncServer(cfg, qparams, config=small, replicas=1, quant=quant,
+                               max_queue=1, admission_timeout=0.05) as srv:
+            try:
+                await collect(srv, Request(prompt=big.tolist(), max_new=MAX_NEW))
+            except AdmissionError as e:
+                reasons.append(e.reason)
+            held = await place(srv, [Request(prompt=traffic[0][:40].tolist(), max_new=2)])
+            try:                            # the one admission slot is held
+                await collect(srv, Request(prompt=traffic[1][:40].tolist(), max_new=2))
+            except AdmissionError as e:
+                reasons.append(e.reason)
+            srv.resume()
+            toks, _ = (await asyncio.gather(*held))[0]
+            return reasons, len(toks), srv.counters["rejected"]
+
+    reasons, n_held, rejected = asyncio.run(admission_bounds())
+    check(reasons == ["pool_pressure", "queue_full"] and n_held == 2 and rejected == 2,
+          f"admission: reasons {reasons}, held request {n_held} tokens, rejected {rejected}")
+    print(f"[6] admission: a 400-token request (52 pages) against a 40-page pool "
+          f"rejected as pool_pressure, a second one behind max_queue=1 as queue_full, the "
+          f"held one finished")
+    ops.reset_launches()                    # the engines alone above count nothing
+    print(f"[6] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s6:.1f}s "
+          f"for the server)")
+
     # ---------------------------------------------------------------- result
     reset5()
     # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
@@ -3580,7 +3923,7 @@ def main() -> int:
                         **{k: r[k] for k in ("library", "body_ms", "gb_s", "f32_body_ms",
                                              "k2_ms", "n3360_decode_ms", "n3360_wgmma_ms")
                            if r.get(k) is not None}})
-    print("[6] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
+    print("[7] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
           + f"; total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -36,10 +36,13 @@ and, per body, under ``act_quantize/experts_*`` and ``qgemm_w8a8/experts_*``.
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
 per body of the ops that have several (K1; K2; K7; K8; K3; K4–K6, whose bf16 body is
-split tensor-core attention and whose f32 body runs on the CUDA cores).
+split tensor-core attention and whose f32 body runs on the CUDA cores). Both are
+counted under a lock, so launches from concurrent threads (the async server's
+replicas) are counted exactly.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -75,10 +78,23 @@ BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/
                  "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
 
 
+# replicas of the async server launch from several threads at once; a dict
+# entry's += is not atomic across threads, so every count goes through one lock
+_launch_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, BODY_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    with _launch_lock:
+        for counts in (LAUNCHES, BODY_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
+
+
+def _count(op: str, body: str) -> None:
+    """One kernel launch of ``op`` on ``body``, counted exactly from any thread."""
+    with _launch_lock:
+        LAUNCHES[op] += 1
+        BODY_LAUNCHES[body] += 1
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -124,8 +140,7 @@ def act_quantize(x: torch.Tensor, bcol: torch.Tensor,
     body, splits = act_quantize_plan(*x.shape)
     out = act_quantize_cuda(x, bcol, alpha_t, 0.0 if alpha_t is not None else float(alpha),
                             bits, body, splits)
-    LAUNCHES["act_quantize"] += 1
-    BODY_LAUNCHES[f"act_quantize/{body}"] += 1
+    _count("act_quantize", f"act_quantize/{body}")
     return out
 
 
@@ -152,8 +167,7 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
     else:
         out = qgemm_w8a8_cuda(qx, qw, a, sw)
-    LAUNCHES["qgemm_w8a8"] += 1
-    BODY_LAUNCHES[f"qgemm_w8a8/{body}"] += 1
+    _count("qgemm_w8a8", f"qgemm_w8a8/{body}")
     return out
 
 
@@ -183,8 +197,7 @@ def act_quantize_experts(x: torch.Tensor, bcol: torch.Tensor,
     q, a = act_quantize_cuda(x.reshape(E * C, K), bcol, alpha_t,
                              0.0 if alpha_t is not None else float(alpha), bits, body, splits,
                              rows_per_expert=C)
-    LAUNCHES["act_quantize"] += 1
-    BODY_LAUNCHES[f"act_quantize/experts_{body}"] += 1
+    _count("act_quantize", f"act_quantize/experts_{body}")
     return q.reshape(E, C, K), a.reshape(E, C, 1)
 
 
@@ -215,8 +228,7 @@ def qgemm_w8a8_experts(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits, experts=E)
     else:
         out = qgemm_w8a8_cuda(qx, qw, a, sw, experts=E)
-    LAUNCHES["qgemm_w8a8"] += 1
-    BODY_LAUNCHES[f"qgemm_w8a8/experts_{body}"] += 1
+    _count("qgemm_w8a8", f"qgemm_w8a8/experts_{body}")
     return out
 
 
@@ -273,8 +285,7 @@ def qgemm_w8a8_sparse(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_sparse_wgmma_cuda(qx, qw, a, sw, occ, splits)
     else:
         out = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, occ)
-    LAUNCHES["qgemm_w8a8_sparse"] += 1
-    BODY_LAUNCHES[f"qgemm_w8a8_sparse/{body}"] += 1
+    _count("qgemm_w8a8_sparse", f"qgemm_w8a8_sparse/{body}")
     return out
 
 
@@ -306,8 +317,7 @@ def qgemm_w4a8(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: torch.T
         out = qgemm_w4a8_wgmma_cuda(qx, qw4, a, sw, group, splits)
     else:
         out = qgemm_w4a8_cuda(qx, qw4, a, sw, group)
-    LAUNCHES["qgemm_w4a8"] += 1
-    BODY_LAUNCHES[f"qgemm_w4a8/{body}"] += 1
+    _count("qgemm_w4a8", f"qgemm_w4a8/{body}")
     return out
 
 
@@ -342,8 +352,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                  "bf16 q, k, v must be 16-byte aligned")
     out = flash_attention_cuda(q, k, v, kvl, causal=causal, window=window, softcap=softcap)
-    LAUNCHES["flash_attention"] += 1
-    BODY_LAUNCHES[f"flash_attention/{BODIES[q.dtype]}"] += 1
+    _count("flash_attention", f"flash_attention/{BODIES[q.dtype]}")
     return out
 
 
@@ -426,8 +435,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     out = paged_attention_cuda(qg.contiguous(), k_pages, v_pages, k_scale_pages,
                                v_scale_pages, page_table.to(torch.int32).contiguous(), kvl,
                                None, q_win=1, window=window, softcap=softcap)
-    LAUNCHES["paged_decode_attention"] += 1
-    BODY_LAUNCHES[f"paged_attention/{PAGED_BODIES[q.dtype]}"] += 1
+    _count("paged_decode_attention", f"paged_attention/{PAGED_BODIES[q.dtype]}")
     return out.reshape(B, 1, H, D)
 
 
@@ -468,8 +476,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                                k_scale_pages, v_scale_pages,
                                page_table.to(torch.int32).contiguous(), kvl, qln, q_win=W,
                                window=window, softcap=softcap)
-    LAUNCHES["paged_verify_attention"] += 1
-    BODY_LAUNCHES[f"paged_attention/{PAGED_BODIES[q.dtype]}"] += 1
+    _count("paged_verify_attention", f"paged_attention/{PAGED_BODIES[q.dtype]}")
     return out.reshape(B, Hkv, W, G, D).permute(0, 2, 1, 3, 4).reshape(B, W, H, D)
 
 
@@ -516,6 +523,5 @@ def ragged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
     out = ragged_prefill_cuda(q, k_new, v_new, k_pages, v_pages, k_scale_pages, v_scale_pages,
                               page_table.to(torch.int32).contiguous(), qs, qln, kvl,
                               chunk_cap=chunk_cap, window=window, softcap=softcap)
-    LAUNCHES["ragged_prefill_attention"] += 1
-    BODY_LAUNCHES[f"paged_attention/{PAGED_BODIES[q.dtype]}"] += 1
+    _count("ragged_prefill_attention", f"paged_attention/{PAGED_BODIES[q.dtype]}")
     return out

@@ -1,5 +1,6 @@
 """Validated serving configuration + engine statistics (port of
-``repro/serving/config.py``: ``SERVE_PATHS``, ``EngineConfig``, ``EngineStats``).
+``repro/serving/config.py``: ``SERVE_PATHS``, ``EngineConfig`` with its JSON and
+CLI surface, ``EngineStats``).
 
 ``EngineConfig`` keeps the reference's fields and cross-field validation: the
 ``fp``, ``fake``, ``dequant-fp`` and ``fused-int8`` paths, the continuous and
@@ -10,10 +11,17 @@ the combinations their recurrent state cannot support are rejected, each with
 the reference's :class:`UnsupportedModelError` subclass. Encoder-only models
 have no decode step and are refused with :class:`NotPortedError` (the reference
 admits them; here they run through ``serving.engine.make_prefill_step``).
+
+A config round-trips through JSON (``to_json`` / ``from_json``, the same string
+as the reference's for the same field values), and :func:`add_config_args`
+derives one CLI flag per field, which :func:`config_from_args` layers over a
+JSON base and the calling script's defaults.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -182,6 +190,129 @@ class EngineConfig:
                 f"{cfg.name} takes frames and has no decode step (causal={cfg.causal}): "
                 f"the slot-table engine serves decoders from token prompts; run it with "
                 f"serving.engine.make_prefill_step on a frames batch")
+
+
+    # ------------------------------------------------------------------- JSON
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        if d["prefill_buckets"] is not None:
+            d["prefill_buckets"] = list(d["prefill_buckets"])
+        return d
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EngineConfig":
+        return cls.from_kwargs(**d)
+
+    @classmethod
+    def from_json(cls, blob) -> "EngineConfig":
+        """Build from a JSON string / parsed dict. Round-trip lossless:
+        ``EngineConfig.from_json(cfg.to_json()) == cfg``."""
+        if isinstance(blob, str):
+            blob = json.loads(blob)
+        return cls.from_dict(blob)
+
+    @classmethod
+    def from_kwargs(cls, **kw) -> "EngineConfig":
+        """Build from keyword fields, rejecting unknown keys with a TypeError."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(kw) - fields)
+        if unknown:
+            raise TypeError(f"unknown engine config field(s): {unknown}; "
+                            f"valid fields: {sorted(fields)}")
+        return cls(**kw)
+
+
+# ==========================================================================
+# CLI derivation: flags come from the dataclass fields, not hand-kept lists
+# ==========================================================================
+
+#: fields whose argparse help benefits from a one-liner; anything not listed
+#: still gets a flag (new config fields appear in every CLI automatically)
+_FIELD_HELP = {
+    "batch_size": "slot-table width (concurrent sequences)",
+    "max_len": "per-slot KV cache length",
+    "eos_id": "EOS token id; default: no EOS (token 0 is PAD)",
+    "path": "integer execution backend (DESIGN.md §3.3)",
+    "kv_cache": "decode K/V storage: fp or int8 codes + per-token scales",
+    "cache_layout": "dense slot table (§3.6) or paged pool + radix reuse (§3.8)",
+    "page_size": "tokens per KV page (paged layout)",
+    "n_pages": "page-pool capacity; default batch_size*max_len/page_size",
+    "prefix_reuse": "radix prefix reuse on the paged layout",
+    "cache_dtype": "fp KV-cache dtype name; default: params dtype",
+    "scheduler": "continuous (slot refill mid-decode) or grouped baseline",
+    "prefill_buckets": "comma-separated padded-prefill lengths",
+    "chunked": "chunked prefill + prefill-decode interleaving (§3.10)",
+    "token_budget": "per-step token budget for chunked serving",
+    "speculate": "draft-window size K for speculative decoding (§3.9)",
+    "drafter_ngram": "max n-gram length of the prompt-lookup drafter",
+    "temperature": "sampling temperature; 0 = greedy",
+    "top_k": "top-k sampling cutoff; 0 = disabled",
+    "seed": "sampling PRNG seed",
+    "sparsity": "N:M structured weight sparsity applied at engine build (§3.12)",
+}
+
+_FIELD_CHOICES = {
+    "path": [p for p in SERVE_PATHS if p],
+    "kv_cache": ["fp", "int8"],
+    "cache_layout": ["dense", "paged"],
+    "scheduler": ["continuous", "grouped"],
+    "sparsity": list(SPARSITY_CHOICES),
+}
+
+
+def _base_type(f: dataclasses.Field):
+    """A field's flag type from its annotation (a string under postponed
+    evaluation): int, float, bool or str."""
+    s = str(f.type)
+    for name, py in (("int", int), ("float", float), ("bool", bool),
+                     ("str", str)):
+        if name in s:
+            return py
+    return str
+
+
+def add_config_args(parser: argparse.ArgumentParser,
+                    prefix: str = "") -> None:
+    """Add one ``--<field>`` flag per :class:`EngineConfig` field (underscores
+    become dashes). Every flag defaults to *unset* so layering works:
+    ``--config file.json`` values win unless the flag is given explicitly
+    (:func:`config_from_args`). Bools get ``--x/--no-x`` pairs."""
+    group = parser.add_argument_group("engine config (serving/config.py)")
+    for f in dataclasses.fields(EngineConfig):
+        flag = f"--{prefix}{f.name.replace('_', '-')}"
+        helptext = _FIELD_HELP.get(f.name, f.name)
+        ftype = _base_type(f)
+        if ftype is bool:
+            group.add_argument(flag, default=None, help=helptext,
+                               action=argparse.BooleanOptionalAction)
+        elif f.name == "prefill_buckets":
+            group.add_argument(flag, default=None, metavar="B1,B2,...",
+                               type=lambda s: tuple(int(x) for x in s.split(",")),
+                               help=helptext)
+        else:
+            group.add_argument(flag, default=None, type=ftype,
+                               choices=_FIELD_CHOICES.get(f.name),
+                               help=helptext)
+
+
+def config_from_args(args: argparse.Namespace,
+                     base: Optional[EngineConfig] = None,
+                     **defaults) -> EngineConfig:
+    """Layer CLI flags over ``base`` (usually ``--config file.json``) over
+    ``defaults`` (the calling script's choices) to build the final config.
+    Only flags the user actually passed override the layers below."""
+    merged: Dict[str, Any] = dict(defaults)
+    if base is not None:
+        merged.update(base.to_dict())
+    for f in dataclasses.fields(EngineConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            merged[f.name] = v
+    return EngineConfig.from_kwargs(**merged)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -46,7 +46,7 @@ step builders; for an encoder-only model the prefill step is the serving entry
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -488,6 +488,10 @@ class ServeEngine:
         self._prefill_off = np.zeros(self.B, np.int32)
         self._prefill_target = np.zeros(self.B, np.int32)
         self._next_rid = 0
+        #: optional per-token hook, called as ``on_token(request, token)`` after
+        #: every emitted token (the request is already retired when
+        #: ``request.done``); the async server streams through it
+        self.on_token: Optional[Callable[[Request, int], None]] = None
         self.counters = {
             "prefill_calls": 0, "decode_steps": 0, "active_slot_steps": 0,
             "mid_decode_admissions": 0, "prompt_tokens": 0, "prefill_tokens": 0,
@@ -555,7 +559,8 @@ class ServeEngine:
         """Record one sampled token for a slot; retire the request when done (a
         prompt of length max_len fills its row and retires at its first token).
         A paged slot drops its page references at retirement and its table row
-        turns sentinel before the next step."""
+        turns sentinel before the next step. Every emission site ends here, so
+        ``on_token`` sees the tokens of prefill, decode, verify and chunked steps."""
         r = self._slots[slot]
         r.out.append(tok)
         if self.eos is not None and tok == self.eos:
@@ -592,6 +597,8 @@ class ServeEngine:
                 self._note_pool()
         else:
             self._pending[slot] = tok
+        if self.on_token is not None:
+            self.on_token(r, tok)
 
     # ------------------------------------------------------------ paged planning
 

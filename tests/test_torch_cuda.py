@@ -1224,3 +1224,115 @@ def test_flash_attention_group_size_1(dev, dtype, atol):
     want = ref.flash_attention_ref(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert float((out.float() - want.float()).abs().max()) <= atol
+
+
+def test_server_replicas_on_their_own_streams_match_one_engine(dev):
+    """Two AsyncServer replica threads share the card, each on a CUDA stream of its
+    own: fused-int8, paged, int8 KV, radix reuse. Each replica's streams equal one
+    engine alone fed the same prompts in the same order, and the kernels carried
+    every step (launch counts from both threads, counted exactly)."""
+    import asyncio
+    import time
+
+    from repro_torch.configs import get
+    from repro_torch.core import qlinear as ql
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.quantize import quantize_tree
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.server import AsyncServer
+
+    cfg = get("starcoder2-7b", smoke=True)
+    params = quantize_tree(M.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                                         device=dev), ql.W8A8_INT8)
+    config = EngineConfig(batch_size=2, max_len=64, path="fused-int8", kv_cache="int8",
+                          cache_layout="paged")
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, cfg.vocab, size=16).astype(np.int32)
+    prompts = [np.concatenate([shared if i % 2 else shared[:0],
+                               rng.integers(1, cfg.vocab, size=n).astype(np.int32)])
+               for i, n in enumerate([6, 9, 5, 12, 7, 10])]
+    reqs = [Request(prompt=p.tolist(), max_new=6, replica_hint=i % 2)
+            for i, p in enumerate(prompts)]
+
+    async def until(cond):
+        deadline = time.monotonic() + 120
+        while not cond():
+            assert time.monotonic() < deadline, "timed out"
+            await asyncio.sleep(0.001)
+
+    async def collect(srv, req):
+        toks = []
+        async for ev in srv.submit(req):
+            assert ev.kind != "error", ev.error
+            if ev.kind == "token":
+                toks.append(ev.token)
+        return toks
+
+    async def main():
+        async with AsyncServer(cfg, params, config=config, replicas=2,
+                               quant=ql.W8A8_INT8) as srv:
+            streams = [r.stream for r in srv.replicas]
+            srv.pause()
+            tasks = []
+            for req in reqs:                 # each replica drains in submission order
+                n = sum(r.load for r in srv.replicas)
+                tasks.append(asyncio.create_task(collect(srv, req)))
+                await until(lambda: sum(r.load for r in srv.replicas) == n + 1)
+            ops.reset_launches()
+            srv.resume()
+            out = await asyncio.gather(*tasks)
+            torch.cuda.synchronize()
+            return out, streams, dict(ops.LAUNCHES)
+
+    out, streams, launches = asyncio.run(main())
+    assert streams[0] is not None and streams[1] is not None and streams[0] != streams[1]
+    assert all(s != torch.cuda.default_stream(dev) for s in streams)
+    assert launches["act_quantize"] == launches["qgemm_w8a8"] > 0
+    assert launches["paged_decode_attention"] > 0
+    for rep in (0, 1):
+        mine = [(q, toks) for q, toks in zip(reqs, out) if q.replica_hint == rep]
+        eng = ServeEngine(cfg, params, config=config, quant=ql.W8A8_INT8, device=dev)
+        done = eng.submit([np.asarray(q.prompt, np.int32) for q, _ in mine], max_new=6)
+        eng.run()
+        assert [toks for _, toks in mine] == [r.out for r in done]
+
+
+def test_first_launch_raced_from_two_threads_builds_once(dev, monkeypatch):
+    """Two threads racing to the first kernel launch load (and build) the library
+    once; both launches give the same codes."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    ops, _ = _ops()
+    calls = []
+    real = build.build
+
+    def counted(*a, **kw):
+        calls.append(threading.current_thread().name)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "build", counted)
+    x = torch.randn(4, 4608, device=dev)
+    bcol = torch.rand(4608, device=dev) + 0.5
+    barrier = threading.Barrier(2)
+    outs = [None, None]
+
+    def launch(i):
+        barrier.wait()
+        outs[i] = ops.act_quantize(x, bcol, 0.15)
+        torch.cuda.synchronize()
+
+    threads = [threading.Thread(target=launch, args=(i,), name=f"racer-{i}")
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert len(calls) == 1, calls
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: every module imports with jax and triton blocked
 and loads nothing of the JAX package; its entry points refuse ``device="cuda"``
 when no card is visible instead of running on the CPU."""
+import runpy
 import subprocess
 import sys
 import textwrap
@@ -12,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+SERVE_EXAMPLE = SRC.parent / "examples" / "serve_torch.py"
 
 
 def test_imports_without_jax_triton_or_repro():
@@ -27,7 +29,7 @@ def test_imports_without_jax_triton_or_repro():
         assert not leaked, leaked
         for name in ("launch.serve", "kernels.ops", "core.kernel_analysis", "core.smoothquant",
                      "core.awq", "core.quantizers", "core.qlinear", "models.quantize",
-                     "models.frontends"):
+                     "models.frontends", "runtime.supervisor", "serving.server"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -35,6 +37,27 @@ def test_imports_without_jax_triton_or_repro():
                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_serve_example_runs_on_the_cpu_without_jax():
+    """examples/serve_torch.py serves the smoke config through two replicas on the
+    CPU with jax blocked, loading nothing of the JAX package."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        for name in ("jax", "jaxlib", "triton"):
+            sys.modules[name] = None
+        sys.argv = ["serve_torch.py", "--smoke", "--device", "cpu", "--quant", "int8",
+                    "--replicas", "2", "--cache-layout", "paged", "--shared-prefix", "16",
+                    "--n-requests", "4", "--max-new", "3"]
+        runpy.run_path({str(SERVE_EXAMPLE)!r}, run_name="__main__")
+        leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+        assert not leaked, leaked
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count(" toks [length] replica=") == 4, out.stdout
+    assert '"completed": 4' in out.stdout and '"affinity_hits": 3' in out.stdout
 
 
 def _no_card():
@@ -66,6 +89,12 @@ def test_entry_points_refuse_cuda_without_a_card():
         ServeEngine(cfg, params, config=EngineConfig(batch_size=1, max_len=16))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "starcoder2-7b", "--smoke"])     # default device: cuda
+    from repro_torch.serving.server import AsyncServer
+    with pytest.raises(RuntimeError, match="cuda"):
+        AsyncServer(cfg, params, config=EngineConfig(batch_size=1, max_len=16))
+    example = runpy.run_path(str(SERVE_EXAMPLE))
+    with pytest.raises(RuntimeError, match="cuda"):
+        example["main"](["--smoke"])                           # default device: cuda
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
