@@ -180,6 +180,30 @@ Phases (any failure raises and exits non-zero):
    requeue order; replica 0 is live again and serves; the peak across the
    failure and restart stays within one engine's caches of the 2-replica run's.
    Last, a one-slot server rejects with ``pool_pressure`` and ``queue_full``.
+7. Training on the card (the port's training half; no hand-written kernel runs
+   while training, as the reference trains with ``use_pallas=False``), after
+   phase 6's tree is freed. [7a] one f32 ``make_train_step`` step of
+   starcoder2-7b at full width cut to 2 layers, B = 1, S = 128, on the card and
+   on the CPU from the same seeded params and batch, TF32 off: the loss, the grad
+   norm and the first Adam moment per leaf within ``LOSS_RTOL``, ``GNORM_RTOL``
+   and ``MOMENT_RTOL``. [7b] starcoder2-7b at full width cut to 4 of 32 layers
+   (f32 params, grads and both moments; bf16 activations), batch 4 x 512,
+   n_micro 2, remat, Markov batches: 2 warm-up and 6 measured steps (step ms,
+   training tok/s, the 6·N·tokens model-FLOPs share of the bf16 peak, peak
+   memory over what is held), finite losses, the last below the first; one
+   step under the profiler (launches, syncs, busy share); 2 steps with int8
+   CrossQuant gradient compression (finite losses, a nonzero error state).
+   [7c] the trained params through a blocking ``CheckpointManager`` round trip
+   (bitwise), ``calibrate_and_quantize`` to W8A8 static-c CrossQuant, served
+   fused-int8, paged, int8 KV (4 requests x 16 new tokens) with K1-K4 launch
+   counts per body equal to the schedule and the tokens equal to those of the
+   in-memory trained tree; the §4.1 kernel fractions of the trained linears.
+   [7d] ``launch.train.run`` on mamba2-130m FULL: 12 steps of 8 x 256, a
+   checkpoint every 4, a failure at step 6, against the same run
+   uninterrupted: one restart, the history truncated at the restore point,
+   final params bitwise equal; the ops of one train step without a
+   deterministic implementation
+   (``torch.use_deterministic_algorithms(True, warn_only=True)``) are printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -209,6 +233,9 @@ SERVER_PREFIX, SERVER_SUFFIX, SERVER_REQUESTS = 256, (32, 193), 16   # phase 6's
 SUFFIXES = [20, 150, 60, 300, 40, 200, 90, 10]
 MOTIF = 16                                         # speculative traffic: tiled motifs
 CHUNK_BUDGET = 128                                 # tokens per packed chunked step
+# phase 7's card-against-CPU bars on one f32 train step (measured on the H100:
+# 1.6e-7, 0 and 3.8e-6)
+LOSS_RTOL, GNORM_RTOL, MOMENT_RTOL = 1e-5, 1e-5, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2071,36 +2098,19 @@ def main() -> int:
             out[r] = (tot / 1e3 / n_steps, n / n_steps)
         return out
 
-    def trace(label, reqs, ready, n_steps=3, tree=None, q=quant, model_cfg=None, ranges=(),
-              **kw):
-        """A profiler window over ``n_steps`` engine steps, once ``ready(engine)``
-        holds. ``ranges``: names of ``record_function`` ranges the window's code
-        opens, each printed with the device time of the kernels launched under it
-        per step."""
-        engine = ServeEngine(model_cfg or cfg, qparams if tree is None else tree, quant=q,
-                             device=dev,
-                             config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
-                                                 path="fused-int8", **kw))
-        engine.submit(reqs, max_new=MAX_NEW)
-        finished = []
-        c = engine.counters
-        while not ready(engine):
-            check(engine.step(finished), f"trace {label}: the engine went idle before the window")
-        engine.step(finished)                 # one untraced step of the same kind first
-        before = dict(c)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                engine.step(finished)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+    def report_window(label, prof, wall_us, n_steps, ranges=(), what="", tag="[4t]"):
+        """Print a profiler window's device-busy share, launches and host syncs per
+        step, its longest device ops and host ops, and the device time of the
+        hand-written kernels; returns those numbers (None when the profiler
+        recorded no device activity). ``ranges``: names of ``record_function``
+        ranges the window's code opens, each printed with the device time of the
+        kernels launched under it per step."""
         events = prof.events()
         # the device side of a record_function range is a span, not a kernel
         kernels = [e for e in events if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)]
         if not kernels:
-            print(f"[4t] {label}: the profiler recorded no device activity: device split not "
+            print(f"{tag} {label}: the profiler recorded no device activity: device split not "
                   f"measured (wall {wall_us / 1e3 / n_steps:.1f} ms per step)")
             return None
         spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -2124,17 +2134,16 @@ def main() -> int:
         n_launch = sum(n for name, (_, n) in host.items() if name in launch_names)
         n_sync = sum(n for name, (_, n) in host.items() if name in sync_names)
         n_item = host.get("aten::_local_scalar_dense", (0.0, 0))[1]
-        kinds = {k: c[k] - before[k] for k in ("decode_steps", "chunk_steps", "prefill_calls")}
-        print(f"[4t] {label}: {n_steps} steps ({kinds}) in {wall_us / 1e3:.1f} ms of wall time; "
+        print(f"{tag} {label}: {n_steps} steps{what} in {wall_us / 1e3:.1f} ms of wall time; "
               f"device busy {busy / 1e3:.2f} ms = {busy / wall_us:.3f} of the window; per step "
               f"{n_launch / n_steps:.0f} kernel launches, {n_sync / n_steps:.1f} host syncs "
               f"(stream/device/event synchronize, blocking memcpy) and "
               f"{n_item / n_steps:.1f} scalar reads (aten::_local_scalar_dense)")
         syncs = {name: n for name, (_, n) in host.items() if name in sync_names}
-        print(f"[4t]   host syncs per step by call: "
+        print(f"{tag}   host syncs per step by call: "
               f"{ {name: round(n / n_steps, 1) for name, n in sorted(syncs.items())} }")
         for name, (tot, n) in sorted(by_kernel.items(), key=lambda x: -x[1][0])[:5]:
-            print(f"[4t]   device {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
+            print(f"{tag}   device {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
                   f"{name[:110]}")
         fams = {}
         for name, (tot, n) in by_kernel.items():
@@ -2142,18 +2151,43 @@ def main() -> int:
             if f is not None:
                 t0, n0 = fams.get(f, (0.0, 0))
                 fams[f] = (t0 + tot, n0 + n)
-        print("[4t]   device time per step by kernel: " + "; ".join(
+        print(f"{tag}   device time per step by kernel: " + "; ".join(
             f"{f} {tot / 1e3 / n_steps:.3f} ms x{n / n_steps:.0f}"
             for f, (tot, n) in sorted(fams.items())))
         for name, (tot, n) in sorted(host.items(), key=lambda x: -x[1][0])[:10]:
-            print(f"[4t]   host self {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
+            print(f"{tag}   host self {tot / 1e3 / n_steps:8.3f} ms/step  x{n / n_steps:6.1f}  "
                   f"{name[:110]}")
         in_ranges = range_device_ms(prof, ranges, n_steps)
         if ranges:
-            print("[4t]   device time per step under " + "; ".join(
+            print(f"{tag}   device time per step under " + "; ".join(
                 f"{r} {t:.3f} ms x{n:.0f} kernels" for r, (t, n) in in_ranges.items()))
         return dict(wall_ms=wall_us / 1e3 / n_steps, busy_share=busy / wall_us,
                     launches=n_launch / n_steps, syncs=n_sync / n_steps, ranges=in_ranges)
+
+    def trace(label, reqs, ready, n_steps=3, tree=None, q=quant, model_cfg=None, ranges=(),
+              **kw):
+        """A profiler window over ``n_steps`` engine steps, once ``ready(engine)``
+        holds (:func:`report_window` prints it)."""
+        engine = ServeEngine(model_cfg or cfg, qparams if tree is None else tree, quant=q,
+                             device=dev,
+                             config=EngineConfig(batch_size=BATCH, max_len=MAX_LEN,
+                                                 path="fused-int8", **kw))
+        engine.submit(reqs, max_new=MAX_NEW)
+        finished = []
+        c = engine.counters
+        while not ready(engine):
+            check(engine.step(finished), f"trace {label}: the engine went idle before the window")
+        engine.step(finished)                 # one untraced step of the same kind first
+        before = dict(c)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                engine.step(finished)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kinds = {k: c[k] - before[k] for k in ("decode_steps", "chunk_steps", "prefill_calls")}
+        return report_window(label, prof, wall_us, n_steps, ranges, what=f" ({kinds})")
 
     print(f"[4t] trace start at {time.perf_counter() - t_start:.1f}s")
     trace("dense fused-int8 kv=fp, decode steps", prompts[:BATCH],
@@ -3830,6 +3864,246 @@ def main() -> int:
     print(f"[6] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s6:.1f}s "
           f"for the server)")
 
+    # ---------------------------------------------------------------- phase 7
+    # Training on the card: the port's training half (loss_fn with remat, AdamW,
+    # gradient compression, the train step, CheckpointManager, the Supervisor and
+    # launch.train). No hand-written kernel runs while training (the reference
+    # trains with use_pallas=False, and the kernels refuse inputs that require
+    # grad); the trained tree is then checkpointed, restored, calibrated, quantized
+    # to W8A8 and served through fused-int8, which runs K1-K4 on trained weights.
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import make_train_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import calibrate_and_quantize
+    from repro_torch.training import compression as comp_lib, optimizer as opt_lib, trainer
+
+    del qparams                             # phase 6's tree; phases 4-5 freed theirs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_s7 = time.perf_counter()
+    print(f"[7] start at {time.perf_counter() - t_start:.1f}s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held; {nvidia_smi_line()}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"[7] TF32: torch.backends.cuda.matmul.allow_tf32={tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} (f32 matmuls "
+          f"in full f32)")
+    check(not tf32, "TF32 is on: the f32 parity step needs full-f32 matmuls")
+
+    def rel_max(a, b):
+        """max|a - b| / max|b| (b the reference)."""
+        return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-30))
+
+    # [7a] card against CPU: one f32 train step of starcoder2-7b at full width cut
+    # to 2 layers, B = 1, S = 128, from the same seeded params and batch
+    cfg7a = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    opt7 = opt_lib.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    p_card = M.init_params(g, cfg7a, device=dev)
+    p_cpu = M.map_tensors(p_card, lambda t: t.to("cpu", copy=True))
+    toks7 = make_train_batches(cfg.vocab, 128, 1, seed=7)(0)["tokens"]
+    step7a = trainer.make_train_step(cfg7a, opt7)
+    t0 = time.perf_counter()
+    _, o_card, m_card = step7a(p_card, opt_lib.init(p_card),
+                               {"tokens": torch.as_tensor(toks7, device=dev)})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, o_cpu, m_cpu = step7a(p_cpu, opt_lib.init(p_cpu), {"tokens": torch.as_tensor(toks7)})
+    t_cpu = time.perf_counter() - t0
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    gn_rel = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
+    m_errs = [rel_max(a.cpu(), b) for a, b in zip(M.leaves(o_card.m), M.leaves(o_cpu.m))]
+    print(f"[7a] {cfg7a.name} full width, 2 layers, f32, B=1 S=128: card step {t_card:.2f}s, CPU "
+          f"{t_cpu:.2f}s; loss card {float(m_card['loss']):.7f} CPU {float(m_cpu['loss']):.7f} "
+          f"(rel {loss_rel:.2e}); grad norm rel {gn_rel:.2e}; first moment max|d|/max per leaf: "
+          f"max {max(m_errs):.2e}, median {float(np.median(m_errs)):.2e} over {len(m_errs)} leaves")
+    check(loss_rel <= LOSS_RTOL, f"[7a] loss card vs CPU rel {loss_rel} > {LOSS_RTOL}")
+    check(gn_rel <= GNORM_RTOL, f"[7a] grad norm card vs CPU rel {gn_rel} > {GNORM_RTOL}")
+    check(max(m_errs) <= MOMENT_RTOL, f"[7a] first moment card vs CPU {max(m_errs)} > "
+          f"{MOMENT_RTOL}")
+    del p_card, p_cpu, o_card, o_cpu
+    torch.cuda.empty_cache()
+
+    # [7b] starcoder2-7b at full width cut to 4 of its 32 layers (f32 params, grads
+    # and both moments at 16 B/param: 32 layers would need ~115 GB), bf16
+    # activations, global batch 4 x 512 tokens, n_micro 2, remat on
+    cfg7 = dataclasses.replace(cfg, n_layers=4)
+    g.manual_seed(8)
+    p7 = M.init_params(g, cfg7, device=dev)
+    o7 = opt_lib.init(p7)
+    n_params = sum(t.numel() for t in M.leaves(p7))
+    batch7 = make_train_batches(cfg.vocab, 512, 4, seed=8)
+    step7 = trainer.make_train_step(cfg7, opt7, n_micro=2)
+
+    def batch_at(s):
+        return {"tokens": torch.as_tensor(batch7(s)["tokens"], device=dev)}
+
+    torch.cuda.synchronize()
+    held7 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses7, ms7 = [], []
+    for s in range(8):                     # 2 warm-up steps, then 6 measured
+        b = batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p7, o7, met = step7(p7, o7, b)
+        losses7.append(float(met["loss"]))     # waits for the step
+        ms7.append((time.perf_counter() - t0) * 1e3)
+    peak7 = torch.cuda.max_memory_allocated() - held7
+    med7 = float(np.median(ms7[2:]))
+    tok7 = 4 * 512 / (med7 / 1e3)
+    mfu7 = 6 * n_params * 4 * 512 / (med7 / 1e3) / PEAK_OPS["bf16"]
+    print(f"[7b] {cfg7.name} full width (d_model {cfg7.d_model}, {cfg7.n_heads}/"
+          f"{cfg7.n_kv_heads} heads of {cfg7.head_dim}, d_ff {cfg7.d_ff}, vocab {cfg7.vocab}) at "
+          f"4 of 32 layers, {n_params / 1e9:.3f}B params, bf16 activations, batch 4 x 512, "
+          f"n_micro 2, remat, AdamW lr {opt7.lr} warmup {opt7.warmup_steps}: step ms "
+          f"{[round(t, 1) for t in ms7]}; median of the 6 after warm-up {med7:.1f} ms = "
+          f"{tok7:.0f} training tok/s; 6*N*tokens/step/989 TFLOP/s = {mfu7:.4f}; peak "
+          f"{peak7 / 2**30:.2f} GiB over the {held7 / 2**30:.2f} held (params + moments); "
+          f"{nvidia_smi_line()}")
+    print(f"[7b] losses {[round(x, 4) for x in losses7]}")
+    check(all(math.isfinite(x) for x in losses7), f"[7b] non-finite loss {losses7}")
+    check(losses7[-1] < losses7[0], f"[7b] the loss did not fall: {losses7}")
+    b = batch_at(8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p7, o7, met = step7(p7, o7, b)
+        float(met["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_window("train step (profiled)", prof, wall_us, 1, tag="[7b]")
+    del prof
+    stepc = trainer.make_train_step(cfg7, opt7, n_micro=2,
+                                    compression=comp_lib.CompressionConfig())
+    err7 = comp_lib.init_error_state(p7)
+    lossc = []
+    for s in (9, 10):
+        p7, o7, err7, met = stepc(p7, o7, err7, batch_at(s))
+        lossc.append(float(met["loss"]))
+    err_max = max(float(e.abs().max()) for e in M.leaves(err7))
+    print(f"[7b] 2 steps with int8 CrossQuant gradient compression (alpha 0.5, error "
+          f"feedback): losses {[round(x, 4) for x in lossc]}, max |error state| {err_max:.3e}")
+    check(all(math.isfinite(x) for x in lossc) and err_max > 0,
+          f"[7b] compressed steps: losses {lossc}, error state max {err_max}")
+    del err7, stepc, o7
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [7c] train, then serve: the trained params through a blocking checkpoint round
+    # trip, calibration and W8A8 static-c CrossQuant, served fused-int8, paged, int8 KV
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        cm = CheckpointManager(ckpt_dir, keep_n=1)
+        t0 = time.perf_counter()
+        cm.save(11, p7, blocking=True)
+        t_save = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(ckpt_dir, "step_000000011", f))
+                   for f in os.listdir(os.path.join(ckpt_dir, "step_000000011")))
+        template = M.map_tensors(p7, lambda t: torch.empty_like(t, device="meta"))
+        t0 = time.perf_counter()
+        restored, step_r = cm.restore(template, device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(M.leaves(restored), M.leaves(p7)))
+    print(f"[7c] checkpoint of the trained params: {size / 2**30:.2f} GiB saved (blocking) in "
+          f"{t_save:.1f}s, restored into a fresh template in {t_restore:.1f}s; bitwise equal "
+          f"to the live tree: {same}; directory deleted")
+    check(step_r == 11 and same, "[7c] the restored params differ from the trained ones")
+    t0 = time.perf_counter()
+    q_restored = calibrate_and_quantize(restored, cfg7, quant, calib_batches=2, seq_len=16,
+                                        batch_size=BATCH, seed=0)
+    q_live = calibrate_and_quantize(p7, cfg7, quant, calib_batches=2, seq_len=16,
+                                    batch_size=BATCH, seed=0)
+    torch.cuda.synchronize()
+    print(f"[7c] calibrate + PTQ to W8A8 static-c CrossQuant, twice (restored and in-memory "
+          f"trees): {time.perf_counter() - t0:.1f}s")
+    del restored
+    model7 = (cfg7, linears, None, BATCH, MAX_LEN)
+    _, done_r = serve("7c trained+restored W8A8 paged kv=int8", prompts[:BATCH], tree=q_restored,
+                      model=model7, kv_cache="int8", cache_layout="paged")
+    _, done_l = serve("7c trained in-memory W8A8 paged kv=int8", prompts[:BATCH], tree=q_live,
+                      model=model7, kv_cache="int8", cache_layout="paged")
+    check([r.out for r in done_r] == [r.out for r in done_l],
+          "[7c] the restored tree serves other tokens than the in-memory trained tree")
+    print(f"[7c] 4 requests x {MAX_NEW} new tokens served from the restored tree equal those "
+          f"from the in-memory trained tree; K1/K2/K3/K4 launch counts per body equal the "
+          f"schedule (checked per run above)")
+    del q_restored, q_live
+    calib7 = calibration_batches(cfg7, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0,
+                                 device=dev)
+    _, records7 = recorded_plan(make_sparsity_plan, KA, cfg7, p7, calib7, threshold=0.05)
+    per7 = {}
+    for i, (_, cq, pt) in enumerate(records7):
+        per7.setdefault(KINDS[i % len(KINDS)], []).append((cq, pt))
+    for kind in KINDS:
+        cqs, pts = zip(*per7[kind])
+        print(f"[7c]   §4.1 kernel fraction on the trained model, {kind:9s} CrossQuant a=0.15 "
+              f"min/median/max {min(cqs):.6f}/{float(np.median(cqs)):.6f}/{max(cqs):.6f}; "
+              f"per-token a=1 {min(pts):.6f}/{float(np.median(pts)):.6f}/{max(pts):.6f}")
+    n_small7 = sum(cq < pt for cq, pt in (r[1:] for r in records7))
+    print(f"[7c]   CrossQuant's kernel is smaller than per-token's on {n_small7} of "
+          f"{len(records7)} linear inputs of the trained model (8 steps: nothing claimed)")
+    del records7, p7
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [7d] supervised restart through the entry point: mamba2-130m FULL (24 layers),
+    # 12 steps of batch 8 x 256, a checkpoint every 4, a failure at step 6, against
+    # the same 12 steps uninterrupted
+    cfg_m = get("mamba2-130m")
+    kw7 = dict(steps=12, global_batch=8, seq_len=256, ckpt_every=4, log_every=4, device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+        t0 = time.perf_counter()
+        faulty = launch_train.run(cfg_m, ckpt_dir=os.path.join(run_dir, "faulty"), fail_at=(6,),
+                                  **kw7)
+        t_faulty = time.perf_counter() - t0
+        step_dir = os.path.join(run_dir, "faulty", "step_000000012")
+        ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        t0 = time.perf_counter()
+        clean = launch_train.run(cfg_m, ckpt_dir=os.path.join(run_dir, "clean"), **kw7)
+        t_clean = time.perf_counter() - t0
+    steps_seen = [h["step"] for h in faulty.metrics_history]
+    check(faulty.restarts == 1 and clean.restarts == 0 and steps_seen == list(range(12)),
+          f"[7d] restarts {faulty.restarts}/{clean.restarts}, history steps {steps_seen}")
+    pf, pc = M.leaves(faulty.state["params"]), M.leaves(clean.state["params"])
+    bitwise = all(torch.equal(a, b) for a, b in zip(pf, pc))
+    d_params = max(rel_max(a, b) for a, b in zip(pf, pc))
+    d_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                 for a, b in zip(faulty.metrics_history, clean.metrics_history))
+    print(f"[7d] launch.train.run {cfg_m.name} FULL ({cfg_m.n_layers} layers): 12 steps, batch "
+          f"8 x 256, checkpoints of {ck_bytes / 2**30:.2f} GiB every 4 steps; with a failure "
+          f"at step 6: 1 restart, history truncated at the restore point and re-run, "
+          f"{t_faulty:.1f}s; uninterrupted {t_clean:.1f}s; final params bitwise equal: "
+          f"{bitwise} (max|d|/max over leaves {d_params:.2e}; losses rel {d_loss:.2e})")
+    # the ops the card runs without a deterministic implementation in one train step
+    step_m = trainer.make_train_step(cfg_m, opt_lib.AdamWConfig(lr=3e-3))
+    pm = M.map_tensors(clean.state["params"], lambda t: t.clone())
+    bm = {"tokens": torch.as_tensor(make_train_batches(cfg_m.vocab, 256, 8)(0)["tokens"],
+                                    device=dev)}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step_m(pm, opt_lib.init(pm), bm)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    print(f"[7d] ops without a deterministic implementation in one {cfg_m.name} train step "
+          f"(torch.use_deterministic_algorithms(True, warn_only=True)): {nondet or 'none'}")
+    check(bitwise, f"[7d] the restarted run's params differ from the uninterrupted run's by "
+          f"{d_params} (ops without a deterministic implementation: {nondet})")
+    del faulty, clean, pm, pf, pc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[7] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s7:.1f}s "
+          f"for training)")
+
     # ---------------------------------------------------------------- result
     reset5()
     # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
@@ -3923,7 +4197,7 @@ def main() -> int:
                         **{k: r[k] for k in ("library", "body_ms", "gb_s", "f32_body_ms",
                                              "k2_ms", "n3360_decode_ms", "n3360_wgmma_ms")
                            if r.get(k) is not None}})
-    print("[7] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
+    print("[end] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
           + f"; total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -69,6 +69,10 @@ class ModelConfig:
         return ((self.vocab + 255) // 256) * 256
 
     @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 

@@ -74,3 +74,33 @@ def stack_tables(tables: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         if len(per_layer) == n:
             out[f"blocks/{i}/{rest}"] = np.stack([per_layer[b] for b in range(n)])
     return out
+
+
+def attach_calibration(params, tables: Dict[str, np.ndarray]):
+    """A copy of ``params`` with a ``cmax`` leaf (f32, on the tree's device) in each
+    linear named by ``tables``. As in the reference, a name is a ``/``-joined path
+    of dict keys to the linear's ``{"w": ...}`` dict; a name that does not resolve
+    that way (a missing key, a list on the path) is skipped. The copy's
+    containers are new; it shares the tensors of ``params``."""
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [copy(v) for v in node]
+        return node
+
+    out = copy(params)
+    node = out
+    while isinstance(node, (dict, list)):
+        node = next(iter(node.values())) if isinstance(node, dict) else node[0]
+    dev = node.device
+    for name, cmax in tables.items():
+        node = out
+        try:
+            for part in name.split("/"):
+                node = node[part]
+        except (KeyError, TypeError, IndexError):
+            continue
+        if isinstance(node, dict):
+            node["cmax"] = torch.as_tensor(np.asarray(cmax), dtype=torch.float32, device=dev)
+    return out

@@ -98,13 +98,23 @@ def _count(op: str, body: str) -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; all must share one device."""
+    """True for CUDA tensors, False for CPU tensors; all must share one device.
+
+    The kernels have no backward: on the card, a floating input that requires
+    grad under grad mode raises, since the kernel's output would carry no
+    ``grad_fn`` and a training step would silently drop that gradient path (the
+    plain CPU versions are torch ops and do carry autograd)."""
     dev = tensors[0].device
     for t in tensors[1:]:
         if t.device != dev:
             raise ValueError(f"tensors on different devices: {dev} and {t.device}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad and t.is_floating_point() for t in tensors):
+        raise RuntimeError("the hand-written kernels have no backward: call them under "
+                           "torch.no_grad() or on tensors that do not require grad "
+                           "(training runs the linears with use_kernels=False)")
     return dev.type == "cuda"
 
 

@@ -32,6 +32,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qlinear as ql
@@ -116,13 +117,25 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> dic
     return params
 
 
-def map_tensors(tree, fn):
-    """Apply ``fn`` to every tensor of a nested dict/list tree."""
+def map_tensors(tree, fn, *rest):
+    """Apply ``fn`` to every tensor of a nested dict/list tree; with ``rest``
+    (trees of the same structure), ``fn(leaf, *their matching leaves)``."""
     if isinstance(tree, dict):
-        return {k: map_tensors(v, fn) for k, v in tree.items()}
+        return {k: map_tensors(v, fn, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [map_tensors(v, fn) for v in tree]
-    return fn(tree)
+        return [map_tensors(v, fn, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested dict/list/tuple tree in the reference's flatten
+    order (dict keys sorted, as ``jax.tree_util`` orders them; sequences and
+    NamedTuples in order)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
 
 
 def layer_slice(tree, i: int):
@@ -252,7 +265,8 @@ def _shared_block(p: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext,
 def apply(params: dict, batch: dict, cfg: ModelConfig, *,
           ctx: Optional[QuantContext] = None, mode: str = "train",
           caches: Optional[dict] = None, cur_len=None, prefix_len=None, q_len=None,
-          chunk: Optional[dict] = None, unroll: bool = False) -> Tuple[torch.Tensor, dict]:
+          chunk: Optional[dict] = None, unroll: bool = False,
+          remat: bool = False) -> Tuple[torch.Tensor, dict]:
     """Returns (logits, {"aux_loss": scalar, "caches": caches-or-None}); the MoE
     load-balancing loss is summed over the layers (zero without experts).
 
@@ -283,6 +297,12 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
     against a paged cache. ``chunk`` carries per-slot extents (``q_start``/
     ``q_len``/``kv_len`` (B,)) and per-token routing (``positions``/``slot_ids``
     (Nt,)); logits return for every packed row, (1, Nt, V).
+
+    ``remat=True`` (training) recomputes each block of the layer loop in the
+    backward pass instead of saving its activations
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` around its scan body does; the hybrid tail is not
+    rematerialised, as in the reference.
     """
     if mode not in ("train", "prefill", "decode", "verify", "chunked"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
@@ -327,15 +347,17 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
               state_table=state_table)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for b in range(spec.n_blocks):
+
+    def block(x: torch.Tensor, b: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         # per-layer names /L{b}/S{i}/... are what calibration.stack_tables reads
         bctx = ctx.sub(f"L{b}") if unroll else ctx
+        aux_sum = None                      # the MoE's aux losses; None without experts
         for i, kind in enumerate(spec.sublayers):
             c = layer_slice(caches["blocks"][i], b) if use_cache else None
             x, aux = _apply_sublayer(kind, layer_slice(params["blocks"][i], b), x, cfg,
                                      bctx.sub(f"S{i}"), cache=c, **kw)
             if aux is not None:
-                aux_total = aux_total + aux
+                aux_sum = aux if aux_sum is None else aux_sum + aux
         if spec.shared_attn:
             # the top-level ctx: every application observes into one
             # /shared_attn/... and one /shared_mlp/... table
@@ -343,6 +365,15 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
                               cache=layer_slice(caches["shared"], b) if use_cache else None,
                               cur_len=kw["cur_len"], page_table=page_table,
                               prefix_len=prefix_len)
+        return x, aux_sum
+
+    for b in range(spec.n_blocks):
+        if remat:
+            x, aux = checkpoint(block, x, b, use_reentrant=False)
+        else:
+            x, aux = block(x, b)
+        if aux is not None:
+            aux_total = aux_total + aux
     for i, kind in enumerate(spec.tail):
         x, aux = _apply_sublayer(kind, params["tail"][i], x, cfg, ctx.sub(f"T{i}"),
                                  cache=caches["tail"][i] if use_cache else None, **kw)
@@ -355,3 +386,36 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
             x = x[torch.arange(B, device=x.device), last][:, None]
     return _lm_head(params, x, cfg, ctx), {"aux_loss": aux_total,
                                            "caches": caches if use_cache else None}
+
+
+# ======================================================================================
+# Loss
+# ======================================================================================
+
+def loss_fn(params, batch, cfg: ModelConfig, *, ctx: Optional[QuantContext] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, dict]:
+    """Causal-LM (or encoder classification) cross entropy + 0.01 x the MoE aux
+    loss, as the reference's: labels are the tokens rolled left with the last
+    position masked (an encoder-only config reads ``batch["labels"]``), a
+    ``vision_stub`` masks its ``n_patches`` positions, ``batch["loss_mask"]``
+    multiplies in. The log-softmax runs over the logits in the dtype the head
+    returns. Returns (loss, {"ce", "aux", "ppl"})."""
+    logits, extras = apply(params, batch, cfg, ctx=ctx, mode="train", remat=remat)
+    if cfg.is_encoder_only:
+        labels = batch["labels"]
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    else:
+        tokens = batch["tokens"]
+        labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+        mask[:, -1] = 0.0
+        if cfg.frontend == "vision_stub":
+            mask[:, :cfg.n_patches] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"]
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
+    ce = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    aux = extras["aux_loss"]
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux, "ppl": torch.exp(torch.clamp_max(ce, 20.0))}

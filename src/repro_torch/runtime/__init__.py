@@ -1,5 +1,6 @@
-"""Runtime substrate of the port: failure injection, restart accounting and
-replica health for the async server. The training ``Supervisor`` is not ported
-yet."""
+"""Runtime substrate: supervised training with checkpoint/restart fault tolerance,
+straggler mitigation via deadline barriers, and the failure accounting of the
+async server's replicas."""
 from repro_torch.runtime.supervisor import (  # noqa: F401
-    FailureInjector, ReplicaHealth, RestartTracker, WorkerFailure)
+    FailureInjector, ReplicaHealth, RestartTracker, RunResult, Supervisor, WorkerFailure)
+from repro_torch.runtime.straggler import DeadlineBarrier, HeartbeatTracker  # noqa: F401

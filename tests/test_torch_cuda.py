@@ -1336,3 +1336,35 @@ def test_first_launch_raced_from_two_threads_builds_once(dev, monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert len(calls) == 1, calls
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def test_kernels_refuse_inputs_that_require_grad(dev):
+    """The kernels have no backward: a wrapper given a CUDA input that requires
+    grad raises instead of returning a tensor with no gradient path; under
+    ``torch.no_grad()`` (serving) the same call launches. The linear with
+    ``use_kernels=True`` inherits the refusal; training runs it with
+    ``use_kernels=False``, whose plain torch carries the gradient."""
+    ops, ref = _ops()
+    from repro_torch.core import qlinear as ql
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(4, 256, generator=g, device=dev)
+    bcol = torch.rand(256, generator=g, device=dev) + 0.5
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.act_quantize(x.clone().requires_grad_(), bcol)
+    q = torch.randn(1, 4, 128, 64, generator=g, device=dev).requires_grad_()
+    kv = torch.randn(1, 2, 128, 64, generator=g, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, kv, kv, causal=True)
+    with torch.no_grad():
+        codes, a = ops.act_quantize(x.clone().requires_grad_(), bcol)
+        out = ops.flash_attention(q, kv, kv, causal=True)
+    torch.cuda.synchronize()
+    assert codes.dtype == torch.int8 and out.shape == q.shape
+    w = {"w": torch.randn(256, 64, generator=g, device=dev)}
+    prepared = ql.prepare_int8(w, ql.W8A8_INT8, cmax=bcol)
+    xr = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ql.apply(prepared, xr, ql.W8A8_INT8, use_kernels=True)
+    y = ql.apply({"w": w["w"].clone().requires_grad_()}, xr, ql.FP, use_kernels=False)
+    y.sum().backward()
+    assert xr.grad is not None and torch.isfinite(xr.grad).all()

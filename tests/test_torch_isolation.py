@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 SERVE_EXAMPLE = SRC.parent / "examples" / "serve_torch.py"
+TRAIN_EXAMPLE = SRC.parent / "examples" / "train_lm_torch.py"
 
 
 def test_imports_without_jax_triton_or_repro():
@@ -29,7 +30,9 @@ def test_imports_without_jax_triton_or_repro():
         assert not leaked, leaked
         for name in ("launch.serve", "kernels.ops", "core.kernel_analysis", "core.smoothquant",
                      "core.awq", "core.quantizers", "core.qlinear", "models.quantize",
-                     "models.frontends", "runtime.supervisor", "serving.server"):
+                     "models.frontends", "runtime.supervisor", "serving.server",
+                     "training.optimizer", "training.compression", "training.trainer",
+                     "checkpoint.manager", "runtime.straggler", "launch.train"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -58,6 +61,24 @@ def test_serve_example_runs_on_the_cpu_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.count(" toks [length] replica=") == 4, out.stdout
     assert '"completed": 4' in out.stdout and '"affinity_hits": 3' in out.stdout
+
+
+def test_train_example_runs_on_the_cpu_without_jax():
+    """examples/train_lm_torch.py trains the smoke config through a failure and a
+    restart on the CPU with jax blocked, loading nothing of the JAX package."""
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        for name in ("jax", "jaxlib", "triton"):
+            sys.modules[name] = None
+        out = runpy.run_path({str(TRAIN_EXAMPLE)!r})["main"](["--device", "cpu", "--steps", "8"])
+        leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+        assert not leaked, leaked
+        assert out["restarts"] == 1 and len(out["ppl"]) == 3, out
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "after 1 restart(s)" in out.stdout, out.stdout
 
 
 def _no_card():
@@ -95,6 +116,13 @@ def test_entry_points_refuse_cuda_without_a_card():
     example = runpy.run_path(str(SERVE_EXAMPLE))
     with pytest.raises(RuntimeError, match="cuda"):
         example["main"](["--smoke"])                           # default device: cuda
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "mamba2-130m", "--smoke"])        # default device: cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "mamba2-130m", "--smoke", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        runpy.run_path(str(TRAIN_EXAMPLE))["main"]([])          # default device: cuda
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
