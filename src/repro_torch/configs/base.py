@@ -1,4 +1,6 @@
-"""Model configuration and the arch registry (port of ``repro/configs/base.py``).
+"""Model configuration, the arch registry and the workload shapes (port of
+``repro/configs/base.py``: ``ModelConfig``, ``ShapeConfig`` and ``SHAPES``,
+``cell_supported``, ``with_padded_heads``).
 
 A copy rather than an import: the reference module imports ``core.qlinear``, which
 pulls in jax. Every registered arch is listed so ``get`` resolves the same names.
@@ -107,6 +109,21 @@ class ModelConfig:
         return n + L * (d * (hd + 2 * kv) + hd * d + gate_mult * d * self.d_ff)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_MODULES = [
     "mamba2_130m", "llama4_scout_17b_a16e", "granite_moe_3b_a800m", "nemotron_4_15b",
     "deepseek_coder_33b", "gemma2_9b", "starcoder2_7b", "zamba2_1_2b", "pixtral_12b",
@@ -142,3 +159,28 @@ def all_archs() -> Tuple[str, ...]:
     if not _REGISTRY:
         _load_all()
     return tuple(sorted(_REGISTRY))
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch × shape) cell runs or is a documented skip."""
+    if shape.kind == "decode" and cfg.is_encoder_only:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k requires sub-quadratic attention (DESIGN.md §6)"
+    return True, ""
+
+
+def with_padded_heads(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """Pad query heads up to a multiple of the TP degree (56 → 64 at tp=16, etc.).
+
+    The padded model computes the same function when the padded ``wo`` rows are
+    zero (``models.quantize.pad_head_params``); its attention projections then
+    split over ``tp`` instead of replicating. KV heads are not padded (that would
+    grow the KV cache); a config whose padded grouping would not be integral is
+    returned as it is."""
+    if cfg.family in ("ssm",) or cfg.n_heads % tp == 0:
+        return cfg
+    nh = -(-cfg.n_heads // tp) * tp
+    if nh % max(cfg.n_kv_heads, 1) != 0:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=nh)

@@ -106,14 +106,18 @@ def init(gen: torch.Generator, d_in: int, d_out: int, *, n_stack: Optional[int] 
 # Fake-quant application (the paper's evaluation path)
 # ======================================================================================
 
-def _fake_act(x: torch.Tensor, cfg: QuantConfig, cmax) -> torch.Tensor:
+def _fake_act(x: torch.Tensor, cfg: QuantConfig, cmax, *, t=None,
+              dyn_col=None) -> torch.Tensor:
+    """Fake activation quantization. ``t`` (keepdim) replaces the row absmax and
+    ``dyn_col`` the dynamic column absmax where x is a shard of the rows or of the
+    experts the statistic reduces over (sharded serving: their MAX across ranks)."""
     if cfg.act_quant == "none":
         return x
     if cfg.act_quant == "per_token":
-        return Q.fake_per_token(x, cfg.a_bits)
+        return Q.fake_per_token(x, cfg.a_bits, t=t)
     if cfg.act_quant == "crossquant":
-        col = cmax if (cfg.static_c and cmax is not None) else None
-        return Q.fake_crossquant(x, cfg.a_bits, cfg.alpha, col_max=col)
+        col = cmax if (cfg.static_c and cmax is not None) else dyn_col
+        return Q.fake_crossquant(x, cfg.a_bits, cfg.alpha, col_max=col, t=t)
     raise ValueError(cfg.act_quant)
 
 
@@ -251,21 +255,24 @@ def dequant_int4_weight(qw4: torch.Tensor, sw: torch.Tensor, group: int) -> torc
     return (grouped * sw[..., :, None, :]).reshape(*lead, d_in, d_out)
 
 
-def quantize_act_int8(x: torch.Tensor, bcol: torch.Tensor, cfg: QuantConfig, alpha=None):
+def quantize_act_int8(x: torch.Tensor, bcol: torch.Tensor, cfg: QuantConfig, alpha=None,
+                      row_max: Optional[torch.Tensor] = None):
     """Runtime activation quantization: divide by outer(a_i, b_j).
 
     ``alpha`` may be the prepared tree's ``qalpha`` tensor; it is broadcast as a
     dimensioned tensor so a bf16 ``t`` promotes to f32, as in the reference.
     ``a = t^α · (1/qmax)``: the reference serves this function under ``jit``,
     where XLA compiles the division by the constant qmax into a multiply by its
-    f32 reciprocal."""
+    f32 reciprocal. ``row_max`` (x's leading shape, keepdim) replaces the row
+    absmax where x holds a shard of each row's columns."""
     alpha = cfg.alpha if alpha is None else alpha
     if isinstance(alpha, torch.Tensor):
         while alpha.ndim < x.ndim:
             alpha = alpha[..., None]
     while 2 <= bcol.ndim < x.ndim:
         bcol = bcol.unsqueeze(-2)
-    t = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), Q.EPS)
+    amax = x.abs().amax(dim=-1, keepdim=True) if row_max is None else row_max.to(x.dtype)
+    t = torch.clamp_min(amax, Q.EPS)
     a = (t ** alpha) * (1.0 / Q.qmax(cfg.a_bits))
     qm = Q.qmax(cfg.a_bits)
     qx = torch.clamp(torch.round(x / (a * bcol)), -qm, qm)
@@ -411,3 +418,128 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
     else:
         raise ValueError(cfg.mode)
     return x @ w.to(x.dtype)
+
+
+# ======================================================================================
+# Tensor-parallel application (sharded serving)
+# ======================================================================================
+
+def _unsupported(msg: str):
+    from repro_torch.sharding.planner import ShardingUnsupportedError
+    return ShardingUnsupportedError(msg)
+
+
+def _check_sharded(params: dict, cfg: QuantConfig) -> None:
+    if "qw4" in params:
+        from repro_torch.sharding.planner import ShardedW4A8Error
+        raise ShardedW4A8Error("a W4A8 (qw4) linear split over the mesh needs K8's "
+                               "per-group int32 partials (ROADMAP A4: W4A8 under TP)")
+    if "qw" not in params and cfg.mode == "fake" and not cfg.w_prequantized and (
+            cfg.w_quant != "per_channel"
+            or cfg.act_quant not in ("crossquant", "per_token", "none")):
+        raise _unsupported(f"fake quantization {cfg.tag()} on a split linear: only "
+                           "per-channel weights with crossquant / per-token / no "
+                           "activation quantization are sharded")
+
+
+def apply_column_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *,
+                          use_kernels: bool = False,
+                          int_exec: Optional[str] = None) -> torch.Tensor:
+    """A column-parallel linear: x whole on every rank, the weight's (and its
+    ``sw``'s, ``mask``'s) output columns this rank's; the product is this rank's
+    output columns. Every path computes column by column as on one device,
+    except that fake quantization's per-input-channel weight scale reduces over
+    all the output columns: their maxima take a MAX across the ranks."""
+    _check_sharded(params, cfg)
+    if "qw" in params or cfg.mode != "fake" or cfg.w_prequantized:
+        return apply(params, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
+    w = params["w"]
+    t = shard.coll.max_f32(w.abs().amax(dim=-1, keepdim=True)).to(w.dtype)
+    xq = _fake_act(x, cfg, params.get("cmax"))
+    return xq @ Q.fake_per_channel(w, cfg.w_bits, axis=-1, t=t).to(xq.dtype)
+
+
+def apply_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *,
+                       use_kernels: bool = False,
+                       int_exec: Optional[str] = None) -> torch.Tensor:
+    """A row-parallel linear: x holds this rank's K/tp input columns (its heads, its
+    d_ff slice), the weight (and ``bcol``, ``mask``) the matching input rows, and
+    the partial products sum across the ranks.
+
+    Prepared int8: the row absmax is the MAX of the ranks' local maxima (exact),
+    the activation quantizes in K1's given-max mode on this rank's columns, the
+    GEMM emits its int32 accumulator (K2's or K7's int32-out mode on the kernel
+    backend), the accumulators SUM across the ranks, and the dequant runs last in
+    K2's epilogue order, (f32(acc) · a) · sw: bitwise the single-device product.
+    The dequant-fp, fp and fake paths sum f32 partial products instead (close,
+    not bitwise, as in the reference); fake quantization's row absmax is the MAX
+    across ranks and its column statistics are this rank's columns'."""
+    _check_sharded(params, cfg)
+    coll = shard.coll
+    lead, K = x.shape[:-1], x.shape[-1]
+    if "qw" in params:
+        exec_mode = "kernel" if use_kernels else (int_exec or "ref")
+        gmax = coll.max_f32(x.abs().amax(dim=-1))
+        alpha = params.get("qalpha")
+        if exec_mode == "kernel":
+            from repro_torch.kernels import ops
+            x2 = x.reshape(-1, K).contiguous()
+            qx, a = ops.act_quantize(x2, params["bcol"], cfg.alpha if alpha is None else alpha,
+                                     bits=cfg.a_bits, row_max=gmax.reshape(-1).contiguous())
+            if "mask" in params:
+                acc = ops.qgemm_w8a8_sparse_acc(qx, params["qw"], params["mask"],
+                                                params.get("occ"))
+            else:
+                acc = ops.qgemm_w8a8_acc(qx, params["qw"])
+            y = (coll.sum_i32(acc).to(torch.float32) * a) * params["sw"]
+            return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+        qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=alpha,
+                                  row_max=gmax[..., None])
+        if exec_mode == "dequant":
+            part = (qx.to(torch.float32) * a) @ params["qw"].to(torch.float32)
+            return (coll.sum_f32(part) * params["sw"]).to(x.dtype)
+        acc = torch.matmul(qx.to(torch.float64), params["qw"].to(torch.float64))
+        acc = coll.sum_i32(acc.to(torch.int32))
+        return (acc.to(torch.float32) * a * params["sw"]).to(x.dtype)
+    w = params["w"]
+    if cfg.mode == "fp":
+        return coll.sum_f32(x @ w.to(x.dtype))
+    if cfg.mode != "fake":
+        raise _unsupported(f"mode={cfg.mode!r} on raw weights of a row-parallel linear: "
+                           "prepare the tree (models.quantize.quantize_tree) before "
+                           "serving it sharded")
+    cm = params.get("cmax")
+    if cm is not None and cm.shape[-1] != K:          # calibrated over the whole d_in
+        cm = cm[..., shard.tp_index * K:(shard.tp_index + 1) * K]
+    t = coll.max_f32(x.abs().amax(dim=-1, keepdim=True)).to(x.dtype)
+    xq = _fake_act(x, cfg, cm, t=t)
+    wq = w if cfg.w_prequantized else _fake_weight(w, cfg)
+    return coll.sum_f32(xq @ wq.to(xq.dtype))
+
+
+def apply_expert_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, axis: str,
+                          *, use_kernels: bool = False,
+                          int_exec: Optional[str] = None) -> torch.Tensor:
+    """A stacked-expert linear on this rank's experts (x (E/ep, C, d_in), whole
+    experts): every prepared path and fp run as on one device. Dynamic column
+    statistics reduce over every expert's rows on one device (the fake path's
+    CrossQuant column max, the on-the-fly int8 preparation's ``cmax``), so here
+    they take a MAX across the ranks of ``axis``."""
+    if "qw" in params or "qw4" in params or cfg.mode == "fp":
+        return apply(params, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
+    cm = params.get("cmax")
+    if cfg.mode == "int8":
+        cmax = cm if cm is not None else shard.coll.max_f32(_col_absmax(x), axis).to(x.dtype)
+        prepared = prepare_int8({"w": params["w"]}, cfg, cmax=cmax, jitted=True)
+        return apply(prepared, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
+    if cfg.mode != "fake" or cfg.w_quant not in ("per_channel", "group") or \
+            cfg.act_quant not in ("crossquant", "per_token", "none"):
+        raise _unsupported(f"quantization {cfg.tag()} on expert-parallel experts: only "
+                           "per-channel or group weights with crossquant / per-token / "
+                           "no activation quantization are served expert-parallel")
+    dyn = None
+    if cfg.act_quant == "crossquant" and not (cfg.static_c and cm is not None):
+        dyn = shard.coll.max_f32(_col_absmax(x), axis).to(x.dtype)
+    xq = _fake_act(x, cfg, cm, dyn_col=dyn)
+    w = params["w"] if cfg.w_prequantized else _fake_weight(params["w"], cfg)
+    return xq @ w.to(xq.dtype)

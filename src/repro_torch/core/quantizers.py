@@ -64,17 +64,24 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> QuantResult:
 # Scale constructions
 # ======================================================================================
 
-def per_token_scale(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Eq. (1): Δ_ij = t_i / qmax with t_i = max|X_i,:| (broadcast over last axis)."""
-    t = x.abs().amax(dim=-1, keepdim=True)
+def per_token_scale(x: torch.Tensor, bits: int,
+                    t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eq. (1): Δ_ij = t_i / qmax with t_i = max|X_i,:| (broadcast over last axis).
+    ``t`` (keepdim) replaces the row absmax where x holds a shard of each row
+    (a row-parallel linear: the MAX across shards)."""
+    if t is None:
+        t = x.abs().amax(dim=-1, keepdim=True)
     return torch.clamp_min(t, EPS) * _inv_qmax(bits)
 
 
-def per_channel_scale(w: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
+def per_channel_scale(w: torch.Tensor, bits: int, axis: int = -1,
+                      t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. (2): per-channel weight scale; ``axis`` is the axis reduced over
     (``-1``: one scale per input channel, the paper's form; ``-2``: per output
-    channel)."""
-    t = w.abs().amax(dim=axis, keepdim=True)
+    channel). ``t`` (keepdim) replaces the absmax where w holds a shard of the
+    reduced axis (a column-parallel linear: the MAX across shards)."""
+    if t is None:
+        t = w.abs().amax(dim=axis, keepdim=True)
     return torch.clamp_min(t, EPS) * _inv_qmax(bits)
 
 
@@ -83,11 +90,14 @@ def per_tensor_scale(x: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def crossquant_scale(x: torch.Tensor, bits: int, alpha: float = 0.15,
-                     col_max: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     col_max: Optional[torch.Tensor] = None,
+                     t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Eq. (5): Δ̃_ij = t_i^α · c_j^(1-α) · (1/qmax). Rows are the second-to-last
     axis; the column absmax ``c`` reduces over every leading axis (all token
-    rows). ``col_max`` replaces it with calibrated statistics (static-c)."""
-    t = x.abs().amax(dim=-1, keepdim=True)
+    rows). ``col_max`` replaces it with calibrated statistics (static-c), ``t``
+    (keepdim) the row absmax (as in :func:`per_token_scale`)."""
+    if t is None:
+        t = x.abs().amax(dim=-1, keepdim=True)
     if col_max is None:
         c = x.abs().amax(dim=tuple(range(x.ndim - 1)), keepdim=True)
     else:
@@ -140,19 +150,22 @@ def _fake(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
     return (_round_clip(x, scale, bits) * scale).to(x.dtype)
 
 
-def fake_per_token(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
-    return _fake(x, per_token_scale(x, bits), bits)
+def fake_per_token(x: torch.Tensor, bits: int = 8,
+                   t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _fake(x, per_token_scale(x, bits, t), bits)
 
 
 def fake_crossquant(x: torch.Tensor, bits: int = 8, alpha: float = 0.15,
-                    col_max: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    col_max: Optional[torch.Tensor] = None,
+                    t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The paper's App. B.1 reference code (divide by t^α and by c^(1-α), round,
     multiply back) as one fused scale."""
-    return _fake(x, crossquant_scale(x, bits, alpha, col_max), bits)
+    return _fake(x, crossquant_scale(x, bits, alpha, col_max, t), bits)
 
 
-def fake_per_channel(w: torch.Tensor, bits: int = 8, axis: int = -1) -> torch.Tensor:
-    return _fake(w, per_channel_scale(w, bits, axis=axis), bits)
+def fake_per_channel(w: torch.Tensor, bits: int = 8, axis: int = -1,
+                     t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _fake(w, per_channel_scale(w, bits, axis=axis, t=t), bits)
 
 
 def fake_group(w: torch.Tensor, bits: int = 4, group_size: int = 128) -> torch.Tensor:

@@ -33,6 +33,11 @@
 //   loads. The register limit: 16 units of 8 per thread, K <= 32768.
 // - sweep: beyond that limit, one block per row reduces, then sweeps the row again
 //   (the first design); no serving shape reaches it.
+// Given-max mode (a row-parallel linear under tensor parallelism, whose input holds
+// K/tp of each row's columns): the caller passes each row's absmax over the whole
+// row, the MAX all-reduce of the shards' local maxima. Every body then skips its
+// reduction (the split body its cluster barriers too) and takes t_i = max(given_i,
+// 1e-8), so the codes and scales are bitwise those of the full row, sliced.
 // Expert-batched (a stacked-expert linear, E experts' dispatch buffers of C rows
 // each, one launch): every body takes the (E*C, K) rows as they lie and row r reads
 // the column factors bcol[r / C] and exponent alpha[r / C] of its expert; the rows
@@ -161,8 +166,9 @@ template <typename T, int NV, int ROWS>
 __global__ void __launch_bounds__(kRowThreads, sizeof(T) == 2 ? 4 : 2)
 act_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
                       const float* __restrict__ alpha_ptr, float alpha_val,
-                      int8_t* __restrict__ q, float* __restrict__ a_out, int M, int K,
-                      int C, float qmax, float inv_qmax, int vec) {
+                      const float* __restrict__ tmax, int8_t* __restrict__ q,
+                      float* __restrict__ a_out, int M, int K, int C, float qmax,
+                      float inv_qmax, int vec) {
   constexpr int TPR = kRowThreads / ROWS, WPR = TPR / 32;
   __shared__ float red[kRowThreads / 32];
   const int sub = threadIdx.x / TPR, lt = threadIdx.x % TPR;
@@ -178,16 +184,21 @@ act_quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
     const int j = (lt + i * TPR) * kUnit;
     if (live && j < K) {
       load_raw(xr, j, K, vec, r[i]);
-      t = unit_absmax(r[i], t);
+      if (tmax == nullptr) t = unit_absmax(r[i], t);
     }
   }
-  t = warp_max(t);
-  if (lane == 0) red[warp] = t;
-  __syncthreads();
-  t = 1e-8f;
+  if (tmax != nullptr) {        // given-max mode: the row max comes from outside
+    if (!live) return;
+    t = fmaxf(1e-8f, tmax[row]);
+  } else {
+    t = warp_max(t);
+    if (lane == 0) red[warp] = t;
+    __syncthreads();
+    t = 1e-8f;
 #pragma unroll
-  for (int w = 0; w < WPR; ++w) t = fmaxf(t, red[sub * WPR + w]);
-  if (!live) return;
+    for (int w = 0; w < WPR; ++w) t = fmaxf(t, red[sub * WPR + w]);
+    if (!live) return;
+  }
 
   const int e = row / C;        // the row's expert (0 for a 2-D activation)
   const float a = row_scale(t, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
@@ -207,8 +218,9 @@ template <typename T, int NV>
 __global__ void __launch_bounds__(kSplitThreads)
 act_quant_split_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
                        const float* __restrict__ alpha_ptr, float alpha_val,
-                       int8_t* __restrict__ q, float* __restrict__ a_out, int K, int C,
-                       float qmax, float inv_qmax, int vec) {
+                       const float* __restrict__ tmax, int8_t* __restrict__ q,
+                       float* __restrict__ a_out, int K, int C, float qmax, float inv_qmax,
+                       int vec) {
   __shared__ float red[kSplitThreads / 32];
   __shared__ float part;        // this block's absmax, read by every rank of the cluster
   __shared__ float t_row;
@@ -227,28 +239,32 @@ act_quant_split_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
     const int u = u0 + tid + i * kSplitThreads;
     if (u < u1) {
       load_raw(xr, u * kUnit, K, vec, r[i]);
-      t = unit_absmax(r[i], t);
+      if (tmax == nullptr) t = unit_absmax(r[i], t);
     }
   }
-  t = warp_max(t);
-  if (lane == 0) red[warp] = t;
-  __syncthreads();
-  if (tid == 0) {
-    float p = red[0];
+  // given-max mode (tmax, uniform over the cluster): no reduction, no cluster barrier
+  if (tmax == nullptr) {
+    t = warp_max(t);
+    if (lane == 0) red[warp] = t;
+    __syncthreads();
+    if (tid == 0) {
+      float p = red[0];
 #pragma unroll
-    for (int w = 1; w < kSplitThreads / 32; ++w) p = fmaxf(p, red[w]);
-    part = p;
+      for (int w = 1; w < kSplitThreads / 32; ++w) p = fmaxf(p, red[w]);
+      part = p;
+    }
+    cluster.sync();             // every rank's partial is written (release/acquire)
+    if (warp == 0) {
+      float p = lane < S ? *cluster.map_shared_rank(&part, lane) : 1e-8f;
+      p = warp_max(p);
+      if (lane == 0) t_row = p;
+    }
+    __syncthreads();
   }
-  cluster.sync();               // every rank's partial is written (release/acquire)
-  if (warp == 0) {
-    float p = lane < S ? *cluster.map_shared_rank(&part, lane) : 1e-8f;
-    p = warp_max(p);
-    if (lane == 0) t_row = p;
-  }
-  __syncthreads();
+  const float trow = tmax != nullptr ? fmaxf(1e-8f, tmax[row]) : t_row;
 
   const int e = row / C;
-  const float a = row_scale(t_row, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
+  const float a = row_scale(trow, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
                             inv_qmax);
   if (split == 0 && tid == 0) a_out[row] = a;
   int8_t* qr = q + (size_t)row * K;
@@ -258,7 +274,7 @@ act_quant_split_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
     const int u = u0 + tid + i * kSplitThreads;
     if (u < u1) quantize_unit(r[i], br, qr, u * kUnit, K, vec, a, qmax);
   }
-  cluster.sync();               // every rank has read this block's partial
+  if (tmax == nullptr) cluster.sync();   // every rank has read this block's partial
 }
 
 // ---- sweep body (the first design): one block per row, x read twice
@@ -266,8 +282,8 @@ template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 act_quant_sweep_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
                        const float* __restrict__ alpha_ptr, float alpha_val,
-                       int8_t* __restrict__ q, float* __restrict__ a_out, int K, int C,
-                       float qmax, float inv_qmax) {
+                       const float* __restrict__ tmax, int8_t* __restrict__ q,
+                       float* __restrict__ a_out, int K, int C, float qmax, float inv_qmax) {
   __shared__ float red[kRowThreads / 32];
   const int row = blockIdx.x, e = row / C;
   const T* xr = x + (size_t)row * K;
@@ -275,13 +291,17 @@ act_quant_sweep_kernel(const T* __restrict__ x, const float* __restrict__ bcol,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   float t = 1e-8f;
-  for (int j = threadIdx.x; j < K; j += kRowThreads) t = fmaxf(t, fabsf(to_f32(xr[j])));
-  t = warp_max(t);
-  if (lane == 0) red[warp] = t;
-  __syncthreads();
-  t = 1e-8f;
+  if (tmax != nullptr) {
+    t = fmaxf(1e-8f, tmax[row]);
+  } else {
+    for (int j = threadIdx.x; j < K; j += kRowThreads) t = fmaxf(t, fabsf(to_f32(xr[j])));
+    t = warp_max(t);
+    if (lane == 0) red[warp] = t;
+    __syncthreads();
+    t = 1e-8f;
 #pragma unroll
-  for (int w = 0; w < kRowThreads / 32; ++w) t = fmaxf(t, red[w]);
+    for (int w = 0; w < kRowThreads / 32; ++w) t = fmaxf(t, red[w]);
+  }
 
   const float a = row_scale(t, alpha_ptr == nullptr ? nullptr : alpha_ptr + e, alpha_val,
                             inv_qmax);
@@ -307,6 +327,7 @@ struct Args {
   const float* bcol;
   const float* alpha_ptr;
   float alpha_val;
+  const float* tmax;
   int8_t* q;
   float* a;
   int M, K, C;
@@ -318,8 +339,8 @@ struct Args {
 template <typename T, int NV, int ROWS>
 int launch_rows(const Args& g) {
   act_quant_rows_kernel<T, NV, ROWS><<<(g.M + ROWS - 1) / ROWS, kRowThreads, 0, g.s>>>(
-      static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.q, g.a, g.M, g.K, g.C,
-      g.qmax, g.inv_qmax, g.vec);
+      static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.tmax, g.q, g.a, g.M, g.K,
+      g.C, g.qmax, g.inv_qmax, g.vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,7 +382,7 @@ int launch_split(const Args& g, int splits) {
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, act_quant_split_kernel<T, NV>, static_cast<const T*>(g.x), g.bcol, g.alpha_ptr,
-      g.alpha_val, g.q, g.a, g.K, g.C, g.qmax, g.inv_qmax, g.vec);
+      g.alpha_val, g.tmax, g.q, g.a, g.K, g.C, g.qmax, g.inv_qmax, g.vec);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -384,8 +405,8 @@ template <typename T>
 int launch_body(const Args& g, int body, int splits) {
   if (body == 0) {
     act_quant_sweep_kernel<T><<<g.M, kRowThreads, 0, g.s>>>(
-        static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.q, g.a, g.K, g.C,
-        g.qmax, g.inv_qmax);
+        static_cast<const T*>(g.x), g.bcol, g.alpha_ptr, g.alpha_val, g.tmax, g.q, g.a, g.K,
+        g.C, g.qmax, g.inv_qmax);
     return static_cast<int>(cudaGetLastError());
   }
   if (body == 1) return launch_rows_body<T>(g);
@@ -406,10 +427,14 @@ REPRO_API const char* repro_cuda_error_string(int code) {
 // Expert-batched (a stacked-expert linear): the M rows are E experts' C rows each
 // (rows_per_expert = C, M = E*C), bcol is (E, K) and *alpha_ptr (E,): row r takes
 // expert r / C's factors. A 2-D activation passes rows_per_expert = M.
+// Given-max mode: row_max (M,) f32, when not null, holds each row's absmax taken
+// outside (a row-parallel linear's MAX all-reduce of its shards' maxima); the body
+// skips its reduction and floors the given max at 1e-8 once.
 REPRO_API int repro_act_quantize(const void* x, int x_dtype, const float* bcol,
-                                 const float* alpha_ptr, float alpha_val, int8_t* q,
-                                 float* a, int M, int K, int rows_per_expert, int bits,
-                                 int body, int splits, void* stream) {
+                                 const float* alpha_ptr, float alpha_val,
+                                 const float* row_max, int8_t* q, float* a, int M, int K,
+                                 int rows_per_expert, int bits, int body, int splits,
+                                 void* stream) {
   const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
   const float inv_qmax = 1.0f / qmax;   // correctly rounded, as XLA folds the constant
   if (M <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
@@ -423,8 +448,8 @@ REPRO_API int repro_act_quantize(const void* x, int x_dtype, const float* bcol,
   const uintptr_t xp = reinterpret_cast<uintptr_t>(x), bp = reinterpret_cast<uintptr_t>(bcol),
                   qp = reinterpret_cast<uintptr_t>(q);
   const int vec = K % kUnit == 0 && xp % 16 == 0 && bp % 16 == 0 && qp % 8 == 0;
-  const Args g{x, bcol, alpha_ptr, alpha_val, q, a, M, K, rows_per_expert, qmax, inv_qmax,
-               vec, static_cast<cudaStream_t>(stream)};
+  const Args g{x, bcol, alpha_ptr, alpha_val, row_max, q, a, M, K, rows_per_expert, qmax,
+               inv_qmax, vec, static_cast<cudaStream_t>(stream)};
   if (x_dtype == kF32) return launch_body<float>(g, body, splits);
   if (x_dtype == kBF16) return launch_body<__nv_bfloat16>(g, body, splits);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -148,6 +148,9 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   a += ez * M;
   sw += ez * N;
   out += ez * M * N;
+  // int32-out mode (a == nullptr, never expert-batched): store the summed int32
+  // accumulator undequantized, for a row-parallel linear's cross-shard SUM
+  int* const out_i32 = a == nullptr ? reinterpret_cast<int*>(out) : nullptr;
   int kbeg = 0, kend = K, steps;
   int* list = reinterpret_cast<int*>(smem + smem_bytes<MT, W4>()) + kListHead;   // K7
   if constexpr (SKIP) {           // this split's share of the block's occupied k-tiles
@@ -325,7 +328,10 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
       int sum = 0;
 #pragma unroll
       for (int r = 0; r < kMaxSplits; ++r) sum += part[r];
-      out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), sw[n]);
+      if (out_i32 != nullptr)
+        out_i32[(size_t)m * N + n] = sum;
+      else
+        out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), sw[n]);
     }
   } else if (split == 0) {
     const int n = n0 + tid;      // one output column per thread (BN == kThreads)
@@ -336,6 +342,12 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
           for (int r = 0; r < S; ++r)
             sum = __fadd_rn(sum, cluster.map_shared_rank(sRedf, r)[m * BN + tid]);
           out[(size_t)m * N + n] = __fmul_rn(sum, a[m]);
+        }
+      } else if (out_i32 != nullptr) {
+        for (int m = 0; m < M; ++m) {
+          int sum = 0;
+          for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(sRed, r)[m * BN + tid];
+          out_i32[(size_t)m * N + n] = sum;
         }
       } else {
         const float swn = sw[n];
@@ -396,14 +408,16 @@ int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw
 // splits: 1..8 and at most ceil(K/64), so no split is empty; M in 1..128; K and N
 // multiples of 16; qx and qw 16-byte aligned. experts = E > 1: a stacked-expert
 // linear, qx (E, M, K), qw (E, K, N), a (E, M), sw (E, N), out (E, M, N), expert e
-// on grid z. The wrapper picks splits (kernels/qgemm.py::decode_splits) and checks
-// the rest.
+// on grid z. a == nullptr (sw then unread, experts == 1): int32-out mode, out is
+// (M, N) int32, the accumulator summed over the splits in int32. The wrapper picks
+// splits (kernels/qgemm.py::decode_splits) and checks the rest.
 REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const float* a,
                                       const float* sw, float* out, int M, int N, int K,
                                       int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
-      splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535)
+      splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535 ||
+      (a == nullptr && experts != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<false, false>(qx, qw, a, sw, nullptr, out, M, N, K, 0, splits,
                                 static_cast<cudaStream_t>(stream), experts);
@@ -412,8 +426,8 @@ REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const 
 // K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero
 // in every empty tile; splits 1..8 (a split whose share of a block's occupied
 // k-tiles is empty writes zero partials); M in 1..128; K and N multiples of 16; qx
-// and qw 16-byte aligned. The wrapper picks splits
-// (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
+// and qw 16-byte aligned; a == nullptr: int32-out mode, as K2's. The wrapper picks
+// splits (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
 REPRO_API int repro_qgemm_w8a8_sparse_decode(const int8_t* qx, const int8_t* qw,
                                              const float* a, const float* sw, const int* occ,
                                              float* out, int M, int N, int K, int splits,

@@ -19,7 +19,9 @@
 //      PyTorch's order, so K8 against it is f32-close, not bitwise.
 //
 // qx (M, K) int8 row-major, qw (K, N) int8 row-major (the reference's layout),
-// a (M,) f32, sw (N,) f32, out (M, N) f32. The W8 epilogue multiplies in the
+// a (M,) f32, sw (N,) f32, out (M, N) f32 (K2 and K7 with a == nullptr: int32-out
+// mode, out (M, N) int32, the accumulator written undequantized for a row-parallel
+// linear's cross-shard SUM). The W8 epilogue multiplies in the
 // reference's order (acc -> f32, * a, * sw), so the result is bitwise equal to
 // the plain version: the int32 sum is exact and every float step is one IEEE
 // rounding. Expert-batched K2 (a stacked-expert linear of a shape the decode and
@@ -213,11 +215,15 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + wm + mi * 16 + g + h * 8;
         if (r >= M) continue;
-        const float ar = a[r];
+        const float ar = a != nullptr ? a[r] : 0.f;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + wn + ni * 8 + tg * 2 + e;
           if (col >= N) continue;
+          if (MODE != kW4 && a == nullptr) {       // int32-out mode
+            reinterpret_cast<int*>(out)[(size_t)r * N + col] = acc[mi][ni][h * 2 + e];
+            continue;
+          }
           out[(size_t)r * N + col] =
               MODE == kW4 ? __fmul_rn(accf[mi][ni][h * 2 + e], ar)
                           : __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][h * 2 + e]), ar),
@@ -243,15 +249,18 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
 // vec_a: qx rows may be read as 16-byte vectors (K % 16 == 0, 16-byte aligned);
 // vec_b: weight rows as 4-byte words (N % 4 == 0, 4-byte aligned). The wrapper decides.
 // experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E, M),
-// sw (E, N), out (E, M, N), expert e on grid z.
+// sw (E, N), out (E, M, N), expert e on grid z. a == nullptr (sw then unread,
+// experts == 1): int32-out mode, out is (M, N) int32, the accumulator undequantized.
 REPRO_API int repro_qgemm_w8a8(const int8_t* qx, const int8_t* qw, const float* a,
                                const float* sw, float* out, int M, int N, int K, int experts,
                                int vec_a, int vec_b, void* stream) {
-  if (experts < 1 || experts > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (experts < 1 || experts > 65535 || (a == nullptr && experts != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch<kW8>(qx, qw, a, sw, nullptr, out, M, N, K, vec_a, vec_b, 0, stream, experts);
 }
 
-// occ: (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major.
+// occ: (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major; a == nullptr:
+// int32-out mode, as K2's.
 REPRO_API int repro_qgemm_w8a8_sparse(const int8_t* qx, const int8_t* qw, const float* a,
                                       const float* sw, const int* occ, float* out, int M,
                                       int N, int K, int vec_a, int vec_b, void* stream) {

@@ -153,6 +153,9 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   a += (size_t)ex * M;
   sw += (size_t)ex * N;
   out += (size_t)ex * M * N;
+  // int32-out mode (a == nullptr, never expert-batched): store the summed int32
+  // accumulator undequantized, for a row-parallel linear's cross-shard SUM
+  int* const out_i32 = a == nullptr ? reinterpret_cast<int*>(out) : nullptr;
   const int S = gridDim.z, split = blockIdx.z;      // cluster (1, 1, S): rank == split
   // K2: 128-row stages [kt0, kt0 + steps); K7: list entries [kt0, lend), two a stage
   int kt0, steps, lend = 0;
@@ -283,15 +286,21 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int nl = 32 * warp + 4 * g;
   if (S == 1) {
     if (consumer && n0 + nl < N) {                  // N % 16 == 0: all four or none
-      const float4 swn = *reinterpret_cast<const float4*>(sw + n0 + nl);
+      const float4 swn = out_i32 != nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                            : *reinterpret_cast<const float4*>(sw + n0 + nl);
 #pragma unroll
       for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int m = m0 + 8 * j + 2 * tg + e;
           if (m >= M) continue;
-          const float am = a[m];
           const int q = 4 * j + e;
+          if (out_i32 != nullptr) {
+            *reinterpret_cast<int4*>(out_i32 + (size_t)m * N + n0 + nl) =
+                make_int4(acc[0][q], acc[0][q + 2], acc[1][q], acc[1][q + 2]);
+            continue;
+          }
+          const float am = a[m];
           float4 v;
           v.x = __fmul_rn(__fmul_rn(__int2float_rn(acc[0][q]), am), swn.x);
           v.y = __fmul_rn(__fmul_rn(__int2float_rn(acc[0][q + 2]), am), swn.y);
@@ -338,6 +347,10 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         sum.z += part[r].z;
         sum.w += part[r].w;
       }
+      if (out_i32 != nullptr) {
+        *reinterpret_cast<int4*>(out_i32 + (size_t)m * N + n) = sum;
+        continue;
+      }
       const float am = a[m];
       const float4 swn = *reinterpret_cast<const float4*>(sw + n);
       float4 v;
@@ -353,7 +366,10 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       if (m >= M || n >= N) continue;
       int sum = 0;
       for (int r = 0; r < S; ++r) sum += cluster.map_shared_rank(sRed, r)[idx];
-      out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), sw[n]);
+      if (out_i32 != nullptr)
+        out_i32[(size_t)m * N + n] = sum;
+      else
+        out[(size_t)m * N + n] = __fmul_rn(__fmul_rn(__int2float_rn(sum), a[m]), sw[n]);
     }
   }
   cluster.sync();                        // every rank's partials have been read
@@ -688,14 +704,15 @@ int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw
 // 16-byte aligned. The token tile is M rounded up to 16 for M <= 128, else 128
 // rows. experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E,
 // M), sw (E, N), out (E, M, N), E*M and E*K below 2^31. The wrapper picks splits
-// (kernels/qgemm.py::wgmma_splits) and checks the rest.
+// (kernels/qgemm.py::wgmma_splits) and checks the rest. a == nullptr (sw then
+// unread, experts == 1): int32-out mode, out is (M, N) int32.
 REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const float* a,
                                      const float* sw, float* out, int M, int N, int K,
                                      int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
   if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || splits > KT || experts < 1 ||
-      (long long)experts * ((M + 47) / 48) > 65535)
+      (long long)experts * ((M + 47) / 48) > 65535 || (a == nullptr && experts != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<false>(qx, qw, a, sw, nullptr, out, M, N, K, splits,
                          static_cast<cudaStream_t>(stream), experts);
@@ -704,8 +721,8 @@ REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const f
 // K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero
 // in every empty tile; splits 1..8 (a split whose share of a block's occupied
 // k-tiles is empty writes zero partials); M >= 1; K and N multiples of 16; qx and
-// qw 16-byte aligned. The wrapper picks splits
-// (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
+// qw 16-byte aligned; a == nullptr: int32-out mode, as K2's. The wrapper picks
+// splits (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
 REPRO_API int repro_qgemm_w8a8_sparse_wgmma(const int8_t* qx, const int8_t* qw,
                                             const float* a, const float* sw, const int* occ,
                                             float* out, int M, int N, int K, int splits,

@@ -45,19 +45,23 @@ def act_quantize_plan(M: int, K: int) -> Tuple[str, int]:
 
 def act_quantize_cuda(x: torch.Tensor, bcol: torch.Tensor, alpha_t: Optional[torch.Tensor],
                       alpha_val: float, bits: int, body: str, splits: int,
-                      rows_per_expert: Optional[int] = None):
+                      rows_per_expert: Optional[int] = None,
+                      row_max: Optional[torch.Tensor] = None):
     """x (M, K) f32|bf16 and bcol (K,) f32, contiguous on one card; the exponent
     is read from ``alpha_t`` (one f32 value on the card) when given, else
     ``alpha_val``; ``body`` and ``splits`` from :func:`act_quantize_plan`. Returns
     (codes (M, K) int8, a (M, 1) f32). Expert-batched: ``rows_per_expert`` = C,
     the M = E·C rows are E experts' C rows each, bcol is (E, K) and ``alpha_t``
-    (E,); row r takes expert r // C's."""
+    (E,); row r takes expert r // C's. Given-max mode: ``row_max`` (M,) f32 holds
+    each row's absmax over the whole row (K here is a shard of it); the body skips
+    its reduction."""
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     a = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     rc = build.library().repro_act_quantize(
         x.data_ptr(), DTYPE_CODE[x.dtype], bcol.data_ptr(),
-        None if alpha_t is None else alpha_t.data_ptr(), alpha_val, q.data_ptr(),
+        None if alpha_t is None else alpha_t.data_ptr(), alpha_val,
+        None if row_max is None else row_max.data_ptr(), q.data_ptr(),
         a.data_ptr(), M, K, M if rows_per_expert is None else rows_per_expert, bits,
         BODY_CODE[body], splits,
         torch.cuda.current_stream().cuda_stream)

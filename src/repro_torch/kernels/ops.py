@@ -33,6 +33,11 @@ for all E experts (K1's rows carry their expert's column factors and exponent,
 K2's grid carries the expert), counted under ``act_quantize`` and ``qgemm_w8a8``
 and, per body, under ``act_quantize/experts_*`` and ``qgemm_w8a8/experts_*``.
 
+K1 has a given-max mode (``act_quantize(..., row_max=)``) and K2 and K7 an int32-out
+mode (``qgemm_w8a8_acc``, ``qgemm_w8a8_sparse_acc``) for the row-parallel linears
+of tensor-parallel serving; they count under their op and, per body, under
+``act_quantize/given_*``, ``qgemm_w8a8/i32_*`` and ``qgemm_w8a8_sparse/i32_*``.
+
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
 per body of the ops that have several (K1; K2; K7; K8; K3; K4–K6, whose bf16 body is
@@ -68,11 +73,17 @@ LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
 BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/sweep": 0,
                  "act_quantize/experts_split": 0, "act_quantize/experts_rows": 0,
                  "act_quantize/experts_sweep": 0,
+                 "act_quantize/given_split": 0, "act_quantize/given_rows": 0,
+                 "act_quantize/given_sweep": 0,
                  "qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
                  "qgemm_w8a8/experts_decode": 0, "qgemm_w8a8/experts_wgmma": 0,
                  "qgemm_w8a8/experts_tile": 0,
+                 "qgemm_w8a8/i32_decode": 0, "qgemm_w8a8/i32_wgmma": 0,
+                 "qgemm_w8a8/i32_tile": 0,
                  "qgemm_w8a8_sparse/decode": 0, "qgemm_w8a8_sparse/wgmma": 0,
                  "qgemm_w8a8_sparse/tile": 0,
+                 "qgemm_w8a8_sparse/i32_decode": 0, "qgemm_w8a8_sparse/i32_wgmma": 0,
+                 "qgemm_w8a8_sparse/i32_tile": 0,
                  "qgemm_w4a8/decode": 0, "qgemm_w4a8/wgmma": 0, "qgemm_w4a8/tile": 0,
                  "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
                  "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
@@ -129,17 +140,26 @@ def _contiguous(**tensors: torch.Tensor) -> None:
 
 
 def act_quantize(x: torch.Tensor, bcol: torch.Tensor,
-                 alpha: Union[float, torch.Tensor] = 0.15, *, bits: int = 8):
+                 alpha: Union[float, torch.Tensor] = 0.15, *, bits: int = 8,
+                 row_max: Optional[torch.Tensor] = None):
     """Fused CrossQuant activation quantization. x (M, K) f32|bf16; bcol (K,) f32;
     ``alpha`` a float or a one-element f32 tensor on x's device (the prepared
     tree's per-layer ``qalpha``, read by the kernel from device memory so no
-    host sync is needed). Returns (codes (M, K) int8, a (M, 1) f32)."""
+    host sync is needed). Returns (codes (M, K) int8, a (M, 1) f32).
+
+    Given-max mode (``row_max`` (M,) f32): x holds a shard of each row's columns
+    and ``row_max`` the absmax of the whole row (a row-parallel linear's MAX
+    all-reduce); the kernel skips its reduction, so codes and scales are those of
+    the whole row, sliced. Counted per body under ``act_quantize/given_*``."""
     _require(x.ndim == 2, f"x must be (M, K), got {tuple(x.shape)}")
-    K = x.shape[1]
+    M, K = x.shape
     _require(bcol.shape == (K,), f"bcol must be ({K},), got {tuple(bcol.shape)}")
+    if row_max is not None:
+        _require(row_max.shape == (M,), f"row_max must be ({M},), got {tuple(row_max.shape)}")
     alpha_t = alpha if isinstance(alpha, torch.Tensor) else None
-    if not _on_cuda(x, bcol, *(() if alpha_t is None else (alpha_t,))):
-        return ref.act_quantize_ref(x, bcol, bits, alpha)
+    extra = tuple(t for t in (alpha_t, row_max) if t is not None)
+    if not _on_cuda(x, bcol, *extra):
+        return ref.act_quantize_ref(x, bcol, bits, alpha, row_max=row_max)
     _require(x.dtype in DTYPE_CODE, f"x dtype {x.dtype} not in f32/bf16")
     _require(bcol.dtype == torch.float32, f"bcol dtype {bcol.dtype} is not f32")
     _contiguous(x=x, bcol=bcol)
@@ -147,10 +167,13 @@ def act_quantize(x: torch.Tensor, bcol: torch.Tensor,
     if alpha_t is not None:
         _require(alpha_t.numel() == 1 and alpha_t.dtype == torch.float32,
                  "alpha tensor must hold one f32 value")
-    body, splits = act_quantize_plan(*x.shape)
+    if row_max is not None:
+        _require(row_max.dtype == torch.float32, f"row_max dtype {row_max.dtype} is not f32")
+        _contiguous(row_max=row_max)
+    body, splits = act_quantize_plan(M, K)
     out = act_quantize_cuda(x, bcol, alpha_t, 0.0 if alpha_t is not None else float(alpha),
-                            bits, body, splits)
-    _count("act_quantize", f"act_quantize/{body}")
+                            bits, body, splits, row_max=row_max)
+    _count("act_quantize", f"act_quantize/{'' if row_max is None else 'given_'}{body}")
     return out
 
 
@@ -160,15 +183,38 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     sw (N,) f32 → (M, N) f32 = (qx · qw) * a * sw."""
     _require(qx.ndim == 2 and qw.ndim == 2, "qx and qw must be 2-D")
     M, K = qx.shape
-    _require(qw.shape[0] == K, f"contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
     N = qw.shape[1]
     _require(a.shape in ((M, 1), (M,)), f"a must be ({M}, 1), got {tuple(a.shape)}")
     _require(sw.shape == (N,), f"sw must be ({N},), got {tuple(sw.shape)}")
-    if not _on_cuda(qx, qw, a, sw):
+    return _w8a8(qx, qw, a, sw)
+
+
+def qgemm_w8a8_acc(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """K2's int32-out mode: qx (M, K) int8 · qw (K, N) int8 → the (M, N) int32
+    accumulator, undequantized (a row-parallel linear sums it across its shards,
+    then dequantizes in K2's epilogue order). Counted per body under
+    ``qgemm_w8a8/i32_*``. ``torch._int_mm`` computes the same function."""
+    _require(qx.ndim == 2 and qw.ndim == 2, "qx and qw must be 2-D")
+    return _w8a8(qx, qw, None, None)
+
+
+def _w8a8(qx, qw, a, sw) -> torch.Tensor:
+    """K2 (``a``/``sw`` given) or its int32-out mode (both None), checked,
+    routed by :func:`qgemm_w8a8_plan` and counted."""
+    M, K = qx.shape
+    _require(qw.shape[0] == K, f"contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
+    N = qw.shape[1]
+    scales = () if a is None else (a, sw)
+    if not _on_cuda(qx, qw, *scales):
+        if a is None:
+            return ref.qgemm_w8a8_acc_ref(qx, qw)
         return ref.qgemm_w8a8_ref(qx, qw, a.reshape(M, 1), sw)
     _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
-    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
-    _contiguous(qx=qx, qw=qw, a=a, sw=sw)
+    if a is not None:
+        _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
+                 "a and sw must be f32")
+        _contiguous(a=a, sw=sw)
+    _contiguous(qx=qx, qw=qw)
     aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
     body, splits = qgemm_w8a8_plan(M, K, N, aligned=aligned)
     if body == "decode":
@@ -177,7 +223,7 @@ def qgemm_w8a8(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
     else:
         out = qgemm_w8a8_cuda(qx, qw, a, sw)
-    _count("qgemm_w8a8", f"qgemm_w8a8/{body}")
+    _count("qgemm_w8a8", f"qgemm_w8a8/{'' if a is not None else 'i32_'}{body}")
     return out
 
 
@@ -277,16 +323,44 @@ def qgemm_w8a8_sparse(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     _require(mask.shape == (-(-K // 8), N), f"mask must be ({-(-K // 8)}, {N}) bit-packed, "
              f"got {tuple(mask.shape)}")
     _require(mask.dtype == torch.uint8, f"mask dtype {mask.dtype} is not uint8")
-    if not _on_cuda(qx, qw, a, sw, mask, *(() if occ is None else (occ,))):
+    return _w8a8_sparse(qx, qw, a, sw, mask, occ)
+
+
+def qgemm_w8a8_sparse_acc(qx: torch.Tensor, qw: torch.Tensor, mask: torch.Tensor,
+                          occ: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7's int32-out mode (the SKIP instantiations of K2's int32-out bodies):
+    qx (M, K) int8, qw, ``mask`` and ``occ`` as :func:`qgemm_w8a8_sparse` → the
+    (M, N) int32 accumulator; without ``occ`` K2's int32-out mode. Counted per body
+    under ``qgemm_w8a8_sparse/i32_*``."""
+    _require(qx.ndim == 2 and qw.ndim == 2, "qx and qw must be 2-D")
+    K, N = qw.shape
+    _require(mask.shape == (-(-K // 8), N), f"mask must be ({-(-K // 8)}, {N}) bit-packed, "
+             f"got {tuple(mask.shape)}")
+    _require(mask.dtype == torch.uint8, f"mask dtype {mask.dtype} is not uint8")
+    return _w8a8_sparse(qx, qw, None, None, mask, occ)
+
+
+def _w8a8_sparse(qx, qw, a, sw, mask, occ) -> torch.Tensor:
+    """K7 (``a``/``sw`` given) or its int32-out mode (both None)."""
+    M, K = qx.shape
+    _require(qw.shape[0] == K, f"contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
+    N = qw.shape[1]
+    scales = () if a is None else (a, sw)
+    if not _on_cuda(qx, qw, *scales, mask, *(() if occ is None else (occ,))):
+        if a is None:
+            return ref.qgemm_w8a8_sparse_acc_ref(qx, qw, mask)
         return ref.qgemm_w8a8_sparse_ref(qx, qw, a.reshape(M, 1), sw, mask)
     if occ is None:
-        return qgemm_w8a8(qx, qw, a, sw)
+        return _w8a8(qx, qw, a, sw)
     _require(occ.shape == (-(-K // TILE_K), -(-N // TILE_N)) and occ.dtype == torch.int32,
              f"occ must be ({-(-K // TILE_K)}, {-(-N // TILE_N)}) int32, got "
              f"{tuple(occ.shape)} {occ.dtype}")
     _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
-    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
-    _contiguous(qx=qx, qw=qw, a=a, sw=sw, occ=occ)
+    if a is not None:
+        _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
+                 "a and sw must be f32")
+        _contiguous(a=a, sw=sw)
+    _contiguous(qx=qx, qw=qw, occ=occ)
     aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
     body, splits = qgemm_w8a8_sparse_plan(M, K, N, aligned=aligned)
     if body == "decode":
@@ -295,7 +369,7 @@ def qgemm_w8a8_sparse(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_sparse_wgmma_cuda(qx, qw, a, sw, occ, splits)
     else:
         out = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, occ)
-    _count("qgemm_w8a8_sparse", f"qgemm_w8a8_sparse/{body}")
+    _count("qgemm_w8a8_sparse", f"qgemm_w8a8_sparse/{'' if a is not None else 'i32_'}{body}")
     return out
 
 

@@ -15,6 +15,11 @@ grid z, the wgmma body with it folded into grid y beside the m-tiles, the tile
 body on grid z; the plan picks the body for C rows and the splits for all E
 experts' output tiles.
 
+K2's and K7's bodies have an int32-out mode (``a`` and ``sw`` None): the epilogue
+writes the (M, N) int32 accumulator, the decode body's split-K partials summed in
+int32, and does not dequantize. A row-parallel linear under tensor parallelism
+sums those accumulators across its shards before the dequant.
+
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
 """
@@ -166,6 +171,18 @@ def qgemm_w4a8_plan(M: int, K: int, N: int, group: int,
     return "tile", 1
 
 
+def _out(qx: torch.Tensor, N: int, a) -> torch.Tensor:
+    """The (..., N) output of a W8 product: f32, or int32 in the int32-out mode
+    (``a`` None), where the accumulator is written undequantized."""
+    dt = torch.int32 if a is None else torch.float32
+    return torch.empty(qx.shape[:-1] + (N,), dtype=dt, device=qx.device)
+
+
+def _scales(a, sw):
+    """The (a, sw) pointers of a W8 launch: null in the int32-out mode."""
+    return (None, None) if a is None else (a.data_ptr(), sw.data_ptr())
+
+
 def _gemm_dims(qx: torch.Tensor, qw: torch.Tensor, experts: int):
     """(M, K, N) of a 2-D product (``experts`` = 1) or of one expert's product in
     an expert-batched launch (qx (E, C, K), qw (E, K, N); M = C)."""
@@ -182,9 +199,9 @@ def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     (E, M, 1), sw (E, N) → (E, M, N), the expert on the grid."""
     M, K, N = _gemm_dims(qx, qw, experts)
     vec_a, vec_b = _vec(qx, qw)
-    out = torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
+    out = _out(qx, N, a)
     rc = build.library().repro_qgemm_w8a8(
-        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), out.data_ptr(),
         M, N, K, experts, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8")
     return out
@@ -199,9 +216,9 @@ def qgemm_w8a8_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     M, K, N = _gemm_dims(qx, qw, experts)
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("the decode body reads qx and qw in 16-byte chunks: align both")
-    out = torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
+    out = _out(qx, N, a)
     rc = build.library().repro_qgemm_w8a8_decode(
-        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), out.data_ptr(),
         M, N, K, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 decode body")
     return out
@@ -216,9 +233,9 @@ def qgemm_w8a8_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     M, K, N = _gemm_dims(qx, qw, experts)
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("the wgmma body loads qx and qw with TMA: align both to 16 bytes")
-    out = torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
+    out = _out(qx, N, a)
     rc = build.library().repro_qgemm_w8a8_wgmma(
-        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), out.data_ptr(),
         M, N, K, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 wgmma body")
     return out
@@ -238,9 +255,9 @@ def qgemm_w8a8_sparse_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     M, K = qx.shape
     N = qw.shape[1]
     vec_a, vec_b = _vec(qx, qw)
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = _out(qx, N, a)
     rc = build.library().repro_qgemm_w8a8_sparse(
-        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), occ.data_ptr(),
+        qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), occ.data_ptr(),
         out.data_ptr(), M, N, K, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8_sparse")
     return out
@@ -253,9 +270,9 @@ def _sparse_body_cuda(entry: str, what: str, qx: torch.Tensor, qw: torch.Tensor,
     N = qw.shape[1]
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError(f"K7's {what} reads qx and qw in 16-byte chunks: align both")
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = _out(qx, N, a)
     rc = getattr(build.library(), entry)(
-        qx.data_ptr(), qw.data_ptr(), a.data_ptr(), sw.data_ptr(), occ.data_ptr(),
+        qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), occ.data_ptr(),
         out.data_ptr(), M, N, K, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"qgemm_w8a8_sparse {what}")
     return out

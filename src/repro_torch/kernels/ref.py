@@ -26,6 +26,19 @@ def qgemm_w8a8_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     return acc.to(torch.float32) * a.to(torch.float32) * sw.to(torch.float32)
 
 
+def qgemm_w8a8_acc_ref(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """int32-out mode of K2: the (M, N) int32 accumulator qx · qw, undequantized
+    (an exact float64 product of the codes, |acc| ≤ 127²·K < 2^31 for K < 2^17)."""
+    return torch.matmul(qx.to(torch.float64), qw.to(torch.float64)).to(torch.int32)
+
+
+def qgemm_w8a8_sparse_acc_ref(qx: torch.Tensor, qw: torch.Tensor,
+                              mask: torch.Tensor) -> torch.Tensor:
+    """int32-out mode of K7: the masked product's int32 accumulator."""
+    keep = packing.unpack_mask(mask, count=qw.shape[0], axis=0)
+    return qgemm_w8a8_acc_ref(qx, qw * keep.to(qw.dtype))
+
+
 def qgemm_w8a8_sparse_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                           sw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """N:M-sparse int8 GEMM (plain version of K7): the masked dense GEMM. ``mask``
@@ -49,16 +62,21 @@ def qgemm_w4a8_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: tor
     return (acc.to(torch.float32) * sw.to(torch.float32)).sum(dim=-2) * a.to(torch.float32)
 
 
-def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15):
+def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15,
+                     row_max: Optional[torch.Tensor] = None):
     """Fused CrossQuant activation quantization (static-c path), as the Pallas
     kernel computes it: row absmax floored at EPS in f32, ``a = t^α / qmax``
     (evaluated as ``t^α · (1/qmax)``, the form XLA compiles a division by a
     constant into), codes ``clip(round(x / (a·bcol)))``. ``alpha`` is a float or
-    a one-element f32 tensor (the prepared tree's ``qalpha``).
+    a one-element f32 tensor (the prepared tree's ``qalpha``). Given-max mode:
+    ``row_max`` (M,) f32 replaces the row absmax (x then holds a shard of each
+    row's columns; the max is the whole row's), floored at EPS once.
     → (codes (M,K) int8, a (M,1) f32)."""
     qm = Q.qmax(bits)
     xf = x.to(torch.float32)
-    t = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), Q.EPS)
+    amax = (xf.abs().amax(dim=-1, keepdim=True) if row_max is None
+            else row_max.to(torch.float32).reshape(-1, 1))
+    t = torch.clamp_min(amax, Q.EPS)
     if isinstance(alpha, torch.Tensor):
         alpha = alpha.to(torch.float32).reshape(1, 1)
     a = (t ** alpha) * (1.0 / qm)

@@ -24,6 +24,22 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path fused-int8 --device cpu --cache-layout paged \\
         --no-prefix-reuse               # hybrid: one state page per slot
 
+Sharded (tensor- and expert-parallel) serving runs one process per rank under
+``torchrun`` (or ``torch.multiprocessing.spawn``); ``--mesh DATA,MODEL[,EXPERT]``
+lays the ranks out (DATA must be 1), each takes card ``LOCAL_RANK`` modulo the
+visible cards. The process group is gloo on the CPU and where the node runs more
+ranks than it has cards (NCCL refuses two ranks on one card), NCCL otherwise:
+
+    torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.serve --arch starcoder2-7b \
+        --smoke --mesh 1,2 --device cpu --quant int8 --path fused-int8 --kv-cache int8
+    torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --smoke --mesh 1,1,2 --device cpu --quant int8 \
+        --path fused-int8
+
+Every rank initialises the same seeded tree; rank 0 calibrates and broadcasts
+its tables, which every rank folds into the same int8 weights before cutting its
+shard. Only rank 0 prints.
+
 ``--arch`` takes the dense decoders (starcoder2-7b, gemma2-9b, nemotron-4-15b,
 deepseek-coder-33b), pixtral-12b, served text-only, the mixtures of experts
 (granite-moe-3b-a800m, llama4-scout-17b-a16e), the SSM mamba2-130m and the
@@ -36,6 +52,7 @@ with prefix reuse (the reference's ``UnsupportedModelError`` subclasses; pass
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import List, Optional, Sequence
 
@@ -143,9 +160,27 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
                     help="N:M structured weight sparsity applied at engine build")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL[,EXPERT]",
+                    help="serve sharded over this mesh, one process per rank (torchrun)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import parse_mesh_arg
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            device = resolve_device(f"cuda:{local % torch.cuda.device_count()}")
+            torch.cuda.set_device(device)
+        if not dist.is_initialized():
+            ranks = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+            shared = device.type == "cpu" or ranks > torch.cuda.device_count()
+            dist.init_process_group("gloo" if shared else "nccl")
+        mesh = parse_mesh_arg(args.mesh)
+    lead = mesh is None or mesh.rank == 0
+    log = print if lead else (lambda *a, **k: None)
     cfg = get(args.arch, smoke=args.smoke)
     quant = QUANTS[args.quant]
     path = None if (args.quant != "int8" or args.path == "ref") else args.path
@@ -158,18 +193,23 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     config.check_model(cfg)              # refuse before init and calibration
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    params = M.init_params(gen, cfg, device=device)
+    params = M.init_params(gen, cfg, device=device)      # seeded: the same on every rank
     base_bytes = quantized_bytes(params)
     if args.quant == "int8":
-        print("calibrating static-c column statistics ...")
-        params = calibrate_and_quantize(params, cfg, quant, calib_batches=args.calib_batches,
-                                        seq_len=args.prompt_len,
-                                        batch_size=args.batch_size, seed=args.seed)
+        log("calibrating static-c column statistics ...")
+        tables = [calibrate(params, cfg, quant, calib_batches=args.calib_batches,
+                            seq_len=args.prompt_len, batch_size=args.batch_size,
+                            seed=args.seed) if lead else None]
+        if mesh is not None and mesh.size > 1:
+            import torch.distributed as dist
+            dist.broadcast_object_list(tables, src=0)
+        params = quantize_tree(params, quant, tables=tables[0])
         q_bytes = quantized_bytes(params)
-        print(f"quantized weights: {base_bytes / 2**20:.1f} MiB -> "
+        log(f"quantized weights: {base_bytes / 2**20:.1f} MiB -> "
               f"{q_bytes / 2**20:.1f} MiB ({base_bytes / q_bytes:.2f}x smaller)")
 
-    engine = ServeEngine(cfg, params, config=config, quant=quant, device=device)
+    engine = ServeEngine(cfg, params, config=config, quant=quant, device=device, mesh=mesh)
+    del params
     lens = ([int(x) for x in args.prompt_lens.split(",")] if args.prompt_lens
             else [args.prompt_len])
     engine.submit(make_prompts(cfg.vocab, lens, args.n_requests, args.seed),
@@ -180,15 +220,20 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out) for r in done)
-    print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
+    plan = "" if engine.plan is None else (f" mesh={dict(mesh.shape)} tier={engine.plan.tier}"
+                                           f" moe_mode={engine.plan.moe_mode}")
+    log(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s) quant={quant.tag()} path={path} "
           f"kv={args.kv_cache} layout={args.cache_layout} device={device} "
           f"occupancy={engine.occupancy():.2f} prefix_hit_rate={engine.prefix_hit_rate():.3f} "
           f"accept_rate={engine.accept_rate():.3f} tokens_per_step={engine.tokens_per_step():.3f} "
           f"chunk_steps={engine.counters['chunk_steps']} sparsity={args.sparsity} "
-          f"scheduler={args.scheduler}")
+          f"scheduler={args.scheduler}{plan}")
     for r in done[:4]:
-        print(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out={r.out[:8]}")
+        log(f"  req {r.rid}: prompt[:4]={r.prompt[:4].tolist()} -> out={r.out[:8]}")
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return done
 
 

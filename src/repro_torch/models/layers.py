@@ -26,20 +26,38 @@ class QuantContext:
 
     ``int_exec`` picks the backend for prepared integer linears (None/"ref" |
     "dequant" | "kernel"); ``use_kernels=True`` additionally routes prefill
-    attention of 128 tokens or more through the flash kernel."""
+    attention of 128 tokens or more through the flash kernel. ``shard`` (a
+    ``sharding.collectives.ShardContext``) marks a rank of sharded serving: its
+    params are the rank's shard, and each 2-D linear runs by its role, column-
+    or row-parallel, with the collectives the shard context carries."""
     cfg: ql.QuantConfig
     observer: object = None
     prefix: str = ""
     use_kernels: bool = False
     int_exec: Optional[str] = None
+    shard: object = None
 
     def sub(self, name: str) -> "QuantContext":
         return QuantContext(self.cfg, self.observer, f"{self.prefix}/{name}",
-                            self.use_kernels, self.int_exec)
+                            self.use_kernels, self.int_exec, self.shard)
 
     def linear(self, params: dict, x: torch.Tensor, name: str) -> torch.Tensor:
         """x @ W of a quantized linear: x (..., d_in) against a 2-D weight, or an
         MoE's (E, C, d_in) dispatch buffer against its (E, d_in, d_out) experts."""
+        w = params.get("qw", params.get("qw4", params.get("w")))
+        if self.shard is not None and w.ndim == 3 and self.shard.expert_axis is not None:
+            return ql.apply_expert_parallel(params, x, self.cfg, self.shard,
+                                            self.shard.expert_axis,
+                                            use_kernels=self.use_kernels,
+                                            int_exec=self.int_exec)
+        role = self.shard.role(name) if self.shard is not None and w.ndim == 2 else None
+        if role == "col":
+            return ql.apply_column_parallel(params, x, self.cfg, self.shard,
+                                            use_kernels=self.use_kernels,
+                                            int_exec=self.int_exec)
+        if role == "row":
+            return ql.apply_row_parallel(params, x, self.cfg, self.shard,
+                                         use_kernels=self.use_kernels, int_exec=self.int_exec)
         return ql.apply(params, x, self.cfg, name=f"{self.prefix}/{name}",
                         observer=self.observer, use_kernels=self.use_kernels,
                         int_exec=self.int_exec)
@@ -500,9 +518,18 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
     caches only. Returns (output, cache)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sh = ctx.shard
+    if sh is not None:          # this rank's heads (sharding.collectives.ShardContext)
+        H, Hkv = sh.q_heads, sh.kv_heads
     q = ctx.linear(params["wq"], x, "wq").reshape(B, S, H, D)
-    k = ctx.linear(params["wk"], x, "wk").reshape(B, S, Hkv, D)
-    v = ctx.linear(params["wv"], x, "wv").reshape(B, S, Hkv, D)
+    k = ctx.linear(params["wk"], x, "wk")
+    v = ctx.linear(params["wv"], x, "wv")
+    if sh is not None and sh.kv_proj_heads != Hkv:
+        # tp_kv_rep: whole kv projections; keep the kv heads this rank's queries read
+        lo = sh.kv_lo * D
+        k, v = k[..., lo:lo + Hkv * D], v[..., lo:lo + Hkv * D]
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
 
     is_chunked = cache is not None and chunk is not None
     is_verify = cache is not None and q_len is not None and not is_chunked

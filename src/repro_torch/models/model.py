@@ -16,6 +16,11 @@ times over stacked parameters.
                          attention + MLP block has one set of weights
                          (``shared_attn``), applied after every super-block
 
+Sharded serving runs a rank's shard of the tree under ``ctx.shard`` (a
+``sharding.collectives.ShardContext``): the linears by their roles, attention
+on the rank's heads, the experts it holds, the vocab-parallel embedding and
+head with the collectives that context carries.
+
 Untied heads (``lm_head``) run through the quantized linear; the
 ``vision_stub``/``audio_stub`` frontends project precomputed patch or frame
 features (:mod:`repro_torch.models.frontends`).
@@ -192,7 +197,21 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=torch.bflo
     return cache
 
 
-def _embed(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def _lookup(w: torch.Tensor, tokens: torch.Tensor, shard) -> torch.Tensor:
+    """Embedding rows of ``tokens``; under a vocab-sharded embedding (``shard``
+    with ``embed_split``) each rank holds V/tp rows, looks up the tokens in its
+    slice, zeros the others' and the rows SUM across the ranks: exactly one rank
+    adds a nonzero row, so the sum is exact."""
+    if shard is None or not shard.embed_split:
+        return w[tokens]
+    v0 = shard.tp_index * w.shape[0]
+    local = tokens.to(torch.int64) - v0
+    mine = (local >= 0) & (local < w.shape[0])
+    rows = w[torch.where(mine, local, 0)] * mine[..., None].to(w.dtype)
+    return shard.coll.sum_f32(rows)
+
+
+def _embed(params, batch, cfg: ModelConfig, shard=None) -> torch.Tensor:
     """Token embeddings (or projected audio frames); under ``vision_stub`` a batch
     carrying ``patch_embeds`` (prefill) has its first ``n_patches`` positions
     replaced by the projected patches. ``embed_scale`` multiplies by sqrt(d_model)
@@ -200,7 +219,7 @@ def _embed(params, batch, cfg: ModelConfig) -> torch.Tensor:
     if cfg.frontend == "audio_stub":
         x = frontends.audio_stub_apply(params["frontend"], batch["frames"])
     else:
-        x = params["embed"]["w"][batch["tokens"]]
+        x = _lookup(params["embed"]["w"], batch["tokens"], shard)
         if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
             x = frontends.vision_stub_apply(params["frontend"], x, batch["patch_embeds"], cfg)
     if cfg.embed_scale:
@@ -212,13 +231,17 @@ def _lm_head(params, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext) -> to
     """Logits over cfg.vocab_padded; padded ids carry -1e9. A tied head multiplies
     by the embedding; an untied one runs ``lm_head`` through the top-level ctx's
     linear (under ``mode="int8"`` its fp ``{"w"}`` is prepared on the fly, with the
-    column max of this call's rows)."""
+    column max of this call's rows). Under a vocab-sharded head (``ctx.shard``
+    with ``head_split``) each rank computes its vocab slice's logits and they
+    are gathered in rank order."""
     x = norm_apply(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["w"].T.to(x.dtype)
     else:
         logits = ctx.linear(params["lm_head"], x, "lm_head")
     logits = logits.to(torch.float32)
+    if ctx.shard is not None and ctx.shard.head_split:
+        logits = ctx.shard.coll.gather_vocab(logits)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab:
@@ -325,7 +348,7 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
                          f"family {cfg.family!r} carries SSM state")
     ctx = ctx or QuantContext(cfg.quant)
     spec = block_spec(cfg)
-    x = _embed(params, batch, cfg)
+    x = _embed(params, batch, cfg, ctx.shard)
     B, S = x.shape[0], x.shape[1]
     use_cache = mode in ("prefill", "decode", "verify", "chunked")
     if use_cache and caches is None:

@@ -2,10 +2,17 @@
 routing with a per-expert capacity, sort-based dispatch into an ``(E, C, d)``
 expert buffer, stacked-expert linears and a Switch-style load-balancing loss.
 
-Only the reference's ``G == 1`` global dispatch is ported: serving always runs it
-(the reference's serving steps trace ``token_groups=False``), and so do
-calibration and eager runs. The grouped ``G > 1`` dispatch, one capacity per
-data-parallel token group, belongs to sharded serving and waits for it.
+Only the reference's ``G == 1`` global dispatch is ported: serving always runs it,
+sharded or not (the reference's serving steps trace ``token_groups=False``;
+``sharding.collectives.token_group_count``), and so do calibration and eager
+runs. The grouped ``G > 1`` dispatch, one capacity per data-parallel token group,
+belongs to sharded *training* and waits for it.
+
+Expert parallelism (a rank's ``ShardContext`` with an ``expert_axis``): the
+router and the dispatch stay replicated, every rank computes the same (E, C, d)
+buffer, runs its E/ep experts (its shard of the stacked leaves, whole experts)
+through the expert-batched K1/K2, and the experts' outputs are gathered in
+expert order before the combine, so the step is bitwise the single-device one.
 
 Activation quantization inside the experts: the linears see the stacked (E, C, d)
 buffer, zero capacity rows included, so CrossQuant's row and column statistics
@@ -143,6 +150,15 @@ def _combine_group(expert_out: torch.Tensor, gate_w: torch.Tensor, e_idx: torch.
     return y
 
 
+def _rank_experts(node: dict, e0: int, n: int, n_experts: int) -> dict:
+    """A stacked expert linear's leaves for experts [e0, e0 + n): the planner
+    splits the weights over the expert-parallel axis, but under ``ep`` (experts
+    over "model") it keeps the prepared scale leaves (``sw``, ``bcol``,
+    ``qalpha``) whole on every rank, as the reference does; those are sliced here."""
+    return {k: v[e0:e0 + n] if k != "cmax" and v.shape[:1] == (n_experts,) and n < n_experts
+            else v for k, v in node.items()}
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
               ctx: QuantContext) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, d), aux_loss scalar): one global dispatch over all
@@ -153,7 +169,18 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     xf = x.reshape(B * S, d)
     gate_w, e_idx, pos_c, keep, aux = _route_group(xf, params["router"]["w"], cfg)
     expert_in = _dispatch_group(xf, e_idx, pos_c, cfg)
-    expert_out = _expert_ffn(params, expert_in, cfg, ctx)
+    sh = ctx.shard
+    if sh is not None and sh.expert_axis is not None:
+        # expert parallelism: this rank's experts, then every rank's, in order
+        up = params["up"]
+        e_local = up.get("qw", up.get("qw4", up.get("w"))).shape[0]
+        e0 = sh.coll.mesh.axis_index(sh.expert_axis) * e_local
+        local = {name: _rank_experts(params[name], e0, e_local, cfg.n_experts)
+                 for name in ("up", "gate", "down") if name in params}
+        local_out = _expert_ffn(local, expert_in[e0:e0 + e_local], cfg, ctx)
+        expert_out = sh.coll.gather_experts(local_out, sh.expert_axis)
+    else:
+        expert_out = _expert_ffn(params, expert_in, cfg, ctx)
     y = _combine_group(expert_out, gate_w, e_idx, pos_c, keep, cfg, x.dtype)
     if cfg.n_shared_experts:
         y = y + mlp_apply(params["shared"], xf[None], cfg, ctx)[0]

@@ -369,3 +369,45 @@ def quantized_bytes(params, *, deploy_sparse: bool = False) -> int:
     if isinstance(params, list):
         return sum(quantized_bytes(v, deploy_sparse=deploy_sparse) for v in params)
     return params.numel() * params.element_size()
+
+
+def pad_head_params(params, cfg_from, cfg_to):
+    """Transplant params into a head-padded layout (``configs.with_padded_heads``).
+
+    Padding is per kv group (GQA maps head h to kv group h // G, so heads
+    appended at the tail would move existing heads to other groups): each group
+    gains zero q-columns (padded heads emit q = 0) and zero wo-rows (padded heads
+    contribute nothing), so the padded model computes the same function while its
+    attention projections divide the TP degree."""
+    dh = cfg_to.head_dim
+    hkv = cfg_from.n_kv_heads
+    g0 = cfg_from.n_heads // hkv
+    g1 = cfg_to.n_heads // hkv
+    assert dh == cfg_from.head_dim and cfg_to.n_kv_heads == hkv
+    if g0 == g1:
+        return params
+
+    def pad_wq(w):            # (..., d, H0*dh) -> (..., d, H1*dh)
+        lead = w.shape[:-1]
+        wg = w.reshape(*lead, hkv, g0, dh)
+        z = torch.zeros(*lead, hkv, g1 - g0, dh, dtype=w.dtype, device=w.device)
+        return torch.cat([wg, z], dim=-2).reshape(*lead, hkv * g1 * dh)
+
+    def pad_wo(w):            # (..., H0*dh, d) -> (..., H1*dh, d)
+        lead, d_out = w.shape[:-2], w.shape[-1]
+        wg = w.reshape(*lead, hkv, g0, dh, d_out)
+        z = torch.zeros(*lead, hkv, g1 - g0, dh, d_out, dtype=w.dtype, device=w.device)
+        return torch.cat([wg, z], dim=-3).reshape(*lead, hkv * g1 * dh, d_out)
+
+    def convert(node, parent=""):
+        if isinstance(node, dict):
+            if parent == "wq" and "w" in node:
+                return {**node, "w": pad_wq(node["w"])}
+            if parent == "wo" and "w" in node:
+                return {**node, "w": pad_wo(node["w"])}
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [convert(v, parent) for v in node]
+        return node
+
+    return convert(params)

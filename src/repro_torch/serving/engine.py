@@ -64,11 +64,11 @@ from repro_torch.serving.config import CACHE_DTYPES, SERVE_PATHS, EngineConfig, 
 
 
 def _make_ctx(cfg: ModelConfig, quant: Optional[ql.QuantConfig],
-              path: Optional[str]) -> QuantContext:
+              path: Optional[str], shard=None) -> QuantContext:
     if path not in SERVE_PATHS:
         raise ValueError(f"unknown serving path {path!r}; "
                          f"pick one of {sorted(k for k in SERVE_PATHS if k)}")
-    return QuantContext(quant or cfg.quant, **SERVE_PATHS[path])
+    return QuantContext(quant or cfg.quant, shard=shard, **SERVE_PATHS[path])
 
 
 def _make_sampler(temperature: float, top_k: int):
@@ -87,6 +87,20 @@ def _make_sampler(temperature: float, top_k: int):
         return torch.multinomial(probs, 1, generator=gen)[..., 0].to(torch.int32)
 
     return sample
+
+
+def _sampler(temperature: float, top_k: int, shard=None):
+    """:func:`_make_sampler`'s sampler; sharded (``shard``), every rank holds the
+    same gathered logits, so greedy tokens agree, and a random draw is rank 0's,
+    broadcast to the others."""
+    sample = _make_sampler(temperature, top_k)
+    if shard is None or temperature <= 0.0:
+        return sample
+
+    def sample_rank0(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        return shard.coll.broadcast(sample(logits, gen), shard.coll.mesh.axis_names)
+
+    return sample_rank0
 
 
 def make_prefill_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
@@ -181,13 +195,14 @@ def _slot_scatter(live: dict, new: dict, slots: torch.Tensor) -> dict:
 
 
 def make_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
-                    path: Optional[str] = None, temperature: float = 0.0, top_k: int = 0):
+                    path: Optional[str] = None, temperature: float = 0.0, top_k: int = 0,
+                    shard=None):
     """Padded prefill of newly admitted requests into a live slot table: the
     (Bp, S_bucket) admission batch prefills against a fresh zero cache, whose rows
     then scatter into the live table at the admitted slots. Mid-decode slots are
     never touched."""
-    ctx = _make_ctx(cfg, quant, path)
-    sample = _make_sampler(temperature, top_k)
+    ctx = _make_ctx(cfg, quant, path, shard)
+    sample = _sampler(temperature, top_k, shard)
 
     def admit_step(params, tokens, lens, slots, caches, gen):
         """tokens (Bp, S) right-padded; lens (Bp,) prompt lengths; slots (Bp,)
@@ -214,15 +229,15 @@ def make_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
 
 def make_paged_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
                           path: Optional[str] = None, temperature: float = 0.0,
-                          top_k: int = 0, warm: bool = False):
+                          top_k: int = 0, warm: bool = False, shard=None):
     """Admission prefill straight into the live page pool: each admitted row
     writes K/V through its own page table into pages the allocator handed it
     exclusively, so no scatter-merge is needed. ``warm=False`` is the cold path
     (plain right-padded prefill attention, the dense layout's numerics);
     ``warm=True`` the shared-prefix path, whose rows are prompt suffixes after
     ``prefix`` tokens already in the mapped pages."""
-    ctx = _make_ctx(cfg, quant, path)
-    sample = _make_sampler(temperature, top_k)
+    ctx = _make_ctx(cfg, quant, path, shard)
+    sample = _sampler(temperature, top_k, shard)
 
     def admit_step(params, tokens, lens, prefix, row_tables, row_states, caches, gen):
         """tokens (Bp, S) right-padded suffixes; lens (Bp,) suffix lengths; prefix
@@ -257,10 +272,10 @@ def _page_copy(caches: dict, src: int, dst: int, n_tok: int) -> dict:
 
 def make_serve_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
                            path: Optional[str] = None, temperature: float = 0.0,
-                           top_k: int = 0):
+                           top_k: int = 0, shard=None):
     """One decode step: model forward + on-device sampling → token ids only."""
-    ctx = _make_ctx(cfg, quant, path)
-    sample = _make_sampler(temperature, top_k)
+    ctx = _make_ctx(cfg, quant, path, shard)
+    sample = _sampler(temperature, top_k, shard)
 
     def decode_step(params, tokens, caches, cur_len, gen):
         """tokens (B,) int pending inputs; cur_len (B,) post-append lengths →
@@ -273,12 +288,12 @@ def make_serve_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = N
 
 
 def make_serve_verify_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
-                           path: Optional[str] = None):
+                           path: Optional[str] = None, shard=None):
     """One speculative verify step: score a (B, W) draft window (column 0 each
     slot's pending token, the rest its drafted continuation) in one forward pass
     and argmax every window position on the device. Greedy only: the acceptance
     rule is token-exact only under deterministic sampling."""
-    ctx = _make_ctx(cfg, quant, path)
+    ctx = _make_ctx(cfg, quant, path, shard)
 
     def verify_step(params, tokens, caches, cur_len, q_len):
         """tokens (B, W) draft windows; cur_len (B,) total post-scatter lengths;
@@ -293,14 +308,15 @@ def make_serve_verify_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = N
 
 
 def make_chunked_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
-                      path: Optional[str] = None, temperature: float = 0.0, top_k: int = 0):
+                      path: Optional[str] = None, temperature: float = 0.0, top_k: int = 0,
+                      shard=None):
     """One mixed-budget step: a packed ragged token row (decode tokens, draft
     windows and prefill chunks of many slots side by side) in one
     ``mode="chunked"`` forward pass. Returns each slot's sampled token (from its
     last valid packed row) and every row's greedy argmax (the speculative
     acceptance stream)."""
-    ctx = _make_ctx(cfg, quant, path)
-    sample = _make_sampler(temperature, top_k)
+    ctx = _make_ctx(cfg, quant, path, shard)
+    sample = _sampler(temperature, top_k, shard)
 
     def chunked_step(params, tokens, q_start, q_len, kv_len, positions, slot_ids, caches,
                      gen):
@@ -406,11 +422,28 @@ class ServeEngine:
     reads, and leaves that already carry one pass through.
     Every masked leaf's tile occupancy is derived at build
     (``with_tile_occupancy``): masks with empty tiles run K7, the rest K2.
+
+    ``mesh=`` (a ``launch.mesh.Mesh``; ``plan=`` defaults to
+    ``sharding.planner.make_serve_plan``) serves tensor- and expert-parallel, one
+    process per rank (SPMD): every rank builds this engine from the same full
+    ``params`` and the same config, keeps its shard of the tree (its
+    ``sharding.planner.param_placements``; the masks' occupancy rebuilt per
+    shard) and caches of its kv heads, and runs the same deterministic host
+    scheduling, so the ranks take the same decisions. The model runs the
+    rank's shard with the collectives of ``sharding.collectives`` (``self.shard``);
+    every rank holds the gathered logits, and a random draw is rank 0's,
+    broadcast. Greedy fused-int8 serving gives the single-device engine's logits
+    bitwise on the CPU, and on a card wherever kernels carry the attention (the
+    dense layout's decode attention is plain torch, whose cuBLAS products may
+    round a rank's fewer heads differently); fake and dequant-fp sum f32
+    partials and are token-exact. Refused with the typed errors of
+    ``sharding.planner``: a data axis above 1, SSM and hybrid families, W4A8
+    linears split over the mesh, ``expert_tp``.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, config: EngineConfig,
                  quant: Optional[ql.QuantConfig] = None, device="cuda",
-                 sparsity_plan: Optional[MQ.SparsityPlan] = None):
+                 sparsity_plan: Optional[MQ.SparsityPlan] = None, mesh=None, plan=None):
         config.check_model(cfg)
         self.config = config
         self.device = resolve_device(device)
@@ -422,6 +455,9 @@ class ServeEngine:
             if sparsity_plan is None:
                 self.sparsity_plan = MQ.SparsityPlan(nm=MQ.parse_nm(config.sparsity))
             params = MQ.sparsify_tree(params, self.sparsity_plan)
+        self.mesh, self.plan, self.shard = mesh, None, None
+        if mesh is not None:
+            params = self._take_shard(cfg, params, mesh, plan)
         params = MQ.with_tile_occupancy(params)
         # dynamic statistics couple the token rows of a step (module docstring)
         self._rows_coupled = _rows_coupled(params, quant or cfg.quant, cfg)
@@ -443,7 +479,11 @@ class ServeEngine:
                               if b <= config.max_len)
         self.cache_dtype = (CACHE_DTYPES[config.cache_dtype] if config.cache_dtype
                             else _first_float_dtype(params) or torch.float32)
-        step_kw = dict(path=config.path, temperature=config.temperature, top_k=config.top_k)
+        step_kw = dict(path=config.path, temperature=config.temperature, top_k=config.top_k,
+                       shard=self.shard)
+        # a rank's caches hold the kv heads it attends
+        cache_cfg = cfg if self.shard is None else dataclasses.replace(
+            cfg, n_heads=self.shard.q_heads, n_kv_heads=self.shard.kv_heads)
         if self.paged:
             self.ps = config.page_size
             self.maxP = self.T // self.ps
@@ -461,19 +501,20 @@ class ServeEngine:
             self._state_pages_held = 0
             self._table_dirty = False
             self._seq_pages: List[List[int]] = [[] for _ in range(self.B)]
-            self.caches = M.init_cache(cfg, self.B, self.T, dtype=self.cache_dtype,
+            self.caches = M.init_cache(cache_cfg, self.B, self.T, dtype=self.cache_dtype,
                                        kv_int8=self.kv_int8, layout="paged",
                                        page_size=self.ps, n_pages=self.n_pages,
                                        device=self.device)
             self._admit_cold = make_paged_admit_step(cfg, quant, warm=False, **step_kw)
             self._admit_warm = make_paged_admit_step(cfg, quant, warm=True, **step_kw)
         else:
-            self.caches = M.init_cache(cfg, self.B, self.T, dtype=self.cache_dtype,
+            self.caches = M.init_cache(cache_cfg, self.B, self.T, dtype=self.cache_dtype,
                                        kv_int8=self.kv_int8, device=self.device)
             self._admit_step = make_admit_step(cfg, quant, **step_kw)
         self._decode_step = make_serve_decode_step(cfg, quant, **step_kw)
         if self.spec > 1:
-            self._verify_step = make_serve_verify_step(cfg, quant, path=config.path)
+            self._verify_step = make_serve_verify_step(cfg, quant, path=config.path,
+                                                       shard=self.shard)
         if self.chunked:
             self._chunk_step = make_chunked_step(cfg, quant, **step_kw)
         self._gen = torch.Generator(device=self.device)
@@ -509,6 +550,52 @@ class ServeEngine:
             "chunk_steps": 0, "chunk_prefill_rows": 0, "chunk_decode_rows": 0,
             # steps with no prefill work served by the decode step (fp KV)
             "chunk_decode_only_steps": 0}
+
+    # ------------------------------------------------------------------ sharding
+
+    def _take_shard(self, cfg: ModelConfig, params, mesh, plan):
+        """Plan, refuse what is not served sharded, build this rank's
+        ``ShardContext`` and cut its shard of the full ``params`` tree."""
+        from repro_torch.sharding import collectives as SC
+        from repro_torch.sharding import planner as SP
+
+        if mesh.axis_size("data") > 1:
+            raise SP.DataParallelServingError(
+                f"mesh {mesh.shape}: a data axis above 1 (data-parallel slots) is not "
+                f"served sharded yet (ROADMAP A4: data-parallel serving)")
+        if cfg.family in ("ssm", "hybrid"):
+            raise SP.ShardedStateError(
+                f"family {cfg.family!r} under a mesh: SSM state placements are not "
+                f"ported yet (ROADMAP A4: SSM and hybrid under a mesh)")
+        self.plan = plan or SP.make_serve_plan(cfg, mesh)
+        if self.plan.tier == "dp_only":
+            raise SP.DataParallelServingError(
+                "tier dp_only folds the model axis into data parallelism "
+                "(ROADMAP A4: data-parallel serving)")
+        if self.plan.moe_mode == "expert_tp":
+            raise SP.ExpertTPError(
+                f"{cfg.name}: {cfg.n_experts} experts do not divide the model axis "
+                f"({self.plan.tp}) and the mesh has no expert axis that does; "
+                f"expert-internal TP waits (ROADMAP A4: expert_tp)")
+        coll = SC.Collectives(mesh)
+        self.shard = SC.make_shard_context(cfg, params, self.plan, mesh, coll)
+
+        def no_split_w4(node, name=""):
+            if isinstance(node, dict):
+                if "qw4" in node and self.shard.role(name) is not None:
+                    raise SP.ShardedW4A8Error(
+                        f"W4A8 linear {name!r} split over the mesh: its row-parallel "
+                        f"product needs K8 per-group int32 partials (ROADMAP A4: "
+                        f"W4A8 under TP)")
+                for k, v in node.items():
+                    no_split_w4(v, k)
+            elif isinstance(node, list):
+                for v in node:
+                    no_split_w4(v, name)
+
+        no_split_w4(params)
+        placements = SP.param_placements(params, cfg, self.plan, mesh)
+        return SP.shard_tree(params, placements, mesh)
 
     # ---------------------------------------------------------------- submission
 

@@ -1,0 +1,187 @@
+"""The collectives of sharded serving, in one place (the port's counterpart of
+``repro/sharding/hints.py``).
+
+Under GSPMD the reference pins activation layouts with sharding constraints and
+lets the partitioner insert the communication. Here every rank runs the model on
+its own shard (Megatron-style) and the few collectives it needs are explicit
+calls on :class:`Collectives`, which reaches the model through the
+:class:`ShardContext` its ``QuantContext`` carries (no context variables):
+
+* ``sum_i32``: a row-parallel linear's int32 accumulators, summed before the f32
+  dequant (the reference's ``constrain_gemm_acc`` ordering), so the product is
+  bitwise the single-device one;
+* ``max_f32``: the row maxima a row-parallel linear's K1 takes in its given-max
+  mode (and the fake path's per-channel weight maxima of a column-parallel
+  linear): a MAX is exact;
+* ``sum_f32``: the partial products of the fp, fake and dequant-fp row-parallel
+  linears (not bitwise, as the reference's are not), and the vocab-parallel
+  embedding's rows (one rank holds each token's row, the others add zeros:
+  exact);
+* ``gather_vocab``: a vocab-sharded head's logits (``constrain_vocab``);
+* ``gather_experts``: the expert-parallel MoE's outputs, each rank's experts
+  concatenated in expert order;
+* ``broadcast``: rank 0's sampled tokens where the sampler draws at random.
+
+Each call on an axis of more than one rank is counted in ``COUNTS`` (as
+``kernels/ops.py`` counts launches); an axis of one rank is the identity and
+counts nothing. The process group's backend is the caller's: gloo on the CPU
+and for several ranks on one card (it takes CUDA tensors for every collective
+here, staging them through host memory itself), NCCL with a card per rank.
+
+``token_group_count`` is the reference's rule for the grouped MoE dispatch;
+serving forces one group (``token_groups=False``), as the reference's serving
+steps do.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+COUNTS: Dict[str, int] = {"sum_i32": 0, "max_f32": 0, "sum_f32": 0, "gather_vocab": 0,
+                          "gather_experts": 0, "broadcast": 0}
+_lock = threading.Lock()
+
+
+def reset_counts() -> None:
+    with _lock:
+        for k in COUNTS:
+            COUNTS[k] = 0
+
+
+def _count(name: str) -> None:
+    with _lock:
+        COUNTS[name] += 1
+
+
+class Collectives:
+    """Collectives over a mesh's axes (``launch.mesh.Mesh``)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def size(self, axis: str) -> int:
+        return self.mesh.axis_size(axis)
+
+    def _all_reduce(self, t: torch.Tensor, axis: str, op, name: str) -> torch.Tensor:
+        if self.size(axis) == 1:
+            return t
+        t = t.contiguous()
+        dist.all_reduce(t, op=op, group=self.mesh.groups[axis])
+        _count(name)
+        return t
+
+    def sum_i32(self, acc: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        if acc.dtype != torch.int32:
+            raise TypeError(f"sum_i32 takes int32 accumulators, got {acc.dtype}")
+        return self._all_reduce(acc, axis, dist.ReduceOp.SUM, "sum_i32")
+
+    def max_f32(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        return self._all_reduce(t.to(torch.float32), axis, dist.ReduceOp.MAX, "max_f32")
+
+    def sum_f32(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        return self._all_reduce(t, axis, dist.ReduceOp.SUM, "sum_f32")
+
+    def _gather(self, t: torch.Tensor, axis: str, dim: int, name: str) -> torch.Tensor:
+        n = self.size(axis)
+        if n == 1:
+            return t
+        src = t.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=self.mesh.groups[axis])
+        _count(name)
+        return torch.cat(parts, dim=dim)
+
+    def gather_vocab(self, logits: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """(..., V/n) logits of each rank's vocab slice → (..., V), in rank order."""
+        return self._gather(logits, axis, -1, "gather_vocab")
+
+    def gather_experts(self, out: torch.Tensor, axis: str) -> torch.Tensor:
+        """(E/n, C, d) outputs of each rank's experts → (E, C, d), in expert order."""
+        return self._gather(out, axis, 0, "gather_experts")
+
+    def broadcast(self, t: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank of the mesh (over each axis in turn)."""
+        t = t.contiguous()
+        for axis in axes:
+            if self.size(axis) > 1:
+                dist.broadcast(t, src=dist.get_global_rank(self.mesh.groups[axis], 0),
+                               group=self.mesh.groups[axis])
+                _count("broadcast")
+        return t
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardContext:
+    """What a rank's model needs to run its shard: the plan, the collectives,
+    each 2-D linear's role (``planner.linear_roles``), the attention heads it
+    holds and the vocab and expert slices."""
+    plan: object
+    coll: Collectives
+    roles: Dict[str, Optional[str]]
+    q_heads: int                    # query heads of this rank
+    kv_proj_heads: int              # kv heads its wk/wv project
+    kv_lo: int                      # first projected kv head its queries read
+    kv_heads: int                   # kv heads it stores and attends
+    embed_split: bool               # the embedding's vocab rows over "model"
+    head_split: bool                # the head's vocab columns over "model"
+    expert_axis: Optional[str]      # the axis experts split over, or None
+    tp_index: int                   # this rank's coordinate on "model"
+
+    def role(self, name: str) -> Optional[str]:
+        return self.roles.get(name)
+
+
+def make_shard_context(cfg, tree, plan, mesh, coll: Collectives) -> ShardContext:
+    """The :class:`ShardContext` of ``mesh``'s rank for the full ``tree`` under
+    ``plan``. Attention: ``tp_full`` holds H/tp query and Hkv/tp kv heads in
+    contiguous blocks; ``tp_kv_rep`` H/tp query heads, the kv projections whole
+    and, stored, the kv heads its queries read (query head h reads kv head h //
+    (H/Hkv) of the global h); ``tp_ffn`` everything."""
+    from repro_torch.sharding import planner
+
+    roles = planner.linear_roles(tree, cfg, plan, mesh)
+    tp, r = mesh.axis_size("model"), mesh.axis_index("model")
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q_heads, kv_proj, kv_lo, kv_heads = H, Hkv, 0, Hkv
+    if roles.get("wq") == "col":
+        q_heads = H // tp
+        if roles.get("wk") == "col":
+            kv_proj = kv_heads = Hkv // tp
+        else:
+            G = H // Hkv
+            h0, h1 = r * q_heads, (r + 1) * q_heads - 1
+            kv_lo, kv_hi = h0 // G, h1 // G
+            kv_heads = kv_hi - kv_lo + 1
+            if q_heads % kv_heads or any((h0 + j) // G - kv_lo != j // (q_heads // kv_heads)
+                                         for j in range(q_heads)):
+                raise planner.ShardingUnsupportedError(
+                    f"tp_kv_rep with {H} q / {Hkv} kv heads at tp={tp}: a rank's query "
+                    f"heads do not read whole, evenly shared kv heads")
+    embed_spec = planner.param_spec("embed/w", (cfg.vocab_padded, cfg.d_model), cfg, plan,
+                                    mesh)
+    embed_split = tp > 1 and embed_spec[-2] == "model"
+    head_split = embed_split if cfg.tie_embeddings else roles.get("lm_head") == "col"
+    expert_axis = None
+    if cfg.n_experts:
+        ax = plan.ep_axis if plan.moe_mode == "expert_axis" else (
+            "model" if plan.moe_mode == "ep" else None)
+        expert_axis = ax if ax is not None and mesh.axis_size(ax) > 1 else None
+    return ShardContext(plan, coll, roles, q_heads, kv_proj, kv_lo, kv_heads, embed_split,
+                        head_split, expert_axis, r)
+
+
+def token_group_count(n_tokens: int, dp: Optional[int] = None,
+                      token_groups: bool = True) -> int:
+    """Number of dp-aligned token groups for the grouped MoE dispatch: the data
+    axes' size ``dp`` where it divides the token count, else 1. Serving passes
+    ``token_groups=False`` (one global dispatch: the same capacity arithmetic as
+    one device); so does every path without data axes (``dp`` None)."""
+    if not token_groups or dp is None:
+        return 1
+    if dp >= (1 << 62) or n_tokens % dp != 0:
+        return 1
+    return dp

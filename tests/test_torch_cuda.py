@@ -1368,3 +1368,130 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
     y = ql.apply({"w": w["w"].clone().requires_grad_()}, xr, ql.FP, use_kernels=False)
     y.sum().backward()
     assert xr.grad is not None and torch.isfinite(xr.grad).all()
+
+
+# ---------------------------------------------------------------- row-parallel modes
+
+GIVEN_CASES = [(4, 2304), (4, 9216), (128, 2304), (128, 9216), (2048, 2304), (2048, 9216),
+               (3, 1000), (33, 40000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K", GIVEN_CASES)
+def test_act_quantize_given_max(dev, M, K, dtype):
+    """K1's given-max mode on each of two column shards of a row, the row max
+    given: bitwise the kernel's codes and scales on the whole row, sliced (the
+    tensor-parallel contract), on every body; against its plain version within
+    K1's tolerance, and bitwise at α = 1 (no ``pow``)."""
+    from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
+    ops, ref = _ops()
+    x, bcol, alpha = _act_inputs(dev, M, 2 * K, dtype, M * 7 + K)
+    x[0] = 0                                       # an all-zero row: the EPS floor
+    gmax = x.float().abs().amax(dim=-1)
+    for al in (alpha, torch.tensor(1.0, device=dev)):
+        qf, af = ops.act_quantize(x, bcol, al)
+        for s in range(2):
+            xs, bs = x[:, s * K:(s + 1) * K].contiguous(), bcol[s * K:(s + 1) * K].contiguous()
+            body, _ = act_quantize_plan(M, K)
+            before = ops.BODY_LAUNCHES[f"act_quantize/given_{body}"]
+            q, a = ops.act_quantize(xs, bs, al, row_max=gmax)
+            qr, ar = ref.act_quantize_ref(xs, bs, 8, al, row_max=gmax)
+            torch.cuda.synchronize()
+            assert ops.BODY_LAUNCHES[f"act_quantize/given_{body}"] == before + 1
+            assert torch.equal(a, af) and torch.equal(q, qf[:, s * K:(s + 1) * K])
+            if float(al) == 1.0:
+                assert torch.equal(q, qr) and torch.equal(a, ar)
+            else:
+                _check_act(q, a, qr, ar)
+            units = -(-K // 8)
+            for b, sp in (("rows", 1), ("split", max(2, min(8, units))), ("sweep", 1)):
+                if b == "rows" and K > 32768:
+                    continue
+                if b == "split" and -(-units // sp) > 2048:
+                    continue
+                q2, a2 = act_quantize_cuda(xs, bs, al, 0.0, 8, b, sp, row_max=gmax)
+                torch.cuda.synchronize()
+                assert torch.equal(q2, q) and torch.equal(a2, a), b
+
+
+ACC_CASES = [(4, 2304, 4608), (4, 9216, 4608), (128, 2304, 4608), (128, 9216, 4608),
+             (2048, 2304, 4608), (2048, 9216, 4608), (20, 4608 + 48, 496), (70, 300, 130)]
+
+
+@pytest.mark.parametrize("M,K,N", ACC_CASES)
+def test_qgemm_w8a8_acc_bitwise(dev, M, K, N):
+    """K2's int32-out mode, routed (counted under its body) and on each body
+    launched directly at several split counts: the exact int32 accumulator, equal
+    to the plain version, to ``torch._int_mm`` where it takes the shape, and to
+    K2's f32 output when dequantized in its epilogue order."""
+    from repro_torch.kernels.qgemm import (
+        qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan, qgemm_w8a8_wgmma_cuda)
+    ops, ref = _ops()
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M + K + N)
+    want = ref.qgemm_w8a8_acc_ref(qx, qw)
+    body, _ = qgemm_w8a8_plan(M, K, N)
+    before = ops.BODY_LAUNCHES[f"qgemm_w8a8/i32_{body}"]
+    acc = ops.qgemm_w8a8_acc(qx, qw)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/i32_{body}"] == before + 1
+    assert acc.dtype == torch.int32 and torch.equal(acc, want)
+    assert torch.equal((acc.float() * a) * sw, ops.qgemm_w8a8(qx, qw, a, sw))
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        assert torch.equal(acc, torch._int_mm(qx, qw))
+    assert torch.equal(qgemm_w8a8_cuda(qx, qw, None, None), want)
+    if K % 16 == 0 and N % 16 == 0:
+        for splits in (1, 3, 8):
+            if M <= 128 and splits <= -(-K // 64):
+                assert torch.equal(qgemm_w8a8_decode_cuda(qx, qw, None, None, splits), want)
+            if splits <= -(-K // 128):
+                assert torch.equal(qgemm_w8a8_wgmma_cuda(qx, qw, None, None, splits), want)
+
+
+@pytest.mark.parametrize("pattern", ["alt", "random", "ones"])
+@pytest.mark.parametrize("body,M,K,N,splits", [("decode", 4, 9216, 4608, 8),
+                                               ("wgmma", 128, 2304, 4608, 1),
+                                               ("wgmma", 300, 1040, 144, 3),
+                                               ("decode", 20, 4608 + 48, 496, 5)])
+def test_qgemm_w8a8_sparse_acc_bitwise(dev, body, M, K, N, splits, pattern):
+    """K7's int32-out mode (the SKIP instantiations without the dequant) on each
+    body, and routed: the plain masked int32 accumulator."""
+    from repro_torch.kernels.qgemm import (
+        qgemm_w8a8_sparse_cuda, qgemm_w8a8_sparse_decode_cuda, qgemm_w8a8_sparse_wgmma_cuda)
+    ops, ref = _ops()
+    qx, qw, a, sw, mask, occ = _sparse_inputs(dev, M, K, N, pattern, splits, M + K)
+    want = ref.qgemm_w8a8_sparse_acc_ref(qx, qw, mask)
+    launch = {"decode": qgemm_w8a8_sparse_decode_cuda,
+              "wgmma": qgemm_w8a8_sparse_wgmma_cuda}[body]
+    assert torch.equal(launch(qx, qw, None, None, occ, splits), want)
+    assert torch.equal(qgemm_w8a8_sparse_cuda(qx, qw, None, None, occ), want)
+    assert torch.equal(ops.qgemm_w8a8_sparse_acc(qx, qw, mask, occ), want)
+    assert torch.equal(ops.qgemm_w8a8_sparse_acc(qx, qw, mask), want)    # no occ: K2's
+
+
+def test_row_parallel_modes_graph_replay(dev):
+    """Captured in a CUDA graph, K1's given-max mode and K2's int32-out mode
+    replay to the same bits on every replay."""
+    ops, ref = _ops()
+    for M, K, N in ((4, 9216, 4608), (128, 2304, 4608)):
+        x, bcol, alpha = _act_inputs(dev, M, K, torch.bfloat16, M + K)
+        gmax = x.float().abs().amax(dim=-1) * 1.5        # a larger row elsewhere
+        qw = _w8a8_inputs(dev, M, K, N, K)[1]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ops.qgemm_w8a8_acc(ops.act_quantize(x, bcol, alpha, row_max=gmax)[0], qw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            q, a = ops.act_quantize(x, bcol, alpha, row_max=gmax)
+            acc = ops.qgemm_w8a8_acc(q, qw)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = (q.clone(), a.clone(), acc.clone())
+        assert torch.equal(acc, ref.qgemm_w8a8_acc_ref(q, qw))
+        for _ in range(3):
+            q.fill_(0)
+            acc.fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip((q, a, acc), first))

@@ -32,7 +32,8 @@ def test_imports_without_jax_triton_or_repro():
                      "core.awq", "core.quantizers", "core.qlinear", "models.quantize",
                      "models.frontends", "runtime.supervisor", "serving.server",
                      "training.optimizer", "training.compression", "training.trainer",
-                     "checkpoint.manager", "runtime.straggler", "launch.train"):
+                     "checkpoint.manager", "runtime.straggler", "launch.train",
+                     "launch.mesh", "sharding.planner", "sharding.collectives"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)
@@ -81,6 +82,27 @@ def test_train_example_runs_on_the_cpu_without_jax():
     assert "after 1 restart(s)" in out.stdout, out.stdout
 
 
+def test_sharded_launcher_runs_without_jax(tmp_path):
+    """``torchrun --nproc_per_node 2 -m repro_torch.launch.serve --mesh 1,2 --device
+    cpu`` serves the smoke config on a gloo world of two ranks with jax and the JAX
+    package made unimportable (stub packages that raise first on the path)."""
+    for name in ("jax", "jaxlib", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} blocked')\n")
+    torchrun = Path(sys.executable).with_name("torchrun")
+    out = subprocess.run(
+        [str(torchrun), "--standalone", "--nproc_per_node", "2", "-m", "repro_torch.launch.serve",
+         "--arch", "starcoder2-7b", "--smoke", "--mesh", "1,2", "--device", "cpu",
+         "--quant", "int8", "--path", "fused-int8", "--kv-cache", "int8",
+         "--n-requests", "3", "--max-new", "3"],
+        capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": f"{tmp_path}:{SRC}", "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("served 3 requests") == 1, out.stdout      # rank 0 reports
+    assert "mesh={'data': 1, 'model': 2} tier=tp_full" in out.stdout
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible: the no-card refusal cannot be exercised")
@@ -110,6 +132,14 @@ def test_entry_points_refuse_cuda_without_a_card():
         ServeEngine(cfg, params, config=EngineConfig(batch_size=1, max_len=16))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "starcoder2-7b", "--smoke"])     # default device: cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "starcoder2-7b", "--smoke", "--mesh", "1,2"])
+    from repro_torch.launch.mesh import make_debug_mesh
+    with pytest.raises(RuntimeError, match="cuda"):            # sharded: default cuda too
+        ServeEngine(cfg, params, config=EngineConfig(batch_size=1, max_len=16),
+                    mesh=make_debug_mesh(1, 1))
+    with pytest.raises(RuntimeError, match="need 2 processes"):
+        make_debug_mesh(1, 2)
     from repro_torch.serving.server import AsyncServer
     with pytest.raises(RuntimeError, match="cuda"):
         AsyncServer(cfg, params, config=EngineConfig(batch_size=1, max_len=16))
