@@ -69,7 +69,16 @@ Phases (any failure raises and exits non-zero):
    bitwise against the plain product and torch._int_mm (the library column), its
    accumulator dequantized in the epilogue order bitwise K2's output, timed beside
    K2's f32 body; K7's int32-out mode over alternating empty k-tiles; eager and
-   under graph replay.
+   under graph replay. Data-parallel, W4A8, expert_tp and SSM sharding ([3u]):
+   K8's group-acc mode (the (M, G, N) int32 per-group partials) at starcoder2-7b's
+   wo and down shards
+   at tp=2 (K=2304 and 9216, g128, N=4608; M=4, 128, 2048) on every body, bitwise
+   against the plain per-group product and timed beside K8's own mode; the
+   expert-batched K1 in its given-max mode and K2 in its int32-out mode at
+   granite-moe's down shard under expert_tp (E=40, K=256, N=1536; C=8 and 512),
+   bitwise (K1 against the whole rows sliced, and its plain version at α=1; within
+   K1's bar at α=0.15), timed beside their own modes; eager and under graph
+   replay.
    bf16 outputs (K3, K4-K6 with bf16 q) pass where within 2e-2 of the plain
    version or within one bf16 ulp of it rounded to bf16.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
@@ -161,13 +170,13 @@ Phases (any failure raises and exits non-zero):
    logits). The untied heads' runs feed the CPU the card's tokens and hubert's
    compare position by position: greedy choices equal wherever the CPU's top-1/
    top-2 margin exceeds twice the largest logit gap. The MoE models ([5m]):
-   granite at 2 layers (dense; paged ≡ dense on the card; capacity_factor 0.25,
+   granite at 1 layer (dense; paged ≡ dense on the card; capacity_factor 0.25,
    an admission that drops (token, k) pairs) and llama4-scout at 1 layer, each
    held three ways, since an int8 code one step apart swaps a near-tied expert:
    every routing the card met equals the CPU's on the same inputs, the card's
    kernels give its plain path's greedy tokens, and the CPU fed the card's
    tokens stays within twice what a one-ulp nudge of the embedding moves it.
-   The SSM and hybrid models ([5s]): mamba2 at 2 of 24 layers and zamba2 at 8
+   The SSM and hybrid models ([5s]): mamba2 at 1 of 24 layers and zamba2 at 8
    of 38 (a super-block, the shared block, the 2-layer tail), card against
    CPU: equal free-running greedy tokens and logits within 5e-2 of max|logit|,
    or, where a near tie parts the tokens, [5m]'s three-way bar; the paged
@@ -233,7 +242,28 @@ Phases (any failure raises and exits non-zero):
    the card before each collective, the collectives themselves (the peer rank's
    arrival included) and the host's remainder; then the same collectives alone,
    both ranks in step after a barrier, 20 times each. A failing rank fails the
-   run.
+   run. Data-parallel, W4A8, expert_tp and SSM sharding, each against the
+   single-device engine in this call: starcoder2-7b FULL at data 2 (paged, int8
+   KV, the shared-prefix traffic: each rank runs its own 2 slots against a whole
+   page pool, one allocator and radix index; one gather of the final hidden rows
+   and one K/V-row exchange a model call; a rank holds all the weights);
+   starcoder2-7b FULL W4A8 g128 at tp=2 over short prompts (the row-parallel wo
+   and down through K1's given-max mode and K8's group-acc mode,
+   the per-group products gathered in chunks of at most 256 MiB); granite-moe FULL
+   with its plan forced to expert_tp at tp=2 (every expert's d_ff_expert halved;
+   down through the expert-batched K1 given-max and K2 int32-out modes); mamba2-130m
+   and zamba2-1.2b FULL at tp=2 on the paged layout (the state heads over the two
+   ranks, in_proj's output and the scan's output gathered). Each: the single
+   engine's number of sampler calls; logits bitwise where the kernels carry every
+   product of both engines the same way (data 2, expert_tp, mamba2, zamba2), and
+   where they do not (W4A8: the group products summed after the gather, not in
+   K8's fold) every call's max|d logit| within 5e-2 of max|logit| up to the first
+   call whose greedy tokens part; a parting only at a near tie inside that bar
+   (the single engine's top-1/top-2 margin at most twice the call's max|d
+   logit|), else tokens equal; launches per body and collectives per call equal
+   the schedule; a rank's weight share printed and held near its expectation
+   (0.5 at tp=2, 1.0 at data 2). The norms' row statistics of 2 rows against the
+   same rows among 4 are counted (torch's mean, and the norms as served).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -413,10 +443,12 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
         import torch
         import torch.distributed as dist
 
+        from repro_torch.core.qlinear import W4_GATHER_BYTES
         from repro_torch.kernels import ops
         from repro_torch.kernels.act_quantize import act_quantize_plan
-        from repro_torch.kernels.qgemm import DECODE_MAX_M, qgemm_w8a8_plan
+        from repro_torch.kernels.qgemm import DECODE_MAX_M, qgemm_w4a8_plan, qgemm_w8a8_plan
         from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.sharding import planner as SP
         from repro_torch.models import model as M
         from repro_torch.models.moe import capacity
         from repro_torch.models.quantize import quantized_bytes
@@ -474,6 +506,10 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
         for run in job["runs"]:
             label, cfg = run["label"], run["cfg"]
             mesh = make_debug_mesh(*run["mesh"])
+            plan = None
+            if run.get("moe_mode"):
+                plan = dataclasses.replace(SP.make_serve_plan(cfg, mesh),
+                                           moe_mode=run["moe_mode"])
             seen = []
             make = E._make_sampler
 
@@ -491,7 +527,7 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
             E._make_sampler = recording
             try:
                 engine = E.ServeEngine(cfg, job["trees"][run["tree"]], quant=run["quant"],
-                                       device=dev, mesh=mesh,
+                                       device=dev, mesh=mesh, plan=plan,
                                        config=EngineConfig(**run["config"]))
             finally:
                 E._make_sampler = make
@@ -499,9 +535,9 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
             attr = "_admit_cold" if engine.paged else "_admit_step"
             admit, buckets = getattr(engine, attr), []
 
-            def counted(p, tokens, *rest):
+            def counted(p, tokens, *rest, **kw):
                 buckets.append(tokens.shape[1])
-                return admit(p, tokens, *rest)
+                return admit(p, tokens, *rest, **kw)
 
             setattr(engine, attr, counted)
             rows, ms, split = [], [], []
@@ -544,29 +580,49 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
             calls = c["prefill_calls"] + c["decode_steps"]
             if len(rows) != calls:
                 raise RuntimeError(f"[8] {label}: {len(rows)} model calls != {calls} steps")
+            # the schedule: each (K, N, n) linear n times a model call, on the rows
+            # this rank runs (its own slots' under data-parallel slots)
             L = cfg.n_layers
             want = {name: 0 for name in ops.BODY_LAUNCHES}
+            want_c = {name: 0 for name in SC.COUNTS}
+            for name, n in run["collectives_per_call"].items():
+                want_c[name] = n * calls
             for m in rows:
-                for K, N in run["linears"]:
-                    want[f"act_quantize/{act_quantize_plan(m, K)[0]}"] += L
-                    want[f"qgemm_w8a8/{qgemm_w8a8_plan(m, K, N)[0]}"] += L
-                for K, N in run["row_linears"]:
-                    want[f"act_quantize/given_{act_quantize_plan(m, K)[0]}"] += L
-                    want[f"qgemm_w8a8/i32_{qgemm_w8a8_plan(m, K, N)[0]}"] += L
+                for K, N, n in run["linears"]:
+                    want[f"act_quantize/{act_quantize_plan(m, K)[0]}"] += n
+                    want[f"qgemm_w8a8/{qgemm_w8a8_plan(m, K, N)[0]}"] += n
+                for K, N, n in run["row_linears"]:
+                    want[f"act_quantize/given_{act_quantize_plan(m, K)[0]}"] += n
+                    want[f"qgemm_w8a8/i32_{qgemm_w8a8_plan(m, K, N)[0]}"] += n
+                for K, N, n in run.get("w4_linears", ()):
+                    want[f"act_quantize/{act_quantize_plan(m, K)[0]}"] += n
+                    want[f"qgemm_w4a8/{qgemm_w4a8_plan(m, K, N, 128)[0]}"] += n
+                for K, N, n in run.get("w4_row_linears", ()):
+                    # K1 once on all rows; K8's group-acc and the gather per chunk of
+                    # rows whose gathered (rows, G, N) f32 block fits W4_GATHER_BYTES
+                    want[f"act_quantize/given_{act_quantize_plan(m, K)[0]}"] += n
+                    chunk = max(1, W4_GATHER_BYTES // (K * mesh.axis_size("model") // 128
+                                                       * N * 4))
+                    for m0 in range(0, m, chunk):
+                        mc = min(chunk, m - m0)
+                        want[f"qgemm_w4a8/gacc_{qgemm_w4a8_plan(mc, K, N, 128)[0]}"] += n
+                        want_c["gather_groups"] += n
                 El, C = run["experts_local"], capacity(m, cfg) if run["experts"] else 0
                 for K, N in run["experts"]:
                     want[f"act_quantize/experts_{act_quantize_plan(El * C, K)[0]}"] += L
                     want[f"qgemm_w8a8/experts_{qgemm_w8a8_plan(C, K, N, experts=El)[0]}"] += L
-            want["flash_attention/bf16_mma"] = L * sum(b >= 128 for b in buckets)
-            want["paged_attention/bf16_mma"] = L * c["decode_steps"] if engine.paged else 0
+                for K, N in run.get("experts_row", ()):
+                    want[f"act_quantize/experts_given_{act_quantize_plan(El * C, K)[0]}"] += L
+                    want[f"qgemm_w8a8/experts_i32_{qgemm_w8a8_plan(C, K, N, experts=El)[0]}"] \
+                        += L
+            La = run.get("attn_layers", L)            # attention applications a call
+            want["flash_attention/bf16_mma"] = La * sum(b >= 128 for b in buckets)
+            want["paged_attention/bf16_mma"] = La * c["decode_steps"] if engine.paged else 0
             if bodies != want:
                 raise RuntimeError(f"[8] {label} rank {rank}: body launches "
                                    f"{ {k: v for k, v in bodies.items() if v} } != schedule "
                                    f"{ {k: v for k, v in want.items() if v} } (rows {rows}, "
                                    f"cold buckets {buckets})")
-            want_c = {name: 0 for name in SC.COUNTS}
-            for name, n in run["collectives_per_call"].items():
-                want_c[name] = n * calls
             if counts != want_c:
                 raise RuntimeError(f"[8] {label} rank {rank}: collectives {counts} != "
                                    f"schedule {want_c} over {calls} model calls")
@@ -588,7 +644,8 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                 tok_s=sum(len(r.out) for r in done) / dt,
                 call_ms=float(np.median(small)) if small else None,
                 shard_bytes=shard_bytes, peak=torch.cuda.max_memory_allocated() - mem0,
-                plan=engine.plan.describe())
+                plan=engine.plan.describe(), slot_groups=engine.dp,
+                prefix_hits=c["prefix_hits"], peak_pages=c["peak_pages_in_use"])
             del engine, done
             torch.cuda.empty_cache()
         for n in raw:
@@ -2133,6 +2190,189 @@ def main() -> int:
         del qx, qw, qxp
     # [3t] end
 
+    # [3u] Data-parallel, W4A8, expert_tp and SSM sharding: three kernel modes at
+    # their shard shapes.
+    # K8's group-acc mode (a row-parallel W4A8 linear: each group's int32 partial
+    # written as out[m, g, n], gathered across the ranks before the group dequant) at
+    # starcoder2-7b's wo and down shards at tp=2 (K = 2304 and 9216, g128: 18 and 72
+    # groups; N = 4608), M = 4, 128 and 2048: every body that takes the shape bitwise
+    # against the plain per-group product, eager and under graph replay, timed beside
+    # K8's own (f32, group-folded) mode on the same body and shape. The expert-batched
+    # K1 in its given-max mode and the expert-batched K2 in its int32-out mode at
+    # granite-moe's down shard under expert_tp at tp=2 (E = 40, d_ff_expert 512 / 2 =
+    # 256 input columns, N = 1536), C = 8 (decode) and 512 (a 4 x 512 admission): K1
+    # bitwise the whole rows' codes and scales, sliced, and against its plain version
+    # bitwise at α = 1, within K1's bar at α = 0.15, timed beside its own-max mode; K2
+    # bitwise the plain int32 einsum on the routed and tile bodies, its accumulators
+    # dequantized in K2's epilogue order bitwise the expert-batched K2, timed beside
+    # that f32 mode. No single PyTorch call computes any of the three (library None).
+    print(f"[3u] start at {time.perf_counter() - t_start:.1f}s")
+    gen_u = torch.Generator(device=dev)
+    gen_u.manual_seed(2525)
+    N_u, G_u = 4608, 128
+    for Mr, K in [(m, k) for m in (4, 128, 2048) for k in (2304, 9216)]:
+        G = K // G_u
+        qx = torch.randint(-127, 128, (Mr, K), generator=gen_u, device=dev, dtype=torch.int8)
+        n_copies = max(1, min(32, math.ceil(3 * L2_BYTES / (K * N_u // 2))))
+        qws = [torch.randint(-128, 128, (K // 2, N_u), generator=gen_u, device=dev,
+                             dtype=torch.int8) for _ in range(n_copies)]
+        qw4 = qws[0]
+        a = torch.rand(Mr, 1, generator=gen_u, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(G, N_u, generator=gen_u, device=dev) * 0.01 + 1e-4
+        routed, _ = qgemm_w4a8_plan(Mr, K, N_u, G_u)
+        splits, wsplits = w4a8_decode_splits(K, N_u, G_u), w4a8_wgmma_splits(Mr, K, N_u, G_u)
+        bodies = {"tile": lambda i=0: qgemm_w4a8_cuda(qx, qws[i % n_copies], None, None, G_u)}
+        own = {"tile": lambda i=0: qgemm_w4a8_cuda(qx, qws[i % n_copies], a, sw, G_u)}
+        if Mr <= 128:
+            bodies["decode"] = lambda i=0: qgemm_w4a8_decode_cuda(
+                qx, qws[i % n_copies], None, None, G_u, splits)
+            own["decode"] = lambda i=0: qgemm_w4a8_decode_cuda(qx, qws[i % n_copies], a, sw,
+                                                               G_u, splits)
+        if Mr > DECODE_MAX_M:
+            bodies["wgmma"] = lambda i=0: qgemm_w4a8_wgmma_cuda(
+                qx, qws[i % n_copies], None, None, G_u, wsplits)
+            own["wgmma"] = lambda i=0: qgemm_w4a8_wgmma_cuda(qx, qws[i % n_copies], a, sw, G_u,
+                                                             wsplits)
+        before = dict(ops.BODY_LAUNCHES)
+        acc = ops.qgemm_w4a8_group_acc(qx, qw4, group=G_u)
+        check(ops.BODY_LAUNCHES[f"qgemm_w4a8/gacc_{routed}"]
+              == before[f"qgemm_w4a8/gacc_{routed}"] + 1,
+              f"[3u] K8 group-acc M={Mr} K={K} did not run the {routed} body")
+        want = ref.qgemm_w4a8_group_acc_ref(qx, qw4, G_u)
+        torch.cuda.synchronize()
+        check(acc.dtype == torch.int32 and acc.shape == (Mr, G, N_u) and torch.equal(acc, want),
+              f"[3u] K8 group-acc M={Mr} K={K}: not bitwise the plain per-group product")
+        for b, fn in bodies.items():
+            check(torch.equal(fn(), want) and torch.equal(replay(fn)[0], want),
+                  f"[3u] K8 group-acc {b} body M={Mr} K={K}: not bitwise (eager or replay)")
+        folded = (acc.float() * sw).sum(dim=-2) * a
+        k8 = ops.qgemm_w4a8(qx, qw4, a, sw, group=G_u)
+        d_fold = float((folded - k8).abs().max() / k8.abs().max())
+        body_ms = {}
+        for b in [routed] + [b for b in bodies if b != routed] + [routed]:
+            t = graph_ms(bodies[b], 20 if Mr >= 512 else 50)
+            body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
+        ms = body_ms[routed]
+        own_ms = graph_ms(own[routed], 20 if Mr >= 512 else 50)
+        cms = time_ms(lambda i=0: ops.qgemm_w4a8_group_acc(qx, qws[i % n_copies], group=G_u), 50)
+        pms = graph_ms(lambda i=0: ref.qgemm_w4a8_group_acc_ref(qx, qws[i % n_copies], G_u), 3)
+        nbytes = Mr * K + K * N_u // 2 + Mr * G * N_u * 4
+        bms, by = bound(nbytes, 2 * Mr * N_u * K, PEAK_OPS["int8"])
+        results[(f"qgemm_w4a8/gacc_{routed}", Mr, K)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+            max_abs_err=0.0, body_ms=body_ms, own_body_ms=own_ms, gb_s=nbytes / ms / 1e6)
+        times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+        print(f"[3u] qgemm_w4a8 group-acc M={Mr} K={K} N={N_u} g{G_u} ({G} groups): routed to "
+              f"the {routed} body (decode splits {splits}, wgmma splits {wsplits}) "
+              f"kernel_ms={ms:.4f} ({times}; K8's own group-folded {routed} body on the same "
+              f"shape {own_ms:.4f}) call_ms={cms:.4f} plain_ms={pms:.4f} library_ms=None "
+              f"bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f}; bitwise=True (plain, "
+              f"every body eager and graph replay); folded in the plain order vs K8 "
+              f"{d_fold:.2e} of max|y|")
+        del qws, qw4, acc, want, folded, k8
+    E_u, K_u, Nd_u = 40, 256, 1536
+    for C_u in (8, 512):
+        x = (torch.randn(E_u, C_u, 2 * K_u, generator=gen_u, device=dev) * 2).to(torch.bfloat16)
+        x[:, :, torch.randperm(2 * K_u, generator=gen_u, device=dev)[:4]] *= 30
+        x[0, C_u // 2:] = 0
+        bcol = torch.rand(E_u, 2 * K_u, generator=gen_u, device=dev) * 3 + 0.25
+        gmax = x.float().abs().amax(dim=-1)
+        xs, bs = x[..., :K_u].contiguous(), bcol[:, :K_u].contiguous()
+        routed, splits = act_quantize_plan(E_u * C_u, K_u)
+        worst = (0, 0, 0)
+        for alpha_v in (1.0, 0.15):
+            alpha = torch.full((E_u,), alpha_v, device=dev)
+            qf, af = ops.act_quantize_experts(x, bcol, alpha)
+            before = dict(ops.BODY_LAUNCHES)
+            q, a = ops.act_quantize_experts(xs, bs, alpha, row_max=gmax)
+            check(ops.BODY_LAUNCHES[f"act_quantize/experts_given_{routed}"]
+                  == before[f"act_quantize/experts_given_{routed}"] + 1,
+                  f"[3u] expert given-max C={C_u} did not run the {routed} body")
+            qr, ar = ref.act_quantize_experts_ref(xs, bs, 8, alpha, row_max=gmax)
+            call = (lambda: act_quantize_cuda(xs.reshape(E_u * C_u, K_u), bs, alpha, 0.0, 8,
+                                              routed, splits, rows_per_expert=C_u,
+                                              row_max=gmax.reshape(-1)))
+            for qb, ab in ((q, a), tuple(t.reshape(s.shape) for t, s in zip(replay(call),
+                                                                             (q, a)))):
+                torch.cuda.synchronize()
+                check(torch.equal(qb, qf[..., :K_u]) and torch.equal(ab, af),
+                      f"[3u] expert given-max C={C_u} α={alpha_v}: not bitwise the whole "
+                      f"rows' codes and scales, sliced")
+                d = (qb.int() - qr.int()).abs()
+                n_off = int((d > 0).sum())
+                a_ulps = int((ab.view(torch.int32) - ar.view(torch.int32)).abs().max())
+                if alpha_v == 1.0:
+                    check(n_off == 0 and a_ulps == 0, f"[3u] expert given-max α=1 C={C_u}: "
+                          f"{n_off} codes, {a_ulps}-ulp scales differ from the plain version")
+                else:
+                    check(int(d.max()) <= 1 and n_off <= 1e-5 * q.numel() and a_ulps <= 1,
+                          f"[3u] expert given-max α=0.15 C={C_u}: max |dq|={int(d.max())}, "
+                          f"off={n_off}, a {a_ulps} ulp")
+                worst = max(worst, (int(d.max()), n_off, a_ulps))
+        ms = min(graph_ms(once(call), 200), graph_ms(once(call), 200))
+        own_ms = graph_ms(once(lambda: act_quantize_cuda(
+            xs.reshape(E_u * C_u, K_u), bs, alpha, 0.0, 8, routed, splits,
+            rows_per_expert=C_u)), 200)
+        cms = time_ms(once(lambda: ops.act_quantize_experts(xs, bs, alpha, row_max=gmax)), 200)
+        pms = graph_ms(once(lambda: ref.act_quantize_experts_ref(xs, bs, 8, alpha,
+                                                                 row_max=gmax)), 3)
+        rows_u = E_u * C_u
+        nbytes = rows_u * K_u * 2 + E_u * K_u * 4 + E_u * 4 + rows_u * 4 + rows_u * K_u + rows_u * 4
+        bms, by = bound(nbytes, 6 * rows_u * K_u, PEAK_OPS["f32"])
+        results[(f"act_quantize/experts_given_{routed}", E_u, C_u, K_u)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+            max_abs_err=float(worst[0]), own_body_ms=own_ms)
+        print(f"[3u] act_quantize experts given-max E={E_u} C={C_u} K={K_u} bf16 (one of two "
+              f"column shards): {routed} body kernel_ms={ms:.4f} (its own-max mode on the "
+              f"same shape {own_ms:.4f}) call_ms={cms:.4f} plain_ms={pms:.4f} library_ms=None "
+              f"bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f}; bitwise the whole "
+              f"rows', sliced; vs plain max|dq|={worst[0]} off_by_one<={worst[1]}/{q.numel()} "
+              f"a_max_ulp={worst[2]} (bitwise at α=1; eager and graph replay)")
+        qx = torch.randint(-127, 128, (E_u, C_u, K_u), generator=gen_u, device=dev,
+                           dtype=torch.int8)
+        qx[1, C_u // 2:] = 0
+        qw = torch.randint(-127, 128, (E_u, K_u, Nd_u), generator=gen_u, device=dev,
+                           dtype=torch.int8)
+        a = torch.rand(E_u, C_u, 1, generator=gen_u, device=dev) + 0.01
+        sw = torch.rand(E_u, Nd_u, generator=gen_u, device=dev) + 0.01
+        routed, splits = qgemm_w8a8_plan(C_u, K_u, Nd_u, experts=E_u)
+        before = dict(ops.BODY_LAUNCHES)
+        acc = ops.qgemm_w8a8_experts_acc(qx, qw)
+        check(ops.BODY_LAUNCHES[f"qgemm_w8a8/experts_i32_{routed}"]
+              == before[f"qgemm_w8a8/experts_i32_{routed}"] + 1,
+              f"[3u] expert int32-out C={C_u} did not run the {routed} body")
+        want = ref.qgemm_w8a8_experts_acc_ref(qx, qw)
+        bodies = {"tile": lambda: qgemm_w8a8_cuda(qx, qw, None, None, experts=E_u)}
+        fn = {"decode": qgemm_w8a8_decode_cuda, "wgmma": qgemm_w8a8_wgmma_cuda}.get(routed)
+        if fn is not None:
+            bodies[routed] = lambda: fn(qx, qw, None, None, splits, experts=E_u)
+        torch.cuda.synchronize()
+        check(torch.equal(acc, want), f"[3u] expert int32-out C={C_u}: not bitwise the plain")
+        check(torch.equal((acc.float() * a) * sw[:, None], ops.qgemm_w8a8_experts(qx, qw, a, sw)),
+              f"[3u] expert int32-out C={C_u}: dequantized in the epilogue order != K2's")
+        for b, f in bodies.items():
+            check(torch.equal(f(), want) and torch.equal(replay(f)[0], want),
+                  f"[3u] expert int32-out {b} body C={C_u}: not bitwise (eager or replay)")
+        body_ms = {b: graph_ms(once(f), 50) for b, f in bodies.items()}
+        ms = min(body_ms[routed], graph_ms(once(bodies[routed]), 50))
+        own_ms = graph_ms(once(lambda: ops.qgemm_w8a8_experts(qx, qw, a, sw)), 50)
+        cms = time_ms(once(lambda: ops.qgemm_w8a8_experts_acc(qx, qw)), 50)
+        pms = graph_ms(once(lambda: ref.qgemm_w8a8_experts_acc_ref(qx, qw)), 3)
+        nbytes = E_u * C_u * K_u + E_u * K_u * Nd_u + E_u * C_u * Nd_u * 4
+        bms, by = bound(nbytes, 2 * E_u * C_u * K_u * Nd_u, PEAK_OPS["int8"])
+        results[(f"qgemm_w8a8/experts_i32_{routed}", E_u, C_u, K_u, Nd_u)] = dict(
+            ms=ms, call_ms=cms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+            max_abs_err=0.0, body_ms=body_ms, f32_body_ms=own_ms, gb_s=nbytes / ms / 1e6)
+        times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+        print(f"[3u] qgemm_w8a8 experts int32-out E={E_u} C={C_u} K={K_u} N={Nd_u}: routed to "
+              f"the {routed} body (splits {splits}) kernel_ms={ms:.4f} ({times}; the "
+              f"expert-batched K2's f32 mode on the same shape {own_ms:.4f}) call_ms={cms:.4f} "
+              f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.4f} ({by}) "
+              f"GB/s={nbytes / ms / 1e6:.0f}; bitwise=True (plain, routed and tile bodies "
+              f"eager and graph replay)")
+        del x, xs, qf, q, qr, qx, qw, acc, want
+    # [3u] end
+
     # ---------------------------------------------------------------- phase 4
     print(f"[4] start at {time.perf_counter() - t_start:.1f}s")
     cfg = get("starcoder2-7b")
@@ -2735,11 +2975,12 @@ def main() -> int:
     from repro_torch.serving.config import NotPortedError
     from repro_torch.serving.engine import make_prefill_step
 
-    def build(name, seed, frames=0, **cut):
+    def build(name, seed, frames=0, w4=False, **cut):
         """A FULL config (cut by ``cut``: depth, dtype, window), its f32 tree from a
         seeded generator on the card, calibrated with the launcher's traffic (an
         audio model: 2 batches of 4 x ``frames`` seeded frames) and quantized to
-        W8A8 static-c CrossQuant; the f32 tree is freed. Returns (cfg, W8A8 tree)."""
+        W8A8 static-c CrossQuant; the f32 tree is freed. Returns (cfg, W8A8 tree),
+        and with ``w4`` also the W4A8 g128 tree from the same tables."""
         c = dataclasses.replace(get(name), **cut)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2759,6 +3000,7 @@ def main() -> int:
             tables_ = calibrate(params, c, quant, calib_batches=2, seq_len=16,
                                 batch_size=BATCH, seed=seed)
         qtree = quantize_tree(params, quant, tables=tables_)
+        q4tree = quantize_tree(params, quant4, tables=tables_) if w4 else None
         del params, tables_
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2768,7 +3010,7 @@ def main() -> int:
               f"{'(frames)' if frames else ''}+PTQ {time.perf_counter() - t0:.1f}s, f32 "
               f"{fp_b / 2**30:.2f} GiB -> W8A8 {quantized_bytes(qtree) / 2**30:.2f} GiB; "
               f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        return c, qtree
+        return (c, qtree, q4tree) if w4 else (c, qtree)
 
     cfg_g, qparams_g = build("gemma2-9b", 9)
     check(cfg_g.n_layers == 42 and cfg_g.d_model == 3584 and cfg_g.head_dim == 256
@@ -3824,7 +4066,7 @@ def main() -> int:
               f"row) pairs whose margin exceeds 2 x err, at {int(same_.sum())} of all")
         return gt_, n_drop
 
-    cfg_m2, p2m, p2m_cpu = build2("granite-moe-3b-a800m", 40)
+    cfg_m2, p2m, p2m_cpu = build2("granite-moe-3b-a800m", 40, n_layers=1)
     tl_m = prompts_for(cfg_m2, [150, 131], 256, 40)
     with torch.no_grad():
         reset5()
@@ -3879,7 +4121,7 @@ def main() -> int:
     # the gap.
     print(f"[5s] start at {time.perf_counter() - t_start:.1f}s")
     t_s5 = time.perf_counter()
-    for name, seed, n_layers in (("mamba2-130m", 60, 2), ("zamba2-1.2b", 61, 8)):
+    for name, seed, n_layers in (("mamba2-130m", 60, 1), ("zamba2-1.2b", 61, 8)):
         c, p_card, p_cpu = build2(name, seed, n_layers=n_layers)
         spec = M.block_spec(c)
         n_attn = spec.n_blocks if spec.shared_attn else 0
@@ -4530,28 +4772,39 @@ def main() -> int:
     # every logits row its sampler saw bitwise equal, launches per body and
     # collectives per model call equal the schedule, weights about half the single
     # engine's (starcoder2). Times are of 2 ranks sharing one H100 over gloo, beside
-    # the single-device engine's in this call: nothing is claimed.
+    # the single-device engine's in this call: nothing is claimed. Then
+    # starcoder2-7b at data 2 (paged, int8 KV, the shared-prefix
+    # traffic: each rank its own 2 slots, a whole pool, one hidden-row gather and
+    # one K/V-row exchange a call), W4A8 g128 at tp=2 over short prompts (K8's
+    # group-acc mode in wo and down), granite-moe forced to expert_tp at tp=2 (the
+    # expert-batched K1 given-max and K2 int32-out modes in down), mamba2-130m and
+    # zamba2-1.2b at tp=2 (paged; the state heads split), each against the
+    # single-device engine on the same tree and traffic.
     print(f"[8] start at {time.perf_counter() - t_start:.1f}s; {nvidia_smi_line()}")
     t_s8 = time.perf_counter()
     import socket
 
     import torch.multiprocessing as tmp
 
-    cfg8, q8 = build("starcoder2-7b", 0)
+    cfg8, q8, q8w4 = build("starcoder2-7b", 0, w4=True)
     cfg8m, q8m = build("granite-moe-3b-a800m", 30)
-    full_bytes = {"sc": quantized_bytes(q8), "granite": quantized_bytes(q8m)}
-    print(f"[8] trees built in {time.perf_counter() - t_s8:.1f}s: starcoder2-7b W8A8 "
-          f"{full_bytes['sc'] / 2**30:.2f} GiB, granite-moe W8A8 "
-          f"{full_bytes['granite'] / 2**30:.2f} GiB")
+    cfg8s, _, q8s = build_ssm("mamba2-130m", 50)
+    cfg8z, _, q8z = build_ssm("zamba2-1.2b", 51)
+    torch.cuda.empty_cache()
+    trees8 = {"sc": q8, "w4": q8w4, "granite": q8m, "mamba": q8s, "zamba": q8z}
+    full_bytes = {k: quantized_bytes(v) for k, v in trees8.items()}
+    print(f"[8] trees built in {time.perf_counter() - t_s8:.1f}s: "
+          + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in full_bytes.items()))
+    L8 = cfg8.n_layers
     d8, hd8, kv8, ff8 = cfg8.d_model, cfg8.n_heads * cfg8.head_dim, \
         cfg8.n_kv_heads * cfg8.head_dim, cfg8.d_ff
+    tp_coll = {"sum_i32": 2 * L8, "max_f32": 2 * L8, "sum_f32": 1, "gather_vocab": 1}
     sc_runs = dict(cfg=cfg8, tree="sc", quant=quant, mesh=(1, 2), experts=(),
-                   experts_local=0,
-                   linears=[(d8, hd8 // 2), (d8, kv8 // 2), (d8, kv8 // 2), (d8, ff8 // 2)],
-                   row_linears=[(hd8 // 2, d8), (ff8 // 2, d8)],
-                   collectives_per_call={"sum_i32": 2 * cfg8.n_layers,
-                                         "max_f32": 2 * cfg8.n_layers, "sum_f32": 1,
-                                         "gather_vocab": 1})
+                   experts_local=0, share=0.5, bitwise="first",
+                   linears=[(d8, hd8 // 2, L8), (d8, kv8 // 2, L8), (d8, kv8 // 2, L8),
+                            (d8, ff8 // 2, L8)],
+                   row_linears=[(hd8 // 2, d8, L8), (ff8 // 2, d8, L8)],
+                   collectives_per_call=tp_coll)
     dm, fm = cfg8m.d_model, cfg8m.d_ff_expert
     prompts8 = make_prompts(cfg8.vocab, LENS, BATCH, seed=0)     # phase 4's first four
     rng8 = np.random.default_rng(8)
@@ -4559,24 +4812,73 @@ def main() -> int:
     shared8 = [np.concatenate([system8, rng8.integers(1, cfg8.vocab, size=n).astype(np.int32)])
                for n in SUFFIXES[:BATCH]]
     prompts8m = make_prompts(cfg8m.vocab, LENS, BATCH, seed=30)  # [4m]'s first four
+    # W4A8 at tp=2 on short prompts (buckets 32 and 64): the gathered group partials
+    # of an admission stay under the 256 MiB chunk, down's 2.65 MB a row
+    prompts8w = make_prompts(cfg8.vocab, [20, 33, 47, 60], BATCH, seed=5)
+    dense_cfg = dict(batch_size=BATCH, max_len=MAX_LEN, path="fused-int8", kv_cache="int8")
+    paged_cfg = dict(dense_cfg, cache_layout="paged")
+    Ha, ssm_cfg = cfg8z.n_heads * cfg8z.head_dim, dict(paged_cfg, prefix_reuse=False)
+    n_sh = cfg8z.n_layers // cfg8z.attn_every
     runs8 = [
         dict(sc_runs, label="starcoder2-7b tp=2 dense int8 KV", reqs=prompts8,
-             max_new=MAX_NEW, config=dict(batch_size=BATCH, max_len=MAX_LEN,
-                                          path="fused-int8", kv_cache="int8")),
+             max_new=MAX_NEW, config=dense_cfg),
         dict(sc_runs, label="starcoder2-7b tp=2 paged int8 KV shared prefix",
-             reqs=shared8, max_new=MAX_NEW,
-             config=dict(batch_size=BATCH, max_len=MAX_LEN, path="fused-int8",
-                         kv_cache="int8", cache_layout="paged")),
+             reqs=shared8, max_new=MAX_NEW, config=paged_cfg, bitwise="all"),
         dict(label="granite-moe ep=2 dense int8 KV", cfg=cfg8m, tree="granite", quant=quant,
-             mesh=(1, 1, 2), reqs=prompts8m, max_new=MAX_NEW,
-             config=dict(batch_size=BATCH, max_len=MAX_LEN, path="fused-int8",
-                         kv_cache="int8"),
-             linears=linear_shapes(cfg8m)[:4], row_linears=[],
-             experts=[(dm, fm), (dm, fm), (fm, dm)], experts_local=cfg8m.n_experts // 2,
+             mesh=(1, 1, 2), reqs=prompts8m, max_new=MAX_NEW, config=dense_cfg,
+             linears=[(K, N, cfg8m.n_layers) for K, N in linear_shapes(cfg8m)[:4]],
+             row_linears=[], experts=[(dm, fm), (dm, fm), (fm, dm)],
+             experts_local=cfg8m.n_experts // 2, share=None, bitwise="all",
              collectives_per_call={"gather_experts": cfg8m.n_layers}),
+        # data-parallel slots, W4A8 under TP, expert_tp, SSM and hybrid
+        dict(sc_runs, label="starcoder2-7b data=2 paged int8 KV shared prefix",
+             mesh=(2, 1), reqs=shared8, max_new=MAX_NEW, config=paged_cfg, share=1.0,
+             bitwise="all", single="starcoder2-7b tp=2 paged int8 KV shared prefix",
+             linears=[(K, N, L8) for K, N in linear_shapes(cfg8)], row_linears=[],
+             collectives_per_call={"gather_slots": 1, "gather_pages": 1}),
+        dict(sc_runs, label="starcoder2-7b W4A8 tp=2 dense int8 KV short prompts",
+             tree="w4", quant=quant4, reqs=prompts8w, max_new=MAX_NEW // 2, config=dense_cfg,
+             bitwise="bar", linears=[], row_linears=[],
+             w4_linears=sc_runs["linears"], w4_row_linears=sc_runs["row_linears"],
+             collectives_per_call={"max_f32": 2 * L8, "sum_f32": 1, "gather_vocab": 1}),
+        dict(label="granite-moe expert_tp tp=2 dense int8 KV", cfg=cfg8m, tree="granite",
+             quant=quant, mesh=(1, 2), moe_mode="expert_tp", reqs=prompts8m,
+             max_new=MAX_NEW, config=dense_cfg, share=0.5, bitwise="all",
+             single="granite-moe ep=2 dense int8 KV",
+             linears=[(dm, N // 2, cfg8m.n_layers) for K, N in linear_shapes(cfg8m)[:3]],
+             row_linears=[(cfg8m.n_heads * cfg8m.head_dim // 2, dm, cfg8m.n_layers)],
+             experts=[(dm, fm // 2), (dm, fm // 2)], experts_row=[(fm // 2, dm)],
+             experts_local=cfg8m.n_experts, collectives_per_call=dict(
+                 tp_coll, sum_i32=2 * cfg8m.n_layers, max_f32=2 * cfg8m.n_layers)),
+        dict(label="mamba2-130m tp=2 paged", cfg=cfg8s, tree="mamba", quant=quant,
+             mesh=(1, 2), reqs=make_prompts(cfg8s.vocab, LENS, BATCH, seed=50),
+             max_new=MAX_NEW // 2, config=ssm_cfg, share=0.5, bitwise="all", attn_layers=0,
+             linears=[(cfg8s.d_model, (2 * cfg8s.d_inner + 2 * cfg8s.ssm_state
+                                       + cfg8s.ssm_heads) // 2, cfg8s.n_layers)],
+             row_linears=[(cfg8s.d_inner // 2, cfg8s.d_model, cfg8s.n_layers)],
+             experts=(), experts_local=0,
+             collectives_per_call={"sum_i32": cfg8s.n_layers, "max_f32": cfg8s.n_layers,
+                                   "gather_cols": 2 * cfg8s.n_layers, "sum_f32": 1,
+                                   "gather_vocab": 1}),
+        dict(label="zamba2-1.2b tp=2 paged", cfg=cfg8z, tree="zamba", quant=quant,
+             mesh=(1, 2), reqs=make_prompts(cfg8z.vocab, LENS, BATCH, seed=51),
+             max_new=MAX_NEW // 2, config=ssm_cfg, share=0.5, bitwise="all",
+             attn_layers=n_sh,
+             linears=[(cfg8z.d_model, (2 * cfg8z.d_inner + 2 * cfg8z.ssm_state
+                                       + cfg8z.ssm_heads) // 2, cfg8z.n_layers)]
+             + [(cfg8z.d_model, N // 2, n_sh) for N in (Ha, Ha, Ha, cfg8z.d_ff, cfg8z.d_ff)],
+             row_linears=[(cfg8z.d_inner // 2, cfg8z.d_model, cfg8z.n_layers),
+                          (Ha // 2, cfg8z.d_model, n_sh), (cfg8z.d_ff // 2, cfg8z.d_model, n_sh)],
+             experts=(), experts_local=0,
+             collectives_per_call={"sum_i32": cfg8z.n_layers + 2 * n_sh,
+                                   "max_f32": cfg8z.n_layers + 2 * n_sh,
+                                   "gather_cols": 2 * cfg8z.n_layers, "sum_f32": 1,
+                                   "gather_vocab": 1}),
     ]
     single8 = {}
     for run in runs8:                  # the single-device engine on the same trees
+        if "single" in run:            # the same tree, config and traffic as another run
+            continue
         seen8 = []
         make8 = serving_engine._make_sampler
 
@@ -4590,7 +4892,7 @@ def main() -> int:
 
         serving_engine._make_sampler = recording8
         try:
-            eng8 = ServeEngine(run["cfg"], q8 if run["tree"] == "sc" else q8m, quant=quant,
+            eng8 = ServeEngine(run["cfg"], trees8[run["tree"]], quant=run["quant"],
                                device=dev, config=EngineConfig(**run["config"]))
         finally:
             serving_engine._make_sampler = make8
@@ -4626,7 +4928,7 @@ def main() -> int:
         port8 = sk.getsockname()[1]
     ctx8 = tmp.get_context("spawn")
     queue8 = ctx8.Queue()
-    job8 = dict(runs=runs8, trees={"sc": q8, "granite": q8m})
+    job8 = dict(runs=runs8, trees=trees8)
     procs8 = [ctx8.Process(target=tp_rank, args=(r, port8, job8, queue8)) for r in (0, 1)]
     for pr in procs8:
         pr.start()
@@ -4644,40 +4946,77 @@ def main() -> int:
                 pr.join()
     check(all(pr.exitcode == 0 for pr in procs8),
           f"[8] rank exit codes {[pr.exitcode for pr in procs8]}")
-    # Logits: every sampler call (admissions, then decode steps) bitwise where the
-    # hand-written kernels carry the attention (paged: K4) or attention is whole
-    # (ep=2). The dense layout's decode attention is plain torch (as the
-    # reference's): its two einsums run as cuBLAS batched f32 GEMMs over (slot, kv
-    # head), whose algorithm cuBLAS picks by the batch count, so a rank holding 2
-    # of the 4 kv heads may round a score differently from one device holding
-    # all 4 (measured in this PR: equal at some shapes, not at others). There the
-    # admissions and the first decode step are held bitwise and later steps are
-    # reported.
+    # Logits: every rank makes the single-device engine's sampler calls (one
+    # allocator and radix index, the same admissions), and each call is compared.
+    # "all": every call bitwise, where the hand-written kernels carry the attention
+    # (paged: K4) or attention is whole (ep=2). "first": the admissions and the
+    # first decode step bitwise: the dense layout's decode attention is plain torch
+    # (as the reference's), two einsums run as cuBLAS batched f32 GEMMs over (slot,
+    # kv head) whose algorithm cuBLAS picks by the batch count, so a rank holding 2
+    # of the 4 kv heads may round a score otherwise than one device holding all 4.
+    # "bar": no call bitwise: W4A8 at tp=2 sums the group products after the
+    # gather, in another order than the single device's K8 fold. Past the bitwise
+    # calls, every call up to the first where a row's greedy token
+    # parts holds max|d logit| <= LOGIT_BAR * max|logit| (the drift bounded, not
+    # only the tokens), and a parting must be a near tie inside that bar: the
+    # single engine's top-1/top-2 margin on the parting rows at most twice the
+    # call's max|d logit|. Later calls see other tokens and are not compared.
+    LOGIT_BAR = 5e-2        # 2.4x the largest drift read before (2.07e-2, W4A8 tp=2)
     p8_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
     logit_faults = []
+
+    def drift(got_l, one_l, held):
+        """Calls ``held`` onwards up to the first parting: (index of the parting
+        call or None, the largest max|d logit| / max|logit| of those calls, the
+        parting rows' largest top-1/top-2 margin and the call's max|d logit|)."""
+        worst = 0.0
+        for i in range(held, len(one_l)):
+            a2 = got_l[i].reshape(-1, got_l[i].shape[-1]).astype(np.float64)
+            b2 = one_l[i].reshape(-1, one_l[i].shape[-1]).astype(np.float64)
+            dmax = float(np.abs(a2 - b2).max())
+            worst = max(worst, dmax / float(np.abs(b2).max()))
+            rows_ = np.nonzero(a2.argmax(-1) != b2.argmax(-1))[0]
+            if len(rows_):
+                top2 = np.sort(b2[rows_], axis=-1)[:, -2:]
+                return i, worst, float((top2[:, 1] - top2[:, 0]).max()), dmax
+        return None, worst, 0.0, 0.0
+
     for run in runs8:
-        lab, one = run["label"], single8[run["label"]]
-        dense_split = run["mesh"][1] > 1 and run["config"].get("cache_layout") != "paged"
+        lab = run["label"]
+        one = single8[run.get("single", lab)]
+        policy = run["bitwise"]
         for rk in (0, 1):
             got = ranks8[rk][lab]
-            check(got["tokens"] == one["tokens"],
-                  f"[8] {lab} rank {rk}: tokens {got['tokens']} != single-device "
-                  f"{one['tokens']}")
             check(len(got["logits"]) == len(one["logits"]),
-                  f"[8] {lab} rank {rk}: {len(got['logits'])} sampler calls != "
-                  f"{len(one['logits'])}")
-            held = got["prefill_calls"] + 1 if dense_split else len(one["logits"])
+                  f"[8] {lab} rank {rk}: {len(got['logits'])} sampler calls != the single "
+                  f"engine's {len(one['logits'])}")
+            held = {"all": len(one["logits"]), "first": got["prefill_calls"] + 1,
+                    "bar": 0}[policy]
             differ = [i for i, (a_, b_) in enumerate(zip(got["logits"], one["logits"]))
                       if not np.array_equal(a_, b_)]
             if differ:
-                worst = max(float(np.abs(got["logits"][i] - one["logits"][i]).max()
-                                  / np.abs(one["logits"][i]).max()) for i in differ)
                 note = (f"{lab} rank {rk}: {len(differ)} of {len(one['logits'])} sampler "
-                        f"calls' logits differ (first call {differ[0]}; worst |d| "
-                        f"{worst:.3e} of max|logit|; calls 0..{held - 1} held bitwise)")
+                        f"calls' logits differ (first call {differ[0]}; "
+                        + (f"calls 0..{held - 1} held bitwise)" if held else "none held "
+                           "bitwise)"))
                 print(f"[8] logits: {note}")
                 if differ[0] < held:
                     logit_faults.append(note)
+            part, worst, margin, dmax = drift(got["logits"], one["logits"], held)
+            got["drift"], got["part"] = worst, part
+            check(worst <= LOGIT_BAR, f"[8] {lab} rank {rk}: logits drift {worst:.3e} of "
+                  f"max|logit| before the tokens part (call {part}), over the bar {LOGIT_BAR}")
+            check(part is not None or got["tokens"] == one["tokens"],
+                  f"[8] {lab} rank {rk}: tokens {got['tokens']} != single-device "
+                  f"{one['tokens']} with every call's argmax equal")
+            if part is not None:
+                check(margin <= 2 * dmax, f"[8] {lab} rank {rk}: tokens part at sampler "
+                      f"call {part} with a top-1/top-2 margin {margin:.3e} > 2 x |d| "
+                      f"{dmax:.3e}: not a near tie")
+                print(f"[8] {lab} rank {rk}: tokens part from the single engine's at a near "
+                      f"tie: sampler call {part}, top-1/top-2 margin {margin:.3e} <= 2 x |d| "
+                      f"{dmax:.3e}, the drift up to it {worst:.3e} <= {LOGIT_BAR} of "
+                      f"max|logit|")
         check(all(np.array_equal(a_, b_) for a_, b_ in zip(ranks8[0][lab]["logits"],
                                                            ranks8[1][lab]["logits"])),
               f"[8] {lab}: the two ranks' logits differ")
@@ -4685,18 +5024,23 @@ def main() -> int:
         for name in p8_bodies:
             p8_bodies[name] += r0["bodies"][name]
         ratio = r0["shard_bytes"] / full_bytes[run["tree"]]
-        if run["tree"] == "sc":
-            check(0.45 <= ratio <= 0.56, f"[8] {lab}: a rank holds {ratio:.3f} of the weights")
-        print(f"[8] {lab}: plan {r0['plan']['tier']}/{r0['plan']['moe_mode']} tp="
-              f"{r0['plan']['tp']} ep={r0['plan']['ep']}; tokens equal the single-device "
-              f"engine's on both ranks; of {len(one['logits'])} sampler calls "
-              f"{'the admissions and the first decode step' if dense_split else 'every one'}"
-              f" held bitwise; "
-              f"{r0['calls']} model calls, launches per body and collectives "
-              f"{ {k: v for k, v in r0['collectives'].items() if v} } equal the schedule on "
-              f"both ranks; rank weights {r0['shard_bytes'] / 2**30:.2f} GiB = {ratio:.3f} of "
-              f"the single engine's {full_bytes[run['tree']] / 2**30:.2f} GiB, rank peak "
-              f"{r0['peak'] / 2**30:.2f} GiB over what it held before")
+        if run["share"] is not None:
+            check(abs(ratio - run["share"]) <= 0.06,
+                  f"[8] {lab}: a rank holds {ratio:.3f} of the weights, not ~{run['share']}")
+        held_txt = {"all": "every one", "first": "the admissions and the first decode step",
+                    "bar": "none"}[policy]
+        print(f"[8] {lab}: plan {r0['plan']['tier']}/{r0['plan']['moe_mode']} dp="
+              f"{r0['plan']['dp']} tp={r0['plan']['tp']} ep={r0['plan']['ep']}, slot groups "
+              f"{r0['slot_groups']}; tokens "
+              f"{'equal' if r0['tokens'] == one['tokens'] else 'part at a near tie from'} "
+              f"the single-device engine's on rank 0; of {len(one['logits'])} sampler calls "
+              f"{held_txt} held bitwise, the rest up to a parting within {r0['drift']:.3e} <= "
+              f"{LOGIT_BAR} of max|logit|; {r0['calls']} model calls, launches per body and "
+              f"collectives { {k: v for k, v in r0['collectives'].items() if v} } equal the "
+              f"schedule on both ranks; rank weights {r0['shard_bytes'] / 2**30:.3f} GiB = "
+              f"{ratio:.3f} of the single engine's {full_bytes[run['tree']] / 2**30:.3f} GiB, "
+              f"rank peak {r0['peak'] / 2**30:.2f} GiB over what it held before; prefix hits "
+              f"{r0['prefix_hits']}, peak pages {r0['peak_pages']}")
         print(f"[8]   {lab}: 2 ranks sharing one H100 over gloo {r0['tok_s']:.1f} tok/s, "
               f"model call {r0['call_ms']:.1f} ms (rank 1 {ranks8[1][lab]['tok_s']:.1f} tok/s, "
               f"{ranks8[1][lab]['call_ms']:.1f} ms); the single-device engine in this call "
@@ -4734,8 +5078,28 @@ def main() -> int:
     head_half = xd @ wd[:v2].T.to(torch.bfloat16)
     print(f"[8] tied head bf16, vocab split in 2: "
           f"{int((head_full[:, :v2] != head_half).sum())} of {head_half.numel()} differ")
-    del qd, kd, sc_full, sc_half, pd, out_full, out_half, xd, wd, head_full, head_half
-    del q8, q8m, job8
+    # Why a data rank's norms are served through F.layer_norm / F.rms_norm: the
+    # f32 row statistics of a rank's 2 rows against the same rows among one
+    # device's 4 (d_model 4608, 64 seeded draws), in the two-pass form training
+    # and the CPU keep (torch's mean) and as norm_apply serves them on the card.
+    # Counted, not held ([8]'s data-2 run holds the served logits).
+    from repro_torch.models import layers as layers8
+    pn = {"scale": torch.ones(cfg8.d_model, device=dev),
+          "bias": torch.zeros(cfg8.d_model, device=dev)}
+    cfg_rms = dataclasses.replace(cfg8, norm="rmsnorm")
+    n_mu = n_ln = n_rms = 0
+    for _ in range(64):
+        xn = torch.randn(BATCH, 1, cfg8.d_model, generator=gd, device=dev) * 3
+        n_mu += int((xn.mean(-1)[:2] != xn[:2].mean(-1)).sum())
+        n_ln += int((layers8.norm_apply(pn, xn, cfg8)[:2]
+                     != layers8.norm_apply(pn, xn[:2], cfg8)).sum())
+        n_rms += int((layers8.norm_apply(pn, xn, cfg_rms)[:2]
+                      != layers8.norm_apply(pn, xn[:2], cfg_rms)).sum())
+    print(f"[8] norms of 2 rows against the same rows among 4 (d_model {cfg8.d_model}, 64 "
+          f"draws, f32): torch's mean differs at {n_mu} of 128 rows; served layernorm "
+          f"outputs at {n_ln}, rmsnorm outputs at {n_rms} of {128 * cfg8.d_model}")
+    del qd, kd, sc_full, sc_half, pd, out_full, out_half, xd, wd, head_full, head_half, xn
+    del q8, q8w4, q8m, q8s, q8z, trees8, job8
     torch.cuda.empty_cache()
     print(f"[8] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s8:.1f}s "
           f"for sharded serving)")
@@ -4831,6 +5195,21 @@ def main() -> int:
         ("qgemm_w8a8/i32_wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
          "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/i32_wgmma", 2048, 9216, 4608),
          "M=2048 K=9216 N=4608, int32-out mode, wgmma body", "phase 8"),
+        ("qgemm_w4a8/gacc_decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/gacc_decode", 4, 9216),
+         "M=4 K=9216 N=4608 g128 (starcoder2 down at tp=2), group-acc mode, split-K decode "
+         "body", "phase 8"),
+        ("qgemm_w4a8/gacc_wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/gacc_wgmma", 2048, 9216),
+         "M=2048 K=9216 N=4608 g128, group-acc mode, wgmma body", "phase 8"),
+        ("act_quantize/experts_given_rows", "src/repro_torch/csrc/act_quantize.cu",
+         "src/repro/kernels/act_quantize.py:29", ("act_quantize/experts_given_rows", 40, 8, 256),
+         "E=40 C=8 K=256 bf16 (granite down at expert_tp tp=2), expert-batched given-max "
+         "mode, rows body", "phase 8"),
+        ("qgemm_w8a8/experts_i32_decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/experts_i32_decode", 40, 8, 256, 1536),
+         "E=40 C=8 K=256 N=1536 (granite down at expert_tp tp=2), expert-batched int32-out "
+         "mode, split-K decode body", "phase 8"),
     ]
     kernels = []
     for name, source, replaces, key, shape, counted in kernel_rows:

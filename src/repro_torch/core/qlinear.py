@@ -181,7 +181,8 @@ def _apply_fake(params: dict, x: torch.Tensor, cfg: QuantConfig):
 # ======================================================================================
 
 def prepare_int8(params: dict, cfg: QuantConfig,
-                 cmax: Optional[torch.Tensor] = None, *, jitted: bool = False) -> dict:
+                 cmax: Optional[torch.Tensor] = None, *, jitted: bool = False,
+                 wmax_reduce=None) -> dict:
     """Offline weight preparation: fold b_j = c_j^(1-α) into W, per-output-channel
     int8 quantization. Returns a prepared parameter dict (raw ``w`` dropped).
     Without column statistics α degrades to 1 (exact per-token int8).
@@ -189,7 +190,11 @@ def prepare_int8(params: dict, cfg: QuantConfig,
     ``jitted=True`` divides by qmax as the reference does inside a jitted step
     (XLA multiplies by the f32 reciprocal): the form of the on-the-fly
     preparation in :func:`apply`, which the reference runs inside its serving
-    steps; offline ``quantize_tree`` runs eagerly there, a true division."""
+    steps; offline ``quantize_tree`` runs eagerly there, a true division.
+
+    ``wmax_reduce`` (a row-parallel shard of the weight's input rows) maps the
+    shard's per-output-channel maxima to the whole weight's (a MAX across the
+    ranks), so ``sw`` and the codes are those of the whole weight, sliced."""
     w = params["w"]
     cm = cmax if cmax is not None else params.get("cmax")
     alpha_eff = cfg.alpha if cm is not None else 1.0
@@ -201,7 +206,10 @@ def prepare_int8(params: dict, cfg: QuantConfig,
         b = b[..., None, :]
     b = b.expand(w.shape[:-1])
     wb = w * b[..., :, None]
-    wmax = torch.clamp_min(wb.abs().amax(dim=-2, keepdim=True), Q.EPS)
+    wmax = wb.abs().amax(dim=-2, keepdim=True)
+    if wmax_reduce is not None:
+        wmax = wmax_reduce(wmax).to(wmax.dtype)
+    wmax = torch.clamp_min(wmax, Q.EPS)
     sw = wmax * (1.0 / Q.qmax(cfg.w_bits)) if jitted else wmax / Q.qmax(cfg.w_bits)
     qm = Q.qmax(cfg.w_bits)
     qw = torch.clamp(torch.round(wb / sw), -qm, qm).to(torch.int8)
@@ -429,12 +437,14 @@ def _unsupported(msg: str):
     return ShardingUnsupportedError(msg)
 
 
+#: bytes of gathered per-group products a row-parallel W4 linear holds at once: it
+#: runs its rows in chunks of at most this many bytes of (rows, G, N) f32
+W4_GATHER_BYTES = 256 << 20
+
+
 def _check_sharded(params: dict, cfg: QuantConfig) -> None:
-    if "qw4" in params:
-        from repro_torch.sharding.planner import ShardedW4A8Error
-        raise ShardedW4A8Error("a W4A8 (qw4) linear split over the mesh needs K8's "
-                               "per-group int32 partials (ROADMAP A4: W4A8 under TP)")
-    if "qw" not in params and cfg.mode == "fake" and not cfg.w_prequantized and (
+    if "qw" not in params and "qw4" not in params and cfg.mode == "fake" and \
+            not cfg.w_prequantized and (
             cfg.w_quant != "per_channel"
             or cfg.act_quant not in ("crossquant", "per_token", "none")):
         raise _unsupported(f"fake quantization {cfg.tag()} on a split linear: only "
@@ -447,11 +457,14 @@ def apply_column_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard
                           int_exec: Optional[str] = None) -> torch.Tensor:
     """A column-parallel linear: x whole on every rank, the weight's (and its
     ``sw``'s, ``mask``'s) output columns this rank's; the product is this rank's
-    output columns. Every path computes column by column as on one device,
-    except that fake quantization's per-input-channel weight scale reduces over
-    all the output columns: their maxima take a MAX across the ranks."""
+    output columns. Every path computes column by column as on one device (a W4
+    linear runs K8 on its columns, the group scales split with them), except that
+    fake quantization's per-input-channel weight scale reduces over all the output
+    columns: their maxima take a MAX across the ranks. A stacked expert linear
+    (expert-internal TP: x (E, C, d) whole, each expert's d_ff_expert columns this
+    rank's) computes the same way."""
     _check_sharded(params, cfg)
-    if "qw" in params or cfg.mode != "fake" or cfg.w_prequantized:
+    if "qw" in params or "qw4" in params or cfg.mode != "fake" or cfg.w_prequantized:
         return apply(params, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
     w = params["w"]
     t = shard.coll.max_f32(w.abs().amax(dim=-1, keepdim=True)).to(w.dtype)
@@ -473,12 +486,23 @@ def apply_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *
     K2's epilogue order, (f32(acc) · a) · sw: bitwise the single-device product.
     The dequant-fp, fp and fake paths sum f32 partial products instead (close,
     not bitwise, as in the reference); fake quantization's row absmax is the MAX
-    across ranks and its column statistics are this rank's columns'."""
+    across ranks and its column statistics are this rank's columns'. Under
+    ``mode="int8"`` raw weights are prepared on the fly from this rank's columns'
+    statistics, their per-output-channel maxima a MAX across the ranks.
+
+    A stacked expert linear (expert-internal TP: x (E, C, d_ff_expert/tp), each
+    expert's matching input rows) runs the expert-batched K1 in its given-max mode
+    and K2 in its int32-out mode, then the same SUM and dequant. A W4 linear
+    (``qw4``, its groups split with its rows) runs :func:`_w4_row_parallel`."""
     _check_sharded(params, cfg)
     coll = shard.coll
     lead, K = x.shape[:-1], x.shape[-1]
+    exec_mode = "kernel" if use_kernels else (int_exec or "ref")
+    if "qw4" in params:
+        return _w4_row_parallel(params, x, cfg, shard, exec_mode)
+    if "qw" in params and _stacked(x, params["qw"]):
+        return _experts_row_parallel(params, x, cfg, shard, exec_mode)
     if "qw" in params:
-        exec_mode = "kernel" if use_kernels else (int_exec or "ref")
         gmax = coll.max_f32(x.abs().amax(dim=-1))
         alpha = params.get("qalpha")
         if exec_mode == "kernel":
@@ -504,17 +528,101 @@ def apply_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *
     w = params["w"]
     if cfg.mode == "fp":
         return coll.sum_f32(x @ w.to(x.dtype))
-    if cfg.mode != "fake":
-        raise _unsupported(f"mode={cfg.mode!r} on raw weights of a row-parallel linear: "
-                           "prepare the tree (models.quantize.quantize_tree) before "
-                           "serving it sharded")
     cm = params.get("cmax")
     if cm is not None and cm.shape[-1] != K:          # calibrated over the whole d_in
         cm = cm[..., shard.tp_index * K:(shard.tp_index + 1) * K]
+    if cfg.mode == "int8":
+        # prepared on the fly: the column max of this rank's columns (its rows are
+        # whole), the weight's output-channel maxima across the ranks
+        prepared = prepare_int8({"w": w}, cfg, cmax=cm if cm is not None else _col_absmax(x),
+                                jitted=True, wmax_reduce=coll.max_f32)
+        return apply_row_parallel(prepared, x, cfg, shard, use_kernels=use_kernels,
+                                  int_exec=int_exec)
+    if cfg.mode != "fake":
+        raise ValueError(cfg.mode)
     t = coll.max_f32(x.abs().amax(dim=-1, keepdim=True)).to(x.dtype)
     xq = _fake_act(x, cfg, cm, t=t)
     wq = w if cfg.w_prequantized else _fake_weight(w, cfg)
     return coll.sum_f32(xq @ wq.to(xq.dtype))
+
+
+def _experts_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard,
+                          exec_mode: str) -> torch.Tensor:
+    """A prepared W8A8 expert stack's row-parallel product (expert-internal TP): x
+    (E, C, K/tp); each (e, c) row's absmax is the MAX of the ranks' maxima, the
+    activation quantizes in the expert-batched K1's given-max mode, the
+    expert-batched K2 emits its (E, C, N) int32 accumulators, they SUM across the
+    ranks, and the dequant runs last in K2's epilogue order, (f32(acc) · a) · sw:
+    bitwise the single-device stack. dequant-fp sums f32 partial products."""
+    coll = shard.coll
+    gmax = coll.max_f32(x.abs().amax(dim=-1))                         # (E, C)
+    alpha = params.get("qalpha")
+    sw = params["sw"][:, None, :]
+    if exec_mode == "kernel":
+        from repro_torch.kernels import ops
+        qx, a = ops.act_quantize_experts(x.contiguous(), params["bcol"],
+                                         cfg.alpha if alpha is None else alpha,
+                                         bits=cfg.a_bits, row_max=gmax.contiguous())
+        acc = ops.qgemm_w8a8_experts_acc(qx, params["qw"])
+        return ((coll.sum_i32(acc).to(torch.float32) * a) * sw).to(x.dtype)
+    qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=alpha, row_max=gmax[..., None])
+    if exec_mode == "dequant":
+        part = (qx.to(torch.float32) * a) @ (params["qw"].to(torch.float32) * sw)
+        return coll.sum_f32(part).to(x.dtype)
+    acc = torch.matmul(qx.to(torch.float64), params["qw"].to(torch.float64))
+    acc = coll.sum_i32(acc.to(torch.int32))
+    return (acc.to(torch.float32) * a * sw).to(x.dtype)
+
+
+def _w4_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard,
+                     exec_mode: str) -> torch.Tensor:
+    """A row-parallel W4 linear: x holds this rank's K/tp input columns, ``qw4``
+    the matching packed rows, whole groups of ``cfg.w_group`` (the model axis
+    divides the group count), and ``sw`` this rank's groups' scales (the planner
+    splits them with the rows; a replicated ``sw`` is sliced here).
+
+    The row absmax is the MAX of the ranks' maxima; the activation quantizes in
+    K1's given-max mode; K8's group-acc mode emits the (M, G/tp, N) int32
+    per-group partials; each rank scales its own groups, f32(acc) · sw
+    (elementwise: the single device's values), the products are gathered along the
+    groups in rank order, and the group sum and row scale run last in the order of
+    :func:`_int4_matmul_ref`, (Σ_g f32(acc) · sw) · a: bitwise the single-device
+    plain product. The rows run in chunks whose gathered (rows, G, N) f32 block
+    holds at most :data:`W4_GATHER_BYTES`. dequant-fp sums f32 partial products."""
+    from repro_torch.kernels import ops, ref
+
+    coll = shard.coll
+    lead, K = x.shape[:-1], x.shape[-1]
+    g = cfg.w_group
+    qw4, sw = params["qw4"], params["sw"]
+    n_local = K // g
+    if sw.shape[-2] != n_local:                       # replicated: this rank's groups
+        sw = sw[..., shard.tp_index * n_local:(shard.tp_index + 1) * n_local, :]
+    x2 = x.reshape(-1, K)
+    gmax = coll.max_f32(x2.abs().amax(dim=-1))
+    alpha = params.get("qalpha")
+    if exec_mode == "kernel":
+        qx, a = ops.act_quantize(x2.contiguous(), params["bcol"],
+                                 cfg.alpha if alpha is None else alpha, bits=cfg.a_bits,
+                                 row_max=gmax.contiguous())
+    else:
+        qx, a = quantize_act_int8(x2, params["bcol"], cfg, alpha=alpha,
+                                  row_max=gmax[:, None])
+    N = qw4.shape[-1]
+    if exec_mode == "dequant":
+        part = (qx.to(torch.float32) * a) @ dequant_int4_weight(qw4, sw, g)
+        return coll.sum_f32(part).reshape(*lead, N).to(x.dtype)
+    G = n_local * coll.size("model")
+    rows = max(1, W4_GATHER_BYTES // (G * N * 4))
+    outs = []
+    for m0 in range(0, qx.shape[0], rows):
+        q = qx[m0:m0 + rows]
+        acc = (ops.qgemm_w4a8_group_acc(q, qw4, group=g) if exec_mode == "kernel"
+               else ref.qgemm_w4a8_group_acc_ref(q, qw4, g))
+        prod = coll.gather_groups(acc.to(torch.float32) * sw)
+        outs.append(prod.sum(dim=-2) * a[m0:m0 + rows])
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return y.reshape(*lead, N).to(x.dtype)
 
 
 def apply_expert_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, axis: str,

@@ -38,6 +38,9 @@
 // row, the MAX all-reduce of the shards' local maxima. Every body then skips its
 // reduction (the split body its cluster barriers too) and takes t_i = max(given_i,
 // 1e-8), so the codes and scales are bitwise those of the full row, sliced.
+// The two modes compose (expert-batched given-max): under expert-internal tensor
+// parallelism a stacked down projection holds d_ff_expert / tp of each expert's
+// (e, c) row, and row r reads its expert r / C's factors and the given max tmax[r].
 // Expert-batched (a stacked-expert linear, E experts' dispatch buffers of C rows
 // each, one launch): every body takes the (E*C, K) rows as they lie and row r reads
 // the column factors bcol[r / C] and exponent alpha[r / C] of its expert; the rows
@@ -429,7 +432,8 @@ REPRO_API const char* repro_cuda_error_string(int code) {
 // expert r / C's factors. A 2-D activation passes rows_per_expert = M.
 // Given-max mode: row_max (M,) f32, when not null, holds each row's absmax taken
 // outside (a row-parallel linear's MAX all-reduce of its shards' maxima); the body
-// skips its reduction and floors the given max at 1e-8 once.
+// skips its reduction and floors the given max at 1e-8 once. It composes with the
+// expert-batched layout (row_max (E*C,), one max per expert row).
 REPRO_API int repro_act_quantize(const void* x, int x_dtype, const float* bcol,
                                  const float* alpha_ptr, float alpha_val,
                                  const float* row_max, int8_t* q, float* a, int M, int K,

@@ -38,6 +38,13 @@
 // g128, read once per split and group: each warp's 32 columns, a float4 per lane
 // shared by its four k-lanes).
 //
+// Modes for tensor parallelism (a == nullptr, sw unread): K2's int32-out mode
+// writes the split-summed int32 accumulator (expert-batched too: a stacked down
+// projection under expert-internal TP sums it across ranks before its dequant);
+// K8's group-acc mode writes each group's int32 partial as out[m, g, n], (M,
+// K/group, N), where the group flush would fold it through sw: a split owns whole
+// groups, so a block stores its own groups and skips the cluster reduction.
+//
 // Design:
 // - Roles swapped: the tensor cores compute out^T = qw^T * qx^T with
 //   mma.sync.m16n8k32.s8, so the weight is the 16-row A operand and the M
@@ -142,15 +149,20 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   const int S = gridDim.y, split = blockIdx.y;   // cluster (1, S, 1): rank == split
   // expert-batched K2 (grid z = E): expert z's (M, K) rows, (K, N) weight, scales and
   // (M, N) output; z = 0 for a 2-D product
+  // int32-out mode (a == nullptr; sw unread): K2 stores the summed int32 accumulator
+  // undequantized, for a row-parallel linear's cross-shard SUM (expert-batched too);
+  // K8 (group-acc) stores each group's int32 partial as out[m, g, n], (M, K/group, N),
+  // for a row-parallel W4 linear's gather of the group partials
+  const bool i32 = a == nullptr;
   const size_t ez = blockIdx.z;
   qx += ez * M * K;
   qw += ez * K * N;
-  a += ez * M;
-  sw += ez * N;
+  if (!i32) {
+    a += ez * M;
+    sw += ez * N;
+  }
   out += ez * M * N;
-  // int32-out mode (a == nullptr, never expert-batched): store the summed int32
-  // accumulator undequantized, for a row-parallel linear's cross-shard SUM
-  int* const out_i32 = a == nullptr ? reinterpret_cast<int*>(out) : nullptr;
+  int* const out_i32 = i32 ? reinterpret_cast<int*>(out) : nullptr;
   int kbeg = 0, kend = K, steps;
   int* list = reinterpret_cast<int*>(smem + smem_bytes<MT, W4>()) + kListHead;   // K7
   if constexpr (SKIP) {           // this split's share of the block's occupied k-tiles
@@ -227,7 +239,7 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
     const int kdone = kbeg + (t + 1) * BK;
     const bool flush = W4 && kdone % group == 0;
     float4 swg = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (flush && n0 + 32 * warp + 4 * g < N)        // N % 16 == 0: all four or none
+    if (flush && !i32 && n0 + 32 * warp + 4 * g < N)  // N % 16 == 0: all four or none
       swg = *reinterpret_cast<const float4*>(sw + (size_t)(kdone / group - 1) * N + n0 +
                                              32 * warp + 4 * g);
 #pragma unroll
@@ -272,7 +284,24 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
         mma_s8(acc[j][1], a1, b);
       }
     }
-    if (flush) {
+    if (flush && i32) {
+      // group-acc mode: the group's int32 partial to out[m, g, n]; clear.
+      // acc[j][i][2h + e] <-> n = n0 + 32 warp + 4g + 2i + h, m = 8j + 2tg + e
+      const int G = K / group, gi = kdone / group - 1;
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int m = 8 * j + 2 * tg + e, n = n0 + 32 * warp + 4 * g + 2 * i + h;
+              int& p = acc[j][i][2 * h + e];
+              if (m < M && n < N) out_i32[((size_t)m * G + gi) * N + n] = p;
+              p = 0;
+            }
+    } else if (flush) {
       // end of a group: f32 += f32(int32 partial) * sw[g, n]; clear. acc[j][i][2h + e]
       // <-> n = 32 warp + 4g + 2i + h: scale component 2i + h
       const float sc[4] = {swg.x, swg.y, swg.z, swg.w};
@@ -292,6 +321,9 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
     }
   }
   async_wait<0>();
+  // group-acc mode: every group's partial is stored, and no split shares a group,
+  // so there is nothing to reduce (uniform over the cluster: no barrier waits)
+  if (W4 && i32) return;
   __syncthreads();               // the ring is drained: reuse it for the partials
 
   // partials [m][n_local], int32 (K2) or f32 (K8): acc[j][i][2h + e] <-> n = 32 warp +
@@ -408,16 +440,15 @@ int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw
 // splits: 1..8 and at most ceil(K/64), so no split is empty; M in 1..128; K and N
 // multiples of 16; qx and qw 16-byte aligned. experts = E > 1: a stacked-expert
 // linear, qx (E, M, K), qw (E, K, N), a (E, M), sw (E, N), out (E, M, N), expert e
-// on grid z. a == nullptr (sw then unread, experts == 1): int32-out mode, out is
-// (M, N) int32, the accumulator summed over the splits in int32. The wrapper picks
-// splits (kernels/qgemm.py::decode_splits) and checks the rest.
+// on grid z. a == nullptr (sw then unread): int32-out mode, out is (M, N) int32 (or
+// (E, M, N) expert-batched), the accumulator summed over the splits in int32. The
+// wrapper picks splits (kernels/qgemm.py::decode_splits) and checks the rest.
 REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const float* a,
                                       const float* sw, float* out, int M, int N, int K,
                                       int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
-      splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535 ||
-      (a == nullptr && experts != 1))
+      splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<false, false>(qx, qw, a, sw, nullptr, out, M, N, K, 0, splits,
                                 static_cast<cudaStream_t>(stream), experts);
@@ -441,8 +472,9 @@ REPRO_API int repro_qgemm_w8a8_sparse_decode(const int8_t* qx, const int8_t* qw,
 
 // qw4 (K/2, N) packed int4, sw (K/group, N) f32; group a positive multiple of 64
 // dividing K; splits 1..8 and at most K/group; M in 1..128; N a multiple of 16; qx,
-// qw4 and sw 16-byte aligned. The wrapper picks splits
-// (kernels/qgemm.py::w4a8_decode_splits) and checks the rest.
+// qw4 and sw 16-byte aligned. a == nullptr (sw then unread): group-acc mode, out
+// is (M, K/group, N) int32, each group's partial sum of products undequantized. The
+// wrapper picks splits (kernels/qgemm.py::w4a8_decode_splits) and checks the rest.
 REPRO_API int repro_qgemm_w4a8_decode(const int8_t* qx, const int8_t* qw4, const float* a,
                                       const float* sw, float* out, int M, int N, int K,
                                       int group, int splits, void* stream) {

@@ -90,11 +90,16 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   // expert-batched K2 (grid z = E): expert z's (M, K) rows, (K, N) weight, scales
   // and (M, N) output; z = 0 for a 2-D product
+  // int32-out mode (a == nullptr; sw unread): W8 writes the accumulator, W4 each
+  // group's partial as out[m, g, n], (M, K/group, N) int32 (group-acc)
+  const bool i32 = a == nullptr;
   const size_t ez = blockIdx.z;
   qx += ez * M * K;
   qw += ez * K * N;
-  a += ez * M;
-  sw += ez * N;
+  if (!i32) {
+    a += ez * M;
+    sw += ez * N;
+  }
   out += ez * M * N;
 
   int acc[2][4][4];
@@ -183,7 +188,25 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
     }
     __syncthreads();
 
-    if (MODE == kW4 && (k0 + BK) % group == 0) {
+    if (MODE == kW4 && i32 && (k0 + BK) % group == 0) {
+      // group-acc mode: group k0 / group's int32 partial to out[m, g, n]; clear
+      const int G = K / group, gi = k0 / group;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = m0 + wm + mi * 16 + g + h * 8;
+              const int col = n0 + wn + ni * 8 + tg * 2 + e;
+              int& p = acc[mi][ni][h * 2 + e];
+              if (r < M && col < N)
+                reinterpret_cast<int*>(out)[((size_t)r * G + gi) * N + col] = p;
+              p = 0;
+            }
+    } else if (MODE == kW4 && (k0 + BK) % group == 0) {
       // end of group k0 / group: f32 += f32(int32 partial) * sw[g, n]; clear
       const float* swg = sw + (size_t)(k0 / group) * N;
 #pragma unroll
@@ -205,6 +228,7 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
     }
   }
 
+  if (MODE == kW4 && i32) return;   // group-acc: every group is stored
   // ---- epilogue, masked at the M and N edges:
   //      W8: (f32(acc) * a[m]) * sw[n];  W4: accf * a[m]
 #pragma unroll
@@ -215,12 +239,12 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
       for (int h = 0; h < 2; ++h) {
         const int r = m0 + wm + mi * 16 + g + h * 8;
         if (r >= M) continue;
-        const float ar = a != nullptr ? a[r] : 0.f;
+        const float ar = i32 ? 0.f : a[r];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = n0 + wn + ni * 8 + tg * 2 + e;
           if (col >= N) continue;
-          if (MODE != kW4 && a == nullptr) {       // int32-out mode
+          if (i32) {                               // int32-out mode
             reinterpret_cast<int*>(out)[(size_t)r * N + col] = acc[mi][ni][h * 2 + e];
             continue;
           }
@@ -249,12 +273,12 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
 // vec_a: qx rows may be read as 16-byte vectors (K % 16 == 0, 16-byte aligned);
 // vec_b: weight rows as 4-byte words (N % 4 == 0, 4-byte aligned). The wrapper decides.
 // experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E, M),
-// sw (E, N), out (E, M, N), expert e on grid z. a == nullptr (sw then unread,
-// experts == 1): int32-out mode, out is (M, N) int32, the accumulator undequantized.
+// sw (E, N), out (E, M, N), expert e on grid z. a == nullptr (sw then unread):
+// int32-out mode, out is (M, N) int32 (or (E, M, N)), the accumulator undequantized.
 REPRO_API int repro_qgemm_w8a8(const int8_t* qx, const int8_t* qw, const float* a,
                                const float* sw, float* out, int M, int N, int K, int experts,
                                int vec_a, int vec_b, void* stream) {
-  if (experts < 1 || experts > 65535 || (a == nullptr && experts != 1))
+  if (experts < 1 || experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<kW8>(qx, qw, a, sw, nullptr, out, M, N, K, vec_a, vec_b, 0, stream, experts);
 }
@@ -269,7 +293,8 @@ REPRO_API int repro_qgemm_w8a8_sparse(const int8_t* qx, const int8_t* qw, const 
 }
 
 // qw4: (K/2, N) packed int4; sw: (K/group, N) f32; group a positive multiple of 64
-// that divides K.
+// that divides K. a == nullptr (sw then unread): group-acc mode, out (M, K/group, N)
+// int32, each group's partial sum undequantized.
 REPRO_API int repro_qgemm_w4a8(const int8_t* qx, const int8_t* qw4, const float* a,
                                const float* sw, float* out, int M, int N, int K, int group,
                                int vec_a, int vec_b, void* stream) {

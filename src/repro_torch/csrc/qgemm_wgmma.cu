@@ -150,12 +150,15 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   const int mtiles = (M + BM - 1) / BM, ex = blockIdx.y / mtiles;
   const int n0 = blockIdx.x * BN, m0 = (blockIdx.y % mtiles) * BM;
   const int xm0 = ex * M + m0, wk0 = ex * K;
-  a += (size_t)ex * M;
-  sw += (size_t)ex * N;
+  // int32-out mode (a == nullptr; sw unread): store the summed int32 accumulator
+  // undequantized, for a row-parallel linear's cross-shard SUM (expert-batched too)
+  int* const out_i32 = a == nullptr ? reinterpret_cast<int*>(out + (size_t)ex * M * N)
+                                    : nullptr;
+  if (out_i32 == nullptr) {
+    a += (size_t)ex * M;
+    sw += (size_t)ex * N;
+  }
   out += (size_t)ex * M * N;
-  // int32-out mode (a == nullptr, never expert-batched): store the summed int32
-  // accumulator undequantized, for a row-parallel linear's cross-shard SUM
-  int* const out_i32 = a == nullptr ? reinterpret_cast<int*>(out) : nullptr;
   const int S = gridDim.z, split = blockIdx.z;      // cluster (1, 1, S): rank == split
   // K2: 128-row stages [kt0, kt0 + steps); K7: list entries [kt0, lend), two a stage
   int kt0, steps, lend = 0;
@@ -485,6 +488,12 @@ qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   } else {
     const int ch = nl >> 4, off = nl & 15;  // logical 16-byte chunk, byte offset
     const bool col_ok = n0 + nl < N;        // N % 16 == 0: both columns or neither
+    // group-acc mode (a == nullptr; sw unread): each group's int32 sum is stored as
+    // out[m, g, n], (M, K/group, N) int32, for a row-parallel W4 linear's gather of
+    // the group partials, and never folded
+    const bool gacc = a == nullptr;
+    int* const out_g = reinterpret_cast<int*>(out);
+    const int G = K / group;
     float2 sc = make_float2(0.f, 0.f);
     for (int t = 0; t < steps; ++t) {
       const int s = t % kW4Stages;
@@ -515,10 +524,27 @@ qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
       for (int ks = 0; ks < BK / 32; ++ks) {
         const int k = k0 + 32 * ks;
         if (k >= K) break;                  // the last stage of a K that ends on a g64 group
-        if (k % group == 0 && col_ok)       // a new group: its scales, before its products
+        if (k % group == 0 && col_ok && !gacc)  // a new group: its scales, first
           sc = *reinterpret_cast<const float2*>(sw + (size_t)(k / group) * N + n0 + nl);
         WgmmaS8<BM>::mma(acc, af[ks], desc_k_sw128(sX + 32 * ks), k % group != 0);
-        if ((k + 32) % group == 0) {
+        if ((k + 32) % group == 0 && gacc) {
+          // the group's last k32 step: drain, then store its int32 sum; acc[4j + 2h +
+          // e] <-> token m = m0 + 8j + 2tg + e, column n = n0 + nl + h
+          wgmma_commit();
+          wgmma_wait<0>();
+          if (col_ok) {
+#pragma unroll
+            for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int m = m0 + 8 * j + 2 * tg + e;
+                if (m < M)
+                  *reinterpret_cast<int2*>(out_g + ((size_t)m * G + k / group) * N + n0 +
+                                           nl) = make_int2(acc[4 * j + e], acc[4 * j + 2 + e]);
+              }
+          }
+          wgmma_fence();                    // the stores read acc: order them first
+        } else if ((k + 32) % group == 0) {
           // the group's last k32 step: drain, then f32 += f32(int32 sum) * sw[g, n]
           wgmma_commit();
           wgmma_wait<0>();
@@ -540,6 +566,9 @@ qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     }
   }
 
+  // group-acc mode: every group is stored and no split shares one (uniform over
+  // the cluster: no barrier waits)
+  if (a == nullptr) return;
   // accf[4j + 2h + e] <-> token m = m0 + 8j + 2tg + e, column n = n0 + nl + h
   if (S == 1) {
     if (consumer && n0 + nl < N) {
@@ -705,14 +734,14 @@ int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw
 // rows. experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E,
 // M), sw (E, N), out (E, M, N), E*M and E*K below 2^31. The wrapper picks splits
 // (kernels/qgemm.py::wgmma_splits) and checks the rest. a == nullptr (sw then
-// unread, experts == 1): int32-out mode, out is (M, N) int32.
+// unread): int32-out mode, out is (M, N) int32, or (E, M, N) expert-batched.
 REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const float* a,
                                      const float* sw, float* out, int M, int N, int K,
                                      int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
   if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || splits > KT || experts < 1 ||
-      (long long)experts * ((M + 47) / 48) > 65535 || (a == nullptr && experts != 1))
+      (long long)experts * ((M + 47) / 48) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<false>(qx, qw, a, sw, nullptr, out, M, N, K, splits,
                          static_cast<cudaStream_t>(stream), experts);
@@ -736,8 +765,9 @@ REPRO_API int repro_qgemm_w8a8_sparse_wgmma(const int8_t* qx, const int8_t* qw,
 
 // qw4 (K/2, N) packed int4; sw (K/group, N) f32; group 64 or a positive multiple of
 // 128 that divides K; splits 1..8 and at most ceil(K / max(group, 128)); M >= 1; N a
-// multiple of 16; qx, qw4 and sw 16-byte aligned. The wrapper picks splits
-// (kernels/qgemm.py::w4a8_wgmma_splits) and checks the rest.
+// multiple of 16; qx, qw4 and sw 16-byte aligned. a == nullptr (sw then unread):
+// group-acc mode, out is (M, K/group, N) int32, each group's sum undequantized. The
+// wrapper picks splits (kernels/qgemm.py::w4a8_wgmma_splits) and checks the rest.
 REPRO_API int repro_qgemm_w4a8_wgmma(const int8_t* qx, const int8_t* qw4, const float* a,
                                      const float* sw, float* out, int M, int N, int K,
                                      int group, int splits, void* stream) {

@@ -37,6 +37,11 @@ K1 has a given-max mode (``act_quantize(..., row_max=)``) and K2 and K7 an int32
 mode (``qgemm_w8a8_acc``, ``qgemm_w8a8_sparse_acc``) for the row-parallel linears
 of tensor-parallel serving; they count under their op and, per body, under
 ``act_quantize/given_*``, ``qgemm_w8a8/i32_*`` and ``qgemm_w8a8_sparse/i32_*``.
+Their expert-batched forms (``act_quantize_experts(..., row_max=)``,
+``qgemm_w8a8_experts_acc``) carry the row-parallel stacked down projection of
+expert-internal TP (``act_quantize/experts_given_*``, ``qgemm_w8a8/experts_i32_*``),
+and K8's group-acc mode (``qgemm_w4a8_group_acc``, ``qgemm_w4a8/gacc_*``) the
+row-parallel W4 linears.
 
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
@@ -75,16 +80,22 @@ BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/
                  "act_quantize/experts_sweep": 0,
                  "act_quantize/given_split": 0, "act_quantize/given_rows": 0,
                  "act_quantize/given_sweep": 0,
+                 "act_quantize/experts_given_split": 0, "act_quantize/experts_given_rows": 0,
+                 "act_quantize/experts_given_sweep": 0,
                  "qgemm_w8a8/decode": 0, "qgemm_w8a8/wgmma": 0, "qgemm_w8a8/tile": 0,
                  "qgemm_w8a8/experts_decode": 0, "qgemm_w8a8/experts_wgmma": 0,
                  "qgemm_w8a8/experts_tile": 0,
                  "qgemm_w8a8/i32_decode": 0, "qgemm_w8a8/i32_wgmma": 0,
                  "qgemm_w8a8/i32_tile": 0,
+                 "qgemm_w8a8/experts_i32_decode": 0, "qgemm_w8a8/experts_i32_wgmma": 0,
+                 "qgemm_w8a8/experts_i32_tile": 0,
                  "qgemm_w8a8_sparse/decode": 0, "qgemm_w8a8_sparse/wgmma": 0,
                  "qgemm_w8a8_sparse/tile": 0,
                  "qgemm_w8a8_sparse/i32_decode": 0, "qgemm_w8a8_sparse/i32_wgmma": 0,
                  "qgemm_w8a8_sparse/i32_tile": 0,
                  "qgemm_w4a8/decode": 0, "qgemm_w4a8/wgmma": 0, "qgemm_w4a8/tile": 0,
+                 "qgemm_w4a8/gacc_decode": 0, "qgemm_w4a8/gacc_wgmma": 0,
+                 "qgemm_w4a8/gacc_tile": 0,
                  "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
                  "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
 
@@ -228,20 +239,29 @@ def _w8a8(qx, qw, a, sw) -> torch.Tensor:
 
 
 def act_quantize_experts(x: torch.Tensor, bcol: torch.Tensor,
-                         alpha: Union[float, torch.Tensor] = 0.15, *, bits: int = 8):
+                         alpha: Union[float, torch.Tensor] = 0.15, *, bits: int = 8,
+                         row_max: Optional[torch.Tensor] = None):
     """Expert-batched K1 for a stacked-expert linear: each expert's (C, K) rows
     quantized with its own column factors and exponent, in one launch. x (E, C, K)
     f32|bf16; bcol (E, K) f32; ``alpha`` a float or the prepared tree's (E,) f32
     ``qalpha`` on x's device. Returns (codes (E, C, K) int8, a (E, C, 1) f32). The
-    body is :func:`act_quantize_plan`'s for the launch's E·C independent rows."""
+    body is :func:`act_quantize_plan`'s for the launch's E·C independent rows.
+
+    Given-max mode (``row_max`` (E, C) f32): x holds a shard of each (e, c) row's
+    columns (the stacked down projection under expert-internal TP) and ``row_max``
+    the whole row's absmax; counted per body under ``act_quantize/experts_given_*``."""
     _require(x.ndim == 3, f"x must be (E, C, K), got {tuple(x.shape)}")
     E, C, K = x.shape
     _require(bcol.shape == (E, K), f"bcol must be ({E}, {K}), got {tuple(bcol.shape)}")
     alpha_t = alpha if isinstance(alpha, torch.Tensor) else None
     if alpha_t is not None:
         _require(alpha_t.shape == (E,), f"alpha must be ({E},), got {tuple(alpha_t.shape)}")
-    if not _on_cuda(x, bcol, *(() if alpha_t is None else (alpha_t,))):
-        return ref.act_quantize_experts_ref(x, bcol, bits, alpha)
+    if row_max is not None:
+        _require(row_max.shape == (E, C), f"row_max must be ({E}, {C}), got "
+                 f"{tuple(row_max.shape)}")
+    extra = tuple(t for t in (alpha_t, row_max) if t is not None)
+    if not _on_cuda(x, bcol, *extra):
+        return ref.act_quantize_experts_ref(x, bcol, bits, alpha, row_max=row_max)
     _require(x.dtype in DTYPE_CODE, f"x dtype {x.dtype} not in f32/bf16")
     _require(bcol.dtype == torch.float32, f"bcol dtype {bcol.dtype} is not f32")
     _contiguous(x=x, bcol=bcol)
@@ -249,11 +269,15 @@ def act_quantize_experts(x: torch.Tensor, bcol: torch.Tensor,
     if alpha_t is not None:
         _require(alpha_t.dtype == torch.float32, "alpha must be f32")
         _contiguous(alpha=alpha_t)
+    if row_max is not None:
+        _require(row_max.dtype == torch.float32, f"row_max dtype {row_max.dtype} is not f32")
+        _contiguous(row_max=row_max)
     body, splits = act_quantize_plan(E * C, K)
     q, a = act_quantize_cuda(x.reshape(E * C, K), bcol, alpha_t,
                              0.0 if alpha_t is not None else float(alpha), bits, body, splits,
-                             rows_per_expert=C)
-    _count("act_quantize", f"act_quantize/experts_{body}")
+                             rows_per_expert=C,
+                             row_max=None if row_max is None else row_max.reshape(E * C))
+    _count("act_quantize", f"act_quantize/experts_{'' if row_max is None else 'given_'}{body}")
     return q.reshape(E, C, K), a.reshape(E, C, 1)
 
 
@@ -266,16 +290,38 @@ def qgemm_w8a8_experts(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     C rows, its K splits counted over all E experts' output tiles."""
     _require(qx.ndim == 3 and qw.ndim == 3, "qx and qw must be (E, C, K) and (E, K, N)")
     E, C, K = qx.shape
-    _require(qw.shape[:2] == (E, K),
-             f"expert/contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
     N = qw.shape[2]
     _require(a.shape == (E, C, 1), f"a must be ({E}, {C}, 1), got {tuple(a.shape)}")
     _require(sw.shape == (E, N), f"sw must be ({E}, {N}), got {tuple(sw.shape)}")
-    if not _on_cuda(qx, qw, a, sw):
+    return _w8a8_experts(qx, qw, a, sw)
+
+
+def qgemm_w8a8_experts_acc(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """Expert-batched K2's int32-out mode: qx (E, C, K) int8 · qw (E, K, N) int8 →
+    the (E, C, N) int32 accumulators, undequantized (the stacked down projection of
+    expert-internal TP sums them across its shards, then dequantizes in K2's
+    epilogue order). Counted per body under ``qgemm_w8a8/experts_i32_*``."""
+    _require(qx.ndim == 3 and qw.ndim == 3, "qx and qw must be (E, C, K) and (E, K, N)")
+    return _w8a8_experts(qx, qw, None, None)
+
+
+def _w8a8_experts(qx, qw, a, sw) -> torch.Tensor:
+    """Expert-batched K2 (``a``/``sw`` given) or its int32-out mode (both None)."""
+    E, C, K = qx.shape
+    _require(qw.shape[:2] == (E, K),
+             f"expert/contraction mismatch {tuple(qx.shape)} x {tuple(qw.shape)}")
+    N = qw.shape[2]
+    scales = () if a is None else (a, sw)
+    if not _on_cuda(qx, qw, *scales):
+        if a is None:
+            return ref.qgemm_w8a8_experts_acc_ref(qx, qw)
         return ref.qgemm_w8a8_experts_ref(qx, qw, a, sw)
     _require(qx.dtype == torch.int8 and qw.dtype == torch.int8, "qx and qw must be int8")
-    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
-    _contiguous(qx=qx, qw=qw, a=a, sw=sw)
+    if a is not None:
+        _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
+                 "a and sw must be f32")
+        _contiguous(a=a, sw=sw)
+    _contiguous(qx=qx, qw=qw)
     aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
     body, splits = qgemm_w8a8_plan(C, K, N, aligned=aligned, experts=E)
     if body == "decode":
@@ -284,7 +330,7 @@ def qgemm_w8a8_experts(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
         out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits, experts=E)
     else:
         out = qgemm_w8a8_cuda(qx, qw, a, sw, experts=E)
-    _count("qgemm_w8a8", f"qgemm_w8a8/experts_{body}")
+    _count("qgemm_w8a8", f"qgemm_w8a8/experts_{'' if a is not None else 'i32_'}{body}")
     return out
 
 
@@ -381,19 +427,42 @@ def qgemm_w4a8(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: torch.T
     _require(qx.ndim == 2 and qw4.ndim == 2, "qx and qw4 must be 2-D")
     M, K = qx.shape
     N = qw4.shape[1]
-    _require(K % group == 0 and qw4.shape[0] * 2 == K,
-             f"qw4 {tuple(qw4.shape)} does not pack K={K} in groups of {group}")
     _check_rows(qx, a)
     _require(sw.shape == (K // group, N), f"sw must be ({K // group}, {N}), "
              f"got {tuple(sw.shape)}")
-    if not _on_cuda(qx, qw4, a, sw):
+    return _w4a8(qx, qw4, a, sw, group)
+
+
+def qgemm_w4a8_group_acc(qx: torch.Tensor, qw4: torch.Tensor, *,
+                         group: int = 128) -> torch.Tensor:
+    """K8's group-acc mode: qx (M, K) int8 · qw4 (K/2, N) packed int4 → the (M,
+    K/group, N) int32 per-group partial sums, undequantized (a row-parallel W4
+    linear gathers the ranks' groups, then runs the group dequant). Counted per body
+    under ``qgemm_w4a8/gacc_*``."""
+    _require(qx.ndim == 2 and qw4.ndim == 2, "qx and qw4 must be 2-D")
+    return _w4a8(qx, qw4, None, None, group)
+
+
+def _w4a8(qx, qw4, a, sw, group) -> torch.Tensor:
+    """K8 (``a``/``sw`` given) or its group-acc mode (both None)."""
+    M, K = qx.shape
+    N = qw4.shape[1]
+    _require(K % group == 0 and qw4.shape[0] * 2 == K,
+             f"qw4 {tuple(qw4.shape)} does not pack K={K} in groups of {group}")
+    scales = () if a is None else (a, sw)
+    if not _on_cuda(qx, qw4, *scales):
+        if a is None:
+            return ref.qgemm_w4a8_group_acc_ref(qx, qw4, group)
         return ref.qgemm_w4a8_ref(qx, qw4, a.reshape(M, 1), sw, group)
     _require(qx.dtype == torch.int8 and qw4.dtype == torch.int8, "qx and qw4 must be int8")
-    _require(a.dtype == torch.float32 and sw.dtype == torch.float32, "a and sw must be f32")
     _require(group % TILE_K == 0, f"the W4A8 kernel takes groups of multiples of {TILE_K}, "
              f"got {group}")
-    _contiguous(qx=qx, qw4=qw4, a=a, sw=sw)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (qx, qw4, sw))
+    if a is not None:
+        _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
+                 "a and sw must be f32")
+        _contiguous(a=a, sw=sw)
+    _contiguous(qx=qx, qw4=qw4)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (qx, qw4, *scales[1:]))
     body, splits = qgemm_w4a8_plan(M, K, N, group, aligned=aligned)
     if body == "decode":
         out = qgemm_w4a8_decode_cuda(qx, qw4, a, sw, group, splits)
@@ -401,7 +470,7 @@ def qgemm_w4a8(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: torch.T
         out = qgemm_w4a8_wgmma_cuda(qx, qw4, a, sw, group, splits)
     else:
         out = qgemm_w4a8_cuda(qx, qw4, a, sw, group)
-    _count("qgemm_w4a8", f"qgemm_w4a8/{body}")
+    _count("qgemm_w4a8", f"qgemm_w4a8/{'' if a is not None else 'gacc_'}{body}")
     return out
 
 

@@ -18,7 +18,12 @@ experts' output tiles.
 K2's and K7's bodies have an int32-out mode (``a`` and ``sw`` None): the epilogue
 writes the (M, N) int32 accumulator, the decode body's split-K partials summed in
 int32, and does not dequantize. A row-parallel linear under tensor parallelism
-sums those accumulators across its shards before the dequant.
+sums those accumulators across its shards before the dequant; K2's mode also runs
+expert-batched (E, C, N), for the stacked down projection of expert-internal TP.
+K8's bodies have a group-acc mode (``a`` and ``sw`` None): each group's int32
+partial sum is written as ``out[m, g, n]``, (M, K/group, N), where the group flush
+would fold it through ``sw``; a row-parallel W4 linear gathers the ranks' groups
+before the group dequant.
 
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
@@ -298,16 +303,26 @@ def qgemm_w8a8_sparse_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Te
                              occ, splits)
 
 
+def _w4_out(qx: torch.Tensor, N: int, group: int, a) -> torch.Tensor:
+    """The output of a W4 product: (M, N) f32, or the group-acc mode's (M,
+    K/group, N) int32 per-group partials (``a`` None)."""
+    M, K = qx.shape
+    if a is None:
+        return torch.empty((M, K // group, N), dtype=torch.int32, device=qx.device)
+    return torch.empty((M, N), dtype=torch.float32, device=qx.device)
+
+
 def qgemm_w4a8_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
                     sw: torch.Tensor, group: int) -> torch.Tensor:
     """qx (M, K) int8 · qw4 (K/2, N) packed int4 with (K/group, N) f32 group scales
-    → (M, N) f32. ``group`` is a multiple of 64 dividing K."""
+    → (M, N) f32; ``a`` and ``sw`` None: the (M, K/group, N) int32 group partials.
+    ``group`` is a multiple of 64 dividing K."""
     M, K = qx.shape
     N = qw4.shape[1]
     vec_a, vec_b = _vec(qx, qw4)
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = _w4_out(qx, N, group, a)
     rc = build.library().repro_qgemm_w4a8(
-        qx.data_ptr(), qw4.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        qx.data_ptr(), qw4.data_ptr(), *_scales(a, sw), out.data_ptr(),
         M, N, K, group, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w4a8")
     return out
@@ -318,11 +333,11 @@ def _w4a8_body_cuda(entry: str, what: str, qx: torch.Tensor, qw4: torch.Tensor,
                     splits: int) -> torch.Tensor:
     M, K = qx.shape
     N = qw4.shape[1]
-    if qx.data_ptr() % 16 or qw4.data_ptr() % 16 or sw.data_ptr() % 16:
+    if qx.data_ptr() % 16 or qw4.data_ptr() % 16 or (sw is not None and sw.data_ptr() % 16):
         raise ValueError(f"K8's {what} reads qx, qw4 and sw in 16-byte chunks: align them")
-    out = torch.empty((M, N), dtype=torch.float32, device=qx.device)
+    out = _w4_out(qx, N, group, a)
     rc = getattr(build.library(), entry)(
-        qx.data_ptr(), qw4.data_ptr(), a.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        qx.data_ptr(), qw4.data_ptr(), *_scales(a, sw), out.data_ptr(),
         M, N, K, group, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"qgemm_w4a8 {what}")
     return out

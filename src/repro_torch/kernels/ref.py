@@ -62,6 +62,18 @@ def qgemm_w4a8_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor, sw: tor
     return (acc.to(torch.float32) * sw.to(torch.float32)).sum(dim=-2) * a.to(torch.float32)
 
 
+def qgemm_w4a8_group_acc_ref(qx: torch.Tensor, qw4: torch.Tensor,
+                             group: int = 128) -> torch.Tensor:
+    """Group-acc mode of K8: the (M, K/group, N) int32 per-group partial sums of
+    :func:`qgemm_w4a8_ref`, undequantized (exact float64 products)."""
+    M, K = qx.shape
+    qw = packing.unpack_int4(qw4, axis=-2)
+    ng = K // group
+    acc = torch.einsum("mgk,gkn->mgn", qx.reshape(M, ng, group).to(torch.float64),
+                       qw.reshape(ng, group, -1).to(torch.float64))
+    return acc.to(torch.int32)
+
+
 def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15,
                      row_max: Optional[torch.Tensor] = None):
     """Fused CrossQuant activation quantization (static-c path), as the Pallas
@@ -84,12 +96,15 @@ def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0
     return q.to(torch.int8), a
 
 
-def act_quantize_experts_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15):
+def act_quantize_experts_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15,
+                            row_max: Optional[torch.Tensor] = None):
     """Expert-batched K1: :func:`act_quantize_ref` on each expert's (C, K) rows with
     its own ``bcol[e]`` (K,) and ``alpha[e]`` (``alpha`` a float or an (E,) f32
-    tensor). x (E, C, K) → (codes (E, C, K) int8, a (E, C, 1) f32)."""
+    tensor). x (E, C, K) → (codes (E, C, K) int8, a (E, C, 1) f32). Given-max mode:
+    ``row_max`` (E, C) holds each row's absmax over the whole row."""
     outs = [act_quantize_ref(x[e], bcol[e], bits,
-                             alpha[e] if isinstance(alpha, torch.Tensor) else alpha)
+                             alpha[e] if isinstance(alpha, torch.Tensor) else alpha,
+                             row_max=None if row_max is None else row_max[e])
             for e in range(x.shape[0])]
     return torch.stack([q for q, _ in outs]), torch.stack([a for _, a in outs])
 
@@ -99,6 +114,12 @@ def qgemm_w8a8_experts_ref(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
     """Expert-batched K2: :func:`qgemm_w8a8_ref` per expert. qx (E, C, K) int8; qw
     (E, K, N) int8; a (E, C, 1) f32; sw (E, N) f32 → (E, C, N) f32."""
     return torch.stack([qgemm_w8a8_ref(qx[e], qw[e], a[e], sw[e]) for e in range(qx.shape[0])])
+
+
+def qgemm_w8a8_experts_acc_ref(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """Expert-batched K2's int32-out mode: qx (E, C, K) int8 · qw (E, K, N) int8 →
+    the (E, C, N) int32 accumulators, undequantized."""
+    return torch.matmul(qx.to(torch.float64), qw.to(torch.float64)).to(torch.int32)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -84,14 +84,16 @@ def make_debug_mesh(data: int = 1, model: int = 1, expert: int = 1) -> Mesh:
 
 
 def parse_mesh_arg(spec: str) -> Mesh:
-    """``"data,model"`` or ``"data,model,expert"`` CLI string (e.g. ``"1,2"`` or
-    ``"1,2,2"``) → debug mesh. The serving launcher's ``--mesh`` flag."""
+    """``"data,model"`` or ``"data,model,expert"`` CLI string (e.g. ``"2,1"`` for
+    data-parallel slots, ``"1,2"`` for tensor parallelism, ``"2,2"`` for both,
+    ``"1,2,2"`` with an expert axis) → debug mesh. The serving launcher's
+    ``--mesh`` flag."""
     try:
         dims = [int(x) for x in spec.split(",")]
-        if len(dims) not in (2, 3):
+        if len(dims) not in (2, 3) or min(dims) < 1:
             raise ValueError(spec)
     except ValueError:
         raise SystemExit(
-            f"--mesh expects DATA,MODEL[,EXPERT] (e.g. --mesh 1,2 or "
-            f"--mesh 1,2,2), got {spec!r}")
+            f"--mesh expects DATA,MODEL[,EXPERT] (e.g. --mesh 2,1, --mesh 1,2, "
+            f"--mesh 2,2 or --mesh 1,2,2), got {spec!r}")
     return make_debug_mesh(*dims)

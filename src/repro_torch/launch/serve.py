@@ -24,17 +24,24 @@ greedy decoding through the continuous-batching engine.
         --quant int8 --path fused-int8 --device cpu --cache-layout paged \\
         --no-prefix-reuse               # hybrid: one state page per slot
 
-Sharded (tensor- and expert-parallel) serving runs one process per rank under
-``torchrun`` (or ``torch.multiprocessing.spawn``); ``--mesh DATA,MODEL[,EXPERT]``
-lays the ranks out (DATA must be 1), each takes card ``LOCAL_RANK`` modulo the
-visible cards. The process group is gloo on the CPU and where the node runs more
-ranks than it has cards (NCCL refuses two ranks on one card), NCCL otherwise:
+Sharded (data-, tensor- and expert-parallel) serving runs one process per rank
+under ``torchrun`` (or ``torch.multiprocessing.spawn``); ``--mesh
+DATA,MODEL[,EXPERT]`` lays the ranks out, each takes card ``LOCAL_RANK`` modulo
+the visible cards. A DATA axis above 1 splits the slots (``--batch-size`` a
+multiple of DATA) or, where the rows share a statistic, replicates them. The
+process group is gloo on the CPU and where the node runs more ranks than it has
+cards (NCCL refuses two ranks on one card), NCCL otherwise:
 
     torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.serve --arch starcoder2-7b \
         --smoke --mesh 1,2 --device cpu --quant int8 --path fused-int8 --kv-cache int8
+    torchrun --standalone --nproc_per_node 4 -m repro_torch.launch.serve --arch starcoder2-7b \
+        --smoke --mesh 2,2 --device cpu --quant int8 --path fused-int8 --cache-layout paged
     torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --smoke --mesh 1,1,2 --device cpu --quant int8 \
         --path fused-int8
+    torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --smoke --mesh 1,2 --device cpu --quant int8 --path fused-int8 \
+        --cache-layout paged --no-prefix-reuse       # SSM state heads over "model"
 
 Every rank initialises the same seeded tree; rank 0 calibrates and broadcasts
 its tables, which every rank folds into the same int8 weights before cutting its
@@ -221,7 +228,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List:
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out) for r in done)
     plan = "" if engine.plan is None else (f" mesh={dict(mesh.shape)} tier={engine.plan.tier}"
-                                           f" moe_mode={engine.plan.moe_mode}")
+                                           f" moe_mode={engine.plan.moe_mode}"
+                                           f" slot_groups={engine.dp}")
     log(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s) quant={quant.tag()} path={path} "
           f"kv={args.kv_cache} layout={args.cache_layout} device={device} "

@@ -51,6 +51,10 @@ class QuantContext:
                                             use_kernels=self.use_kernels,
                                             int_exec=self.int_exec)
         role = self.shard.role(name) if self.shard is not None and w.ndim == 2 else None
+        if self.shard is not None and w.ndim == 3 and self.shard.expert_tp:
+            # expert-internal TP: up/gate split d_ff_expert on their output, down on
+            # its input
+            role = "row" if name == "down" else "col"
         if role == "col":
             return ql.apply_column_parallel(params, x, self.cfg, self.shard,
                                             use_kernels=self.use_kernels,
@@ -77,8 +81,20 @@ def init_norm(cfg: ModelConfig, *, device, n_stack: Optional[int] = None) -> dic
 
 def norm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """rmsnorm (eps 1e-6) or layernorm with the population variance (eps 1e-5),
-    computed in f32 and cast back to x's dtype."""
+    computed in f32 and cast back to x's dtype. Served on a card (no autograd)
+    through ``F.rms_norm`` / ``F.layer_norm``, whose kernels reduce each row
+    within one block: torch's f32 mean splits a row across warps by the number of
+    rows, so a data-parallel rank's rows would round otherwise than the same rows
+    among one device's (chip_smoke [8] counts both). Training and the CPU keep
+    the reference's two-pass form."""
     xf = x.to(torch.float32)
+    if xf.is_cuda and not xf.requires_grad:
+        d = (xf.shape[-1],)
+        if cfg.norm == "rmsnorm":
+            y = F.rms_norm(xf, d, params["scale"], eps=1e-6)
+        else:
+            y = F.layer_norm(xf, d, params["scale"], params["bias"], eps=1e-5)
+        return y.to(x.dtype)
     if cfg.norm == "rmsnorm":
         y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
         y = y * params["scale"]
@@ -437,8 +453,13 @@ def _paged_attention(q, k, v, cache: dict, page_table: Optional[torch.Tensor],
     flat = torch.where(row_valid, entry * ps + abs_pos % ps, P * ps).reshape(-1)
     route = _scatter_rows(flat, P * ps)
     merge = lambda t: t.reshape((-1,) + t.shape[2:])  # noqa: E731
-    for name, rows in _kv_rows(k, v, kv_int8).items():
-        _pool_scatter(cache[f"{name}_pages"], route, merge(rows))
+    written = {name: merge(rows) for name, rows in _kv_rows(k, v, kv_int8).items()}
+    for name, rows in written.items():
+        _pool_scatter(cache[f"{name}_pages"], route, rows)
+    if ctx.shard is not None and ctx.shard.dp > 1:
+        # data-parallel slots: the other data ranks write these rows into their
+        # whole pools after the model call (sharding.collectives.exchange_pages)
+        ctx.shard.kv_log.append((cache, flat, written))
     scales = dict(k_scale_pages=cache.get("k_scale_pages"),
                   v_scale_pages=cache.get("v_scale_pages"))
 

@@ -150,7 +150,8 @@ def layer_slice(tree, i: int):
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=torch.bfloat16, *,
                kv_int8: bool = False, layout: str = "dense", page_size: int = 16,
-               n_pages: Optional[int] = None, device="cuda") -> dict:
+               n_pages: Optional[int] = None, device="cuda",
+               state_heads: Optional[int] = None) -> dict:
     """Per sublayer kind, the leaves its :mod:`repro_torch.models.state` spec
     builds, stacked (n_blocks, ...) under ``blocks`` (and a hybrid's ``shared``
     attention), unstacked under a hybrid's ``tail``. ``kv_int8`` stores K/V as
@@ -162,7 +163,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=torch.bflo
     has attention KV and ``state_table`` (B,) int32 when it has SSM state, both
     filled with the invalid sentinel ``n_pages`` (reads clamp, writes drop).
     ``n_pages`` defaults to the dense-equivalent ``batch_size * max_len /
-    page_size``; the serving engine owns the tables' contents."""
+    page_size``; the serving engine owns the tables' contents. ``state_heads``
+    sizes the SSM state's head axis (a rank's heads under a mesh; default all)."""
     spec = block_spec(cfg)
     dev = resolve_device(device)
     has_kv, has_state = state_lib.family_flags(spec)
@@ -179,8 +181,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=torch.bflo
         raise ValueError(f"unknown cache layout {layout!r}")
 
     def one(kind, n_stack):
-        return leaves(state_lib.spec_for(kind))(cfg, rows, extent, dtype, kv_int8,
-                                                device=dev, n_stack=n_stack)
+        spec_ = state_lib.spec_for(kind)
+        kw = {} if spec_.paged_kv or state_heads is None else {"heads": state_heads}
+        return leaves(spec_)(cfg, rows, extent, dtype, kv_int8, device=dev, n_stack=n_stack,
+                             **kw)
 
     cache = {"blocks": [one(kind, spec.n_blocks) for kind in spec.sublayers]}
     if spec.tail:
@@ -289,7 +293,7 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
           ctx: Optional[QuantContext] = None, mode: str = "train",
           caches: Optional[dict] = None, cur_len=None, prefix_len=None, q_len=None,
           chunk: Optional[dict] = None, unroll: bool = False,
-          remat: bool = False) -> Tuple[torch.Tensor, dict]:
+          remat: bool = False, head_rows=None) -> Tuple[torch.Tensor, dict]:
     """Returns (logits, {"aux_loss": scalar, "caches": caches-or-None}); the MoE
     load-balancing loss is summed over the layers (zero without experts).
 
@@ -320,6 +324,10 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
     against a paged cache. ``chunk`` carries per-slot extents (``q_start``/
     ``q_len``/``kv_len`` (B,)) and per-token routing (``positions``/``slot_ids``
     (Nt,)); logits return for every packed row, (1, Nt, V).
+
+    ``head_rows`` maps the final hidden rows to the rows the head runs on
+    (data-parallel serving: every data rank's rows, gathered in slot order, so
+    each rank computes the whole batch's logits as one device does).
 
     ``remat=True`` (training) recomputes each block of the layer loop in the
     backward pass instead of saving its activations
@@ -407,6 +415,8 @@ def apply(params: dict, batch: dict, cfg: ModelConfig, *,
         else:
             last = torch.clamp(cur_len.to(torch.int64) - 1, 0, S - 1)
             x = x[torch.arange(B, device=x.device), last][:, None]
+    if head_rows is not None:
+        x = head_rows(x)
     return _lm_head(params, x, cfg, ctx), {"aux_loss": aux_total,
                                            "caches": caches if use_cache else None}
 

@@ -13,6 +13,12 @@ router and the dispatch stay replicated, every rank computes the same (E, C, d)
 buffer, runs its E/ep experts (its shard of the stacked leaves, whole experts)
 through the expert-batched K1/K2, and the experts' outputs are gathered in
 expert order before the combine, so the step is bitwise the single-device one.
+Expert-internal TP (``ShardContext.expert_tp``: E does not divide the model axis,
+d_ff_expert does): every rank holds every expert's d_ff_expert / tp columns of
+up and gate and the matching rows of down, the router and the dispatch stay
+replicated (so the capacity and the drop set are the single device's), up and
+gate run column-parallel on the whole buffer and down row-parallel, its int32
+accumulators summed across the ranks before the dequant (``qlinear``).
 
 Activation quantization inside the experts: the linears see the stacked (E, C, d)
 buffer, zero capacity rows included, so CrossQuant's row and column statistics
@@ -159,6 +165,19 @@ def _rank_experts(node: dict, e0: int, n: int, n_experts: int) -> dict:
             else v for k, v in node.items()}
 
 
+def _tp_expert_leaves(node: dict, name: str, r: int) -> dict:
+    """A stacked expert linear's leaves on the rank at model coordinate ``r`` under
+    expert-internal TP: the planner splits the weights' d_ff_expert and keeps the
+    prepared scale leaves whole; up/gate's ``sw`` (E, d_ff_expert) and down's
+    ``bcol`` (E, d_ff_expert) are sliced here to the rank's columns."""
+    w = node.get("qw", node.get("qw4", node.get("w")))
+    key, n = ("bcol", w.shape[-2]) if name == "down" else ("sw", w.shape[-1])
+    out = dict(node)
+    if key in node and node[key].shape[-1] != n:
+        out[key] = node[key][..., r * n:(r + 1) * n].contiguous()
+    return out
+
+
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
               ctx: QuantContext) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, d), aux_loss scalar): one global dispatch over all
@@ -179,6 +198,10 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
                  for name in ("up", "gate", "down") if name in params}
         local_out = _expert_ffn(local, expert_in[e0:e0 + e_local], cfg, ctx)
         expert_out = sh.coll.gather_experts(local_out, sh.expert_axis)
+    elif sh is not None and sh.expert_tp:
+        local = {name: _tp_expert_leaves(params[name], name, sh.tp_index)
+                 for name in ("up", "gate", "down") if name in params}
+        expert_out = _expert_ffn(local, expert_in, cfg, ctx)
     else:
         expert_out = _expert_ffn(params, expert_in, cfg, ctx)
     y = _combine_group(expert_out, gate_w, e_idx, pos_c, keep, cfg, x.dtype)

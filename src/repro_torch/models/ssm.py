@@ -15,6 +15,16 @@ The in and out projections are quantized linears (``ctx.linear``: K1 and K2 on
 the fused-int8 path); the conv, the scan and the gated norm stay plain PyTorch,
 as the reference keeps them in plain ``jnp``. The recurrent state and the conv
 window are f32 whatever the model's dtype. Caches are updated in place.
+
+Under a mesh (``ctx.shard``, the reference's placements: the state heads over
+"model", the conv state replicated) ``in_proj`` is column-parallel and its
+output [z | x | B | C | dt] is gathered over "model" (its column split does not
+fall on the segments' seams), so every rank runs the depthwise conv on every
+channel and keeps the whole conv window; the SSD scan or the decode recurrence
+runs on the rank's H/tp heads (``ShardContext.state_heads``) against its state;
+the per-head outputs are gathered before the gated RMSNorm, which reduces over
+all of d_inner (a gather is exact, a sum of squares across ranks would not be);
+``out_proj`` is row-parallel on the rank's slice of the normed output.
 """
 from __future__ import annotations
 
@@ -180,6 +190,10 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantConte
     H, P, N, di = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
     A = -torch.exp(params["A_log"])
     f32 = torch.float32
+    sh = ctx.shard
+    h0, hn = 0, H                       # this rank's heads (all of them unsharded)
+    if sh is not None and sh.state_heads:
+        h0, hn = sh.state_lo, sh.state_heads
 
     paged = cache is not None and "state_pages" in cache
     pools = None
@@ -193,8 +207,12 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantConte
         cache = {"state": pools["state_pages"][safe], "conv": pools["conv_pages"][safe]}
 
     proj = ctx.linear(params["in_proj"], x, "in_proj")
+    if sh is not None and sh.role("in_proj") == "col":
+        proj = sh.coll.gather_cols(proj)
     z, xbc, dt_raw = _split_proj(proj, cfg)
     dt = _softplus(dt_raw.to(f32) + params["dt_bias"])
+    hs = slice(h0, h0 + hn)
+    dt, A, D = dt[..., hs], A[hs], params["D"][hs]
 
     if decode:
         if S != 1 or cache is None:
@@ -203,9 +221,9 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantConte
                                      params["conv_b"])
         xbc_t = F.silu(xbc_t)
         xi, Bm, Cm = xbc_t[:, :di], xbc_t[:, di:di + N], xbc_t[:, di + N:]
-        xh = xi.reshape(Bsz, H, P)
+        xh = xi.reshape(Bsz, H, P)[:, hs]
         state, y = ssd_decode_step(cache["state"], xh, dt[:, 0], A, Bm, Cm)
-        y = (y + params["D"][:, None] * xh).reshape(Bsz, 1, di)
+        y = (y + D[:, None] * xh).reshape(Bsz, 1, hn * P)
         new = {"state": state, "conv": conv_buf}
     else:
         cur = None
@@ -216,11 +234,11 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantConte
         xbc_raw = xbc.to(f32)                     # the cache keeps pre-conv inputs
         xbc_c = F.silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]))
         xi, Bm, Cm = xbc_c[..., :di], xbc_c[..., di:di + N], xbc_c[..., di + N:]
-        xh = xi.reshape(Bsz, S, H, P)
+        xh = xi.reshape(Bsz, S, H, P)[:, :, hs]
         init_state = None if paged or cache is None else cache["state"]
         y, final_state = ssd_scan(xh, dt, A, Bm, Cm, min(cfg.ssm_chunk, S),
                                   init_state=init_state)
-        y = (y + params["D"][None, None, :, None] * xh).reshape(Bsz, S, di)
+        y = (y + D[None, None, :, None] * xh).reshape(Bsz, S, hn * P)
         new = None
         if cache is not None:
             K = cfg.ssm_conv
@@ -246,9 +264,14 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantConte
             cache["state"].copy_(new["state"])
             cache["conv"].copy_(new["conv"])
 
+    if hn != H:
+        y = sh.coll.gather_cols(y)                   # every head, before the norm
     # gated RMSNorm (its eps is 1e-6 whatever cfg.norm_eps), then the out projection
     g = y * F.silu(z.to(y.dtype))
     g = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + 1e-6)
     g = (g * params["norm_scale"]).to(x.dtype)
+    if sh is not None and sh.role("out_proj") == "row":
+        k = g.shape[-1] // sh.coll.size("model")     # this rank's input columns
+        g = g[..., sh.tp_index * k:(sh.tp_index + 1) * k]
     out = ctx.linear(params["out_proj"], g, "out_proj")
     return out, (pools if paged else cache)

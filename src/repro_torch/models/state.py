@@ -73,25 +73,29 @@ def _ssm_conv_channels(cfg: ModelConfig) -> int:
     return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
 
 
-def _ssm_leaves(cfg: ModelConfig, rows: int, names, *, device, n_stack) -> dict:
+def _ssm_leaves(cfg: ModelConfig, rows: int, names, *, device, n_stack,
+                heads: Optional[int]) -> dict:
     lead = _lead(n_stack)
     z = lambda shape: torch.zeros(lead + shape, dtype=torch.float32, device=device)  # noqa: E731
-    return {names[0]: z((rows, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)),
+    H = cfg.ssm_heads if heads is None else heads
+    return {names[0]: z((rows, H, cfg.ssm_head_dim, cfg.ssm_state)),
             names[1]: z((rows, cfg.ssm_conv - 1, _ssm_conv_channels(cfg)))}
 
 
 def ssm_dense(cfg: ModelConfig, batch_size: int, max_len: int, dtype, kv_int8: bool, *,
-              device, n_stack: Optional[int] = None) -> dict:
+              device, n_stack: Optional[int] = None, heads: Optional[int] = None) -> dict:
     """Per-slot recurrent state ([n_stack,] B, H, P, N) and pre-conv window (...,
-    B, K-1, C), f32 whatever ``dtype`` and ``kv_int8``."""
-    return _ssm_leaves(cfg, batch_size, ("state", "conv"), device=device, n_stack=n_stack)
+    B, K-1, C), f32 whatever ``dtype`` and ``kv_int8``. ``heads`` overrides H (a
+    rank's heads under a mesh)."""
+    return _ssm_leaves(cfg, batch_size, ("state", "conv"), device=device, n_stack=n_stack,
+                       heads=heads)
 
 
 def ssm_paged(cfg: ModelConfig, n_pages: int, page_size: int, dtype, kv_int8: bool, *,
-              device, n_stack: Optional[int] = None) -> dict:
+              device, n_stack: Optional[int] = None, heads: Optional[int] = None) -> dict:
     """State-checkpoint pools ([n_stack,] P, H, P, N) and (..., P, K-1, C), f32."""
     return _ssm_leaves(cfg, n_pages, ("state_pages", "conv_pages"), device=device,
-                       n_stack=n_stack)
+                       n_stack=n_stack, heads=heads)
 
 
 _ATTN = StateSpec(kind="attn", table="page_table", paged_kv=True,

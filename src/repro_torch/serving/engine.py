@@ -61,6 +61,7 @@ from repro_torch.models.layers import QuantContext
 from repro_torch.serving import drafter, paging
 from repro_torch.serving.api import FinishReason
 from repro_torch.serving.config import CACHE_DTYPES, SERVE_PATHS, EngineConfig, EngineStats
+from repro_torch.sharding.collectives import exchange_pages
 
 
 def _make_ctx(cfg: ModelConfig, quant: Optional[ql.QuantConfig],
@@ -164,6 +165,20 @@ def _rows_coupled(params, quant: ql.QuantConfig, cfg: Optional[ModelConfig] = No
     return dynamic(params, "")
 
 
+def _head_rows(shard, take: Optional[torch.Tensor]):
+    """An admission's ``head_rows``: None, or under data-parallel slots (``take``)
+    every data rank's last hidden rows, gathered in rank order and taken in the
+    whole admission batch's row order."""
+    if take is None:
+        return None
+    return lambda x: shard.coll.gather_slots(x, shard.plan.dp_axes)[take]
+
+
+def _rows_of(a: np.ndarray, mine: np.ndarray, R: int, fill) -> np.ndarray:
+    """``a``'s rows ``mine``, padded with ``fill`` to ``R`` rows."""
+    return np.concatenate([a[mine], np.full((R - len(mine),) + a.shape[1:], fill, a.dtype)])
+
+
 def _slot_groups(caches: dict):
     """(slot axis, leaf dicts) of a cache: the stacked ``blocks`` and a hybrid's
     ``shared`` attention hold (n_blocks, B, ...) leaves, slot axis 1; a hybrid's
@@ -204,10 +219,13 @@ def make_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
     ctx = _make_ctx(cfg, quant, path, shard)
     sample = _sampler(temperature, top_k, shard)
 
-    def admit_step(params, tokens, lens, slots, caches, gen):
+    def admit_step(params, tokens, lens, slots, caches, gen, take=None):
         """tokens (Bp, S) right-padded; lens (Bp,) prompt lengths; slots (Bp,)
         target slot per row (≥ B ⇒ padding row). Returns (first sampled token
-        (Bp,) int32, caches with the admitted slots' rows replaced)."""
+        (Bp,) int32, caches with the admitted slots' rows replaced). Data-parallel
+        slots (``take``): the rows are this data rank's share of the admission
+        batch; the last-position logits are gathered over the data axes and
+        ``take`` orders them back into the whole batch's rows before the head."""
         Bp = tokens.shape[0]
 
         def zeros(leaves, axis):
@@ -220,7 +238,7 @@ def make_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None, *,
         if "shared" in caches:
             fresh["shared"] = zeros(caches["shared"], 1)
         logits, ex = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="prefill",
-                             caches=fresh, cur_len=lens)
+                             caches=fresh, cur_len=lens, head_rows=_head_rows(shard, take))
         merged = _slot_scatter(caches, ex["caches"], slots)
         return sample(logits[:, -1], gen), merged
 
@@ -239,20 +257,23 @@ def make_paged_admit_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = No
     ctx = _make_ctx(cfg, quant, path, shard)
     sample = _sampler(temperature, top_k, shard)
 
-    def admit_step(params, tokens, lens, prefix, row_tables, row_states, caches, gen):
+    def admit_step(params, tokens, lens, prefix, row_tables, row_states, caches, gen,
+                   take=None):
         """tokens (Bp, S) right-padded suffixes; lens (Bp,) suffix lengths; prefix
         (Bp,) shared-prefix lengths (unused when cold); row_tables (Bp, maxP) the
         admitted rows' page tables and row_states (Bp,) their state-page ids
         (sentinel-filled padding rows write nowhere; each is used only where the
         cache carries its routing table). Returns (first sampled token (Bp,)
-        int32, caches with the live tables)."""
+        int32, caches with the live tables). ``take``: as the dense admission's."""
         c = dict(caches)
         if "page_table" in c:
             c["page_table"] = row_tables
         if "state_table" in c:
             c["state_table"] = row_states
         logits, _ = M.apply(params, {"tokens": tokens}, cfg, ctx=ctx, mode="prefill",
-                            caches=c, cur_len=lens, prefix_len=prefix if warm else None)
+                            caches=c, cur_len=lens, prefix_len=prefix if warm else None,
+                            head_rows=_head_rows(shard, take))
+        exchange_pages(shard)
         return sample(logits[:, -1], gen), caches
 
     return admit_step
@@ -279,9 +300,15 @@ def make_serve_decode_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = N
 
     def decode_step(params, tokens, caches, cur_len, gen):
         """tokens (B,) int pending inputs; cur_len (B,) post-append lengths →
-        (next token (B,) int32, caches updated in place)."""
+        (next token (B,) int32, caches updated in place). Data-parallel slots: the
+        inputs and caches are this data rank's slots, the final hidden rows are
+        gathered in slot order and every slot's logits computed and sampled."""
+        rows = None
+        if shard is not None and shard.dp > 1:
+            rows = lambda x: shard.coll.gather_slots(x, shard.plan.dp_axes)  # noqa: E731
         logits, ex = M.apply(params, {"tokens": tokens[:, None]}, cfg, ctx=ctx,
-                             mode="decode", caches=caches, cur_len=cur_len)
+                             mode="decode", caches=caches, cur_len=cur_len, head_rows=rows)
+        exchange_pages(shard)
         return sample(logits[:, -1], gen), ex["caches"]
 
     return decode_step
@@ -436,9 +463,31 @@ class ServeEngine:
     bitwise on the CPU, and on a card wherever kernels carry the attention (the
     dense layout's decode attention is plain torch, whose cuBLAS products may
     round a rank's fewer heads differently); fake and dequant-fp sum f32
-    partials and are token-exact. Refused with the typed errors of
-    ``sharding.planner``: a data axis above 1, SSM and hybrid families, W4A8
-    linears split over the mesh, ``expert_tp``.
+    partials and are token-exact. W4A8 row-parallel linears gather K8's per-group
+    partials (bitwise the single device's plain product on the CPU); expert-internal
+    TP (``expert_tp``) splits each expert's d_ff_expert; SSM and hybrid families
+    split their state heads (``models.ssm``).
+
+    A data axis (the plan's ``dp_axes``, of ``dp`` ranks) splits the slot table
+    into ``dp`` contiguous groups where B divides dp: each data rank runs the model
+    on its own slots' rows (decode, and its share of each admission batch) and
+    keeps their dense cache rows, and the final hidden rows are gathered over the
+    data axes in slot order before the head, so every rank computes and samples
+    the whole batch's logits as one device does (the head's product over all B
+    rows, the single device's rounding). The paged layout keeps one allocator and
+    radix index, the single device's (every rank runs the same host scheduler),
+    and a whole page pool on every rank: each rank writes its own rows' K/V, and
+    after each model call the rows every data rank wrote are exchanged in one
+    gather and written into the others' pools (``sharding.collectives``), so a
+    prefix one data group wrote serves another's request, and the prefix hits,
+    pages and tokens are the single device's. The slots replicate over the data axes instead
+    (every data rank serves the whole batch, as the reference does where B does not
+    divide) where the rows share a statistic (``_rows_coupled``: an MoE, fake
+    quantization, a linear prepared on the fly), for speculative and chunked steps,
+    and where B does not divide. Refused with the typed errors of
+    ``sharding.planner``: a W4A8 linear whose groups do not split with it, a W4
+    expert stack under ``expert_tp``, a forced ``expert_tp`` whose d_ff_expert the
+    model axis does not divide.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, config: EngineConfig,
@@ -455,12 +504,12 @@ class ServeEngine:
             if sparsity_plan is None:
                 self.sparsity_plan = MQ.SparsityPlan(nm=MQ.parse_nm(config.sparsity))
             params = MQ.sparsify_tree(params, self.sparsity_plan)
+        # dynamic statistics couple the token rows of a step (module docstring)
+        self._rows_coupled = _rows_coupled(params, quant or cfg.quant, cfg)
         self.mesh, self.plan, self.shard = mesh, None, None
         if mesh is not None:
             params = self._take_shard(cfg, params, mesh, plan)
         params = MQ.with_tile_occupancy(params)
-        # dynamic statistics couple the token rows of a step (module docstring)
-        self._rows_coupled = _rows_coupled(params, quant or cfg.quant, cfg)
         self.cfg, self.params = cfg, params
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id
@@ -481,9 +530,16 @@ class ServeEngine:
                             else _first_float_dtype(params) or torch.float32)
         step_kw = dict(path=config.path, temperature=config.temperature, top_k=config.top_k,
                        shard=self.shard)
-        # a rank's caches hold the kv heads it attends
+        # a rank's caches hold the kv heads it attends, its SSM heads and, under
+        # data-parallel slots, its data group's slots (dp groups of Bl)
         cache_cfg = cfg if self.shard is None else dataclasses.replace(
             cfg, n_heads=self.shard.q_heads, n_kv_heads=self.shard.kv_heads)
+        cache_kw = {} if self.shard is None or not self.shard.state_heads else {
+            "state_heads": self.shard.state_heads}
+        self.dp = 1 if self.shard is None else self.shard.dp
+        self.Bl = self.B // self.dp
+        self._dpi = 0 if self.shard is None else self.shard.dp_index
+        self.lo = self._dpi * self.Bl
         if self.paged:
             self.ps = config.page_size
             self.maxP = self.T // self.ps
@@ -501,15 +557,15 @@ class ServeEngine:
             self._state_pages_held = 0
             self._table_dirty = False
             self._seq_pages: List[List[int]] = [[] for _ in range(self.B)]
-            self.caches = M.init_cache(cache_cfg, self.B, self.T, dtype=self.cache_dtype,
+            self.caches = M.init_cache(cache_cfg, self.Bl, self.T, dtype=self.cache_dtype,
                                        kv_int8=self.kv_int8, layout="paged",
                                        page_size=self.ps, n_pages=self.n_pages,
-                                       device=self.device)
+                                       device=self.device, **cache_kw)
             self._admit_cold = make_paged_admit_step(cfg, quant, warm=False, **step_kw)
             self._admit_warm = make_paged_admit_step(cfg, quant, warm=True, **step_kw)
         else:
-            self.caches = M.init_cache(cache_cfg, self.B, self.T, dtype=self.cache_dtype,
-                                       kv_int8=self.kv_int8, device=self.device)
+            self.caches = M.init_cache(cache_cfg, self.Bl, self.T, dtype=self.cache_dtype,
+                                       kv_int8=self.kv_int8, device=self.device, **cache_kw)
             self._admit_step = make_admit_step(cfg, quant, **step_kw)
         self._decode_step = make_serve_decode_step(cfg, quant, **step_kw)
         if self.spec > 1:
@@ -554,46 +610,45 @@ class ServeEngine:
     # ------------------------------------------------------------------ sharding
 
     def _take_shard(self, cfg: ModelConfig, params, mesh, plan):
-        """Plan, refuse what is not served sharded, build this rank's
-        ``ShardContext`` and cut its shard of the full ``params`` tree."""
+        """Plan, refuse what is not served sharded, decide whether the slots split
+        over the data axes, build this rank's ``ShardContext`` and cut its shard of
+        the full ``params`` tree."""
         from repro_torch.sharding import collectives as SC
         from repro_torch.sharding import planner as SP
 
-        if mesh.axis_size("data") > 1:
-            raise SP.DataParallelServingError(
-                f"mesh {mesh.shape}: a data axis above 1 (data-parallel slots) is not "
-                f"served sharded yet (ROADMAP A4: data-parallel serving)")
-        if cfg.family in ("ssm", "hybrid"):
-            raise SP.ShardedStateError(
-                f"family {cfg.family!r} under a mesh: SSM state placements are not "
-                f"ported yet (ROADMAP A4: SSM and hybrid under a mesh)")
         self.plan = plan or SP.make_serve_plan(cfg, mesh)
-        if self.plan.tier == "dp_only":
-            raise SP.DataParallelServingError(
-                "tier dp_only folds the model axis into data parallelism "
-                "(ROADMAP A4: data-parallel serving)")
-        if self.plan.moe_mode == "expert_tp":
+        tp = self.plan.tp if self.plan.tier != "dp_only" else 1
+        if self.plan.moe_mode == "expert_tp" and (cfg.d_ff_expert or cfg.d_ff) % tp:
             raise SP.ExpertTPError(
-                f"{cfg.name}: {cfg.n_experts} experts do not divide the model axis "
-                f"({self.plan.tp}) and the mesh has no expert axis that does; "
-                f"expert-internal TP waits (ROADMAP A4: expert_tp)")
+                f"{cfg.name}: expert_tp splits d_ff_expert "
+                f"({cfg.d_ff_expert or cfg.d_ff}) over a model axis of {tp}")
+        c = self.config
+        split = (self.plan.dp > 1 and c.batch_size % self.plan.dp == 0
+                 and not self._rows_coupled and c.speculate == 1 and not c.chunked)
         coll = SC.Collectives(mesh)
-        self.shard = SC.make_shard_context(cfg, params, self.plan, mesh, coll)
+        self.shard = SC.make_shard_context(cfg, params, self.plan, mesh, coll,
+                                           split_slots=split)
 
-        def no_split_w4(node, name=""):
+        def check_w4(node, path=()):
             if isinstance(node, dict):
-                if "qw4" in node and self.shard.role(name) is not None:
+                name = path[-1] if path else ""
+                experts = "moe" in path and "shared" not in path
+                if "qw4" in node and experts and self.shard.expert_tp:
                     raise SP.ShardedW4A8Error(
-                        f"W4A8 linear {name!r} split over the mesh: its row-parallel "
-                        f"product needs K8 per-group int32 partials (ROADMAP A4: "
-                        f"W4A8 under TP)")
+                        f"W4A8 expert stack {name!r} under expert_tp: K8 has no "
+                        f"expert-batched group-acc mode")
+                if "qw4" in node and not experts and self.shard.role(name) == "row" \
+                        and node["sw"].shape[-2] % tp:
+                    raise SP.ShardedW4A8Error(
+                        f"W4A8 linear {name!r}: {node['sw'].shape[-2]} groups do not "
+                        f"split over a model axis of {tp}")
                 for k, v in node.items():
-                    no_split_w4(v, k)
+                    check_w4(v, path + (k,))
             elif isinstance(node, list):
                 for v in node:
-                    no_split_w4(v, name)
+                    check_w4(v, path)
 
-        no_split_w4(params)
+        check_w4(params)
         placements = SP.param_placements(params, cfg, self.plan, mesh)
         return SP.shard_tree(params, placements, mesh)
 
@@ -744,6 +799,20 @@ class ServeEngine:
         _, matched, _, j = self._match_prefix(r.prompt)
         return len(r.prompt) - matched - j
 
+    def _split_rows(self, row_slots: np.ndarray):
+        """Data-parallel slots: an admission batch's rows (their slots; -1 marks a
+        padding row) → (this data group's rows, the rows R every group prefills,
+        padded to a power of two, and ``take``, each row's index in the gathered
+        (dp·R) hidden rows)."""
+        grp = np.where(row_slots >= 0, row_slots // self.Bl, -1)
+        n = max(int((grp == d).sum()) for d in range(self.dp))
+        R = 1 << (n - 1).bit_length() if n > 1 else 1
+        take = np.zeros(len(row_slots), np.int64)
+        for d in range(self.dp):
+            idx = np.nonzero(grp == d)[0]
+            take[idx] = d * R + np.arange(len(idx))
+        return np.nonzero(grp == self._dpi)[0], R, take
+
     def _admit_paged_batch(self, batch: List[Request], bucket: int, free: List[int],
                            finished: List[Request]) -> int:
         """Admit up to ``len(free)`` paged requests in one suffix-prefill call.
@@ -770,11 +839,13 @@ class ServeEngine:
         row_states = np.full(rows, self.n_pages, np.int32)
         mid_decode = any(s is not None for s in self._slots)
         warm = False
+        row_slots = np.full(rows, -1, np.int64)
         for j, (slot, (r, plan)) in enumerate(zip(free, plans)):
             suffix = r.prompt[plan["prefix"]:]
             tokens[j, : len(suffix)] = suffix
             lens[j] = len(suffix)
             prefixes[j] = plan["prefix"]
+            row_slots[j] = slot
             row_tables[j, : len(plan["pages"])] = plan["pages"]
             if plan["cow"] is not None:
                 self.caches = _page_copy(self.caches, *plan["cow"])
@@ -799,11 +870,19 @@ class ServeEngine:
         self._table_dirty = True
         dev = self.device
         step = self._admit_warm if warm else self._admit_cold
+        kw = {}
+        if self.dp > 1:                   # this data group's rows
+            mine, R, take = self._split_rows(row_slots)
+            tokens, lens, prefixes, row_tables, row_states = (
+                _rows_of(a, mine, R, fill) for a, fill in (
+                    (tokens, 0), (lens, 1), (prefixes, 0), (row_tables, self.n_pages),
+                    (row_states, self.n_pages)))
+            kw["take"] = torch.as_tensor(take, device=dev)
         tok, self.caches = step(
             self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
             torch.as_tensor(lens, device=dev), torch.as_tensor(prefixes, device=dev),
             torch.as_tensor(row_tables, device=dev), torch.as_tensor(row_states, device=dev),
-            self.caches, self._gen)
+            self.caches, self._gen, **kw)
         tok = tok.cpu().numpy()
         self.counters["prefill_calls"] += 1
         if mid_decode:
@@ -834,10 +913,16 @@ class ServeEngine:
             self.counters["prompt_tokens"] += len(r.prompt)
             self.counters["prefill_tokens"] += len(r.prompt)
         dev = self.device
+        kw = {}
+        if self.dp > 1:                   # this data group's rows, its local slots
+            mine, R, take = self._split_rows(np.where(slot_ids < self.B, slot_ids, -1))
+            tokens, lens = _rows_of(tokens, mine, R, 0), _rows_of(lens, mine, R, 1)
+            slot_ids = _rows_of(slot_ids - self.lo, mine, R, self.Bl)
+            kw["take"] = torch.as_tensor(take, device=dev)
         tok, self.caches = self._admit_step(
             self.params, torch.as_tensor(tokens, dtype=torch.int64, device=dev),
             torch.as_tensor(lens, device=dev), torch.as_tensor(slot_ids, device=dev),
-            self.caches, self._gen)
+            self.caches, self._gen, **kw)
         tok = tok.cpu().numpy()
         self.counters["prefill_calls"] += 1
         if mid_decode:
@@ -897,10 +982,12 @@ class ServeEngine:
         sentinel before the next step: a free slot still decodes in lock-step,
         and its garbage token must write nowhere (a stale row would corrupt a
         page the allocator may have handed to another sequence or the index)."""
+        rows = slice(self.lo, self.lo + self.Bl)        # this data group's slots
         if self.has_kv:
-            self.caches["page_table"] = torch.as_tensor(self._table, device=self.device)
+            self.caches["page_table"] = torch.as_tensor(self._table[rows],
+                                                        device=self.device)
         if self.has_state:
-            self.caches["state_table"] = torch.as_tensor(self._state_table,
+            self.caches["state_table"] = torch.as_tensor(self._state_table[rows],
                                                          device=self.device)
         self._table_dirty = False
 
@@ -1004,11 +1091,13 @@ class ServeEngine:
             self._note_pool()
 
     def _decode_all(self, active: List[int], finished: List[Request]) -> None:
-        """One plain decode step over every slot; the active ones emit."""
+        """One plain decode step over every slot (this data group's, under
+        data-parallel slots); the active ones emit."""
         dev = self.device
-        cur = torch.as_tensor(self._pos + 1, device=dev)   # post-append lengths
+        rows = slice(self.lo, self.lo + self.Bl)
+        cur = torch.as_tensor(self._pos[rows] + 1, device=dev)   # post-append lengths
         tok, self.caches = self._decode_step(
-            self.params, torch.as_tensor(self._pending, dtype=torch.int64, device=dev),
+            self.params, torch.as_tensor(self._pending[rows], dtype=torch.int64, device=dev),
             self.caches, cur, self._gen)
         tok = tok.cpu().numpy()
         self._pos[active] += 1

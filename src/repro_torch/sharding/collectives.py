@@ -20,6 +20,19 @@ calls on :class:`Collectives`, which reaches the model through the
 * ``gather_vocab``: a vocab-sharded head's logits (``constrain_vocab``);
 * ``gather_experts``: the expert-parallel MoE's outputs, each rank's experts
   concatenated in expert order;
+* ``gather_groups``: a row-parallel W4 linear's per-group products f32(acc)·sw
+  (K8's group-acc partials scaled by the rank's own group scales, elementwise),
+  concatenated along the groups in rank order before the group sum;
+* ``gather_cols``: a Mamba2 block's column-parallel ``in_proj`` output and its
+  per-head scan output, concatenated along the last axis in rank order (the conv
+  runs on every channel, the gated norm on all of d_inner);
+* ``gather_slots``: data-parallel serving's final hidden rows, each data rank's
+  slots concatenated in slot order before the head (every rank then computes and
+  samples the whole batch's logits; the hidden rows are d_model wide, the logits
+  vocab wide);
+* ``gather_pages``: data-parallel paged serving's K/V rows of one model call,
+  every paged layer's packed into one buffer, so each rank writes the others'
+  rows into its whole page pool (:func:`exchange_pages`);
 * ``broadcast``: rank 0's sampled tokens where the sampler draws at random.
 
 Each call on an axis of more than one rank is counted in ``COUNTS`` (as
@@ -42,7 +55,8 @@ import torch
 import torch.distributed as dist
 
 COUNTS: Dict[str, int] = {"sum_i32": 0, "max_f32": 0, "sum_f32": 0, "gather_vocab": 0,
-                          "gather_experts": 0, "broadcast": 0}
+                          "gather_experts": 0, "gather_groups": 0, "gather_cols": 0,
+                          "gather_slots": 0, "gather_pages": 0, "broadcast": 0}
 _lock = threading.Lock()
 
 
@@ -103,6 +117,30 @@ class Collectives:
         """(E/n, C, d) outputs of each rank's experts → (E, C, d), in expert order."""
         return self._gather(out, axis, 0, "gather_experts")
 
+    def gather_groups(self, part: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """(M, G/n, N) per-group products of each rank's groups → (M, G, N)."""
+        return self._gather(part, axis, -2, "gather_groups")
+
+    def gather_cols(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """(..., C/n) column slices of each rank → (..., C), in rank order."""
+        return self._gather(t, axis, -1, "gather_cols")
+
+    def _gather_ranks(self, t: torch.Tensor, axes: Tuple[str, ...], name: str) -> torch.Tensor:
+        """Each data rank's ``t`` concatenated along dim 0 in data-rank order: the
+        ranks lie row-major over ``axes`` (the plan's data axes), so the last axis
+        is gathered first."""
+        for axis in reversed(axes):
+            t = self._gather(t, axis, 0, name)
+        return t
+
+    def gather_slots(self, t: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """(B/dp, ...) rows of each data rank → (B, ...) in slot order."""
+        return self._gather_ranks(t, axes, "gather_slots")
+
+    def gather_pages(self, buf: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """(n,) bytes of each data rank → (dp·n,), in data-rank order."""
+        return self._gather_ranks(buf, axes, "gather_pages")
+
     def broadcast(self, t: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
         """Rank 0's ``t`` on every rank of the mesh (over each axis in turn)."""
         t = t.contiguous()
@@ -130,17 +168,72 @@ class ShardContext:
     head_split: bool                # the head's vocab columns over "model"
     expert_axis: Optional[str]      # the axis experts split over, or None
     tp_index: int                   # this rank's coordinate on "model"
+    # expert-internal TP: the stacked up/gate split d_ff_expert on their output
+    # (column-parallel), down on its input (row-parallel)
+    expert_tp: bool = False
+    state_heads: int = 0            # SSM heads of this rank (its state), 0 without SSM
+    state_lo: int = 0               # its first SSM head
+    # data-parallel slots: the slot table splits over the plan's data axes into dp
+    # contiguous groups, this rank's is dp_index; dp == 1: the slots are whole on
+    # every rank (replicated over any data axis)
+    dp: int = 1
+    dp_index: int = 0
+    # the paged K/V rows this rank wrote in the current model call, layer by layer:
+    # (the layer's pools, flat pool positions, {pool name: rows})
+    kv_log: list = dataclasses.field(default_factory=list)
 
     def role(self, name: str) -> Optional[str]:
         return self.roles.get(name)
 
 
-def make_shard_context(cfg, tree, plan, mesh, coll: Collectives) -> ShardContext:
+def exchange_pages(shard: Optional[ShardContext]) -> None:
+    """Data-parallel paged serving keeps a whole page pool on every rank (one
+    allocator, the single device's page ids). After a model call each rank has
+    written its own rows' K/V; this writes every other data rank's rows into this
+    rank's pools. Every data rank's ``kv_log`` has the same layout (the same
+    layers, row counts and dtypes), so one gather of the packed bytes carries the
+    whole call's rows. A rank's own rows are already in place; the others never
+    read a page a row of this call wrote, so the order of the writes is free."""
+    from repro_torch.models.layers import _pool_scatter, _scatter_rows
+
+    if shard is None or shard.dp == 1 or not shard.kv_log:
+        return
+    log = list(shard.kv_log)
+    shard.kv_log.clear()
+    flat_bytes = lambda t: t.contiguous().reshape(-1).view(torch.uint8)  # noqa: E731
+    buf = torch.cat([flat_bytes(t) for _, flat, rows in log
+                     for t in [flat] + [rows[k] for k in sorted(rows)]])
+    n = buf.numel()
+    every = shard.coll.gather_pages(buf, shard.plan.dp_axes)
+    for d in range(shard.dp):
+        if d == shard.dp_index:
+            continue
+        theirs, off = every[d * n:(d + 1) * n], 0
+
+        def take(like: torch.Tensor) -> torch.Tensor:
+            nonlocal off
+            nb = like.numel() * like.element_size()
+            out = theirs[off:off + nb].clone().view(like.dtype).reshape(like.shape)
+            off += nb
+            return out
+
+        for pools, flat, rows in log:
+            kp = pools["k_pages"]
+            route = _scatter_rows(take(flat), kp.shape[0] * kp.shape[1])
+            for name in sorted(rows):
+                _pool_scatter(pools[f"{name}_pages"], route, take(rows[name]))
+
+
+def make_shard_context(cfg, tree, plan, mesh, coll: Collectives,
+                       split_slots: bool = False) -> ShardContext:
     """The :class:`ShardContext` of ``mesh``'s rank for the full ``tree`` under
     ``plan``. Attention: ``tp_full`` holds H/tp query and Hkv/tp kv heads in
     contiguous blocks; ``tp_kv_rep`` H/tp query heads, the kv projections whole
     and, stored, the kv heads its queries read (query head h reads kv head h //
-    (H/Hkv) of the global h); ``tp_ffn`` everything."""
+    (H/Hkv) of the global h); ``tp_ffn`` everything. SSM state: H/tp heads in a
+    contiguous block where the heads divide the model axis (the reference's
+    ``state`` placement), else all. ``split_slots``: the slots split over the
+    plan's data axes (the caller decides where they may)."""
     from repro_torch.sharding import planner
 
     roles = planner.linear_roles(tree, cfg, plan, mesh)
@@ -170,8 +263,22 @@ def make_shard_context(cfg, tree, plan, mesh, coll: Collectives) -> ShardContext
         ax = plan.ep_axis if plan.moe_mode == "expert_axis" else (
             "model" if plan.moe_mode == "ep" else None)
         expert_axis = ax if ax is not None and mesh.axis_size(ax) > 1 else None
+    state_heads = state_lo = 0
+    if cfg.family in ("ssm", "hybrid"):
+        state_heads = cfg.ssm_heads
+        if tp > 1 and cfg.ssm_heads % tp == 0 and plan.tier != "dp_only":
+            state_heads = cfg.ssm_heads // tp
+            state_lo = r * state_heads
+    dp, dp_index = 1, 0
+    if split_slots:
+        dp = plan.dp
+        for ax in plan.dp_axes:                      # row-major over the data axes
+            dp_index = dp_index * mesh.axis_size(ax) + mesh.axis_index(ax)
     return ShardContext(plan, coll, roles, q_heads, kv_proj, kv_lo, kv_heads, embed_split,
-                        head_split, expert_axis, r)
+                        head_split, expert_axis, r,
+                        expert_tp=plan.moe_mode == "expert_tp" and tp > 1,
+                        state_heads=state_heads, state_lo=state_lo, dp=dp,
+                        dp_index=dp_index)
 
 
 def token_group_count(n_tokens: int, dp: Optional[int] = None,

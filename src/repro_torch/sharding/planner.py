@@ -20,7 +20,10 @@ the model computes: a 2-D linear whose weight splits its output dim is
 column-parallel, one that splits its input dim row-parallel
 (:func:`linear_roles`). The dense KV cache's reference placement splits the
 sequence (storage only there, since its kernels gather); the port's dense
-cache holds a rank's kv heads instead, as the paged pools do.
+cache holds a rank's kv heads instead, as the paged pools do. Under a data axis
+the dense cache holds a rank's slots, as the reference's places B; the paged
+pools, which the reference places over data as storage, stay whole on every rank
+(one allocator; ``ServeEngine`` exchanges each call's K/V rows).
 """
 from __future__ import annotations
 
@@ -37,30 +40,21 @@ Spec = Tuple[object, ...]
 
 
 class ShardingUnsupportedError(NotImplementedError):
-    """A sharded-serving combination the port does not serve yet; each subclass
-    names the ROADMAP item that waits for it."""
-
-
-class DataParallelServingError(ShardingUnsupportedError):
-    """A mesh whose ``data`` axis is above 1: data-parallel slots wait for ROADMAP
-    queue A item 4's second half (sharded serving's data axis)."""
-
-
-class ShardedStateError(ShardingUnsupportedError):
-    """An SSM or hybrid family (mamba2, zamba2) under a mesh: their state
-    placements (``state``/``state_pages`` heads over "model") wait for ROADMAP
-    queue A item 4 (SSM and hybrid under a mesh)."""
+    """A sharded-serving combination the port does not serve: the subclasses
+    below, and fake quantization other than per-channel weights with crossquant /
+    per-token / no activation quantization on a split linear."""
 
 
 class ShardedW4A8Error(ShardingUnsupportedError):
-    """A packed-int4 (W4A8) leaf split over the mesh: its row-parallel product
-    needs K8 to emit per-group int32 partials, ROADMAP queue A item 4 (W4A8
-    under TP)."""
+    """A packed-int4 (W4A8) leaf split over the mesh where its groups do not split
+    with it: a row-parallel W4 linear needs the model axis to divide its group
+    count (the planner's ``sw`` rule), and a stacked W4 expert linear under
+    expert-internal TP has no group-acc expert mode (K8 is not expert-batched)."""
 
 
 class ExpertTPError(ShardingUnsupportedError):
-    """``moe_mode == "expert_tp"`` (d_ff_expert split over "model"): waits for
-    ROADMAP queue A item 4 (expert_tp)."""
+    """``moe_mode == "expert_tp"`` (d_ff_expert split over "model") forced on a
+    config whose d_ff_expert the model axis does not divide."""
 
 
 @dataclasses.dataclass(frozen=True)

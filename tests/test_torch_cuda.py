@@ -1495,3 +1495,114 @@ def test_row_parallel_modes_graph_replay(dev):
             graph.replay()
             torch.cuda.synchronize()
             assert all(torch.equal(u, v) for u, v in zip((q, a, acc), first))
+
+
+# ---- the modes of W4A8 and expert_tp sharding: K8 group-acc (a row-parallel W4
+# linear), expert-batched K1 given-max and K2 int32-out (expert-internal TP's down)
+
+GACC_CASES = [(4, 2304, 4608, 128), (4, 9216, 4608, 128), (128, 2304, 4608, 128),
+              (2048, 9216, 4608, 128), (20, 1024, 496, 64), (70, 640, 144, 64)]
+
+
+@pytest.mark.parametrize("M,K,N,group", GACC_CASES)
+def test_qgemm_w4a8_group_acc_bitwise(dev, M, K, N, group):
+    """K8's group-acc mode, routed (counted under its body), each body launched
+    directly at several split counts, eagerly and under graph replay: the exact
+    (M, K/group, N) int32 group partials, equal to the plain version; the group
+    dequant in the plain order is f32-close to the plain K8 product (the plain
+    version's partials come from an einsum whose layout sets the sum's order)."""
+    from repro_torch.kernels.qgemm import (
+        qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan, qgemm_w4a8_wgmma_cuda)
+    ops, ref = _ops()
+    qx, qw4, a, sw = _w4a8_inputs(dev, M, K, N, group, M + K + N)
+    want = ref.qgemm_w4a8_group_acc_ref(qx, qw4, group)
+    body, _ = qgemm_w4a8_plan(M, K, N, group)
+    before = ops.BODY_LAUNCHES[f"qgemm_w4a8/gacc_{body}"]
+    acc = ops.qgemm_w4a8_group_acc(qx, qw4, group=group)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w4a8/gacc_{body}"] == before + 1
+    assert acc.dtype == torch.int32 and acc.shape == (M, K // group, N)
+    assert torch.equal(acc, want)
+    _check_w4a8((acc.float() * sw).sum(dim=-2) * a, ref.qgemm_w4a8_ref(qx, qw4, a, sw, group))
+    assert torch.equal(qgemm_w4a8_cuda(qx, qw4, None, None, group), want)
+    for splits in (1, 2, 5):
+        if M <= 128 and splits <= K // group:
+            assert torch.equal(qgemm_w4a8_decode_cuda(qx, qw4, None, None, group, splits), want)
+        if splits <= -(-K // max(group, 128)) and (group == 64 or group % 128 == 0):
+            assert torch.equal(qgemm_w4a8_wgmma_cuda(qx, qw4, None, None, group, splits), want)
+    replayed = _graph_replayed(lambda: ops.qgemm_w4a8_group_acc(qx, qw4, group=group).float())
+    assert torch.equal(replayed, want.float())
+
+
+@pytest.mark.parametrize("E,C,K", [(40, 8, 256), (40, 512, 256), (3, 5, 100), (4, 9, 512)])
+@pytest.mark.parametrize("alpha", [1.0, 0.15])
+def test_act_quantize_experts_given_max(dev, E, C, K, alpha):
+    """The expert-batched K1 in its given-max mode on each of two column shards of
+    every (e, c) row, the whole row's max given, on every body, eagerly and under
+    graph replay: bitwise the kernel on the whole rows, sliced; against the plain
+    version bitwise at α = 1 and within K1's bars (codes off by one on ≤ 1e-5 of
+    them, a within one ulp) at α < 1."""
+    ops, ref = _ops()
+    from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
+    g = torch.Generator(device=dev).manual_seed(E * C + K)
+    x = (torch.randn(E, C, 2 * K, generator=g, device=dev) * 3).to(torch.bfloat16)
+    x[0, C // 2:] = 0
+    bcol = torch.rand(E, 2 * K, generator=g, device=dev) * 3 + 0.25
+    alpha_t = torch.full((E,), alpha, device=dev)
+    gmax = x.float().abs().amax(dim=-1)
+    qf, af = ops.act_quantize_experts(x, bcol, alpha_t)
+    body, _ = act_quantize_plan(E * C, K)
+    for s in range(2):
+        xs = x[..., s * K:(s + 1) * K].contiguous()
+        bs = bcol[:, s * K:(s + 1) * K].contiguous()
+        before = ops.BODY_LAUNCHES[f"act_quantize/experts_given_{body}"]
+        q, a = ops.act_quantize_experts(xs, bs, alpha_t, row_max=gmax)
+        qr, ar = ref.act_quantize_experts_ref(xs, bs, 8, alpha_t, row_max=gmax)
+        torch.cuda.synchronize()
+        assert ops.BODY_LAUNCHES[f"act_quantize/experts_given_{body}"] == before + 1
+        assert torch.equal(a, af) and torch.equal(q, qf[..., s * K:(s + 1) * K])
+        if alpha == 1.0:
+            assert torch.equal(q, qr) and torch.equal(a, ar)
+        else:
+            _check_act(q, a, qr, ar)
+        bodies = [("rows", 1), ("sweep", 1)] + ([("split", 2)] if -(-K // 8) >= 2 else [])
+        for b, sp in bodies:
+            q2, a2 = act_quantize_cuda(xs.reshape(E * C, K), bs, alpha_t, 0.0, 8, b, sp,
+                                       rows_per_expert=C, row_max=gmax.reshape(-1))
+            torch.cuda.synchronize()
+            assert torch.equal(q2.reshape(q.shape), q) and torch.equal(a2.reshape(a.shape), a)
+        replayed = _graph_replayed(
+            lambda: ops.act_quantize_experts(xs, bs, alpha_t, row_max=gmax)[0].float())
+        assert torch.equal(replayed, q.float())
+
+
+@pytest.mark.parametrize("E,C,K,N", [(40, 8, 256, 1536), (40, 512, 256, 1536), (5, 37, 176, 48),
+                                     (3, 130, 1040, 80), (4, 3, 100, 24)])
+def test_qgemm_w8a8_experts_acc_bitwise(dev, E, C, K, N):
+    """The expert-batched K2's int32-out mode, routed (counted under its body), on
+    the tile body and on the routed body launched directly, eagerly and under
+    graph replay: the per-expert int32 accumulators exactly; dequantized in K2's
+    epilogue order they give the expert-batched K2 bitwise."""
+    ops, ref = _ops()
+    from repro_torch.kernels.qgemm import (
+        qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan, qgemm_w8a8_wgmma_cuda)
+    g = torch.Generator(device=dev).manual_seed(E * C * K + N)
+    qx = torch.randint(-127, 128, (E, C, K), generator=g, device=dev, dtype=torch.int8)
+    qx[1, C // 2:] = 0
+    qw = torch.randint(-127, 128, (E, K, N), generator=g, device=dev, dtype=torch.int8)
+    a = torch.rand(E, C, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(E, N, generator=g, device=dev) + 0.01
+    want = ref.qgemm_w8a8_experts_acc_ref(qx, qw)
+    body, splits = qgemm_w8a8_plan(C, K, N, experts=E)
+    before = ops.BODY_LAUNCHES[f"qgemm_w8a8/experts_i32_{body}"]
+    acc = ops.qgemm_w8a8_experts_acc(qx, qw)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/experts_i32_{body}"] == before + 1
+    assert acc.dtype == torch.int32 and torch.equal(acc, want)
+    assert torch.equal((acc.float() * a) * sw[:, None], ops.qgemm_w8a8_experts(qx, qw, a, sw))
+    assert torch.equal(qgemm_w8a8_cuda(qx, qw, None, None, experts=E), want)
+    fn = {"decode": qgemm_w8a8_decode_cuda, "wgmma": qgemm_w8a8_wgmma_cuda}.get(body)
+    if fn is not None:
+        assert torch.equal(fn(qx, qw, None, None, splits, experts=E), want)
+    replayed = _graph_replayed(lambda: ops.qgemm_w8a8_experts_acc(qx, qw).float())
+    assert torch.equal(replayed, want.float())

@@ -15,6 +15,9 @@ torch = pytest.importorskip("torch")
 SRC = Path(__file__).resolve().parents[1] / "src"
 SERVE_EXAMPLE = SRC.parent / "examples" / "serve_torch.py"
 TRAIN_EXAMPLE = SRC.parent / "examples" / "train_lm_torch.py"
+#: the subprocesses' environment: two threads each, so that under the test
+#: runner's parallel workers a child does not spin on every core of the machine
+_ENV = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2"}
 
 
 def test_imports_without_jax_triton_or_repro():
@@ -38,7 +41,7 @@ def test_imports_without_jax_triton_or_repro():
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
+                         env=_ENV, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
 
@@ -58,7 +61,7 @@ def test_serve_example_runs_on_the_cpu_without_jax():
         assert not leaked, leaked
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
+                         env=_ENV, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.count(" toks [length] replica=") == 4, out.stdout
     assert '"completed": 4' in out.stdout and '"affinity_hits": 3' in out.stdout
@@ -77,7 +80,7 @@ def test_train_example_runs_on_the_cpu_without_jax():
         assert out["restarts"] == 1 and len(out["ppl"]) == 3, out
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=300)
+                         env=_ENV, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "after 1 restart(s)" in out.stdout, out.stdout
 

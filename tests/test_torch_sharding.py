@@ -344,3 +344,131 @@ def test_row_parallel_linear_two_shards(int_exec, use_kernels, masked):
             torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
         else:
             assert torch.equal(out, want)
+
+
+# ======================================================================================
+# data axes, W4 scales, expert_tp, SSM state, dp_only
+# ======================================================================================
+
+#: the reference's FakeMesh shapes (tests/test_sharding.py)
+REF_MESHES = [dict(data=16, model=16), dict(pod=2, data=16, model=16), dict(data=4, model=2),
+              dict(data=2, model=4), dict(data=1, model=7)]
+#: (arch, tree, forced tier, forced MoE mode)
+PLACED = [("starcoder2-7b", "w4", None, None), ("starcoder2-7b", "int8", "dp_only", None),
+           ("granite-moe-3b-a800m", "int8", None, "expert_tp"),
+           ("granite-moe-3b-a800m", "raw", None, "expert_tp"),
+           ("mamba2-130m", "int8", None, None), ("zamba2-1.2b", "int8", None, None)]
+
+
+@pytest.mark.parametrize("axes", REF_MESHES, ids=["x".join(f"{k}{v}" for k, v in a.items())
+                                                  for a in REF_MESHES])
+def test_data_w4_experts_state_placements_match(axes, monkeypatch):
+    """Plans, param placements (W4 group scales over the model axis where it divides
+    the groups, expert_tp's d_ff_expert, dp_only's replication) and cache
+    placements (slots and pages over the data axes, SSM state heads over "model",
+    the conv state replicated) equal the reference's on its meshes, for trees the
+    port builds (the reference's rules read only paths and shapes)."""
+    monkeypatch.setattr(jplanner, "NamedSharding", _Box)
+    mesh = FakeMesh(**axes)
+    w4t, w4j = (dataclasses.replace(q.W4A8_G128, w_group=32) for q in (tql, jql))
+    for arch, kind, tier, moe_mode in PLACED:
+        cfg_t = dataclasses.replace(tget(arch, smoke=True), dtype="float32")
+        cfg_j = dataclasses.replace(jget(arch, smoke=True), dtype="float32")
+        tplan = tplanner.make_serve_plan(cfg_t, mesh, force_tier=tier)
+        jplan = jplanner.make_serve_plan(cfg_j, mesh, force_tier=tier)
+        if moe_mode:
+            tplan = dataclasses.replace(tplan, moe_mode=moe_mode)
+            jplan = dataclasses.replace(jplan, moe_mode=moe_mode)
+        assert tplan.describe() == jplan.describe(), (arch, axes)
+        raw = TM.init_params(torch.Generator().manual_seed(0), cfg_t, device="cpu")
+        tree = {"raw": raw, "int8": lambda: TMQ.quantize_tree(raw, tql.W8A8_INT8),
+                "w4": lambda: TMQ.quantize_tree(raw, w4t)}[kind]
+        tree = tree() if callable(tree) else tree
+        got = _port_specs(tplanner.param_placements(tree, cfg_t, tplan, mesh))
+        shapes = {p: tuple(t.shape) for p, t in _port_specs(
+            tplanner._walk(tree, lambda path, t: t)).items()}
+        want = {p: tuple(jplanner._param_spec(p, s, cfg_j, jplan, mesh))
+                for p, s in shapes.items()}
+        assert got == want, (arch, kind, axes)
+        if kind == "w4" and axes["model"] == 2:      # down's 4 groups split over 2
+            assert got["blocks/0/mlp/down/sw"] == (None, "model", None)
+        for layout in ("dense", "paged"):
+            kw = dict(kv_int8=True, layout=layout, page_size=8)
+            jc = jax.eval_shape(lambda: JM.init_cache(cfg_j, 32, 32, jnp.float32, **kw))
+            tc = TM.init_cache(cfg_t, 32, 32, torch.float32, device="cpu", **kw)
+            flat = jax.tree_util.tree_flatten_with_path(
+                jplanner.cache_shardings(jc, cfg_j, jplan, mesh),
+                is_leaf=lambda x: isinstance(x, _Box))[0]
+            want_c = {jplanner._path_str(p): b.spec for p, b in flat}
+            assert _port_specs(tplanner.cache_placements(tc, cfg_t, tplan, mesh)) == want_c, \
+                (arch, layout, axes)
+
+
+@pytest.mark.parametrize("M,K,N,group", [(4, 256, 64, 32), (33, 512, 96, 64), (7, 384, 48, 128)])
+def test_qgemm_w4a8_group_acc_bitwise(M, K, N, group):
+    """K8's group-acc mode (plain version): the reference's per-group int32 partials
+    (``_int4_matmul_ref``'s einsum under ``jax.jit``) exactly; the group dequant in
+    its order, (Σ_g f32(acc) · sw) · a, is the plain K8 bitwise; a split of the
+    groups between two shards gives the whole product's partials, concatenated."""
+    from repro_torch.core import packing
+    rng = np.random.default_rng(K + N)
+    qx = rng.integers(-127, 128, (M, K), dtype=np.int8)
+    codes = rng.integers(-7, 8, (K, N), dtype=np.int8)
+    qw4 = packing.pack_int4(torch.from_numpy(codes), axis=-2)
+    G = K // group
+    want = np.asarray(jax.jit(lambda x, w: jnp.einsum(
+        "mgk,gko->mgo", x.reshape(M, G, group).astype(jnp.int32),
+        w.reshape(G, group, N).astype(jnp.int32)))(qx, codes))
+    got = ops.qgemm_w4a8_group_acc(torch.from_numpy(qx), qw4, group=group)
+    assert got.dtype == torch.int32 and got.shape == (M, G, N)
+    np.testing.assert_array_equal(got.numpy(), want)
+    a = torch.from_numpy(rng.random((M, 1), dtype=np.float32) + 0.01)
+    sw = torch.from_numpy(rng.random((G, N), dtype=np.float32) * 0.01 + 1e-4)
+    assert torch.equal((got.float() * sw).sum(dim=-2) * a,
+                       ops.qgemm_w4a8(torch.from_numpy(qx), qw4, a, sw, group=group))
+    if G % 2 == 0:
+        h = K // 2
+        parts = [ops.qgemm_w4a8_group_acc(torch.from_numpy(qx[:, s * h:(s + 1) * h].copy()),
+                                          qw4[s * h // 2:(s + 1) * h // 2].contiguous(),
+                                          group=group) for s in range(2)]
+        assert torch.equal(torch.cat(parts, dim=1), got)
+
+
+@pytest.mark.parametrize("E,C,K,N", [(4, 8, 64, 48), (3, 5, 96, 32), (8, 16, 128, 64)])
+def test_experts_given_max_and_int32_out_bitwise(E, C, K, N):
+    """The expert-batched K1 in its given-max mode on each of two column shards of
+    every (e, c) row: the reference's jitted ``quantize_act_int8`` on the whole rows,
+    sliced, at α = 1, and the port's whole-row codes and scales at α = 0.15; the
+    expert-batched K2's int32-out mode: the reference's int32 einsum exactly, and
+    dequantized in K2's epilogue order the expert-batched K2 bitwise."""
+    rng = np.random.default_rng(E * C + K)
+    x = (rng.standard_normal((E, C, 2 * K)) * 2).astype(np.float32)
+    x[:, :, rng.choice(2 * K, 3, replace=False)] *= 30.0
+    x[0, C // 2:] = 0.0                                # all-zero rows: the EPS floor
+    bcol = (rng.random((E, 2 * K)) * 3 + 0.25).astype(np.float32)
+    jq, ja = jax.jit(lambda x, b: jql.quantize_act_int8(
+        x, b, jql.W8A8_INT8, alpha=jnp.ones((E, 1, 1), jnp.float32)))(
+        jnp.asarray(x), jnp.asarray(bcol[:, None, :]))
+    xt, bt = torch.from_numpy(x), torch.from_numpy(bcol)
+    gmax = xt.abs().amax(dim=-1)
+    for alpha, q_want, a_want in (
+            (torch.ones(E), np.asarray(jq), np.asarray(ja)),
+            (torch.full((E,), 0.15), *[t.numpy() for t in ops.act_quantize_experts(
+                xt, bt, torch.full((E,), 0.15))])):
+        for s in range(2):
+            cols = slice(s * K, (s + 1) * K)
+            q, a = ops.act_quantize_experts(xt[..., cols].contiguous(), bt[:, cols].contiguous(),
+                                            alpha, row_max=gmax)
+            np.testing.assert_array_equal(q.numpy(), q_want[..., cols])
+            np.testing.assert_array_equal(a.numpy(), a_want)
+    qx = rng.integers(-127, 128, (E, C, K), dtype=np.int8)
+    qw = rng.integers(-127, 128, (E, K, N), dtype=np.int8)
+    want = np.asarray(jax.jit(lambda u, v: jnp.einsum(
+        "eci,eio->eco", u.astype(jnp.int32), v.astype(jnp.int32)))(qx, qw))
+    acc = ops.qgemm_w8a8_experts_acc(torch.from_numpy(qx), torch.from_numpy(qw))
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.numpy(), want)
+    a = torch.from_numpy(rng.random((E, C, 1), dtype=np.float32) + 0.01)
+    sw = torch.from_numpy(rng.random((E, N), dtype=np.float32) + 0.01)
+    assert torch.equal((acc.float() * a) * sw[:, None],
+                       ops.qgemm_w8a8_experts(torch.from_numpy(qx), torch.from_numpy(qw), a, sw))
