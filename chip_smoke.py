@@ -130,7 +130,7 @@ Phases (any failure raises and exits non-zero):
    behind the shared prefix (int8 KV), paged speculate=4 and chunked (int8 KV,
    budget 512), 224 K1 and 224 K2 launches per model call (96 of them
    expert-batched, one per stacked linear); llama4-scout-17b-a16e at full width
-   cut to 4 of 48 layers, dense fp KV (10 K1 and 10 K2 a layer).
+   cut to 2 of 48 layers, dense fp KV (10 K1 and 10 K2 a layer).
    The SSM and hybrid slice ([4s]): mamba2-130m FULL (24 layers) and zamba2-1.2b
    FULL (38 Mamba2 layers, the shared attention + MLP block after each of 6
    super-blocks, a 2-layer tail) calibrated, quantized and served fused-int8
@@ -160,8 +160,8 @@ Phases (any failure raises and exits non-zero):
    int8 KV) and the grouped scheduler through the engine; and
    ``make_sparsity_plan``'s per-linear fractions within 1e-6 of the CPU's over
    the same activations (the card's observer pass replayed into the CPU's plan;
-   the CPU's own forward pass printed beside). The zoo at 2 layers, card against
-   CPU: gemma2-9b with its window cut to 48 (dense, paged ≡ dense, chunked fp and
+   the CPU's own forward pass printed beside). The zoo at 2 layers (deepseek,
+   pixtral and hubert at 1), card against CPU: gemma2-9b with its window cut to 48 (dense, paged ≡ dense, chunked fp and
    int8 KV, chunked fp ≡ bucketed, bf16 paged under the self-calibrated bar, and
    speculate=4 ≡ 1 on the card), deepseek-coder-33b (a prefill and 8 decode steps,
    and a chunked engine on the card whose packed steps launch all token_budget rows
@@ -201,10 +201,10 @@ Phases (any failure raises and exits non-zero):
 7. Training on the card (the port's training half; no hand-written kernel runs
    while training, as the reference trains with ``use_pallas=False``), after
    phase 6's tree is freed. [7a] one f32 ``make_train_step`` step of
-   starcoder2-7b at full width cut to 2 layers, B = 1, S = 128, on the card and
+   starcoder2-7b at full width cut to 1 layer, B = 1, S = 64, on the card and
    on the CPU from the same seeded params and batch, TF32 off: the loss, the grad
    norm and the first Adam moment per leaf within ``LOSS_RTOL``, ``GNORM_RTOL``
-   and ``MOMENT_RTOL``. [7b] starcoder2-7b at full width cut to 4 of 32 layers
+   and ``MOMENT_RTOL``. [7b] starcoder2-7b at full width cut to 2 of 32 layers
    (f32 params, grads and both moments; bf16 activations), batch 4 x 512,
    n_micro 2, remat, Markov batches: 2 warm-up and 6 measured steps (step ms,
    training tok/s, the 6·N·tokens model-FLOPs share of the bf16 peak, peak
@@ -216,7 +216,7 @@ Phases (any failure raises and exits non-zero):
    fused-int8, paged, int8 KV (4 requests x 16 new tokens) with K1-K4 launch
    counts per body equal to the schedule and the tokens equal to those of the
    in-memory trained tree; the §4.1 kernel fractions of the trained linears.
-   [7d] ``launch.train.run`` on mamba2-130m FULL: 12 steps of 8 x 256, a
+   [7d] ``launch.train.run`` on mamba2-130m FULL: 12 steps of 4 x 256, a
    checkpoint every 4, a failure at step 6, against the same run
    uninterrupted: one restart, the history truncated at the restore point,
    final params bitwise equal; the ops of one train step without a
@@ -264,6 +264,20 @@ Phases (any failure raises and exits non-zero):
    the schedule; a rank's weight share printed and held near its expectation
    (0.5 at tp=2, 1.0 at data 2). The norms' row statistics of 2 rows against the
    same rows among 4 are counted (torch's mean, and the norms as served).
+   mamba2-130m FULL at data 2 (paged: each rank its own 2 slots and their state
+   pages; the gated norm served through ``F.rms_norm``): bitwise every call.
+9. Sharded training (``make_train_step(layout=)``): two ranks spawned on the one
+   card over gloo, as [8]; the parent runs the one-device step on the card and
+   hands the ranks the initial params, the batches and its first moment after
+   each step by CUDA IPC. starcoder2-7b full width cut to 2 of 32 layers (f32
+   params and moments, TF32 off) at data 2 (FSDP) and at model 2 (tp_full), and
+   granite-moe-3b-a800m full width cut to 2 layers at data 2 against the
+   one-device step at G = 2 (the grouped dispatch): batch 4 x 512, n_micro 2, 2
+   steps, each step's loss, grad norm and every rank's shard of the first
+   moment within phase 7's bars; step ms of a rank beside one device's, the
+   collectives of a step by kind and their ms, a rank's bytes of params + m + v
+   over one device's and its peak memory (2 ranks on one card over gloo: no
+   multi-card speed is claimed).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the card's
 nvidia-smi name and power limit, and the one before that the kernels' JSON.
@@ -647,6 +661,100 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                 plan=engine.plan.describe(), slot_groups=engine.dp,
                 prefix_hits=c["prefix_hits"], peak_pages=c["peak_pages_in_use"])
             del engine, done
+            torch.cuda.empty_cache()
+        for n in raw:
+            setattr(dist, n, raw[n])
+        queue.put((rank, "ok", out))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def train_rank(rank: int, port: int, job: dict, queue) -> None:
+    """One rank of phase [9], in a process of its own on the one card: join the
+    gloo world of two, then for each of ``job["runs"]`` cut its shards of the
+    parent's initial params (CUDA IPC), take ``job["steps"]`` sharded train steps
+    on the parent's global batches, time each step and each collective, and hold
+    every step's loss, grad norm and the rank's shard of the first moment against
+    the parent's one-device run. Puts (rank, "ok", results) on ``queue``, or the
+    traceback and re-raises: a failing rank exits non-zero."""
+    import datetime
+    import traceback
+    try:
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.models import model as M
+        from repro_torch.sharding import collectives as SC
+        from repro_torch.training import optimizer as opt_lib, trainer
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                                rank=rank, timeout=datetime.timedelta(seconds=300))
+        raw = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+        spent = []                       # (op, ms) of each collective, between two syncs
+
+        def timed(name):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = raw[name](*a, **kw)
+                torch.cuda.synchronize()
+                spent.append((name, (time.perf_counter() - t0) * 1e3))
+                return r
+            return call
+
+        for n in raw:
+            setattr(dist, n, timed(n))
+        out = {}
+        for run in job["runs"]:
+            label, cfg = run["label"], run["cfg"]
+            mesh = make_debug_mesh(*run["mesh"])
+            step = trainer.make_train_step(cfg, job["opt"], n_micro=job["n_micro"], mesh=mesh)
+            layout = step.layout
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            init = job["inits"][run["tree"]]
+            # a leaf no axis splits comes back as the parent's tensor itself: copy it,
+            # since the step updates its params in place
+            params = M.map_tensors(layout.shard(init), lambda t, f: t.clone() if t is f else t,
+                                   init)
+            opt = opt_lib.init(params)
+            held = sum(t.numel() * t.element_size()
+                       for t in M.leaves(params) + M.leaves(opt.m) + M.leaves(opt.v))
+            steps = []
+            for s, batch in enumerate(job["batches"][run["tree"]]):
+                SC.reset_counts()
+                spent.clear()
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                ref = job["ref"][run["tree"]][s]
+                ref_m = ref["m"]
+                mine = layout.shard(ref_m)
+                errs = [float((a - b).abs().max() / (f.abs().max() + 1e-30))
+                        for a, b, f in zip(M.leaves(opt.m), M.leaves(mine), M.leaves(ref_m))]
+                by_op = {}
+                for name, t in spent:
+                    n_, ms_ = by_op.get(name, (0, 0.0))
+                    by_op[name] = (n_ + 1, ms_ + t)
+                steps.append(dict(ms=ms, loss=loss, gnorm=gnorm, loss_rel=abs(loss - ref["loss"])
+                                  / abs(ref["loss"]), gn_rel=abs(gnorm - ref["gnorm"])
+                                  / ref["gnorm"], m_err=max(errs),
+                                  counts={k: v for k, v in SC.COUNTS.items() if v},
+                                  by_op=by_op))
+                del mine
+            out[label] = dict(steps=steps, held=held, peak=torch.cuda.max_memory_allocated() - mem0,
+                              plan=layout.plan.describe())
+            del params, opt, step, layout
             torch.cuda.empty_cache()
         for n in raw:
             setattr(dist, n, raw[n])
@@ -3142,7 +3250,7 @@ def main() -> int:
     # call 224 K1 and 224 K2 launches: 4 x 32 on the attention's linears (bodies by
     # the step's rows) and 3 x 32 expert-batched ones, one per stacked linear (K1's
     # body by E·C rows, K2's by the C rows per expert). Then llama4-scout-17b-a16e at
-    # full width, depth cut to 4 of its 48 layers (its f32 tree is 2.2 G parameters
+    # full width, depth cut to 2 of its 48 layers (its f32 tree is 2.2 G parameters
     # a layer: 35 GB at 4, with the 4.1 GB embedding), dense fp KV: top-1 routing
     # over 16 experts of width 8192 and a shared expert, 10 K1 and 10 K2 launches a
     # layer (4 attention, 3 shared, 3 expert-batched).
@@ -3190,12 +3298,12 @@ def main() -> int:
     del qparams_m
     torch.cuda.empty_cache()
 
-    cfg_l, qparams_l = build("llama4-scout-17b-a16e", 17, n_layers=4)
+    cfg_l, qparams_l = build("llama4-scout-17b-a16e", 17, n_layers=2)
     check(cfg_l.d_model == 5120 and cfg_l.n_experts == 16 and cfg_l.top_k == 1
           and cfg_l.n_shared_experts == 1 and cfg_l.rope_theta == 500000.0
           and "shared" in qparams_l["blocks"][0]["moe"], "llama4-scout FULL width, shared expert")
     d_l, f_l = cfg_l.d_model, cfg_l.d_ff_expert
-    serve("llama4-scout (4 layers) dense fused-int8 kv=fp",
+    serve("llama4-scout (2 layers) dense fused-int8 kv=fp",
           make_prompts(cfg_l.vocab, LENS[:BATCH], BATCH, seed=17), tree=qparams_l,
           model=(cfg_l, linear_shapes(cfg_l), None, BATCH, MAX_LEN),
           experts=[(d_l, f_l), (d_l, f_l), (f_l, d_l)], kv_cache="fp")
@@ -3762,7 +3870,8 @@ def main() -> int:
           f"{seng.tokens_per_step():.3f}); chunked (budget 64, fp KV) == bucketed "
           f"(chunk_steps={ceng.counters['chunk_steps']})")
 
-    # The rest of the dense zoo at full width, cut to 2 layers, float32, card against
+    # The rest of the dense zoo at full width, cut to 2 layers (deepseek-coder-33b,
+    # pixtral-12b and hubert-xlarge to 1), float32, card against
     # CPU under the bars above: equal greedy tokens, logits within 5e-2 of max|logit|.
     # gemma2-9b (one local and one global sublayer; window cut to 48 so that short
     # prompts bind it): dense, paged through a permuted table (== dense), chunked fp
@@ -3906,7 +4015,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # deepseek-coder-33b: the untied head (K = 7168, N = 32256) prepared on the fly
-    cfg_d2, p2d, p2d_cpu = build2("deepseek-coder-33b", 33)
+    cfg_d2, p2d, p2d_cpu = build2("deepseek-coder-33b", 33, n_layers=1)
     check(not cfg_d2.tie_embeddings and "lm_head" in p2d, "deepseek: untied head")
     tl_d = prompts_for(cfg_d2, [40, 27], 64, 33)
     n_lin = len(linear_shapes(cfg_d2)) * cfg_d2.n_layers + 1
@@ -3915,7 +4024,8 @@ def main() -> int:
         dgl, dgt = greedy(p2d, dev, c=cfg_d2, tl=tl_d)
         check(ops.LAUNCHES["qgemm_w8a8"] == 9 * n_lin, f"deepseek parity GEMM launches "
               f"{ops.LAUNCHES['qgemm_w8a8']} != 9 x {n_lin} (head included)")
-        card_vs_cpu_forced("deepseek-coder-33b 2-layer fused-int8, 1 prefill + 8 decode steps",
+        card_vs_cpu_forced(f"deepseek-coder-33b {cfg_d2.n_layers}-layer fused-int8, 1 prefill + 8 "
+                           "decode steps",
                            (dgl, dgt), greedy(p2d_cpu, cpu, forced=dgt, c=cfg_d2, tl=tl_d),
                            greedy(nudged(p2d_cpu), cpu, forced=dgt, c=cfg_d2, tl=tl_d)[0])
     # a chunked engine on the card (budget 32, int8 KV: every step packed): the head,
@@ -3951,7 +4061,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # pixtral-12b: patch embeddings replace the first 256 of 320 positions at prefill
-    cfg_p2, p2p, p2p_cpu = build2("pixtral-12b", 12)
+    cfg_p2, p2p, p2p_cpu = build2("pixtral-12b", 12, n_layers=1)
     check(cfg_p2.n_patches == 256 and cfg_p2.frontend_dim == 1024 and "frontend" in p2p,
           "pixtral-12b vision stub")
     tl_p = prompts_for(cfg_p2, [320], 320, 12)
@@ -3962,8 +4072,8 @@ def main() -> int:
         xgl = greedy(p2p, dev, c=cfg_p2, tl=tl_p, extra={"patch_embeds": pe}, steps=4)
         check(ops.BODY_LAUNCHES["flash_attention/f32"] == cfg_p2.n_layers,
               "pixtral parity prefill: flash f32")
-        card_vs_cpu_forced("pixtral-12b 2-layer fused-int8, a 320-token prefill with 256 bf16 "
-                           "patch embeddings + 4 decode steps", xgl,
+        card_vs_cpu_forced(f"pixtral-12b {cfg_p2.n_layers}-layer fused-int8, a 320-token prefill "
+                           "with 256 bf16 patch embeddings + 4 decode steps", xgl,
                            greedy(p2p_cpu, cpu, forced=xgl[1], c=cfg_p2, tl=tl_p,
                                   extra={"patch_embeds": pe}, steps=4))
     del p2p, p2p_cpu
@@ -3972,7 +4082,7 @@ def main() -> int:
     # hubert-xlarge: the encoder's logits over 2 x 128 seeded frames (flash f32 body at D
     # = 80, not causal); argmax equal wherever the CPU's top-1/top-2 margin exceeds
     # twice the largest gap
-    cfg_h2, p2h, p2h_cpu = build2("hubert-xlarge", 80, frames=128)
+    cfg_h2, p2h, p2h_cpu = build2("hubert-xlarge", 80, frames=128, n_layers=1)
     fr = torch.from_numpy(np.random.default_rng(81).standard_normal(
         (2, 128, cfg_h2.frontend_dim)).astype(np.float32))
     with torch.no_grad():
@@ -3988,7 +4098,8 @@ def main() -> int:
     same = torch.argmax(hl, dim=-1) == torch.argmax(hc, dim=-1)
     check(herr <= htol, f"hubert card vs CPU logits: max err {herr} > {htol}")
     check(bool(same[sure].all()), f"hubert card vs CPU argmax at a margin > 2 x {herr}")
-    print(f"[5z] hubert-xlarge 2-layer encoder logits (2 x 128 frames) card vs CPU: max_abs_err="
+    print(f"[5z] hubert-xlarge {cfg_h2.n_layers}-layer encoder logits (2 x 128 frames) card vs "
+          f"CPU: max_abs_err="
           f"{herr:.3e}, tol 5e-2*max|logit|={htol:.3e}; argmax equal at {int(same[sure].sum())} "
           f"of the {int(sure.sum())} of {sure.numel()} positions whose margin exceeds 2 x err "
           f"(at {int(same.sum())} of all)")
@@ -4551,14 +4662,14 @@ def main() -> int:
         return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-30))
 
     # [7a] card against CPU: one f32 train step of starcoder2-7b at full width cut
-    # to 2 layers, B = 1, S = 128, from the same seeded params and batch
-    cfg7a = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    # to 1 layer, B = 1, S = 64, from the same seeded params and batch
+    cfg7a = dataclasses.replace(cfg, n_layers=1, dtype="float32")
     opt7 = opt_lib.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     p_card = M.init_params(g, cfg7a, device=dev)
     p_cpu = M.map_tensors(p_card, lambda t: t.to("cpu", copy=True))
-    toks7 = make_train_batches(cfg.vocab, 128, 1, seed=7)(0)["tokens"]
+    toks7 = make_train_batches(cfg.vocab, 64, 1, seed=7)(0)["tokens"]
     step7a = trainer.make_train_step(cfg7a, opt7)
     t0 = time.perf_counter()
     _, o_card, m_card = step7a(p_card, opt_lib.init(p_card),
@@ -4571,7 +4682,7 @@ def main() -> int:
     loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     gn_rel = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
     m_errs = [rel_max(a.cpu(), b) for a, b in zip(M.leaves(o_card.m), M.leaves(o_cpu.m))]
-    print(f"[7a] {cfg7a.name} full width, 2 layers, f32, B=1 S=128: card step {t_card:.2f}s, CPU "
+    print(f"[7a] {cfg7a.name} full width, 1 layer, f32, B=1 S=64: card step {t_card:.2f}s, CPU "
           f"{t_cpu:.2f}s; loss card {float(m_card['loss']):.7f} CPU {float(m_cpu['loss']):.7f} "
           f"(rel {loss_rel:.2e}); grad norm rel {gn_rel:.2e}; first moment max|d|/max per leaf: "
           f"max {max(m_errs):.2e}, median {float(np.median(m_errs)):.2e} over {len(m_errs)} leaves")
@@ -4582,10 +4693,10 @@ def main() -> int:
     del p_card, p_cpu, o_card, o_cpu
     torch.cuda.empty_cache()
 
-    # [7b] starcoder2-7b at full width cut to 4 of its 32 layers (f32 params, grads
+    # [7b] starcoder2-7b at full width cut to 2 of its 32 layers (f32 params, grads
     # and both moments at 16 B/param: 32 layers would need ~115 GB), bf16
     # activations, global batch 4 x 512 tokens, n_micro 2, remat on
-    cfg7 = dataclasses.replace(cfg, n_layers=4)
+    cfg7 = dataclasses.replace(cfg, n_layers=2)
     g.manual_seed(8)
     p7 = M.init_params(g, cfg7, device=dev)
     o7 = opt_lib.init(p7)
@@ -4613,7 +4724,7 @@ def main() -> int:
     mfu7 = 6 * n_params * 4 * 512 / (med7 / 1e3) / PEAK_OPS["bf16"]
     print(f"[7b] {cfg7.name} full width (d_model {cfg7.d_model}, {cfg7.n_heads}/"
           f"{cfg7.n_kv_heads} heads of {cfg7.head_dim}, d_ff {cfg7.d_ff}, vocab {cfg7.vocab}) at "
-          f"4 of 32 layers, {n_params / 1e9:.3f}B params, bf16 activations, batch 4 x 512, "
+          f"2 of 32 layers, {n_params / 1e9:.3f}B params, bf16 activations, batch 4 x 512, "
           f"n_micro 2, remat, AdamW lr {opt7.lr} warmup {opt7.warmup_steps}: step ms "
           f"{[round(t, 1) for t in ms7]}; median of the 6 after warm-up {med7:.1f} ms = "
           f"{tok7:.0f} training tok/s; 6*N*tokens/step/989 TFLOP/s = {mfu7:.4f}; peak "
@@ -4705,10 +4816,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # [7d] supervised restart through the entry point: mamba2-130m FULL (24 layers),
-    # 12 steps of batch 8 x 256, a checkpoint every 4, a failure at step 6, against
+    # 12 steps of batch 4 x 256, a checkpoint every 4, a failure at step 6, against
     # the same 12 steps uninterrupted
     cfg_m = get("mamba2-130m")
-    kw7 = dict(steps=12, global_batch=8, seq_len=256, ckpt_every=4, log_every=4, device=dev)
+    kw7 = dict(steps=12, global_batch=4, seq_len=256, ckpt_every=4, log_every=4, device=dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
         t0 = time.perf_counter()
         faulty = launch_train.run(cfg_m, ckpt_dir=os.path.join(run_dir, "faulty"), fail_at=(6,),
@@ -4728,14 +4839,14 @@ def main() -> int:
     d_loss = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
                  for a, b in zip(faulty.metrics_history, clean.metrics_history))
     print(f"[7d] launch.train.run {cfg_m.name} FULL ({cfg_m.n_layers} layers): 12 steps, batch "
-          f"8 x 256, checkpoints of {ck_bytes / 2**30:.2f} GiB every 4 steps; with a failure "
+          f"4 x 256, checkpoints of {ck_bytes / 2**30:.2f} GiB every 4 steps; with a failure "
           f"at step 6: 1 restart, history truncated at the restore point and re-run, "
           f"{t_faulty:.1f}s; uninterrupted {t_clean:.1f}s; final params bitwise equal: "
           f"{bitwise} (max|d|/max over leaves {d_params:.2e}; losses rel {d_loss:.2e})")
     # the ops the card runs without a deterministic implementation in one train step
     step_m = trainer.make_train_step(cfg_m, opt_lib.AdamWConfig(lr=3e-3))
     pm = M.map_tensors(clean.state["params"], lambda t: t.clone())
-    bm = {"tokens": torch.as_tensor(make_train_batches(cfg_m.vocab, 256, 8)(0)["tokens"],
+    bm = {"tokens": torch.as_tensor(make_train_batches(cfg_m.vocab, 256, 4)(0)["tokens"],
                                     device=dev)}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -4860,6 +4971,20 @@ def main() -> int:
              collectives_per_call={"sum_i32": cfg8s.n_layers, "max_f32": cfg8s.n_layers,
                                    "gather_cols": 2 * cfg8s.n_layers, "sum_f32": 1,
                                    "gather_vocab": 1}),
+        # mamba2 with data-parallel slots: each rank its own 2 slots and their state
+        # pages in a whole pool (max_len 512: a rank holds every head's state, and
+        # the pools of max_len 1024 on both ranks do not fit beside the parent's
+        # trees); the gated norm served through F.rms_norm, so a rank's rows round
+        # as among one device's 4
+        dict(label="mamba2-130m data=2 paged", cfg=cfg8s, tree="mamba", quant=quant,
+             mesh=(2, 1), reqs=make_prompts(cfg8s.vocab, LENS, BATCH, seed=50),
+             max_new=MAX_NEW // 2, config=dict(ssm_cfg, max_len=512), share=1.0,
+             bitwise="all", attn_layers=0,
+             linears=[(cfg8s.d_model, 2 * cfg8s.d_inner + 2 * cfg8s.ssm_state
+                       + cfg8s.ssm_heads, cfg8s.n_layers),
+                      (cfg8s.d_inner, cfg8s.d_model, cfg8s.n_layers)],
+             row_linears=[], experts=(), experts_local=0,
+             collectives_per_call={"gather_slots": 1}),
         dict(label="zamba2-1.2b tp=2 paged", cfg=cfg8z, tree="zamba", quant=quant,
              mesh=(1, 2), reqs=make_prompts(cfg8z.vocab, LENS, BATCH, seed=51),
              max_new=MAX_NEW // 2, config=ssm_cfg, share=0.5, bitwise="all",
@@ -5103,6 +5228,122 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[8] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s8:.1f}s "
           f"for sharded serving)")
+
+    # ---------------------------------------------------------------- phase 9
+    # [9] Sharded training: two ranks spawned on the one card over gloo, as [8]. The
+    # parent runs the one-device make_train_step on the card (f32 params and moments,
+    # TF32 off) from seeded params and batches, and hands the ranks the initial
+    # params, the batches and its first moment after each step by CUDA IPC; each
+    # rank cuts its shards and takes the same steps sharded. starcoder2-7b FULL
+    # width cut to 2 of its 32 layers at data 2 (FSDP: a rank stores half the
+    # params and moments, gathers them for the step, sums the gradients over the
+    # data axis) and at model 2 (tp_full: Megatron's column/row-parallel linears,
+    # the vocab-parallel embedding and head); granite-moe-3b-a800m FULL width cut
+    # to 2 layers at data 2 (a rank's rows are one token group of the grouped
+    # dispatch), against the one-device step at G = 2. Global batch 4 x 512,
+    # n_micro 2, 2 steps, AdamW lr 1e-4: each step's loss, grad norm and each rank's
+    # shard of the first moment within phase 7's bars. Step ms of a rank beside one
+    # device's (two ranks sharing one card measure no multi-card speed), the
+    # collectives of a step by kind with their ms, a rank's bytes of params + m + v
+    # over one device's and its peak memory are printed.
+    print(f"[9] start at {time.perf_counter() - t_start:.1f}s; {nvidia_smi_line()}")
+    t_s9 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    check(not tf32, "[9] TF32 is on: the f32 parity steps need full-f32 matmuls")
+    opt9 = opt_lib.AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    S9, B9, N_MICRO9, STEPS9 = 512, 4, 2, 2
+    cfgs9 = {"sc": dataclasses.replace(cfg, n_layers=2, dtype="float32"),
+             "granite": dataclasses.replace(get("granite-moe-3b-a800m"), n_layers=2,
+                                            dtype="float32")}
+    inits9, batches9, refs9, one9 = {}, {}, {}, {}
+    for k, c9 in cfgs9.items():
+        g9 = torch.Generator(device=dev)
+        g9.manual_seed(90 + len(k))
+        inits9[k] = M.init_params(g9, c9, device=dev)
+        bf9 = make_train_batches(c9.vocab, S9, B9, seed=91)
+        batches9[k] = [{"tokens": torch.as_tensor(bf9(s)["tokens"], device=dev)}
+                       for s in range(STEPS9)]
+        p9 = M.map_tensors(inits9[k], lambda t: t.clone())
+        o9 = opt_lib.init(p9)
+        step9 = trainer.make_train_step(c9, opt9, n_micro=N_MICRO9,
+                                        token_groups=2 if c9.n_experts else 1)
+        refs9[k], ms9 = [], []
+        for s in range(STEPS9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p9, o9, met9 = step9(p9, o9, batches9[k][s])
+            refs9[k].append({"loss": float(met9["loss"]), "gnorm": float(met9["grad_norm"]),
+                             "m": M.map_tensors(o9.m, lambda t: t.clone())})
+            torch.cuda.synchronize()
+            ms9.append((time.perf_counter() - t0) * 1e3)
+        one9[k] = dict(ms=ms9, bytes=3 * sum(t.numel() * t.element_size()
+                                             for t in M.leaves(p9)))
+        del p9, o9, step9
+        torch.cuda.empty_cache()
+        print(f"[9] one device, {c9.name} FULL width at 2 layers, f32, batch {B9} x {S9}, "
+              f"n_micro {N_MICRO9}{', G = 2' if c9.n_experts else ''}: step ms "
+              f"{[round(t, 1) for t in ms9]}, losses {[round(r['loss'], 6) for r in refs9[k]]}; "
+              f"params + m + v {one9[k]['bytes'] / 2**30:.2f} GiB; {nvidia_smi_line()}")
+    runs9 = [dict(label="starcoder2-7b data=2 (FSDP)", cfg=cfgs9["sc"], tree="sc", mesh=(2, 1)),
+             dict(label="starcoder2-7b model=2 (tp_full)", cfg=cfgs9["sc"], tree="sc",
+                  mesh=(1, 2)),
+             dict(label="granite-moe data=2 (FSDP, grouped dispatch)", cfg=cfgs9["granite"],
+                  tree="granite", mesh=(2, 1))]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port9 = sk.getsockname()[1]
+    queue9 = ctx8.Queue()
+    job9 = dict(runs=runs9, inits=inits9, batches=batches9, ref=refs9, opt=opt9,
+                n_micro=N_MICRO9)
+    procs9 = [ctx8.Process(target=train_rank, args=(r, port9, job9, queue9)) for r in (0, 1)]
+    for pr in procs9:
+        pr.start()
+    ranks9 = {}
+    try:
+        for _ in procs9:
+            rk, status, payload = queue9.get(timeout=600)
+            check(status == "ok", f"[9] rank {rk} failed:\n{payload}")
+            ranks9[rk] = payload
+    finally:
+        for pr in procs9:
+            pr.join(timeout=120)
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    check(all(pr.exitcode == 0 for pr in procs9),
+          f"[9] rank exit codes {[pr.exitcode for pr in procs9]}")
+    for run in runs9:
+        lab = run["label"]
+        for rk in (0, 1):
+            for s, st in enumerate(ranks9[rk][lab]["steps"]):
+                check(st["loss_rel"] <= LOSS_RTOL, f"[9] {lab} rank {rk} step {s}: loss rel "
+                      f"{st['loss_rel']} > {LOSS_RTOL}")
+                check(st["gn_rel"] <= GNORM_RTOL, f"[9] {lab} rank {rk} step {s}: grad norm rel "
+                      f"{st['gn_rel']} > {GNORM_RTOL}")
+                check(st["m_err"] <= MOMENT_RTOL, f"[9] {lab} rank {rk} step {s}: first moment "
+                      f"{st['m_err']} > {MOMENT_RTOL}")
+        r0 = ranks9[0][lab]
+        one = one9[run["tree"]]
+        for s, st in enumerate(r0["steps"]):
+            print(f"[9] {lab} step {s}: rank 0 {st['ms']:.1f} ms (rank 1 "
+                  f"{ranks9[1][lab]['steps'][s]['ms']:.1f}), one device {one['ms'][s]:.1f} ms; "
+                  f"loss rel {st['loss_rel']:.2e}, grad norm rel {st['gn_rel']:.2e}, first "
+                  f"moment max|d|/max per leaf {st['m_err']:.2e} (rank 1 "
+                  f"{ranks9[1][lab]['steps'][s]['m_err']:.2e}); collectives by kind "
+                  f"{st['counts']}, by op (calls, ms) "
+                  f"{ {k: (n, round(t, 1)) for k, (n, t) in st['by_op'].items()} }")
+        print(f"[9] {lab}: plan {r0['plan']['tier']}/{r0['plan']['moe_mode']} dp="
+              f"{r0['plan']['dp']} tp={r0['plan']['tp']} fsdp={r0['plan']['fsdp']}; a rank holds "
+              f"{r0['held'] / 2**30:.2f} GiB of params + m + v = {r0['held'] / one['bytes']:.3f} "
+              f"of one device's {one['bytes'] / 2**30:.2f} GiB; rank peak {r0['peak'] / 2**30:.2f} "
+              f"GiB over what it held before (rank 1 {ranks9[1][lab]['peak'] / 2**30:.2f}); "
+              f"every step within loss {LOSS_RTOL}, grad norm {GNORM_RTOL}, first moment "
+              f"{MOMENT_RTOL} on both ranks; 2 ranks sharing one H100 over gloo, "
+              f"nothing claimed; {nvidia_smi_line()}")
+    del inits9, batches9, refs9, job9
+    torch.cuda.empty_cache()
+    print(f"[9] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s9:.1f}s "
+          f"for sharded training)")
 
     # ---------------------------------------------------------------- result
     reset5()

@@ -18,6 +18,12 @@ reference's on-disk layout, so each manager reads the other's params checkpoints
 * **Integrity**: every leaf's bytes carry a crc32, checked on restore.
 * **keep_n GC**: committed steps beyond the retention window are deleted after a
   successful commit, never before.
+* **Elastic restore**: a sharded state (``placements=`` and ``mesh=``, e.g.
+  ``TrainLayout.state_placements``) is saved as the unsharded logical tree: every
+  rank of the mesh joins the gathers and the rank at the mesh's origin writes.
+  ``restore`` with placements returns this rank's shards of the logical arrays
+  on any mesh, so a step saved at data 2 restores on one device and the
+  reverse.
 
 Leaf keys are the tree's path joined by ``/``: dict keys, list indices, and for an
 :class:`~repro_torch.training.optimizer.OptState` its field names (``opt/step``,
@@ -100,27 +106,86 @@ def _from_host(arr: np.ndarray, dtype: str, like, device):
     return t.to(dev)
 
 
+def _spec_items(tree, placements, prefix: str = ""):
+    """(key, leaf, placement) triples: ``tree``'s structure leads (a placement is a
+    tuple, which only the tree's leaf positions mark as one)."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k], placements[k]) for k in tree)
+    elif isinstance(tree, (list, tuple)):
+        names = tree._fields if hasattr(tree, "_fields") else range(len(tree))
+        items = zip(names, tree, placements)
+    else:
+        yield prefix, tree, placements
+        return
+    for k, v, p in items:
+        yield from _spec_items(v, p, f"{prefix}/{k}" if prefix else str(k))
+
+
+def _split(spec, mesh) -> bool:
+    axes = [a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)]
+    return any(mesh.axis_size(a) > 1 for a in axes)
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep_n: int = 3):
+    def __init__(self, directory: str, *, keep_n: int = 3, placements=None, mesh=None):
+        """``placements`` and ``mesh``: the default layout of a sharded state, for
+        callers that save and restore without naming one (the ``Supervisor``)."""
         self.dir = directory
         self.keep_n = keep_n
+        self.placements, self.mesh = placements, mesh
         os.makedirs(directory, exist_ok=True)
         self._pending: List[threading.Thread] = []
         self._lock = threading.Lock()
 
+    def _sharded(self, placements, mesh):
+        placements = self.placements if placements is None else placements
+        mesh = self.mesh if mesh is None else mesh
+        return (placements, mesh) if placements is not None and mesh is not None \
+            and mesh.size > 1 else (None, None)
+
     # -- save --------------------------------------------------------------------------
 
-    def save(self, step: int, tree, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree, *, blocking: bool = False, placements=None,
+             mesh=None) -> None:
         """Snapshot ``tree`` at ``step``: host copies now, the write on a thread
-        (joined here when ``blocking``)."""
-        flat = {k: _to_host(v) for k, v in _path_items(tree)}
+        (joined here when ``blocking``). With ``placements`` on ``mesh``, ``tree``
+        is this rank's shards: every rank of the mesh calls this, the logical
+        leaves are gathered (``planner.unshard_tree``) and the rank at the mesh's
+        origin writes them."""
+        placements, mesh = self._sharded(placements, mesh)
+        if placements is None:
+            flat = {k: _to_host(v) for k, v in _path_items(tree)}
+        else:
+            flat = self._gather(tree, placements, mesh)
+            if any(mesh.coords.values()):
+                if blocking:
+                    self.wait()
+                return
         with self._lock:
             prev = self._pending[-1] if self._pending else None
             t = threading.Thread(target=self._write, args=(step, flat, prev), daemon=True)
             self._pending.append(t)
             t.start()
         if blocking:
-            t.join()
+            self.wait()
+
+    @staticmethod
+    def _gather(tree, placements, mesh) -> Dict[str, np.ndarray]:
+        """Host copies of the logical leaves of the shards ``tree`` (a collective
+        over the mesh)."""
+        import torch.distributed as dist
+
+        from repro_torch.sharding import planner
+
+        flat = {}
+        for key, leaf, spec in _spec_items(tree, placements):
+            if isinstance(leaf, torch.Tensor) and _split(spec, mesh):
+                src = leaf.detach().contiguous()
+                pieces = [torch.empty_like(src) for _ in range(mesh.size)]
+                dist.all_gather(pieces, src, group=mesh.group)
+                leaf = planner.unshard_tree(pieces, spec, dict(mesh.shape))
+            flat[key] = _to_host(leaf)
+        return flat
 
     def _write(self, step: int, flat: Dict[str, np.ndarray],
                prev: Optional[threading.Thread]) -> None:
@@ -148,10 +213,15 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
+        """Join the outstanding writes (on a mesh, every rank's: the writer's)."""
         with self._lock:
             pending, self._pending = self._pending, []
         for t in pending:
             t.join()
+        _, mesh = self._sharded(self.placements, self.mesh)
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.barrier(group=mesh.group)
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -179,11 +249,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, *, step: Optional[int] = None, device=None,
-                verify: bool = True):
+                verify: bool = True, placements=None, mesh=None):
         """Load the committed ``step`` (default: the latest) into the structure of
         ``template``. Returns (tree, step). A tensor leaf comes back on ``device``,
         or on its template leaf's device; a numpy leaf as numpy (on ``device`` as a
-        tensor when one is given)."""
+        tensor when one is given). With ``placements`` on ``mesh`` each leaf is
+        this rank's shard of the saved logical array (``planner.shard_tree``):
+        elastic restore onto any mesh."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -205,4 +277,11 @@ class CheckpointManager:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             return _from_host(flat[key], manifest["leaves"][key]["dtype"], like, dev)
 
-        return _rebuild(template, load), step
+        tree = _rebuild(template, load)
+        placements, mesh = self._sharded(placements, mesh)
+        if placements is not None:
+            from repro_torch.sharding import planner
+            cut = {k: planner.shard_tree(v, spec, mesh)
+                   for k, v, spec in _spec_items(tree, placements)}
+            tree = _rebuild(template, lambda key, _: cut[key])
+        return tree, step

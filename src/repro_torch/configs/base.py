@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import threading
 from typing import Dict, Optional, Tuple
 
 from repro_torch.core.qlinear import FP, QuantConfig
@@ -139,13 +140,23 @@ def register(cfg: ModelConfig, smoke: ModelConfig) -> None:
     _SMOKE[cfg.name] = smoke
 
 
+_LOAD_LOCK = threading.RLock()
+_loaded = False
+
+
 def _load_all() -> None:
-    for mod in ARCH_MODULES:
-        importlib.import_module(f"repro_torch.configs.{mod}")
+    """Import every config module once; a thread that arrives while another
+    imports them waits for the whole registry."""
+    global _loaded
+    with _LOAD_LOCK:
+        if not _loaded:
+            for mod in ARCH_MODULES:
+                importlib.import_module(f"repro_torch.configs.{mod}")
+            _loaded = True
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:
-    if not _REGISTRY:
+    if not _loaded:
         _load_all()
     reg = _SMOKE if smoke else _REGISTRY
     key = name.replace("-", "_")
@@ -156,7 +167,7 @@ def get(name: str, smoke: bool = False) -> ModelConfig:
 
 
 def all_archs() -> Tuple[str, ...]:
-    if not _REGISTRY:
+    if not _loaded:
         _load_all()
     return tuple(sorted(_REGISTRY))
 

@@ -1,11 +1,14 @@
-"""The device mesh of sharded serving (port of ``repro/launch/mesh.py``'s
-``make_debug_mesh`` and ``parse_mesh_arg``).
+"""The device mesh of sharded serving and training (port of
+``repro/launch/mesh.py``'s ``make_debug_mesh`` and ``parse_mesh_arg``).
 
 A :class:`Mesh` names its axes (``data``, ``model`` and, with an expert axis,
-``expert``), their sizes, this process's coordinate on each, and one
-``torch.distributed`` process group per axis: the ranks that share every other
-coordinate. Ranks lie on the mesh row-major, as ``numpy.reshape(data, model,
-expert)`` lays the reference's devices: rank = (d·model + m)·expert + e.
+``expert``), their sizes, this process's coordinate on each, one
+``torch.distributed`` process group per axis (the ranks that share every other
+coordinate) and one over the whole mesh. Ranks lie on the mesh row-major, as
+``numpy.reshape(data, model, expert)`` lays the reference's devices: mesh rank =
+(d·model + m)·expert + e. :func:`make_mesh` lays a mesh over the first ranks of
+a larger world (``runtime.elastic.make_elastic_mesh``: the survivors of a
+shrunk data axis); its mesh rank is then the process's world rank.
 
 One process per rank (SPMD): the caller starts them (``torchrun``,
 ``torch.multiprocessing.spawn``) and calls ``torch.distributed.init_process_group``
@@ -30,6 +33,7 @@ class Mesh:
     coords: Dict[str, int]                # this rank's coordinate on each axis
     rank: int
     groups: Dict[str, Optional[object]]   # axis -> process group (None: one rank)
+    group: Optional[object] = None        # the whole mesh's process group (None: one rank)
 
     @property
     def size(self) -> int:
@@ -41,11 +45,23 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         return self.coords.get(axis, 0)
 
+    def group_of(self, axes: Tuple[str, ...]):
+        """The process group over ``axes``: one axis's, or the whole mesh's where
+        ``axes`` hold every axis of more than one rank."""
+        wide = tuple(a for a in axes if self.axis_size(a) > 1)
+        if len(wide) == 1:
+            return self.groups[wide[0]]
+        if set(wide) == {a for a in self.axis_names if self.axis_size(a) > 1}:
+            return self.group
+        raise ValueError(f"no process group over {axes} of the mesh {self.shape}")
 
-def _axis_groups(names: Tuple[str, ...], dims: Tuple[int, ...], rank: int):
-    """One process group per axis holding this rank. Every rank creates every
-    group, in one order, as ``new_group`` requires."""
-    coords_of = list(itertools.product(*(range(d) for d in dims)))   # rank -> coords
+
+def _axis_groups(names: Tuple[str, ...], dims: Tuple[int, ...], pos: int,
+                 members: Tuple[int, ...]):
+    """One process group per axis holding the mesh position ``pos``, over the world
+    ranks ``members`` (mesh position i is world rank members[i]). Every process of
+    the world creates every group, in one order, as ``new_group`` requires."""
+    coords_of = list(itertools.product(*(range(d) for d in dims)))   # pos -> coords
     mine: Dict[str, Optional[object]] = {}
     for ax, name in enumerate(names):
         if dims[ax] == 1:
@@ -53,12 +69,40 @@ def _axis_groups(names: Tuple[str, ...], dims: Tuple[int, ...], rank: int):
             continue
         others = [range(d) for i, d in enumerate(dims) if i != ax]
         for rest in itertools.product(*others):
-            ranks = [r for r, c in enumerate(coords_of)
-                     if tuple(v for i, v in enumerate(c) if i != ax) == rest]
-            group = dist.new_group(ranks)
-            if rank in ranks:
+            ps = [p for p, c in enumerate(coords_of)
+                  if tuple(v for i, v in enumerate(c) if i != ax) == rest]
+            group = dist.new_group([members[p] for p in ps])
+            if pos in ps:
                 mine[name] = group
     return mine
+
+
+def make_mesh(data: int = 1, model: int = 1, expert: int = 1,
+              ranks: Optional[Tuple[int, ...]] = None) -> Optional[Mesh]:
+    """A (data, model[, expert]) mesh over the world ranks ``ranks`` (default: the
+    first data·model·expert of the default process group). Every process of the
+    world calls it (process groups are made collectively); one outside ``ranks``
+    gets None."""
+    n = data * model * expert
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    members = tuple(range(n)) if ranks is None else tuple(sorted(ranks))
+    if len(members) != n or max(members) >= world:
+        raise RuntimeError(f"a (data={data}, model={model}, expert={expert}) mesh needs "
+                           f"{n} of the world's {world} ranks, got {members}")
+    names: Tuple[str, ...] = ("data", "model", "expert") if expert > 1 else ("data", "model")
+    dims = (data, model, expert) if expert > 1 else (data, model)
+    me = dist.get_rank() if dist.is_initialized() else 0
+    pos = members.index(me) if me in members else -1
+    if n == 1:
+        groups, whole = {name: None for name in names}, None
+    else:
+        groups = _axis_groups(names, dims, pos, members)
+        whole = (dist.group.WORLD if members == tuple(range(world))
+                 else dist.new_group(list(members)))
+    if pos < 0:
+        return None
+    coords = dict(zip(names, list(itertools.product(*(range(d) for d in dims)))[pos]))
+    return Mesh(names, dict(zip(names, dims)), coords, me, groups, whole)
 
 
 def make_debug_mesh(data: int = 1, model: int = 1, expert: int = 1) -> Mesh:
@@ -74,13 +118,7 @@ def make_debug_mesh(data: int = 1, model: int = 1, expert: int = 1) -> Mesh:
             f"debug mesh, have {world} — launch them with torchrun --nproc_per_node {n} "
             f"(or torch.multiprocessing.spawn, each calling "
             f"torch.distributed.init_process_group), or shrink the mesh")
-    names: Tuple[str, ...] = ("data", "model", "expert") if expert > 1 else ("data", "model")
-    dims = (data, model, expert) if expert > 1 else (data, model)
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    coords = dict(zip(names, list(itertools.product(*(range(d) for d in dims)))[rank]))
-    groups = (_axis_groups(names, dims, rank) if n > 1
-              else {name: None for name in names})
-    return Mesh(names, dict(zip(names, dims)), coords, rank, groups)
+    return make_mesh(data, model, expert)
 
 
 def parse_mesh_arg(spec: str) -> Mesh:

@@ -29,17 +29,21 @@ class QuantContext:
     attention of 128 tokens or more through the flash kernel. ``shard`` (a
     ``sharding.collectives.ShardContext``) marks a rank of sharded serving: its
     params are the rank's shard, and each 2-D linear runs by its role, column-
-    or row-parallel, with the collectives the shard context carries."""
+    or row-parallel, with the collectives the shard context carries.
+    ``token_groups`` is the number of data-parallel token groups an MoE
+    dispatches apart (the reference's grouped dispatch; one device's training
+    step passes the data axes' size, serving and a data mesh's rank 1)."""
     cfg: ql.QuantConfig
     observer: object = None
     prefix: str = ""
     use_kernels: bool = False
     int_exec: Optional[str] = None
     shard: object = None
+    token_groups: int = 1
 
     def sub(self, name: str) -> "QuantContext":
         return QuantContext(self.cfg, self.observer, f"{self.prefix}/{name}",
-                            self.use_kernels, self.int_exec, self.shard)
+                            self.use_kernels, self.int_exec, self.shard, self.token_groups)
 
     def linear(self, params: dict, x: torch.Tensor, name: str) -> torch.Tensor:
         """x @ W of a quantized linear: x (..., d_in) against a 2-D weight, or an
@@ -56,6 +60,7 @@ class QuantContext:
             # its input
             role = "row" if name == "down" else "col"
         if role == "col":
+            x = self.shard.coll.copy_to(x)          # under autograd: the f op
             return ql.apply_column_parallel(params, x, self.cfg, self.shard,
                                             use_kernels=self.use_kernels,
                                             int_exec=self.int_exec)
@@ -547,7 +552,9 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
     v = ctx.linear(params["wv"], x, "wv")
     if sh is not None and sh.kv_proj_heads != Hkv:
         # tp_kv_rep: whole kv projections; keep the kv heads this rank's queries read
+        # (under autograd the slices' gradients sum across the ranks: the f op)
         lo = sh.kv_lo * D
+        k, v = sh.coll.copy_to(k), sh.coll.copy_to(v)
         k, v = k[..., lo:lo + Hkv * D], v[..., lo:lo + Hkv * D]
     k = k.reshape(B, S, Hkv, D)
     v = v.reshape(B, S, Hkv, D)

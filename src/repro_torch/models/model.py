@@ -101,9 +101,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cuda") -> dic
     generator's). Same tree and scales as the reference (it cannot reproduce
     ``jax.random`` bits and does not try to): ``blocks`` stacked, a hybrid's
     ``tail`` a list of unstacked sublayers and its ``shared_attn`` one unstacked
-    attention + MLP block."""
-    dev = resolve_device(device)
-    if gen.device.type != dev.type:
+    attention + MLP block. ``device="meta"`` (any generator) gives the tree's
+    shapes and dtypes without storage."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    if dev.type != "meta" and gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device} cannot fill tensors on {dev}")
     spec = block_spec(cfg)
     embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen, device=dev) * 0.02
@@ -240,6 +241,8 @@ def _lm_head(params, x: torch.Tensor, cfg: ModelConfig, ctx: QuantContext) -> to
     are gathered in rank order."""
     x = norm_apply(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
+        if ctx.shard is not None and ctx.shard.head_split:
+            x = ctx.shard.coll.copy_to(x)           # under autograd: the f op
         logits = x @ params["embed"]["w"].T.to(x.dtype)
     else:
         logits = ctx.linear(params["lm_head"], x, "lm_head")
@@ -432,7 +435,9 @@ def loss_fn(params, batch, cfg: ModelConfig, *, ctx: Optional[QuantContext] = No
     position masked (an encoder-only config reads ``batch["labels"]``), a
     ``vision_stub`` masks its ``n_patches`` positions, ``batch["loss_mask"]``
     multiplies in. The log-softmax runs over the logits in the dtype the head
-    returns. Returns (loss, {"ce", "aux", "ppl"})."""
+    returns. Under a data mesh (``ctx.shard.batch_axes``) ``batch`` is this
+    rank's rows and the loss is the whole batch's. Returns (loss, {"ce", "aux",
+    "ppl"})."""
     logits, extras = apply(params, batch, cfg, ctx=ctx, mode="train", remat=remat)
     if cfg.is_encoder_only:
         labels = batch["labels"]
@@ -448,7 +453,17 @@ def loss_fn(params, batch, cfg: ModelConfig, *, ctx: Optional[QuantContext] = No
         mask = mask * batch["loss_mask"]
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
-    ce = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     aux = extras["aux_loss"]
+    sh = ctx.shard if ctx is not None else None
+    if sh is not None and sh.batch_axes:
+        # a data rank's rows: the numerator and the count SUM across the data
+        # ranks (their masks may count unequally), the aux terms average (one
+        # token group per rank); the SUM passes each rank's gradient through
+        tot = sh.coll.sum_rows(torch.stack([(ll * mask).sum(), mask.sum(), aux]),
+                               sh.batch_axes)
+        ce = -tot[0] / torch.clamp_min(tot[1], 1.0)
+        aux = tot[2] / sh.coll.size_of(sh.batch_axes)
+    else:
+        ce = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux, "ppl": torch.exp(torch.clamp_max(ce, 20.0))}

@@ -2,17 +2,26 @@
 routing with a per-expert capacity, sort-based dispatch into an ``(E, C, d)``
 expert buffer, stacked-expert linears and a Switch-style load-balancing loss.
 
-Only the reference's ``G == 1`` global dispatch is ported: serving always runs it,
-sharded or not (the reference's serving steps trace ``token_groups=False``;
-``sharding.collectives.token_group_count``), and so do calibration and eager
-runs. The grouped ``G > 1`` dispatch, one capacity per data-parallel token group,
-belongs to sharded *training* and waits for it.
+Two dispatches, as in the reference. The global one (``G == 1``) routes every
+token row of the call with one capacity: serving always runs it, sharded or not
+(the reference's serving steps trace ``token_groups=False``;
+``sharding.collectives.token_group_count``), and so does calibration. The
+grouped one (``G > 1``, ``QuantContext.token_groups``: a training step's data
+axes' size, where it divides the call's tokens) splits the rows into G
+contiguous groups, each routed, dispatched and combined with its own capacity;
+the experts run on the G groups' buffers folded into one capacity axis, and the
+aux loss is the mean over the groups. Under a data mesh a rank's rows are one
+group of the global microbatch, so it dispatches them alone (G == 1) and the
+loss averages the ranks' aux terms (``models.model.loss_fn``).
 
 Expert parallelism (a rank's ``ShardContext`` with an ``expert_axis``): the
 router and the dispatch stay replicated, every rank computes the same (E, C, d)
 buffer, runs its E/ep experts (its shard of the stacked leaves, whole experts)
 through the expert-batched K1/K2, and the experts' outputs are gathered in
 expert order before the combine, so the step is bitwise the single-device one.
+Under autograd the buffer passes the f op before a rank takes its experts (their
+gradients sum across the ranks) and the gather hands each rank its experts'
+gradient.
 Expert-internal TP (``ShardContext.expert_tp``: E does not divide the model axis,
 d_ff_expert does): every rank holds every expert's d_ff_expert / tp columns of
 up and gate and the matching rows of down, the router and the dispatch stay
@@ -178,33 +187,56 @@ def _tp_expert_leaves(node: dict, name: str, r: int) -> dict:
     return out
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              ctx: QuantContext) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B, S, d), aux_loss scalar): one global dispatch over all
-    B·S token rows (padding rows and idle slots included: the capacity and the
-    drop set depend on them), the experts' stacked linears, the gated combine and,
-    with a shared expert, its MLP over every token."""
-    B, S, d = x.shape
-    xf = x.reshape(B * S, d)
-    gate_w, e_idx, pos_c, keep, aux = _route_group(xf, params["router"]["w"], cfg)
-    expert_in = _dispatch_group(xf, e_idx, pos_c, cfg)
+def _experts(params: dict, expert_in: torch.Tensor, cfg: ModelConfig,
+             ctx: QuantContext) -> torch.Tensor:
+    """The stacked experts on the (E, C, d) buffer: this rank's experts under
+    expert parallelism (then every rank's, in order), its d_ff_expert slice under
+    expert-internal TP, all of them otherwise."""
     sh = ctx.shard
     if sh is not None and sh.expert_axis is not None:
-        # expert parallelism: this rank's experts, then every rank's, in order
         up = params["up"]
         e_local = up.get("qw", up.get("qw4", up.get("w"))).shape[0]
         e0 = sh.coll.mesh.axis_index(sh.expert_axis) * e_local
         local = {name: _rank_experts(params[name], e0, e_local, cfg.n_experts)
                  for name in ("up", "gate", "down") if name in params}
-        local_out = _expert_ffn(local, expert_in[e0:e0 + e_local], cfg, ctx)
-        expert_out = sh.coll.gather_experts(local_out, sh.expert_axis)
-    elif sh is not None and sh.expert_tp:
+        mine = sh.coll.copy_to(expert_in, sh.expert_axis)[e0:e0 + e_local]
+        return sh.coll.gather_experts(_expert_ffn(local, mine, cfg, ctx), sh.expert_axis)
+    if sh is not None and sh.expert_tp:
         local = {name: _tp_expert_leaves(params[name], name, sh.tp_index)
                  for name in ("up", "gate", "down") if name in params}
-        expert_out = _expert_ffn(local, expert_in, cfg, ctx)
+        return _expert_ffn(local, expert_in, cfg, ctx)
+    return _expert_ffn(params, expert_in, cfg, ctx)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: QuantContext) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B, S, d), aux_loss scalar): the dispatch over all B·S token
+    rows (padding rows and idle slots included: the capacity and the drop set
+    depend on them), in one group or, with ``ctx.token_groups`` G dividing them,
+    in G contiguous groups of rows; the experts' stacked linears, the gated
+    combine and, with a shared expert, its MLP over every token."""
+    from repro_torch.sharding.collectives import token_group_count
+
+    B, S, d = x.shape
+    N, E = B * S, cfg.n_experts
+    xf = x.reshape(N, d)
+    G = 1 if ctx.observer is not None else token_group_count(N, ctx.token_groups)
+    if G == 1:
+        gate_w, e_idx, pos_c, keep, aux = _route_group(xf, params["router"]["w"], cfg)
+        expert_out = _experts(params, _dispatch_group(xf, e_idx, pos_c, cfg), cfg, ctx)
+        y = _combine_group(expert_out, gate_w, e_idx, pos_c, keep, cfg, x.dtype)
     else:
-        expert_out = _expert_ffn(params, expert_in, cfg, ctx)
-    y = _combine_group(expert_out, gate_w, e_idx, pos_c, keep, cfg, x.dtype)
+        xg = xf.reshape(G, N // G, d)
+        routes = [_route_group(xg[g], params["router"]["w"], cfg) for g in range(G)]
+        aux = torch.stack([r[4] for r in routes]).mean()
+        expert_in = torch.stack([_dispatch_group(xg[g], r[1], r[2], cfg)
+                                 for g, r in enumerate(routes)])          # (G, E, C, d)
+        C = expert_in.shape[2]
+        # the experts see every group's slots: G folds into the capacity axis
+        flat_out = _experts(params, expert_in.transpose(0, 1).reshape(E, G * C, d), cfg, ctx)
+        expert_out = flat_out.reshape(E, G, C, d).transpose(0, 1)
+        y = torch.cat([_combine_group(expert_out[g], gw, ei, pc, kp, cfg, x.dtype)
+                       for g, (gw, ei, pc, kp, _) in enumerate(routes)])
     if cfg.n_shared_experts:
         y = y + mlp_apply(params["shared"], xf[None], cfg, ctx)[0]
     return y.reshape(B, S, d), aux

@@ -266,10 +266,17 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantConte
 
     if hn != H:
         y = sh.coll.gather_cols(y)                   # every head, before the norm
-    # gated RMSNorm (its eps is 1e-6 whatever cfg.norm_eps), then the out projection
+    # gated RMSNorm (its eps is 1e-6 whatever cfg.norm_eps), then the out projection;
+    # served on a card through F.rms_norm, whose kernel reduces each row within one
+    # block (torch's f32 mean splits a row by the row count, so a data rank's rows
+    # would round otherwise than among one device's: layers.norm_apply); training
+    # and the CPU keep the reference's two-pass form
     g = y * F.silu(z.to(y.dtype))
-    g = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + 1e-6)
-    g = (g * params["norm_scale"]).to(x.dtype)
+    if g.is_cuda and not g.requires_grad:
+        g = F.rms_norm(g, (g.shape[-1],), params["norm_scale"], eps=1e-6).to(x.dtype)
+    else:
+        g = g * torch.rsqrt((g * g).mean(dim=-1, keepdim=True) + 1e-6)
+        g = (g * params["norm_scale"]).to(x.dtype)
     if sh is not None and sh.role("out_proj") == "row":
         k = g.shape[-1] // sh.coll.size("model")     # this rank's input columns
         g = g[..., sh.tp_index * k:(sh.tp_index + 1) * k]

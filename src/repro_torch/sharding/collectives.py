@@ -41,9 +41,34 @@ counts nothing. The process group's backend is the caller's: gloo on the CPU
 and for several ranks on one card (it takes CUDA tensors for every collective
 here, staging them through host memory itself), NCCL with a card per rank.
 
+Training (``training/trainer.py`` with a mesh) needs collectives autograd can
+pass through. These are Megatron's pair, ``torch.autograd.Function``s over the
+same process groups, each counted under a name of its own:
+
+* ``copy_to`` (the *f* op): the identity forward, the SUM of the gradient across
+  the axis backward (counted as ``f_sum`` when the backward runs). It stands
+  wherever a rank feeds a replicated tensor into rank-local work: a
+  column-parallel linear's input, the tied head's input under a vocab split, the
+  expert-parallel dispatch buffer before a rank takes its experts, and the kv
+  projections a ``tp_kv_rep`` rank slices;
+* ``sum_f32`` on a tensor that requires grad (the *g* op, ``g_sum``): the SUM
+  forward (a row-parallel linear's partial products, the vocab-parallel
+  embedding's rows), the identity backward; ``sum_rows`` is the same op over the
+  batch axes (``loss_sum``: the loss's numerator, count and aux terms);
+* ``gather_vocab`` / ``gather_experts`` on a tensor that requires grad
+  (``g_gather``): the gather forward, this rank's own slice of the gradient
+  backward.
+
+Outside autograd (serving runs under ``torch.no_grad()``) ``copy_to`` is the
+identity and the rest are the calls above, with their counts. The data axes'
+traffic of FSDP is counted as ``fsdp_gather`` (a leaf's shard gathered before
+use), ``grad_sum`` (gradients summed over the data axes) and ``norm_sum`` (the
+clip norm's partial sums), each one packed call for many leaves
+(``training/layout.py``).
+
 ``token_group_count`` is the reference's rule for the grouped MoE dispatch;
 serving forces one group (``token_groups=False``), as the reference's serving
-steps do.
+steps do; training passes the data axes' size.
 """
 from __future__ import annotations
 
@@ -56,7 +81,10 @@ import torch.distributed as dist
 
 COUNTS: Dict[str, int] = {"sum_i32": 0, "max_f32": 0, "sum_f32": 0, "gather_vocab": 0,
                           "gather_experts": 0, "gather_groups": 0, "gather_cols": 0,
-                          "gather_slots": 0, "gather_pages": 0, "broadcast": 0}
+                          "gather_slots": 0, "gather_pages": 0, "broadcast": 0,
+                          # training: autograd's collectives and FSDP's packed calls
+                          "f_sum": 0, "g_sum": 0, "g_gather": 0, "loss_sum": 0,
+                          "fsdp_gather": 0, "grad_sum": 0, "norm_sum": 0}
 _lock = threading.Lock()
 
 
@@ -71,6 +99,51 @@ def _count(name: str) -> None:
         COUNTS[name] += 1
 
 
+def _needs_grad(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: the identity forward, the SUM of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, coll, axes):
+        ctx.coll, ctx.axes = coll, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.axes,
+                                   dist.ReduceOp.SUM, "f_sum"), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """Megatron's g: the SUM forward (into a fresh tensor), the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, coll, axes, name):
+        return coll.all_reduce(x.clone(memory_format=torch.contiguous_format), axes,
+                               dist.ReduceOp.SUM, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _GatherOwn(torch.autograd.Function):
+    """The gather along ``dim`` forward, this rank's own slice of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, coll, axis, dim):
+        ctx.dim, ctx.n, ctx.index = dim, x.shape[dim], coll.mesh.axis_index(axis)
+        return coll._gather(x, axis, dim, "g_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None
+
+
 class Collectives:
     """Collectives over a mesh's axes (``launch.mesh.Mesh``)."""
 
@@ -80,24 +153,49 @@ class Collectives:
     def size(self, axis: str) -> int:
         return self.mesh.axis_size(axis)
 
-    def _all_reduce(self, t: torch.Tensor, axis: str, op, name: str) -> torch.Tensor:
-        if self.size(axis) == 1:
+    def size_of(self, axes: Tuple[str, ...]) -> int:
+        n = 1
+        for a in axes:
+            n *= self.size(a)
+        return n
+
+    def all_reduce(self, t: torch.Tensor, axes, op, name: str) -> torch.Tensor:
+        """``t`` reduced in place over ``axes`` (an axis name or a tuple of them)
+        and returned; the identity, uncounted, where they hold one rank."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if self.size_of(axes) == 1:
             return t
         t = t.contiguous()
-        dist.all_reduce(t, op=op, group=self.mesh.groups[axis])
+        dist.all_reduce(t, op=op, group=self.mesh.group_of(axes))
         _count(name)
         return t
 
     def sum_i32(self, acc: torch.Tensor, axis: str = "model") -> torch.Tensor:
         if acc.dtype != torch.int32:
             raise TypeError(f"sum_i32 takes int32 accumulators, got {acc.dtype}")
-        return self._all_reduce(acc, axis, dist.ReduceOp.SUM, "sum_i32")
+        return self.all_reduce(acc, axis, dist.ReduceOp.SUM, "sum_i32")
 
     def max_f32(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
-        return self._all_reduce(t.to(torch.float32), axis, dist.ReduceOp.MAX, "max_f32")
+        return self.all_reduce(t.to(torch.float32), axis, dist.ReduceOp.MAX, "max_f32")
 
     def sum_f32(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
-        return self._all_reduce(t, axis, dist.ReduceOp.SUM, "sum_f32")
+        if _needs_grad(t) and self.size(axis) > 1:
+            return _SumOver.apply(t, self, (axis,), "g_sum")
+        return self.all_reduce(t, axis, dist.ReduceOp.SUM, "sum_f32")
+
+    def sum_rows(self, t: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """The SUM over the batch axes of each rank's terms (autograd's g op: every
+        rank's gradient passes through unchanged)."""
+        if self.size_of(axes) == 1:
+            return t
+        return _SumOver.apply(t, self, tuple(axes), "loss_sum")
+
+    def copy_to(self, t: torch.Tensor, axis: str = "model") -> torch.Tensor:
+        """Megatron's f op: ``t`` (replicated over ``axis``) unchanged; under
+        autograd its gradient is summed across the axis."""
+        if not _needs_grad(t) or self.size(axis) == 1:
+            return t
+        return _CopyTo.apply(t, self, (axis,))
 
     def _gather(self, t: torch.Tensor, axis: str, dim: int, name: str) -> torch.Tensor:
         n = self.size(axis)
@@ -109,13 +207,18 @@ class Collectives:
         _count(name)
         return torch.cat(parts, dim=dim)
 
+    def _gather_own(self, t: torch.Tensor, axis: str, dim: int, name: str) -> torch.Tensor:
+        if _needs_grad(t) and self.size(axis) > 1:
+            return _GatherOwn.apply(t, self, axis, dim % t.ndim)
+        return self._gather(t, axis, dim, name)
+
     def gather_vocab(self, logits: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """(..., V/n) logits of each rank's vocab slice → (..., V), in rank order."""
-        return self._gather(logits, axis, -1, "gather_vocab")
+        return self._gather_own(logits, axis, -1, "gather_vocab")
 
     def gather_experts(self, out: torch.Tensor, axis: str) -> torch.Tensor:
         """(E/n, C, d) outputs of each rank's experts → (E, C, d), in expert order."""
-        return self._gather(out, axis, 0, "gather_experts")
+        return self._gather_own(out, axis, 0, "gather_experts")
 
     def gather_groups(self, part: torch.Tensor, axis: str = "model") -> torch.Tensor:
         """(M, G/n, N) per-group products of each rank's groups → (M, G, N)."""
@@ -181,6 +284,9 @@ class ShardContext:
     # the paged K/V rows this rank wrote in the current model call, layer by layer:
     # (the layer's pools, flat pool positions, {pool name: rows})
     kv_log: list = dataclasses.field(default_factory=list)
+    # training: the axes this rank's batch rows split over (the plan's data axes);
+    # the loss's numerator, count and aux terms SUM over them (models.model.loss_fn)
+    batch_axes: Tuple[str, ...] = ()
 
     def role(self, name: str) -> Optional[str]:
         return self.roles.get(name)
@@ -286,7 +392,10 @@ def token_group_count(n_tokens: int, dp: Optional[int] = None,
     """Number of dp-aligned token groups for the grouped MoE dispatch: the data
     axes' size ``dp`` where it divides the token count, else 1. Serving passes
     ``token_groups=False`` (one global dispatch: the same capacity arithmetic as
-    one device); so does every path without data axes (``dp`` None)."""
+    one device); so does every path without data axes (``dp`` None). A training
+    step on one device passes its ``token_groups`` (``QuantContext``); under a
+    data mesh each rank's rows are one group of the global microbatch and it
+    dispatches them alone."""
     if not token_groups or dp is None:
         return 1
     if dp >= (1 << 62) or n_tokens % dp != 0:

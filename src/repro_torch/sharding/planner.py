@@ -15,7 +15,8 @@ expert-internal TP (``expert_tp``) when d_ff_expert divides.
 
 A placement is the reference's ``PartitionSpec`` as a tuple: one entry per dim,
 ``None``, an axis name, or a tuple of axis names (training's FSDP dims). Here it
-is the storage of a rank's shard (:func:`shard_tree` cuts it) and it decides how
+is the storage of a rank's shard (:func:`shard_tree` cuts it; in training
+``training.layout`` gathers the FSDP dims back before a step) and it decides how
 the model computes: a 2-D linear whose weight splits its output dim is
 column-parallel, one that splits its input dim row-parallel
 (:func:`linear_roles`). The dense KV cache's reference placement splits the
@@ -40,8 +41,8 @@ Spec = Tuple[object, ...]
 
 
 class ShardingUnsupportedError(NotImplementedError):
-    """A sharded-serving combination the port does not serve: the subclasses
-    below, and fake quantization other than per-channel weights with crossquant /
+    """A sharded combination the port does not run: the subclasses below, and in
+    serving fake quantization other than per-channel weights with crossquant /
     per-token / no activation quantization on a split linear."""
 
 
@@ -55,6 +56,45 @@ class ShardedW4A8Error(ShardingUnsupportedError):
 class ExpertTPError(ShardingUnsupportedError):
     """``moe_mode == "expert_tp"`` (d_ff_expert split over "model") forced on a
     config whose d_ff_expert the model axis does not divide."""
+
+
+class ShardedTrainingError(ShardingUnsupportedError):
+    """A sharded training case the port does not run (:func:`check_train`); the
+    message names the ROADMAP item that would lift it."""
+
+
+def check_train(cfg: ModelConfig, plan: Plan, mesh, quant=None,
+                compression=None) -> None:
+    """Raise :class:`ShardedTrainingError` for the training cases the port leaves
+    out, before any collective: in ROADMAP A's order,
+
+    * A4: a model axis of more than one rank over the SSM, hybrid, vision or
+      audio families (their state heads, ``gather_cols`` and frontends have no
+      autograd path; under data axes alone they train);
+    * A5: experts split inside (``expert_tp``) or over a dedicated expert axis
+      (``expert_axis``);
+    * A6: quantized training (QAT, ``mode="fake"``, or ``mode="int8"``) under a
+      mesh: only ``mode="fp"`` trains sharded;
+    * A7: gradient compression under a model axis (its CrossQuant statistics span
+      the whole leaf, which a rank holds only a slice of)."""
+    model_split = mesh.shape.get(plan.tp_axis, 1) > 1 and plan.tier != "dp_only"
+    if model_split and cfg.family not in ("dense", "moe"):
+        raise ShardedTrainingError(
+            f"training {cfg.name} ({cfg.family}) under a model axis of "
+            f"{mesh.shape[plan.tp_axis]} (ROADMAP A4): only the dense and MoE families "
+            f"train tensor-parallel; under data axes alone (or tier dp_only) it trains")
+    if plan.moe_mode in ("expert_tp", "expert_axis"):
+        raise ShardedTrainingError(
+            f"training {cfg.name} with moe_mode {plan.moe_mode!r} (ROADMAP A5): experts "
+            f"train whole on one rank (ep over the model axis) or replicated")
+    if quant is not None and quant.mode != "fp":
+        raise ShardedTrainingError(
+            f"training under quantization mode {quant.mode!r} ({quant.tag()}) on a mesh "
+            f"(ROADMAP A6): sharded training runs mode='fp'")
+    if compression is not None and model_split:
+        raise ShardedTrainingError(
+            f"gradient compression under a model axis of {mesh.shape[plan.tp_axis]} "
+            f"(ROADMAP A7): its scales span the whole leaf; compress under data axes")
 
 
 @dataclasses.dataclass(frozen=True)

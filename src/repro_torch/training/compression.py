@@ -6,7 +6,11 @@ the payload a compressed data-parallel all-reduce would ship. CrossQuant's scale
 (``rowmax^α · colmax^(1-α)`` per element) shrinks the quantization kernel of a
 gradient as it does an activation's, and error feedback carries what the
 rounding dropped into the next step. On one device there is no all-reduce: the
-quantize → dequantize pair is what changes the update.
+quantize → dequantize pair is what changes the update. Under data axes the
+trainer compresses each whole leaf's data-summed gradient (every rank the same,
+with the same error state) before it keeps its shard, so the codes are one
+device's; under a model axis a rank holds a slice of a leaf and the planner
+refuses compression (``check_train``).
 """
 from __future__ import annotations
 

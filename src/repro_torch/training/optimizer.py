@@ -58,17 +58,26 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)])))
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """The L2 norm over every leaf. With ``layout`` (``training.layout.TrainLayout``)
+    ``tree`` is a rank's shards and the norm is the whole logical tree's: each
+    rank's sums of squares of the shards it owns (a replicated piece counts once),
+    SUMmed across the mesh."""
+    parts = torch.stack([torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)])
+    if layout is not None:
+        own = torch.tensor(layout.owned, device=parts.device)
+        parts = layout.norm_sum(torch.where(own, parts, torch.zeros_like(parts)))
+    return torch.sqrt(torch.sum(parts))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, layout=None):
     """Returns (new_params, new_state, metrics). Master weights stay f32; the
-    params, ``m`` and ``v`` are updated in place (module docstring)."""
+    params, ``m`` and ``v`` are updated in place (module docstring). With
+    ``layout`` they are a rank's shards (AdamW is elementwise) and only the clip
+    norm spans the mesh (:func:`global_norm`)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

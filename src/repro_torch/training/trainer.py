@@ -1,12 +1,22 @@
 """The training step (port of ``repro/training/trainer.py``): microbatched
 gradient accumulation over the loss, each block of the layer loop recomputed in
-the backward pass (remat), then the AdamW update.
+the backward pass (remat), then the AdamW update, on one device or on a (data,
+model) mesh of ``torch.distributed`` ranks.
 
 The linears run in plain torch (``use_kernels=False``), as the reference builds
 its training context with ``use_pallas=False``: the hand-written kernels have no
-backward and refuse inputs that require grad. The reference's
-``hints.constrain_microbatches`` lays microbatches out over a mesh; on one device
-there is nothing to lay out.
+backward and refuse inputs that require grad.
+
+On a mesh (``layout``, ``training.layout.TrainLayout``) a rank holds its FSDP
+shard of the params and of both moments (the planner's training placements) and
+computes Megatron-style on its model-axis slice. Each step it gathers its
+compute slices once, runs every microbatch's forward and backward on its rows
+of it (the reference's ``hints.constrain_microbatches`` layout) with the shard
+context in its ``QuantContext`` (the loss is the whole batch's, an MoE's rows
+one token group of it), SUMs the accumulated gradients over the data axes,
+keeps its shard, and applies AdamW to its shards with the whole tree's clip
+norm. Gradient compression runs on the data-summed gradient of each whole leaf
+before the shard is taken, so its codes are one device's.
 """
 from __future__ import annotations
 
@@ -52,7 +62,8 @@ def _value_and_grad(loss, params, batch):
 
 def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, n_micro: int = 1,
                     quant: Optional[ql.QuantConfig] = None,
-                    compression: Optional[comp_lib.CompressionConfig] = None):
+                    compression: Optional[comp_lib.CompressionConfig] = None, *,
+                    mesh=None, plan=None, token_groups: int = 1):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; with ``compression`` set, ``train_step(params, opt_state,
     err_state, batch) -> (params, opt_state, err_state, metrics)``: gradients are
@@ -62,19 +73,41 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, n_micro: int
     that ``n_micro`` divides. Microbatch gradients accumulate in f32 and are
     divided by ``n_micro``; ``metrics["loss"]`` is the mean microbatch loss. The
     params and the optimizer state are updated in place and returned
-    (:func:`repro_torch.training.optimizer.apply_updates`)."""
-    ctx = QuantContext(quant or cfg.quant, use_kernels=False)
+    (:func:`repro_torch.training.optimizer.apply_updates`). ``token_groups``: an
+    MoE's grouped dispatch on one device (the reference's under a data axis of
+    that size).
+
+    ``mesh`` (``launch.mesh.Mesh``) runs the step on it under ``plan`` (default
+    ``make_plan(cfg, ShapeConfig(kind="train"), mesh)``), through the returned
+    step's ``layout`` (``training.layout.TrainLayout``; None on one device):
+    ``params`` and ``opt_state`` are this rank's shards (``step.layout.shard``),
+    ``batch`` the global batch (``n_micro`` times the data ranks divide it),
+    ``err_state`` ``step.layout.init_error_state``; the metrics are the whole
+    batch's on every rank. Raises the planner's ``ShardedTrainingError`` for the
+    cases it leaves out."""
+    quant = quant or cfg.quant
+    ctx = QuantContext(quant, use_kernels=False, token_groups=token_groups)
+    layout = None
+    if mesh is not None:
+        from repro_torch.sharding.planner import check_train
+        from repro_torch.training.layout import train_layout
+        layout = train_layout(cfg, mesh, plan)
+        check_train(cfg, layout.plan, mesh, quant, compression)
+        ctx = QuantContext(quant, use_kernels=False, shard=layout.shard_ctx)
 
     def loss(params, mb):
         return M.loss_fn(params, mb, cfg, ctx=ctx, remat=True)
 
     def train_step(params, opt_state, batch, err_state=None):
-        if n_micro > 1:
+        if layout is None and n_micro == 1:
+            mean_loss, grads = _value_and_grad(loss, params, batch)
+        else:
+            compute = layout.gather(params) if layout is not None else params
             gsum, lsum = None, None
             for i in range(n_micro):
-                mb = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                value, grads = _value_and_grad(loss, params, mb)
+                mb = (layout.rows(batch, i, n_micro) if layout is not None
+                      else _rows(batch, i, n_micro))
+                value, grads = _value_and_grad(loss, compute, mb)
                 if gsum is None:
                     gsum = map_tensors(grads, lambda g: g.to(torch.float32))
                     lsum = value
@@ -83,16 +116,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, n_micro: int
                         a.add_(g)
                     lsum = lsum + value
                 del grads
-            for g in leaves(gsum):
-                g.div_(n_micro)
+            if n_micro > 1:
+                for g in leaves(gsum):
+                    g.div_(n_micro)
             grads, mean_loss = gsum, lsum / n_micro
-        else:
-            mean_loss, grads = _value_and_grad(loss, params, batch)
+            del compute
 
+        if layout is not None:
+            layout.sum_grads(grads)
         if compression is not None:
             grads, err_state = comp_lib.compress_grads(grads, err_state, compression)
+        if layout is not None:
+            grads = layout.to_shards(grads)
 
-        new_params, new_opt, om = opt_lib.apply_updates(params, grads, opt_state, opt_cfg)
+        new_params, new_opt, om = opt_lib.apply_updates(params, grads, opt_state, opt_cfg,
+                                                        layout=layout)
         metrics = {"loss": mean_loss, **om}
         if compression is not None:
             return new_params, new_opt, err_state, metrics
@@ -101,8 +139,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_lib.AdamWConfig, n_micro: int
     if compression is not None:
         def train_step_c(params, opt_state, err_state, batch):
             return train_step(params, opt_state, batch, err_state)
+        train_step_c.layout = layout
         return train_step_c
+    train_step.layout = layout
     return train_step
+
+
+def _rows(batch, i: int, n_micro: int):
+    """Microbatch ``i`` of ``batch``: rows [i·B/n_micro, (i+1)·B/n_micro)."""
+    return {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
+            for k, v in batch.items()}
 
 
 def make_eval_step(cfg: ModelConfig, quant: Optional[ql.QuantConfig] = None):

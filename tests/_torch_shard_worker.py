@@ -5,6 +5,7 @@ imports it (and not the test module, which imports the JAX reference).
 """
 import dataclasses
 import datetime
+import pickle
 import traceback
 
 import numpy as np
@@ -175,15 +176,17 @@ def serve(trees, c, mesh=None, plan=None):
             None if eng.plan is None else eng.plan.describe(), weight_share(eng, trees, c))
 
 
-def worker(rank, world, port, trees, queue):
-    """One rank: join the gloo world, then serve every case of each of the world
-    size's meshes; report (rank, "ok", {mesh: {case: result + counts}}) or the
-    traceback."""
+def worker(rank, world, port, trees_file, queue):
+    """One rank: load the trees, join the gloo world, then serve every case of
+    each of the world size's meshes; report (rank, "ok", {mesh: {case: result +
+    counts}}) or the traceback."""
     try:
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import make_debug_mesh
         torch.set_num_threads(1)
+        with open(trees_file, "rb") as f:
+            trees = pickle.load(f)
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=world, rank=rank,
                                 timeout=datetime.timedelta(seconds=120))

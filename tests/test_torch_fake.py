@@ -32,14 +32,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get as jget  # noqa: E402
-from repro.core import awq as jawq, calibration as jcal, qlinear as jql  # noqa: E402
+from repro.core import awq as jawq, qlinear as jql  # noqa: E402
 from repro.core import quantizers as JQ, smoothquant as jsq  # noqa: E402
 from repro.data import make_train_batches  # noqa: E402
 from repro.models import model as JM, quantize as JMQ  # noqa: E402
-from repro.models.layers import QuantContext as JQuantContext  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro.serving.config import EngineConfig as JEngineConfig  # noqa: E402
 
+import _jax_jitted as J  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get as tget  # noqa: E402
 from repro_torch.core import awq as tawq, qlinear as tql, smoothquant as tsq  # noqa: E402
@@ -97,15 +97,13 @@ def small():
     cfg_j = dataclasses.replace(jget("starcoder2-7b", smoke=True), dtype="float32")
     cfg_t = dataclasses.replace(tget("starcoder2-7b", smoke=True), dtype="float32")
     params = JM.init_params(jax.random.PRNGKey(0), cfg_j)
-    obs = jcal.Observer()
     batch = make_train_batches(cfg_j.vocab, 16, 2, seed=1)(0)
-    JM.apply(params, {k: jnp.asarray(v) for k, v in batch.items()}, cfg_j,
-             ctx=JQuantContext(jql.W8A8_INT8, observer=obs), mode="train", unroll=True)
-    tables = jcal.stack_tables(obs.tables())
+    tables = J.stacked_tables(params, {k: jnp.asarray(v) for k, v in batch.items()}, cfg_j,
+                              jql.W8A8_INT8, mode="train", unroll=True)
     w4 = dataclasses.replace(jql.W4A8_G128, mode="int8", w_group=32)
-    trees = {"fp": params, "int8": JMQ.quantize_tree(params, jql.W8A8_INT8),
-             "int8c": JMQ.quantize_tree(params, jql.W8A8_INT8, tables=tables),
-             "int4c": JMQ.quantize_tree(params, w4, tables=tables)}
+    trees = {"fp": params, "int8": J.quantize_tree(params, jql.W8A8_INT8),
+             "int8c": J.quantize_tree(params, jql.W8A8_INT8, tables=tables),
+             "int4c": J.quantize_tree(params, w4, tables=tables)}
     return cfg_j, cfg_t, trees, {k: _to_t(v) for k, v in trees.items()}, tables
 
 

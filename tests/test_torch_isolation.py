@@ -36,7 +36,8 @@ def test_imports_without_jax_triton_or_repro():
                      "models.frontends", "runtime.supervisor", "serving.server",
                      "training.optimizer", "training.compression", "training.trainer",
                      "checkpoint.manager", "runtime.straggler", "launch.train",
-                     "launch.mesh", "sharding.planner", "sharding.collectives"):
+                     "launch.mesh", "sharding.planner", "sharding.collectives",
+                     "runtime.elastic", "training.layout"):
             assert "repro_torch." + name in names, name
         print(len(names))
     """)

@@ -38,13 +38,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get as jget  # noqa: E402
-from repro.core import calibration as jcal, qlinear as jql  # noqa: E402
+from repro.core import qlinear as jql  # noqa: E402
 from repro.models import model as JM, moe as JMOE  # noqa: E402
 from repro.models import quantize as JMQ  # noqa: E402
 from repro.models.layers import QuantContext as JQuantContext  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro.serving.config import EngineConfig as JEngineConfig  # noqa: E402
 
+import _jax_jitted as J  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get as tget  # noqa: E402
 from repro_torch.core import calibration as tcal, qlinear as tql  # noqa: E402
@@ -100,9 +101,11 @@ def _moe(arch: str) -> Moe:
         cfg_t = dataclasses.replace(tget(arch, smoke=True), dtype="float32")
         raw = JM.init_params(jax.random.PRNGKey(0), cfg_j)
         tables = _tables(cfg_j)
-        jtrees = {"fp": raw, "int8": JMQ.quantize_tree(raw, jql.W8A8_INT8),
+        # "int8c" is test_quantize_tree_leaves' eager reference; the trees only
+        # served come from the jitted quantize_tree
+        jtrees = {"fp": raw, "int8": J.quantize_tree(raw, jql.W8A8_INT8),
                   "int8c": JMQ.quantize_tree(raw, jql.W8A8_INT8, tables=tables),
-                  "w4": JMQ.quantize_tree(raw, W4_J)}
+                  "w4": J.quantize_tree(raw, W4_J)}
         ttrees = {k: convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, v),
                                                device="cpu") for k, v in jtrees.items()}
         _MOE[arch] = Moe(cfg_j, cfg_t, jtrees, ttrees, tables)
@@ -321,15 +324,15 @@ def test_calibration_tables(arch):
     """Observer names key the experts' tables at ``blocks/0/moe/{up,gate,down}``
     (d_in wide, shared by the experts, capacity rows included; llama4's shared
     expert observes under the same names), as the reference's, with the same
-    values."""
+    values (the reference's pass under ``jax.jit``)."""
     z = _moe(arch)
     toks = np.random.default_rng(1).integers(1, z.cfg_t.vocab, (2, 16))
-    jobs, tobs = jcal.Observer(), tcal.Observer()
-    JM.apply(z.jtrees["fp"], {"tokens": jnp.asarray(toks)}, z.cfg_j,
-             ctx=JQuantContext(jql.W8A8_INT8, observer=jobs), mode="train", unroll=True)
+    tobs = tcal.Observer()
+    jt = J.stacked_tables(z.jtrees["fp"], {"tokens": jnp.asarray(toks)}, z.cfg_j,
+                          jql.W8A8_INT8, mode="train", unroll=True)
     TM.apply(z.ttrees["fp"], {"tokens": torch.as_tensor(toks)}, z.cfg_t,
              ctx=QuantContext(tql.W8A8_INT8, observer=tobs), mode="train", unroll=True)
-    jt, tt = jcal.stack_tables(jobs.tables()), tcal.stack_tables(tobs.tables())
+    tt = tcal.stack_tables(tobs.tables())
     assert sorted(tt) == sorted(jt) == sorted(z.tables)
     L = z.cfg_t.n_layers
     assert tt["blocks/0/moe/up"].shape == (L, z.cfg_t.d_model)

@@ -42,7 +42,10 @@ import atexit
 import dataclasses
 import functools
 import multiprocessing
+import os
+import pickle
 import socket
+import tempfile
 
 import numpy as np
 import pytest
@@ -91,10 +94,23 @@ _JW4 = dataclasses.replace(jql.W4A8_G128, mode="int8", w_group=32)
 
 
 @functools.lru_cache(maxsize=None)
+def _trees_file():
+    """The trees in a file the ranks load: a spawned child reads its arguments
+    only after it has imported torch, so large ones would start the ranks one by
+    one."""
+    fd, path = tempfile.mkstemp(prefix="torch_shard_trees_", suffix=".pkl")
+    atexit.register(os.remove, path)
+    with os.fdopen(fd, "wb") as f:
+        pickle.dump(_jax_trees(), f)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
 def _spawned():
     """Every world of ``W.WORLDS``, spawned at once so that they overlap on the
     CPU: {size: (processes, result queue)}. A world nobody collects is killed at
-    exit (its ranks would block flushing their results)."""
+    exit (its ranks would block flushing their results). The JAX reference
+    engines start on threads beside them (:func:`_jax_references`)."""
     ctx = multiprocessing.get_context("spawn")
     out = {}
     for size in W.WORLDS:
@@ -102,13 +118,14 @@ def _spawned():
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
         queue = ctx.Queue()
-        procs = [ctx.Process(target=W.worker, args=(r, size, port, _jax_trees(), queue))
+        procs = [ctx.Process(target=W.worker, args=(r, size, port, _trees_file(), queue))
                  for r in range(size)]
         for p in procs:
             p.start()
         out[size] = (procs, queue)
     atexit.register(lambda: [p.kill() for procs, _ in out.values() for p in procs
                              if p.is_alive()])
+    _jax_references()
     return out
 
 
@@ -224,7 +241,10 @@ def _schedule(mesh, case):
     L = cfg.n_layers
     want = {k: 0 for k in ("sum_i32", "max_f32", "sum_f32", "gather_vocab", "gather_experts",
                            "gather_groups", "gather_cols", "gather_slots", "gather_pages",
-                           "broadcast")}
+                           "broadcast",
+                           # training's collectives: serving makes none of them
+                           "f_sum", "g_sum", "g_gather", "loss_sum", "fsdp_gather",
+                           "grad_sum", "norm_sum")}
     if dims[0] > 1:
         want["gather_slots"] = 1
         if case.startswith("paged"):          # the K/V rows every data rank wrote
@@ -274,6 +294,20 @@ def _jax_single(key):
     return {r.rid: r.out for r in jeng.run()}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_references():
+    """Every JAX reference engine ``test_tokens_equal_jax_engine`` needs, started on
+    threads as the ranks spawn (XLA compiles outside the GIL, so the engines'
+    compiles overlap the ranks' work): {key: future of ``_jax_single(key)``}."""
+    import concurrent.futures as cf
+
+    pool = cf.ThreadPoolExecutor(max_workers=4)
+    futures = {key: pool.submit(_jax_single, key)
+               for key in sorted({W.BASELINE.get(c, c) for _, c in JAX_CASES})}
+    pool.shutdown(wait=False)
+    return futures
+
+
 #: (mesh, case) held against the JAX engine: fused-int8 with int8 KV, dense and
 #: paged with prefix hits, speculative, a forced tier and every MoE mode
 JAX_CASES = [("tp2", "dense-fused-int8-int8"), ("tp4", "dense-fused-int8-int8"),
@@ -291,7 +325,7 @@ JAX_CASES = [("tp2", "dense-fused-int8-int8"), ("tp4", "dense-fused-int8-int8"),
                               else f"{m}-{c}" for m, c in JAX_CASES])
 def test_tokens_equal_jax_engine(mesh, case):
     """Sharded fused-int8 with int8 KV equals the JAX single-device engine."""
-    want = _jax_single(W.BASELINE.get(case, case))
+    want = _jax_references()[W.BASELINE.get(case, case)].result()
     for rank, res in _mesh_results(mesh).items():
         assert res[case][0] == want, (mesh, case, rank)
 

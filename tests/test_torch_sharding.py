@@ -103,11 +103,19 @@ def test_plan_describe_matches(arch):
 
 
 def _jax_trees(arch):
+    """The reference's raw, int8 and 2:4 smoke trees as shapes (``jax.eval_shape``:
+    placements read shapes only, and the traced trees hold the eager ones' paths,
+    shapes and dtypes)."""
     cfg = dataclasses.replace(jget(arch, smoke=True), dtype="float32")
-    raw = JM.init_params(jax.random.PRNGKey(0), cfg)
-    q = JMQ.quantize_tree(raw, jql.W8A8_INT8)
-    sp = JMQ.sparsify_tree(q, JMQ.SparsityPlan(nm=(2, 4)))
+    raw = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0), cfg))
+    q = jax.eval_shape(lambda r: JMQ.quantize_tree(r, jql.W8A8_INT8), raw)
+    sp = jax.eval_shape(lambda r: JMQ.sparsify_tree(r, JMQ.SparsityPlan(nm=(2, 4))), q)
     return cfg, {"raw": raw, "int8": q, "2:4": sp}
+
+
+def _meta_tree(tree):
+    """A port tree of meta tensors with the shapes of a reference shape tree."""
+    return jax.tree_util.tree_map(lambda s: torch.empty(s.shape, device="meta"), tree)
 
 
 def _ref_param_specs(tree, cfg, plan, mesh):
@@ -144,9 +152,8 @@ def test_param_placements_match(arch):
             jplan = jplanner.make_plan(cfg_j, jbase.SHAPES[shape], mesh)
             tplan = tplanner.make_plan(cfg_t, tbase.SHAPES[shape], mesh)
             for kind, tree in trees.items():
-                ttree = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, tree),
-                                                  device="cpu")
-                got = _port_specs(tplanner.param_placements(ttree, cfg_t, tplan, mesh))
+                got = _port_specs(tplanner.param_placements(_meta_tree(tree), cfg_t, tplan,
+                                                            mesh))
                 assert got == _ref_param_specs(tree, cfg_j, jplan, mesh), (kind, axes, shape)
 
 

@@ -36,13 +36,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get as jget  # noqa: E402
-from repro.core import calibration as jcal, qlinear as jql  # noqa: E402
+from repro.core import qlinear as jql  # noqa: E402
 from repro.models import model as JM  # noqa: E402
-from repro.models.layers import QuantContext as JQuantContext  # noqa: E402
-from repro.models.quantize import quantize_tree as j_quantize_tree  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro.serving.config import EngineConfig as JEngineConfig  # noqa: E402
 
+import _jax_jitted as J  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get as tget  # noqa: E402
 from repro_torch.core import calibration as tcal, qlinear as tql  # noqa: E402
@@ -76,7 +75,7 @@ def _zoo(arch: str) -> Zoo:
         cfg_j = dataclasses.replace(jget(arch, smoke=True), dtype="float32")
         cfg_t = dataclasses.replace(tget(arch, smoke=True), dtype="float32")
         raw = JM.init_params(jax.random.PRNGKey(0), cfg_j)
-        jtrees = {"fp": raw, "int8": j_quantize_tree(raw, jql.W8A8_INT8)}
+        jtrees = {"fp": raw, "int8": J.quantize_tree(raw, jql.W8A8_INT8)}
         ttrees = {k: convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, v),
                                                device="cpu") for k, v in jtrees.items()}
         _ZOO[arch] = Zoo(cfg_j, cfg_t, jtrees, ttrees)
@@ -174,15 +173,15 @@ def test_tree_matches_reference(arch):
 def test_calibration_names_stack_per_sublayer():
     """gemma2's observer names /L{b}/S0/... (local) and /L{b}/S1/... (global) stack
     onto blocks/0 and blocks/1, the lm_head's stays top-level; the port's tables
-    from its own calibration pass equal the reference's."""
+    from its own calibration pass equal the reference's (under ``jax.jit``)."""
     z = _zoo("gemma2-9b")
     toks = np.random.default_rng(3).integers(1, z.cfg_t.vocab, (2, 24))
-    jobs, tobs = jcal.Observer(), tcal.Observer()
-    JM.apply(z.jtrees["fp"], {"tokens": jnp.asarray(toks)}, z.cfg_j,
-             ctx=JQuantContext(jql.W8A8_INT8, observer=jobs), mode="train", unroll=True)
+    tobs = tcal.Observer()
+    jt = J.stacked_tables(z.jtrees["fp"], {"tokens": jnp.asarray(toks)}, z.cfg_j,
+                          jql.W8A8_INT8, mode="train", unroll=True)
     TM.apply(z.ttrees["fp"], {"tokens": torch.as_tensor(toks)}, z.cfg_t,
              ctx=QuantContext(tql.W8A8_INT8, observer=tobs), mode="train", unroll=True)
-    jt, tt = jcal.stack_tables(jobs.tables()), tcal.stack_tables(tobs.tables())
+    tt = tcal.stack_tables(tobs.tables())
     assert sorted(jt) == sorted(tt)
     L2 = z.cfg_t.n_layers // 2
     for i in (0, 1):
