@@ -54,10 +54,12 @@ Phases (any failure raises and exits non-zero):
    and C=128 dispatch buffers, and the tile body beside them, each bitwise
    against the per-expert plain version eagerly and under graph replay.
    The SSM and hybrid slice's shapes ([3s]): K1 at K=768, 1536, 2048 and 4096
-   (the in/out projections of mamba2-130m and zamba2-1.2b), M=4 and 2048; K2's
-   tile body at mamba2's in_proj (K=768, N=3352, off the 16-column grid), M=4
-   and 2048, bitwise eagerly and under graph replay, beside torch._int_mm and
-   the decode or wgmma body on the weight padded to N=3360; K2's routed bodies
+   (the in/out projections of mamba2-130m and zamba2-1.2b), M=4 and 2048; K2 at
+   mamba2's in_proj (K=768, N=3352, off the 16-column grid) on the view the
+   engine serves (rows 3360 bytes apart), M=4 and 2048, routed to the decode or
+   wgmma body, bitwise eagerly and under graph replay, beside the tile body on
+   the contiguous weight and torch._int_mm (the decode body must beat it); K2's
+   routed bodies
    at zamba2's in_proj (N=8384) and out_proj and mamba2's out_proj; K3 bf16 at
    B=4, H=Hkv=32, D=64, S=512 beside SDPA; K4 with bf16 q over an int8 and an
    f32 pool at group size 1.
@@ -136,7 +138,8 @@ Phases (any failure raises and exits non-zero):
    super-blocks, a 2-layer tail) calibrated, quantized and served fused-int8
    dense (fp and int8 KV) and paged without prefix reuse (fp and int8 KV; one
    state page per slot), fake and dequant-fp dense: 48 and 118 K1/K2 launches
-   per model call (mamba2's in_proj on K2's tile body), 6 K3 per zamba2
+   per model call (mamba2's in_proj at its row pitch on K2's decode or wgmma
+   body: no tile-body launch), 6 K3 per zamba2
    admission and 6 K4 per paged decode step; tok/s, model call, peak memory
    and state bytes per slot; speculate=4, paged prefix reuse and chunked
    refused with the reference's typed errors. [4t] profiler windows over 3
@@ -181,12 +184,12 @@ Phases (any failure raises and exits non-zero):
    CPU: equal free-running greedy tokens and logits within 5e-2 of max|logit|,
    or, where a near tie parts the tokens, [5m]'s three-way bar; the paged
    layout (state_table, page table, K4) against the dense one on the card.
-6. The async replica server (``serving.server.AsyncServer``) on phase 4's
-   calibrated starcoder2-7b FULL W8A8 tree (rebuilt from the same seed and
-   calibration, since phase 4 frees it before the zoo): fused-int8, paged, int8 KV, batch 4
-   per replica, max_len 1024, 16 requests in two prefix families (a 256-token
-   shared prefix each, suffixes of 32-192 tokens, 16 new tokens each), affinity
-   routing, with 2 replicas sharing the card (a thread and a CUDA stream each)
+6. The async replica server (``serving.server.AsyncServer``) on starcoder2-7b at
+   full width cut to 16 of 32 layers, W8A8 calibrated as phase 4 calibrates (the
+   same seed and calibration; phase 4 frees its tree before the zoo): fused-int8,
+   paged, int8 KV, batch 4 per replica, max_len 1024, 16 requests in two prefix
+   families (a 256-token shared prefix each, suffixes of 32-192 tokens, 16 new
+   tokens each), affinity routing, with 2 replicas sharing the card (a thread and a CUDA stream each)
    and with 1: aggregate tok/s, TTFT and TPOT p50/p95, affinity hits, the prefix
    hit rate per replica, peak memory. Every stream equals the engine alone fed
    the same prompts in the same per-replica order (held with ``pause()`` until
@@ -229,7 +232,7 @@ Phases (any failure raises and exits non-zero):
    it single-device; the ranks take it by CUDA IPC and copy only their shards.
    starcoder2-7b FULL at tp=2 (tp_full, 18/2 heads a rank; row-parallel wo and
    down through K1's given-max and K2's int32-out modes), dense and paged with
-   int8 KV, 4 requests x 16 tokens; granite-moe-3b-a800m FULL at ep=2 (20 of 40
+   int8 KV, 4 requests x 8 tokens; granite-moe-3b-a800m FULL at ep=2 (20 of 40
    experts a rank), dense int8 KV. On both ranks: tokens equal the single-device
    engine's, every logits row the sampler saw bitwise, launches per body and
    collectives per model call equal the schedule (starcoder2: 64 int32 SUMs, 64
@@ -322,6 +325,31 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn(i)`` on the current card: ``reps`` calls captured
+    in one CUDA graph and replayed, so the host's dispatch of each call (Python,
+    argument checks, ctypes) is not in the number, as it is in ``time_ms``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)                                       # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def ptxas_summary(log: str):
@@ -460,7 +488,8 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
         from repro_torch.core.qlinear import W4_GATHER_BYTES
         from repro_torch.kernels import ops
         from repro_torch.kernels.act_quantize import act_quantize_plan
-        from repro_torch.kernels.qgemm import DECODE_MAX_M, qgemm_w4a8_plan, qgemm_w8a8_plan
+        from repro_torch.kernels.qgemm import (
+            DECODE_MAX_M, qgemm_w4a8_plan, qgemm_w8a8_plan, served_pitch)
         from repro_torch.launch.mesh import make_debug_mesh
         from repro_torch.sharding import planner as SP
         from repro_torch.models import model as M
@@ -603,8 +632,10 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                 want_c[name] = n * calls
             for m in rows:
                 for K, N, n in run["linears"]:
+                    # a ragged-N shard (mamba2's in_proj, 1676) served at its row pitch
+                    ldw = served_pitch(K, N)
                     want[f"act_quantize/{act_quantize_plan(m, K)[0]}"] += n
-                    want[f"qgemm_w8a8/{qgemm_w8a8_plan(m, K, N)[0]}"] += n
+                    want[f"qgemm_w8a8/{qgemm_w8a8_plan(m, K, N, ldw=ldw)[0]}"] += n
                 for K, N, n in run["row_linears"]:
                     want[f"act_quantize/given_{act_quantize_plan(m, K)[0]}"] += n
                     want[f"qgemm_w8a8/i32_{qgemm_w8a8_plan(m, K, N)[0]}"] += n
@@ -788,8 +819,8 @@ def main() -> int:
     from repro_torch.kernels.qgemm import (
         DECODE_MAX_M, decode_splits, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
         qgemm_w4a8_wgmma_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
-        qgemm_w8a8_sparse_cuda, qgemm_w8a8_sparse_plan, qgemm_w8a8_wgmma_cuda,
-        sparse_stage_ranges, w4a8_decode_splits,
+        qgemm_w8a8_sparse_cuda, qgemm_w8a8_sparse_plan, qgemm_w8a8_wgmma_cuda, row_pitch,
+        served_pitch, sparse_stage_ranges, w4a8_decode_splits,
         w4a8_wgmma_splits, wgmma_splits,
     )
     from repro_torch.kernels.act_quantize import act_quantize_cuda, act_quantize_plan
@@ -801,7 +832,7 @@ def main() -> int:
     from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.models.quantize import (
         SparsityPlan, dequantize_tree, make_sparsity_plan, quantize_tree, quantized_bytes,
-        sparsify_tree, sparsity_summary, with_tile_occupancy,
+        prepare_served, sparsify_tree, sparsity_summary,
     )
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving import engine as serving_engine
@@ -840,29 +871,6 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
-
-    def graph_ms(fn, reps: int) -> float:
-        """Device time per call: ``reps`` calls captured in one CUDA graph and
-        replayed, so the host's dispatch of each call (Python, argument checks,
-        ctypes) is not in the number, as it is in ``time_ms``."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(0)                                   # warm-up outside the graph
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for i in range(reps):
-                fn(i)
-        graph.replay()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / (3 * reps)
 
     def once(fn):
         return lambda i=0: fn()
@@ -1697,6 +1705,14 @@ def main() -> int:
          [n - w + i for n, w in zip(rkv_g, rq_g) for i in range(w)],
          sum(min(n - w, 4095) for n, w in zip(rkv_g, rq_g))),
     ]
+    # the body's earlier D = 256 instantiation (one warp across each row's 256 dims,
+    # two converted buffers, no window skip), its times on the H100 (PERF.md §6);
+    # the registers and spills of the body's D = 128 and D = 256 instantiations from
+    # phase 2's ptxas log
+    earlier_d256 = {"K4": 0.0897, "K5": 0.0995, "K6": 0.8659}
+    for line in ptxas_summary(log):
+        if line.startswith("paged_mma_kernel<") and ("Li128E" in line or "Li256E" in line):
+            print(f"[3] ptxas {line}")
     for name, kid, call, plain, q_pos, pool_rows in zoo_paged:
         before = ops.BODY_LAUNCHES["paged_attention/bf16_mma"]
         out = call()
@@ -1726,9 +1742,11 @@ def main() -> int:
         print(f"[3] {name} ({kid}, bf16_mma body) gemma2 local: H={Hkv_g * G_g}/{Hkv_g} D={D_g} "
               f"ps={ps_g} q bf16 pool int8 window=4096 softcap=50 kv_len={kv_g} ({q_rows} query "
               f"rows; split {n_parts_g} x {part_len_g}, {behind} partitions wholly behind the "
-              f"window): kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} library_ms=None "
-              f"bound_ms={bms:.5f} ({by}) max_abs_err={err:.2e} tol 2e-2 or one bf16 ulp "
-              f"({n_ulp} by the ulp)")
+              f"window): kernel_ms={ms:.4f} (the earlier D = 256 design "
+              f"{earlier_d256[kid]:.4f} ms, {earlier_d256[kid] / ms:.2f}x) call_ms={cms:.4f} "
+              f"plain_ms={pms:.4f} "
+              f"library_ms=None bound_ms={bms:.5f} ({by}, {bms / ms:.1%} of it) "
+              f"max_abs_err={err:.2e} tol 2e-2 or one bf16 ulp ({n_ulp} by the ulp)")
     del kp_g, vp_g, ks_g, vs_g
 
     # K2 at nemotron-4-15b's untied head: the fp head prepared on the fly from the
@@ -1902,12 +1920,13 @@ def main() -> int:
     # a generator of their own. K1 at the in/out projections' K (768 and 1536 for
     # mamba2, 2048 and 4096 for zamba2), M=4 and 2048, bf16 rows with outlier
     # channels: held as at the main path's shapes (codes off by one on <= 1e-5 of
-    # them, a within one ulp), eagerly and under graph replay, and timed. K2's tile
-    # body at mamba2's in_proj (K=768, N=2·1536 + 2·128 + 24 = 3352, off the
-    # 16-column grid, so every M routes there), M=4 and 2048, bitwise eagerly and
-    # under graph replay, with torch._int_mm on the same operands and the decode or
-    # wgmma body on the weight padded to N=3360 beside it, to size a later fix. K2's
-    # routed bodies at zamba2's in_proj (K=2048, N=8384) and out_proj (K=4096,
+    # them, a within one ulp), eagerly and under graph replay, and timed. K2 at
+    # mamba2's in_proj (K=768, N=2·1536 + 2·128 + 24 = 3352, off the 16-column
+    # grid), M=4 and 2048, on the view the engine serves (models.quantize.
+    # prepare_served: rows 3360 bytes apart), routed to the decode or wgmma body,
+    # bitwise eagerly and under graph replay, with the tile body on the contiguous
+    # weight (what served it before) and torch._int_mm on the same operands beside
+    # it. K2's routed bodies at zamba2's in_proj (K=2048, N=8384) and out_proj (K=4096,
     # N=2048) and mamba2's out_proj (K=1536, N=768), bitwise eagerly and under
     # graph replay. K3 bf16 at zamba2's shared attention (B=4, H=Hkv=32, D=64,
     # S=512) with SDPA beside it, and K4 with bf16 q over an int8 and an f32 pool
@@ -1961,19 +1980,24 @@ def main() -> int:
         n_copies = max(1, min(64, math.ceil(3 * L2_BYTES / (K * N))))
         qws = [torch.randint(-127, 128, (K, N), generator=gen_s, device=dev, dtype=torch.int8)
                for _ in range(n_copies)]
-        qw = qws[0]
+        # the served weights: a ragged-N leaf at its row pitch (a view of its own
+        # shape), any other as it is
+        pws = [prepare_served({"qw": w_})["qw"] for w_ in qws]
+        qw = pws[0]
+        check(qw.stride() == (row_pitch(N), 1), f"qgemm_w8a8 K={K} N={N}: served strides "
+              f"{qw.stride()}")
         a = torch.rand(Mr, 1, generator=gen_s, device=dev) * 0.1 + 1e-3
         sw = torch.rand(N, generator=gen_s, device=dev) * 0.1 + 1e-3
-        routed, splits = qgemm_w8a8_plan(Mr, K, N)
+        routed, splits = qgemm_w8a8_plan(Mr, K, N, ldw=row_pitch(N))
         bodies = {"tile": lambda i=0: qgemm_w8a8_cuda(qx, qws[i % n_copies], a, sw)}
         if routed == "decode":
-            bodies["decode"] = lambda i=0: qgemm_w8a8_decode_cuda(qx, qws[i % n_copies], a, sw,
+            bodies["decode"] = lambda i=0: qgemm_w8a8_decode_cuda(qx, pws[i % n_copies], a, sw,
                                                                   splits)
         elif routed == "wgmma":
-            bodies["wgmma"] = lambda i=0: qgemm_w8a8_wgmma_cuda(qx, qws[i % n_copies], a, sw,
+            bodies["wgmma"] = lambda i=0: qgemm_w8a8_wgmma_cuda(qx, pws[i % n_copies], a, sw,
                                                                 splits)
-        check((routed == "tile") == (N % 16 != 0), f"qgemm_w8a8 M={Mr} K={K} N={N} routes to "
-              f"the {routed} body")
+        check(routed == ("decode" if Mr <= DECODE_MAX_M else "wgmma"), f"qgemm_w8a8 M={Mr} "
+              f"K={K} N={N} routes to the {routed} body")
         before = dict(ops.BODY_LAUNCHES)
         out = ops.qgemm_w8a8(qx, qw, a, sw)
         check(ops.BODY_LAUNCHES[f"qgemm_w8a8/{routed}"] == before[f"qgemm_w8a8/{routed}"] + 1,
@@ -1982,6 +2006,16 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((out - want).abs().max())
         check(torch.equal(out, want), f"qgemm_w8a8 M={Mr} K={K} N={N} not bitwise: {err}")
+        if N % 16:
+            # the contiguous weight, as no engine serves it: the wrapper routes it to
+            # the tile body
+            before_t = ops.BODY_LAUNCHES["qgemm_w8a8/tile"]
+            out_t = ops.qgemm_w8a8(qx, qws[0], a, sw)
+            torch.cuda.synchronize()
+            check(ops.BODY_LAUNCHES["qgemm_w8a8/tile"] == before_t + 1 and torch.equal(out_t, want),
+                  f"qgemm_w8a8 M={Mr} K={K} N={N}: the contiguous weight did not run the tile "
+                  f"body bitwise")
+            del out_t
         for b, fn in bodies.items():
             for o in (fn(), replay(once(fn))[0]):
                 torch.cuda.synchronize()
@@ -1991,25 +2025,8 @@ def main() -> int:
         for b in [routed] + [b for b in bodies if b != routed] + [routed]:
             t = graph_ms(bodies[b], 20 if Mr >= 512 else 50)
             body_ms[b] = t if b not in body_ms else min(body_ms[b], t)
-        extra = {}
-        if routed == "tile":
-            # the same product on the weight padded to the next multiple of 16 columns,
-            # where the decode or wgmma body takes it: what padding N would buy
-            Np = -(-N // 16) * 16
-            qwps = [torch.nn.functional.pad(w_, (0, Np - N)) for w_ in qws]
-            swp = torch.nn.functional.pad(sw, (0, Np - N))
-            pbody, psplits = qgemm_w8a8_plan(Mr, K, Np)
-            pfn = {"decode": qgemm_w8a8_decode_cuda, "wgmma": qgemm_w8a8_wgmma_cuda}[pbody]
-            pout = pfn(qx, qwps[0], a, swp, psplits)
-            torch.cuda.synchronize()
-            check(torch.equal(pout[:, :N], want), f"qgemm_w8a8 {pbody} body at N={Np} (padded) "
-                  f"differs from the tile body's bits on the first {N} columns")
-            extra = {f"n{Np}_{pbody}_ms": graph_ms(
-                lambda i=0: pfn(qx, qwps[i % n_copies], a, swp, psplits),
-                20 if Mr >= 512 else 50)}
-            del qwps
         ms = body_ms[routed]
-        cms = time_ms(lambda i=0: ops.qgemm_w8a8(qx, qws[i % n_copies], a, sw), 50)
+        cms = time_ms(lambda i=0: ops.qgemm_w8a8(qx, pws[i % n_copies], a, sw), 50)
         pms = graph_ms(lambda i=0: ref.qgemm_w8a8_ref(qx, qws[i % n_copies], a, sw), 3)
         Mp = max(Mr, 32)
         qxp = torch.zeros(Mp, K, dtype=torch.int8, device=dev)
@@ -2022,14 +2039,19 @@ def main() -> int:
             results[(f"qgemm_w8a8/{b}", Mr, K, N)] = dict(
                 ms=t, call_ms=cms if b == routed else None, plain_ms=pms, library_ms=lms,
                 library=lib, bound_ms=bms, bound_by=by, max_abs_err=err,
-                gb_s=nbytes / t / 1e6, **extra)
-        times = " ".join([f"{b}_ms={t:.4f}" for b, t in body_ms.items()]
-                         + [f"{b}={t:.4f}" for b, t in extra.items()])
-        print(f"[3s] qgemm_w8a8 M={Mr} K={K} N={N}: routed to the {routed} body ({splits} "
-              f"splits) kernel_ms={ms:.4f} ({times}) call_ms={cms:.4f} plain_ms={pms:.4f} "
-              f"library_ms={lms:.4f} ({lib}) bound_ms={bms:.4f} ({by}) bitwise=True "
-              f"GB/s={nbytes / ms / 1e6:.0f} tops={2 * Mr * N * K / ms / 1e9:.1f}")
-        del qx, qws, qw, a, sw, out, want, qxp
+                gb_s=nbytes / t / 1e6)
+        if N % 16:
+            check(Mr > DECODE_MAX_M or ms < lms, f"qgemm_w8a8 M={Mr} K={K} N={N}: the {routed} "
+                  f"body ({ms:.4f} ms) is not faster than torch._int_mm ({lms:.4f} ms)")
+        times = " ".join(f"{b}_ms={t:.4f}" for b, t in body_ms.items())
+        pitched = f" (rows {row_pitch(N)} apart)" if N % 16 else ""
+        before_txt = "; the tile body on the contiguous weight served it before" if N % 16 else ""
+        print(f"[3s] qgemm_w8a8 M={Mr} K={K} N={N}{pitched}: routed to the {routed} body "
+              f"({splits} splits) kernel_ms={ms:.4f} ({times}{before_txt}"
+              f") call_ms={cms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} ({lib}) "
+              f"bound_ms={bms:.4f} ({by}) bitwise=True GB/s={nbytes / ms / 1e6:.0f} "
+              f"tops={2 * Mr * N * K / ms / 1e9:.1f}")
+        del qx, qws, pws, qw, a, sw, out, want, qxp
 
     B3s, H3s, D3s, S3s = 4, 32, 64, 512
     kv_len = torch.tensor([S3s, S3s - 37, S3s // 2, S3s // 3 + 1], device=dev, dtype=torch.int32)
@@ -2639,7 +2661,9 @@ def main() -> int:
             for K, N in mlinears:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
                 if gemm == "qgemm_w8a8":
-                    want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N)[0]}"] += L
+                    # the engine serves a ragged-N leaf at its row pitch
+                    ldw = served_pitch(K, N)
+                    want_bodies[f"qgemm_w8a8/{qgemm_w8a8_plan(rows, K, N, ldw=ldw)[0]}"] += L
                 elif gemm == "qgemm_w8a8_sparse":
                     body = qgemm_w8a8_sparse_plan(rows, K, N)[0]
                     want_bodies[f"qgemm_w8a8_sparse/{body}"] += L
@@ -2821,8 +2845,8 @@ def main() -> int:
 
     def family(name: str):
         """The hand-written GEMM or quantize kernel a profiler kernel name belongs to:
-        the decode body's template arguments are <MT, W4, SKIP>, the wgmma body's
-        <BM, SKIP>, the tile body's <MODE> (0 K2, 1 K7, 2 K8)."""
+        the decode body's template arguments are <MT, W4, SKIP, PITCHED>, the wgmma
+        body's <BM, SKIP, RAGGED>, the tile body's <MODE> (0 K2, 1 K7, 2 K8)."""
         if "act_quant" in name:
             return "K1 act_quantize"
         if "qgemm_w4a8_wgmma" in name:
@@ -2832,7 +2856,8 @@ def main() -> int:
                 args = [t.strip() for t in name.split(kern)[1].split(">")[0].split(",")]
                 if args == ["2"] or (kern == "qgemm_decode_kernel<" and args[1] == "true"):
                     return "K8 qgemm_w4a8"
-                if args == ["1"] or args[-1] == "true":
+                skip = {"qgemm_decode_kernel<": 2, "qgemm_wgmma_kernel<": 1}.get(kern)
+                if args == ["1"] or (skip is not None and args[skip] == "true"):
                     return "K7 qgemm_w8a8_sparse"
                 return "K2 qgemm_w8a8"
         return None
@@ -3324,8 +3349,9 @@ def main() -> int:
     # one state page per slot from the KV pages' pool), then fake W8A8 CrossQuant
     # (the f32 tree) and dequant-fp on dense fp KV: 4 requests of 16 new tokens each.
     # The schedule per model call: mamba2 48 K1 and 48 K2 launches (in_proj and
-    # out_proj of 24 layers; in_proj's N = 3352 on K2's tile body, out_proj on the
-    # decode or wgmma body by the step's rows), no attention; zamba2 118 (2 x 38 in
+    # out_proj of 24 layers, each on K2's decode or wgmma body by the step's rows:
+    # in_proj's N = 3352 served at a row pitch of 3360, so the tile body runs 0
+    # times), no attention; zamba2 118 (2 x 38 in
     # the Mamba2 layers, 7 x 6 in the shared block), 6 K3 launches per admission of
     # 128 tokens or more and 6 K4 per paged decode step. On the card both refuse
     # speculate=4, paged prefix reuse and chunked with the reference's types.
@@ -3406,8 +3432,11 @@ def main() -> int:
         if name == "mamba2-130m":
             check(c.n_layers == 24 and c.d_model == 768 and c.ssm_heads == 24
                   and c.ssm_state == 128 and model_s[1][0] == (768, 3352), "mamba2-130m FULL")
-            check(qgemm_w8a8_plan(4, 768, 3352)[0] == "tile", "mamba2 in_proj routes to the "
-                  "tile body")
+            check(qgemm_w8a8_plan(4, 768, 3352)[0] == "tile"
+                  and qgemm_w8a8_plan(4, 768, 3352, ldw=row_pitch(3352))[0] == "decode"
+                  and qgemm_w8a8_plan(512, 768, 3352, ldw=row_pitch(3352))[0] == "wgmma",
+                  "mamba2 in_proj: the contiguous weight routes to the tile body, the "
+                  "engine's pitched view to the decode or wgmma body")
         else:
             check(c.n_layers == 38 and c.d_model == 2048 and c.n_heads == c.n_kv_heads == 32
                   and spec.n_blocks == 6 and spec.sublayers == ("ssm",) * 6
@@ -3739,7 +3768,7 @@ def main() -> int:
     # on every linear; and the W4A8-g128 tree from the same calibration: K8
     p2bs = sparsify_tree(p2, SparsityPlan(nm=(2, 4)))
     empty_odd_k_tiles(p2bs)
-    p2bs = with_tile_occupancy(p2bs)                 # after the last edit of the codes
+    p2bs = prepare_served(p2bs)                      # after the last edit of the codes
     for label, tree, kernel in (("block-sparse", p2bs, "qgemm_w8a8_sparse"),
                                 ("W4A8-g128", p2w4, "qgemm_w4a8")):
         with torch.no_grad():
@@ -4234,6 +4263,7 @@ def main() -> int:
     t_s5 = time.perf_counter()
     for name, seed, n_layers in (("mamba2-130m", 60, 1), ("zamba2-1.2b", 61, 8)):
         c, p_card, p_cpu = build2(name, seed, n_layers=n_layers)
+        p_card = prepare_served(p_card)        # as ServeEngine serves it: no tile body
         spec = M.block_spec(c)
         n_attn = spec.n_blocks if spec.shared_attn else 0
         n_lin = 2 * c.n_layers + 7 * n_attn
@@ -4247,8 +4277,7 @@ def main() -> int:
             gl, gt = greedy(p_card, dev, c=c, tl=tl_s)
             tile = ops.BODY_LAUNCHES["qgemm_w8a8/tile"]
             check(ops.LAUNCHES["act_quantize"] == n_lin * 9 == ops.LAUNCHES["qgemm_w8a8"]
-                  and tile == (c.n_layers * 9 if c.family == "ssm" else 0)
-                  and ops.BODY_LAUNCHES["flash_attention/f32"] == n_attn,
+                  and tile == 0 and ops.BODY_LAUNCHES["flash_attention/f32"] == n_attn,
                   f"{label}: launches {ops.LAUNCHES} {ops.BODY_LAUNCHES}")
             cl, ct = greedy(p_cpu, cpu, c=c, tl=tl_s)
             gl, cl = gl[..., :V], cl[..., :V]
@@ -4304,10 +4333,13 @@ def main() -> int:
           f"for the SSM and hybrid models)")
 
     # ---------------------------------------------------------------- phase 6
-    # The async replica server (AsyncServer) on phase 4's calibrated starcoder2-7b FULL
-    # W8A8 tree (rebuilt from the same seed and calibration): fused-int8, paged, int8 KV, batch 4 per replica, max_len 1024, 16
-    # requests in two prefix families (a 256-token shared prefix each, suffixes of
-    # 32-192 tokens, 16 new tokens each), affinity routing; with 2 replicas sharing
+    # The async replica server (AsyncServer) on starcoder2-7b at full width, 16 of its
+    # 32 layers (depth cut for the script's time limit; the server is held against
+    # the engine alone on the same tree, so depth changes nothing it checks), W8A8
+    # calibrated as phase 4 calibrates (the same seed and calibration): fused-int8,
+    # paged, int8 KV, batch 4 per replica, max_len 1024, 16 requests in two prefix
+    # families (a 256-token shared prefix each, suffixes of 32-192 tokens, 16 new
+    # tokens each), affinity routing; with 2 replicas sharing
     # the card (a thread and a CUDA stream each, FIFO turns at engine steps), with
     # 2 free-running (the turns replaced by no-ops: what the turns buy) and with 1.
     # Then replica 0 fails at its step 3 and restarts, and a one-slot server shows
@@ -4315,16 +4347,18 @@ def main() -> int:
     reset5()                                # phase 5's launches are banked
     print(f"[6] start at {time.perf_counter() - t_start:.1f}s; {nvidia_smi_line()}")
     t_s6 = time.perf_counter()
-    # phase 4 freed its calibrated tree before the zoo: rebuild it the same way
+    # phase 4 freed its calibrated tree before the zoo: build one the same way
+    cfg6 = dataclasses.replace(cfg, n_layers=16)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    params = M.init_params(g, cfg, device=dev)
+    params = M.init_params(g, cfg6, device=dev)
     qparams = quantize_tree(params, quant, tables=calibrate(
-        params, cfg, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0))
+        params, cfg6, quant, calib_batches=2, seq_len=16, batch_size=BATCH, seed=0))
     del params
     torch.cuda.empty_cache()
-    print(f"[6] {cfg.name} FULL W8A8 tree rebuilt as in phase 4 (seed 0, 2 calibration "
-          f"batches) in {time.perf_counter() - t_s6:.1f}s")
+    print(f"[6] {cfg6.name} full width, {cfg6.n_layers} of {cfg.n_layers} layers, W8A8 tree "
+          f"built as in phase 4 (seed 0, 2 calibration batches) in "
+          f"{time.perf_counter() - t_s6:.1f}s")
     import asyncio
     import contextlib
     import gc
@@ -4336,10 +4370,10 @@ def main() -> int:
     config6 = EngineConfig(batch_size=BATCH, max_len=MAX_LEN, path="fused-int8",
                            kv_cache="int8", cache_layout="paged")
     rng = np.random.default_rng(6)
-    families = [rng.integers(1, cfg.vocab, size=SERVER_PREFIX).astype(np.int32)
+    families = [rng.integers(1, cfg6.vocab, size=SERVER_PREFIX).astype(np.int32)
                 for _ in range(2)]
     traffic = [np.concatenate([families[i % 2],
-                               rng.integers(1, cfg.vocab, size=int(n)).astype(np.int32)])
+                               rng.integers(1, cfg6.vocab, size=int(n)).astype(np.int32)])
                for i, n in enumerate(rng.integers(*SERVER_SUFFIX, size=SERVER_REQUESTS))]
     records = []                            # (token rows, mode, flash?) per model call
     apply = M.apply
@@ -4353,13 +4387,14 @@ def main() -> int:
 
     def check_counts(label):
         """The launches of a server run (both replica threads) against the schedule
-        its model calls imply: 192 K1 and K2 per call on the bodies their token rows
-        give, 32 K3 per cold admission of >= 128 tokens (warm suffixes run the plain
-        path), 32 K4 per paged decode step; then add them to the phase-4 totals."""
+        its model calls imply, per layer: 6 K1 and K2 per call on the bodies their
+        token rows give, one K3 per cold admission of >= 128 tokens (warm suffixes run
+        the plain path), one K4 per paged decode step; then add them to the phase-4
+        totals."""
         counts, bodies = dict(ops.LAUNCHES), dict(ops.BODY_LAUNCHES)
         want = {name: 0 for name in ops.LAUNCHES}
         want_bodies = {name: 0 for name in ops.BODY_LAUNCHES}
-        L = cfg.n_layers
+        L = cfg6.n_layers
         for rows, mode, flash in records:
             for K, N in linears:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
@@ -4411,7 +4446,7 @@ def main() -> int:
 
     def direct(prompts, max_new):
         """The port's engine alone on the card, fed ``prompts`` in this order."""
-        engine = ServeEngine(cfg, qparams, config=config6, quant=quant, device=dev)
+        engine = ServeEngine(cfg6, qparams, config=config6, quant=quant, device=dev)
         reqs = engine.submit([np.asarray(p, np.int32) for p in prompts], max_new=max_new)
         engine.run()
         torch.cuda.synchronize()
@@ -4445,7 +4480,7 @@ def main() -> int:
 
     async def served(n_rep, free=False):
         before = baseline()
-        async with AsyncServer(cfg, qparams, config=config6, replicas=n_rep, quant=quant,
+        async with AsyncServer(cfg6, qparams, config=config6, replicas=n_rep, quant=quant,
                                max_queue=SERVER_REQUESTS) as srv:
             if free:
                 srv._turns = {d: FreeRunning() for d in srv._turns}
@@ -4523,7 +4558,7 @@ def main() -> int:
     async def failover():
         before = baseline()
         inj = {0: FailureInjector(fail_at_steps=(3,))}
-        async with AsyncServer(cfg, qparams, config=config6, replicas=2, quant=quant,
+        async with AsyncServer(cfg6, qparams, config=config6, replicas=2, quant=quant,
                                injectors=inj, max_restarts=2) as srv:
             requeued = []
             handle = srv._handle_replica_failure
@@ -4603,7 +4638,7 @@ def main() -> int:
                              kv_cache="int8", cache_layout="paged", n_pages=40)
         big = np.concatenate(traffic[:2])[:400]        # 400 + 15 tokens: 52 pages > 40
         reasons = []
-        async with AsyncServer(cfg, qparams, config=small, replicas=1, quant=quant,
+        async with AsyncServer(cfg6, qparams, config=small, replicas=1, quant=quant,
                                max_queue=1, admission_timeout=0.05) as srv:
             try:
                 await collect(srv, Request(prompt=big.tolist(), max_new=MAX_NEW))
@@ -4877,9 +4912,9 @@ def main() -> int:
     # starcoder2-7b FULL at tp=2 (tier tp_full: 18/2 heads a rank; wq/wk/wv/up
     # column-parallel, wo/down row-parallel through K1's given-max and K2's
     # int32-out modes, the vocab-parallel embedding and head): dense with int8 KV
-    # and paged with int8 KV behind the 389-token shared prefix, 4 requests x 16
-    # tokens each; granite-moe-3b-a800m FULL at ep=2 (expert_axis: 20 of 40 experts
-    # a rank), dense int8 KV. Per rank: tokens equal the single-device engine's,
+    # and paged with int8 KV behind the 389-token shared prefix, 4 requests x 8 and
+    # 16 tokens each; granite-moe-3b-a800m FULL at ep=2 (expert_axis: 20 of 40
+    # experts a rank), dense int8 KV, 8 tokens a request. Per rank: tokens equal the single-device engine's,
     # every logits row its sampler saw bitwise equal, launches per body and
     # collectives per model call equal the schedule, weights about half the single
     # engine's (starcoder2). Times are of 2 ranks sharing one H100 over gloo, beside
@@ -4932,29 +4967,29 @@ def main() -> int:
     n_sh = cfg8z.n_layers // cfg8z.attn_every
     runs8 = [
         dict(sc_runs, label="starcoder2-7b tp=2 dense int8 KV", reqs=prompts8,
-             max_new=MAX_NEW, config=dense_cfg),
+             max_new=MAX_NEW // 2, config=dense_cfg),
         dict(sc_runs, label="starcoder2-7b tp=2 paged int8 KV shared prefix",
-             reqs=shared8, max_new=MAX_NEW, config=paged_cfg, bitwise="all"),
+             reqs=shared8, max_new=MAX_NEW // 2, config=paged_cfg, bitwise="all"),
         dict(label="granite-moe ep=2 dense int8 KV", cfg=cfg8m, tree="granite", quant=quant,
-             mesh=(1, 1, 2), reqs=prompts8m, max_new=MAX_NEW, config=dense_cfg,
+             mesh=(1, 1, 2), reqs=prompts8m, max_new=MAX_NEW // 2, config=dense_cfg,
              linears=[(K, N, cfg8m.n_layers) for K, N in linear_shapes(cfg8m)[:4]],
              row_linears=[], experts=[(dm, fm), (dm, fm), (fm, dm)],
              experts_local=cfg8m.n_experts // 2, share=None, bitwise="all",
              collectives_per_call={"gather_experts": cfg8m.n_layers}),
         # data-parallel slots, W4A8 under TP, expert_tp, SSM and hybrid
         dict(sc_runs, label="starcoder2-7b data=2 paged int8 KV shared prefix",
-             mesh=(2, 1), reqs=shared8, max_new=MAX_NEW, config=paged_cfg, share=1.0,
+             mesh=(2, 1), reqs=shared8, max_new=MAX_NEW // 2, config=paged_cfg, share=1.0,
              bitwise="all", single="starcoder2-7b tp=2 paged int8 KV shared prefix",
              linears=[(K, N, L8) for K, N in linear_shapes(cfg8)], row_linears=[],
              collectives_per_call={"gather_slots": 1, "gather_pages": 1}),
         dict(sc_runs, label="starcoder2-7b W4A8 tp=2 dense int8 KV short prompts",
-             tree="w4", quant=quant4, reqs=prompts8w, max_new=MAX_NEW // 2, config=dense_cfg,
+             tree="w4", quant=quant4, reqs=prompts8w, max_new=MAX_NEW // 4, config=dense_cfg,
              bitwise="bar", linears=[], row_linears=[],
              w4_linears=sc_runs["linears"], w4_row_linears=sc_runs["row_linears"],
              collectives_per_call={"max_f32": 2 * L8, "sum_f32": 1, "gather_vocab": 1}),
         dict(label="granite-moe expert_tp tp=2 dense int8 KV", cfg=cfg8m, tree="granite",
              quant=quant, mesh=(1, 2), moe_mode="expert_tp", reqs=prompts8m,
-             max_new=MAX_NEW, config=dense_cfg, share=0.5, bitwise="all",
+             max_new=MAX_NEW // 2, config=dense_cfg, share=0.5, bitwise="all",
              single="granite-moe ep=2 dense int8 KV",
              linears=[(dm, N // 2, cfg8m.n_layers) for K, N in linear_shapes(cfg8m)[:3]],
              row_linears=[(cfg8m.n_heads * cfg8m.head_dim // 2, dm, cfg8m.n_layers)],
@@ -5146,6 +5181,8 @@ def main() -> int:
                                                            ranks8[1][lab]["logits"])),
               f"[8] {lab}: the two ranks' logits differ")
         r0 = ranks8[0][lab]
+        check(all(ranks8[rk][lab]["bodies"]["qgemm_w8a8/tile"] == 0 for rk in (0, 1)),
+              f"[8] {lab}: K2's tile body ran (a ragged-N shard not served at its row pitch)")
         for name in p8_bodies:
             p8_bodies[name] += r0["bodies"][name]
         ratio = r0["shard_bytes"] / full_bytes[run["tree"]]
@@ -5349,9 +5386,10 @@ def main() -> int:
     reset5()
     # (name, source, replaced TPU kernel, phase-3 result, shape, launch counts): the
     # bodies of the main path count their phase-4 launches; the f32 bodies serve
-    # only the phase-5 parity runs and count those. K2's tile body serves mamba2's
-    # in_proj (N = 3352, off the 16-column grid) in [4s]; K7's and K8's tile bodies
-    # and K1's sweep body serve no run.
+    # only the phase-5 parity runs and count those. K2's, K7's and K8's tile bodies
+    # and K1's sweep body serve no run (K2's served mamba2's in_proj, N = 3352, until
+    # the engine stored it at a row pitch the decode and wgmma bodies take); phase 3
+    # holds and times them.
     kernel_rows = [
         ("act_quantize/split", "src/repro_torch/csrc/act_quantize.cu",
          "src/repro/kernels/act_quantize.py:29", ("act_quantize/split", 4, 4608),
@@ -5365,9 +5403,6 @@ def main() -> int:
         ("qgemm_w8a8/wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
          "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/wgmma", 2048, 4608, 18432),
          "M=2048 K=4608 N=18432, wgmma body", "phase 4"),
-        ("qgemm_w8a8/tile", "src/repro_torch/csrc/qgemm_w8a8.cu",
-         "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/tile", 4, 768, 3352),
-         "M=4 K=768 N=3352 (mamba2-130m in_proj), 64 x 64 tile body", "phase 4"),
         ("act_quantize/experts_rows", "src/repro_torch/csrc/act_quantize.cu",
          "src/repro/kernels/act_quantize.py:29",
          ("act_quantize/experts_rows", 40, 8, 1536, 0.15),
@@ -5469,8 +5504,7 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": shape,
                         **{k: r[k] for k in ("library", "body_ms", "gb_s", "f32_body_ms",
-                                             "k2_ms", "n3360_decode_ms", "n3360_wgmma_ms",
-                                             "own_body_ms")
+                                             "k2_ms", "own_body_ms")
                            if r.get(k) is not None}})
     print("[end] e2e tok/s " + "; ".join(f"{k}={v:.1f}" for k, v in e2e.items())
           + f"; total {time.perf_counter() - t_start:.1f}s")

@@ -291,7 +291,7 @@ def _int8_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tenso
     """Kernel pipeline for a 2-D prepared linear: ``act_quantize`` emits int8 codes
     and row scales straight into the leaf's GEMM (leading axes flatten to M): the
     sparse GEMM for an N:M leaf (it reads the bit-packed ``mask`` as stored, and
-    the ``occ`` table where ``with_tile_occupancy`` attached one), the W4A8 GEMM for a ``qw4`` leaf, else the dense W8A8 GEMM."""
+    the ``occ`` table where ``prepare_served`` attached one), the W4A8 GEMM for a ``qw4`` leaf, else the dense W8A8 GEMM."""
     from repro_torch.kernels import ops
 
     lead = x.shape[:-1]

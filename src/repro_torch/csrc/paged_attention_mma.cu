@@ -50,6 +50,51 @@
 // - Per-row arithmetic depends on neither the block's row tile nor the mode: a
 //   row's keys run in the same 32-key chunks from the same partition starts, so
 //   a ragged row with q_len = 1 over an fp pool is bitwise the decode launch's.
+//
+// D = 256 (gemma2-9b), a design of its own; D <= 128 compiles to the code above
+// (bitwise and timed against the parent commit by kernel_ab.py). With one warp
+// across the whole head, a warp held 64 Q-fragment and 128 accumulator registers
+// before the scores, the three-term P and the addresses: ptxas used 255 registers
+// and spilled 20-44 bytes, and the ragged block's two converted buffers beside the
+// staging took 117,504 bytes of shared memory with an int8 pool, one 4-warp block
+// an SM. So:
+// - Head-dim split: warps 2 r and 2 r + 1 own row group r's 16 query rows, each
+//   its half of D (128 dims: 32 Q-fragment and 64 accumulator registers, as a warp
+//   at D = 128); two row groups a block, so 32-row tiles and still 4 warps (in a
+//   decode launch the second pair only stages). Each warp forms its partial S over
+//   its half (its 8 k16 steps in order from zero).
+// - The pair shares the chunk's softmax, meeting at a named barrier three times:
+//   each warp finishes half the score tiles (16 keys). (1) It posts its partial of
+//   its mate's tiles and adds its mate's partial of its own (one addition of the
+//   two halves of D, a + b == b + a); (2) it scales, caps and masks its keys and
+//   posts their row maxima, and both take the larger (the same m, correction and
+//   exponent in both warps); (3) it forms its keys' p, their share of l and their
+//   three-term p * v_scale, and posts them, so both hold the chunk's P. Each
+//   multiplies P into its half of V; the two shares of l are added at the end.
+//   S and l add in another order than one warp over the whole head did: held to
+//   the same bf16 bar.
+// - Shared memory: one converted buffer, not two (the block barrier at the top of
+//   each chunk already follows every warp's reads of the last one), and 11,264
+//   bytes of exchange slots: 94,720 bytes with an int8 pool (ragged), 61,952 for
+//   decode and verify. Under a bound of two 128-thread blocks an SM ptxas uses
+//   247-254 registers and spills nothing: 8 warps an SM.
+// - int8 codes widen to bf16 without the I2F unit: each byte, offset by 128, is
+//   placed in the mantissa of 2^23 and 2^23 + 128 subtracted (exact), two floats
+//   packed per instruction (exact: |code| <= 128).
+// - The window: a block whose partition ends at or before its tile's first query
+//   position - window + 1 holds no key any of its rows sees, and exits at once, as
+//   a block past the walk does; paged_combine_kernel starts each row at its first
+//   partition not wholly behind its window (a superset of the tile's skips;
+//   kernels/paged_attention.py::behind_window models both). A skipped partition
+//   would have added exact zeros (m = -1e30, l = 0, acc = 0) to sums that start at
+//   zero, so the output is bitwise what merging it gives.
+// What bounds it: gemma2's chunked step (a 200-row chunk ending at 4616 beside a
+// decode row, 16 heads over 8, int8 pool) needs ~0.014 ms of bf16 tensor-core work
+// at the card's peak; each of its 13 row tiles of a head re-stages the keys of
+// its window, and each 32-key chunk costs every block two block barriers and each
+// pair three meetings, with 8 warps an SM to hide their latency (PERF.md §6).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -104,6 +149,29 @@ template <> __device__ __forceinline__ uint4 cvt8<int8_t>(const unsigned char* s
                     pack2(bf(b.z), bf(b.w)));
 }
 
+// D = 256's conversion: as cvt8, int8 codes without the I2F unit. Byte i of w ^
+// 0x80808080 (the code + 128) in the low mantissa byte of 2^23, minus 2^23 + 128:
+// the code, exactly; two floats to bf16x2 in one instruction (exact: |code| <= 128)
+__device__ __forceinline__ unsigned i8x2_bf16(unsigned w, int i) {
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + i)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + i + 1)) - 8388736.f;
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+template <typename T> __device__ __forceinline__ uint4 cvt8_wide(const unsigned char* src) {
+  return cvt8<T>(src);
+}
+template <> __device__ __forceinline__ uint4 cvt8_wide<int8_t>(const unsigned char* src) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const unsigned a = raw.x ^ 0x80808080u, b = raw.y ^ 0x80808080u;
+  return make_uint4(i8x2_bf16(a, 0), i8x2_bf16(a, 2), i8x2_bf16(b, 0), i8x2_bf16(b, 2));
+}
+
+// a barrier of the two warps (64 threads) of one D = 256 row pair
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -144,12 +212,34 @@ __host__ __device__ constexpr size_t buf_bytes() {
          2 * KC * sizeof(float);
 }
 
-// one staging buffer, then two buffers of a chunk's converted bf16 K and V rows
-// and its scales
+// D = 256 splits each warp's head dims with a second warp (header): warps 2 r and
+// 2 r + 1 share row group r, at most kSplitRowGroups of them a block
+template <int D> __host__ __device__ constexpr bool split_d() { return D > 128; }
+constexpr int kSplitRowGroups = 2;
+// D = 256: a warp's exchange slot, in floats: its partial S of its mate's score
+// tiles (8 x 32 lanes), its row maxima (2 x 32), its three-term P (12 x 32)
+constexpr int kXsFloats = (8 + 2 + 12) * 32;
+
+// a chunk's converted bf16 K and V rows and its scales
+template <int D> __host__ __device__ constexpr size_t conv_bytes() {
+  return 2 * (size_t)KC * bf_ld<D>() * sizeof(__nv_bfloat16) + 2 * KC * sizeof(float);
+}
+// D = 256: the four warps' exchange slots
+template <int D> __host__ __device__ constexpr size_t xs_bytes() {
+  return split_d<D>() ? (size_t)(2 * kSplitRowGroups) * kXsFloats * sizeof(float) : 0;
+}
+
+// one staging buffer, then two converted buffers (D = 256: one, and the pairs'
+// exchange slots)
 template <typename TKV, int D, bool RAGGED>
 __host__ __device__ constexpr size_t smem_total() {
-  return buf_bytes<TKV, D, RAGGED>() +
-         2 * (2 * (size_t)KC * bf_ld<D>() * sizeof(__nv_bfloat16) + 2 * KC * sizeof(float));
+  return buf_bytes<TKV, D, RAGGED>() + (split_d<D>() ? 1 : 2) * conv_bytes<D>() + xs_bytes<D>();
+}
+
+// D = 256: whether the partition ending (exclusive) at t_end lies wholly behind the
+// window of a query at position q_pos (kernels/paged_attention.py::behind_window)
+__device__ __forceinline__ bool behind_window(int t_end, int q_pos, int window) {
+  return window > 0 && t_end <= q_pos - window + 1;
 }
 
 // The rows of a block: its slot's query rows [row0, row0 + rows), their chunk
@@ -192,18 +282,28 @@ __device__ __forceinline__ bool row_in_block(const Args& A, const Tile& t, int r
 }
 
 template <typename TKV, int D, bool RAGGED>
-__global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
-  constexpr int KS = pool_stride<TKV, D>(), NS = new_stride<D>(), KD = D / 16, DT = D / 8;
+__device__ __forceinline__ void paged_mma_body(const Args& A) {
+  // SPLIT (D = 256): warp w owns row group w / 2's 16 rows and head dims [half *
+  // DH, half * DH + DH), half = w % 2 (warps of row groups past row_warps stage
+  // only); else warp w owns rows 16 w.. across all D
+  constexpr bool SPLIT = split_d<D>();
+  constexpr int DH = SPLIT ? D / 2 : D;
+  constexpr int KS = pool_stride<TKV, D>(), NS = new_stride<D>(), KD = DH / 16, DT = DH / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   const int tile = blockIdx.z / A.n_parts, part = blockIdx.z % A.n_parts;
   const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
+  const int rw = SPLIT ? warp >> 1 : warp, half = SPLIT ? warp & 1 : 0;
   Tile t;
   if (!tile_of<RAGGED>(A, b, tile, 16 * A.row_warps, t)) return;
   const int t_beg = part * A.part_len;
   if (part > 0 && t_beg >= t.walk) return;        // nothing of this tile's walk here
   const int t_end = min(t.walk, t_beg + A.part_len);
+  // D = 256: nothing of this tile's windows here either (header)
+  if (SPLIT && A.n_parts > 1 &&
+      behind_window(t_end, t.cs + min(t.row0 / A.G, t.qln - 1), A.window))
+    return;
   const int n_chunks = t_end > t_beg ? (t_end - t_beg + KC - 1) / KC : 0;
   const bool int8_kv = A.k_scale != nullptr;
   const int* tab = A.page_table + (size_t)b * A.maxP;
@@ -219,10 +319,13 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
   float* sKs = reinterpret_cast<float*>(sVn + (RAGGED ? KC * NS : 0));
   float* sVs = sKs + KC;
   constexpr int LDB = bf_ld<D>();
-  constexpr size_t CONV = 2 * (size_t)KC * LDB * sizeof(__nv_bfloat16) + 2 * KC * sizeof(float);
+  constexpr size_t CONV = conv_bytes<D>();
   auto sKb = [&](int c) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + buf_bytes<TKV, D, RAGGED>() + (c & 1) * CONV);
+    return reinterpret_cast<__nv_bfloat16*>(smem + buf_bytes<TKV, D, RAGGED>() +
+                                            (SPLIT ? 0 : (c & 1) * CONV));
   };
+  // SPLIT: the pairs' exchange slots, kXsFloats a warp
+  float* const sXs = reinterpret_cast<float*>(smem + buf_bytes<TKV, D, RAGGED>() + CONV);
   auto sVb = [&](int c) { return sKb(c) + KC * LDB; };
   auto sKsb = [&](int c) { return reinterpret_cast<float*>(sVb(c) + KC * LDB); };
   auto sVsb = [&](int c) { return sKsb(c) + KC; };
@@ -273,7 +376,7 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
   async_commit();
 
   // this lane's rows: local g and g + 8 of the warp's 16
-  const int lr[2] = {16 * warp + g, 16 * warp + g + 8};
+  const int lr[2] = {16 * rw + g, 16 * rw + g + 8};
   bool valid[2];
   int qpos[2];
   unsigned qf[KD][4];
@@ -288,13 +391,13 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
       A.q + (size_t)(valid[1] ? row_index<RAGGED>(A, b, h, t, lr[1]) : 0) * D;
 #pragma unroll
   for (int kd = 0; kd < KD; ++kd) {
-    const int d = kd * 16 + 2 * tg;
+    const int d = half * DH + kd * 16 + 2 * tg;
     qf[kd][0] = valid[0] ? *reinterpret_cast<const unsigned*>(qr0 + d) : 0u;
     qf[kd][1] = valid[1] ? *reinterpret_cast<const unsigned*>(qr1 + d) : 0u;
     qf[kd][2] = valid[0] ? *reinterpret_cast<const unsigned*>(qr0 + d + 8) : 0u;
     qf[kd][3] = valid[1] ? *reinterpret_cast<const unsigned*>(qr1 + d + 8) : 0u;
   }
-  const bool warp_live = 16 * warp < t.rows;
+  const bool warp_live = 16 * rw < t.rows;
 
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   float acc[DT][4];
@@ -315,8 +418,13 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (key < n) {
         if (!RAGGED || key < n_pool) {
-          kv = cvt8<TKV>(sK + key * KS + d * sizeof(TKV));
-          vv = cvt8<TKV>(sV + key * KS + d * sizeof(TKV));
+          if constexpr (SPLIT) {
+            kv = cvt8_wide<TKV>(sK + key * KS + d * sizeof(TKV));
+            vv = cvt8_wide<TKV>(sV + key * KS + d * sizeof(TKV));
+          } else {
+            kv = cvt8<TKV>(sK + key * KS + d * sizeof(TKV));
+            vv = cvt8<TKV>(sV + key * KS + d * sizeof(TKV));
+          }
         } else {
           kv = cvt8<__nv_bfloat16>(sKn + key * NS + 2 * d);
           vv = cvt8<__nv_bfloat16>(sVn + key * NS + 2 * d);
@@ -347,7 +455,7 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
 #pragma unroll
         for (int nt = 0; nt < KC / 8; nt += 2) {
           unsigned kb[4];
-          ldmatrix_x4(kb, cK + (nt * 8 + k_row) * LDB + kd * 16 + k_col);
+          ldmatrix_x4(kb, cK + (nt * 8 + k_row) * LDB + half * DH + kd * 16 + k_col);
           // one 16-product tensor-core sum per step, added in f32 with one rounding
           float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
           mma_bf16(c0, qf[kd], kb[0], kb[1]);
@@ -358,65 +466,163 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
             s[nt + 1][e] += c1[e];
           }
         }
-      // scale, int8 k scale, softcap, mask; row max
-      float mx[2] = {kNegInf, kNegInf};
-      bool ok[KC / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < KC / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = nt * 8 + 2 * tg + (e & 1), r = e >> 1, k_pos = t0 + key;
-          float x = s[nt][e] * A.scale;
-          if (int8_kv) x *= cKs[key];     // 1 on the overlay's keys: exact
-          if (A.softcap > 0.f) x = A.softcap * tanhf(x / A.softcap);
-          bool o = key < n && k_pos <= qpos[r];
-          if (A.window > 0) o = o && (qpos[r] - k_pos) < A.window;
-          ok[nt][e] = o;
-          s[nt][e] = o ? x : kNegInf;
-          mx[r] = fmaxf(mx[r], s[nt][e]);
-        }
       float corr[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_r[r], mx[r]);
-        corr[r] = expf(m_r[r] - m_new);
-        m_r[r] = m_new;
-        l_r[r] *= corr[r];
-      }
-      // p = exp(s - m) (0 where masked), l += p, then p * v_scale split into three
-      // bf16 terms (hi, mid, lo) as PV's A operand: key chunk kc (16 keys) = score
-      // tiles 2kc, 2kc + 1
       unsigned af[KC / 16][3][4];
+      if constexpr (SPLIT) {
+        // The pair shares the chunk's softmax: this warp finishes score tiles 2 half
+        // and 2 half + 1 (key chunk kc = half, 16 keys), its mate the other two.
+        // (1) S of my tiles: post my partial of my mate's tiles, meet, add my mate's
+        // partial of mine (the two halves of D, one addition: a + b == b + a)
+        const int mate = warp ^ 1, bar = 1 + rw;
+        float* const xs_mine = sXs + warp * kXsFloats;
+        const float* const xs_mate = sXs + mate * kXsFloats;
 #pragma unroll
-      for (int kc = 0; kc < KC / 16; ++kc)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int nt = 2 * kc + hh;
+          for (int e = 0; e < 4; ++e)
+            xs_mine[(j * 4 + e) * 32 + lane] = half ? s[j][e] : s[2 + j][e];
+        pair_sync(bar);
+        float sv[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sv[j][e] = (half ? s[2 + j][e] : s[j][e]) + xs_mate[(j * 4 + e) * 32 + lane];
+        // (2) scale, int8 k scale, softcap, mask on my 16 keys; their row max, then
+        // the pair's (fmaxf: the same in both warps)
+        float mx[2] = {kNegInf, kNegInf};
+        bool ok[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = (2 * half + j) * 8 + 2 * tg + (e & 1), r = e >> 1, k_pos = t0 + key;
+            float x = sv[j][e] * A.scale;
+            if (int8_kv) x *= cKs[key];   // 1 on the overlay's keys: exact
+            if (A.softcap > 0.f) x = A.softcap * tanhf(x / A.softcap);
+            bool o = key < n && k_pos <= qpos[r];
+            if (A.window > 0) o = o && (qpos[r] - k_pos) < A.window;
+            ok[j][e] = o;
+            sv[j][e] = o ? x : kNegInf;
+            mx[r] = fmaxf(mx[r], sv[j][e]);
+          }
+        float* const mx_mine = xs_mine + 8 * 32;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          mx_mine[r * 32 + lane] = mx[r];
+        }
+        pair_sync(bar);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], xs_mate[8 * 32 + r * 32 + lane]);
+          const float m_new = fmaxf(m_r[r], mx[r]);
+          corr[r] = expf(m_r[r] - m_new);
+          m_r[r] = m_new;
+          l_r[r] *= corr[r];              // this warp's keys' share of l
+        }
+        // (3) p = exp(s - m) on my keys, l += p, the three-term p * v_scale of my key
+        // chunk; post it, meet, take my mate's chunk
+        unsigned pm[3][4];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             float pv[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              const int key = nt * 8 + 2 * tg + e;
-              const float p = ok[nt][2 * r + e] ? expf(s[nt][2 * r + e] - m_r[r]) : 0.f;
+              const int key = (2 * half + hh) * 8 + 2 * tg + e;
+              const float p = ok[hh][2 * r + e] ? expf(sv[hh][2 * r + e] - m_r[r]) : 0.f;
               l_r[r] += p;
               pv[e] = p;
-              if (int8_kv && ok[nt][2 * r + e]) pv[e] = p * cVs[key];
+              if (int8_kv && ok[hh][2 * r + e]) pv[e] = p * cVs[key];
             }
             __nv_bfloat16 pt[3][2];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {      // pv = hi + mid + lo to ~24 bits, each step exact
+            for (int e = 0; e < 2; ++e) {    // pv = hi + mid + lo to ~24 bits, each step exact
               pt[0][e] = __float2bfloat16_rn(pv[e]);
               const float r1 = pv[e] - __bfloat162float(pt[0][e]);
               pt[1][e] = __float2bfloat16_rn(r1);
               pt[2][e] = __float2bfloat16_rn(r1 - __bfloat162float(pt[1][e]));
             }
 #pragma unroll
-            for (int i = 0; i < 3; ++i) af[kc][i][2 * hh + r] = pack2(pt[i][0], pt[i][1]);
+            for (int i = 0; i < 3; ++i) pm[i][2 * hh + r] = pack2(pt[i][0], pt[i][1]);
           }
+        unsigned* const af_mine = reinterpret_cast<unsigned*>(xs_mine + 10 * 32);
+        const unsigned* const af_mate = reinterpret_cast<const unsigned*>(xs_mate + 10 * 32);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) af_mine[(i * 4 + k) * 32 + lane] = pm[i][k];
+        pair_sync(bar);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const unsigned pt = af_mate[(i * 4 + k) * 32 + lane];
+            af[0][i][k] = half ? pt : pm[i][k];
+            af[1][i][k] = half ? pm[i][k] : pt;
+          }
+      } else {
+        // scale, int8 k scale, softcap, mask; row max
+        float mx[2] = {kNegInf, kNegInf};
+        bool ok[KC / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < KC / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = nt * 8 + 2 * tg + (e & 1), r = e >> 1, k_pos = t0 + key;
+            float x = s[nt][e] * A.scale;
+            if (int8_kv) x *= cKs[key];     // 1 on the overlay's keys: exact
+            if (A.softcap > 0.f) x = A.softcap * tanhf(x / A.softcap);
+            bool o = key < n && k_pos <= qpos[r];
+            if (A.window > 0) o = o && (qpos[r] - k_pos) < A.window;
+            ok[nt][e] = o;
+            s[nt][e] = o ? x : kNegInf;
+            mx[r] = fmaxf(mx[r], s[nt][e]);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_r[r], mx[r]);
+          corr[r] = expf(m_r[r] - m_new);
+          m_r[r] = m_new;
+          l_r[r] *= corr[r];
         }
+        // p = exp(s - m) (0 where masked), l += p, then p * v_scale split into three
+        // bf16 terms (hi, mid, lo) as PV's A operand: key chunk kc (16 keys) = score
+        // tiles 2kc, 2kc + 1
+#pragma unroll
+        for (int kc = 0; kc < KC / 16; ++kc)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int nt = 2 * kc + hh;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float pv[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int key = nt * 8 + 2 * tg + e;
+                const float p = ok[nt][2 * r + e] ? expf(s[nt][2 * r + e] - m_r[r]) : 0.f;
+                l_r[r] += p;
+                pv[e] = p;
+                if (int8_kv && ok[nt][2 * r + e]) pv[e] = p * cVs[key];
+              }
+              __nv_bfloat16 pt[3][2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {      // pv = hi + mid + lo to ~24 bits, each step exact
+                pt[0][e] = __float2bfloat16_rn(pv[e]);
+                const float r1 = pv[e] - __bfloat162float(pt[0][e]);
+                pt[1][e] = __float2bfloat16_rn(r1);
+                pt[2][e] = __float2bfloat16_rn(r1 - __bfloat162float(pt[1][e]));
+              }
+#pragma unroll
+              for (int i = 0; i < 3; ++i) af[kc][i][2 * hh + r] = pack2(pt[i][0], pt[i][1]);
+            }
+          }
+      }
       // V fragments by ldmatrix.trans (x4: two 8-dim tiles x two key halves). The
       // chunk's PV of each 8-dim tile sums in a fresh accumulator (small terms
       // first), then folds into the running one with one f32 rounding: the
@@ -428,7 +634,7 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
 #pragma unroll
         for (int kc = 0; kc < KC / 16; ++kc) {
           unsigned vb[4];
-          ldmatrix_x4_trans(vb, cV + (kc * 16 + v_row) * LDB + dt * 8 + v_col);
+          ldmatrix_x4_trans(vb, cV + (kc * 16 + v_row) * LDB + half * DH + dt * 8 + v_col);
 #pragma unroll
           for (int i = 2; i >= 0; --i) {
             mma_bf16(c0, af[kc][i], vb[0], vb[1]);
@@ -450,6 +656,16 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
+  if (SPLIT && warp_live) {
+    // the pair's two shares of l (a + b == b + a: the same in both warps); my mate
+    // read my slot's S before the last chunk's second meeting
+    float* const xs_mine = sXs + warp * kXsFloats;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) xs_mine[r * 32 + lane] = l_r[r];
+    pair_sync(1 + rw);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] += sXs[(warp ^ 1) * kXsFloats + r * 32 + lane];
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (!valid[r]) continue;
@@ -460,22 +676,36 @@ __global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
       for (int dt = 0; dt < DT; ++dt) {
         const __nv_bfloat162 val = __floats2bfloat162_rn(__fdiv_rn(acc[dt][2 * r], denom),
                                                          __fdiv_rn(acc[dt][2 * r + 1], denom));
-        *reinterpret_cast<__nv_bfloat162*>(A.o + ri * D + dt * 8 + 2 * tg) = val;
+        *reinterpret_cast<__nv_bfloat162*>(A.o + ri * D + half * DH + dt * 8 + 2 * tg) = val;
       }
     } else {
       const size_t pr = (size_t)part * A.rows_total + ri;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<float2*>(A.part_acc + pr * D + dt * 8 + 2 * tg) =
+        *reinterpret_cast<float2*>(A.part_acc + pr * D + half * DH + dt * 8 + 2 * tg) =
             make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
-      if (tg == 0) A.part_ml[pr] = make_float2(m_r[r], l_r[r]);
+      if (tg == 0 && half == 0) A.part_ml[pr] = make_float2(m_r[r], l_r[r]);
     }
   }
 }
 
+// The attention kernel: D <= 128 and D = 256 differ only in their launch bound.
+// At D = 256 ptxas sizes the registers for two 4-warp blocks an SM; without that
+// bound it chose 168 registers and spilled on one instantiation (bf16 pool, ragged)
+template <typename TKV, int D, bool RAGGED, std::enable_if_t<(D <= 128), bool> = true>
+__global__ void __launch_bounds__(128) paged_mma_kernel(const Args A) {
+  paged_mma_body<TKV, D, RAGGED>(A);
+}
+template <typename TKV, int D, bool RAGGED, std::enable_if_t<(D > 128), bool> = true>
+__global__ void __launch_bounds__(128, 2) paged_mma_kernel(const Args A) {
+  paged_mma_body<TKV, D, RAGGED>(A);
+}
+
 // Merge the partitions of each row in ascending order: M = max m_p, l = sum l_p
 // exp(m_p - M), acc = sum acc_p exp(m_p - M), o = acc / max(l, 1e-30). A row's
-// live partitions are those its walk reaches (partition 0 always runs).
+// live partitions are those its walk reaches (partition 0 always runs), at D = 256
+// from the first one not wholly behind its window (the attention kernel skips a
+// subset of the ones before it).
 template <int D, bool RAGGED>
 __global__ void __launch_bounds__(128) paged_combine_kernel(const Args A) {
   const int h = blockIdx.x, b = blockIdx.y, tile = blockIdx.z;
@@ -488,12 +718,16 @@ __global__ void __launch_bounds__(128) paged_combine_kernel(const Args A) {
     const int q_pos = t.cs + min((t.row0 + r) / A.G, t.qln - 1);
     const int walk = RAGGED ? min(q_pos + 1, A.maxP * A.ps) : t.walk;
     const int n_live = min(A.n_parts, max(1, (walk + A.part_len - 1) / A.part_len));
+    // D = 256: partitions p with (p + 1) * part_len <= q_pos - window + 1 lie behind
+    int p0 = 0;
+    if (split_d<D>() && A.window > 0)
+      p0 = min(n_live - 1, max(0, q_pos - A.window + 1) / A.part_len);
     const size_t ri = row_index<RAGGED>(A, b, h, t, r);
     float M = kNegInf;
-    for (int p = 0; p < n_live; ++p) M = fmaxf(M, A.part_ml[(size_t)p * A.rows_total + ri].x);
+    for (int p = p0; p < n_live; ++p) M = fmaxf(M, A.part_ml[(size_t)p * A.rows_total + ri].x);
     float l = 0.f;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int p = 0; p < n_live; ++p) {
+    for (int p = p0; p < n_live; ++p) {
       const size_t pr = (size_t)p * A.rows_total + ri;
       const float2 ml = A.part_ml[pr];
       const float w = expf(ml.x - M);
@@ -514,12 +748,14 @@ __global__ void __launch_bounds__(128) paged_combine_kernel(const Args A) {
 template <typename TKV, int D, bool RAGGED>
 int launch(const Args& A, int B, int row_tiles, cudaStream_t s) {
   const size_t smem = smem_total<TKV, D, RAGGED>();
-  cudaError_t err = cudaFuncSetAttribute(paged_mma_kernel<TKV, D, RAGGED>,
+  void (*const kernel)(const Args) = paged_mma_kernel<TKV, D, RAGGED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // four warps stage every chunk; the first row_warps of them also compute
-  paged_mma_kernel<TKV, D, RAGGED><<<dim3(A.Hkv, B, row_tiles * A.n_parts), 128, smem, s>>>(A);
+  // four warps stage every chunk; those of the first row_warps row groups also
+  // compute (D = 256: two warps a row group)
+  kernel<<<dim3(A.Hkv, B, row_tiles * A.n_parts), 128, smem, s>>>(A);
   err = cudaGetLastError();
   if (err != cudaSuccess || A.n_parts == 1) return static_cast<int>(err);
   paged_combine_kernel<D, RAGGED><<<dim3(A.Hkv, B, row_tiles), 128, 0, s>>>(A);
@@ -549,8 +785,11 @@ int dispatch(int kv_dtype, const Args& A, int D, int B, int rows_per_slot, cudaS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// query rows per block: 16 per warp, up to 4 warps
-int row_warps(int rows_per_slot) { return min(4, max(1, (rows_per_slot + 15) / 16)); }
+// query rows per block: 16 per row group, up to 4 row groups (D = 256: up to
+// kSplitRowGroups, two warps each)
+int row_warps(int rows_per_slot, int D) {
+  return min(D > 128 ? kSplitRowGroups : 4, max(1, (rows_per_slot + 15) / 16));
+}
 
 bool bad_split(int P, int ps, int maxP, int n_parts, int part_len, const float* part_acc,
                const float2* part_ml) {
@@ -582,7 +821,8 @@ REPRO_API int repro_paged_attention_bf16(const void* q, const void* k_pages, con
   const Args A{static_cast<const __nv_bfloat16*>(q), k_pages, v_pages, k_scale, v_scale,
                page_table, kv_len, q_len, nullptr, nullptr, nullptr,
                static_cast<__nv_bfloat16*>(o), part_acc, ml, P, ps, Hkv, R / q_win, q_win,
-               maxP, 0, B * Hkv * R, n_parts, part_len, row_warps(R), scale, window, softcap};
+               maxP, 0, B * Hkv * R, n_parts, part_len, row_warps(R, D), scale, window,
+               softcap};
   return dispatch<false>(kv_dtype, A, D, B, R, static_cast<cudaStream_t>(stream));
 }
 
@@ -608,7 +848,7 @@ REPRO_API int repro_ragged_prefill_bf16(const void* q, const void* k_new, const 
                page_table, kv_len, q_len, q_start,
                static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
                static_cast<__nv_bfloat16*>(o), part_acc, ml, P, ps, Hkv, G, 1, maxP, Nt,
-               Nt * Hkv * G, n_parts, part_len, row_warps(chunk_cap * G), scale, window,
+               Nt * Hkv * G, n_parts, part_len, row_warps(chunk_cap * G, D), scale, window,
                softcap};
   return dispatch<true>(kv_dtype, A, D, B, chunk_cap * G, static_cast<cudaStream_t>(stream));
 }

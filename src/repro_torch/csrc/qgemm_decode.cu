@@ -19,8 +19,13 @@
 //       version.
 //
 // qx (M, K) int8 row-major, a (M,) f32, out (M, N) f32. K2: qw (K, N) int8
-// row-major (the reference's layout), sw (N,) f32; K and N multiples of 16, qx and
-// qw 16-byte aligned (the wrapper checks). The int32 sum is exact in any order and
+// row-major (the reference's layout) with a row pitch of ldw bytes, sw (N,) f32; K
+// and ldw multiples of 16, ldw >= N, N any width, qx and qw 16-byte aligned (the
+// wrapper checks). A contiguous weight has ldw = N; a weight whose N is off the
+// 16-column grid (mamba2's in_proj, N = 3352) is served as a view into a (K, ldw)
+// buffer (models/quantize.py::prepare_served), so every 16-byte chunk of a row
+// that starts before N lies inside the pitch: the stream loads whole chunks, and
+// the epilogue stores column by column. The int32 sum is exact in any order and
 // the epilogue multiplies in the reference's order, each step one IEEE rounding,
 // so K2 is bitwise equal to the plain version. K8: qw4 (K/2, N) holds two int4
 // codes per byte along K (low nibble row 2r, high nibble row 2r + 1, both
@@ -132,13 +137,18 @@ __device__ __forceinline__ int swz(int r, int ch) {
 // K7's shared memory past the ring: warp counts, then the list of occupied k-tiles
 constexpr int kListHead = kThreads / 32;
 
-template <int MT, bool W4, bool SKIP>
+// PITCHED: the weight's rows lie ldw bytes apart, ldw != N (a row-pitched view);
+// otherwise ldw is N and unread, so a contiguous weight runs the same code as
+// before the pitch existed
+template <int MT, bool W4, bool SKIP, bool PITCHED>
 __global__ void __launch_bounds__(kThreads)
 qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
                     const float* __restrict__ a, const float* __restrict__ sw,
                     const int* __restrict__ occ, float* __restrict__ out, int M, int N, int K,
-                    int group) {
+                    int ldw_arg, int group) {
   static_assert(!(SKIP && W4), "the tile skip is K7's, a W8 product");
+  static_assert(!(PITCHED && W4), "K8 reads contiguous packed rows");
+  const int ldw = PITCHED ? ldw_arg : N;
   constexpr int MR = 8 * MT;              // qx rows staged: M padded to the n8 tiles
   extern __shared__ __align__(16) int8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -156,7 +166,7 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   const bool i32 = a == nullptr;
   const size_t ez = blockIdx.z;
   qx += ez * M * K;
-  qw += ez * K * N;
+  qw += ez * K * ldw;
   if (!i32) {
     a += ez * M;
     sw += ez * N;
@@ -192,15 +202,17 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
       for (int c = tid; c < (BK / 2) * BN / 16; c += kThreads) {
         const int r = c >> 3, ch = c & 7, gp = k0 / 2 + r, gn = n0 + ch * 16;
         const bool ok = gp < kend / 2 && gn < N;
-        async_copy16(sW + r * BN + swz<true>(r, ch) * 16, ok ? qw + (size_t)gp * N + gn : qw,
+        async_copy16(sW + r * BN + swz<true>(r, ch) * 16, ok ? qw + (size_t)gp * ldw + gn : qw,
                      ok);
       }
     } else {
 #pragma unroll
       for (int c = tid; c < BK * BN / 16; c += kThreads) {
         const int r = c >> 3, ch = c & 7, gk = k0 + r, gn = n0 + ch * 16;
-        const bool ok = gk < kend && gn < N;        // N % 16 == 0: a chunk is in or out
-        async_copy16(sW + r * BN + swz<false>(r, ch) * 16, ok ? qw + (size_t)gk * N + gn : qw,
+        // a chunk that starts before N lies inside the row pitch (ldw % 16 == 0): its
+        // bytes past N are read and multiply into columns the epilogue does not store
+        const bool ok = gk < kend && gn < N;
+        async_copy16(sW + r * BN + swz<false>(r, ch) * 16, ok ? qw + (size_t)gk * ldw + gn : qw,
                      ok);
       }
     }
@@ -239,7 +251,7 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
     const int kdone = kbeg + (t + 1) * BK;
     const bool flush = W4 && kdone % group == 0;
     float4 swg = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (flush && !i32 && n0 + 32 * warp + 4 * g < N)  // N % 16 == 0: all four or none
+    if (flush && !i32 && n0 + 32 * warp + 4 * g < N)  // W4: N % 16 == 0, all four or none
       swg = *reinterpret_cast<const float4*>(sw + (size_t)(kdone / group - 1) * N + n0 +
                                              32 * warp + 4 * g);
 #pragma unroll
@@ -394,12 +406,12 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   cluster.sync();                // the leader has read every block's shared memory
 }
 
-template <int MT, bool W4, bool SKIP>
+template <int MT, bool W4, bool SKIP, bool PITCHED>
 int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, const int* occ,
-           float* out, int M, int N, int K, int group, int splits, cudaStream_t s,
+           float* out, int M, int N, int K, int ldw, int group, int splits, cudaStream_t s,
            int experts) {
   const int smem = smem_bytes<MT, W4>() + (SKIP ? 4 * (kListHead + (K + BK - 1) / BK) : 0);
-  cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT, W4, SKIP>,
+  cudaError_t err = cudaFuncSetAttribute(qgemm_decode_kernel<MT, W4, SKIP, PITCHED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -414,59 +426,80 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qgemm_decode_kernel<MT, W4, SKIP>, qx, qw, a, sw, occ, out, M,
-                           N, K, group);
+  err = cudaLaunchKernelEx(&cfg, qgemm_decode_kernel<MT, W4, SKIP, PITCHED>, qx, qw, a, sw, occ,
+                           out, M, N, K, ldw, group);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool W4, bool SKIP, bool PITCHED>
+int launch_p(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
+             const int* occ, float* out, int M, int N, int K, int ldw, int group, int splits,
+             cudaStream_t s, int experts) {
+  if (M <= 8)
+    return launch<1, W4, SKIP, PITCHED>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits,
+                                        s, experts);
+  if (M <= 16)
+    return launch<2, W4, SKIP, PITCHED>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits,
+                                        s, experts);
+  if (M <= 32)
+    return launch<4, W4, SKIP, PITCHED>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits,
+                                        s, experts);
+  if (M <= 64)
+    return launch<8, W4, SKIP, PITCHED>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits,
+                                        s, experts);
+  return launch<16, W4, SKIP, PITCHED>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits, s,
+                                       experts);
+}
+
 template <bool W4, bool SKIP>
 int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
-             const int* occ, float* out, int M, int N, int K, int group, int splits,
+             const int* occ, float* out, int M, int N, int K, int ldw, int group, int splits,
              cudaStream_t s, int experts = 1) {
-  if (M <= 8)
-    return launch<1, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
-  if (M <= 16)
-    return launch<2, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
-  if (M <= 32)
-    return launch<4, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
-  if (M <= 64)
-    return launch<8, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
-  return launch<16, W4, SKIP>(qx, qw, a, sw, occ, out, M, N, K, group, splits, s, experts);
+  if constexpr (!W4) {
+    if (ldw != N)
+      return launch_p<W4, SKIP, true>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits, s,
+                                      experts);
+  }
+  return launch_p<W4, SKIP, false>(qx, qw, a, sw, occ, out, M, N, K, ldw, group, splits, s,
+                                   experts);
 }
 
 }  // namespace
 
-// splits: 1..8 and at most ceil(K/64), so no split is empty; M in 1..128; K and N
-// multiples of 16; qx and qw 16-byte aligned. experts = E > 1: a stacked-expert
-// linear, qx (E, M, K), qw (E, K, N), a (E, M), sw (E, N), out (E, M, N), expert e
-// on grid z. a == nullptr (sw then unread): int32-out mode, out is (M, N) int32 (or
-// (E, M, N) expert-batched), the accumulator summed over the splits in int32. The
-// wrapper picks splits (kernels/qgemm.py::decode_splits) and checks the rest.
+// splits: 1..8 and at most ceil(K/64), so no split is empty; M in 1..128; K a
+// multiple of 16; qw's rows ldw bytes apart, ldw a multiple of 16 and >= N (N any
+// width); qx and qw 16-byte aligned. experts = E > 1: a stacked-expert linear, qx
+// (E, M, K), qw (E, K, N) with expert e's rows from e * K * ldw, a (E, M), sw (E,
+// N), out (E, M, N), expert e on grid z. a == nullptr (sw then unread): int32-out
+// mode, out is (M, N) int32 (or (E, M, N) expert-batched), the accumulator summed
+// over the splits in int32. The wrapper picks splits (kernels/qgemm.py::
+// decode_splits) and checks the rest.
 REPRO_API int repro_qgemm_w8a8_decode(const int8_t* qx, const int8_t* qw, const float* a,
                                       const float* sw, float* out, int M, int N, int K,
-                                      int experts, int splits, void* stream) {
+                                      int ldw, int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
-  if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
-      splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535)
+  if (M < 1 || M > 128 || N < 1 || K < 1 || ldw < N || ldw % 16 != 0 || K % 16 != 0 ||
+      splits < 1 || splits > kMaxSplits || splits > KT || experts < 1 || experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<false, false>(qx, qw, a, sw, nullptr, out, M, N, K, 0, splits,
+  return launch_m<false, false>(qx, qw, a, sw, nullptr, out, M, N, K, ldw, 0, splits,
                                 static_cast<cudaStream_t>(stream), experts);
 }
 
 // K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero
 // in every empty tile; splits 1..8 (a split whose share of a block's occupied
-// k-tiles is empty writes zero partials); M in 1..128; K and N multiples of 16; qx
-// and qw 16-byte aligned; a == nullptr: int32-out mode, as K2's. The wrapper picks
-// splits (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
+// k-tiles is empty writes zero partials); M in 1..128; K a multiple of 16, qw's
+// row pitch ldw as K2's; qx and qw 16-byte aligned; a == nullptr: int32-out mode,
+// as K2's. The wrapper picks splits (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and
+// checks the rest.
 REPRO_API int repro_qgemm_w8a8_sparse_decode(const int8_t* qx, const int8_t* qw,
                                              const float* a, const float* sw, const int* occ,
-                                             float* out, int M, int N, int K, int splits,
-                                             void* stream) {
-  if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
-      splits > kMaxSplits || occ == nullptr)
+                                             float* out, int M, int N, int K, int ldw,
+                                             int splits, void* stream) {
+  if (M < 1 || M > 128 || N < 1 || K < 1 || ldw < N || ldw % 16 != 0 || K % 16 != 0 ||
+      splits < 1 || splits > kMaxSplits || occ == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<false, true>(qx, qw, a, sw, occ, out, M, N, K, 0, splits,
+  return launch_m<false, true>(qx, qw, a, sw, occ, out, M, N, K, ldw, 0, splits,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -481,6 +514,6 @@ REPRO_API int repro_qgemm_w4a8_decode(const int8_t* qx, const int8_t* qw4, const
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || group <= 0 || group % BK != 0 ||
       K % group != 0 || splits < 1 || splits > kMaxSplits || splits > K / group)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<true, false>(qx, qw4, a, sw, nullptr, out, M, N, K, group, splits,
+  return launch_m<true, false>(qx, qw4, a, sw, nullptr, out, M, N, K, N, group, splits,
                                static_cast<cudaStream_t>(stream));
 }

@@ -12,11 +12,20 @@
 //
 //   out[m, n] = float(sum_k qx[m, k] * qw[k, n]) * a[m] * sw[n]
 //
-// qx (M, K) int8 row-major, qw (K, N) int8 row-major (the reference's layout), a
-// (M,) f32, sw (N,) f32, out (M, N) f32; K and N multiples of 16, qx and qw
-// 16-byte aligned (TMA's rules; the wrapper checks). The int32 sum is exact in
-// any order and the epilogue multiplies in the reference's order, so the result
-// is bitwise equal to the plain version.
+// qx (M, K) int8 row-major, qw (K, N) int8 row-major (the reference's layout) with
+// a row pitch of ldw bytes, a (M,) f32, sw (N,) f32, out (M, N) f32; K and ldw
+// multiples of 16, ldw >= N, N any width, qx and qw 16-byte aligned (TMA's rules:
+// a 16-byte aligned base and a global stride that is a multiple of 16; the wrapper
+// checks). A contiguous weight has ldw = N; one whose N is off the 16-column grid
+// is served as a view into a (K, ldw) buffer (models/quantize.py::prepare_served).
+// The weight's tensor map spans N columns at stride ldw, so TMA zero-fills the
+// last column tile past N. Where N is a multiple of 16 the epilogue stores four
+// columns with one 16-byte store everywhere (the RAGGED = false instantiation,
+// the code this body had before the pitch); otherwise (RAGGED) it does so where
+// all four lie inside N and the rows stay 16-byte aligned (N % 4 == 0), else
+// column by column. The int32 sum is exact in any order
+// and the epilogue multiplies in the reference's order, so the result is bitwise
+// equal to the plain version.
 //
 // What bounds it on an H100: at M = 2048 the product is 2*M*N*K operations on
 // about M*K + K*N bytes, some 1000 int8 operations per byte against the card's
@@ -129,7 +138,38 @@ constexpr int kListHead = kThreads / 32;
 template <int BM>
 __host__ __device__ constexpr int x_half_bytes() { return BM * (BK / 2); }
 
-template <int BM, bool SKIP>
+// The epilogue's store of four consecutive columns at out[i .. i + 3], of which the
+// first nv lie inside N: the int32 accumulators (int32-out mode, out_i32 set) or
+// f32(acc) * am * sw in the reference's order; one 16-byte store where ``whole``
+// (all four inside, rows 16-byte aligned), else one store per column
+__device__ __forceinline__ void store4(float* out, int* out_i32, size_t i, const int (&ac)[4],
+                                       float am, const float (&swc)[4], int nv, bool whole) {
+  if (out_i32 != nullptr) {
+    if (whole) {
+      *reinterpret_cast<int4*>(out_i32 + i) = make_int4(ac[0], ac[1], ac[2], ac[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c < nv) out_i32[i + c] = ac[c];
+    }
+    return;
+  }
+  float v[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) v[c] = __fmul_rn(__fmul_rn(__int2float_rn(ac[c]), am), swc[c]);
+  if (whole) {
+    *reinterpret_cast<float4*>(out + i) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < nv) out[i + c] = v[c];
+  }
+}
+
+// RAGGED: N off the 16-column grid (or sw's base not 16-byte aligned), so the
+// epilogue masks the last column tile per column; otherwise it stores four columns
+// at a time everywhere, as before the pitch existed
+template <int BM, bool SKIP, bool RAGGED>
 __global__ void __launch_bounds__(kThreads, 2)
 qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_w,
@@ -287,10 +327,26 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   // 4g + 2i + h: for each (j, e) a thread holds four consecutive columns
   const bool consumer = warp < kConsumers / 32;
   const int nl = 32 * warp + 4 * g;
+  // 16-byte stores of four columns where the rows keep 16-byte alignment (N % 4 ==
+  // 0, sw's base aligned); the last column tile's edge is masked per column
+  const bool vec4 = !RAGGED || ((N & 3) == 0 && (out_i32 != nullptr ||
+                                                  (reinterpret_cast<uintptr_t>(sw) & 15) == 0));
   if (S == 1) {
-    if (consumer && n0 + nl < N) {                  // N % 16 == 0: all four or none
-      const float4 swn = out_i32 != nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                            : *reinterpret_cast<const float4*>(sw + n0 + nl);
+    // of the four, the columns inside N (all four or none where N % 16 == 0)
+    const int nv = RAGGED ? min(4, N - (n0 + nl)) : (n0 + nl < N ? 4 : 0);
+    if (consumer && nv > 0) {
+      const bool whole = !RAGGED || (vec4 && nv == 4);
+      float swc[4] = {0.f, 0.f, 0.f, 0.f};
+      if (out_i32 == nullptr) {
+        if (whole) {
+          const float4 v = *reinterpret_cast<const float4*>(sw + n0 + nl);
+          swc[0] = v.x; swc[1] = v.y; swc[2] = v.z; swc[3] = v.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < nv) swc[c] = sw[n0 + nl + c];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < BM / 8; ++j)
 #pragma unroll
@@ -298,18 +354,9 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
           const int m = m0 + 8 * j + 2 * tg + e;
           if (m >= M) continue;
           const int q = 4 * j + e;
-          if (out_i32 != nullptr) {
-            *reinterpret_cast<int4*>(out_i32 + (size_t)m * N + n0 + nl) =
-                make_int4(acc[0][q], acc[0][q + 2], acc[1][q], acc[1][q + 2]);
-            continue;
-          }
-          const float am = a[m];
-          float4 v;
-          v.x = __fmul_rn(__fmul_rn(__int2float_rn(acc[0][q]), am), swn.x);
-          v.y = __fmul_rn(__fmul_rn(__int2float_rn(acc[0][q + 2]), am), swn.y);
-          v.z = __fmul_rn(__fmul_rn(__int2float_rn(acc[1][q]), am), swn.z);
-          v.w = __fmul_rn(__fmul_rn(__int2float_rn(acc[1][q + 2]), am), swn.w);
-          *reinterpret_cast<float4*>(out + (size_t)m * N + n0 + nl) = v;
+          const int ac[4] = {acc[0][q], acc[0][q + 2], acc[1][q], acc[1][q + 2]};
+          store4(out, out_i32, (size_t)m * N + n0 + nl, ac, out_i32 != nullptr ? 0.f : a[m],
+                 swc, nv, whole);
         }
     }
     return;
@@ -335,7 +382,9 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
     for (int idx = tid; idx < nr * (BN / 4); idx += kThreads) {
       const int ml = r0 + idx / (BN / 4), nl4 = 4 * (idx % (BN / 4));
       const int m = m0 + ml, n = n0 + nl4;
-      if (m >= M || n >= N) continue;               // N % 16 == 0: all four or none
+      if (m >= M || n >= N) continue;
+      const int nv = RAGGED ? min(4, N - n) : 4;    // of the four, the columns inside N
+      const bool whole = !RAGGED || (vec4 && nv == 4);
       int4 part[kMaxSplits];
 #pragma unroll
       for (int r = 0; r < kMaxSplits; ++r)
@@ -350,18 +399,20 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         sum.z += part[r].z;
         sum.w += part[r].w;
       }
-      if (out_i32 != nullptr) {
-        *reinterpret_cast<int4*>(out_i32 + (size_t)m * N + n) = sum;
-        continue;
+      float swc[4] = {0.f, 0.f, 0.f, 0.f};
+      if (out_i32 == nullptr) {
+        if (whole) {
+          const float4 v = *reinterpret_cast<const float4*>(sw + n);
+          swc[0] = v.x; swc[1] = v.y; swc[2] = v.z; swc[3] = v.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < nv) swc[c] = sw[n + c];
+        }
       }
-      const float am = a[m];
-      const float4 swn = *reinterpret_cast<const float4*>(sw + n);
-      float4 v;
-      v.x = __fmul_rn(__fmul_rn(__int2float_rn(sum.x), am), swn.x);
-      v.y = __fmul_rn(__fmul_rn(__int2float_rn(sum.y), am), swn.y);
-      v.z = __fmul_rn(__fmul_rn(__int2float_rn(sum.z), am), swn.z);
-      v.w = __fmul_rn(__fmul_rn(__int2float_rn(sum.w), am), swn.w);
-      *reinterpret_cast<float4*>(out + (size_t)m * N + n) = v;
+      const int ac[4] = {sum.x, sum.y, sum.z, sum.w};
+      store4(out, out_i32, (size_t)m * N + n, ac, out_i32 != nullptr ? 0.f : a[m], swc, nv,
+             whole);
     }
   } else if (split == 0) {
     for (int idx = tid; idx < BM * BN; idx += kThreads) {
@@ -633,14 +684,15 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// a (rows, cols) row-major int8 matrix, box (box_rows, box_cols bytes): 128 bytes
-// under the 128-byte swizzle, or 64 under the 64-byte swizzle
+// a (rows, cols) row-major int8 matrix whose rows lie ld bytes apart (ld = cols
+// where 0; a multiple of 16), box (box_rows, box_cols bytes): 128 bytes under the
+// 128-byte swizzle, or 64 under the 64-byte swizzle
 bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-            int box_cols = 128) {
+            int box_cols = 128, int ld = 0) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld > 0 ? ld : cols)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
@@ -649,20 +701,21 @@ bool encode(CUtensorMap* map, const void* base, int rows, int cols, int box_rows
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BM, bool SKIP>
+template <int BM, bool SKIP, bool RAGGED>
 int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, const int* occ,
-           float* out, int M, int N, int K, int splits, cudaStream_t s, int experts) {
+           float* out, int M, int N, int K, int ldw, int splits, cudaStream_t s,
+           int experts) {
   // K7 loads 64-row k-tiles: weight boxes of 64 rows, qx boxes of 64 bytes and, for
   // two k-adjacent tiles, of 128 (tm_xp; K2 does not read it). Expert-batched K2:
-  // qx viewed as (E*M, K), qw as (E*K, N)
+  // qx viewed as (E*M, K), qw as (E*K, N) at row pitch ldw
   CUtensorMap tm_x, tm_w, tm_xp;
   if (!encode(&tm_x, qx, experts * M, K, BM, SKIP ? BK / 2 : BK) ||
-      !encode(&tm_w, qw, experts * K, N, SKIP ? BK / 2 : BK) ||
+      !encode(&tm_w, qw, experts * K, N, SKIP ? BK / 2 : BK, 128, ldw) ||
       (SKIP && !encode(&tm_xp, qx, M, K, BM)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!SKIP) tm_xp = tm_x;
   const int smem = smem_bytes<BM>() + (SKIP ? 4 * (kListHead + (K + BK / 2 - 1) / (BK / 2)) : 0);
-  cudaError_t err = cudaFuncSetAttribute(qgemm_wgmma_kernel<BM, SKIP>,
+  cudaError_t err = cudaFuncSetAttribute(qgemm_wgmma_kernel<BM, SKIP, RAGGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -677,8 +730,8 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qgemm_wgmma_kernel<BM, SKIP>, tm_x, tm_w, tm_xp, a, sw, occ,
-                           out, M, N, K);
+  err = cudaLaunchKernelEx(&cfg, qgemm_wgmma_kernel<BM, SKIP, RAGGED>, tm_x, tm_w, tm_xp, a, sw,
+                           occ, out, M, N, K);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -713,53 +766,76 @@ int launch_w4(const int8_t* qx, const int8_t* qw4, const float* a, const float* 
 
 }  // namespace
 
-template <bool SKIP>
-int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
-             const int* occ, float* out, int M, int N, int K, int splits, cudaStream_t s,
-             int experts = 1) {
+template <bool SKIP, bool RAGGED>
+int launch_r(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
+             const int* occ, float* out, int M, int N, int K, int ldw, int splits,
+             cudaStream_t s, int experts) {
   const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
   switch (bm) {
     case 16: case 32: case 48:
-      return launch<48, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
-    case 64: return launch<64, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
-    case 80: return launch<80, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
-    case 96: return launch<96, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
-    case 112: return launch<112, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
-    default: return launch<128, SKIP>(qx, qw, a, sw, occ, out, M, N, K, splits, s, experts);
+      return launch<48, SKIP, RAGGED>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s,
+                                      experts);
+    case 64:
+      return launch<64, SKIP, RAGGED>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s,
+                                      experts);
+    case 80:
+      return launch<80, SKIP, RAGGED>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s,
+                                      experts);
+    case 96:
+      return launch<96, SKIP, RAGGED>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s,
+                                      experts);
+    case 112:
+      return launch<112, SKIP, RAGGED>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s,
+                                       experts);
+    default:
+      return launch<128, SKIP, RAGGED>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s,
+                                       experts);
   }
 }
 
-// splits: 1..8 and at most ceil(K/128); M >= 1; K and N multiples of 16; qx and qw
-// 16-byte aligned. The token tile is M rounded up to 16 for M <= 128, else 128
-// rows. experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N), a (E,
-// M), sw (E, N), out (E, M, N), E*M and E*K below 2^31. The wrapper picks splits
-// (kernels/qgemm.py::wgmma_splits) and checks the rest. a == nullptr (sw then
-// unread): int32-out mode, out is (M, N) int32, or (E, M, N) expert-batched.
+template <bool SKIP>
+int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw,
+             const int* occ, float* out, int M, int N, int K, int ldw, int splits,
+             cudaStream_t s, int experts = 1) {
+  if (N % 16 != 0 || (a != nullptr && (reinterpret_cast<uintptr_t>(sw) & 15) != 0))
+    return launch_r<SKIP, true>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s, experts);
+  return launch_r<SKIP, false>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s, experts);
+}
+
+// splits: 1..8 and at most ceil(K/128); M >= 1; K a multiple of 16; qw's rows ldw
+// bytes apart, ldw a multiple of 16 and >= N (N any width); qx and qw 16-byte
+// aligned. The token tile is M rounded up to 16 for M <= 128, else 128 rows.
+// experts = E > 1: a stacked-expert linear, qx (E, M, K), qw (E, K, N) with expert
+// e's rows from e * K * ldw, a (E, M), sw (E, N), out (E, M, N), E*M and E*K below
+// 2^31. The wrapper picks splits (kernels/qgemm.py::wgmma_splits) and checks the
+// rest. a == nullptr (sw then unread): int32-out mode, out is (M, N) int32, or (E,
+// M, N) expert-batched.
 REPRO_API int repro_qgemm_w8a8_wgmma(const int8_t* qx, const int8_t* qw, const float* a,
-                                     const float* sw, float* out, int M, int N, int K,
+                                     const float* sw, float* out, int M, int N, int K, int ldw,
                                      int experts, int splits, void* stream) {
   const int KT = (K + BK - 1) / BK;
-  if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
+  if (M < 1 || N < 1 || K < 1 || ldw < N || ldw % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || splits > KT || experts < 1 ||
       (long long)experts * ((M + 47) / 48) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<false>(qx, qw, a, sw, nullptr, out, M, N, K, splits,
+  return launch_m<false>(qx, qw, a, sw, nullptr, out, M, N, K, ldw, splits,
                          static_cast<cudaStream_t>(stream), experts);
 }
 
 // K7: occ (ceil(K/64), ceil(N/64)) int32 tile occupancy of qw, row-major, qw zero
 // in every empty tile; splits 1..8 (a split whose share of a block's occupied
-// k-tiles is empty writes zero partials); M >= 1; K and N multiples of 16; qx and
-// qw 16-byte aligned; a == nullptr: int32-out mode, as K2's. The wrapper picks
-// splits (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and checks the rest.
+// k-tiles is empty writes zero partials); M >= 1; K a multiple of 16, qw's row
+// pitch ldw as K2's; qx and qw 16-byte aligned; a == nullptr: int32-out mode, as
+// K2's. The wrapper picks splits (kernels/qgemm.py::qgemm_w8a8_sparse_plan) and
+// checks the rest.
 REPRO_API int repro_qgemm_w8a8_sparse_wgmma(const int8_t* qx, const int8_t* qw,
                                             const float* a, const float* sw, const int* occ,
-                                            float* out, int M, int N, int K, int splits,
-                                            void* stream) {
-  if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || K % 16 != 0 || splits < 1 ||
+                                            float* out, int M, int N, int K, int ldw,
+                                            int splits, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || ldw < N || ldw % 16 != 0 || K % 16 != 0 || splits < 1 ||
       splits > kMaxSplits || occ == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_m<true>(qx, qw, a, sw, occ, out, M, N, K, splits,
+  return launch_m<true>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits,
                         static_cast<cudaStream_t>(stream));
 }
 

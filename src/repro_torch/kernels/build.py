@@ -36,16 +36,16 @@ SIGNATURES = {
     "repro_act_quantize": [_P, _I, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, out, M, N, K, experts, vec_a, vec_b, stream
     "repro_qgemm_w8a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, out, M, N, K, experts, splits, stream
-    "repro_qgemm_w8a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, out, M, N, K, experts, splits, stream
-    "repro_qgemm_w8a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, ldw, experts, splits, stream
+    "repro_qgemm_w8a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, out, M, N, K, ldw, experts, splits, stream
+    "repro_qgemm_w8a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, vec_a, vec_b, stream
     "repro_qgemm_w8a8_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, occ, out, M, N, K, splits, stream
-    "repro_qgemm_w8a8_sparse_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # qx, qw, a, sw, occ, out, M, N, K, splits, stream
-    "repro_qgemm_w8a8_sparse_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, occ, out, M, N, K, ldw, splits, stream
+    "repro_qgemm_w8a8_sparse_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw, a, sw, occ, out, M, N, K, ldw, splits, stream
+    "repro_qgemm_w8a8_sparse_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw4, a, sw, out, M, N, K, group, vec_a, vec_b, stream
     "repro_qgemm_w4a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # qx, qw4, a, sw, out, M, N, K, group, splits, stream

@@ -12,7 +12,7 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 The sparse GEMM routes as the reference's ``lax.cond`` does: a leaf whose mask
 leaves no weight tile empty runs the dense K2 (bitwise the same result), any
 other runs K7 with the tile-occupancy table. The table is derived once per leaf
-where the served tree is prepared (``models.quantize.with_tile_occupancy``) and
+where the served tree is prepared (``models.quantize.prepare_served``) and
 passed in, so a serving step does not sync the host once per linear; K7's bodies
 read it on the card.
 
@@ -23,7 +23,9 @@ beyond the registers). K2, K7 and K8 have three each:
 ``qgemm_w4a8_plan`` send few activation rows to the split-K weight stream, more to
 the ``wgmma`` body and shapes neither takes to the 64 × 64 tile body (K7's decode
 and wgmma bodies skip the empty tiles); K3 and K4–K6 run a bf16 tensor-core body
-or an f32 body by dtype.
+or an f32 body by dtype. K2's and K7's weights may be row-pitched views (the
+served tree's ragged-N leaves, ``models.quantize.prepare_served``), which their
+decode and wgmma bodies read in place.
 
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
@@ -69,7 +71,7 @@ from repro_torch.kernels.qgemm import (
     TILE_K, TILE_N, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
     qgemm_w4a8_wgmma_cuda, qgemm_w8a8_cuda, qgemm_w8a8_decode_cuda, qgemm_w8a8_plan,
     qgemm_w8a8_sparse_cuda, qgemm_w8a8_sparse_decode_cuda, qgemm_w8a8_sparse_plan,
-    qgemm_w8a8_sparse_wgmma_cuda, qgemm_w8a8_wgmma_cuda,
+    qgemm_w8a8_sparse_wgmma_cuda, qgemm_w8a8_wgmma_cuda, weight_pitch,
 )
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
@@ -150,6 +152,15 @@ def _contiguous(**tensors: torch.Tensor) -> None:
         _require(t.is_contiguous(), f"{name} must be contiguous")
 
 
+def _weight_rows(qw: torch.Tensor) -> int:
+    """The row pitch of a W8 weight: contiguous (ldw = N) or a row-pitched view
+    (``models.quantize.prepare_served``); any other layout raises."""
+    ldw = weight_pitch(qw)
+    _require(ldw is not None, f"qw must be contiguous or a view of evenly pitched "
+             f"contiguous rows, got strides {qw.stride()} for {tuple(qw.shape)}")
+    return ldw
+
+
 def act_quantize(x: torch.Tensor, bcol: torch.Tensor,
                  alpha: Union[float, torch.Tensor] = 0.15, *, bits: int = 8,
                  row_max: Optional[torch.Tensor] = None):
@@ -225,15 +236,16 @@ def _w8a8(qx, qw, a, sw) -> torch.Tensor:
         _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
                  "a and sw must be f32")
         _contiguous(a=a, sw=sw)
-    _contiguous(qx=qx, qw=qw)
+    _contiguous(qx=qx)
+    ldw = _weight_rows(qw)
     aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
-    body, splits = qgemm_w8a8_plan(M, K, N, aligned=aligned)
+    body, splits = qgemm_w8a8_plan(M, K, N, aligned=aligned, ldw=ldw)
     if body == "decode":
         out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits)
     elif body == "wgmma":
         out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits)
-    else:
-        out = qgemm_w8a8_cuda(qx, qw, a, sw)
+    else:                        # the tile body reads contiguous rows
+        out = qgemm_w8a8_cuda(qx, qw.contiguous(), a, sw)
     _count("qgemm_w8a8", f"qgemm_w8a8/{'' if a is not None else 'i32_'}{body}")
     return out
 
@@ -321,15 +333,16 @@ def _w8a8_experts(qx, qw, a, sw) -> torch.Tensor:
         _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
                  "a and sw must be f32")
         _contiguous(a=a, sw=sw)
-    _contiguous(qx=qx, qw=qw)
+    _contiguous(qx=qx)
+    ldw = _weight_rows(qw)
     aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
-    body, splits = qgemm_w8a8_plan(C, K, N, aligned=aligned, experts=E)
+    body, splits = qgemm_w8a8_plan(C, K, N, aligned=aligned, experts=E, ldw=ldw)
     if body == "decode":
         out = qgemm_w8a8_decode_cuda(qx, qw, a, sw, splits, experts=E)
     elif body == "wgmma":
         out = qgemm_w8a8_wgmma_cuda(qx, qw, a, sw, splits, experts=E)
     else:
-        out = qgemm_w8a8_cuda(qx, qw, a, sw, experts=E)
+        out = qgemm_w8a8_cuda(qx, qw.contiguous(), a, sw, experts=E)
     _count("qgemm_w8a8", f"qgemm_w8a8/experts_{'' if a is not None else 'i32_'}{body}")
     return out
 
@@ -406,15 +419,16 @@ def _w8a8_sparse(qx, qw, a, sw, mask, occ) -> torch.Tensor:
         _require(a.dtype == torch.float32 and sw.dtype == torch.float32,
                  "a and sw must be f32")
         _contiguous(a=a, sw=sw)
-    _contiguous(qx=qx, qw=qw, occ=occ)
+    _contiguous(qx=qx, occ=occ)
+    ldw = _weight_rows(qw)
     aligned = qx.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
-    body, splits = qgemm_w8a8_sparse_plan(M, K, N, aligned=aligned)
+    body, splits = qgemm_w8a8_sparse_plan(M, K, N, aligned=aligned, ldw=ldw)
     if body == "decode":
         out = qgemm_w8a8_sparse_decode_cuda(qx, qw, a, sw, occ, splits)
     elif body == "wgmma":
         out = qgemm_w8a8_sparse_wgmma_cuda(qx, qw, a, sw, occ, splits)
     else:
-        out = qgemm_w8a8_sparse_cuda(qx, qw, a, sw, occ)
+        out = qgemm_w8a8_sparse_cuda(qx, qw.contiguous(), a, sw, occ)
     _count("qgemm_w8a8_sparse", f"qgemm_w8a8_sparse/{'' if a is not None else 'i32_'}{body}")
     return out
 

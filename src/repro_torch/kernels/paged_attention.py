@@ -4,8 +4,9 @@
 draft-window verify at ``q_win > 1``, and ragged chunked prefill. Two bodies, by
 q's dtype (:data:`BODIES`): bf16 q runs the split tensor-core body in
 ``csrc/paged_attention_mma.cu`` (each slot's key walk cut into the partitions of
-:func:`split_plan`, merged by a second launch), f32 q the CUDA-core body in
-``csrc/paged_attention.cu``.
+:func:`split_plan`, merged by a second launch; at D = 256 two warps share each row
+tile's head dims, and partitions wholly behind a tile's window are skipped,
+:func:`behind_window`), f32 q the CUDA-core body in ``csrc/paged_attention.cu``.
 
 Callers go through :func:`repro_torch.kernels.ops.paged_decode_attention`,
 :func:`~repro_torch.kernels.ops.paged_verify_attention` and
@@ -40,6 +41,28 @@ def split_plan(maxP: int, ps: int) -> Tuple[int, int]:
     n = max(1, min(SPLIT_MAX, math.ceil(span / SPLIT_TARGET)))
     part_len = math.ceil(math.ceil(span / n) / SPLIT_CHUNK) * SPLIT_CHUNK
     return math.ceil(span / part_len), part_len
+
+
+def behind_window(part: int, part_len: int, walk: int, q_pos: int,
+                  window: Optional[int]) -> bool:
+    """Whether partition ``part`` of a key walk of ``walk`` positions lies wholly
+    behind the window of a query at ``q_pos``: every key it holds (positions [part ·
+    part_len, min(walk, (part + 1) · part_len))) is at or before q_pos - window. At
+    D = 256 the bf16 body skips such a partition for a tile whose first query is at
+    ``q_pos`` (no row of the tile sees a key of it), and the combine starts each row
+    at :func:`first_window_partition`."""
+    return bool(window) and window > 0 and min(walk, (part + 1) * part_len) <= q_pos - window + 1
+
+
+def first_window_partition(q_pos: int, window: Optional[int], part_len: int,
+                           n_live: int) -> int:
+    """The first partition the bf16 body's combine merges for a row at ``q_pos`` at
+    D = 256: the partitions before it lie wholly behind the row's window
+    (:func:`behind_window`), those from it on up to ``n_live`` (the ones its walk
+    reaches) are merged; 0 without a window."""
+    if not window or window <= 0:
+        return 0
+    return min(n_live - 1, max(0, q_pos - window + 1) // part_len)
 
 
 def _scratch(n_parts: int, rows: int, D: int, device):

@@ -15,6 +15,14 @@ grid z, the wgmma body with it folded into grid y beside the m-tiles, the tile
 body on grid z; the plan picks the body for C rows and the splits for all E
 experts' output tiles.
 
+K2's and K7's decode and wgmma bodies take a weight row pitch ``ldw`` apart from
+N (:func:`weight_pitch`): a multiple of 16, at least N. A contiguous weight has
+ldw = N; a leaf whose N is off the 16-column grid (mamba2-130m's in_proj, N =
+3352) is served as a view of its own shape into a (..., K, :func:`served_pitch`)
+buffer (``models.quantize.prepare_served``, applied where the served tree is
+prepared), so those bodies take it; a contiguous ragged-N weight still runs the
+tile body.
+
 K2's and K7's bodies have an int32-out mode (``a`` and ``sw`` None): the epilogue
 writes the (M, N) int32 accumulator, the decode body's split-K partials summed in
 int32, and does not dequantize. A row-parallel linear under tensor parallelism
@@ -31,7 +39,7 @@ the plain versions for CPU tensors and counts launches.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -92,28 +100,60 @@ def wgmma_splits(M: int, K: int, N: int, experts: int = 1) -> int:
     return max(1, min(MAX_SPLITS, by_k, want))
 
 
+def row_pitch(N: int) -> int:
+    """The row pitch in bytes that K2's decode and wgmma bodies take for an int8
+    weight of N columns: N rounded up to a multiple of 16 (TMA's global stride and
+    the decode body's 16-byte chunks)."""
+    return -(-N // 16) * 16
+
+
+def served_pitch(K: int, N: int) -> int:
+    """The row pitch at which a served int8 (K, N) weight is stored: :func:`row_pitch`
+    where K is on the 16-row grid, so the decode and wgmma bodies take it; else N
+    (such a product runs the tile body, which reads contiguous rows)."""
+    return row_pitch(N) if K % 16 == 0 else N
+
+
+def weight_pitch(qw: torch.Tensor) -> Optional[int]:
+    """The row pitch of a (K, N) or stacked (E, K, N) weight whose rows are
+    contiguous and evenly spaced (stride (ldw, 1), or (K·ldw, ldw, 1)): ldw, N for a
+    contiguous weight. None for any other layout."""
+    if qw.ndim not in (2, 3) or qw.numel() == 0 or qw.stride(-1) != 1:
+        return None
+    K, N = qw.shape[-2:]
+    ldw = qw.stride(-2) if K > 1 else N
+    if ldw < N or (qw.ndim == 3 and qw.shape[0] > 1 and qw.stride(0) != K * ldw):
+        return None
+    return ldw
+
+
 def qgemm_w8a8_plan(M: int, K: int, N: int, aligned: bool = True,
-                    experts: int = 1) -> Tuple[str, int]:
-    """K2's body for an (M, K) × (K, N) product, where K and N are multiples of 16
+                    experts: int = 1, ldw: Optional[int] = None) -> Tuple[str, int]:
+    """K2's body for an (M, K) × (K, N) product whose weight rows lie ``ldw``
+    bytes apart (None: N, a contiguous weight), where K and ldw are multiples of 16
     and both operands 16-byte aligned (``aligned``): ``("decode", splits)`` for 1 ≤
     M ≤ DECODE_MAX_M, ``("wgmma", splits)`` above (chip_smoke phase 3 measured it
     faster than the tile body at every M from 33 to 2048 on the H100, PERF.md);
-    every other product ``("tile", 1)``. An expert-batched launch passes its C rows
+    every other product ``("tile", 1)``. N itself may be any width: the bodies mask
+    their last column tile per column. An expert-batched launch passes its C rows
     per expert as M and ``experts`` = E: the body is chosen as for one expert, the
     splits for all E experts' output tiles."""
-    if not (M >= 1 and K > 0 and K % 16 == 0 and N > 0 and N % 16 == 0 and aligned):
+    ldw = N if ldw is None else ldw
+    if not (M >= 1 and K > 0 and K % 16 == 0 and N > 0 and ldw >= N and ldw % 16 == 0
+            and aligned):
         return "tile", 1
     if M <= DECODE_MAX_M:
         return "decode", decode_splits(K, N, experts)
     return "wgmma", wgmma_splits(M, K, N, experts)
 
 
-def qgemm_w8a8_sparse_plan(M: int, K: int, N: int, aligned: bool = True) -> Tuple[str, int]:
+def qgemm_w8a8_sparse_plan(M: int, K: int, N: int, aligned: bool = True,
+                           ldw: Optional[int] = None) -> Tuple[str, int]:
     """K7's body for an (M, K) × (K, N) product with a tile-occupancy table: K2's
     plan (:func:`qgemm_w8a8_plan`), since its decode and wgmma bodies take the skip.
-    The table is read on the card only, so the plan, like K2's, depends on (M, K, N)
-    alone and a launch replays unchanged under CUDA-graph capture."""
-    return qgemm_w8a8_plan(M, K, N, aligned)
+    The table is read on the card only, so the plan, like K2's, depends on (M, K, N,
+    ldw) alone and a launch replays unchanged under CUDA-graph capture."""
+    return qgemm_w8a8_plan(M, K, N, aligned, ldw=ldw)
 
 
 def sparse_stage_ranges(occ, K: int, N: int, body: str,
@@ -197,11 +237,19 @@ def _gemm_dims(qx: torch.Tensor, qw: torch.Tensor, experts: int):
     return qx.shape[-2], qx.shape[-1], qw.shape[-1]
 
 
+def _pitch(qw: torch.Tensor, what: str) -> int:
+    ldw = weight_pitch(qw)
+    if ldw is None or ldw % 16:
+        raise ValueError(f"{what} reads weight rows at a pitch that is a multiple of 16: "
+                         f"qw {tuple(qw.shape)} has strides {qw.stride()}")
+    return ldw
+
+
 def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                     sw: torch.Tensor, experts: int = 1) -> torch.Tensor:
-    """qx (M, K) int8 · qw (K, N) int8 → (M, N) f32 = acc · a · sw, all contiguous
-    on one card; expert-batched (``experts`` = E): qx (E, M, K), qw (E, K, N), a
-    (E, M, 1), sw (E, N) → (E, M, N), the expert on the grid."""
+    """K2's tile body: qx (M, K) int8 · qw (K, N) int8 → (M, N) f32 = acc · a · sw,
+    all contiguous on one card; expert-batched (``experts`` = E): qx (E, M, K), qw
+    (E, K, N), a (E, M, 1), sw (E, N) → (E, M, N), the expert on the grid."""
     M, K, N = _gemm_dims(qx, qw, experts)
     vec_a, vec_b = _vec(qx, qw)
     out = _out(qx, N, a)
@@ -215,16 +263,18 @@ def qgemm_w8a8_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
 def qgemm_w8a8_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                            sw: torch.Tensor, splits: int, experts: int = 1) -> torch.Tensor:
     """K2's decode body: qx (M ≤ 128, K) int8 · qw (K, N) int8 → (M, N) f32 = acc ·
-    a · sw, over ``splits`` K splits; K and N multiples of 16, qx and qw 16-byte
-    aligned, all contiguous on one card. Expert-batched as :func:`qgemm_w8a8_cuda`
-    (the expert on grid z)."""
+    a · sw, over ``splits`` K splits; K a multiple of 16, N any width, qw contiguous
+    or a row-pitched view (:func:`weight_pitch` a multiple of 16), qx and qw 16-byte
+    aligned, the rest contiguous, all on one card. Expert-batched as
+    :func:`qgemm_w8a8_cuda` (the expert on grid z)."""
     M, K, N = _gemm_dims(qx, qw, experts)
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("the decode body reads qx and qw in 16-byte chunks: align both")
+    ldw = _pitch(qw, "the decode body")
     out = _out(qx, N, a)
     rc = build.library().repro_qgemm_w8a8_decode(
         qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), out.data_ptr(),
-        M, N, K, experts, splits, torch.cuda.current_stream().cuda_stream)
+        M, N, K, ldw, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 decode body")
     return out
 
@@ -232,16 +282,18 @@ def qgemm_w8a8_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
 def qgemm_w8a8_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Tensor,
                           sw: torch.Tensor, splits: int, experts: int = 1) -> torch.Tensor:
     """K2's wgmma body: qx (M, K) int8 · qw (K, N) int8 → (M, N) f32 = acc · a ·
-    sw, over ``splits`` K splits; K and N multiples of 16, qx and qw 16-byte
-    aligned, all contiguous on one card. Expert-batched as :func:`qgemm_w8a8_cuda`
-    (the expert folded into grid y with the m-tiles)."""
+    sw, over ``splits`` K splits; K a multiple of 16, N any width, qw contiguous or
+    a row-pitched view (:func:`weight_pitch` a multiple of 16), qx and qw 16-byte
+    aligned, the rest contiguous, all on one card. Expert-batched as
+    :func:`qgemm_w8a8_cuda` (the expert folded into grid y with the m-tiles)."""
     M, K, N = _gemm_dims(qx, qw, experts)
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("the wgmma body loads qx and qw with TMA: align both to 16 bytes")
+    ldw = _pitch(qw, "the wgmma body")
     out = _out(qx, N, a)
     rc = build.library().repro_qgemm_w8a8_wgmma(
         qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), out.data_ptr(),
-        M, N, K, experts, splits, torch.cuda.current_stream().cuda_stream)
+        M, N, K, ldw, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w8a8 wgmma body")
     return out
 
@@ -275,10 +327,11 @@ def _sparse_body_cuda(entry: str, what: str, qx: torch.Tensor, qw: torch.Tensor,
     N = qw.shape[1]
     if qx.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError(f"K7's {what} reads qx and qw in 16-byte chunks: align both")
+    ldw = _pitch(qw, f"K7's {what}")
     out = _out(qx, N, a)
     rc = getattr(build.library(), entry)(
         qx.data_ptr(), qw.data_ptr(), *_scales(a, sw), occ.data_ptr(),
-        out.data_ptr(), M, N, K, splits, torch.cuda.current_stream().cuda_stream)
+        out.data_ptr(), M, N, K, ldw, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"qgemm_w8a8_sparse {what}")
     return out
 
@@ -288,8 +341,9 @@ def qgemm_w8a8_sparse_decode_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.T
                                   splits: int) -> torch.Tensor:
     """K7's decode body: K2's split-K weight stream over the block's occupied
     64-row k-tiles only, shared evenly by ``splits`` cluster ranks; qx (M ≤ 128, K)
-    int8, qw (K, N) int8 zero in every tile ``occ`` marks empty, K and N multiples
-    of 16, qx and qw 16-byte aligned, all contiguous on one card. → (M, N) f32."""
+    int8, qw (K, N) int8 zero in every tile ``occ`` marks empty, K a multiple of 16,
+    qw contiguous or row-pitched as K2's decode body takes it, qx and qw 16-byte
+    aligned, all on one card. → (M, N) f32."""
     return _sparse_body_cuda("repro_qgemm_w8a8_sparse_decode", "decode body", qx, qw, a, sw,
                              occ, splits)
 

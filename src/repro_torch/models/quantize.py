@@ -2,8 +2,9 @@
 ``repro/models/quantize.py``: ``quantize_tree``, ``dequantize_tree``,
 ``fake_quantize_weights``, ``quantized_bytes``, ``parse_nm``, ``SparsityPlan``,
 ``nm_keep_mask``, ``sparsify_tree``, ``make_sparsity_plan`` and
-``sparsity_summary``), and ``with_tile_occupancy``, which routes masked leaves
-to the sparse kernel on the card.
+``sparsity_summary``), and ``prepare_served``, which routes masked leaves to the
+sparse kernel on the card and lets K2's decode and wgmma bodies take the leaves
+whose N is off the 16-column grid.
 
 The offline PTQ step of a deployment: every quantizable linear becomes its
 prepared int8 static-c CrossQuant form (or packed int4 groups at ``w_bits <=
@@ -295,26 +296,63 @@ def make_sparsity_plan(cfg, params, batches: Iterable, *, nm: Tuple[int, int] = 
     return SparsityPlan(nm=nm, layers=layers, fractions=fractions, threshold=threshold)
 
 
-def with_tile_occupancy(qparams):
-    """The tree with an ``occ`` leaf beside every int8 ``mask`` that leaves a
-    (64, 64) weight tile empty in some layer: the sparse GEMM's per-layer
-    tile-occupancy table (``ops.tile_occupancy``), derived here once per leaf so
-    that no serving step syncs the host for it. Expert stacks run the dense
-    expert-batched GEMM and get none. On the card a leaf with ``occ``
-    runs K7, which skips the empty tiles, and one without runs K2, as the
-    reference routes a mask that fills every tile. Derive it after the last edit
-    of the codes; a stale ``occ`` is replaced or dropped."""
+def _occupancy(node: dict) -> dict:
+    """A (K, N) or stacked int8 leaf's node with its ``occ`` table beside a ``mask``
+    that leaves a (64, 64) tile empty, without one where every tile is occupied."""
     from repro_torch.kernels.ops import tile_occupancy
 
+    if "mask" not in node or "qw" not in node or node["qw"].ndim > 3:      # experts: none
+        return node
+    rest = {k: v for k, v in node.items() if k != "occ"}
+    K, mask = node["qw"].shape[-2], node["mask"]
+    occ = (torch.stack([tile_occupancy(m, K) for m in mask]) if mask.ndim == 3
+           else tile_occupancy(mask, K))
+    return rest if bool(occ.all()) else {**rest, "occ": occ}
+
+
+def _pitched(w: torch.Tensor) -> torch.Tensor:
+    """An int8 weight at the row pitch K2's decode and wgmma bodies take
+    (``kernels.qgemm.served_pitch``): where that pitch is not N, a view of the same
+    shape and values into a zero-padded (..., K, ldw) buffer; else ``w`` itself."""
+    from repro_torch.kernels.qgemm import served_pitch
+
+    if w.dtype != torch.int8 or w.ndim < 2:
+        return w
+    K, N = w.shape[-2:]
+    ldw = served_pitch(K, N)
+    if ldw == N or w.stride()[-2:] == (ldw, 1):
+        return w
+    buf = torch.zeros(w.shape[:-1] + (ldw,), dtype=w.dtype, device=w.device)
+    buf[..., :N] = w
+    return buf[..., :N]
+
+
+def prepare_served(qparams):
+    """The tree as the card serves it, prepared in one pass after the last edit of
+    the codes (``ServeEngine`` calls it after taking a rank's shard).
+
+    An ``occ`` leaf joins every int8 ``mask`` that leaves a (64, 64) weight tile
+    empty in some layer: the sparse GEMM's per-layer tile-occupancy table
+    (``ops.tile_occupancy``), derived once per leaf so that no serving step syncs
+    the host for it. Expert stacks run the dense expert-batched GEMM and get none.
+    On the card a leaf with ``occ`` runs K7, which skips the empty tiles, and one
+    without runs K2, as the reference routes a mask that fills every tile; a stale
+    ``occ`` is replaced or dropped.
+
+    Every int8 ``qw`` leaf whose N (last axis) is off the 16-column grid, over a K
+    that is on it, is stored at a row pitch of N rounded up to 16: a view of the
+    same shape and values into a zero-padded (..., K, ldw) buffer, so K2's and
+    K7's decode and wgmma bodies, which read weight rows in 16-byte chunks and by
+    TMA, take it in place (mamba2-130m's in_proj, N = 3352, and its
+    column-parallel shard, 1676); a leaf already at its pitch is kept.
+
+    The tree's structure and every other leaf stay as they are, and no serving
+    step pads or copies a weight. A tree run through ``model.apply`` without it
+    serves its masks on K2 and its ragged-N leaves on K2's tile body."""
     def convert(node):
         if isinstance(node, dict):
-            if "mask" in node and "qw" in node and node["qw"].ndim <= 3:   # not experts
-                rest = {k: v for k, v in node.items() if k != "occ"}
-                K, mask = node["qw"].shape[-2], node["mask"]
-                occ = (torch.stack([tile_occupancy(m, K) for m in mask]) if mask.ndim == 3
-                       else tile_occupancy(mask, K))
-                return rest if bool(occ.all()) else {**rest, "occ": occ}
-            return {k: convert(v) for k, v in node.items()}
+            return _occupancy({k: (_pitched(v) if k == "qw" and isinstance(v, torch.Tensor)
+                                   else convert(v)) for k, v in node.items()})
         if isinstance(node, list):
             return [convert(v) for v in node]
         return node

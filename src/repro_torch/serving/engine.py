@@ -447,8 +447,12 @@ class ServeEngine:
     (``models.quantize.make_sparsity_plan``), or every one without a plan.
     Prepared int8 leaves gain a packed ``mask`` the fused path's sparse GEMM
     reads, and leaves that already carry one pass through.
-    Every masked leaf's tile occupancy is derived at build
-    (``with_tile_occupancy``): masks with empty tiles run K7, the rest K2.
+    The tree is prepared as the card serves it at build, in one pass
+    (``prepare_served``): every masked leaf's tile occupancy is derived (masks
+    with empty tiles run K7, the rest K2), and every int8 leaf whose N is off the
+    16-column grid (mamba2's in_proj, or a rank's shard of it) is given a row
+    pitch of N rounded up to 16: the same shape and values, stored so that K2's
+    decode and wgmma bodies take it in place.
 
     ``mesh=`` (a ``launch.mesh.Mesh``; ``plan=`` defaults to
     ``sharding.planner.make_serve_plan``) serves tensor- and expert-parallel, one
@@ -509,7 +513,7 @@ class ServeEngine:
         self.mesh, self.plan, self.shard = mesh, None, None
         if mesh is not None:
             params = self._take_shard(cfg, params, mesh, plan)
-        params = MQ.with_tile_occupancy(params)
+        params = MQ.prepare_served(params)
         self.cfg, self.params = cfg, params
         self.B, self.T = config.batch_size, config.max_len
         self.eos = config.eos_id

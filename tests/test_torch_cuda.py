@@ -461,7 +461,7 @@ def test_qgemm_w8a8_sparse_bitwise(dev, M, K, N):
         qw = _int8(g, (K, N), dev) * mask_u.to(torch.int8)
         mask = packing.pack_mask(mask_u, axis=0)
         occ = ops.tile_occupancy(mask, K)
-        occ = None if bool(occ.all()) else occ   # as with_tile_occupancy routes
+        occ = None if bool(occ.all()) else occ   # as prepare_served routes
         before = dict(ops.LAUNCHES)
         out = ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask, occ)
         want = ref.qgemm_w8a8_sparse_ref(qx, qw, a, sw, mask)
@@ -1124,7 +1124,7 @@ def _graph_replayed(call):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = call()
-    out.fill_(float("nan"))
+    out.fill_(float("nan") if out.is_floating_point() else -1)
     graph.replay()
     torch.cuda.synchronize()
     return out
@@ -1606,3 +1606,170 @@ def test_qgemm_w8a8_experts_acc_bitwise(dev, E, C, K, N):
         assert torch.equal(fn(qx, qw, None, None, splits, experts=E), want)
     replayed = _graph_replayed(lambda: ops.qgemm_w8a8_experts_acc(qx, qw).float())
     assert torch.equal(replayed, want.float())
+
+
+# ---- K2 at any N: the decode and wgmma bodies on row-pitched weights (a ragged-N
+# leaf stored at a pitch of N rounded up to 16, models.quantize.prepare_served)
+
+def _pitched(qw):
+    from repro_torch.models.quantize import prepare_served
+    return prepare_served({"qw": qw})["qw"]
+
+
+@pytest.mark.parametrize("K,N", [(768, 3352), (768, 1676)])   # mamba2's in_proj, its tp=2 shard
+@pytest.mark.parametrize("M", [1, 4, 32, 33, 128, 2048])
+def test_qgemm_w8a8_pitched_routed_bitwise(dev, M, K, N):
+    """mamba2-130m's in_proj (N = 3352) and its column-parallel shard (1676), off the
+    16-column grid: at the served row pitch the wrapper routes them to the decode
+    body (M ≤ T) or the wgmma body, read in place; bitwise the plain version and
+    the tile body on the contiguous weight, in the f32 and int32-out modes."""
+    from repro_torch.kernels.qgemm import qgemm_w8a8_cuda, row_pitch
+    ops, ref = _ops()
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M + N)
+    pw = _pitched(qw)
+    assert pw.stride() == (row_pitch(N), 1) and torch.equal(pw, qw)
+    body = "decode" if M <= _decode_max_m() else "wgmma"
+    before = dict(ops.BODY_LAUNCHES)
+    out = ops.qgemm_w8a8(qx, pw, a, sw)
+    acc = ops.qgemm_w8a8_acc(qx, pw)
+    want = ref.qgemm_w8a8_ref(qx, qw, a, sw)
+    torch.cuda.synchronize()
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/{body}"] == before[f"qgemm_w8a8/{body}"] + 1
+    assert ops.BODY_LAUNCHES[f"qgemm_w8a8/i32_{body}"] == before[f"qgemm_w8a8/i32_{body}"] + 1
+    assert ops.BODY_LAUNCHES["qgemm_w8a8/tile"] == before["qgemm_w8a8/tile"]
+    assert torch.equal(out, want) and torch.equal(out, qgemm_w8a8_cuda(qx, qw, a, sw))
+    assert torch.equal(acc, ref.qgemm_w8a8_acc_ref(qx, qw))
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 768, 3352), (3, 1040, 37), (20, 4608 + 48, 500),
+                                   (33, 768, 3352), (100, 4608 + 48, 500), (300, 1040, 130),
+                                   (2048, 768, 3352)])
+def test_qgemm_w8a8_pitched_bodies_splits_bitwise(dev, M, K, N):
+    """Each body launched directly on a pitched weight at every split count it
+    takes, N a few columns past a 16-column group (37, 130, 500, 3352: the last
+    column tile masked per column) and ragged K: bitwise the plain version in both
+    K2 modes; K7's bodies on the same pitch over a mask that empties every other
+    k-tile; expert-batched K2 on a pitched (E, K, N) stack."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.qgemm import (
+        qgemm_w8a8_decode_cuda, qgemm_w8a8_sparse_decode_cuda, qgemm_w8a8_sparse_wgmma_cuda,
+        qgemm_w8a8_wgmma_cuda)
+    ops, ref = _ops()
+    qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, 7 * M + N)
+    pw = _pitched(qw)
+    want, want_acc = ref.qgemm_w8a8_ref(qx, qw, a, sw), ref.qgemm_w8a8_acc_ref(qx, qw)
+    for splits in (1, 2, 3, 8):
+        if M <= 128 and splits <= -(-K // 64):
+            assert torch.equal(qgemm_w8a8_decode_cuda(qx, pw, a, sw, splits), want)
+            assert torch.equal(qgemm_w8a8_decode_cuda(qx, pw, None, None, splits), want_acc)
+        if splits <= -(-K // 128):
+            assert torch.equal(qgemm_w8a8_wgmma_cuda(qx, pw, a, sw, splits), want)
+            assert torch.equal(qgemm_w8a8_wgmma_cuda(qx, pw, None, None, splits), want_acc)
+    KT, NT = -(-K // 64), -(-N // 64)
+    tiles = _tile_pattern("alt", KT, NT, 1, 0).to(dev)
+    keep = tiles.repeat_interleave(64, 0).repeat_interleave(64, 1)[:K, :N].to(torch.uint8)
+    mask = packing.pack_mask(keep, axis=0)
+    occ = ops.tile_occupancy(mask, K)
+    qs = qw * keep.to(torch.int8)
+    ps_ = _pitched(qs)
+    want_s = ref.qgemm_w8a8_sparse_ref(qx, qs, a, sw, mask)
+    k7 = qgemm_w8a8_sparse_decode_cuda if M <= 128 else qgemm_w8a8_sparse_wgmma_cuda
+    for splits in (1, 3):
+        assert torch.equal(k7(qx, ps_, a, sw, occ, splits), want_s)
+    assert torch.equal(ops.qgemm_w8a8_sparse(qx, ps_, a, sw, mask, occ), want_s)
+    E, C = 3, min(M, 64)
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    qxe = torch.randint(-127, 128, (E, C, K), generator=g, device=dev, dtype=torch.int8)
+    qwe = torch.randint(-127, 128, (E, K, N), generator=g, device=dev, dtype=torch.int8)
+    ae = torch.rand(E, C, 1, generator=g, device=dev) + 0.01
+    swe = torch.rand(E, N, generator=g, device=dev) + 0.01
+    out_e = ops.qgemm_w8a8_experts(qxe, _pitched(qwe), ae, swe)
+    torch.cuda.synchronize()
+    assert torch.equal(out_e, ref.qgemm_w8a8_experts_ref(qxe, qwe, ae, swe))
+
+
+def test_qgemm_w8a8_pitched_graph_replay(dev):
+    """Captured in a CUDA graph (the wgmma body's tensor map encoded at capture with
+    the row pitch), the decode and wgmma bodies replay on mamba2's pitched in_proj
+    to the plain version's bits, in the f32 and int32-out modes."""
+    from repro_torch.kernels.qgemm import (
+        decode_splits, qgemm_w8a8_decode_cuda, qgemm_w8a8_wgmma_cuda, wgmma_splits)
+    _, ref = _ops()
+    K, N = 768, 3352
+    for M in (4, 2048):
+        qx, qw, a, sw = _w8a8_inputs(dev, M, K, N, M)
+        pw = _pitched(qw)
+        if M <= _decode_max_m():
+            s = decode_splits(K, N)
+            calls = (lambda: qgemm_w8a8_decode_cuda(qx, pw, a, sw, s),
+                     lambda: qgemm_w8a8_decode_cuda(qx, pw, None, None, s))
+        else:
+            s = wgmma_splits(M, K, N)
+            calls = (lambda: qgemm_w8a8_wgmma_cuda(qx, pw, a, sw, s),
+                     lambda: qgemm_w8a8_wgmma_cuda(qx, pw, None, None, s))
+        assert torch.equal(_graph_replayed(calls[0]), ref.qgemm_w8a8_ref(qx, qw, a, sw))
+        assert torch.equal(_graph_replayed(calls[1]), ref.qgemm_w8a8_acc_ref(qx, qw))
+
+
+# ---- K4/K5/K6's bf16 body at D = 256: two warps share a row tile's head dims,
+# partitions behind a tile's window are skipped
+
+def _gemma2_ragged(dev, pool_dtype, q_lens, kv_lens, seed):
+    """gemma2-9b's local layers (8 kv heads, G 2, D 256, ps 16, window 4096,
+    softcap 50): pools for ``kv_lens``, a table of span 8192 (32 partitions of 256)
+    and a packed chunk of ``q_lens`` rows."""
+    B, Hkv, G, D, ps, maxP = len(q_lens), 8, 2, 256, 16, 512
+    P = sum(-(-n // ps) for n in kv_lens) + 3
+    args = _ragged_inputs(dev, B, Hkv, G, D, P, ps, maxP, q_lens, kv_lens, pool_dtype,
+                          torch.bfloat16, seed)
+    return args, dict(k_scale_pages=args[5], v_scale_pages=args[6], window=4096, softcap=50.0)
+
+
+def test_paged_bf16_d256_graph_replay(dev):
+    """The ragged launch at D = 256 (a 200-row chunk ending at 4616 beside a decode
+    row, int8 pool: partition 0 skipped for every tile of the long slot) and the
+    decode launch, captured in a CUDA graph, replay to the eager bits, which hold
+    the plain version within 2e-2."""
+    from repro_torch.kernels.paged_attention import split_plan
+    ops, ref = _ops()
+    (q, kn, vn, kp, vp, ks, vs, tab, qs, qln, kvl), kw = _gemma2_ragged(
+        dev, torch.int8, [200, 1], [4616, 317], 256)
+    assert split_plan(512, 16) == (32, 256)
+    Nt = q.shape[0]
+    calls = [lambda: ops.ragged_prefill_attention(q, kn, vn, kp, vp, tab, qs, qln, kvl,
+                                                  chunk_cap=Nt, **kw),
+             lambda: ops.paged_decode_attention(q[-2:, None], kp, vp, tab, kvl, **kw)]
+    for call in calls:
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(_graph_replayed(call), eager)
+    want = ref.ragged_prefill_attention_ref(q.reshape(Nt, 8, 2, 256), kn, vn, kp, vp, tab, qs,
+                                            qln, kvl, chunk_cap=Nt, **kw)
+    out = calls[0]()
+    torch.cuda.synchronize()
+    assert float((out.float() - want.reshape(out.shape).float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_rows_bitwise_decode_kernel_d256(dev, pool_dtype):
+    """At D = 256 as at 128: q_len == 1 rows over an fp pool, whose newest token's
+    pool row holds the packed k/v value, are bitwise the decode launch (K4), with
+    the window skipping the long slot's first partitions in both."""
+    ops, _ = _ops()
+    B, Hkv, G, D, ps, maxP = 3, 8, 2, 256, 16, 512
+    kv_lens = [4616, 317, 1]
+    P = sum(-(-n // ps) for n in kv_lens) + 3
+    q, _, _, kp, vp, _, _, tab, _, _, kvl = _ragged_inputs(
+        dev, B, Hkv, G, D, P, ps, maxP, [1] * B, kv_lens, pool_dtype, torch.bfloat16, 5)
+    rows = [(int(tab[b, (n - 1) // ps]), (n - 1) % ps) for b, n in enumerate(kv_lens)]
+    kn = torch.stack([kp[p, r] for p, r in rows]).to(torch.bfloat16)
+    vn = torch.stack([vp[p, r] for p, r in rows]).to(torch.bfloat16)
+    for b, (p, r) in enumerate(rows):
+        kp[p, r], vp[p, r] = kn[b].to(pool_dtype), vn[b].to(pool_dtype)
+    qs = torch.arange(B, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    kw = dict(window=4096, softcap=50.0)
+    out = ops.ragged_prefill_attention(q, kn, vn, kp, vp, tab, qs, ones, kvl, chunk_cap=1, **kw)
+    dec = ops.paged_decode_attention(q[:, None], kp, vp, tab, kvl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dec[:, 0])

@@ -119,6 +119,13 @@ def test_serving_token_exact(jax_ref_exec, arch, case):
                           config=JEngineConfig(batch_size=2, max_len=T, path=path, **kw))
     teng = TE.ServeEngine(cfg_t, ttrees[tree], quant=qt, device="cpu",
                           config=EngineConfig(batch_size=2, max_len=T, path=path, **kw))
+    if tree != "fp":
+        # the served in_proj (N = 296, off the 16-column grid) keeps its shape and
+        # values at a row pitch of 304, the view K2's decode and wgmma bodies take
+        proj = teng.params["blocks"][0]["ssm"]["in_proj"]["qw"]
+        raw = ttrees[tree]["blocks"][0]["ssm"]["in_proj"]["qw"]
+        assert proj.shape[-1] == 296 and proj.stride()[-2:] == (304, 1)
+        assert torch.equal(proj, raw)
     for eng in (jeng, teng):
         eng.submit([p.copy() for p in prompts], max_new=MAX_NEW)
     jdone, tdone = [], []

@@ -23,13 +23,16 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.configs import all_archs, get  # noqa: E402
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.kernels import act_quantize as K1, ops, ref  # noqa: E402
-from repro_torch.kernels.paged_attention import SPLIT_CHUNK, SPLIT_MAX, split_plan  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    SPLIT_CHUNK, SPLIT_MAX, behind_window, first_window_partition, split_plan,
+)
 from repro_torch.kernels.qgemm import (  # noqa: E402
     DECODE_MAX_M, MAX_SPLITS, TILE_K, WGMMA_MIN_SPLIT_K_TILES, WGMMA_TILE_K,
     WGMMA_TILE_N, decode_splits, qgemm_w4a8_plan, qgemm_w8a8_plan, qgemm_w8a8_sparse_plan,
-    sparse_stage_ranges, split_bounds, w4a8_decode_splits, w4a8_split_unit, w4a8_wgmma_splits,
-    wgmma_splits, wgmma_tile_m,
+    row_pitch, served_pitch, sparse_stage_ranges, split_bounds, w4a8_decode_splits,
+    w4a8_split_unit, w4a8_wgmma_splits, weight_pitch, wgmma_splits, wgmma_tile_m,
 )
+from repro_torch.models.quantize import prepare_served  # noqa: E402
 
 
 def linear_shapes(cfg):
@@ -124,6 +127,49 @@ def test_paged_split_covers_each_walk(maxP, ps):
         assert live == list(range(-(-walk // part_len)))
         assert all(min(e, walk) > b for b, e in (bounds[p] for p in live))
     assert split_plan(maxP, ps) == (n_parts, part_len)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_paged_window_skip_brute_force(seed):
+    """The D = 256 body's window skip against every key: a partition skipped for a
+    tile (behind the window of its first query) holds no key any row of the tile
+    sees; each row's combine starts at the first partition holding a key it sees,
+    so every partition it merges was computed (none skipped for its tile, none past
+    the tile's walk), and every partition before it holds no key the row sees. The
+    gemma2 case's long slot (window 4096, 32 partitions of 256, a 200-query chunk
+    ending at 4616) skips partition 0 for every tile."""
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        maxP, ps = int(rng.integers(1, 40)), int(rng.choice([1, 4, 8, 16]))
+        n_parts, L = split_plan(maxP, ps)
+        span = maxP * ps
+        window = int(rng.integers(1, span + 2))
+        kvl = int(rng.integers(1, span + 1))
+        qln = int(rng.integers(1, kvl + 1))
+        G, tile_rows = int(rng.integers(1, 4)), 16 * int(rng.integers(1, 5))
+        qs = [kvl - qln + r // G for r in range(qln * G)]          # a chunk's rows' positions
+        for t0 in range(0, len(qs), tile_rows):
+            rows = qs[t0:t0 + tile_rows]
+            walk = min(rows[-1] + 1, span)                          # the tile's walk
+            for p in range(n_parts):
+                if p > 0 and p * L >= walk:
+                    continue                                        # past the walk: exits
+                if behind_window(p, L, walk, rows[0], window):
+                    assert all(q - k >= window for q in rows
+                               for k in range(p * L, min(walk, (p + 1) * L)))
+            for q in rows:
+                n_live = min(n_parts, max(1, -(-min(q + 1, span) // L)))
+                p0 = first_window_partition(q, window, L, n_live)
+                seen = [p for p in range(n_live)
+                        if any(0 <= q - k < window for k in range(p * L, min(q + 1, (p + 1) * L)))]
+                assert seen and p0 == seen[0]
+                for p in range(p0, n_live):
+                    assert p == 0 or p * L < walk
+                    assert not behind_window(p, L, walk, rows[0], window)
+    n_parts, L = split_plan(8192 // 16, 16)
+    assert (n_parts, L) == (32, 256)
+    assert behind_window(0, L, 4616, 4416, 4096) and not behind_window(1, L, 4616, 4416, 4096)
+    assert first_window_partition(4615, 4096, L, 19) == 2
 
 
 def test_paged_split_main_path():
@@ -441,3 +487,177 @@ def test_sparse_stage_ranges_main_path():
     assert sparse_stage_ranges(one, K, 128, "decode", 4) == [[[], [], [], [(5,)]]]
     with pytest.raises(ValueError):
         sparse_stage_ranges(occ[:-1], K, N, "decode", 4)
+
+
+# ---------------------------------------------------------------- K2 at any N: the row pitch
+
+IN_PROJ = (768, 3352)          # mamba2-130m's in_proj: N = 2·1536 + 2·128 + 24, off the grid
+
+
+def test_plan_takes_a_row_pitched_ragged_n():
+    """mamba2-130m's in_proj at a row pitch of 3360 routes to the decode body at M
+    ≤ T and the wgmma body above, with the splits of its own N, K7 alike; its
+    contiguous form (ldw = N), a pitch off the 16-byte grid or below N, an unaligned
+    operand and a K off the grid stay on the tile body."""
+    K, N = IN_PROJ
+    assert (row_pitch(N), row_pitch(N // 2), row_pitch(4608), row_pitch(1)) == \
+        (3360, 1680, 4608, 16)
+    for M in (1, 4, DECODE_MAX_M):
+        assert qgemm_w8a8_plan(M, K, N, ldw=3360) == ("decode", decode_splits(K, N))
+        assert qgemm_w8a8_plan(M, K, N // 2, ldw=1680) == ("decode", decode_splits(K, N // 2))
+    for M in (DECODE_MAX_M + 1, 128, 2048):
+        assert qgemm_w8a8_plan(M, K, N, ldw=3360) == ("wgmma", wgmma_splits(M, K, N))
+    for M in (4, 2048):
+        assert qgemm_w8a8_sparse_plan(M, K, N, ldw=3360) == qgemm_w8a8_plan(M, K, N, ldw=3360)
+        for kw in (dict(), dict(ldw=N), dict(ldw=3368 - 4), dict(ldw=3344),
+                   dict(ldw=3360, aligned=False)):
+            assert qgemm_w8a8_plan(M, K, N, **kw) == ("tile", 1), kw
+        assert qgemm_w8a8_plan(M, K - 8, N, ldw=3360) == ("tile", 1)
+        assert qgemm_w8a8_plan(M, K, 4608, ldw=4608) == qgemm_w8a8_plan(M, K, 4608)
+
+
+def test_weight_pitch_of_views():
+    """A contiguous weight's pitch is N; a view of evenly pitched rows (2-D, or
+    stacked with the expert stride K·ldw) has its row stride; other layouts none."""
+    buf = torch.zeros(3, 64, 48, dtype=torch.int8)
+    assert weight_pitch(buf[0]) == 48 and weight_pitch(buf) == 48
+    assert weight_pitch(buf[:, :, :40]) == 48 and weight_pitch(buf[1, :, :40]) == 48
+    assert weight_pitch(buf[:, ::2, :40]) == 96        # every other row: rows 96 apart
+    assert weight_pitch(buf[1].t()) is None and weight_pitch(buf[:, :32, :40]) is None
+    assert weight_pitch(buf[:, :, 8:]) == 48 and weight_pitch(buf[0, :1]) == 48
+
+
+def test_with_row_pitch_keeps_shapes_values_and_products():
+    """``prepare_served``: every int8 ``qw`` leaf whose N is off the grid over a K on
+    it (``served_pitch``) becomes a view
+    of its own shape and values at a row pitch of N rounded up to 16, 16-byte
+    aligned layer by layer (stacked (L, K, N), a tail's (K, N), an expert stack's
+    (L, E, K, N)); every other leaf is the same object, the structure is kept, a
+    second call changes nothing, and the plain product of each layer is bitwise
+    that of the contiguous weight."""
+    rng = np.random.default_rng(27)
+    i8 = lambda *s: torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))  # noqa: E731
+    L, K, N = 2, 64, 296
+    tree = {"blocks": [{"in_proj": {"qw": i8(L, K, N), "sw": torch.rand(L, N)},
+                        "out_proj": {"qw": i8(L, 128, K)},
+                        "experts": {"qw": i8(L, 3, K, 40)},
+                        "odd_k": {"qw": i8(L, 60, N)},
+                        "w4": {"qw4": i8(L, K // 2, N)}}],
+            "tail": [{"in_proj": {"qw": i8(K, N)}}],
+            "embed": {"w": torch.rand(100, N)}}
+    assert served_pitch(K, N) == row_pitch(N) == 304 and served_pitch(60, N) == N
+    assert served_pitch(K, 48) == 48
+    out = prepare_served(tree)
+    blk, oblk = tree["blocks"][0], out["blocks"][0]
+    assert out.keys() == tree.keys() and oblk.keys() == blk.keys()
+    for name in ("out_proj", "odd_k"):
+        assert oblk[name]["qw"] is blk[name]["qw"]
+    assert oblk["w4"]["qw4"] is blk["w4"]["qw4"] and out["embed"]["w"] is tree["embed"]["w"]
+    assert oblk["in_proj"]["sw"] is blk["in_proj"]["sw"]
+    pitched = [(oblk["in_proj"]["qw"], blk["in_proj"]["qw"]), (oblk["experts"]["qw"],
+               blk["experts"]["qw"]), (out["tail"][0]["in_proj"]["qw"],
+                                       tree["tail"][0]["in_proj"]["qw"])]
+    for new, old in pitched:
+        assert new.shape == old.shape and torch.equal(new, old) and not new.is_contiguous()
+        assert new.stride(-2) == row_pitch(old.shape[-1]) and new.stride(-1) == 1
+        for layer in (new.unbind(0) if new.ndim > 2 else [new]):
+            assert weight_pitch(layer) == row_pitch(old.shape[-1])
+            assert layer.data_ptr() % 16 == 0
+    again = prepare_served(out)
+    assert all(a is b for a, b in zip(
+        (again["blocks"][0][n]["qw"] for n in ("in_proj", "experts")),
+        (oblk[n]["qw"] for n in ("in_proj", "experts"))))
+    qx = i8(5, K)
+    a = torch.rand(5, 1) + 0.01
+    sw = blk["in_proj"]["sw"]
+    for layer in range(L):
+        new, old = oblk["in_proj"]["qw"][layer], blk["in_proj"]["qw"][layer]
+        want = ref.qgemm_w8a8_ref(qx, old, a, sw[layer])
+        assert torch.equal(ops.qgemm_w8a8(qx, new, a, sw[layer]), want)
+        assert torch.equal(ops.qgemm_w8a8_acc(qx, new), ref.qgemm_w8a8_acc_ref(qx, old))
+
+
+def test_prepare_served_is_occupancy_and_pitch_in_one_pass():
+    """``prepare_served`` derives a masked leaf's ``occ`` tables (a stale one
+    replaced) and pitches the same leaf's codes in the same pass: a masked ragged-N
+    leaf keeps its mask and gets both, and the sparse product on the pitched view
+    is bitwise the contiguous one's."""
+    K, N = 128, 72
+    keep = np.ones((2, K, N), np.uint8)
+    keep[1, :64] = 0
+    codes = (np.random.default_rng(5).integers(-127, 128, (2, K, N)) * keep).astype(np.int8)
+    leaf = {"qw": torch.from_numpy(codes), "sw": torch.rand(2, N) + 0.01,
+            "mask": packing.pack_mask(torch.from_numpy(keep), axis=-2),
+            "occ": torch.zeros(1, dtype=torch.int32)}
+    tree = {"blocks": [{"mlp": {"up": leaf}}], "embed": {"w": torch.zeros(3, 4)}}
+    out = prepare_served(tree)["blocks"][0]["mlp"]["up"]
+    occ = torch.stack([ops.tile_occupancy(m, K) for m in leaf["mask"]])
+    assert occ.tolist() == [[[1, 1]] * 2, [[0, 0], [1, 1]]]
+    assert out.keys() == {"qw", "sw", "mask", "occ"} and torch.equal(out["occ"], occ)
+    assert out["mask"] is leaf["mask"]
+    assert out["qw"].stride()[-2:] == (80, 1) and torch.equal(out["qw"], leaf["qw"])
+    qx = torch.from_numpy(np.random.default_rng(6).integers(-127, 128, (3, K)).astype(np.int8))
+    a = torch.rand(3, 1) + 0.01
+    for layer in range(2):
+        args = (a, leaf["sw"][layer], leaf["mask"][layer], occ[layer])
+        assert torch.equal(ops.qgemm_w8a8_sparse(qx, out["qw"][layer], *args),
+                           ops.qgemm_w8a8_sparse(qx, leaf["qw"][layer], *args))
+
+
+@pytest.mark.parametrize("M,body", [(4, "decode"), (2048, "wgmma")])
+def test_ops_route_a_pitched_weight(monkeypatch, M, body):
+    """Through ``ops`` with a card's routing (the launchers replaced by recorders):
+    the pitched in_proj view goes to the decode body at M = 4 and the wgmma body at
+    M = 2048, read in place, in both K2 modes and as K7 with an occupancy table;
+    its contiguous form and an unaligned qx go to the tile body, which gets
+    contiguous rows."""
+    rng = np.random.default_rng(M)
+    K, N = IN_PROJ
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    qw = prepare_served({"qw": w})["qw"]
+    assert qw.stride() == (3360, 1)
+    qx = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8))
+    raw = torch.empty(M * K + 16, dtype=torch.int8)
+    shift = (1 - raw.data_ptr()) % 16 or 16
+    qx_off = raw[shift: shift + M * K].view(M, K)
+    qx_off.copy_(qx)
+    assert qx_off.data_ptr() % 16 == 1 and qx.data_ptr() % 16 == 0
+    a = torch.rand(M, 1) + 0.01
+    sw = torch.rand(N) + 0.01
+    seen = []
+
+    def recorder(name):
+        def run(qx_, qw_, *rest, **kw):
+            seen.append((name, qw_.data_ptr() == qw.data_ptr(), qw_.stride(), qx_.data_ptr()))
+            return torch.zeros(M, N)
+        return run
+
+    names = ("qgemm_w8a8_decode_cuda", "qgemm_w8a8_wgmma_cuda", "qgemm_w8a8_cuda",
+             "qgemm_w8a8_sparse_decode_cuda", "qgemm_w8a8_sparse_wgmma_cuda",
+             "qgemm_w8a8_sparse_cuda")
+    monkeypatch.setattr(ops, "_on_cuda", lambda *t: True)
+    for name in names:
+        monkeypatch.setattr(ops, name, recorder(name))
+    mask = packing.pack_mask(torch.ones(K, N, dtype=torch.uint8), axis=0)
+    occ = torch.ones(K // 64, -(-N // 64), dtype=torch.int32)
+    occ[1, 0] = 0
+    ops.reset_launches()
+    try:
+        ops.qgemm_w8a8(qx, qw, a, sw)
+        ops.qgemm_w8a8_acc(qx, qw)
+        ops.qgemm_w8a8_sparse(qx, qw, a, sw, mask, occ)
+        ops.qgemm_w8a8(qx, w, a, sw)
+        ops.qgemm_w8a8(qx_off, qw, a, sw)
+        ops.qgemm_w8a8_sparse(qx_off, qw, a, sw, mask, occ)
+        counts = dict(ops.BODY_LAUNCHES)
+    finally:
+        ops.reset_launches()
+    assert [s[0] for s in seen] == [f"qgemm_w8a8_{body}_cuda", f"qgemm_w8a8_{body}_cuda",
+                                    f"qgemm_w8a8_sparse_{body}_cuda", "qgemm_w8a8_cuda",
+                                    "qgemm_w8a8_cuda", "qgemm_w8a8_sparse_cuda"]
+    assert [s[1:3] for s in seen[:3]] == [(True, (3360, 1))] * 3
+    assert [s[2] for s in seen[3:]] == [(N, 1)] * 3
+    assert seen[4][3] == seen[5][3] == qx_off.data_ptr()
+    assert {k: v for k, v in counts.items() if v} == {
+        f"qgemm_w8a8/{body}": 1, f"qgemm_w8a8/i32_{body}": 1, f"qgemm_w8a8_sparse/{body}": 1,
+        "qgemm_w8a8/tile": 2, "qgemm_w8a8_sparse/tile": 1}

@@ -245,12 +245,12 @@ class TestSparseGemmPlainVersion:
         leaf = {"qw": torch.from_numpy(keep.astype(np.int8)),
                 "sw": torch.ones(2, 64), "mask": tpacking.pack_mask(torch.from_numpy(keep))}
         tree = {"blocks": [{"mlp": {"up": leaf}}], "embed": {"w": torch.zeros(3, 4)}}
-        out = TMQ.with_tile_occupancy(tree)
+        out = TMQ.prepare_served(tree)
         occ = out["blocks"][0]["mlp"]["up"]["occ"]
         assert occ.dtype == torch.int32 and occ.tolist() == [[[1], [1]], [[0], [1]]]
         assert out["embed"]["w"] is tree["embed"]["w"] and "occ" not in leaf
         leaf["mask"].fill_(255)
-        again = TMQ.with_tile_occupancy(out)
+        again = TMQ.prepare_served(out)
         assert "occ" not in again["blocks"][0]["mlp"]["up"]
 
     def test_engine_derives_occupancy_at_build(self, small):

@@ -387,7 +387,7 @@ def test_dequantize_fake_weights_sparsify(arch):
                 np.testing.assert_array_equal(got[path], leaf)
             else:
                 np.testing.assert_allclose(got[path], leaf, rtol=1e-5, atol=1e-7)
-    sparse = TMQ.with_tile_occupancy(pairs[2][1])
+    sparse = TMQ.prepare_served(pairs[2][1])
     assert "mask" in sparse["blocks"][0]["moe"]["up"]
     assert "occ" not in sparse["blocks"][0]["moe"]["up"]      # experts run dense K2
 
