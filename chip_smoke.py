@@ -52,7 +52,12 @@ Phases (any failure raises and exits non-zero):
    the dense bar at α=0.15), K2's decode body at granite's up/gate and down and
    llama4-scout's up (E=16, K=5120, N=8192), its wgmma body at granite's C=512
    and C=128 dispatch buffers, and the tile body beside them, each bitwise
-   against the per-expert plain version eagerly and under graph replay.
+   against the per-expert plain version eagerly and under graph replay. K8's
+   expert-batched modes (a W4A8 g128 tree's stacks) at granite's up/gate and down
+   (C=8 decode body, C=512 wgmma body) and llama4-scout's up (C=8): the own mode
+   within K8's tolerance of the plain stacked product, the group-acc mode bitwise,
+   eager, under graph replay and on the tile body, timed beside the plain stacked
+   product the engine ran before the mode existed.
    The SSM and hybrid slice's shapes ([3s]): K1 at K=768, 1536, 2048 and 4096
    (the in/out projections of mamba2-130m and zamba2-1.2b), M=4 and 2048; K2 at
    mamba2's in_proj (K=768, N=3352, off the 16-column grid) on the view the
@@ -80,7 +85,8 @@ Phases (any failure raises and exits non-zero):
    granite-moe's down shard under expert_tp (E=40, K=256, N=1536; C=8 and 512),
    bitwise (K1 against the whole rows sliced, and its plain version at α=1; within
    K1's bar at α=0.15), timed beside their own modes; eager and under graph
-   replay.
+   replay; K8's expert-batched group-acc mode at the same shard of a W4A8 g128
+   tree (2 groups a rank), bitwise on the routed and tile bodies.
    bf16 outputs (K3, K4-K6 with bf16 q) pass where within 2e-2 of the plain
    version or within one bf16 ulp of it rounded to bf16.
 4. The main path at full width and depth: starcoder2-7b (32 layers) initialised
@@ -131,7 +137,10 @@ Phases (any failure raises and exits non-zero):
    calibrated, quantized and served fused-int8 dense (fp and int8 KV), paged
    behind the shared prefix (int8 KV), paged speculate=4 and chunked (int8 KV,
    budget 512), 224 K1 and 224 K2 launches per model call (96 of them
-   expert-batched, one per stacked linear); llama4-scout-17b-a16e at full width
+   expert-batched, one per stacked linear); its W4A8 g128 tree from the same
+   calibration, dense fp KV: 224 K8 launches a call (96 on the expert-batched
+   mode), no stacked W4 product on the plain path, tok/s beside W8A8's;
+   llama4-scout-17b-a16e at full width
    cut to 2 of 48 layers, dense fp KV (10 K1 and 10 K2 a layer).
    The SSM and hybrid slice ([4s]): mamba2-130m FULL (24 layers) and zamba2-1.2b
    FULL (38 Mamba2 layers, the shared attention + MLP block after each of 6
@@ -146,7 +155,7 @@ Phases (any failure raises and exits non-zero):
    dense and 3 paged decode steps of each (launches, syncs, busy share, the
    Mamba2 block's plain ops under ``record_function`` ranges) and one 4 x 512
    admission (the SSD scan's device time).
-5. The same width cut to 2 layers (float32): one admission prefill through the
+5. The same width cut to 1 layer (float32): one admission prefill through the
    flash path and 8 greedy decode steps on the dense and on the paged layout,
    the same prompts through packed chunked steps (K6, fp and int8 KV), and the
    paged run on a block-sparse tree (K7) and on the W4A8 tree (K8), kernels on
@@ -174,7 +183,8 @@ Phases (any failure raises and exits non-zero):
    compare position by position: greedy choices equal wherever the CPU's top-1/
    top-2 margin exceeds twice the largest logit gap. The MoE models ([5m]):
    granite at 1 layer (dense; paged ≡ dense on the card; capacity_factor 0.25,
-   an admission that drops (token, k) pairs) and llama4-scout at 1 layer, each
+   an admission that drops (token, k) pairs; its W4A8 g128 tree, K8's expert
+   modes) and llama4-scout at 1 layer, each
    held three ways, since an int8 code one step apart swaps a near-tied expert:
    every routing the card met equals the CPU's on the same inputs, the card's
    kernels give its plain path's greedy tokens, and the CPU fed the card's
@@ -185,7 +195,7 @@ Phases (any failure raises and exits non-zero):
    or, where a near tie parts the tokens, [5m]'s three-way bar; the paged
    layout (state_table, page table, K4) against the dense one on the card.
 6. The async replica server (``serving.server.AsyncServer``) on starcoder2-7b at
-   full width cut to 16 of 32 layers, W8A8 calibrated as phase 4 calibrates (the
+   full width cut to 8 of 32 layers, W8A8 calibrated as phase 4 calibrates (the
    same seed and calibration; phase 4 frees its tree before the zoo): fused-int8,
    paged, int8 KV, batch 4 per replica, max_len 1024, 16 requests in two prefix
    families (a 256-token shared prefix each, suffixes of 32-192 tokens, 16 new
@@ -254,19 +264,29 @@ Phases (any failure raises and exits non-zero):
    and down through K1's given-max mode and K8's group-acc mode,
    the per-group products gathered in chunks of at most 256 MiB); granite-moe FULL
    with its plan forced to expert_tp at tp=2 (every expert's d_ff_expert halved;
-   down through the expert-batched K1 given-max and K2 int32-out modes); mamba2-130m
+   down through the expert-batched K1 given-max and K2 int32-out modes), and its
+   W4A8 g128 tree so (up/gate on K8's expert-batched mode, down on K8's expert
+   group-acc mode, each rank's groups scaled and gathered; short prompts);
+   mamba2-130m
    and zamba2-1.2b FULL at tp=2 on the paged layout (the state heads over the two
    ranks, in_proj's output and the scan's output gathered). Each: the single
    engine's number of sampler calls; logits bitwise where the kernels carry every
-   product of both engines the same way (data 2, expert_tp, mamba2, zamba2), and
-   where they do not (W4A8: the group products summed after the gather, not in
-   K8's fold) every call's max|d logit| within 5e-2 of max|logit| up to the first
+   product of both engines the same way (starcoder2 tp=2 paged, data 2, expert_tp,
+   mamba2, zamba2; starcoder2 tp=2 dense in its admissions and first decode step:
+   its decode attention's batched einsums round by a rank's kv-head count), and
+   where they do not (W4A8 and granite's W4A8 expert_tp: the group products summed
+   after the gather, not in K8's fold) every call's max|d logit| within 5e-2 of
+   max|logit| up to the first
    call whose greedy tokens part; a parting only at a near tie inside that bar
    (the single engine's top-1/top-2 margin at most twice the call's max|d
    logit|), else tokens equal; launches per body and collectives per call equal
    the schedule; a rank's weight share printed and held near its expectation
    (0.5 at tp=2, 1.0 at data 2). The norms' row statistics of 2 rows against the
-   same rows among 4 are counted (torch's mean, and the norms as served).
+   same rows among 4 are counted (torch's mean, and the norms as served); the
+   dense decode attention as served (``layers.decode_attention``) and in one bmm
+   pair per kv head, on one device's 4 kv heads against a rank's 2 and a GQA group
+   of 1 against 9 (int8 KV, T = 256 and 1024): outputs that differ counted, both
+   timed.
    mamba2-130m FULL at data 2 (paged: each rank its own 2 slots and their state
    pages; the gated norm served through ``F.rms_norm``): bitwise every call.
 9. Sharded training (``make_train_step(layout=)``): two ranks spawned on the one
@@ -652,7 +672,8 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                         mc = min(chunk, m - m0)
                         want[f"qgemm_w4a8/gacc_{qgemm_w4a8_plan(mc, K, N, 128)[0]}"] += n
                         want_c["gather_groups"] += n
-                El, C = run["experts_local"], capacity(m, cfg) if run["experts"] else 0
+                El = run["experts_local"]
+                C = capacity(m, cfg) if run["experts"] or run.get("experts_w4") else 0
                 for K, N in run["experts"]:
                     want[f"act_quantize/experts_{act_quantize_plan(El * C, K)[0]}"] += L
                     want[f"qgemm_w8a8/experts_{qgemm_w8a8_plan(C, K, N, experts=El)[0]}"] += L
@@ -660,6 +681,22 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                     want[f"act_quantize/experts_given_{act_quantize_plan(El * C, K)[0]}"] += L
                     want[f"qgemm_w8a8/experts_i32_{qgemm_w8a8_plan(C, K, N, experts=El)[0]}"] \
                         += L
+                for K, N in run.get("experts_w4", ()):       # K8's expert-batched mode
+                    want[f"act_quantize/experts_{act_quantize_plan(El * C, K)[0]}"] += L
+                    want[f"qgemm_w4a8/experts_{qgemm_w4a8_plan(C, K, N, 128, experts=El)[0]}"] \
+                        += L
+                for K, N in run.get("experts_w4_row", ()):
+                    # K1 given-max on all rows; K8's expert group-acc mode and the group
+                    # gather per chunk of capacity rows whose gathered (E, rows, G, N) f32
+                    # block fits W4_GATHER_BYTES
+                    want[f"act_quantize/experts_given_{act_quantize_plan(El * C, K)[0]}"] += L
+                    chunk = max(1, W4_GATHER_BYTES // (El * K * mesh.axis_size("model") // 128
+                                                       * N * 4))
+                    for m0 in range(0, C, chunk):
+                        mc = min(chunk, C - m0)
+                        body = qgemm_w4a8_plan(mc, K, N, 128, experts=El)[0]
+                        want[f"qgemm_w4a8/experts_gacc_{body}"] += L
+                        want_c["gather_groups"] += L
             La = run.get("attn_layers", L)            # attention applications a call
             want["flash_attention/bf16_mma"] = La * sum(b >= 128 for b in buckets)
             want["paged_attention/bf16_mma"] = La * c["decode_steps"] if engine.paged else 0
@@ -840,6 +877,11 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+
+    def print5(line: str) -> None:
+        """A phase-5 result line with the script's elapsed seconds: what each
+        card-against-CPU comparison costs."""
+        print(f"{line} (at {time.perf_counter() - t_start:.1f}s)")
 
     # ---------------------------------------------------------------- phase 1
     smi = nvidia_smi_line()
@@ -1913,6 +1955,80 @@ def main() -> int:
               f"plain_ms={pms:.4f} library_ms=None bound_ms={bms:.4f} ({by}) bitwise=True "
               f"GB/s={nbytes / ms / 1e6:.0f} tops={2 * E2 * C2 * N2 * K2 / ms / 1e9:.1f}")
         del qx, qws, qw, a, sw, out, want
+
+    # K8's expert-batched modes (a W4A8 g128 tree's stacked experts, one launch per
+    # stacked linear): the own mode (each group's int32 sum folded through its
+    # expert's sw in K8's f32 order, then × a) within K8's tolerance of the plain
+    # stacked product, 2e-4·|want| + 1e-5·max|want|; the group-acc mode ((E, C, G, N)
+    # int32 partials) bitwise. Granite's up/gate (K=1536, 12 groups) and down (K=512,
+    # 4 groups) at C=8 (decode body) and C=512 (wgmma body), llama4-scout's up (E=16,
+    # K=5120, N=8192) at C=8; both modes eager and under graph replay, every body
+    # that takes the shape. The plain time is the stacked product the engine ran
+    # before this mode existed (core/qlinear.py::_int4_matmul_ref, an exact f64
+    # product per group).
+    G8 = 128
+    for (E2, C2, K2, N2) in [(40, 8, 1536, 512), (40, 8, 512, 1536), (16, 8, 5120, 8192),
+                             (40, 512, 1536, 512), (40, 512, 512, 1536)]:
+        Gk = K2 // G8
+        qx = torch.randint(-127, 128, (E2, C2, K2), generator=gen_e, device=dev,
+                           dtype=torch.int8)
+        qx[1, C2 // 2:] = 0                         # empty capacity rows
+        n_copies = max(1, min(8, math.ceil(3 * L2_BYTES / (E2 * K2 * N2 // 2))))
+        qws = [torch.randint(-128, 128, (E2, K2 // 2, N2), generator=gen_e, device=dev,
+                             dtype=torch.int8) for _ in range(n_copies)]
+        qw4 = qws[0]
+        a = torch.rand(E2, C2, 1, generator=gen_e, device=dev) * 0.1 + 1e-3
+        sw = torch.rand(E2, Gk, N2, generator=gen_e, device=dev) * 0.01 + 1e-4
+        routed, splits = qgemm_w4a8_plan(C2, K2, N2, G8, experts=E2)
+        fn = {"decode": qgemm_w4a8_decode_cuda, "wgmma": qgemm_w4a8_wgmma_cuda}[routed]
+        modes = {"own": (lambda i=0: fn(qx, qws[i % n_copies], a, sw, G8, splits, experts=E2)),
+                 "gacc": (lambda i=0: fn(qx, qws[i % n_copies], None, None, G8, splits,
+                                         experts=E2))}
+        before = dict(ops.BODY_LAUNCHES)
+        out = ops.qgemm_w4a8_experts(qx, qw4, a, sw, group=G8)
+        acc = ops.qgemm_w4a8_experts_group_acc(qx, qw4, group=G8)
+        check(ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_{routed}"]
+              == before[f"qgemm_w4a8/experts_{routed}"] + 1
+              and ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_gacc_{routed}"]
+              == before[f"qgemm_w4a8/experts_gacc_{routed}"] + 1,
+              f"qgemm_w4a8_experts E={E2} C={C2} K={K2} N={N2} did not run the {routed} body")
+        want = ref.qgemm_w4a8_experts_ref(qx, qw4, a, sw, G8)
+        acc_want = ref.qgemm_w4a8_experts_group_acc_ref(qx, qw4, G8)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        errs = []
+        for o in (out, modes["own"](), replay(modes["own"])[0],
+                  qgemm_w4a8_cuda(qx, qw4, a, sw, G8, experts=E2)):
+            torch.cuda.synchronize()
+            err = float((o - want).abs().max())
+            check(bool(((o - want).abs() <= 2e-4 * want.abs() + 1e-5 * scale).all()),
+                  f"qgemm_w4a8_experts E={E2} C={C2} K={K2} N={N2}: {err} beyond K8's "
+                  f"tolerance (eager, graph replay or tile body)")
+            errs.append(err)
+        for o in (acc, modes["gacc"](), replay(modes["gacc"])[0],
+                  qgemm_w4a8_cuda(qx, qw4, None, None, G8, experts=E2)):
+            torch.cuda.synchronize()
+            check(torch.equal(o, acc_want), f"qgemm_w4a8_experts group-acc E={E2} C={C2} "
+                  f"K={K2} N={N2}: not bitwise the plain (eager, graph replay or tile body)")
+        reps = 10 if C2 >= 128 else 30
+        pms = time_ms(lambda i=0: ql._int4_matmul_ref(qx, qws[i % n_copies], a, sw, G8), 2)
+        for mode, f in modes.items():
+            ms = min(graph_ms(f, reps), graph_ms(f, reps))
+            out_bytes = E2 * C2 * N2 * 4 * (Gk if mode == "gacc" else 1)
+            nbytes = E2 * (C2 * K2 + K2 * N2 // 2 + C2 * 4) + out_bytes + (
+                E2 * Gk * N2 * 4 if mode == "own" else 0)
+            bms, by = bound(nbytes, 2 * E2 * C2 * N2 * K2, PEAK_OPS["int8"])
+            name = f"qgemm_w4a8/experts_{'gacc_' if mode == 'gacc' else ''}{routed}"
+            results[(name, E2, C2, K2, N2)] = dict(
+                ms=ms, call_ms=None, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+                max_abs_err=max(errs) if mode == "own" else 0.0, gb_s=nbytes / ms / 1e6)
+            print(f"[3m] {name} E={E2} C={C2} K={K2} N={N2} g{G8} ({Gk} groups): {routed} "
+                  f"body ({splits} splits) kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"library_ms=None bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f} "
+                  + (f"max_abs_err={max(errs):.3e} of max|y| {scale:.3e} (eager, graph "
+                     f"replay, tile body)" if mode == "own" else
+                     "bitwise=True (eager, graph replay, tile body)"))
+        del qx, qws, qw4, a, sw, out, acc, want, acc_want
     torch.cuda.empty_cache()
     # [3m] end
 
@@ -2501,6 +2617,43 @@ def main() -> int:
               f"GB/s={nbytes / ms / 1e6:.0f}; bitwise=True (plain, routed and tile bodies "
               f"eager and graph replay)")
         del x, xs, qf, q, qr, qx, qw, acc, want
+        # K8's expert-batched group-acc mode at the same down shard of a W4A8 g128
+        # tree (K = 256: 2 groups a rank; N = 1536): bitwise the plain per-group
+        # product on the routed and tile bodies, eager and under graph replay
+        qx = torch.randint(-127, 128, (E_u, C_u, K_u), generator=gen_u, device=dev,
+                           dtype=torch.int8)
+        qx[1, C_u // 2:] = 0
+        qw4 = torch.randint(-128, 128, (E_u, K_u // 2, Nd_u), generator=gen_u, device=dev,
+                            dtype=torch.int8)
+        routed, splits = qgemm_w4a8_plan(C_u, K_u, Nd_u, G_u, experts=E_u)
+        before = dict(ops.BODY_LAUNCHES)
+        acc = ops.qgemm_w4a8_experts_group_acc(qx, qw4, group=G_u)
+        check(ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_gacc_{routed}"]
+              == before[f"qgemm_w4a8/experts_gacc_{routed}"] + 1,
+              f"[3u] K8 expert group-acc C={C_u} did not run the {routed} body")
+        want = ref.qgemm_w4a8_experts_group_acc_ref(qx, qw4, G_u)
+        fn = {"decode": qgemm_w4a8_decode_cuda, "wgmma": qgemm_w4a8_wgmma_cuda}[routed]
+        bodies = {routed: lambda: fn(qx, qw4, None, None, G_u, splits, experts=E_u),
+                  "tile": lambda: qgemm_w4a8_cuda(qx, qw4, None, None, G_u, experts=E_u)}
+        torch.cuda.synchronize()
+        check(torch.equal(acc, want), f"[3u] K8 expert group-acc C={C_u}: not bitwise the plain")
+        for b, f in bodies.items():
+            check(torch.equal(f(), want) and torch.equal(replay(f)[0], want),
+                  f"[3u] K8 expert group-acc {b} body C={C_u}: not bitwise (eager or replay)")
+        body_ms = {b: graph_ms(once(f), 50) for b, f in bodies.items()}
+        ms = min(body_ms[routed], graph_ms(once(bodies[routed]), 50))
+        pms = graph_ms(once(lambda: ref.qgemm_w4a8_experts_group_acc_ref(qx, qw4, G_u)), 3)
+        nbytes = E_u * C_u * K_u + E_u * K_u * Nd_u // 2 + E_u * C_u * (K_u // G_u) * Nd_u * 4
+        bms, by = bound(nbytes, 2 * E_u * C_u * K_u * Nd_u, PEAK_OPS["int8"])
+        results[(f"qgemm_w4a8/experts_gacc_{routed}", E_u, C_u, K_u, Nd_u)] = dict(
+            ms=ms, call_ms=None, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=by,
+            max_abs_err=0.0, body_ms=body_ms, gb_s=nbytes / ms / 1e6)
+        print(f"[3u] qgemm_w4a8 experts group-acc E={E_u} C={C_u} K={K_u} N={Nd_u} g{G_u} "
+              f"({K_u // G_u} groups): routed to the {routed} body (splits {splits}) "
+              f"kernel_ms={ms:.4f} (tile_ms={body_ms['tile']:.4f}) plain_ms={pms:.4f} "
+              f"library_ms=None bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f}; "
+              f"bitwise=True (plain, routed and tile bodies eager and graph replay)")
+        del qx, qw4, acc, want
     # [3u] end
 
     # ---------------------------------------------------------------- phase 4
@@ -2600,17 +2753,27 @@ def main() -> int:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
+        # a W4 expert stack multiplied on the plain path (core/qlinear.py::
+        # _int4_matmul_ref) instead of K8's expert-batched mode
+        plain_w4, int4_ref = [0], ql._int4_matmul_ref
+
+        def int4_counted(qx_, *rest):
+            plain_w4[0] += qx_.ndim == 3
+            return int4_ref(qx_, *rest)
+
         engine.submit(reqs, max_new=max_new)
         torch.cuda.synchronize()
         ops.reset_launches()
-        M.apply = apply_counted
+        M.apply, ql._int4_matmul_ref = apply_counted, int4_counted
         t0 = time.perf_counter()
         try:
             done = engine.run()
             torch.cuda.synchronize()
         finally:
-            M.apply = apply
+            M.apply, ql._int4_matmul_ref = apply, int4_ref
         dt = time.perf_counter() - t0
+        check(plain_w4[0] == 0 or not kernels,
+              f"{label}: {plain_w4[0]} stacked W4 products on the plain path")
         counts = dict(ops.LAUNCHES)
         bodies = dict(ops.BODY_LAUNCHES)
         c = engine.counters
@@ -2657,7 +2820,12 @@ def main() -> int:
             E, C = mcfg.n_experts, moe_capacity(rows, mcfg) if experts else 0
             for K, N in experts:
                 want_bodies[f"act_quantize/experts_{act_quantize_plan(E * C, K)[0]}"] += L
-                want_bodies[f"qgemm_w8a8/experts_{qgemm_w8a8_plan(C, K, N, experts=E)[0]}"] += L
+                if gemm == "qgemm_w4a8":             # K8's expert-batched mode
+                    body = qgemm_w4a8_plan(C, K, N, q.w_group, experts=E)[0]
+                    want_bodies[f"qgemm_w4a8/experts_{body}"] += L
+                else:
+                    body = qgemm_w8a8_plan(C, K, N, experts=E)[0]
+                    want_bodies[f"qgemm_w8a8/experts_{body}"] += L
             for K, N in mlinears:
                 want_bodies[f"act_quantize/{act_quantize_plan(rows, K)[0]}"] += L
                 if gemm == "qgemm_w8a8":
@@ -3281,7 +3449,7 @@ def main() -> int:
     # layer (4 attention, 3 shared, 3 expert-batched).
     print(f"[4m] start at {time.perf_counter() - t_start:.1f}s")
     t_moe = time.perf_counter()
-    cfg_m, qparams_m = build("granite-moe-3b-a800m", 30)
+    cfg_m, qparams_m, q4params_m = build("granite-moe-3b-a800m", 30, w4=True)
     check(cfg_m.n_layers == 32 and cfg_m.d_model == 1536 and cfg_m.n_experts == 40
           and cfg_m.top_k == 8 and cfg_m.d_ff_expert == 512 and cfg_m.head_dim == 64
           and M.block_spec(cfg_m).sublayers == ("attn_moe",), "granite-moe-3b-a800m FULL")
@@ -3321,6 +3489,18 @@ def main() -> int:
               f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del engine
     del qparams_m
+    # W4A8 g128 from the same calibration: every linear on K8, the stacked experts on
+    # its expert-batched mode (decode body at the decode steps' C = 8, wgmma body at
+    # the admissions'), no stacked W4 product on the plain path; beside W8A8's tok/s
+    w4_label = "granite-moe dense W4A8-g128 kv=fp"
+    engine, _ = serve(w4_label, prompts_m[:BATCH], tree=q4params_m, q=quant4, gemm="qgemm_w4a8",
+                      model=model_m, experts=experts_m, kv_cache="fp")
+    w8_label = "granite-moe dense fused-int8 kv=fp"
+    print(f"[4m]   {w4_label}: {e2e[w4_label]:.1f} tok/s against W8A8's {e2e[w8_label]:.1f} "
+          f"(this call); 0 stacked W4 products on the plain path; K8 expert launches by "
+          f"body { {k: v for k, v in body_launches.items() if 'w4a8/experts' in k and v} } "
+          f"(phase 4 so far)")
+    del engine, q4params_m
     torch.cuda.empty_cache()
 
     cfg_l, qparams_l = build("llama4-scout-17b-a16e", 17, n_layers=2)
@@ -3566,7 +3746,9 @@ def main() -> int:
                 total[name] += counts[name]
         ops.reset_launches()
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    # one layer: the CPU side of these comparisons is most of the phase's time, and
+    # it scales with the depth
+    cfg2 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     p2f = M.init_params(g, cfg2, device=dev)
@@ -3648,7 +3830,7 @@ def main() -> int:
     tol = 5e-2 * float(cl.abs().max())
     check(torch.equal(gt, ct), f"card vs CPU greedy tokens differ: {gt.T} vs {ct.T}")
     check(err <= tol, f"card vs CPU logits: max err {err} > {tol}")
-    print(f"[5] 2-layer FULL-width f32 card vs CPU: 1 prefill (bucket 256) + 8 decode steps, "
+    print5(f"[5] {cfg2.n_layers}-layer FULL-width f32 card vs CPU: 1 prefill (bucket 256) + 8 decode steps, "
           f"tokens equal {gt.T.tolist()}, logits max_abs_err={err:.3e}, one-ulp input nudge "
           f"on CPU moves them {ulp_err:.3e}, tol 5e-2*max|logit|={tol:.3e}, "
           f"CPU side {time.perf_counter() - t0:.1f}s")
@@ -3665,7 +3847,7 @@ def main() -> int:
     check(torch.equal(pgt, pct), f"paged card vs CPU greedy tokens differ: {pgt.T} vs {pct.T}")
     check(torch.equal(pgt, gt), f"paged vs dense greedy tokens differ: {pgt.T} vs {gt.T}")
     check(perr <= tol, f"paged card vs CPU logits: max err {perr} > {tol}")
-    print(f"[5] paged (ps=8, permuted table) card vs CPU: tokens equal, equal to dense; "
+    print5(f"[5] paged (ps=8, permuted table) card vs CPU: tokens equal, equal to dense; "
           f"logits max_abs_err={perr:.3e} (dense card vs paged card "
           f"{float((pgl - gl).abs().max()):.3e}), tol={tol:.3e}")
 
@@ -3700,7 +3882,7 @@ def main() -> int:
           f"bf16 parity: no step with a top-1/top-2 margin above 2e = {2 * e_b}")
     check(bool(same[sure].all()), f"bf16 card vs CPU greedy choice differs at a margin > 2e: "
           f"{torch.argmax(bgl, dim=-1).T} vs {torch.argmax(bcl, dim=-1).T}")
-    print(f"[5] bf16 paged card vs CPU (flash and paged bf16 bodies, {bodies_b}): e = max|bf16 - "
+    print5(f"[5] bf16 paged card vs CPU (flash and paged bf16 bodies, {bodies_b}): e = max|bf16 - "
           f"f32| on the card's first decode step = {e_b:.3e}; logits max_abs_err={berr:.3e} "
           f"({berr / e_b:.2f} e, bar e); greedy choice equal at "
           f"{int(same[sure].sum())} of the {int(sure.sum())} of {sure.numel()} (step, row) "
@@ -3760,7 +3942,7 @@ def main() -> int:
                 check(torch.equal(kgt, sgt), f"chunked fp KV vs bucketed paged tokens "
                       f"differ: {kgt.T} vs {sgt.T}")
             same = "" if kv_int8 else " and equal to bucketed paged"
-            print(f"[5] chunked kv={kv} (2 packed prefill steps, {steps5} one-token steps, all K6) "
+            print5(f"[5] chunked kv={kv} (2 packed prefill steps, {steps5} one-token steps, all K6) "
                   f"card vs CPU: tokens equal{same}; logits max_abs_err={kerr:.3e}, "
                   f"tol={tol:.3e}")
 
@@ -3783,7 +3965,7 @@ def main() -> int:
         btol = 5e-2 * float(bcl.abs().max())
         check(torch.equal(bgt, bct), f"{label} card vs CPU tokens differ: {bgt.T} vs {bct.T}")
         check(berr <= btol, f"{label} card vs CPU logits: max err {berr} > {btol}")
-        print(f"[5] {label} paged card vs CPU ({kernel} x{n_gemm}): tokens equal "
+        print5(f"[5] {label} paged card vs CPU ({kernel} x{n_gemm}): tokens equal "
               f"{bgt.T.tolist()}, logits max_abs_err={berr:.3e}, tol 5e-2*max|logit|={btol:.3e}")
     del p2bs, p2w4
 
@@ -3812,7 +3994,7 @@ def main() -> int:
         ftol = 5e-2 * float(fcl.abs().max())
         check(torch.equal(fgt, fct), f"{label} card vs CPU tokens differ: {fgt.T} vs {fct.T}")
         check(ferr <= ftol, f"{label} card vs CPU logits: max err {ferr} > {ftol}")
-        print(f"[5] {label} card vs CPU: tokens equal {fgt.T.tolist()}, logits max_abs_err="
+        print5(f"[5] {label} card vs CPU: tokens equal {fgt.T.tolist()}, logits max_abs_err="
               f"{ferr:.3e}, tol 5e-2*max|logit|={ftol:.3e}; card {t_card:.1f}s")
 
     # the grouped scheduler through the engine, card vs CPU: two 40-token prompts
@@ -3828,7 +4010,7 @@ def main() -> int:
         gouts.append(([r.out for r in geng.run()], geng.counters["prefill_calls"]))
     check(gouts[0] == gouts[1] and gouts[0][1] == 2,
           f"grouped card vs CPU: {gouts[0]} vs {gouts[1]}")
-    print(f"[5] grouped scheduler (2 groups) card vs CPU: tokens equal {gouts[0][0]}")
+    print5(f"[5] grouped scheduler (2 groups) card vs CPU: tokens equal {gouts[0][0]}")
 
     # make_sparsity_plan: the card's per-linear §4.1 fractions against the CPU's over
     # the same activations (the card's observer pass replayed into the CPU's plan);
@@ -3860,7 +4042,7 @@ def main() -> int:
           and plan_cpu.layers == plan_card.layers,
           f"plan card vs CPU: fractions differ by {perr}, layers {plan_card.layers} vs "
           f"{plan_cpu.layers}")
-    print(f"[5] make_sparsity_plan card vs CPU on the same activations: {len(recs2)} inputs, "
+    print5(f"[5] make_sparsity_plan card vs CPU on the same activations: {len(recs2)} inputs, "
           f"fractions max diff {perr:.3e} (bar 1e-6), layers equal {list(plan_card.layers)}; "
           f"the CPU's own forward pass: max diff {oerr:.3e}, layers {list(plan_own.layers)}")
     del recs2, p2f, p2f_cpu
@@ -3883,7 +4065,7 @@ def main() -> int:
 
     dense_out, _ = engine_tokens(shared)
     paged_out, peng = engine_tokens(shared, cache_layout="paged")
-    check(peng.counters["prefix_hits"] > 0, "2-layer paged run: no prefix hit")
+    check(peng.counters["prefix_hits"] > 0, "1-layer paged run: no prefix hit")
     check(paged_out == dense_out, f"engine paged vs dense tokens differ: {paged_out} vs "
           f"{dense_out}")
     base_out, _ = engine_tokens(motifs, cache_layout="paged")
@@ -3892,7 +4074,7 @@ def main() -> int:
     chunk_out, ceng = engine_tokens(shared, cache_layout="paged", chunked=True, token_budget=64)
     check(ceng.counters["chunk_prefill_rows"] > 0 and chunk_out == dense_out,
           f"engine chunked vs bucketed tokens differ: {chunk_out} vs {dense_out}")
-    print(f"[5] 2-layer engine on the card: paged == dense over {len(shared)} shared-prefix "
+    print5(f"[5] {cfg2.n_layers}-layer engine on the card: paged == dense over {len(shared)} shared-prefix "
           f"requests (prefix_hits={peng.counters['prefix_hits']} cow_copies="
           f"{peng.counters['cow_copies']}); speculate=4 == speculate=1 over {len(motifs)} "
           f"motif prompts (accept_rate={seng.accept_rate():.3f} tokens_per_step="
@@ -3928,7 +4110,7 @@ def main() -> int:
         err_, tol_ = float((gl_ - cl_).abs().max()), 5e-2 * float(cl_.abs().max())
         check(torch.equal(gt_, ct_), f"{label} card vs CPU tokens differ: {gt_.T} vs {ct_.T}")
         check(err_ <= tol_, f"{label} card vs CPU logits: max err {err_} > {tol_}")
-        print(f"[5z] {label} card vs CPU: tokens equal {gt_.T.tolist()}, logits max_abs_err="
+        print5(f"[5z] {label} card vs CPU: tokens equal {gt_.T.tolist()}, logits max_abs_err="
               f"{err_:.3e}, tol 5e-2*max|logit|={tol_:.3e}")
         return err_
 
@@ -3958,7 +4140,7 @@ def main() -> int:
               f"card's token at a margin > 2 x {err_}")
         moved = "" if nudge is None else (f" (a one-ulp nudge of the embedding moves the "
                                           f"CPU's {float((nudge - cl_).abs().max()):.3e})")
-        print(f"[5z] {label} card vs CPU (the CPU fed the card's tokens {gt_.T.tolist()}): "
+        print5(f"[5z] {label} card vs CPU (the CPU fed the card's tokens {gt_.T.tolist()}): "
               f"logits max_abs_err={err_:.3e}{moved}, tol 5e-2*max|logit|={tol_:.3e}; greedy "
               f"equal at "
               f"{int(same_[sure_].sum())} of the {int(sure_.sum())} of {sure_.numel()} (step, "
@@ -4022,7 +4204,7 @@ def main() -> int:
     check(int(sure.sum()) > 0 and bool(same[sure].all()),
           f"gemma2 bf16 card vs CPU greedy choice at a margin > 2e: {int(sure.sum())} sure, "
           f"{int(same[sure].sum())} equal")
-    print(f"[5z] gemma2-9b bf16 paged card vs CPU: e = {e_g:.3e}; logits max_abs_err={berr:.3e} "
+    print5(f"[5z] gemma2-9b bf16 paged card vs CPU: e = {e_g:.3e}; logits max_abs_err={berr:.3e} "
           f"({berr / e_g:.2f} e, bar e); greedy equal at {int(same[sure].sum())} of the "
           f"{int(sure.sum())} of {sure.numel()} (step, row) pairs whose margin exceeds 2e")
     # speculate=4 == 1 on the card, over motif prompts that bind the window
@@ -4038,7 +4220,7 @@ def main() -> int:
         outs_g.append([r.out for r in eng.run()])
     check(outs_g[0] == outs_g[1] and eng.counters["spec_steps"] > 0,
           f"gemma2 speculate=4 vs 1 tokens differ: {outs_g[1]} vs {outs_g[0]}")
-    print(f"[5z] gemma2-9b speculate=4 == speculate=1 on the card (accept_rate="
+    print5(f"[5z] gemma2-9b speculate=4 == speculate=1 on the card (accept_rate="
           f"{eng.accept_rate():.3f})")
     del p2g, p2g_cpu, eng
     torch.cuda.empty_cache()
@@ -4050,13 +4232,17 @@ def main() -> int:
     n_lin = len(linear_shapes(cfg_d2)) * cfg_d2.n_layers + 1
     with torch.no_grad():
         reset5()
-        dgl, dgt = greedy(p2d, dev, c=cfg_d2, tl=tl_d)
-        check(ops.LAUNCHES["qgemm_w8a8"] == 9 * n_lin, f"deepseek parity GEMM launches "
-              f"{ops.LAUNCHES['qgemm_w8a8']} != 9 x {n_lin} (head included)")
-        card_vs_cpu_forced(f"deepseek-coder-33b {cfg_d2.n_layers}-layer fused-int8, 1 prefill + 8 "
-                           "decode steps",
-                           (dgl, dgt), greedy(p2d_cpu, cpu, forced=dgt, c=cfg_d2, tl=tl_d),
-                           greedy(nudged(p2d_cpu), cpu, forced=dgt, c=cfg_d2, tl=tl_d)[0])
+        # steps5 decode steps: its CPU side prepares the untied head on the fly at
+        # every step
+        dgl, dgt = greedy(p2d, dev, c=cfg_d2, tl=tl_d, steps=steps5)
+        check(ops.LAUNCHES["qgemm_w8a8"] == (1 + steps5) * n_lin, f"deepseek parity GEMM "
+              f"launches {ops.LAUNCHES['qgemm_w8a8']} != {1 + steps5} x {n_lin} (head included)")
+        card_vs_cpu_forced(f"deepseek-coder-33b {cfg_d2.n_layers}-layer fused-int8, 1 prefill + "
+                           f"{steps5} decode steps",
+                           (dgl, dgt), greedy(p2d_cpu, cpu, forced=dgt, c=cfg_d2, tl=tl_d,
+                                              steps=steps5),
+                           greedy(nudged(p2d_cpu), cpu, forced=dgt, c=cfg_d2, tl=tl_d,
+                                  steps=steps5)[0])
     # a chunked engine on the card (budget 32, int8 KV: every step packed): the head,
     # prepared on the fly, sees all token_budget rows of every packed step
     heads = []
@@ -4083,7 +4269,7 @@ def main() -> int:
     check(eng._rows_coupled and len(heads) == n_steps and set(heads) == {32},
           f"deepseek chunked: the head saw {heads} rows over {n_steps} packed steps, not "
           f"token_budget (32) each")
-    print(f"[5z] deepseek-coder-33b chunked (budget 32, int8 KV) on the card: tokens "
+    print5(f"[5z] deepseek-coder-33b chunked (budget 32, int8 KV) on the card: tokens "
           f"{outs_d}; the head, prepared on the fly, saw all 32 rows in each of the "
           f"{n_steps} packed steps (rows coupled)")
     del p2d, p2d_cpu, eng
@@ -4127,7 +4313,7 @@ def main() -> int:
     same = torch.argmax(hl, dim=-1) == torch.argmax(hc, dim=-1)
     check(herr <= htol, f"hubert card vs CPU logits: max err {herr} > {htol}")
     check(bool(same[sure].all()), f"hubert card vs CPU argmax at a margin > 2 x {herr}")
-    print(f"[5z] hubert-xlarge {cfg_h2.n_layers}-layer encoder logits (2 x 128 frames) card vs "
+    print5(f"[5z] hubert-xlarge {cfg_h2.n_layers}-layer encoder logits (2 x 128 frames) card vs "
           f"CPU: max_abs_err="
           f"{herr:.3e}, tol 5e-2*max|logit|={htol:.3e}; argmax equal at {int(same[sure].sum())} "
           f"of the {int(sure.sum())} of {sure.numel()} positions whose margin exceeds 2 x err "
@@ -4137,7 +4323,7 @@ def main() -> int:
     print(f"[5z] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_z5:.1f}s "
           f"for the zoo)")
 
-    # [5m] The MoE slice at 2 layers (granite-moe) and 1 layer (llama4-scout), full
+    # [5m] The MoE slice at 1 layer (granite-moe and llama4-scout), full
     # width, float32. The router's top-k is a step function of its input: an int8
     # code that moves by one where a value sits within an ulp of a rounding boundary
     # (the card's and the CPU's float sums part there, as in the dense runs) moves a
@@ -4197,7 +4383,7 @@ def main() -> int:
         check(err_ <= tol_, f"{label} card vs CPU logits: max err {err_} > {tol_}")
         check(bool(same_[sure_].all()), f"{label}: the CPU's greedy choice differs from the "
               f"card's token at a margin > 2 x {err_}")
-        print(f"[5m] {label}: {len(seen)} routings ({sum(x.shape[0] for x, _, _ in seen)} token "
+        print5(f"[5m] {label}: {len(seen)} routings ({sum(x.shape[0] for x, _, _ in seen)} token "
               f"rows, {n_drop} (token, k) pairs dropped) equal to the CPU's on the same inputs; "
               f"card kernels == card plain path in tokens {gt_.T.tolist()}, logits max_abs_err="
               f"{kerr:.3e}; CPU fed the card's tokens: logits max_abs_err={err_:.3e} (a one-ulp "
@@ -4216,7 +4402,7 @@ def main() -> int:
               and ops.BODY_LAUNCHES["qgemm_w8a8/experts_wgmma"] == 3 * cfg_m2.n_layers
               and ops.BODY_LAUNCHES["qgemm_w8a8/experts_decode"] == 3 * cfg_m2.n_layers * 8,
               f"granite parity launches {ops.LAUNCHES} {ops.BODY_LAUNCHES}")
-        moe_vs_cpu("granite-moe 2-layer dense, 1 prefill (bucket 256, C = 128) + 8 decode "
+        moe_vs_cpu("granite-moe 1-layer dense, 1 prefill (bucket 256, C = 128) + 8 decode "
                    "steps", cfg_m2, p2m, p2m_cpu, tl_m, 8)
         reset5()
         _, mpt = greedy(p2m, dev, c=cfg_m2, tl=tl_m, layout="paged")
@@ -4229,15 +4415,34 @@ def main() -> int:
         check(n_drop > 0, "granite capacity_factor 0.25: no (token, k) pair dropped")
     del p2m, p2m_cpu
     torch.cuda.empty_cache()
-    cfg_l1, p1l, p1l_cpu = build2("llama4-scout-17b-a16e", 41, n_layers=1)
-    tl_l = prompts_for(cfg_l1, [40, 27], 64, 41)
+    # granite's W4A8 g128 tree at 1 layer: K8 on every linear, its expert-batched
+    # mode on the stacked experts (the wgmma body at the admission's C = 128, the
+    # decode body at the decode steps' C = 8), held the same three ways
+    _, _, p1m4 = build("granite-moe-3b-a800m", 40, w4=True, n_layers=1, dtype="float32")
+    p1m4_cpu = M.map_tensors(p1m4, lambda t: t.cpu())
     with torch.no_grad():
         reset5()
-        greedy(p1l, dev, c=cfg_l1, tl=tl_l, steps=steps5)
-        check(ops.LAUNCHES["act_quantize"] == 10 * (1 + steps5) == ops.LAUNCHES["qgemm_w8a8"],
+        greedy(p1m4, dev, c=cfg_m2, tl=tl_m, steps=steps5)
+        n_lin = 7 * cfg_m2.n_layers * (1 + steps5)
+        check(ops.LAUNCHES["act_quantize"] == n_lin == ops.LAUNCHES["qgemm_w4a8"]
+              and ops.BODY_LAUNCHES["qgemm_w4a8/experts_wgmma"] == 3 * cfg_m2.n_layers
+              and ops.BODY_LAUNCHES["qgemm_w4a8/experts_decode"]
+              == 3 * cfg_m2.n_layers * steps5,
+              f"granite W4A8 parity launches {ops.LAUNCHES} {ops.BODY_LAUNCHES}")
+        moe_vs_cpu(f"granite-moe W4A8-g128 1-layer dense, 1 prefill (bucket 256, C = 128) + "
+                   f"{steps5} decode steps", cfg_m2, p1m4, p1m4_cpu, tl_m, steps5)
+    del p1m4, p1m4_cpu
+    torch.cuda.empty_cache()
+    cfg_l1, p1l, p1l_cpu = build2("llama4-scout-17b-a16e", 41, n_layers=1)
+    tl_l = prompts_for(cfg_l1, [40, 27], 64, 41)
+    steps_l = 2         # each CPU call converts llama4's 2 G expert weights to f64
+    with torch.no_grad():
+        reset5()
+        greedy(p1l, dev, c=cfg_l1, tl=tl_l, steps=steps_l)
+        check(ops.LAUNCHES["act_quantize"] == 10 * (1 + steps_l) == ops.LAUNCHES["qgemm_w8a8"],
               f"llama4 parity launches {ops.LAUNCHES}")
         moe_vs_cpu(f"llama4-scout 1-layer dense (top-1, shared expert), 1 prefill (bucket 64) "
-                   f"+ {steps5} decode steps", cfg_l1, p1l, p1l_cpu, tl_l, steps5)
+                   f"+ {steps_l} decode steps", cfg_l1, p1l, p1l_cpu, tl_l, steps_l)
     del p1l, p1l_cpu
     torch.cuda.empty_cache()
     print(f"[5m] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_m5:.1f}s "
@@ -4284,7 +4489,7 @@ def main() -> int:
             err, tol = float((gl - cl).abs().max()), 5e-2 * float(cl.abs().max())
             if torch.equal(gt, ct):
                 check(err <= tol, f"{label} card vs CPU logits: max err {err} > {tol}")
-                print(f"[5s] {label} card vs CPU: tokens equal {gt.T.tolist()}, logits "
+                print5(f"[5s] {label} card vs CPU: tokens equal {gt.T.tolist()}, logits "
                       f"max_abs_err={err:.3e}, tol 5e-2*max|logit|={tol:.3e}")
             else:
                 reset5()
@@ -4304,7 +4509,7 @@ def main() -> int:
                 check(ferr <= ftol and bool(same[sure].all()), f"{label}: the CPU fed the card's "
                       f"tokens: logits err {ferr} (tol {ftol}), greedy differs at a margin > 2 x "
                       f"err: {same}")
-                print(f"[5s] {label}: a near tie parted the free-running tokens (card "
+                print5(f"[5s] {label}: a near tie parted the free-running tokens (card "
                       f"{gt.T.tolist()}, CPU {ct.T.tolist()}); card kernels == card plain path "
                       f"in tokens, logits max_abs_err={kerr:.3e}; CPU fed the card's tokens: "
                       f"logits max_abs_err={ferr:.3e} (a one-ulp nudge moves the CPU's "
@@ -4323,7 +4528,7 @@ def main() -> int:
             same = torch.argmax(pl[:-1], dim=-1) == gt
             check(perr <= ptol and bool(same[sure].all()), f"{name} paged vs dense on the card: "
                   f"logits err {perr} (tol {ptol}), greedy differs at a margin > 2 x err")
-            print(f"[5s] {name} paged (state_table{', page table and K4' if n_attn else ''}) vs "
+            print5(f"[5s] {name} paged (state_table{', page table and K4' if n_attn else ''}) vs "
                   f"dense on the card, fed the dense tokens: logits max_abs_err={perr:.3e}, tol "
                   f"{ptol:.3e}; greedy equal at {int(same.sum())} of {same.numel()} (step, row) "
                   f"pairs, at all {int(sure.sum())} whose margin exceeds 2 x err")
@@ -4333,7 +4538,7 @@ def main() -> int:
           f"for the SSM and hybrid models)")
 
     # ---------------------------------------------------------------- phase 6
-    # The async replica server (AsyncServer) on starcoder2-7b at full width, 16 of its
+    # The async replica server (AsyncServer) on starcoder2-7b at full width, 8 of its
     # 32 layers (depth cut for the script's time limit; the server is held against
     # the engine alone on the same tree, so depth changes nothing it checks), W8A8
     # calibrated as phase 4 calibrates (the same seed and calibration): fused-int8,
@@ -4348,7 +4553,7 @@ def main() -> int:
     print(f"[6] start at {time.perf_counter() - t_start:.1f}s; {nvidia_smi_line()}")
     t_s6 = time.perf_counter()
     # phase 4 freed its calibrated tree before the zoo: build one the same way
-    cfg6 = dataclasses.replace(cfg, n_layers=16)
+    cfg6 = dataclasses.replace(cfg, n_layers=8)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     params = M.init_params(g, cfg6, device=dev)
@@ -4933,11 +5138,12 @@ def main() -> int:
     import torch.multiprocessing as tmp
 
     cfg8, q8, q8w4 = build("starcoder2-7b", 0, w4=True)
-    cfg8m, q8m = build("granite-moe-3b-a800m", 30)
+    cfg8m, q8m, q8m4 = build("granite-moe-3b-a800m", 30, w4=True)
     cfg8s, _, q8s = build_ssm("mamba2-130m", 50)
     cfg8z, _, q8z = build_ssm("zamba2-1.2b", 51)
     torch.cuda.empty_cache()
-    trees8 = {"sc": q8, "w4": q8w4, "granite": q8m, "mamba": q8s, "zamba": q8z}
+    trees8 = {"sc": q8, "w4": q8w4, "granite": q8m, "granite_w4": q8m4, "mamba": q8s,
+              "zamba": q8z}
     full_bytes = {k: quantized_bytes(v) for k, v in trees8.items()}
     print(f"[8] trees built in {time.perf_counter() - t_s8:.1f}s: "
           + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in full_bytes.items()))
@@ -4961,6 +5167,7 @@ def main() -> int:
     # W4A8 at tp=2 on short prompts (buckets 32 and 64): the gathered group partials
     # of an admission stay under the 256 MiB chunk, down's 2.65 MB a row
     prompts8w = make_prompts(cfg8.vocab, [20, 33, 47, 60], BATCH, seed=5)
+    prompts8mw = make_prompts(cfg8m.vocab, [20, 33, 47, 60], BATCH, seed=31)
     dense_cfg = dict(batch_size=BATCH, max_len=MAX_LEN, path="fused-int8", kv_cache="int8")
     paged_cfg = dict(dense_cfg, cache_layout="paged")
     Ha, ssm_cfg = cfg8z.n_heads * cfg8z.head_dim, dict(paged_cfg, prefix_reuse=False)
@@ -4983,7 +5190,7 @@ def main() -> int:
              linears=[(K, N, L8) for K, N in linear_shapes(cfg8)], row_linears=[],
              collectives_per_call={"gather_slots": 1, "gather_pages": 1}),
         dict(sc_runs, label="starcoder2-7b W4A8 tp=2 dense int8 KV short prompts",
-             tree="w4", quant=quant4, reqs=prompts8w, max_new=MAX_NEW // 4, config=dense_cfg,
+             tree="w4", quant=quant4, reqs=prompts8w, max_new=MAX_NEW // 8, config=dense_cfg,
              bitwise="bar", linears=[], row_linears=[],
              w4_linears=sc_runs["linears"], w4_row_linears=sc_runs["row_linears"],
              collectives_per_call={"max_f32": 2 * L8, "sum_f32": 1, "gather_vocab": 1}),
@@ -4996,6 +5203,20 @@ def main() -> int:
              experts=[(dm, fm // 2), (dm, fm // 2)], experts_row=[(fm // 2, dm)],
              experts_local=cfg8m.n_experts, collectives_per_call=dict(
                  tp_coll, sum_i32=2 * cfg8m.n_layers, max_f32=2 * cfg8m.n_layers)),
+        # granite's W4A8 g128 tree forced to expert_tp: the stacked up/gate on K8's
+        # expert-batched mode over a rank's d_ff_expert columns, the stacked down on
+        # the expert K1's given-max and K8's expert group-acc modes, each rank's groups
+        # scaled and gathered; wq/wk/wv column-parallel and wo row-parallel on K8
+        dict(label="granite-moe W4A8 expert_tp tp=2 dense int8 KV short prompts",
+             cfg=cfg8m, tree="granite_w4", quant=quant4, mesh=(1, 2), moe_mode="expert_tp",
+             reqs=prompts8mw, max_new=MAX_NEW // 4, config=dense_cfg, share=0.5,
+             bitwise="bar", linears=[], row_linears=[],
+             w4_linears=[(dm, N // 2, cfg8m.n_layers) for K, N in linear_shapes(cfg8m)[:3]],
+             w4_row_linears=[(cfg8m.n_heads * cfg8m.head_dim // 2, dm, cfg8m.n_layers)],
+             experts=(), experts_w4=[(dm, fm // 2), (dm, fm // 2)],
+             experts_w4_row=[(fm // 2, dm)], experts_local=cfg8m.n_experts,
+             collectives_per_call={"max_f32": 2 * cfg8m.n_layers, "sum_f32": 1,
+                                   "gather_vocab": 1}),
         dict(label="mamba2-130m tp=2 paged", cfg=cfg8s, tree="mamba", quant=quant,
              mesh=(1, 2), reqs=make_prompts(cfg8s.vocab, LENS, BATCH, seed=50),
              max_new=MAX_NEW // 2, config=ssm_cfg, share=0.5, bitwise="all", attn_layers=0,
@@ -5114,8 +5335,8 @@ def main() -> int:
     # (as the reference's), two einsums run as cuBLAS batched f32 GEMMs over (slot,
     # kv head) whose algorithm cuBLAS picks by the batch count, so a rank holding 2
     # of the 4 kv heads may round a score otherwise than one device holding all 4.
-    # "bar": no call bitwise: W4A8 at tp=2 sums the group products after the
-    # gather, in another order than the single device's K8 fold. Past the bitwise
+    # "bar": no call bitwise: W4A8 at tp=2 sums the group products after
+    # the gather, in another order than the single device's K8 fold. Past the bitwise
     # calls, every call up to the first where a row's greedy token
     # parts holds max|d logit| <= LOGIT_BAR * max|logit| (the drift bounded, not
     # only the tokens), and a parting must be a near tie inside that bar: the
@@ -5215,24 +5436,70 @@ def main() -> int:
               f"(op: per call, median ms alone: {r0['solo']})")
     check(not logit_faults, "[8] logits not bitwise the single-device engine's: "
           + "; ".join(logit_faults))
-    # Why the dense layout's later decode steps may part: the decode attention's two
-    # einsums on one device's 4 kv heads against a rank's 2 (same inputs, f32, the
-    # dense decode's shapes), and the tied head's bf16 product split by vocab. Each
-    # line counts the elements of the rank's share that differ (printed, not held).
+    # The dense decode attention's served form and a bitwise alternative, on one
+    # device's 4 kv heads against a rank's 2, at starcoder2's decode shapes with int8
+    # KV (B = 4, 36 / 4 heads of 128): layers.decode_attention (two batched einsums
+    # over (slot, kv head), whose algorithm cuBLAS picks by the batch count) and one
+    # bmm pair per kv head (batched over the slots alone: the same problems on one
+    # device and on a rank, at Hkv launches each). Each line counts the rank's outputs
+    # that differ from one device's (2 of 4 kv heads; a GQA group of 1 of 9), and
+    # times each form on one device (eager, synchronized: host and card; the better of
+    # two runs). Counted and timed, not held: the served form keeps the einsums.
+    from repro_torch.models import layers as layers8
     gd = torch.Generator(device=dev)
     gd.manual_seed(8)
+
+    def served_form(q_, kc, vc, cl, ks, vs):
+        return layers8.decode_attention(q_, kc, vc, cur_len=cl, window=None, softcap=None,
+                                        k_scale=ks, v_scale=vs)
+
+    def per_kv_head_form(q_, kc, vc, cl, ks, vs):
+        B_, _, H_, D_ = q_.shape
+        Hk = kc.shape[2]
+        qg = q_.reshape(B_, Hk, H_ // Hk, D_)
+        valid = torch.arange(kc.shape[1], device=dev)[None, None, :] < cl.reshape(-1, 1, 1)
+        outs = []
+        for h in range(Hk):
+            s_ = torch.bmm(qg[:, h], kc[:, :, h].to(torch.float32).transpose(1, 2))
+            s_ = s_ * (D_ ** -0.5) * ks[:, :, h, 0][:, None, :]
+            p_ = torch.softmax(torch.where(valid, s_, torch.full_like(s_, -1e30)), dim=-1)
+            outs.append(torch.bmm(p_ * vs[:, :, h, 0][:, None, :],
+                                  vc[:, :, h].to(torch.float32)))
+        return torch.stack(outs, 1).reshape(B_, 1, H_, D_)
+
     for T in (256, 1024):
-        qd = torch.randn(BATCH, 4, 9, 128, generator=gd, device=dev)
-        kd = torch.randn(BATCH, T, 4, 128, generator=gd, device=dev)
-        sc_full = torch.einsum("bhgd,bthd->bhgt", qd, kd)
-        sc_half = torch.einsum("bhgd,bthd->bhgt", qd[:, :2], kd[:, :, :2])
-        pd = torch.softmax(sc_full, dim=-1)
-        out_full = torch.einsum("bhgt,bthd->bhgd", pd, kd)
-        out_half = torch.einsum("bhgt,bthd->bhgd", pd[:, :2], kd[:, :, :2])
-        print(f"[8] dense decode attention einsums, T={T}, 2 of 4 kv heads against all 4: "
-              f"scores differ at {int((sc_full[:, :2] != sc_half).sum())} of "
-              f"{sc_half.numel()}, outputs at {int((out_full[:, :2] != out_half).sum())} of "
-              f"{out_half.numel()}")
+        qd = torch.randn(BATCH, 1, 36, 128, generator=gd, device=dev)
+        kq = torch.randint(-127, 128, (BATCH, T, 4, 128), generator=gd, device=dev,
+                           dtype=torch.int8)
+        vq = torch.randint(-127, 128, (BATCH, T, 4, 128), generator=gd, device=dev,
+                           dtype=torch.int8)
+        ksd = torch.rand(BATCH, T, 4, 1, generator=gd, device=dev) * 0.01
+        vsd = torch.rand(BATCH, T, 4, 1, generator=gd, device=dev) * 0.01
+        cld = torch.tensor([T, T - 3, T // 2, 1], device=dev)
+        line = []
+        for name, form in (("served (einsum over (slot, kv head))", served_form),
+                           ("one bmm pair per kv head", per_kv_head_form)):
+            full = form(qd, kq, vq, cld, ksd, vsd)
+            half = form(qd[:, :, :18], kq[:, :, :2], vq[:, :, :2], cld, ksd[:, :, :2],
+                        vsd[:, :, :2])
+            n_diff = int((full[:, :, :18] != half).sum())
+            one = form(qd[:, :, :1], kq[:, :, :1], vq[:, :, :1], cld, ksd[:, :, :1],
+                       vsd[:, :, :1])
+            n_one = int((full[:, :, :1] != one).sum())
+            drift = float((full[:, :, :18] - half).abs().max())
+            best = float("inf")
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    form(qd, kq, vq, cld, ksd, vsd)
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) * 1e3 / 50)
+            line.append(f"{name}: {n_diff} of {half.numel()} outputs differ (max|d| "
+                        f"{drift:.3e}; {n_one} of {one.numel()} for a group of 1), "
+                        f"{best:.4f} ms a call")
+        print(f"[8] dense decode attention, int8 KV, T={T}, a rank's 2 of 4 kv heads against "
+              f"one device's: " + "; ".join(line))
     xd = torch.randn(BATCH, cfg8.d_model, generator=gd, device=dev).to(torch.bfloat16)
     wd = (torch.randn(cfg8.vocab_padded, cfg8.d_model, generator=gd, device=dev) * 0.02)
     head_full = xd @ wd.T.to(torch.bfloat16)
@@ -5245,7 +5512,6 @@ def main() -> int:
     # device's 4 (d_model 4608, 64 seeded draws), in the two-pass form training
     # and the CPU keep (torch's mean) and as norm_apply serves them on the card.
     # Counted, not held ([8]'s data-2 run holds the served logits).
-    from repro_torch.models import layers as layers8
     pn = {"scale": torch.ones(cfg8.d_model, device=dev),
           "bias": torch.zeros(cfg8.d_model, device=dev)}
     cfg_rms = dataclasses.replace(cfg8, norm="rmsnorm")
@@ -5260,8 +5526,8 @@ def main() -> int:
     print(f"[8] norms of 2 rows against the same rows among 4 (d_model {cfg8.d_model}, 64 "
           f"draws, f32): torch's mean differs at {n_mu} of 128 rows; served layernorm "
           f"outputs at {n_ln}, rmsnorm outputs at {n_rms} of {128 * cfg8.d_model}")
-    del qd, kd, sc_full, sc_half, pd, out_full, out_half, xd, wd, head_full, head_half, xn
-    del q8, q8w4, q8m, q8s, q8z, trees8, job8
+    del qd, kq, vq, ksd, vsd, full, half, xd, wd, head_full, head_half, xn
+    del q8, q8w4, q8m, q8m4, q8s, q8z, trees8, job8
     torch.cuda.empty_cache()
     print(f"[8] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s8:.1f}s "
           f"for sharded serving)")
@@ -5486,6 +5752,21 @@ def main() -> int:
          "src/repro/kernels/qgemm.py:37", ("qgemm_w8a8/experts_i32_decode", 40, 8, 256, 1536),
          "E=40 C=8 K=256 N=1536 (granite down at expert_tp tp=2), expert-batched int32-out "
          "mode, split-K decode body", "phase 8"),
+        ("qgemm_w4a8/experts_gacc_decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:161",
+         ("qgemm_w4a8/experts_gacc_decode", 40, 8, 256, 1536),
+         "E=40 C=8 K=256 N=1536 g128 (granite W4A8 down at expert_tp tp=2), expert-batched "
+         "group-acc mode, split-K decode body", "phase 8"),
+    ]
+    kernel_rows += [
+        ("qgemm_w4a8/experts_decode", "src/repro_torch/csrc/qgemm_decode.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/experts_decode", 40, 8, 1536, 512),
+         "E=40 C=8 K=1536 N=512 g128, expert-batched split-K decode body (granite W4A8 up)",
+         "phase 4"),
+        ("qgemm_w4a8/experts_wgmma", "src/repro_torch/csrc/qgemm_wgmma.cu",
+         "src/repro/kernels/qgemm.py:161", ("qgemm_w4a8/experts_wgmma", 40, 512, 1536, 512),
+         "E=40 C=512 K=1536 N=512 g128, expert-batched wgmma body (granite W4A8 4 x 512 "
+         "admission)", "phase 4"),
     ]
     kernels = []
     for name, source, replaces, key, shape, counted in kernel_rows:

@@ -22,8 +22,10 @@ the softcap and at D = 128 (bitwise); K2 at starcoder2-7b's linears (M = 4,
 128, 2048), bitwise; K2 at mamba2-130m's in_proj (K = 768, N = 3352, M = 4 and
 2048) served as each checkout serves it (``models.quantize.prepare_served`` where
 the checkout has it, else the contiguous weight), bitwise; K7 at the up
-projection with every other k-tile empty, bitwise. A case the base checkout
-cannot run prints as missing.
+projection with every other k-tile empty, bitwise; K8 at the up projection and
+the tp=2 down shard (M = 4, 128, 2048) and its group-acc mode at the shard (M = 4,
+128), bitwise. A case the
+base checkout cannot run prints as missing.
 
     python3 kernel_ab.py --base DIR --only K2,K7
 
@@ -46,7 +48,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 L2_BYTES = 50 * 2 ** 20
-PTXAS_KERNELS = ("paged_mma_kernel", "qgemm_decode_kernel", "qgemm_wgmma_kernel")
+PTXAS_KERNELS = ("paged_mma_kernel", "qgemm_decode_kernel", "qgemm_wgmma_kernel",
+                 "qgemm_w4a8_wgmma_kernel")
 
 
 def cases(torch, dev, ops):
@@ -151,6 +154,24 @@ def cases(torch, dev, ops):
         out[f"K7 M={M} K={K} N={N} alt"] = (
             lambda i=0, qx=qx, qws=qws, a=a, sw=sw, mask=mask, occ=occ:
             ops.qgemm_w8a8_sparse(qx, qws[i % 2], a, sw, mask, occ), True)
+    # K8 (W4A8 g128) at chip_smoke's shapes, the up projection and the down shard of
+    # tp=2, and its group-acc mode at the shard
+    for M in (4, 128, 2048):
+        for K, N in ((4608, 18432), (9216, 4608)):
+            g.manual_seed(M + K)
+            qx = torch.randint(-127, 128, (M, K), generator=g, device=dev, dtype=torch.int8)
+            n_copies = max(1, min(32, math.ceil(3 * L2_BYTES / (K * N // 2))))
+            qws = [torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                                 dtype=torch.int8) for _ in range(n_copies)]
+            a = torch.rand(M, 1, generator=g, device=dev) + 0.01
+            sw = torch.rand(K // 128, N, generator=g, device=dev) * 0.01 + 1e-4
+            out[f"K8 M={M} K={K} N={N}"] = (lambda i=0, qx=qx, qws=qws, a=a, sw=sw:
+                                             ops.qgemm_w4a8(qx, qws[i % len(qws)], a, sw),
+                                             True)
+            if M <= 128 and K == 9216:          # its (M, K/128, N) int32 output is kept
+                out[f"K8 group-acc M={M} K={K} N={N}"] = (
+                    lambda i=0, qx=qx, qws=qws: ops.qgemm_w4a8_group_acc(
+                        qx, qws[i % len(qws)]), True)
     return out
 
 

@@ -28,8 +28,8 @@ Execution of a prepared linear (``int_exec``):
 Stacked-expert linears (an MoE layer's ``(E, d_in, d_out)`` weights against its
 ``(E, C, d_in)`` dispatch buffer) take every mode and backend. On the kernel
 backend a prepared W8A8 expert stack runs :func:`_int8_experts_kernel`, the
-expert-batched K1 and K2 (one launch each for all E experts); a W4 stack runs the
-plain group product on every device, as the reference's kernel path does.
+expert-batched K1 and K2, and a W4A8 stack :func:`_int4_experts_kernel`, the
+expert-batched K1 and K8 (one launch each for all E experts).
 """
 from __future__ import annotations
 
@@ -324,6 +324,21 @@ def _int8_experts_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> tor
     return ops.qgemm_w8a8_experts(qx, params["qw"], a, params["sw"]).to(x.dtype)
 
 
+def _int4_experts_kernel(params: dict, x: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
+    """Kernel pipeline for a prepared W4A8 expert stack: x (E, C, d_in) through the
+    expert-batched ``act_quantize`` into the expert-batched W4A8 GEMM (K8 with the
+    expert on the grid), one launch each. The reference multiplies its stacked W4
+    experts in its plain group product (``_int4_matmul_ref``), outside any Pallas
+    kernel; K8 folds each group's int32 sum through ``sw`` in its own f32 order."""
+    from repro_torch.kernels import ops
+
+    alpha = params.get("qalpha")
+    qx, a = ops.act_quantize_experts(x.contiguous(), params["bcol"],
+                                     cfg.alpha if alpha is None else alpha, bits=cfg.a_bits)
+    return ops.qgemm_w4a8_experts(qx, params["qw4"], a, params["sw"],
+                                  group=cfg.w_group).to(x.dtype)
+
+
 def _stacked(qx: torch.Tensor, w: torch.Tensor) -> bool:
     """An expert stack: (E, C, d_in) codes against (E, d_in, d_out) weights."""
     return w.ndim == 3 and qx.ndim == 3
@@ -400,8 +415,9 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
         wq = params.get("qw", params.get("qw4"))
         if exec_mode == "kernel" and wq.ndim == 2 and x.ndim >= 2:
             return _int8_kernel(params, x, cfg)
-        if exec_mode == "kernel" and "qw" in params and _stacked(x, wq):
-            return _int8_experts_kernel(params, x, cfg)
+        if exec_mode == "kernel" and _stacked(x, wq):
+            return (_int8_experts_kernel if "qw" in params else _int4_experts_kernel)(
+                params, x, cfg)
         qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=params.get("qalpha"))
         if "qw" in params:
             if exec_mode == "dequant":
@@ -432,24 +448,21 @@ def apply(params: dict, x: torch.Tensor, cfg: QuantConfig = FP, *, name: str = "
 # Tensor-parallel application (sharded serving)
 # ======================================================================================
 
-def _unsupported(msg: str):
-    from repro_torch.sharding.planner import ShardingUnsupportedError
-    return ShardingUnsupportedError(msg)
-
-
 #: bytes of gathered per-group products a row-parallel W4 linear holds at once: it
 #: runs its rows in chunks of at most this many bytes of (rows, G, N) f32
 W4_GATHER_BYTES = 256 << 20
 
 
-def _check_sharded(params: dict, cfg: QuantConfig) -> None:
-    if "qw" not in params and "qw4" not in params and cfg.mode == "fake" and \
-            not cfg.w_prequantized and (
-            cfg.w_quant != "per_channel"
-            or cfg.act_quant not in ("crossquant", "per_token", "none")):
-        raise _unsupported(f"fake quantization {cfg.tag()} on a split linear: only "
-                           "per-channel weights with crossquant / per-token / no "
-                           "activation quantization are sharded")
+def _fake_local(cfg: QuantConfig) -> bool:
+    """Whether fake quantization under ``cfg`` computes a split linear from its shard:
+    per-channel (or offline-quantized) weights with crossquant, per-token or no
+    activation quantization, whose few statistics over split dims (the weight's
+    per-input-channel maxima, the row absmax) take a MAX across the ranks. Every
+    other fake configuration (group and CrossQuant-W weights, AWQ, SmoothQuant, the
+    remove-kernel ablations) gathers its split operands and runs the one-device
+    path on the whole, as the reference's GSPMD gathers a kernel's operands."""
+    return cfg.act_quant in ("crossquant", "per_token", "none") and (
+        cfg.w_prequantized or cfg.w_quant == "per_channel")
 
 
 def apply_column_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *,
@@ -462,11 +475,18 @@ def apply_column_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard
     fake quantization's per-input-channel weight scale reduces over all the output
     columns: their maxima take a MAX across the ranks. A stacked expert linear
     (expert-internal TP: x (E, C, d) whole, each expert's d_ff_expert columns this
-    rank's) computes the same way."""
-    _check_sharded(params, cfg)
-    if "qw" in params or "qw4" in params or cfg.mode != "fake" or cfg.w_prequantized:
+    rank's) computes the same way. Fake quantization outside :func:`_fake_local`
+    gathers the weight's columns, runs the one-device path and keeps this rank's
+    output columns."""
+    if "qw" in params or "qw4" in params or cfg.mode != "fake":
         return apply(params, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
     w = params["w"]
+    if not _fake_local(cfg):
+        n, r = w.shape[-1], shard.tp_index
+        y = apply({**params, "w": shard.coll.gather_operand(w, -1)}, x, cfg)
+        return y[..., r * n:(r + 1) * n]
+    if cfg.w_prequantized:
+        return apply(params, x, cfg)
     t = shard.coll.max_f32(w.abs().amax(dim=-1, keepdim=True)).to(w.dtype)
     xq = _fake_act(x, cfg, params.get("cmax"))
     return xq @ Q.fake_per_channel(w, cfg.w_bits, axis=-1, t=t).to(xq.dtype)
@@ -492,16 +512,19 @@ def apply_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *
 
     A stacked expert linear (expert-internal TP: x (E, C, d_ff_expert/tp), each
     expert's matching input rows) runs the expert-batched K1 in its given-max mode
-    and K2 in its int32-out mode, then the same SUM and dequant. A W4 linear
-    (``qw4``, its groups split with its rows) runs :func:`_w4_row_parallel`."""
-    _check_sharded(params, cfg)
+    and K2 in its int32-out mode (K8's expert group-acc mode for a W4 stack), then
+    the same SUM and dequant (:func:`_experts_row_parallel`). A W4 linear (``qw4``,
+    its groups split with its rows) runs :func:`_w4_row_parallel`. Fake quantization
+    outside :func:`_fake_local` gathers x's columns and the weight's rows and runs
+    the one-device path on the whole."""
     coll = shard.coll
     lead, K = x.shape[:-1], x.shape[-1]
     exec_mode = "kernel" if use_kernels else (int_exec or "ref")
+    wq = params.get("qw", params.get("qw4"))
+    if wq is not None and _stacked(x, wq):
+        return _experts_row_parallel(params, x, cfg, shard, exec_mode)
     if "qw4" in params:
         return _w4_row_parallel(params, x, cfg, shard, exec_mode)
-    if "qw" in params and _stacked(x, params["qw"]):
-        return _experts_row_parallel(params, x, cfg, shard, exec_mode)
     if "qw" in params:
         gmax = coll.max_f32(x.abs().amax(dim=-1))
         alpha = params.get("qalpha")
@@ -528,6 +551,9 @@ def apply_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *
     w = params["w"]
     if cfg.mode == "fp":
         return coll.sum_f32(x @ w.to(x.dtype))
+    if cfg.mode == "fake" and not _fake_local(cfg):
+        whole = {**params, "w": coll.gather_operand(w, -2)}
+        return apply(whole, coll.gather_operand(x, -1), cfg)
     cm = params.get("cmax")
     if cm is not None and cm.shape[-1] != K:          # calibrated over the whole d_in
         cm = cm[..., shard.tp_index * K:(shard.tp_index + 1) * K]
@@ -548,24 +574,30 @@ def apply_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, *
 
 def _experts_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard,
                           exec_mode: str) -> torch.Tensor:
-    """A prepared W8A8 expert stack's row-parallel product (expert-internal TP): x
-    (E, C, K/tp); each (e, c) row's absmax is the MAX of the ranks' maxima, the
-    activation quantizes in the expert-batched K1's given-max mode, the
+    """A prepared expert stack's row-parallel product (expert-internal TP): x (E, C,
+    K/tp); each (e, c) row's absmax is the MAX of the ranks' maxima and the
+    activation quantizes in the expert-batched K1's given-max mode. W8A8: the
     expert-batched K2 emits its (E, C, N) int32 accumulators, they SUM across the
     ranks, and the dequant runs last in K2's epilogue order, (f32(acc) · a) · sw:
-    bitwise the single-device stack. dequant-fp sums f32 partial products."""
+    bitwise the single-device stack. W4A8: K8's expert group-acc mode and the group
+    gather of :func:`_w4_row_parallel`. dequant-fp sums f32 partial products."""
     coll = shard.coll
     gmax = coll.max_f32(x.abs().amax(dim=-1))                         # (E, C)
     alpha = params.get("qalpha")
-    sw = params["sw"][:, None, :]
     if exec_mode == "kernel":
         from repro_torch.kernels import ops
         qx, a = ops.act_quantize_experts(x.contiguous(), params["bcol"],
                                          cfg.alpha if alpha is None else alpha,
                                          bits=cfg.a_bits, row_max=gmax.contiguous())
+    else:
+        qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=alpha,
+                                  row_max=gmax[..., None])
+    if "qw4" in params:
+        return _w4_gathered(params, qx, a, cfg, shard, exec_mode).to(x.dtype)
+    sw = params["sw"][:, None, :]
+    if exec_mode == "kernel":
         acc = ops.qgemm_w8a8_experts_acc(qx, params["qw"])
         return ((coll.sum_i32(acc).to(torch.float32) * a) * sw).to(x.dtype)
-    qx, a = quantize_act_int8(x, params["bcol"], cfg, alpha=alpha, row_max=gmax[..., None])
     if exec_mode == "dequant":
         part = (qx.to(torch.float32) * a) @ (params["qw"].to(torch.float32) * sw)
         return coll.sum_f32(part).to(x.dtype)
@@ -578,28 +610,18 @@ def _w4_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard,
                      exec_mode: str) -> torch.Tensor:
     """A row-parallel W4 linear: x holds this rank's K/tp input columns, ``qw4``
     the matching packed rows, whole groups of ``cfg.w_group`` (the model axis
-    divides the group count), and ``sw`` this rank's groups' scales (the planner
-    splits them with the rows; a replicated ``sw`` is sliced here).
+    divides the group count; a linear whose groups do not split is kept whole and
+    its input gathered, ``planner.linear_roles``' "gather" role), and ``sw`` this
+    rank's groups' scales (the planner splits them with the rows; a replicated
+    ``sw`` is sliced here).
 
     The row absmax is the MAX of the ranks' maxima; the activation quantizes in
-    K1's given-max mode; K8's group-acc mode emits the (M, G/tp, N) int32
-    per-group partials; each rank scales its own groups, f32(acc) · sw
-    (elementwise: the single device's values), the products are gathered along the
-    groups in rank order, and the group sum and row scale run last in the order of
-    :func:`_int4_matmul_ref`, (Σ_g f32(acc) · sw) · a: bitwise the single-device
-    plain product. The rows run in chunks whose gathered (rows, G, N) f32 block
-    holds at most :data:`W4_GATHER_BYTES`. dequant-fp sums f32 partial products."""
-    from repro_torch.kernels import ops, ref
+    K1's given-max mode; then :func:`_w4_gathered`."""
+    from repro_torch.kernels import ops
 
-    coll = shard.coll
     lead, K = x.shape[:-1], x.shape[-1]
-    g = cfg.w_group
-    qw4, sw = params["qw4"], params["sw"]
-    n_local = K // g
-    if sw.shape[-2] != n_local:                       # replicated: this rank's groups
-        sw = sw[..., shard.tp_index * n_local:(shard.tp_index + 1) * n_local, :]
     x2 = x.reshape(-1, K)
-    gmax = coll.max_f32(x2.abs().amax(dim=-1))
+    gmax = shard.coll.max_f32(x2.abs().amax(dim=-1))
     alpha = params.get("qalpha")
     if exec_mode == "kernel":
         qx, a = ops.act_quantize(x2.contiguous(), params["bcol"],
@@ -608,21 +630,50 @@ def _w4_row_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard,
     else:
         qx, a = quantize_act_int8(x2, params["bcol"], cfg, alpha=alpha,
                                   row_max=gmax[:, None])
-    N = qw4.shape[-1]
+    y = _w4_gathered(params, qx, a, cfg, shard, exec_mode)
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def _w4_gathered(params: dict, qx: torch.Tensor, a: torch.Tensor, cfg: QuantConfig, shard,
+                 exec_mode: str) -> torch.Tensor:
+    """The row-parallel W4 product from this rank's codes: qx (M, K/tp), or an expert
+    stack's (E, C, K/tp), a (..., 1). K8's group-acc mode (expert-batched for a
+    stack) emits the int32 per-group partials of this rank's G/tp groups; each rank
+    scales its own groups, f32(acc) · sw (elementwise: the single device's values),
+    the products are gathered along the groups in rank order, and the group sum and
+    row scale run last in the order of :func:`_int4_matmul_ref`, (Σ_g f32(acc) · sw)
+    · a: bitwise the single-device plain product. The rows run in chunks whose
+    gathered (..., rows, G, N) f32 block holds at most :data:`W4_GATHER_BYTES`.
+    dequant-fp sums f32 partial products. → (..., M, N) f32."""
+    from repro_torch.kernels import ops, ref
+
+    coll = shard.coll
+    g = cfg.w_group
+    qw4, sw = params["qw4"], params["sw"]
+    n_local = qx.shape[-1] // g
+    if sw.shape[-2] != n_local:                       # replicated: this rank's groups
+        sw = sw[..., shard.tp_index * n_local:(shard.tp_index + 1) * n_local, :]
     if exec_mode == "dequant":
         part = (qx.to(torch.float32) * a) @ dequant_int4_weight(qw4, sw, g)
-        return coll.sum_f32(part).reshape(*lead, N).to(x.dtype)
-    G = n_local * coll.size("model")
-    rows = max(1, W4_GATHER_BYTES // (G * N * 4))
+        return coll.sum_f32(part)
+    stacked = qx.ndim == 3
+    if stacked:
+        sw = sw[:, None]                              # (E, 1, G/tp, N)
+    N, M = qw4.shape[-1], qx.shape[-2]
+    lead = qx.shape[0] if stacked else 1
+    rows = max(1, W4_GATHER_BYTES // (lead * n_local * coll.size("model") * N * 4))
     outs = []
-    for m0 in range(0, qx.shape[0], rows):
-        q = qx[m0:m0 + rows]
-        acc = (ops.qgemm_w4a8_group_acc(q, qw4, group=g) if exec_mode == "kernel"
-               else ref.qgemm_w4a8_group_acc_ref(q, qw4, g))
+    for m0 in range(0, M, rows):
+        q = qx[..., m0:m0 + rows, :]
+        if stacked:
+            acc = (ops.qgemm_w4a8_experts_group_acc(q.contiguous(), qw4, group=g)
+                   if exec_mode == "kernel" else ref.qgemm_w4a8_experts_group_acc_ref(q, qw4, g))
+        else:
+            acc = (ops.qgemm_w4a8_group_acc(q, qw4, group=g) if exec_mode == "kernel"
+                   else ref.qgemm_w4a8_group_acc_ref(q, qw4, g))
         prod = coll.gather_groups(acc.to(torch.float32) * sw)
-        outs.append(prod.sum(dim=-2) * a[m0:m0 + rows])
-    y = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return y.reshape(*lead, N).to(x.dtype)
+        outs.append(prod.sum(dim=-2) * a[..., m0:m0 + rows, :])
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 
 def apply_expert_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard, axis: str,
@@ -632,7 +683,10 @@ def apply_expert_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard
     experts): every prepared path and fp run as on one device. Dynamic column
     statistics reduce over every expert's rows on one device (the fake path's
     CrossQuant column max, the on-the-fly int8 preparation's ``cmax``), so here
-    they take a MAX across the ranks of ``axis``."""
+    they take a MAX across the ranks of ``axis``. Fake quantization whose
+    statistics span the experts otherwise (SmoothQuant's and AWQ's column maxima,
+    the remove-kernel quantile) gathers every rank's x and weights along the
+    experts, runs the one-device path and keeps this rank's experts."""
     if "qw" in params or "qw4" in params or cfg.mode == "fp":
         return apply(params, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
     cm = params.get("cmax")
@@ -640,11 +694,14 @@ def apply_expert_parallel(params: dict, x: torch.Tensor, cfg: QuantConfig, shard
         cmax = cm if cm is not None else shard.coll.max_f32(_col_absmax(x), axis).to(x.dtype)
         prepared = prepare_int8({"w": params["w"]}, cfg, cmax=cmax, jitted=True)
         return apply(prepared, x, cfg, use_kernels=use_kernels, int_exec=int_exec)
-    if cfg.mode != "fake" or cfg.w_quant not in ("per_channel", "group") or \
-            cfg.act_quant not in ("crossquant", "per_token", "none"):
-        raise _unsupported(f"quantization {cfg.tag()} on expert-parallel experts: only "
-                           "per-channel or group weights with crossquant / per-token / "
-                           "no activation quantization are served expert-parallel")
+    if cfg.mode != "fake":
+        raise ValueError(cfg.mode)
+    if cfg.act_quant not in ("crossquant", "per_token", "none") or not (
+            cfg.w_prequantized or cfg.w_quant in ("per_channel", "group")):
+        coll, e = shard.coll, x.shape[0]
+        e0 = coll.mesh.axis_index(axis) * e
+        whole = {**params, "w": coll.gather_operand(params["w"], 0, axis)}
+        return apply(whole, coll.gather_operand(x, 0, axis), cfg)[e0:e0 + e]
     dyn = None
     if cfg.act_quant == "crossquant" and not (cfg.static_c and cm is not None):
         dyn = shard.coll.max_f32(_col_absmax(x), axis).to(x.dtype)

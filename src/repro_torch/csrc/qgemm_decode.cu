@@ -79,6 +79,9 @@
 //   and the split-K reduction stay within one expert. The plan counts all E
 //   experts' output tiles when it picks the splits (granite up/gate: 4 column
 //   blocks x 40 experts = 160, so 4 splits; down: 12 x 40 = 480, so 2).
+//   Expert-batched K8 (a W4A8 tree's stacked experts) is the same launch with the
+//   W4 offsets: expert e's (K/2, N) packed rows, (K/group, N) scales, and in
+//   group-acc mode its (M, K/group, N) partials.
 // - Split-K across a thread-block cluster: the grid is (ceil(N/128), S) with
 //   cluster (1, S, 1), S <= 8 splits of whole 64-row k-tiles (K2: split s takes
 //   k-tiles [s*KT/S, (s+1)*KT/S)) or of whole groups (K8: groups [s*G/S,
@@ -163,15 +166,17 @@ qgemm_decode_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw
   // undequantized, for a row-parallel linear's cross-shard SUM (expert-batched too);
   // K8 (group-acc) stores each group's int32 partial as out[m, g, n], (M, K/group, N),
   // for a row-parallel W4 linear's gather of the group partials
+  // expert-batched K8 (grid z = E): expert z's (M, K) rows, (K/2, N) packed weight,
+  // (K/group, N) scales and (M, N) output, or (M, K/group, N) group partials
   const bool i32 = a == nullptr;
-  const size_t ez = blockIdx.z;
+  const size_t ez = blockIdx.z, ng = W4 ? K / group : 1;
   qx += ez * M * K;
-  qw += ez * K * ldw;
+  qw += ez * (W4 ? K / 2 : K) * ldw;
   if (!i32) {
     a += ez * M;
-    sw += ez * N;
+    sw += ez * ng * N;
   }
-  out += ez * M * N;
+  out += ez * M * (W4 && i32 ? ng : 1) * N;
   int* const out_i32 = i32 ? reinterpret_cast<int*>(out) : nullptr;
   int kbeg = 0, kend = K, steps;
   int* list = reinterpret_cast<int*>(smem + smem_bytes<MT, W4>()) + kListHead;   // K7
@@ -506,14 +511,18 @@ REPRO_API int repro_qgemm_w8a8_sparse_decode(const int8_t* qx, const int8_t* qw,
 // qw4 (K/2, N) packed int4, sw (K/group, N) f32; group a positive multiple of 64
 // dividing K; splits 1..8 and at most K/group; M in 1..128; N a multiple of 16; qx,
 // qw4 and sw 16-byte aligned. a == nullptr (sw then unread): group-acc mode, out
-// is (M, K/group, N) int32, each group's partial sum of products undequantized. The
-// wrapper picks splits (kernels/qgemm.py::w4a8_decode_splits) and checks the rest.
+// is (M, K/group, N) int32, each group's partial sum of products undequantized.
+// experts = E > 1: a stacked-expert linear, qx (E, M, K), qw4 (E, K/2, N), a (E, M),
+// sw (E, K/group, N), out (E, M, N) or, group-acc, (E, M, K/group, N); expert e on
+// grid z. The wrapper picks splits (kernels/qgemm.py::w4a8_decode_splits) and checks
+// the rest.
 REPRO_API int repro_qgemm_w4a8_decode(const int8_t* qx, const int8_t* qw4, const float* a,
                                       const float* sw, float* out, int M, int N, int K,
-                                      int group, int splits, void* stream) {
+                                      int group, int experts, int splits, void* stream) {
   if (M < 1 || M > 128 || N < 1 || K < 1 || N % 16 != 0 || group <= 0 || group % BK != 0 ||
-      K % group != 0 || splits < 1 || splits > kMaxSplits || splits > K / group)
+      K % group != 0 || splits < 1 || splits > kMaxSplits || splits > K / group ||
+      experts < 1 || experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_m<true, false>(qx, qw4, a, sw, nullptr, out, M, N, K, N, group, splits,
-                               static_cast<cudaStream_t>(stream));
+                               static_cast<cudaStream_t>(stream), experts);
 }

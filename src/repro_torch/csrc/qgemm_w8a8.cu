@@ -92,15 +92,17 @@ qgemm_kernel(const int8_t* __restrict__ qx, const int8_t* __restrict__ qw,
   // and (M, N) output; z = 0 for a 2-D product
   // int32-out mode (a == nullptr; sw unread): W8 writes the accumulator, W4 each
   // group's partial as out[m, g, n], (M, K/group, N) int32 (group-acc)
+  // expert-batched K8: the (K/2, N) packed rows, (K/group, N) scales and, group-acc,
+  // (M, K/group, N) partials of expert z
   const bool i32 = a == nullptr;
-  const size_t ez = blockIdx.z;
+  const size_t ez = blockIdx.z, ng = MODE == kW4 ? K / group : 1;
   qx += ez * M * K;
-  qw += ez * K * N;
+  qw += ez * (MODE == kW4 ? K / 2 : K) * N;
   if (!i32) {
     a += ez * M;
-    sw += ez * N;
+    sw += ez * ng * N;
   }
-  out += ez * M * N;
+  out += ez * M * (MODE == kW4 && i32 ? ng : 1) * N;
 
   int acc[2][4][4];
   float accf[2][4][4];        // K8: the group-dequantized sum
@@ -294,11 +296,13 @@ REPRO_API int repro_qgemm_w8a8_sparse(const int8_t* qx, const int8_t* qw, const 
 
 // qw4: (K/2, N) packed int4; sw: (K/group, N) f32; group a positive multiple of 64
 // that divides K. a == nullptr (sw then unread): group-acc mode, out (M, K/group, N)
-// int32, each group's partial sum undequantized.
+// int32, each group's partial sum undequantized. experts = E > 1: qx (E, M, K), qw4
+// (E, K/2, N), a (E, M), sw (E, K/group, N), out (E, M, N) or (E, M, K/group, N).
 REPRO_API int repro_qgemm_w4a8(const int8_t* qx, const int8_t* qw4, const float* a,
                                const float* sw, float* out, int M, int N, int K, int group,
-                               int vec_a, int vec_b, void* stream) {
-  if (group <= 0 || group % BK != 0 || K % group != 0)
+                               int experts, int vec_a, int vec_b, void* stream) {
+  if (group <= 0 || group % BK != 0 || K % group != 0 || experts < 1 || experts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<kW4>(qx, qw4, a, sw, nullptr, out, M, N, K, vec_a, vec_b, group, stream);
+  return launch<kW4>(qx, qw4, a, sw, nullptr, out, M, N, K, vec_a, vec_b, group, stream,
+                     experts);
 }

@@ -441,6 +441,10 @@ qgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 // 128 that divides K. f32-close to the plain version (which sums the groups in
 // PyTorch's order), not bitwise.
 //
+// Expert-batched (a W4A8 tree's stacked experts) as K2's: one launch, the expert
+// folded into grid y with the m-tiles, the 2-D tensor maps over the E experts' qx
+// rows and packed weight rows, a, sw and out offset to the expert's.
+//
 // It keeps K2's wgmma design (out^T = w^T * qx^T, the weight the register-sourced
 // A operand, qx the B operand through a 128B-swizzle descriptor, a producer warp
 // feeding a TMA ring on mbarriers, cluster split-K) with three changes:
@@ -477,7 +481,10 @@ __host__ __device__ constexpr int w4_smem_bytes() {  // slack + ring (and partia
   return 1024 + kW4Stages * w4_stage_bytes<BM>() + 2 * kW4Stages * 8;
 }
 
-template <int BM>
+// EXPERTS: an expert stack (the offsets below); a 2-D product compiles without them,
+// as the body was before the expert mode (its pointers held in registers cost the
+// 2-D group-acc mode half its speed on the H100)
+template <int BM, bool EXPERTS>
 __global__ void __launch_bounds__(kW4Threads, BM <= 64 ? 2 : 1)
 qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                         const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ a,
@@ -492,7 +499,20 @@ qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tg = lane & 3;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  // grid y: the m-tiles of expert 0, then of expert 1, ... (one expert for a 2-D
+  // product), as K2's; the tensor maps hold the E experts' qx rows and packed weight
+  // rows one after the other
+  const int mtiles = (M + BM - 1) / BM, ex = EXPERTS ? blockIdx.y / mtiles : 0;
+  const int n0 = blockIdx.x * BN, m0 = (EXPERTS ? blockIdx.y % mtiles : blockIdx.y) * BM;
+  const int xm0 = ex * M + m0, wp0 = ex * (K / 2);
+  if constexpr (EXPERTS) {
+    const size_t ng = K / group;
+    if (a != nullptr) {
+      a += (size_t)ex * M;
+      sw += (size_t)ex * ng * N;
+    }
+    out += (size_t)ex * M * (a == nullptr ? ng : 1) * N;
+  }
   const int S = gridDim.z, split = blockIdx.z;      // cluster (1, 1, S): rank == split
   // splits take whole units of max(group, 128) k-rows: whole groups and whole stages
   const int unit = group > BK ? group : BK, spu = unit / BK;
@@ -532,8 +552,10 @@ qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         unsigned char* sW = smem + s * w4_stage_bytes<BM>();
         mbar_arrive_expect_tx(&full[s], w4_stage_bytes<BM>());
         const int k0 = (kt0 + t) * BK;
-        tma_load_2d(sW, &tm_w, &full[s], n0, k0 / 2);
-        tma_load_2d(sW + W4_BYTES, &tm_x, &full[s], k0, m0);
+        // expert-batched: a last box of a K that ends on a g64 group reads the next
+        // expert's first rows, which the consumers' k >= K break never multiplies
+        tma_load_2d(sW, &tm_w, &full[s], n0, wp0 + k0 / 2);
+        tma_load_2d(sW + W4_BYTES, &tm_x, &full[s], k0, xm0);
       }
     }
   } else {
@@ -736,18 +758,18 @@ int launch(const int8_t* qx, const int8_t* qw, const float* a, const float* sw, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM>
+template <int BM, bool EXPERTS>
 int launch_w4(const int8_t* qx, const int8_t* qw4, const float* a, const float* sw, float* out,
-              int M, int N, int K, int group, int splits, cudaStream_t s) {
+              int M, int N, int K, int group, int splits, cudaStream_t s, int experts) {
   CUtensorMap tm_x, tm_w;
-  if (!encode(&tm_x, qx, M, K, BM) || !encode(&tm_w, qw4, K / 2, N, BK / 2))
+  if (!encode(&tm_x, qx, experts * M, K, BM) || !encode(&tm_w, qw4, experts * (K / 2), N, BK / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = w4_smem_bytes<BM>();
-  cudaError_t err = cudaFuncSetAttribute(qgemm_w4a8_wgmma_kernel<BM>,
+  cudaError_t err = cudaFuncSetAttribute(qgemm_w4a8_wgmma_kernel<BM, EXPERTS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cfg.gridDim = dim3((N + BN - 1) / BN, experts * ((M + BM - 1) / BM), splits);
   cfg.blockDim = dim3(kW4Threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -758,7 +780,8 @@ int launch_w4(const int8_t* qx, const int8_t* qw4, const float* a, const float* 
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, qgemm_w4a8_wgmma_kernel<BM>, tm_x, tm_w, a, sw, out, M, N, K,
+  err = cudaLaunchKernelEx(&cfg, qgemm_w4a8_wgmma_kernel<BM, EXPERTS>, tm_x, tm_w, a, sw, out,
+                           M, N, K,
                            group);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -802,6 +825,27 @@ int launch_m(const int8_t* qx, const int8_t* qw, const float* a, const float* sw
   return launch_r<SKIP, false>(qx, qw, a, sw, occ, out, M, N, K, ldw, splits, s, experts);
 }
 
+template <bool EXPERTS>
+int launch_w4_m(const int8_t* qx, const int8_t* qw4, const float* a, const float* sw,
+                float* out, int M, int N, int K, int group, int splits, cudaStream_t s,
+                int experts) {
+  const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
+  switch (bm) {
+    case 16: case 32: case 48:
+      return launch_w4<48, EXPERTS>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts);
+    case 64:
+      return launch_w4<64, EXPERTS>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts);
+    case 80:
+      return launch_w4<80, EXPERTS>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts);
+    case 96:
+      return launch_w4<96, EXPERTS>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts);
+    case 112:
+      return launch_w4<112, EXPERTS>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts);
+    default:
+      return launch_w4<128, EXPERTS>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts);
+  }
+}
+
 // splits: 1..8 and at most ceil(K/128); M >= 1; K a multiple of 16; qw's rows ldw
 // bytes apart, ldw a multiple of 16 and >= N (N any width); qx and qw 16-byte
 // aligned. The token tile is M rounded up to 16 for M <= 128, else 128 rows.
@@ -842,24 +886,21 @@ REPRO_API int repro_qgemm_w8a8_sparse_wgmma(const int8_t* qx, const int8_t* qw,
 // qw4 (K/2, N) packed int4; sw (K/group, N) f32; group 64 or a positive multiple of
 // 128 that divides K; splits 1..8 and at most ceil(K / max(group, 128)); M >= 1; N a
 // multiple of 16; qx, qw4 and sw 16-byte aligned. a == nullptr (sw then unread):
-// group-acc mode, out is (M, K/group, N) int32, each group's sum undequantized. The
-// wrapper picks splits (kernels/qgemm.py::w4a8_wgmma_splits) and checks the rest.
+// group-acc mode, out is (M, K/group, N) int32, each group's sum undequantized.
+// experts = E > 1: a stacked-expert linear, qx (E, M, K), qw4 (E, K/2, N), a (E, M),
+// sw (E, K/group, N), out (E, M, N) or, group-acc, (E, M, K/group, N); the expert
+// folded into grid y with the m-tiles, E*M and E*K below 2^31. The wrapper picks
+// splits (kernels/qgemm.py::w4a8_wgmma_splits) and checks the rest.
 REPRO_API int repro_qgemm_w4a8_wgmma(const int8_t* qx, const int8_t* qw4, const float* a,
                                      const float* sw, float* out, int M, int N, int K,
-                                     int group, int splits, void* stream) {
+                                     int group, int experts, int splits, void* stream) {
   const int unit = group > BK ? group : BK;
   if (M < 1 || N < 1 || K < 1 || N % 16 != 0 || group <= 0 ||
       (group != 64 && group % BK != 0) || K % group != 0 || splits < 1 ||
-      splits > kMaxSplits || splits > (K + unit - 1) / unit)
+      splits > kMaxSplits || splits > (K + unit - 1) / unit || experts < 1 ||
+      (long long)experts * ((M + 47) / 48) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bm = M > 128 ? 128 : (M + 15) / 16 * 16;
-  switch (bm) {
-    case 16: case 32: case 48: return launch_w4<48>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
-    case 64: return launch_w4<64>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
-    case 80: return launch_w4<80>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
-    case 96: return launch_w4<96>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
-    case 112: return launch_w4<112>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
-    default: return launch_w4<128>(qx, qw4, a, sw, out, M, N, K, group, splits, s);
-  }
+  return experts > 1 ? launch_w4_m<true>(qx, qw4, a, sw, out, M, N, K, group, splits, s, experts)
+                     : launch_w4_m<false>(qx, qw4, a, sw, out, M, N, K, group, splits, s, 1);
 }

@@ -46,12 +46,12 @@ SIGNATURES = {
     "repro_qgemm_w8a8_sparse_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # qx, qw, a, sw, occ, out, M, N, K, ldw, splits, stream
     "repro_qgemm_w8a8_sparse_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qx, qw4, a, sw, out, M, N, K, group, vec_a, vec_b, stream
-    "repro_qgemm_w4a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # qx, qw4, a, sw, out, M, N, K, group, splits, stream
-    "repro_qgemm_w4a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # qx, qw4, a, sw, out, M, N, K, group, splits, stream
-    "repro_qgemm_w4a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qx, qw4, a, sw, out, M, N, K, group, experts, vec_a, vec_b, stream
+    "repro_qgemm_w4a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qx, qw4, a, sw, out, M, N, K, group, experts, splits, stream
+    "repro_qgemm_w4a8_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # qx, qw4, a, sw, out, M, N, K, group, experts, splits, stream
+    "repro_qgemm_w4a8_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, kv_len, dtype, B, H, Hkv, Sq, Sk, D, causal, window, softcap, scale, stream
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                               _P],

@@ -43,7 +43,10 @@ Their expert-batched forms (``act_quantize_experts(..., row_max=)``,
 ``qgemm_w8a8_experts_acc``) carry the row-parallel stacked down projection of
 expert-internal TP (``act_quantize/experts_given_*``, ``qgemm_w8a8/experts_i32_*``),
 and K8's group-acc mode (``qgemm_w4a8_group_acc``, ``qgemm_w4a8/gacc_*``) the
-row-parallel W4 linears.
+row-parallel W4 linears. K8's expert-batched modes (``qgemm_w4a8_experts``,
+``qgemm_w4a8_experts_group_acc``; ``qgemm_w4a8/experts_*``,
+``qgemm_w4a8/experts_gacc_*``) carry a W4A8 tree's stacked experts, whole on a rank
+or split by expert-internal TP.
 
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
@@ -98,6 +101,10 @@ BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/
                  "qgemm_w4a8/decode": 0, "qgemm_w4a8/wgmma": 0, "qgemm_w4a8/tile": 0,
                  "qgemm_w4a8/gacc_decode": 0, "qgemm_w4a8/gacc_wgmma": 0,
                  "qgemm_w4a8/gacc_tile": 0,
+                 "qgemm_w4a8/experts_decode": 0, "qgemm_w4a8/experts_wgmma": 0,
+                 "qgemm_w4a8/experts_tile": 0,
+                 "qgemm_w4a8/experts_gacc_decode": 0, "qgemm_w4a8/experts_gacc_wgmma": 0,
+                 "qgemm_w4a8/experts_gacc_tile": 0,
                  "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
                  "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
 
@@ -457,14 +464,48 @@ def qgemm_w4a8_group_acc(qx: torch.Tensor, qw4: torch.Tensor, *,
     return _w4a8(qx, qw4, None, None, group)
 
 
+def qgemm_w4a8_experts(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
+                       sw: torch.Tensor, *, group: int = 128) -> torch.Tensor:
+    """Expert-batched K8 for a W4A8 tree's stacked-expert linear: every expert's W4
+    product in one launch, the expert on the grid. qx (E, C, K) int8; qw4 (E, K/2,
+    N) packed int4; a (E, C, 1) f32; sw (E, K/group, N) f32 → (E, C, N) f32. The
+    body is :func:`qgemm_w4a8_plan`'s for an expert's C rows, its K splits counted
+    over all E experts' output tiles; counted per body under
+    ``qgemm_w4a8/experts_*``."""
+    _require(qx.ndim == 3 and qw4.ndim == 3, "qx and qw4 must be (E, C, K) and (E, K/2, N)")
+    E, C, K = qx.shape
+    N = qw4.shape[2]
+    _require(a.shape == (E, C, 1), f"a must be ({E}, {C}, 1), got {tuple(a.shape)}")
+    _require(sw.shape == (E, K // group, N), f"sw must be ({E}, {K // group}, {N}), "
+             f"got {tuple(sw.shape)}")
+    return _w4a8(qx, qw4, a, sw, group)
+
+
+def qgemm_w4a8_experts_group_acc(qx: torch.Tensor, qw4: torch.Tensor, *,
+                                 group: int = 128) -> torch.Tensor:
+    """Expert-batched K8's group-acc mode: qx (E, C, K) int8 · qw4 (E, K/2, N) → the
+    (E, C, K/group, N) int32 per-group partials (the stacked down projection of
+    expert-internal TP gathers the ranks' groups before the group dequant). Counted
+    per body under ``qgemm_w4a8/experts_gacc_*``."""
+    _require(qx.ndim == 3 and qw4.ndim == 3, "qx and qw4 must be (E, C, K) and (E, K/2, N)")
+    return _w4a8(qx, qw4, None, None, group)
+
+
 def _w4a8(qx, qw4, a, sw, group) -> torch.Tensor:
-    """K8 (``a``/``sw`` given) or its group-acc mode (both None)."""
-    M, K = qx.shape
-    N = qw4.shape[1]
-    _require(K % group == 0 and qw4.shape[0] * 2 == K,
-             f"qw4 {tuple(qw4.shape)} does not pack K={K} in groups of {group}")
+    """K8 (``a``/``sw`` given) or its group-acc mode (both None), on a 2-D product or
+    an expert stack (qx (E, C, K))."""
+    stacked = qx.ndim == 3
+    M, K = qx.shape[-2:]
+    N = qw4.shape[-1]
+    _require(K % group == 0 and qw4.shape[-2] * 2 == K and qw4.shape[:-2] == qx.shape[:-2],
+             f"qw4 {tuple(qw4.shape)} does not pack qx {tuple(qx.shape)}'s K in groups of "
+             f"{group}")
     scales = () if a is None else (a, sw)
     if not _on_cuda(qx, qw4, *scales):
+        if stacked:
+            if a is None:
+                return ref.qgemm_w4a8_experts_group_acc_ref(qx, qw4, group)
+            return ref.qgemm_w4a8_experts_ref(qx, qw4, a, sw, group)
         if a is None:
             return ref.qgemm_w4a8_group_acc_ref(qx, qw4, group)
         return ref.qgemm_w4a8_ref(qx, qw4, a.reshape(M, 1), sw, group)
@@ -477,14 +518,16 @@ def _w4a8(qx, qw4, a, sw, group) -> torch.Tensor:
         _contiguous(a=a, sw=sw)
     _contiguous(qx=qx, qw4=qw4)
     aligned = all(t.data_ptr() % 16 == 0 for t in (qx, qw4, *scales[1:]))
-    body, splits = qgemm_w4a8_plan(M, K, N, group, aligned=aligned)
+    E = qx.shape[0] if stacked else 1
+    body, splits = qgemm_w4a8_plan(M, K, N, group, aligned=aligned, experts=E)
     if body == "decode":
-        out = qgemm_w4a8_decode_cuda(qx, qw4, a, sw, group, splits)
+        out = qgemm_w4a8_decode_cuda(qx, qw4, a, sw, group, splits, experts=E)
     elif body == "wgmma":
-        out = qgemm_w4a8_wgmma_cuda(qx, qw4, a, sw, group, splits)
+        out = qgemm_w4a8_wgmma_cuda(qx, qw4, a, sw, group, splits, experts=E)
     else:
-        out = qgemm_w4a8_cuda(qx, qw4, a, sw, group)
-    _count("qgemm_w4a8", f"qgemm_w4a8/{'' if a is not None else 'gacc_'}{body}")
+        out = qgemm_w4a8_cuda(qx, qw4, a, sw, group, experts=E)
+    _count("qgemm_w4a8", f"qgemm_w4a8/{'experts_' if stacked else ''}"
+                         f"{'' if a is not None else 'gacc_'}{body}")
     return out
 
 

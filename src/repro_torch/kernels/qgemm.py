@@ -31,7 +31,8 @@ expert-batched (E, C, N), for the stacked down projection of expert-internal TP.
 K8's bodies have a group-acc mode (``a`` and ``sw`` None): each group's int32
 partial sum is written as ``out[m, g, n]``, (M, K/group, N), where the group flush
 would fold it through ``sw``; a row-parallel W4 linear gathers the ranks' groups
-before the group dequant.
+before the group dequant. K8's three bodies run expert-batched as K2's do, in both
+modes: a W4A8 tree's stacked (E, C, K) × (E, K/2, N) experts in one launch.
 
 Callers go through :mod:`repro_torch.kernels.ops`, which checks the inputs, runs
 the plain versions for CPU tensors and counts launches.
@@ -181,9 +182,10 @@ def sparse_stage_ranges(occ, K: int, N: int, body: str,
     return out
 
 
-def w4a8_decode_splits(K: int, N: int, group: int) -> int:
-    """K splits of K8's decode body: :func:`decode_splits`, at most one per group."""
-    return max(1, min(decode_splits(K, N), K // group))
+def w4a8_decode_splits(K: int, N: int, group: int, experts: int = 1) -> int:
+    """K splits of K8's decode body: :func:`decode_splits` (over ``experts`` of them),
+    at most one per group."""
+    return max(1, min(decode_splits(K, N, experts), K // group))
 
 
 def w4a8_split_unit(body: str, group: int) -> int:
@@ -193,26 +195,30 @@ def w4a8_split_unit(body: str, group: int) -> int:
     return group if body == "decode" else max(group, WGMMA_TILE_K)
 
 
-def w4a8_wgmma_splits(M: int, K: int, N: int, group: int) -> int:
-    """K splits of K8's wgmma body: :func:`wgmma_splits`, at most one per unit."""
-    return max(1, min(wgmma_splits(M, K, N), -(-K // w4a8_split_unit("wgmma", group))))
+def w4a8_wgmma_splits(M: int, K: int, N: int, group: int, experts: int = 1) -> int:
+    """K splits of K8's wgmma body: :func:`wgmma_splits` (over ``experts`` of them),
+    at most one per unit."""
+    return max(1, min(wgmma_splits(M, K, N, experts),
+                      -(-K // w4a8_split_unit("wgmma", group))))
 
 
-def qgemm_w4a8_plan(M: int, K: int, N: int, group: int,
-                    aligned: bool = True) -> Tuple[str, int]:
+def qgemm_w4a8_plan(M: int, K: int, N: int, group: int, aligned: bool = True,
+                    experts: int = 1) -> Tuple[str, int]:
     """K8's body for an (M, K) × packed (K/2, N) product in groups of ``group``
     k-rows, where N is a multiple of 16, ``group`` a multiple of 64 dividing K,
     and qx, qw4 and sw 16-byte aligned (``aligned``): ``("decode", splits)`` for 1
     ≤ M ≤ DECODE_MAX_M, ``("wgmma", splits)`` above where ``group`` is 64 or a
     multiple of 128 (its 128-row stages then end on a group boundary or inside one
-    group); every other product ``("tile", 1)``."""
+    group); every other product ``("tile", 1)``. Expert-batched (a stacked (E, C,
+    K) × (E, K/2, N) product): M is an expert's C rows and ``experts`` = E, the body
+    chosen as for one expert, the splits for all E experts' output tiles."""
     if not (M >= 1 and N > 0 and N % 16 == 0 and group > 0 and group % TILE_K == 0
             and K > 0 and K % group == 0 and aligned):
         return "tile", 1
     if M <= DECODE_MAX_M:
-        return "decode", w4a8_decode_splits(K, N, group)
+        return "decode", w4a8_decode_splits(K, N, group, experts)
     if group == TILE_K or group % WGMMA_TILE_K == 0:
-        return "wgmma", w4a8_wgmma_splits(M, K, N, group)
+        return "wgmma", w4a8_wgmma_splits(M, K, N, group, experts)
     return "tile", 1
 
 
@@ -358,58 +364,62 @@ def qgemm_w8a8_sparse_wgmma_cuda(qx: torch.Tensor, qw: torch.Tensor, a: torch.Te
 
 
 def _w4_out(qx: torch.Tensor, N: int, group: int, a) -> torch.Tensor:
-    """The output of a W4 product: (M, N) f32, or the group-acc mode's (M,
-    K/group, N) int32 per-group partials (``a`` None)."""
-    M, K = qx.shape
+    """The output of a W4 product: (..., M, N) f32, or the group-acc mode's (..., M,
+    K/group, N) int32 per-group partials (``a`` None); ``...`` an expert stack's E."""
+    K = qx.shape[-1]
     if a is None:
-        return torch.empty((M, K // group, N), dtype=torch.int32, device=qx.device)
-    return torch.empty((M, N), dtype=torch.float32, device=qx.device)
+        return torch.empty(qx.shape[:-1] + (K // group, N), dtype=torch.int32,
+                           device=qx.device)
+    return torch.empty(qx.shape[:-1] + (N,), dtype=torch.float32, device=qx.device)
 
 
 def qgemm_w4a8_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
-                    sw: torch.Tensor, group: int) -> torch.Tensor:
+                    sw: torch.Tensor, group: int, experts: int = 1) -> torch.Tensor:
     """qx (M, K) int8 · qw4 (K/2, N) packed int4 with (K/group, N) f32 group scales
     → (M, N) f32; ``a`` and ``sw`` None: the (M, K/group, N) int32 group partials.
-    ``group`` is a multiple of 64 dividing K."""
-    M, K = qx.shape
-    N = qw4.shape[1]
+    ``group`` is a multiple of 64 dividing K. Expert-batched (``experts`` = E): qx (E,
+    M, K), qw4 (E, K/2, N), a (E, M, 1), sw (E, K/group, N), the expert on grid z."""
+    M, K, N = _gemm_dims(qx, qw4, experts)
     vec_a, vec_b = _vec(qx, qw4)
     out = _w4_out(qx, N, group, a)
     rc = build.library().repro_qgemm_w4a8(
         qx.data_ptr(), qw4.data_ptr(), *_scales(a, sw), out.data_ptr(),
-        M, N, K, group, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
+        M, N, K, group, experts, vec_a, vec_b, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "qgemm_w4a8")
     return out
 
 
 def _w4a8_body_cuda(entry: str, what: str, qx: torch.Tensor, qw4: torch.Tensor,
                     a: torch.Tensor, sw: torch.Tensor, group: int,
-                    splits: int) -> torch.Tensor:
-    M, K = qx.shape
-    N = qw4.shape[1]
+                    splits: int, experts: int) -> torch.Tensor:
+    M, K, N = _gemm_dims(qx, qw4, experts)
     if qx.data_ptr() % 16 or qw4.data_ptr() % 16 or (sw is not None and sw.data_ptr() % 16):
         raise ValueError(f"K8's {what} reads qx, qw4 and sw in 16-byte chunks: align them")
     out = _w4_out(qx, N, group, a)
     rc = getattr(build.library(), entry)(
         qx.data_ptr(), qw4.data_ptr(), *_scales(a, sw), out.data_ptr(),
-        M, N, K, group, splits, torch.cuda.current_stream().cuda_stream)
+        M, N, K, group, experts, splits, torch.cuda.current_stream().cuda_stream)
     build.check(rc, f"qgemm_w4a8 {what}")
     return out
 
 
 def qgemm_w4a8_decode_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
-                           sw: torch.Tensor, group: int, splits: int) -> torch.Tensor:
+                           sw: torch.Tensor, group: int, splits: int,
+                           experts: int = 1) -> torch.Tensor:
     """K8's decode body: qx (M ≤ 128, K) int8 · qw4 (K/2, N) packed int4 with (K/group,
     N) f32 group scales → (M, N) f32, over ``splits`` K splits of whole groups;
     ``group`` a multiple of 64 dividing K, N a multiple of 16, qx, qw4 and sw 16-byte
-    aligned, all contiguous on one card."""
+    aligned, all contiguous on one card. Expert-batched as :func:`qgemm_w4a8_cuda`
+    (the expert on grid z)."""
     return _w4a8_body_cuda("repro_qgemm_w4a8_decode", "decode body", qx, qw4, a, sw, group,
-                           splits)
+                           splits, experts)
 
 
 def qgemm_w4a8_wgmma_cuda(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
-                          sw: torch.Tensor, group: int, splits: int) -> torch.Tensor:
+                          sw: torch.Tensor, group: int, splits: int,
+                          experts: int = 1) -> torch.Tensor:
     """K8's wgmma body: as :func:`qgemm_w4a8_decode_cuda` for any M ≥ 1, ``group`` 64
-    or a multiple of 128, splits of :func:`w4a8_split_unit` k-rows."""
+    or a multiple of 128, splits of :func:`w4a8_split_unit` k-rows; expert-batched with
+    the expert folded into grid y beside the m-tiles."""
     return _w4a8_body_cuda("repro_qgemm_w4a8_wgmma", "wgmma body", qx, qw4, a, sw, group,
-                           splits)
+                           splits, experts)

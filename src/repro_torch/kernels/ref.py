@@ -74,6 +74,30 @@ def qgemm_w4a8_group_acc_ref(qx: torch.Tensor, qw4: torch.Tensor,
     return acc.to(torch.int32)
 
 
+def qgemm_w4a8_experts_group_acc_ref(qx: torch.Tensor, qw4: torch.Tensor,
+                                     group: int = 128) -> torch.Tensor:
+    """Expert-batched group-acc mode of K8: qx (E, C, K) int8 · qw4 (E, K/2, N)
+    packed int4 → the (E, C, K/group, N) int32 per-group partial sums (exact float64
+    products)."""
+    E, C, K = qx.shape
+    qw = packing.unpack_int4(qw4, axis=-2)
+    ng = K // group
+    acc = torch.einsum("ecgk,egkn->ecgn", qx.reshape(E, C, ng, group).to(torch.float64),
+                       qw.reshape(E, ng, group, -1).to(torch.float64))
+    return acc.to(torch.int32)
+
+
+def qgemm_w4a8_experts_ref(qx: torch.Tensor, qw4: torch.Tensor, a: torch.Tensor,
+                           sw: torch.Tensor, group: int = 128) -> torch.Tensor:
+    """Expert-batched K8: qx (E, C, K) int8; qw4 (E, K/2, N); a (E, C, 1) f32; sw (E,
+    K/group, N) f32 → (E, C, N) f32: each group's partial dequantized by its
+    expert's sw, summed over the groups, then × a (the stacked-expert product of the
+    reference's ``_int4_matmul_ref``)."""
+    acc = qgemm_w4a8_experts_group_acc_ref(qx, qw4, group)
+    return (acc.to(torch.float32) * sw.to(torch.float32)[:, None]).sum(dim=-2) * \
+        a.to(torch.float32)
+
+
 def act_quantize_ref(x: torch.Tensor, bcol: torch.Tensor, bits: int = 8, alpha=0.15,
                      row_max: Optional[torch.Tensor] = None):
     """Fused CrossQuant activation quantization (static-c path), as the Pallas

@@ -67,6 +67,9 @@ class QuantContext:
         if role == "row":
             return ql.apply_row_parallel(params, x, self.cfg, self.shard,
                                          use_kernels=self.use_kernels, int_exec=self.int_exec)
+        if role == "gather":
+            # a W4 linear kept whole (its groups do not split): x's columns gathered
+            x = self.shard.coll.gather_cols(x)
         return ql.apply(params, x, self.cfg, name=f"{self.prefix}/{name}",
                         observer=self.observer, use_kernels=self.use_kernels,
                         int_exec=self.int_exec)
@@ -550,14 +553,19 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
     q = ctx.linear(params["wq"], x, "wq").reshape(B, S, H, D)
     k = ctx.linear(params["wk"], x, "wk")
     v = ctx.linear(params["wv"], x, "wv")
-    if sh is not None and sh.kv_proj_heads != Hkv:
+    if sh is not None and (sh.kv_proj_heads != Hkv or sh.kv_map is not None):
         # tp_kv_rep: whole kv projections; keep the kv heads this rank's queries read
         # (under autograd the slices' gradients sum across the ranks: the f op)
-        lo = sh.kv_lo * D
+        lo, n = sh.kv_lo * D, (Hkv if sh.kv_map is None else sh.kv_map[-1] + 1) * D
         k, v = sh.coll.copy_to(k), sh.coll.copy_to(v)
-        k, v = k[..., lo:lo + Hkv * D], v[..., lo:lo + Hkv * D]
-    k = k.reshape(B, S, Hkv, D)
-    v = v.reshape(B, S, Hkv, D)
+        k, v = k[..., lo:lo + n], v[..., lo:lo + n]
+    k = k.reshape(B, S, -1, D)
+    v = v.reshape(B, S, -1, D)
+    if sh is not None and sh.kv_map is not None:
+        # query heads that do not share their kv heads evenly: one kv row per query
+        # head, read through the map (a GQA group of one)
+        idx = sh.kv_index(k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
 
     is_chunked = cache is not None and chunk is not None
     is_verify = cache is not None and q_len is not None and not is_chunked

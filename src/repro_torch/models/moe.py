@@ -177,10 +177,12 @@ def _rank_experts(node: dict, e0: int, n: int, n_experts: int) -> dict:
 def _tp_expert_leaves(node: dict, name: str, r: int) -> dict:
     """A stacked expert linear's leaves on the rank at model coordinate ``r`` under
     expert-internal TP: the planner splits the weights' d_ff_expert and keeps the
-    prepared scale leaves whole; up/gate's ``sw`` (E, d_ff_expert) and down's
-    ``bcol`` (E, d_ff_expert) are sliced here to the rank's columns."""
+    prepared scale leaves whole; up/gate's ``sw`` (E, d_ff_expert), or a W4 stack's
+    (E, G, d_ff_expert), and down's ``bcol`` (E, d_ff_expert) are sliced here to the
+    rank's columns (down's W4 group scales in ``qlinear._w4_gathered``)."""
     w = node.get("qw", node.get("qw4", node.get("w")))
-    key, n = ("bcol", w.shape[-2]) if name == "down" else ("sw", w.shape[-1])
+    rows = w.shape[-2] * (2 if "qw4" in node else 1)         # packed int4: two a byte
+    key, n = ("bcol", rows) if name == "down" else ("sw", w.shape[-1])
     out = dict(node)
     if key in node and node[key].shape[-1] != n:
         out[key] = node[key][..., r * n:(r + 1) * n].contiguous()

@@ -458,19 +458,25 @@ class ServeEngine:
     ``sharding.planner.make_serve_plan``) serves tensor- and expert-parallel, one
     process per rank (SPMD): every rank builds this engine from the same full
     ``params`` and the same config, keeps its shard of the tree (its
-    ``sharding.planner.param_placements``; the masks' occupancy rebuilt per
+    ``sharding.planner.served_placements``; the masks' occupancy rebuilt per
     shard) and caches of its kv heads, and runs the same deterministic host
     scheduling, so the ranks take the same decisions. The model runs the
     rank's shard with the collectives of ``sharding.collectives`` (``self.shard``);
     every rank holds the gathered logits, and a random draw is rank 0's,
     broadcast. Greedy fused-int8 serving gives the single-device engine's logits
-    bitwise on the CPU, and on a card wherever kernels carry the attention (the
-    dense layout's decode attention is plain torch, whose cuBLAS products may
-    round a rank's fewer heads differently); fake and dequant-fp sum f32
-    partials and are token-exact. W4A8 row-parallel linears gather K8's per-group
-    partials (bitwise the single device's plain product on the CPU); expert-internal
-    TP (``expert_tp``) splits each expert's d_ff_expert; SSM and hybrid families
-    split their state heads (``models.ssm``).
+    bitwise on the CPU at tp_full (a tp_kv_rep rank's smaller GQA group rounds its
+    plain attention otherwise: token-exact), and on a card wherever kernels carry
+    the attention (the dense layout's decode attention is plain torch, whose
+    cuBLAS products may round a rank's fewer heads differently); fake and
+    dequant-fp sum f32 partials and are token-exact, and the fake baselines whose
+    statistics span a split gather their operands. W4A8 row-parallel linears
+    gather K8's per-group partials (bitwise the single device's plain product on
+    the CPU), a W4 linear whose groups do not split is kept whole with its input
+    gathered; expert-internal TP (``expert_tp``) splits each expert's d_ff_expert
+    (W4 stacks through K8's expert group-acc mode), or keeps the experts whole
+    where it does not divide or a W4 rank share is not whole groups; uneven
+    ``tp_kv_rep`` stores one kv row per query head; SSM and hybrid families split
+    their state heads (``models.ssm``).
 
     A data axis (the plan's ``dp_axes``, of ``dp`` ranks) splits the slot table
     into ``dp`` contiguous groups where B divides dp: each data rank runs the model
@@ -488,10 +494,8 @@ class ServeEngine:
     (every data rank serves the whole batch, as the reference does where B does not
     divide) where the rows share a statistic (``_rows_coupled``: an MoE, fake
     quantization, a linear prepared on the fly), for speculative and chunked steps,
-    and where B does not divide. Refused with the typed errors of
-    ``sharding.planner``: a W4A8 linear whose groups do not split with it, a W4
-    expert stack under ``expert_tp``, a forced ``expert_tp`` whose d_ff_expert the
-    model axis does not divide.
+    and where B does not divide. No sharded configuration the reference serves
+    is refused.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, config: EngineConfig,
@@ -614,18 +618,12 @@ class ServeEngine:
     # ------------------------------------------------------------------ sharding
 
     def _take_shard(self, cfg: ModelConfig, params, mesh, plan):
-        """Plan, refuse what is not served sharded, decide whether the slots split
-        over the data axes, build this rank's ``ShardContext`` and cut its shard of
-        the full ``params`` tree."""
+        """Plan, decide whether the slots split over the data axes, build this
+        rank's ``ShardContext`` and cut its shard of the full ``params`` tree."""
         from repro_torch.sharding import collectives as SC
         from repro_torch.sharding import planner as SP
 
         self.plan = plan or SP.make_serve_plan(cfg, mesh)
-        tp = self.plan.tp if self.plan.tier != "dp_only" else 1
-        if self.plan.moe_mode == "expert_tp" and (cfg.d_ff_expert or cfg.d_ff) % tp:
-            raise SP.ExpertTPError(
-                f"{cfg.name}: expert_tp splits d_ff_expert "
-                f"({cfg.d_ff_expert or cfg.d_ff}) over a model axis of {tp}")
         c = self.config
         split = (self.plan.dp > 1 and c.batch_size % self.plan.dp == 0
                  and not self._rows_coupled and c.speculate == 1 and not c.chunked)
@@ -633,27 +631,7 @@ class ServeEngine:
         self.shard = SC.make_shard_context(cfg, params, self.plan, mesh, coll,
                                            split_slots=split)
 
-        def check_w4(node, path=()):
-            if isinstance(node, dict):
-                name = path[-1] if path else ""
-                experts = "moe" in path and "shared" not in path
-                if "qw4" in node and experts and self.shard.expert_tp:
-                    raise SP.ShardedW4A8Error(
-                        f"W4A8 expert stack {name!r} under expert_tp: K8 has no "
-                        f"expert-batched group-acc mode")
-                if "qw4" in node and not experts and self.shard.role(name) == "row" \
-                        and node["sw"].shape[-2] % tp:
-                    raise SP.ShardedW4A8Error(
-                        f"W4A8 linear {name!r}: {node['sw'].shape[-2]} groups do not "
-                        f"split over a model axis of {tp}")
-                for k, v in node.items():
-                    check_w4(v, path + (k,))
-            elif isinstance(node, list):
-                for v in node:
-                    check_w4(v, path)
-
-        check_w4(params)
-        placements = SP.param_placements(params, cfg, self.plan, mesh)
+        placements, _ = SP.served_placements(params, cfg, self.plan, mesh)
         return SP.shard_tree(params, placements, mesh)
 
     # ---------------------------------------------------------------- submission

@@ -25,7 +25,12 @@ calls on :class:`Collectives`, which reaches the model through the
   concatenated along the groups in rank order before the group sum;
 * ``gather_cols``: a Mamba2 block's column-parallel ``in_proj`` output and its
   per-head scan output, concatenated along the last axis in rank order (the conv
-  runs on every channel, the gated norm on all of d_inner);
+  runs on every channel, the gated norm on all of d_inner), and the input of a W4
+  linear kept whole because its groups do not split (the "gather" role of
+  ``planner.linear_roles``);
+* ``gather_operand``: a fake-quantized linear's split operand (x's columns, the
+  weight's rows or columns, an expert stack's experts), whole on every rank, where
+  its statistics span the split (``core.qlinear._fake_local``);
 * ``gather_slots``: data-parallel serving's final hidden rows, each data rank's
   slots concatenated in slot order before the head (every rank then computes and
   samples the whole batch's logits; the hidden rows are d_model wide, the logits
@@ -81,6 +86,7 @@ import torch.distributed as dist
 
 COUNTS: Dict[str, int] = {"sum_i32": 0, "max_f32": 0, "sum_f32": 0, "gather_vocab": 0,
                           "gather_experts": 0, "gather_groups": 0, "gather_cols": 0,
+                          "gather_operand": 0,
                           "gather_slots": 0, "gather_pages": 0, "broadcast": 0,
                           # training: autograd's collectives and FSDP's packed calls
                           "f_sum": 0, "g_sum": 0, "g_gather": 0, "loss_sum": 0,
@@ -228,6 +234,11 @@ class Collectives:
         """(..., C/n) column slices of each rank → (..., C), in rank order."""
         return self._gather(t, axis, -1, "gather_cols")
 
+    def gather_operand(self, t: torch.Tensor, dim: int, axis: str = "model") -> torch.Tensor:
+        """Each rank's slice of a split operand along ``dim`` → the whole, in rank
+        order."""
+        return self._gather(t, axis, dim, "gather_operand")
+
     def _gather_ranks(self, t: torch.Tensor, axes: Tuple[str, ...], name: str) -> torch.Tensor:
         """Each data rank's ``t`` concatenated along dim 0 in data-rank order: the
         ranks lie row-major over ``axes`` (the plan's data axes), so the last axis
@@ -287,9 +298,23 @@ class ShardContext:
     # training: the axes this rank's batch rows split over (the plan's data axes);
     # the loss's numerator, count and aux terms SUM over them (models.model.loss_fn)
     batch_axes: Tuple[str, ...] = ()
+    # tp_kv_rep where a rank's query heads do not read whole, evenly shared kv heads:
+    # for each of its query heads, the kv head it reads (from kv_lo); the rank then
+    # stores one kv row per query head (kv_heads == q_heads), a GQA group of one
+    kv_map: Optional[Tuple[int, ...]] = None
+    # kv_map as an index tensor, by device (:meth:`kv_index`)
+    kv_index_on: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def role(self, name: str) -> Optional[str]:
         return self.roles.get(name)
+
+    def kv_index(self, device) -> torch.Tensor:
+        """``kv_map`` as an index tensor on ``device``, built at the first call and
+        kept (no host-to-device copy per attention call)."""
+        idx = self.kv_index_on.get(device)
+        if idx is None:
+            idx = self.kv_index_on[device] = torch.tensor(self.kv_map, device=device)
+        return idx
 
 
 def exchange_pages(shard: Optional[ShardContext]) -> None:
@@ -336,30 +361,34 @@ def make_shard_context(cfg, tree, plan, mesh, coll: Collectives,
     ``plan``. Attention: ``tp_full`` holds H/tp query and Hkv/tp kv heads in
     contiguous blocks; ``tp_kv_rep`` H/tp query heads, the kv projections whole
     and, stored, the kv heads its queries read (query head h reads kv head h //
-    (H/Hkv) of the global h); ``tp_ffn`` everything. SSM state: H/tp heads in a
-    contiguous block where the heads divide the model axis (the reference's
-    ``state`` placement), else all. ``split_slots``: the slots split over the
+    (H/Hkv) of the global h): the run of kv heads itself where each is read by the
+    same number of its query heads, else one copy per query head (``kv_map``);
+    ``tp_ffn`` everything. Under a forced ``expert_tp`` whose d_ff_expert the model
+    axis does not divide, the experts stay whole on every rank (the placements keep
+    them whole, as the reference's ``_maybe`` does), and so do W4 experts whose
+    rank share of d_ff_expert is not whole groups (``planner.served_placements``).
+    SSM state: H/tp heads in a contiguous block where the heads divide the model
+    axis (the reference's ``state`` placement), else all. ``split_slots``: the slots split over the
     plan's data axes (the caller decides where they may)."""
     from repro_torch.sharding import planner
 
     roles = planner.linear_roles(tree, cfg, plan, mesh)
     tp, r = mesh.axis_size("model"), mesh.axis_index("model")
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    q_heads, kv_proj, kv_lo, kv_heads = H, Hkv, 0, Hkv
+    q_heads, kv_proj, kv_lo, kv_heads, kv_map = H, Hkv, 0, Hkv, None
     if roles.get("wq") == "col":
         q_heads = H // tp
         if roles.get("wk") == "col":
             kv_proj = kv_heads = Hkv // tp
         else:
             G = H // Hkv
-            h0, h1 = r * q_heads, (r + 1) * q_heads - 1
-            kv_lo, kv_hi = h0 // G, h1 // G
-            kv_heads = kv_hi - kv_lo + 1
-            if q_heads % kv_heads or any((h0 + j) // G - kv_lo != j // (q_heads // kv_heads)
-                                         for j in range(q_heads)):
-                raise planner.ShardingUnsupportedError(
-                    f"tp_kv_rep with {H} q / {Hkv} kv heads at tp={tp}: a rank's query "
-                    f"heads do not read whole, evenly shared kv heads")
+            h0 = r * q_heads
+            kv_lo = h0 // G
+            reads = tuple((h0 + j) // G - kv_lo for j in range(q_heads))
+            kv_heads = reads[-1] + 1
+            if q_heads % kv_heads or any(k != j // (q_heads // kv_heads)
+                                         for j, k in enumerate(reads)):
+                kv_heads, kv_map = q_heads, reads
     embed_spec = planner.param_spec("embed/w", (cfg.vocab_padded, cfg.d_model), cfg, plan,
                                     mesh)
     embed_split = tp > 1 and embed_spec[-2] == "model"
@@ -380,11 +409,13 @@ def make_shard_context(cfg, tree, plan, mesh, coll: Collectives,
         dp = plan.dp
         for ax in plan.dp_axes:                      # row-major over the data axes
             dp_index = dp_index * mesh.axis_size(ax) + mesh.axis_index(ax)
+    expert_tp = (plan.moe_mode == "expert_tp" and tp > 1
+                 and planner.experts_split(planner.served_placements(tree, cfg, plan,
+                                                                     mesh)[0], plan))
     return ShardContext(plan, coll, roles, q_heads, kv_proj, kv_lo, kv_heads, embed_split,
-                        head_split, expert_axis, r,
-                        expert_tp=plan.moe_mode == "expert_tp" and tp > 1,
+                        head_split, expert_axis, r, expert_tp=expert_tp,
                         state_heads=state_heads, state_lo=state_lo, dp=dp,
-                        dp_index=dp_index)
+                        dp_index=dp_index, kv_map=kv_map)
 
 
 def token_group_count(n_tokens: int, dp: Optional[int] = None,

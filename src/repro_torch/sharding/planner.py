@@ -11,7 +11,8 @@ Tiers (attention handling):
   tp_ffn     attention replicated, ffn/vocab sharded
 MoE: experts over a dedicated "expert" axis when the mesh has one and E divides
 it (``expert_axis``), else over "model" when E divides (``ep``), else
-expert-internal TP (``expert_tp``) when d_ff_expert divides.
+expert-internal TP (``expert_tp``) when d_ff_expert divides (a forced
+``expert_tp`` whose d_ff_expert does not divide keeps the experts whole).
 
 A placement is the reference's ``PartitionSpec`` as a tuple: one entry per dim,
 ``None``, an axis name, or a tuple of axis names (training's FSDP dims). Here it
@@ -41,21 +42,9 @@ Spec = Tuple[object, ...]
 
 
 class ShardingUnsupportedError(NotImplementedError):
-    """A sharded combination the port does not run: the subclasses below, and in
-    serving fake quantization other than per-channel weights with crossquant /
-    per-token / no activation quantization on a split linear."""
-
-
-class ShardedW4A8Error(ShardingUnsupportedError):
-    """A packed-int4 (W4A8) leaf split over the mesh where its groups do not split
-    with it: a row-parallel W4 linear needs the model axis to divide its group
-    count (the planner's ``sw`` rule), and a stacked W4 expert linear under
-    expert-internal TP has no group-acc expert mode (K8 is not expert-batched)."""
-
-
-class ExpertTPError(ShardingUnsupportedError):
-    """``moe_mode == "expert_tp"`` (d_ff_expert split over "model") forced on a
-    config whose d_ff_expert the model axis does not divide."""
+    """A sharded combination the port does not run: the training cases of
+    :class:`ShardedTrainingError`. Sharded serving runs every case the reference
+    serves."""
 
 
 class ShardedTrainingError(ShardingUnsupportedError):
@@ -250,8 +239,7 @@ def _param_spec(pathstr: str, shape: Tuple[int, ...], cfg: ModelConfig, plan: Pl
         return build(out_axis=-1, model_ok=True, fsdp_axis=-2)
 
     # a shared expert is a plain dense MLP: d_ff over model like any MLP
-    moe = "moe" in names and parent in ("up", "gate", "down") and "shared" not in names
-    if moe:
+    if _is_expert(names[:-1]):
         if plan.ep_axis is not None:
             # every stacked expert leaf (weights, scales, masks) splits E over the
             # expert axis; expert-internal dims stay whole
@@ -334,6 +322,71 @@ def param_placements(tree, cfg: ModelConfig, plan: Plan, mesh):
     placements (:func:`param_spec`)."""
     return _walk(tree, lambda path, t: param_spec("/".join(path), tuple(t.shape), cfg,
                                                   plan, mesh))
+
+
+def _is_expert(names) -> bool:
+    """A stacked expert linear's path (not the shared expert's)."""
+    return "moe" in names and names[-1] in ("up", "gate", "down") and "shared" not in names
+
+
+def served_placements(tree, cfg: ModelConfig, plan: Plan, mesh):
+    """The placements a serving rank computes with, and the paths ("blocks/0/mlp/
+    down") of the prepared W4 linears they keep whole where :func:`param_placements`
+    splits their packed input rows.
+
+    A rank multiplies whole groups only, so where the model axis does not divide a
+    split W4 linear's group count the linear is kept whole: a 2-D linear then
+    gathers its input instead (the "gather" role of :func:`linear_roles`: one
+    collective a call, and the single device's product); a stacked expert down under
+    ``expert_tp`` keeps its MoE block's up, gate and down whole, the experts then
+    computed whole on every rank as where d_ff_expert does not divide. The
+    reference splits the packed rows, and GSPMD gathers them for its kernel."""
+    specs = param_placements(tree, cfg, plan, mesh)
+    kept = set()
+    tp = plan.tp_axis
+    n = mesh.shape[tp]
+    if n == 1:
+        return specs, kept
+
+    def cuts_groups(node, spec) -> bool:
+        return "qw4" in node and spec["qw4"][-2] == tp and node["sw"].shape[-2] % n != 0
+
+    def visit(node, spec, path=()):
+        if isinstance(node, list):
+            return [visit(v, o, path + (str(i),)) for i, (v, o) in enumerate(zip(node, spec))]
+        if not isinstance(node, dict):
+            return spec
+        whole = ()
+        if path[-1:] == ("moe",) and "down" in node and cuts_groups(node["down"],
+                                                                    spec["down"]):
+            whole = tuple(k for k in ("up", "gate", "down") if k in node)
+        elif path and not _is_expert(path) and cuts_groups(node, spec):
+            kept.add("/".join(path))
+            return {k: (None,) * len(v) for k, v in spec.items()}
+        out = {}
+        for k, v in node.items():
+            if k in whole:
+                kept.add("/".join(path + (k,)))
+                out[k] = _walk(spec[k], lambda _, e: (None,) * len(e))
+            else:
+                out[k] = visit(v, spec[k], path + (k,))
+        return out
+
+    return visit(tree, specs), kept
+
+
+def experts_split(placements, plan: Plan) -> bool:
+    """Whether ``placements`` split some stacked expert leaf over the model axis
+    (``expert_tp`` that holds on this mesh)."""
+    found = []
+
+    def visit(path, spec):
+        if len(path) >= 2 and _is_expert(path[:-1]) and plan.tp_axis in spec:
+            found.append(path)
+        return spec
+
+    _walk(placements, visit)
+    return bool(found)
 
 
 def cache_placements(cache_tree, cfg: ModelConfig, plan: Plan, mesh):
@@ -463,24 +516,28 @@ def linear_roles(tree, cfg: ModelConfig, plan: Plan, mesh) -> Dict[str, Optional
     (``wq``, ``wo``, ``up``, ``down``, ``lm_head``, ...): ``"col"`` where its weight
     splits the output dim over a model axis of more than one rank
     (column-parallel: each rank its output columns), ``"row"`` where it splits the
-    input dim (row-parallel: partial products summed across ranks), ``None``
-    where it is whole on every rank. Stacked expert linears are not listed: an
-    expert runs whole on the rank that holds it. Raises where one name would take
-    two roles."""
+    input dim (row-parallel: partial products summed across ranks), ``"gather"``
+    where the reference's placement would split the input dim but the weight is
+    kept whole (a W4 linear whose groups do not split, :func:`served_placements`:
+    its input's columns are gathered), ``None`` where it is whole on every rank.
+    Stacked expert linears are not listed: an expert runs whole on the rank that
+    holds it. Raises where one name would take two roles."""
     roles: Dict[str, Optional[str]] = {}
     tp = plan.tp_axis
+    placed, kept = served_placements(tree, cfg, plan, mesh)
 
     def visit(path, t):
         names = list(path)
         if names[-1] not in ("w", "qw", "qw4") or len(names) < 2:
             return
         parent = names[-2]
-        if parent in ("embed", "router") or (
-                "moe" in names and parent in ("up", "gate", "down") and "shared" not in names):
+        if parent in ("embed", "router") or _is_expert(names[:-1]):
             return
-        spec = param_spec("/".join(names), tuple(t.shape), cfg, plan, mesh)
+        spec = _leaf(placed, path)
         role = None
-        if mesh.shape[tp] > 1:
+        if "/".join(names[:-1]) in kept:
+            role = "gather"
+        elif mesh.shape[tp] > 1:
             role = "col" if spec[-1] == tp else "row" if spec[-2] == tp else None
         if roles.setdefault(parent, role) != role:
             raise ValueError(f"linear {parent!r} takes two roles under the plan: "

@@ -24,14 +24,27 @@ PMAX_NEW, SMAX_NEW = [4, 3, 5, 4], [16, 12, 20]
 COMBOS = [("fake", "fp"), ("fake", "int8"), ("dequant-fp", "fp"), ("dequant-fp", "int8"),
           ("fused-int8", "fp"), ("fused-int8", "int8")]
 ARCH = {"sc": "starcoder2-7b", "granite": "granite-moe-3b-a800m",
-        "llama": "llama4-scout-17b-a16e", "mamba": "mamba2-130m", "zamba": "zamba2-1.2b"}
+        "llama": "llama4-scout-17b-a16e", "mamba": "mamba2-130m", "zamba": "zamba2-1.2b",
+        "sc96": "starcoder2-7b", "sc12": "starcoder2-7b", "g90": "granite-moe-3b-a800m"}
+#: smoke configs reshaped for the cases a model axis does not divide evenly: d_ff 96
+#: (down's 3 g32 groups over 2 ranks), 12 query / 3 kv heads (tp_kv_rep at tp=4, rank 1
+#: reading 1 + 2 query heads of two kv heads), d_ff_expert 90 (not a multiple of 4)
+RESHAPE = {"sc96": dict(d_ff=96), "sc12": dict(n_heads=12, n_kv_heads=3),
+           "g90": dict(d_ff_expert=90)}
 #: a prepared W4A8 g32 tree (the smoke widths' groups) served on the integer path
 W4 = dataclasses.replace(tql.W4A8_G128, mode="int8", w_group=32)
-QUANTS = {"fake": tql.W8A8_CROSSQUANT, "int8": tql.W8A8_INT8, "w4": W4}
+#: W4 trees: prepared for these archs beside their W8A8 ones
+W4_ARCHS = ("sc", "sc96", "granite")
+QUANTS = {"fake": tql.W8A8_CROSSQUANT, "int8": tql.W8A8_INT8, "w4": W4,
+          # the paper's fake baselines outside the sharded subset: they gather their
+          # split operands (SmoothQuant, AWQ and group W4A8 at the smoke widths' g32)
+          "sq": tql.W8A8_SMOOTHQUANT, "awq": dataclasses.replace(tql.W4A8_G128_AWQ, w_group=32),
+          "g4": dataclasses.replace(tql.W4A8_G128, w_group=32)}
 
 
 def cfg_of(arch):
-    return dataclasses.replace(tget(ARCH[arch], smoke=True), dtype="float32")
+    return dataclasses.replace(tget(ARCH[arch], smoke=True), dtype="float32",
+                               **RESHAPE.get(arch, {}))
 
 
 def prompts_of(arch, kind):
@@ -51,11 +64,14 @@ def prompts_of(arch, kind):
 
 
 def case(arch="sc", path="fused-int8", kv="int8", prompts="mixed", tier=None, moe_mode=None,
-         **extra):
-    """A serving case: the tree (raw for fake, prepared int8 otherwise), path, KV
-    mode, workload, extra ``EngineConfig`` fields, a forced tier and a forced MoE
-    mode."""
-    tree, quant = ("raw", "fake") if path == "fake" else ("int8", "int8")
+         quant=None, **extra):
+    """A serving case: the tree (raw for fake, prepared W4A8 for ``quant="w4"``,
+    prepared int8 otherwise), path, quantization, KV mode, workload, extra
+    ``EngineConfig`` fields, a forced tier and a forced MoE mode."""
+    if path == "fake":
+        tree, quant = "raw", quant or "fake"
+    else:
+        tree, quant = ("w4", "w4") if quant == "w4" else ("int8", "int8")
     return dict(arch=arch, tree=tree, quant=quant, path=path, kv=kv, prompts=prompts,
                 extra=extra, tier=tier, moe_mode=moe_mode)
 
@@ -68,7 +84,7 @@ def combos(**kw):
                                       page_size=8, **kw) for p, k in COMBOS}}
 
 
-W4_CASE = dict(case(), tree="w4", quant="w4")
+W4_CASE = case(quant="w4")
 #: mamba2 / zamba2 fused-int8 at tp=2: the state heads over "model"
 SSM = {f"{a}-{lay}-{k}": case(arch=a, kv=k, **({} if lay == "dense" else dict(
            cache_layout="paged", page_size=8, prefix_reuse=False)))
@@ -79,6 +95,26 @@ ETP = {"granite-etp-fused-int8-int8": case(arch="granite", moe_mode="expert_tp")
        "granite-etp-int8-raw": dict(case("granite", moe_mode="expert_tp"), tree="raw")}
 
 
+#: what tensor parallelism used to refuse: W4A8 experts under expert_tp (K8's expert
+#: group-acc mode), a W4 down whose 3 groups do not split (kept whole, its input
+#: gathered), and the fake baselines whose statistics span a split (their operands
+#: gathered), dense and paged
+SPLIT = {"granite-w4etp-fused-int8-int8": case("granite", moe_mode="expert_tp", quant="w4"),
+         "w4d96-fused-int8-int8": case("sc96", quant="w4"),
+         **{f"{lay}-fake-{q}": case(path="fake", kv="fp", quant=q, **(
+             {} if lay == "dense" else dict(prompts="shared", cache_layout="paged",
+                                            page_size=8)))
+            for q in ("sq", "awq", "g4") for lay in ("dense", "paged")}}
+#: tp=4: tp_kv_rep whose ranks read unevenly shared kv heads (one kv row per query
+#: head), dense and paged, a forced expert_tp whose d_ff_expert 4 does not divide,
+#: and granite's W4A8 g32 experts forced to expert_tp, a rank's 16 of d_ff_expert 64
+#: less than one group (both: the experts whole on every rank)
+UNEVEN = {"kvrep12-fused-int8-int8": case("sc12"),
+          "kvrep12-paged-fused-int8-int8": case("sc12", prompts="shared",
+                                                cache_layout="paged", page_size=8),
+          "g90-etp-fused-int8-int8": case("g90", moe_mode="expert_tp"),
+          "granite-w4whole-etp-fused-int8-int8": case("granite", moe_mode="expert_tp",
+                                                      quant="w4")}
 TP2 = {**{f"dense-{p}-{k}": case(path=p, kv=k) for p, k in COMBOS},
        "sparse-2:4": case(sparsity="2:4"),
        **{f"paged-{p}-{k}": case(path=p, kv=k, prompts="shared", cache_layout="paged",
@@ -95,9 +131,11 @@ TP2 = {**{f"dense-{p}-{k}": case(path=p, kv=k) for p, k in COMBOS},
        "w4a8-fused-int8-int8": W4_CASE, **ETP, **SSM,
        # tier dp_only: the model axis folds into data parallelism (the slots over
        # (data, model), the weights whole)
-       "dp_only-fused-int8-int8": case(tier="dp_only")}
-TP4 = {f"dense-{p}-{k}": case(path=p, kv=k) for p, k in COMBOS}
-MOE = {f"{a}-fused-int8-int8": case(arch=a) for a in ("granite", "llama")}
+       "dp_only-fused-int8-int8": case(tier="dp_only"), **SPLIT}
+TP4 = {**{f"dense-{p}-{k}": case(path=p, kv=k) for p, k in COMBOS}, **UNEVEN}
+#: granite's W4A8 g32 tree: whole W4 experts on each rank (K8's expert-batched mode)
+MOE = {**{f"{a}-fused-int8-int8": case(arch=a) for a in ("granite", "llama")},
+       "granite-w4-fused-int8-int8": case("granite", quant="w4")}
 # granite's raw tree under mode="int8": the experts prepared on the fly each step
 EP2 = {**MOE, "granite-fake-fp": case("granite", "fake", "fp"),
        "granite-int8-raw": dict(case("granite"), tree="raw")}
@@ -118,11 +156,15 @@ BASELINE = {"spec4": "spec4-single", "chunked": "chunked-single",
             "tp_ffn-fake-fp": "dense-fake-fp",
             "granite-etp-fused-int8-int8": "granite-fused-int8-int8",
             "granite-etp-fake-fp": "granite-fake-fp",
-            "granite-etp-int8-raw": "granite-int8-raw"}
+            "granite-etp-int8-raw": "granite-int8-raw",
+            "granite-w4etp-fused-int8-int8": "granite-w4-fused-int8-int8",
+            "granite-w4whole-etp-fused-int8-int8": "granite-w4-fused-int8-int8",
+            "g90-etp-fused-int8-int8": "g90-fused-int8-int8"}
 SINGLE = {**TP2, **TP4, **EP2,
           "spec4-single": case(prompts="spec", cache_layout="paged", page_size=8),
           "chunked-single": case(path="dequant-fp", kv="fp", prompts="shared",
-                                 cache_layout="paged", page_size=8)}
+                                 cache_layout="paged", page_size=8),
+          "g90-fused-int8-int8": case("g90")}
 
 
 def plan_of(c, mesh):

@@ -1608,6 +1608,67 @@ def test_qgemm_w8a8_experts_acc_bitwise(dev, E, C, K, N):
     assert torch.equal(replayed, want.float())
 
 
+# ---- K8 expert-batched: a W4A8 tree's stacked experts, the expert on the grid
+
+#: (E, C, K, N, group): granite-moe's up/gate and down at decode and admission,
+#: llama4-scout's up, the expert_tp down shard, then ragged edges: an odd C over
+#: two body kinds, and a K ending mid-stage on a g64 group over two token tiles
+W4_EXPERT_CASES = [(40, 8, 1536, 512, 128), (40, 512, 1536, 512, 128),
+                   (40, 8, 512, 1536, 128), (40, 512, 512, 1536, 128),
+                   (16, 8, 5120, 8192, 128), (40, 8, 256, 1536, 128),
+                   (5, 37, 320, 144, 64), (3, 130, 1088, 80, 64)]
+
+
+@pytest.mark.parametrize("E,C,K,N,group", W4_EXPERT_CASES)
+def test_qgemm_w4a8_experts(dev, E, C, K, N, group):
+    """K8's expert-batched modes, routed (counted under their bodies) and on every
+    body launched directly at several split counts, eagerly and under graph replay:
+    group-acc bitwise the plain version; the own mode within K8's tolerance of the
+    plain version and bitwise each expert's 2-D K8 launch at the same splits."""
+    ops, ref = _ops()
+    from repro_torch.kernels.qgemm import (
+        qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan, qgemm_w4a8_wgmma_cuda)
+    g = torch.Generator(device=dev).manual_seed(E * C + K + N)
+    qx = _int8(g, (E, C, K), dev)
+    qx[1, C // 2:] = 0
+    qw4 = _int8(g, (E, K // 2, N), dev, -128, 128)
+    a = torch.rand(E, C, 1, generator=g, device=dev) + 0.01
+    sw = torch.rand(E, K // group, N, generator=g, device=dev) * 0.01 + 1e-4
+    acc_want = ref.qgemm_w4a8_experts_group_acc_ref(qx, qw4, group)
+    want = ref.qgemm_w4a8_experts_ref(qx, qw4, a, sw, group)
+    body, _ = qgemm_w4a8_plan(C, K, N, group, experts=E)
+    before = (ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_{body}"],
+              ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_gacc_{body}"])
+    out = ops.qgemm_w4a8_experts(qx, qw4, a, sw, group=group)
+    acc = ops.qgemm_w4a8_experts_group_acc(qx, qw4, group=group)
+    torch.cuda.synchronize()
+    assert (ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_{body}"],
+            ops.BODY_LAUNCHES[f"qgemm_w4a8/experts_gacc_{body}"]) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert acc.dtype == torch.int32 and acc.shape == (E, C, K // group, N)
+    assert torch.equal(acc, acc_want)
+    _check_w4a8(out, want)
+    assert torch.equal(qgemm_w4a8_cuda(qx, qw4, None, None, group, experts=E), acc_want)
+    _check_w4a8(qgemm_w4a8_cuda(qx, qw4, a, sw, group, experts=E), want)
+    bodies = ([qgemm_w4a8_decode_cuda] if C <= 128 else []) + (
+        [qgemm_w4a8_wgmma_cuda] if group == 64 or group % 128 == 0 else [])
+    for fn in bodies:
+        cap = K // group if fn is qgemm_w4a8_decode_cuda else -(-K // max(group, 128))
+        for splits in sorted({1, 2, min(cap, 8)}):
+            if splits > cap:
+                continue
+            assert torch.equal(fn(qx, qw4, None, None, group, splits, experts=E), acc_want)
+            got = fn(qx, qw4, a, sw, group, splits, experts=E)
+            for e in (0, 1, E - 1):
+                assert torch.equal(got[e], fn(qx[e], qw4[e], a[e], sw[e], group, splits))
+            _check_w4a8(got, want)
+    replayed = _graph_replayed(lambda: ops.qgemm_w4a8_experts_group_acc(qx, qw4, group=group)
+                               .float())
+    assert torch.equal(replayed, acc_want.float())
+    replayed = _graph_replayed(lambda: ops.qgemm_w4a8_experts(qx, qw4, a, sw, group=group))
+    assert torch.equal(replayed, out)
+
+
 # ---- K2 at any N: the decode and wgmma bodies on row-pitched weights (a ragged-N
 # leaf stored at a pitch of N rounded up to 16, models.quantize.prepare_served)
 

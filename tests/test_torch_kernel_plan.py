@@ -247,6 +247,13 @@ def test_cpu_tensors_take_the_plain_versions(M):
     sw4 = torch.from_numpy(rng.random((K // 64, N)).astype(np.float32) * 0.01)
     assert torch.equal(ops.qgemm_w4a8(qx, qw4, a, sw4, group=64),
                        ref.qgemm_w4a8_ref(qx, qw4, a, sw4, 64))
+    # K8's expert-batched modes: a stack of three experts
+    qx3, qw43 = torch.stack([qx, -qx, qx.flip(0)]), torch.stack([qw4, qw4.flip(1), -qw4])
+    a3, sw43 = torch.stack([a, 2 * a, a / 3]), torch.stack([sw4, sw4.flip(0), 2 * sw4])
+    assert torch.equal(ops.qgemm_w4a8_experts(qx3, qw43, a3, sw43, group=64),
+                       ref.qgemm_w4a8_experts_ref(qx3, qw43, a3, sw43, 64))
+    assert torch.equal(ops.qgemm_w4a8_experts_group_acc(qx3, qw43, group=64),
+                       ref.qgemm_w4a8_experts_group_acc_ref(qx3, qw43, 64))
     assert not any(ops.LAUNCHES.values()) and not any(ops.BODY_LAUNCHES.values())
 
 
@@ -354,6 +361,30 @@ def test_w4a8_plan_edges():
     assert split_bounds(4608 + 64, 3, w4a8_split_unit("wgmma", 64)) == [
         (0, 1536), (1536, 3072), (3072, 4672)]
     assert split_bounds(4608, 4, w4a8_split_unit("decode", 128))[1] == (1152, 2304)
+
+
+#: (C, K, N, E, body, splits) of K8's expert-batched modes on a W4A8 g128 tree:
+#: granite-moe's up/gate and down at decode (C = 8) and admission (C = 512),
+#: llama4-scout's up at decode, and the expert_tp down shard (K = 256, group-acc)
+W4_EXPERT_PLANS = [(8, 1536, 512, 40, "decode", 4), (512, 1536, 512, 40, "wgmma", 1),
+                   (8, 512, 1536, 40, "decode", 2), (512, 512, 1536, 40, "wgmma", 1),
+                   (8, 5120, 8192, 16, "decode", 1), (8, 256, 1536, 40, "decode", 2),
+                   (512, 256, 1536, 40, "wgmma", 1)]
+
+
+@pytest.mark.parametrize("C,K,N,E,body,splits", W4_EXPERT_PLANS)
+def test_w4a8_expert_plan(C, K, N, E, body, splits):
+    """An expert stack takes the body one expert's C rows take, and the splits its
+    E experts' output tiles call for (no more than one expert's), each on group
+    boundaries."""
+    assert qgemm_w4a8_plan(C, K, N, 128, experts=E) == (body, splits)
+    assert qgemm_w4a8_plan(C, K, N, 128)[0] == body
+    assert splits <= qgemm_w4a8_plan(C, K, N, 128)[1]
+    assert splits == (w4a8_decode_splits(K, N, 128, E) if body == "decode"
+                      else w4a8_wgmma_splits(C, K, N, 128, E))
+    assert qgemm_w4a8_plan(C, K, N, 128, aligned=False, experts=E) == ("tile", 1)
+    for b, e in split_bounds(K, splits, w4a8_split_unit(body, 128)):
+        assert b % 128 == 0 and e % 128 == 0 and e > b
 
 
 # ---------------------------------------------------------------- plain K1 and K8 vs JAX

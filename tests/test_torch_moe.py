@@ -299,6 +299,28 @@ def test_stacked_dequant_and_w4_products():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("group", [32, 64])
+def test_plain_w4_expert_modes_bitwise(group):
+    """K8's expert-batched plain versions on seeded numpy inputs: the own mode, and
+    the group-acc mode's partials scaled by sw, summed over the groups and × a, are
+    bitwise the reference's stacked ``_int4_matmul_ref``."""
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(group)
+    E, C, K, N = 5, 7, 128, 48
+    qx = rng.integers(-127, 128, (E, C, K)).astype(np.int8)
+    qw4 = rng.integers(-128, 128, (E, K // 2, N)).astype(np.int8)
+    a = (rng.random((E, C, 1)) * 0.01 + 1e-3).astype(np.float32)
+    sw = (rng.random((E, K // group, N)) * 0.01 + 1e-3).astype(np.float32)
+    want = np.asarray(jql._int4_matmul_ref(*(jnp.asarray(v) for v in (qx, qw4, a, sw)), group))
+    t = [torch.as_tensor(v) for v in (qx, qw4, a, sw)]
+    got = tref.qgemm_w4a8_experts_ref(*t, group)
+    acc = tref.qgemm_w4a8_experts_group_acc_ref(t[0], t[1], group)
+    assert acc.dtype == torch.int32 and acc.shape == (E, C, K // group, N)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(((acc.to(torch.float32) * t[3][:, None]).sum(dim=-2) * t[2]).numpy(),
+                          want)
+
+
 # ======================================================================================
 # Trees: structure, calibration, PTQ
 # ======================================================================================
