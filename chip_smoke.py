@@ -41,9 +41,14 @@ Phases (any failure raises and exits non-zero):
    2048 x the four linears, its decode, wgmma and tile bodies f32-close eagerly
    and under graph replay and timed side by side; a body the plan routes to
    must have beaten the tile body.
-   The dense zoo's shapes: K3 at gemma2-9b's local layers (S=4608, D=256, window
-   4096, softcap 50) and at hubert-xlarge's encoder (D=80, not causal, both bodies,
-   SDPA with a boolean mask beside it); K4, K5 and K6 at gemma2's local layers over
+   The dense zoo's shapes: K3 at gemma2-9b's local and global layers (S=4608,
+   D=256, window 4096 or none, softcap 50) on its wgmma body, held and timed
+   beside the mma.sync body it replaced, and at hubert-xlarge's encoder (D=80, not
+   causal, both bodies, SDPA with a boolean mask beside it); the dense decode /
+   verify attention kernel (which replaces the reference's XLA einsums, no Pallas
+   kernel) at starcoder2-7b's decode (f32 and int8 caches, bf16 and f32 q) and
+   q_win=4 verify and at gemma2's local decode (D=256, window, softcap), against
+   its plain version (the einsum form) and SDPA; K4, K5 and K6 at gemma2's local layers over
    an int8 pool where the leading split partitions lie wholly behind the window;
    K2 at nemotron-4-15b's untied head (K=6144, N=256000, M=4 and 128) on weights
    prepared on the fly, with torch._int_mm beside it.
@@ -117,7 +122,9 @@ Phases (any failure raises and exits non-zero):
    serves the steps of at most 32 token rows, its rows body the rest; K2's, K7's
    and K8's decode bodies serve
    the steps of at most DECODE_MAX_M token rows, their wgmma bodies the rest, K3's
-   bf16 body every flash launch, the paged bf16 body every K4/K5/K6 launch.
+   bf16 body every flash launch (its wgmma body at D=256), the paged bf16 body every
+   K4/K5/K6 launch, the dense attention kernel every decode and verify step of a
+   dense engine, on every path, and no step runs the einsum form.
    Between the runs, torch.profiler windows over a few decode steps of the dense
    fp-KV engine, a few packed steps of the chunked one and a few decode steps of
    the block-sparse and of the W4A8 one print the device-busy share, the longest
@@ -271,22 +278,19 @@ Phases (any failure raises and exits non-zero):
    and zamba2-1.2b FULL at tp=2 on the paged layout (the state heads over the two
    ranks, in_proj's output and the scan's output gathered). Each: the single
    engine's number of sampler calls; logits bitwise where the kernels carry every
-   product of both engines the same way (starcoder2 tp=2 paged, data 2, expert_tp,
-   mamba2, zamba2; starcoder2 tp=2 dense in its admissions and first decode step:
-   its decode attention's batched einsums round by a rank's kv-head count), and
-   where they do not (W4A8 and granite's W4A8 expert_tp: the group products summed
-   after the gather, not in K8's fold) every call's max|d logit| within 5e-2 of
-   max|logit| up to the first
-   call whose greedy tokens part; a parting only at a near tie inside that bar
+   product of both engines the same way (starcoder2 tp=2 dense and paged, data 2,
+   expert_tp, mamba2, zamba2), and where they do not (W4A8 and granite's W4A8
+   expert_tp: the group products summed after the gather, not in K8's fold) every
+   call's max|d logit| within 5e-2 of max|logit| up to the first call whose greedy
+   tokens part; a parting only at a near tie inside that bar
    (the single engine's top-1/top-2 margin at most twice the call's max|d
    logit|), else tokens equal; launches per body and collectives per call equal
    the schedule; a rank's weight share printed and held near its expectation
    (0.5 at tp=2, 1.0 at data 2). The norms' row statistics of 2 rows against the
    same rows among 4 are counted (torch's mean, and the norms as served); the
-   dense decode attention as served (``layers.decode_attention``) and in one bmm
-   pair per kv head, on one device's 4 kv heads against a rank's 2 and a GQA group
-   of 1 against 9 (int8 KV, T = 256 and 1024): outputs that differ counted, both
-   timed.
+   dense decode attention as served (the fixed-order kernel) held bitwise on a
+   rank's 2 of 4 kv heads, a GQA group of 1 against 9, repeated kv rows and a slot
+   subset against one device's (int8 KV, T = 256 and 1024, decode and q_win=4).
    mamba2-130m FULL at data 2 (paged: each rank its own 2 slots and their state
    pages; the gated norm served through ``F.rms_norm``): bitwise every call.
 9. Sharded training (``make_train_step(layout=)``): two ranks spawned on the one
@@ -508,6 +512,7 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
         from repro_torch.core.qlinear import W4_GATHER_BYTES
         from repro_torch.kernels import ops
         from repro_torch.kernels.act_quantize import act_quantize_plan
+        from repro_torch.kernels.flash_attention import flash_body
         from repro_torch.kernels.qgemm import (
             DECODE_MAX_M, qgemm_w4a8_plan, qgemm_w8a8_plan, served_pitch)
         from repro_torch.launch.mesh import make_debug_mesh
@@ -698,8 +703,11 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                         want[f"qgemm_w4a8/experts_gacc_{body}"] += L
                         want_c["gather_groups"] += L
             La = run.get("attn_layers", L)            # attention applications a call
-            want["flash_attention/bf16_mma"] = La * sum(b >= 128 for b in buckets)
-            want["paged_attention/bf16_mma"] = La * c["decode_steps"] if engine.paged else 0
+            want[f"flash_attention/{flash_body(torch.bfloat16, cfg.head_dim)}"] = \
+                La * sum(b >= 128 for b in buckets)
+            # every decode step's attention: K4 on the paged layout, the dense kernel
+            want["paged_attention/bf16_mma" if engine.paged else "dense_attention/bf16"] = \
+                La * c["decode_steps"]
             if bodies != want:
                 raise RuntimeError(f"[8] {label} rank {rank}: body launches "
                                    f"{ {k: v for k, v in bodies.items() if v} } != schedule "
@@ -722,7 +730,7 @@ def tp_rank(rank: int, port: int, job: dict, queue) -> None:
                       for k, v in solo.items()},
                 solo_ms=sum(per_call[k] * v for k, v in solo.items()),
                 tokens={r.rid: r.out for r in done}, logits=seen, bodies=bodies,
-                collectives=counts, calls=calls, prefill_calls=c["prefill_calls"],
+                collectives=counts, calls=calls,
                 tok_s=sum(len(r.out) for r in done) / dt,
                 call_ms=float(np.median(small)) if small else None,
                 shard_bytes=shard_bytes, peak=torch.cuda.max_memory_allocated() - mem0,
@@ -852,6 +860,8 @@ def main() -> int:
     from repro_torch.configs import get
     from repro_torch.core import packing, qlinear as ql
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.dense_attention import dense_plan
+    from repro_torch.kernels.flash_attention import flash_body
     from repro_torch.kernels.paged_attention import BODIES as paged_bodies
     from repro_torch.kernels.qgemm import (
         DECODE_MAX_M, decode_splits, qgemm_w4a8_cuda, qgemm_w4a8_decode_cuda, qgemm_w4a8_plan,
@@ -864,7 +874,7 @@ def main() -> int:
     from repro_torch.core import kernel_analysis as KA, quantizers as Q
     from repro_torch.launch.serve import calibrate, calibration_batches, make_prompts
     from repro_torch.models import model as M
-    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import layers as layers_lib, moe as moe_lib
     from repro_torch.models.layers import QuantContext
     from repro_torch.models.moe import capacity as moe_capacity
     from repro_torch.models.quantize import (
@@ -1627,6 +1637,8 @@ def main() -> int:
 
     zoo_flash = [("gemma2 local", torch.bfloat16, 2, 16, 8, 4608, 256, [4608, 300], True, 4096,
                   50.0),
+                 ("gemma2 global", torch.bfloat16, 2, 16, 8, 4608, 256, [4608, 300], True, None,
+                  50.0),
                  ("hubert", torch.bfloat16, 4, 16, 16, 512, 80, [512, 400, 130, 1], False, None,
                   None),
                  ("hubert", torch.float32, 4, 16, 16, 512, 80, [512, 400, 130, 1], False, None,
@@ -1638,7 +1650,7 @@ def main() -> int:
         v = torch.randn(B, Hkv, S, D, generator=gz, device=dev).to(dtype)
         kv_len = torch.tensor(kvl_list, device=dev, dtype=torch.int32)
         kw = dict(causal=causal, window=window, softcap=softcap)
-        body = f"flash_attention/{'bf16_mma' if dtype == torch.bfloat16 else 'f32'}"
+        body = f"flash_attention/{flash_body(dtype, D)}"
         before = ops.BODY_LAUNCHES[body]
         out = ops.flash_attention(q, k, v, kv_len, **kw)
         check(ops.BODY_LAUNCHES[body] == before + 1, f"flash_attention {label} {pk} ran {body}")
@@ -1672,11 +1684,124 @@ def main() -> int:
         lib = "None" if lms is None else f"{lms:.4f} (sdpa, boolean mask)"
         print(f"[3] flash_attention ({body}) {label}: B={B} H={H}/{Hkv} S={S} D={D} {pk} "
               f"causal={causal} window={window} softcap={softcap} kv_len={kvl_list}: "
-              f"kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} library_ms={lib} "
+              f"kernel_ms={ms:.4f} share_of_bound={bms / ms:.3f} call_ms={cms:.4f} plain_ms={pms:.4f} library_ms={lib} "
               f"bound_ms={bms:.4f} ({by}) max_abs_err={err:.2e} (rows with a visible key)"
               + (f" tol 2e-2 or one bf16 ulp ({n_ulp} by the ulp)" if pk == "bf16"
                  else " tol 1e-4"))
         del q, k, v, out, want
+
+    # The dense decode / verify attention kernel (csrc/dense_attention.cuh; it replaces
+    # no Pallas kernel: the reference leaves this attention to XLA einsums,
+    # src/repro/models/layers.py:292, :332). At starcoder2-7b's decode as phase 4
+    # serves it (B=4, 36/4 heads of 128, T=1024, bf16 q over an f32 cache (fp KV) or
+    # int8 codes + f32 scales), its verify (q_win=4, int8), the f32-q decode of the
+    # phase-5 parity runs, starcoder2's decode at the 32k context of the shape grid
+    # (configs/base.py decode_32k: the scores past shared memory, in the global
+    # scratch), and gemma2-9b's local decode (D=256, window 4096, softcap 50, int8,
+    # T=8192): each held against its plain version (the einsum form; bf16 outputs
+    # within 2e-3 or one bf16 ulp, the outputs of these draws being ~1e-2 to 1;
+    # f32 within 1e-5 of max|plain|), timed beside it and beside SDPA with a boolean
+    # mask where no softcap is needed (the int8 cache dequantized to f32 before the
+    # timing: no PyTorch call reads the codes). Bounds count the K and V rows each
+    # slot's walk reads once and 4·D operations per visible (row, key) at the peak
+    # of the operand types: bf16 for a bf16 q over a bf16 or int8 cache (both exact
+    # in a bf16 MMA with f32 accumulation), f32 where q or the cache is f32.
+    def dense_rows():
+        gda = torch.Generator(device=dev)
+        gda.manual_seed(29)
+        dense_cases = [
+            ("starcoder2 decode fp", torch.bfloat16, 4, 1, 36, 4, 128, 1024, torch.float32, None,
+             None),
+            ("starcoder2 decode int8", torch.bfloat16, 4, 1, 36, 4, 128, 1024, torch.int8, None,
+             None),
+            ("starcoder2 verify int8", torch.bfloat16, 4, 4, 36, 4, 128, 1024, torch.int8, None,
+             None),
+            ("starcoder2 decode fp f32 q", torch.float32, 4, 1, 36, 4, 128, 1024, torch.float32,
+             None, None),
+            ("starcoder2 decode int8 32k", torch.bfloat16, 4, 1, 36, 4, 128, 32768, torch.int8,
+             None, None),
+            ("gemma2 local decode int8", torch.bfloat16, 4, 1, 16, 8, 256, 8192, torch.int8, 4096,
+             50.0)]
+        for label, qdt, B, W, H, Hkv, D, T, cdt, window, softcap in dense_cases:
+            q = torch.randn(B, W, H, D, generator=gda, device=dev).to(qdt)
+            if cdt == torch.int8:
+                kc, vc = (torch.randint(-127, 128, (B, T, Hkv, D), generator=gda, device=dev,
+                                        dtype=torch.int8) for _ in range(2))
+                ksc, vsc = (torch.rand(B, T, Hkv, 1, generator=gda, device=dev) * 0.02 + 1e-3
+                            for _ in range(2))
+                sc = dict(k_scale=ksc, v_scale=vsc)
+                kf, vf = kc.float() * ksc, vc.float() * vsc
+            else:
+                kc, vc = (torch.randn(B, T, Hkv, D, generator=gda, device=dev) for _ in range(2))
+                sc, kf, vf = {}, kc, vc
+            cl = torch.tensor([T, T - 3, T // 2 + 1, 1], device=dev)
+            qln = None if W == 1 else torch.tensor([4, 1, 3, 2], device=dev)
+            kw = dict(sc, window=window, softcap=softcap)
+            if W == 1:
+                call = once(lambda: ops.dense_decode_attention(q, kc, vc, cl, **kw))
+                plain = once(lambda: layers_lib.decode_attention(q, kc, vc, cur_len=cl, **kw))
+            else:
+                call = once(lambda: ops.dense_verify_attention(q, kc, vc, cl, qln, **kw))
+                plain = once(lambda: layers_lib.verify_attention(q, kc, vc, cur_len=cl, q_len=qln,
+                                                                 **kw))
+            body = f"dense_attention/{'bf16' if qdt == torch.bfloat16 else 'f32'}"
+            before = ops.BODY_LAUNCHES[body]
+            out = call()
+            check(ops.BODY_LAUNCHES[body] == before + 1, f"dense attention {label} ran {body}")
+            want = plain()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(out.float()).all()), f"dense attention {label}: non-finite")
+            err = float((out.float() - want.float()).abs().max())
+            if qdt == torch.bfloat16:
+                ok, n_ulp = bf16_bar(out, want, 2e-3)
+                check(ok, f"dense attention {label}: max err {err} beyond 2e-3 or one bf16 ulp")
+            else:
+                n_ulp = 0
+                check(err <= 1e-5 * max(1.0, float(want.abs().max())),
+                      f"dense attention {label} f32: max err {err}")
+            ms = min(graph_ms(call, 50), graph_ms(call, 50))
+            cms = time_ms(call, 50)
+            pms = graph_ms(plain, 20)
+            ln = (torch.ones_like(cl) if qln is None else qln).cpu().numpy()
+            qpos = (cl.cpu().numpy() - ln)[:, None] + np.minimum(np.arange(W)[None, :],
+                                                                  ln[:, None] - 1)
+            lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
+            vis = np.minimum(qpos + 1, T) - lo                            # (B, W) visible keys
+            walk = (np.minimum(qpos.max(1) + 1, T) - lo.min(1)).sum()     # K/V rows read a head
+            row_b = D * kc.element_size() + (4 if cdt == torch.int8 else 0)
+            nbytes = 2 * walk * Hkv * row_b + 2 * q.numel() * q.element_size() + 4 * B
+            peak = PEAK_OPS["bf16" if qdt == torch.bfloat16 and cdt != torch.float32 else "f32"]
+            bms, by = bound(nbytes, 4 * D * (H // Hkv) * Hkv * float(vis.sum()), peak)
+            lms = None
+            if softcap is None:
+                kpos = torch.arange(T, device=dev)
+                qp_t = torch.as_tensor(qpos, device=dev)
+                mask = kpos[None, None, :] <= qp_t[:, :, None]
+                if window:
+                    mask &= (qp_t[:, :, None] - kpos[None, None, :]) < window
+                qs, ks_, vs_ = q.float().transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
+                lms = graph_ms(lambda i=0: F.scaled_dot_product_attention(
+                    qs, ks_, vs_, attn_mask=mask[:, None], enable_gqa=True), 20)
+            plan = dense_plan(B, W, H, Hkv, T, D)
+            check((plan.scratch > 0) == (T > 16384), f"dense attention {label}: scratch "
+                  f"{plan.scratch} floats at T={T}")
+            results[("dense_attention", label)] = dict(
+                ms=ms, call_ms=cms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by,
+                max_abs_err=err)
+            lib = "None" if lms is None else f"{lms:.4f} (sdpa, boolean mask, f32)"
+            print(f"[3] dense_attention ({body}) {label}: B={B} W={W} H={H}/{Hkv} D={D} T={T} "
+                  f"q {qdt} cache {cdt} window={window} softcap={softcap} cur_len="
+                  f"{cl.tolist()}: kernel_ms={ms:.4f} call_ms={cms:.4f} plain_ms={pms:.4f} "
+                  f"library_ms={lib} bound_ms={bms:.4f} ({by}) GB/s={nbytes / ms / 1e6:.0f} "
+                  f"max_abs_err={err:.2e} tol "
+                  f"{'2e-3 or one bf16 ulp' if qdt == torch.bfloat16 else '1e-5 of max|plain|'} "
+                  f"({n_ulp} by the ulp); "
+                  f"{plan.grid[0] * Hkv * B} blocks of {plan.rows} rows, scores in "
+                  f"{'a global scratch' if plan.scratch else 'shared memory'}")
+            del q, kc, vc, kf, vf, sc, out, want
+
+
+    dense_rows()
 
     # K4 / K5 / K6 at gemma2-9b's local layers: bf16 q, int8 pool + f32 scales, ps 16,
     # a max_len 8192 table; slot 0 holds 4616 positions, of which the first 520 are
@@ -2694,8 +2819,8 @@ def main() -> int:
         zeroed just before the run and read just after, and must equal what its
         schedule implies. On the ``fake`` and ``dequant-fp`` paths the linears are
         plain torch and prefill attention the plain path: no act_quantize, GEMM or
-        flash launch at all, 32 paged decode launches per decode step of a paged
-        engine. On ``fused-int8``: per model step 192 act_quantize launches and 192 of the
+        flash launch at all, 32 paged (dense) decode launches per decode step of a paged
+        (dense) engine. On ``fused-int8``: per model step 192 act_quantize launches and 192 of the
         tree's GEMM (qgemm_w8a8, or qgemm_w4a8 for a W4A8 tree, or
         qgemm_w8a8_sparse for masks with empty tiles); an act_quantize launch on
         the body act_quantize_plan gives its step's token rows (the step's M) and
@@ -2703,8 +2828,9 @@ def main() -> int:
         qgemm_w8a8, qgemm_w8a8_sparse or qgemm_w4a8 launch on the body its plan
         gives: the decode body up to DECODE_MAX_M, the wgmma body above; the run's
         GEMM launches at least once; 32 flash launches (the bf16 body) per cold
-        admission of 128 tokens or more; 32 paged decode launches per decode step of
-        a paged engine; 32 verify launches per speculative step; on a chunked engine
+        admission of 128 tokens or more (the wgmma body at D = 256); 32 paged decode
+        launches per decode step of a paged engine, 32 dense ones (the fixed-order dense
+        kernel) of a dense engine; 32 verify launches per speculative step; on a chunked engine
         32 ragged launches per packed step and 32 paged decode launches per
         pure-decode step, and no flash launch. A chunked engine with fp KV and
         speculate=1 serves its decode-only steps (the traffic ends in a decode-only
@@ -2761,19 +2887,34 @@ def main() -> int:
             plain_w4[0] += qx_.ndim == 3
             return int4_ref(qx_, *rest)
 
+        # the dense decode / verify attention's einsum forms (its plain version),
+        # which no step on the card may run: the dense kernel serves them on every path
+        einsum_attn, attn_forms = [0], (layers_lib.decode_attention,
+                                        layers_lib.verify_attention)
+
+        def einsum_counted(form):
+            def run(*a, **k):
+                einsum_attn[0] += 1
+                return form(*a, **k)
+            return run
+
         engine.submit(reqs, max_new=max_new)
         torch.cuda.synchronize()
         ops.reset_launches()
         M.apply, ql._int4_matmul_ref = apply_counted, int4_counted
+        layers_lib.decode_attention, layers_lib.verify_attention = map(einsum_counted, attn_forms)
         t0 = time.perf_counter()
         try:
             done = engine.run()
             torch.cuda.synchronize()
         finally:
             M.apply, ql._int4_matmul_ref = apply, int4_ref
+            layers_lib.decode_attention, layers_lib.verify_attention = attn_forms
         dt = time.perf_counter() - t0
         check(plain_w4[0] == 0 or not kernels,
               f"{label}: {plain_w4[0]} stacked W4 products on the plain path")
+        check(einsum_attn[0] == 0, f"{label}: {einsum_attn[0]} dense attention calls on the "
+              f"einsum form")
         counts = dict(ops.LAUNCHES)
         bodies = dict(ops.BODY_LAUNCHES)
         c = engine.counters
@@ -2800,10 +2941,10 @@ def main() -> int:
         else:
             if kernels:
                 want["flash_attention"] = L_attn * sum(b >= 128 for b in cold_buckets)
-            if engine.paged:
-                want["paged_decode_attention"] = (L_attn * c["decode_steps"] if engine.spec == 1
-                                                  else 0)
-                want["paged_verify_attention"] = L_attn * c["spec_steps"] if engine.spec > 1 else 0
+            kind = "paged" if engine.paged else "dense"    # the dense kernel on every path
+            want[f"{kind}_decode_attention"] = (L_attn * c["decode_steps"] if engine.spec == 1
+                                                else 0)
+            want[f"{kind}_verify_attention"] = L_attn * c["spec_steps"] if engine.spec > 1 else 0
         for name, n in want.items():
             check(counts[name] == n, f"{label}: {name} launches {counts[name]} != {n} "
                   f"(prefill_calls={c['prefill_calls']} decode_steps={c['decode_steps']} "
@@ -2837,11 +2978,14 @@ def main() -> int:
                     want_bodies[f"qgemm_w8a8_sparse/{body}"] += L
                 elif gemm == "qgemm_w4a8":
                     want_bodies[f"qgemm_w4a8/{qgemm_w4a8_plan(rows, K, N, q.w_group)[0]}"] += L
-        want_bodies["flash_attention/bf16_mma"] = want["flash_attention"]
+        want_bodies[f"flash_attention/{flash_body(torch.bfloat16, mcfg.head_dim)}"] = \
+            want["flash_attention"]
         # the serving q is bf16: every paged launch runs the split tensor-core body
         want_bodies["paged_attention/bf16_mma"] = (want["paged_decode_attention"]
                                                    + want["paged_verify_attention"]
                                                    + want["ragged_prefill_attention"])
+        want_bodies["dense_attention/bf16"] = (want["dense_decode_attention"]
+                                               + want["dense_verify_attention"])
         check(bodies == want_bodies, f"{label}: body launches {bodies} != {want_bodies} "
               f"(step rows {step_rows})")
         for name in launches:
@@ -3865,9 +4009,9 @@ def main() -> int:
         reset5()
         bfl, _ = greedy(p2, dev, forced=pgt, layout="paged", c=cfg2b)
         bodies_b = {k: v for k, v in ops.BODY_LAUNCHES.items() if k.startswith(("flash", "paged"))}
-        check(bodies_b == {"flash_attention/bf16_mma": cfg2.n_layers, "flash_attention/f32": 0,
-                           "paged_attention/bf16_mma": 8 * cfg2.n_layers,
-                           "paged_attention/f32": 0},
+        check(bodies_b == {**dict.fromkeys(bodies_b, 0),
+                           "flash_attention/bf16_mma": cfg2.n_layers,
+                           "paged_attention/bf16_mma": 8 * cfg2.n_layers},
               f"bf16 parity run: attention launches by body {bodies_b}")
         bcl, bct = greedy(p2_cpu, cpu, layout="paged", c=cfg2b)
         bgl, _ = greedy(p2, dev, forced=bct, layout="paged", c=cfg2b)
@@ -3984,8 +4128,7 @@ def main() -> int:
             fgl, fgt = greedy(trees[0], dev, layout=layout, steps=steps5, short=True, ctx=ctx_,
                               kv_int8=kv_int8)
             want = {name: 0 for name in ops.LAUNCHES}
-            if layout == "paged":
-                want["paged_decode_attention"] = steps5 * cfg2.n_layers
+            want[f"{layout}_decode_attention"] = steps5 * cfg2.n_layers
             check(dict(ops.LAUNCHES) == want, f"{label} parity launches {ops.LAUNCHES}")
             t_card = time.perf_counter() - t0
             fcl, fct = greedy(trees[1], cpu, layout=layout, steps=steps5, short=True, ctx=ctx_,
@@ -4185,12 +4328,13 @@ def main() -> int:
             if not kv_int8:
                 check(torch.equal(kgt, gpt[:steps5]), f"gemma2 chunked fp KV vs bucketed paged "
                       f"tokens differ: {kgt.T} vs {gpt[:steps5].T}")
-        # bf16 activations on the paged layout: flash's and the paged bf16 bodies at D =
-        # 256 with the window and both softcaps, under the bar of the starcoder2 run
+        # bf16 activations on the paged layout: flash's wgmma body and the paged bf16
+        # body at D = 256 with the window and both softcaps, under the bar of the
+        # starcoder2 run
         cfg_g2b = dataclasses.replace(cfg_g2, dtype="bfloat16")
         reset5()
         bfl, _ = greedy(p2g, dev, forced=gpt, layout="paged", c=cfg_g2b, tl=tl_g)
-        check(ops.BODY_LAUNCHES["flash_attention/bf16_mma"] == cfg_g2.n_layers
+        check(ops.BODY_LAUNCHES["flash_attention/bf16_wgmma"] == cfg_g2.n_layers
               and ops.BODY_LAUNCHES["paged_attention/bf16_mma"] == 8 * cfg_g2.n_layers,
               f"gemma2 bf16 parity: attention launches by body {ops.BODY_LAUNCHES}")
         bcl, bct = greedy(p2g_cpu, cpu, layout="paged", c=cfg_g2b, tl=tl_g)
@@ -5152,7 +5296,7 @@ def main() -> int:
         cfg8.n_kv_heads * cfg8.head_dim, cfg8.d_ff
     tp_coll = {"sum_i32": 2 * L8, "max_f32": 2 * L8, "sum_f32": 1, "gather_vocab": 1}
     sc_runs = dict(cfg=cfg8, tree="sc", quant=quant, mesh=(1, 2), experts=(),
-                   experts_local=0, share=0.5, bitwise="first",
+                   experts_local=0, share=0.5, bitwise="all",
                    linears=[(d8, hd8 // 2, L8), (d8, kv8 // 2, L8), (d8, kv8 // 2, L8),
                             (d8, ff8 // 2, L8)],
                    row_linears=[(hd8 // 2, d8, L8), (ff8 // 2, d8, L8)],
@@ -5330,13 +5474,10 @@ def main() -> int:
     # Logits: every rank makes the single-device engine's sampler calls (one
     # allocator and radix index, the same admissions), and each call is compared.
     # "all": every call bitwise, where the hand-written kernels carry the attention
-    # (paged: K4) or attention is whole (ep=2). "first": the admissions and the
-    # first decode step bitwise: the dense layout's decode attention is plain torch
-    # (as the reference's), two einsums run as cuBLAS batched f32 GEMMs over (slot,
-    # kv head) whose algorithm cuBLAS picks by the batch count, so a rank holding 2
-    # of the 4 kv heads may round a score otherwise than one device holding all 4.
-    # "bar": no call bitwise: W4A8 at tp=2 sums the group products after
-    # the gather, in another order than the single device's K8 fold. Past the bitwise
+    # (paged: K4; dense: the fixed-order dense kernel, whose sums do not depend on a
+    # rank's kv-head count) or attention is whole (ep=2). "bar": no call bitwise:
+    # W4A8 at tp=2 sums the group products after the gather, in another order than
+    # the single device's K8 fold. Past the bitwise
     # calls, every call up to the first where a row's greedy token
     # parts holds max|d logit| <= LOGIT_BAR * max|logit| (the drift bounded, not
     # only the tokens), and a parting must be a near tie inside that bar: the
@@ -5371,8 +5512,7 @@ def main() -> int:
             check(len(got["logits"]) == len(one["logits"]),
                   f"[8] {lab} rank {rk}: {len(got['logits'])} sampler calls != the single "
                   f"engine's {len(one['logits'])}")
-            held = {"all": len(one["logits"]), "first": got["prefill_calls"] + 1,
-                    "bar": 0}[policy]
+            held = {"all": len(one["logits"]), "bar": 0}[policy]
             differ = [i for i, (a_, b_) in enumerate(zip(got["logits"], one["logits"]))
                       if not np.array_equal(a_, b_)]
             if differ:
@@ -5410,8 +5550,7 @@ def main() -> int:
         if run["share"] is not None:
             check(abs(ratio - run["share"]) <= 0.06,
                   f"[8] {lab}: a rank holds {ratio:.3f} of the weights, not ~{run['share']}")
-        held_txt = {"all": "every one", "first": "the admissions and the first decode step",
-                    "bar": "none"}[policy]
+        held_txt = {"all": "every one", "bar": "none"}[policy]
         print(f"[8] {lab}: plan {r0['plan']['tier']}/{r0['plan']['moe_mode']} dp="
               f"{r0['plan']['dp']} tp={r0['plan']['tp']} ep={r0['plan']['ep']}, slot groups "
               f"{r0['slot_groups']}; tokens "
@@ -5436,70 +5575,50 @@ def main() -> int:
               f"(op: per call, median ms alone: {r0['solo']})")
     check(not logit_faults, "[8] logits not bitwise the single-device engine's: "
           + "; ".join(logit_faults))
-    # The dense decode attention's served form and a bitwise alternative, on one
-    # device's 4 kv heads against a rank's 2, at starcoder2's decode shapes with int8
-    # KV (B = 4, 36 / 4 heads of 128): layers.decode_attention (two batched einsums
-    # over (slot, kv head), whose algorithm cuBLAS picks by the batch count) and one
-    # bmm pair per kv head (batched over the slots alone: the same problems on one
-    # device and on a rank, at Hkv launches each). Each line counts the rank's outputs
-    # that differ from one device's (2 of 4 kv heads; a GQA group of 1 of 9), and
-    # times each form on one device (eager, synchronized: host and card; the better of
-    # two runs). Counted and timed, not held: the served form keeps the einsums.
+    # The dense decode attention as served (the fixed-order kernel) on one device's 4
+    # kv heads against a rank's 2 (either half), a GQA group of 1 against 9 (one query
+    # head on its kv head, and every query head on its own repeated kv row, as uneven
+    # tp_kv_rep serves them) and 2 of 4 slots, at starcoder2's decode shapes with
+    # int8 KV (B = 4, 36 / 4 heads of 128, T = 256 and 1024) and at its q_win = 4
+    # verify: held bitwise (the einsum form it replaced rounded by the batch count).
     from repro_torch.models import layers as layers8
     gd = torch.Generator(device=dev)
     gd.manual_seed(8)
-
-    def served_form(q_, kc, vc, cl, ks, vs):
-        return layers8.decode_attention(q_, kc, vc, cur_len=cl, window=None, softcap=None,
-                                        k_scale=ks, v_scale=vs)
-
-    def per_kv_head_form(q_, kc, vc, cl, ks, vs):
-        B_, _, H_, D_ = q_.shape
-        Hk = kc.shape[2]
-        qg = q_.reshape(B_, Hk, H_ // Hk, D_)
-        valid = torch.arange(kc.shape[1], device=dev)[None, None, :] < cl.reshape(-1, 1, 1)
-        outs = []
-        for h in range(Hk):
-            s_ = torch.bmm(qg[:, h], kc[:, :, h].to(torch.float32).transpose(1, 2))
-            s_ = s_ * (D_ ** -0.5) * ks[:, :, h, 0][:, None, :]
-            p_ = torch.softmax(torch.where(valid, s_, torch.full_like(s_, -1e30)), dim=-1)
-            outs.append(torch.bmm(p_ * vs[:, :, h, 0][:, None, :],
-                                  vc[:, :, h].to(torch.float32)))
-        return torch.stack(outs, 1).reshape(B_, 1, H_, D_)
-
-    for T in (256, 1024):
-        qd = torch.randn(BATCH, 1, 36, 128, generator=gd, device=dev)
-        kq = torch.randint(-127, 128, (BATCH, T, 4, 128), generator=gd, device=dev,
-                           dtype=torch.int8)
-        vq = torch.randint(-127, 128, (BATCH, T, 4, 128), generator=gd, device=dev,
-                           dtype=torch.int8)
-        ksd = torch.rand(BATCH, T, 4, 1, generator=gd, device=dev) * 0.01
-        vsd = torch.rand(BATCH, T, 4, 1, generator=gd, device=dev) * 0.01
+    for T, W in ((256, 1), (1024, 1), (1024, 4)):
+        qd = torch.randn(BATCH, W, 36, 128, generator=gd, device=dev).to(torch.bfloat16)
+        kq, vq = (torch.randint(-127, 128, (BATCH, T, 4, 128), generator=gd, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ksd, vsd = (torch.rand(BATCH, T, 4, 1, generator=gd, device=dev) * 0.01
+                    for _ in range(2))
         cld = torch.tensor([T, T - 3, T // 2, 1], device=dev)
-        line = []
-        for name, form in (("served (einsum over (slot, kv head))", served_form),
-                           ("one bmm pair per kv head", per_kv_head_form)):
-            full = form(qd, kq, vq, cld, ksd, vsd)
-            half = form(qd[:, :, :18], kq[:, :, :2], vq[:, :, :2], cld, ksd[:, :, :2],
-                        vsd[:, :, :2])
-            n_diff = int((full[:, :, :18] != half).sum())
-            one = form(qd[:, :, :1], kq[:, :, :1], vq[:, :, :1], cld, ksd[:, :, :1],
-                       vsd[:, :, :1])
-            n_one = int((full[:, :, :1] != one).sum())
-            drift = float((full[:, :, :18] - half).abs().max())
-            best = float("inf")
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(50):
-                    form(qd, kq, vq, cld, ksd, vsd)
-                torch.cuda.synchronize()
-                best = min(best, (time.perf_counter() - t0) * 1e3 / 50)
-            line.append(f"{name}: {n_diff} of {half.numel()} outputs differ (max|d| "
-                        f"{drift:.3e}; {n_one} of {one.numel()} for a group of 1), "
-                        f"{best:.4f} ms a call")
-        print(f"[8] dense decode attention, int8 KV, T={T}, a rank's 2 of 4 kv heads against "
-              f"one device's: " + "; ".join(line))
+        qld = None if W == 1 else torch.tensor([4, 1, 3, 2], device=dev)
+
+        def served(q_, kc, vc, ks, vs, sl=slice(None)):
+            args = [t.contiguous() for t in (q_[sl], kc[sl], vc[sl])]
+            sc8 = dict(k_scale=ks[sl].contiguous(), v_scale=vs[sl].contiguous())
+            if qld is None:
+                return ops.dense_decode_attention(*args, cld[sl], **sc8)
+            return ops.dense_verify_attention(*args, cld[sl], qld[sl], **sc8)
+
+        hs = lambda t, a, b: t[:, :, a:b]                            # noqa: E731
+        full = served(qd, kq, vq, ksd, vsd)
+        parts = {f"rank {r}": (served(hs(qd, 18 * r, 18 * r + 18), hs(kq, 2 * r, 2 * r + 2),
+                                      hs(vq, 2 * r, 2 * r + 2), hs(ksd, 2 * r, 2 * r + 2),
+                                      hs(vsd, 2 * r, 2 * r + 2)), hs(full, 18 * r, 18 * r + 18))
+                 for r in (0, 1)}
+        parts["group of 1"] = (served(hs(qd, 10, 11), hs(kq, 1, 2), hs(vq, 1, 2),
+                                      hs(ksd, 1, 2), hs(vsd, 1, 2)), hs(full, 10, 11))
+        rep = lambda t: t.repeat_interleave(9, dim=2)                # noqa: E731
+        parts["kv rows repeated"] = (served(qd, rep(kq), rep(vq), rep(ksd), rep(vsd)), full)
+        parts["slots 1:3"] = (served(qd, kq, vq, ksd, vsd, slice(1, 3)), full[1:3])
+        torch.cuda.synchronize()
+        diff = {k: int((a != b).sum()) for k, (a, b) in parts.items()}
+        check(not any(diff.values()), f"[8] dense attention T={T} q_win={W}: outputs that "
+              f"differ from one device's {diff}")
+        print(f"[8] dense attention as served (fixed-order kernel), int8 KV, T={T} q_win={W}: "
+              f"a tp=2 rank's heads, a GQA group of 1, repeated kv rows and a slot subset "
+              f"all bitwise one device's ({diff})")
+    del qd, kq, vq, ksd, vsd, full, parts
     xd = torch.randn(BATCH, cfg8.d_model, generator=gd, device=dev).to(torch.bfloat16)
     wd = (torch.randn(cfg8.vocab_padded, cfg8.d_model, generator=gd, device=dev) * 0.02)
     head_full = xd @ wd.T.to(torch.bfloat16)
@@ -5526,7 +5645,7 @@ def main() -> int:
     print(f"[8] norms of 2 rows against the same rows among 4 (d_model {cfg8.d_model}, 64 "
           f"draws, f32): torch's mean differs at {n_mu} of 128 rows; served layernorm "
           f"outputs at {n_ln}, rmsnorm outputs at {n_rms} of {128 * cfg8.d_model}")
-    del qd, kq, vq, ksd, vsd, full, half, xd, wd, head_full, head_half, xn
+    del xd, wd, head_full, head_half, xn
     del q8, q8w4, q8m, q8m4, q8s, q8z, trees8, job8
     torch.cuda.empty_cache()
     print(f"[8] end at {time.perf_counter() - t_start:.1f}s ({time.perf_counter() - t_s8:.1f}s "
@@ -5687,6 +5806,20 @@ def main() -> int:
         ("flash_attention/f32", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:33", ("flash_attention", 512, "f32"),
          "B=4 H=36/4 S=512 D=128 f32, CUDA-core body", "phase 5"),
+        ("flash_attention/bf16_wgmma", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:33", ("flash_attention", "gemma2 local", "bf16"),
+         "B=2 H=16/8 S=4608 D=256 window=4096 softcap=50 bf16 kv_len=[4608,300], wgmma body "
+         "(gemma2-9b's local prefill)", "phase 4"),
+        ("dense_attention/bf16", "src/repro_torch/csrc/dense_attention.cuh",
+         "none: XLA einsums at src/repro/models/layers.py:292, :332",
+         ("dense_attention", "starcoder2 decode int8"),
+         "B=4 W=1 H=36/4 D=128 T=1024 q bf16, int8 cache + f32 scales, "
+         "cur_len=[1024,1021,513,1], decode", "phase 4"),
+        ("dense_attention/f32", "src/repro_torch/csrc/dense_attention.cuh",
+         "none: XLA einsums at src/repro/models/layers.py:292, :332",
+         ("dense_attention", "starcoder2 decode fp f32 q"),
+         "B=4 W=1 H=36/4 D=128 T=1024 q f32, f32 cache, decode (the card-vs-CPU parity "
+         "runs)", "phase 5"),
         ("paged_decode_attention", "src/repro_torch/csrc/paged_attention_mma.cu",
          "src/repro/kernels/flash_attention.py:98",
          ("paged_decode_attention", "bf16", "f32", 8),

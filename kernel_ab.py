@@ -24,8 +24,10 @@ the softcap and at D = 128 (bitwise); K2 at starcoder2-7b's linears (M = 4,
 the checkout has it, else the contiguous weight), bitwise; K7 at the up
 projection with every other k-tile empty, bitwise; K8 at the up projection and
 the tp=2 down shard (M = 4, 128, 2048) and its group-acc mode at the shard (M = 4,
-128), bitwise. A case the
-base checkout cannot run prints as missing.
+128), bitwise; K3 at starcoder2's admission (D = 128, bf16 and f32), zamba2's (D =
+64) and hubert's (D = 80), bitwise, and at gemma2's local and global prefill (D =
+256), timed; the dense decode / verify kernel at starcoder2's decode (int8 and f32
+cache). A case the base checkout cannot run prints as missing.
 
     python3 kernel_ab.py --base DIR --only K2,K7
 
@@ -49,7 +51,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 L2_BYTES = 50 * 2 ** 20
 PTXAS_KERNELS = ("paged_mma_kernel", "qgemm_decode_kernel", "qgemm_wgmma_kernel",
-                 "qgemm_w4a8_wgmma_kernel")
+                 "qgemm_w4a8_wgmma_kernel", "fa_bf16_kernel", "fa_wgmma_kernel",
+                 "dense_attention_kernel")
 
 
 def cases(torch, dev, ops):
@@ -120,6 +123,54 @@ def cases(torch, dev, ops):
                               kw=kw, qs=qs, ql_=ql_, Nt=Nt:
                               ops.ragged_prefill_attention(qr, kn, vn, kp, vp, rtab, qs, ql_, rkv,
                                                            chunk_cap=Nt, **kw), bitwise)
+
+    # K3 at starcoder2's admission (D = 128, bf16 and f32), zamba2's shared attention
+    # (D = 64) and hubert's encoder (D = 80, not causal), bitwise; at gemma2's local
+    # and global prefill (D = 256: the wgmma body where the checkout has it), timed
+    flash = [("starcoder2 S=512 D=128 bf16", 4, 36, 4, 512, 128, torch.bfloat16, True, None,
+              None, [512, 475, 256, 171], True),
+             ("starcoder2 S=512 D=128 f32", 4, 36, 4, 512, 128, torch.float32, True, None,
+              None, [512, 475, 256, 171], True),
+             ("zamba2 S=512 D=64 bf16", 4, 32, 32, 512, 64, torch.bfloat16, True, None, None,
+              [512, 475, 256, 171], True),
+             ("hubert S=512 D=80 bf16", 4, 16, 16, 512, 80, torch.bfloat16, False, None, None,
+              [512, 400, 130, 1], True),
+             ("gemma2 local D=256", 2, 16, 8, 4608, 256, torch.bfloat16, True, 4096, 50.0,
+              [4608, 300], False),
+             ("gemma2 global D=256", 2, 16, 8, 4608, 256, torch.bfloat16, True, None, 50.0,
+              [4608, 300], False)]
+    for label, B, H, Hkv, S, D, dt, causal, window, softcap, kvl, bitwise in flash:
+        g.manual_seed(S + D + H)
+        q, k, v = (torch.randn(B, h, S, D, generator=g, device=dev).to(dt)
+                   for h in (H, Hkv, Hkv))
+        kv = torch.tensor(kvl, dtype=torch.int32, device=dev)
+        out[f"K3 {label}"] = (lambda i=0, q=q, k=k, v=v, kv=kv, kw=dict(
+            causal=causal, window=window, softcap=softcap): ops.flash_attention(
+            q, k, v, kv, **kw), bitwise)
+    # the dense decode / verify kernel (this checkout's, where it has one) at
+    # starcoder2's decode (B = 4, 36 / 4 heads of 128, T = 1024; int8 and f32 cache)
+    dense = getattr(ops, "dense_decode_attention", None)
+    for cdt in ((torch.int8, torch.float32) if dense is not None else ()):
+        B, T, H, Hkv, D = 4, 1024, 36, 4, 128
+        g.manual_seed(T + (cdt == torch.int8))
+        q = torch.randn(B, 1, H, D, generator=g, device=dev).to(torch.bfloat16)
+        qw = torch.randn(B, 4, H, D, generator=g, device=dev).to(torch.bfloat16)
+        if cdt == torch.int8:
+            kc, vc = (torch.randint(-127, 128, (B, T, Hkv, D), generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            sc = {n: torch.rand(B, T, Hkv, 1, generator=g, device=dev) * 0.02 + 1e-3
+                  for n in ("k_scale", "v_scale")}
+        else:
+            kc, vc = (torch.randn(B, T, Hkv, D, generator=g, device=dev) for _ in range(2))
+            sc = {}
+        cl = torch.tensor([T, T - 3, T // 2 + 1, 1], device=dev)
+        ql = torch.tensor([4, 1, 3, 2], device=dev)
+        name = "int8" if cdt == torch.int8 else "f32"
+        out[f"DA decode {name} cache"] = (lambda i=0, q=q, kc=kc, vc=vc, cl=cl, sc=sc:
+                                          dense(q, kc, vc, cl, **sc), True)
+        out[f"DA verify q_win=4 {name} cache"] = (
+            lambda i=0, qw=qw, kc=kc, vc=vc, cl=cl, ql=ql, sc=sc:
+            ops.dense_verify_attention(qw, kc, vc, cl, ql, **sc), True)
 
     prepare = getattr(MQ, "prepare_served", None)
     gemms = [(m, k, n) for m in (4, 128, 2048) for k, n in ((4608, 4608), (4608, 512),
@@ -197,7 +248,8 @@ def run(root: Path, out_file: Path, only: tuple = ()) -> None:
             o = call()
             torch.cuda.synchronize()
             ran = sorted(k for k, v in ops.BODY_LAUNCHES.items() if v != before[k])
-            ms = graph_ms(call, 20 if "M=2048" in name or "K6" in name else 50)
+            ms = graph_ms(call, 20 if "M=2048" in name or name.startswith(("K6", "K3"))
+                          else 50)
             res[name] = dict(out=o.cpu(), ms=ms, bitwise=bitwise, bodies=ran)
     torch.save(dict(results=res, ptxas=ptxas, root=str(root)), out_file)
 

@@ -21,19 +21,22 @@
 //
 // What bounds it on an H100: at these shapes (S <= 1024, D = 128) the causal
 // score and PV products are ~2*S*D operations per query row per head against
-// ~4*D bytes of q/o and a shared k/v stream: operation-bound. Two bodies,
-// chosen by dtype (not a fallback: a body that cannot launch raises):
+// ~4*D bytes of q/o and a shared k/v stream: operation-bound. Three bodies, chosen
+// by dtype and head size (not a fallback: a body that cannot launch raises):
 //
-// bf16 (the serving path): FlashAttention-2 on the bf16 tensor cores. A block of
+// bf16 at D = 256 (gemma2-9b's prefill, every layer): the wgmma body, below the
+// mma.sync body.
+//
+// bf16 at the other head sizes (the serving path): FlashAttention-2 on the bf16
+// tensor cores. A block of
 // 4 warps owns 64 query rows of one (batch, head), 16 rows per warp. QK^T and PV
 // run on mma.sync.m16n8k16.bf16 with f32 accumulators. The Q fragments load once
-// with ldmatrix into registers (D <= 128; from shared memory per tile at D =
-// 256), K fragments come from shared memory with ldmatrix and V fragments with
-// ldmatrix.trans. The S accumulator fragment is repacked in registers as PV's A
+// with ldmatrix into registers, K fragments come from shared memory with ldmatrix
+// and V fragments with ldmatrix.trans. The S accumulator fragment is repacked in registers as PV's A
 // operand, so P never goes to shared memory; the online softmax stays in
 // registers, row max through quad shuffles, row sums per thread until the end.
 // K/V tiles of 64 keys stream through a ring of cp.async stages (16 B per thread,
-// rows past Sk zero-filled; 3 stages at D <= 128, 2 at D = 256), so the next
+// rows past Sk zero-filled; 3 stages), so the next
 // tiles' copies overlap this tile's MMAs, one barrier per tile; rows
 // are padded to D + 8 elements so ldmatrix reads are conflict-free. A warp skips
 // the MMAs of a tile wholly above its 16 rows' diagonal; query tiles run last
@@ -41,7 +44,9 @@
 // its bound: each of the 4 warps reads the whole K and V tile from shared memory
 // (one ldmatrix.x4 per two MMAs), about as many shared-memory cycles as the
 // mma.sync pipe needs, and a block walks only ~4 tiles at S = 512, so its
-// prologue is exposed; wgmma with 64-row warpgroup tiles is the next design.
+// prologue is exposed. At D = 256 it kept Q in shared memory and 2 stages, one
+// block of 4 warps an SM, and reached 10 % of its bound: the wgmma body replaced it
+// there.
 // Numerics: bf16 products are exact in the f32 accumulator, so QK^T differs
 // from the reference (f32 tiles, flash_attention.py:67-68,88) only in summation
 // order. The one new rounding is P -> bf16 before PV; the denominator sums the
@@ -57,7 +62,10 @@
 // above the causal diagonal, and tiles wholly at or past kv_len, are skipped.
 #include <climits>
 
+#include <cuda.h>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -224,19 +232,13 @@ constexpr int kTcThreads = 128;          // 4 warps x 16 query rows
 template <int D>
 __host__ __device__ constexpr int tc_ld() { return D + 8; }  // bf16 elements per shared row (16-byte pad)
 
-// D <= 128 keeps Q's fragments in registers (Q is staged in the last ring
-// buffer's V tile and read once) and rings K/V through 3 stages: 104 KB at D =
-// 128, two blocks per SM. D = 256 keeps Q in shared memory and 2 stages (169 KB).
-template <int D>
-__host__ __device__ constexpr bool q_in_regs() { return D <= 128; }
+// Q's fragments stay in registers (Q is staged in the last ring buffer's V tile
+// and read once) and K/V ring through 3 stages: 104 KB at D = 128, two blocks per SM
+constexpr int kTcStages = 3;
 
 template <int D>
-__host__ __device__ constexpr int tc_stages() { return q_in_regs<D>() ? 3 : 2; }
-
-template <int D>
-constexpr size_t smem_bytes_tc() {       // sK/sV [stages][64][D+8], sQ [64][D+8] at D = 256
-  return sizeof(__nv_bfloat16) * ((q_in_regs<D>() ? 0 : BQ) + 2 * tc_stages<D>() * BKV) *
-         tc_ld<D>();
+constexpr size_t smem_bytes_tc() {       // sK/sV [stages][64][D+8]
+  return sizeof(__nv_bfloat16) * 2 * kTcStages * BKV * tc_ld<D>();
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
@@ -283,18 +285,18 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, q_in_regs<D>() ? 2 : 1)
+__global__ void __launch_bounds__(kTcThreads, 2)
 fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                const int* __restrict__ kv_len, int H, int Hkv, int Sq, int Sk, float scale,
                int causal, int window, float softcap) {
   constexpr int LD = tc_ld<D>(), KD = D / 16, DT = D / 8, NT = BKV / 8;
-  constexpr bool kQinRegs = q_in_regs<D>();   // D = 256 keeps its 128 accumulators instead
-  constexpr int NS = tc_stages<D>();
+  static_assert(D <= 128, "bf16 at D = 256 runs the wgmma body");
+  constexpr int NS = kTcStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [NS][BKV][LD]
   __nv_bfloat16* sV = sK + NS * BKV * LD;
-  __nv_bfloat16* sQ = sV + (kQinRegs ? NS - 1 : NS) * BKV * LD;     // the last V tile, or its own
+  __nv_bfloat16* sQ = sV + (NS - 1) * BKV * LD;                     // the last V tile
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
@@ -327,7 +329,7 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int k_row = (lane & 7) + ((lane >> 4) << 3), k_col = ((lane >> 3) & 1) * 8;
   const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3), v_col = (lane >> 4) * 8;
 
-  unsigned qf[kQinRegs ? KD : 1][4];
+  unsigned qf[KD][4];
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
   float acc[DT][4];
 #pragma unroll
@@ -337,13 +339,11 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     const int buf = t % NS, k0 = t * BKV;
     async_wait<NS - 2>();                // tile t (and Q) landed for this thread ...
     __syncthreads();                     // ... and every thread's, and tile t - 1 is done
-    if constexpr (kQinRegs) {
-      if (t == 0) {
+    if (t == 0) {
 #pragma unroll
-        for (int kd = 0; kd < KD; ++kd)
-          ldmatrix_x4(qf[kd], sQ + (16 * warp + a_row) * LD + kd * 16 + a_col);
-        __syncthreads();                 // Q read: its buffer takes tile NS - 1 now
-      }
+      for (int kd = 0; kd < KD; ++kd)
+        ldmatrix_x4(qf[kd], sQ + (16 * warp + a_row) * LD + kd * 16 + a_col);
+      __syncthreads();                   // Q read: its buffer takes tile NS - 1 now
     }
     if (t + NS - 1 < n_tiles) {          // the copy overlaps this tile's MMAs
       const int nb = (t + NS - 1) % NS;
@@ -362,12 +362,8 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
         unsigned af[4];
-        if constexpr (kQinRegs) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) af[i] = qf[kd][i];
-        } else {
-          ldmatrix_x4(af, sQ + (16 * warp + a_row) * LD + kd * 16 + a_col);
-        }
+        for (int i = 0; i < 4; ++i) af[i] = qf[kd][i];
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           unsigned kb[4];
@@ -485,6 +481,262 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- bf16 wgmma body, D = 256
+//
+// A block owns 128 query rows of one (batch, head): two consumer warpgroups of 64
+// rows each and a producer warpgroup, one thread of which issues every copy.
+// - Loads: Q (128 x 256 bf16, 64 KB) once by TMA, as four 64-column boxes under the
+//   128-byte swizzle; K and V tiles of 64 keys (32 KB each, four boxes) through a
+//   ring of 2 stages, each tile's K and V on "full" mbarriers of their own (the
+//   scores start before V lands), a stage released on its "empty" mbarrier by the
+//   8 consumer warps. 3-D tensor maps (D, S, batch x head) zero-fill rows past Sq
+//   and keys past Sk, as the mma.sync body's cp.async does. 192 KB of shared memory,
+//   one block an SM.
+// - S = Q K^T: 16 wgmma.m64n64k16 a tile, A (Q) and B (K) both from shared memory
+//   through K-major descriptors.
+// - Scale, softcap, masks, the online softmax and the P -> bf16 rounding run in
+//   registers, as the mma.sync body's do: the S accumulator's layout is the m16n8
+//   fragment's, so P repacks in registers into PV's A operand. The softcap's tanh
+//   is an exp and a reciprocal (within ~1e-7 of tanhf's): with tanhf the softcap
+//   took more than half the body's time at gemma2's shape.
+// - O += P V: 4 wgmma.m64n256k16 a tile, P from registers, V from shared memory as
+//   an MN-major (transposed) operand: no transpose copy of V.
+// - O is 64 x 256 f32 a warpgroup, 128 registers a thread: setmaxnreg gives the
+//   consumers 240 and the producer 24.
+// Numerics and visit rule as the mma.sync body's: each warpgroup walks the 64-key
+// tiles its 64-row tile would (up to kv_len and its causal diagonal; a row past
+// kv_len visits ceil(kv_len / 64) of them either way), masked scores -1e30, the
+// denominator the sum of the rounded P floored at 1e-30. Tiles behind the window
+// are not skipped (that would change the rows that see none of their keys). What
+// still holds it above its bound: each warpgroup waits for its S product before
+// the softmax and for its PV product before the next tile (no ping-pong between
+// the warpgroups, no overlap of one tile's softmax with the next tile's S).
+
+namespace wg {
+constexpr int D = 256, BQW = 128, BK = 64, kStages = 2;
+// two consumer warpgroups and a producer warpgroup, of which one thread issues the
+// copies: setmaxnreg moves the producer's registers to the consumers (168 a thread at
+// launch; 24 and 240 after), so the registers the producer frees are the ones the
+// consumers take
+constexpr int kConsumers = 256, kWgThreads = kConsumers + 128;
+constexpr int COL_Q = BQW * 128, COL_KV = BK * 128;  // one 64-column (128-byte) block of a tile
+constexpr int Q_BYTES = 4 * COL_Q, KV_BYTES = 4 * COL_KV;
+constexpr size_t SMEM = 1024 + Q_BYTES + 2 * kStages * KV_BYTES + 8 * (1 + 3 * kStages);
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::kWgThreads, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                const int* __restrict__ kv_len, int H, int Hkv, int Sq, int Sk, float scale,
+                int causal, int window, float softcap) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + Q_BYTES;                  // [stage][column block][key][128 B]
+  unsigned char* sV = sK + kStages * KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int bh = blockIdx.y, b = bh / H, hk = bh % H / (H / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQW;
+  const int kvl = kv_len != nullptr ? kv_len[b] : Sk;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the 64-key tiles the 64-row query tile at r0 visits: up to kv_len and its causal
+  // diagonal, as the mma.sync body's 64-row blocks do
+  const auto tiles_of = [&](int r0) {
+    const int n = (kvl + BK - 1) / BK;
+    return causal ? min(n, r0 / BK + 1) : n;
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    // producer: Q once, then K and V tiles through the ring (the second warpgroup's
+    // walk, which is the longer)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int n_load = tiles_of(q0 + 64), kvh = b * Hkv + hk;
+      mbar_arrive_expect_tx(q_full, Q_BYTES);
+      for (int c = 0; c < 4; ++c) tma_load_3d(sQ + c * COL_Q, &tm_q, q_full, 64 * c, q0, bh);
+      for (int t = 0; t < n_load; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&k_full[s], KV_BYTES);
+        for (int c = 0; c < 4; ++c)
+          tma_load_3d(sK + s * KV_BYTES + c * COL_KV, &tm_k, &k_full[s], 64 * c, t * BK, kvh);
+        mbar_arrive_expect_tx(&v_full[s], KV_BYTES);
+        for (int c = 0; c < 4; ++c)
+          tma_load_3d(sV + s * KV_BYTES + c * COL_KV, &tm_v, &v_full[s], 64 * c, t * BK, kvh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = warp >> 2, wq = warp & 3, g = lane >> 2, tg = lane & 3;
+    const int r0 = q0 + 64 * cw;                     // the warpgroup's first query row
+    const int qi0 = r0 + 16 * wq + g;                // this thread's rows qi0, qi0 + 8
+    const int n_tiles = tiles_of(r0);
+    const int win = window > 0 ? window : INT_MAX;
+    const float cap2 = softcap > 0.f ? 2.f * scale / softcap : 0.f;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);                            // also when no tile is visited
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, k0 = t * BK;
+      const unsigned ph = (t / kStages) & 1;
+      mbar_wait(&k_full[s], ph);
+      // S = Q K^T: 16 k16 steps over D; step kd reads 32 bytes into column block kd / 4
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = 0.f;                                 // the first step overwrites it
+        fence_reg(sc[i]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint64_t da = desc_k_sw128(sQ + (kd >> 2) * COL_Q + 64 * cw * 128 + (kd & 3) * 32);
+        const uint64_t db = desc_k_sw128(sK + s * KV_BYTES + (kd >> 2) * COL_KV + (kd & 3) * 32);
+        wgmma_bf16_m64n64k16(sc, da, db, kd > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) fence_reg(sc[i]);
+      // scale, softcap, then the masks where the tile needs them; sc[4j + 2h + e] is
+      // row qi0 + 8h, key k0 + 8j + 2tg + e
+      if (softcap > 0.f) {
+        // softcap * tanh(s * scale / softcap) as softcap * (1 - 2 / (exp(2u) + 1)): an
+        // exp and a reciprocal where tanhf takes ~20 instructions, within ~1e-7 of
+        // tanh (absolute; 1 at u = +inf, -1 at -inf)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] = softcap * (1.f - __fdividef(2.f, __expf(sc[i] * cap2) + 1.f));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] *= scale;
+      }
+      if ((causal && k0 + BK - 1 > r0) || k0 + BK > kvl || (window > 0 && r0 + 63 - k0 >= window)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qi = qi0 + 8 * ((i >> 1) & 1), kj = k0 + 8 * (i >> 2) + 2 * tg + (i & 1);
+          const bool ok = (kj < kvl) & (!causal | (qi >= kj)) & (qi - kj < win);
+          sc[i] = ok ? sc[i] : kNegInf;
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        corr[h] = __expf(m_r[h] - m_new);
+        m_r[h] = m_new;
+        l_r[h] *= corr[h];
+      }
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] *= corr[(i >> 1) & 1];
+      // P = exp(s - m) rounded to bf16, repacked as PV's A operand: key chunk kc (16
+      // keys) = score groups 2kc (a0, a1) and 2kc + 1 (a2, a3)
+      unsigned pa[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int j = 2 * kc + hh;
+          float r0f, r1f;
+          pa[kc][2 * hh] = pack_bf16(__expf(sc[4 * j] - m_r[0]), __expf(sc[4 * j + 1] - m_r[0]),
+                                     r0f, r1f);
+          l_r[0] += r0f + r1f;
+          pa[kc][2 * hh + 1] = pack_bf16(__expf(sc[4 * j + 2] - m_r[1]),
+                                         __expf(sc[4 * j + 3] - m_r[1]), r0f, r1f);
+          l_r[1] += r0f + r1f;
+        }
+      }
+      // O += P V: V's tile as the MN-major B operand, 16 keys (2048 bytes) a step
+      mbar_wait(&v_full[s], ph);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) fence_reg(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        wgmma_bf16_m64n256k16_rs_tb(acc, pa[kc],
+                                    desc_mn_sw128(sV + s * KV_BYTES + kc * 2048, COL_KV));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 128; ++i) fence_reg(acc[i]);
+      if (lane == 0) mbar_arrive(&empty[s]);         // this warp is done with stage s
+    }
+
+    __nv_bfloat16* op = o + (size_t)bh * Sq * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_r[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float denom = fmaxf(l, 1e-30f);
+      const int qi = qi0 + 8 * h;
+      if (qi >= Sq) continue;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const __nv_bfloat162 val = __floats2bfloat162_rn(__fdiv_rn(acc[4 * j + 2 * h], denom),
+                                                         __fdiv_rn(acc[4 * j + 2 * h + 1], denom));
+        *reinterpret_cast<__nv_bfloat162*>(op + (size_t)qi * D + 8 * j + 2 * tg) = val;
+      }
+    }
+  }
+}
+
+// a (n, S, D = 256) bf16 tensor (row-major, contiguous) as a 3-D tensor map with
+// boxes of 64 columns (128 bytes, 128-byte swizzle) x rows x 1; rows past S zero-fill
+bool encode_bf16_rows(CUtensorMap* map, const void* base, int S, int n, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)wg::D, (cuuint64_t)S, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)wg::D * 2, (cuuint64_t)S * wg::D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, const int* kv_len, int B,
+                 int H, int Hkv, int Sq, int Sk, int causal, int window, float softcap,
+                 float scale, cudaStream_t s) {
+  if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_bf16_rows(&tm_q, q, Sq, B * H, wg::BQW) ||
+      !encode_bf16_rows(&tm_k, k, Sk, B * Hkv, wg::BK) ||
+      !encode_bf16_rows(&tm_v, v, Sk, B * Hkv, wg::BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fa_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(wg::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + wg::BQW - 1) / wg::BQW, B * H);
+  fa_wgmma_kernel<<<grid, wg::kWgThreads, wg::SMEM, s>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), kv_len, H, Hkv, Sq, Sk, scale, causal,
+      window, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- dispatch
 
 template <int D>
@@ -494,17 +746,22 @@ int launch(const void* q, const void* k, const void* v, void* o, const int* kv_l
   if (dtype == kF32)
     return launch_f32<float, D>(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, causal, window, softcap,
                                 scale, s);
-  if (dtype == kBF16)
+  if (dtype != kBF16) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (D == wg::D) {
+    return launch_wgmma(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, causal, window, softcap, scale,
+                        s);
+  } else {
     return launch_bf16<D>(q, k, v, o, kv_len, B, H, Hkv, Sq, Sk, causal, window, softcap,
                           scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // window <= 0: no sliding window; softcap <= 0: no logit softcap; kv_len may be null;
 // scale is D^-0.5 rounded to f32 by the caller, as the reference computes it. bf16
-// runs the tensor-core body (q, k, v, o 16-byte aligned), f32 the CUDA-core body.
+// runs a tensor-core body (q, k, v, o 16-byte aligned; wgmma at D = 256, mma.sync
+// below), f32 the CUDA-core body.
 REPRO_API int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                     const int* kv_len, int dtype, int B, int H, int Hkv,
                                     int Sq, int Sk, int D, int causal, int window,

@@ -683,29 +683,6 @@ qgemm_w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   cluster.sync();                        // the leader has read every block's partials
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a (rows, cols) row-major int8 matrix whose rows lie ld bytes apart (ld = cols
 // where 0; a multiple of 16), box (box_rows, box_cols bytes): 128 bytes under the
 // 128-byte swizzle, or 64 under the 64-byte swizzle

@@ -23,9 +23,10 @@ beyond the registers). K2, K7 and K8 have three each:
 ``qgemm_w4a8_plan`` send few activation rows to the split-K weight stream, more to
 the ``wgmma`` body and shapes neither takes to the 64 × 64 tile body (K7's decode
 and wgmma bodies skip the empty tiles); K3 and K4–K6 run a bf16 tensor-core body
-or an f32 body by dtype. K2's and K7's weights may be row-pitched views (the
-served tree's ragged-N leaves, ``models.quantize.prepare_served``), which their
-decode and wgmma bodies read in place.
+or an f32 body by dtype (K3's bf16 body at D = 256 is a wgmma body of its own).
+K2's and K7's weights may be row-pitched views (the served tree's ragged-N leaves,
+``models.quantize.prepare_served``), which their decode and wgmma bodies read in
+place.
 
 Outputs are allocated with ``torch.empty``; the kernels allocate nothing. The
 reference pads to block multiples; the kernels mask their ragged edges instead.
@@ -48,12 +49,17 @@ row-parallel W4 linears. K8's expert-batched modes (``qgemm_w4a8_experts``,
 ``qgemm_w4a8/experts_gacc_*``) carry a W4A8 tree's stacked experts, whole on a rank
 or split by expert-internal TP.
 
+``dense_decode_attention`` and ``dense_verify_attention`` carry the dense layout's
+decode and verify attention (which the reference leaves to XLA einsums) on a kernel
+whose sums run in one order per head, so a tensor-parallel rank's heads give one
+device's bits; their CPU versions are the einsum forms of ``models.layers``.
+
 ``LAUNCHES`` counts kernel launches per op (never plain-version calls), so a run
 can show that its path went through the kernels; ``BODY_LAUNCHES`` counts them
 per body of the ops that have several (K1; K2; K7; K8; K3; K4–K6, whose bf16 body is
-split tensor-core attention and whose f32 body runs on the CUDA cores). Both are
-counted under a lock, so launches from concurrent threads (the async server's
-replicas) are counted exactly.
+split tensor-core attention and whose f32 body runs on the CUDA cores; the dense
+attention kernel by q's dtype). Both are counted under a lock, so launches from
+concurrent threads (the async server's replicas) are counted exactly.
 """
 from __future__ import annotations
 
@@ -65,7 +71,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.act_quantize import DTYPE_CODE, act_quantize_cuda, act_quantize_plan
-from repro_torch.kernels.flash_attention import BODIES, HEAD_DIMS, flash_attention_cuda
+from repro_torch.kernels.dense_attention import (
+    BODIES as DENSE_BODIES, CACHE_CODE, HEAD_DIMS as DENSE_HEAD_DIMS, dense_attention_cuda,
+)
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_cuda, flash_body
 from repro_torch.kernels.paged_attention import (
     BODIES as PAGED_BODIES, HEAD_DIMS as PAGED_HEAD_DIMS, POOL_CODE, paged_attention_cuda,
     ragged_prefill_cuda,
@@ -79,7 +88,8 @@ from repro_torch.kernels.qgemm import (
 
 LAUNCHES = {"act_quantize": 0, "qgemm_w8a8": 0, "flash_attention": 0,
             "paged_decode_attention": 0, "paged_verify_attention": 0,
-            "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0}
+            "ragged_prefill_attention": 0, "qgemm_w8a8_sparse": 0, "qgemm_w4a8": 0,
+            "dense_decode_attention": 0, "dense_verify_attention": 0}
 BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/sweep": 0,
                  "act_quantize/experts_split": 0, "act_quantize/experts_rows": 0,
                  "act_quantize/experts_sweep": 0,
@@ -105,8 +115,10 @@ BODY_LAUNCHES = {"act_quantize/split": 0, "act_quantize/rows": 0, "act_quantize/
                  "qgemm_w4a8/experts_tile": 0,
                  "qgemm_w4a8/experts_gacc_decode": 0, "qgemm_w4a8/experts_gacc_wgmma": 0,
                  "qgemm_w4a8/experts_gacc_tile": 0,
-                 "flash_attention/bf16_mma": 0, "flash_attention/f32": 0,
-                 "paged_attention/bf16_mma": 0, "paged_attention/f32": 0}
+                 "flash_attention/bf16_mma": 0, "flash_attention/bf16_wgmma": 0,
+                 "flash_attention/f32": 0,
+                 "paged_attention/bf16_mma": 0, "paged_attention/f32": 0,
+                 "dense_attention/bf16": 0, "dense_attention/f32": 0}
 
 
 # replicas of the async server launch from several threads at once; a dict
@@ -562,7 +574,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
                  "bf16 q, k, v must be 16-byte aligned")
     out = flash_attention_cuda(q, k, v, kvl, causal=causal, window=window, softcap=softcap)
-    _count("flash_attention", f"flash_attention/{BODIES[q.dtype]}")
+    _count("flash_attention", f"flash_attention/{flash_body(q.dtype, D)}")
     return out
 
 
@@ -734,4 +746,88 @@ def ragged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.
                               page_table.to(torch.int32).contiguous(), qs, qln, kvl,
                               chunk_cap=chunk_cap, window=window, softcap=softcap)
     _count("ragged_prefill_attention", f"paged_attention/{PAGED_BODIES[q.dtype]}")
+    return out
+
+
+def _check_dense(q, k_cache, v_cache, k_scale, v_scale, window, softcap) -> bool:
+    """Shared checks of the dense decode/verify wrappers, on every device (the
+    kernel's rules: the plain versions take the same inputs); True when the
+    tensors lie on a card."""
+    _require(q.ndim == 4, f"q must be (B, W, H, D), got {tuple(q.shape)}")
+    B, _, H, D = q.shape
+    _require(k_cache.ndim == 4 and v_cache.shape == k_cache.shape,
+             f"caches must be (B, T, Hkv, D): {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    _require(k_cache.shape[0] == B and k_cache.shape[3] == D and T > 0,
+             f"caches {tuple(k_cache.shape)} do not hold q's {B} slots of head_dim {D}")
+    _require(Hkv > 0 and H % Hkv == 0, f"H={H} not a multiple of Hkv={Hkv}")
+    _require(D in DENSE_HEAD_DIMS, f"head_dim {D} not in {DENSE_HEAD_DIMS}")
+    _require(q.dtype in DTYPE_CODE, f"q dtype {q.dtype} not in f32/bf16")
+    _require(k_cache.dtype in CACHE_CODE and v_cache.dtype == k_cache.dtype,
+             f"cache dtype {k_cache.dtype} not in f32/bf16/int8")
+    _require((k_scale is None) == (v_scale is None), "pass both scales or neither")
+    _require((k_cache.dtype == torch.int8) == (k_scale is not None),
+             "int8 caches need their scales, and only they take them")
+    scales = ()
+    if k_scale is not None:
+        _require(k_scale.shape == (B, T, Hkv, 1) == v_scale.shape,
+                 f"scales must be ({B}, {T}, {Hkv}, 1)")
+        _require(k_scale.dtype == torch.float32 == v_scale.dtype, "scales must be f32")
+        scales = (k_scale, v_scale)
+    _require(window is None or window > 0, f"window must be positive, got {window}")
+    _require(softcap is None or softcap > 0, f"softcap must be positive, got {softcap}")
+    return _on_cuda(q, k_cache, v_cache, *scales)
+
+
+def _dense_cuda(q, k_cache, v_cache, k_scale, v_scale, cur_len, q_len, window, softcap):
+    B = q.shape[0]
+    _contiguous(q=q, k_cache=k_cache, v_cache=v_cache,
+                **({} if k_scale is None else dict(k_scale=k_scale, v_scale=v_scale)))
+    return dense_attention_cuda(q, k_cache, v_cache, k_scale, v_scale,
+                                _int_vec(cur_len, B, q.device),
+                                None if q_len is None else _int_vec(q_len, B, q.device),
+                                window=window, softcap=softcap)
+
+
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           cur_len, *, window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token attention against a dense (B, T, Hkv, D) cache with per-slot
+    valid lengths ``cur_len`` (scalar or (B,)): q (B, 1, H, D) → (B, 1, H, D) in q's
+    dtype. The cache is f32, bf16 or int8 codes with (B, T, Hkv, 1) f32
+    ``k_scale``/``v_scale``. CPU tensors run the plain version
+    (:func:`repro_torch.models.layers.decode_attention`), CUDA tensors the
+    fixed-order kernel (``csrc/dense_attention.cu``)."""
+    on_cuda = _check_dense(q, k_cache, v_cache, k_scale, v_scale, window, softcap)
+    _require(q.shape[1] == 1, f"decode takes one token per slot, got {q.shape[1]}")
+    if not on_cuda:
+        from repro_torch.models import layers
+        return layers.decode_attention(q, k_cache, v_cache, cur_len=cur_len, window=window,
+                                       softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+    out = _dense_cuda(q, k_cache, v_cache, k_scale, v_scale, cur_len, None, window, softcap)
+    _count("dense_decode_attention", f"dense_attention/{DENSE_BODIES[q.dtype]}")
+    return out
+
+
+def dense_verify_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           cur_len, q_len, *, window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Draft-window attention against a dense cache: q (B, W, H, D), the W window
+    tokens already scattered, ``cur_len`` each slot's total post-scatter length and
+    ``q_len`` its valid window rows (window token i sits at cur_len - q_len + i; rows
+    ≥ q_len clamp to the newest valid position) → (B, W, H, D). Caches as
+    :func:`dense_decode_attention`; CPU tensors run
+    :func:`repro_torch.models.layers.verify_attention`, CUDA tensors the kernel."""
+    on_cuda = _check_dense(q, k_cache, v_cache, k_scale, v_scale, window, softcap)
+    if not on_cuda:
+        from repro_torch.models import layers
+        return layers.verify_attention(q, k_cache, v_cache, cur_len=cur_len, q_len=q_len,
+                                       window=window, softcap=softcap, k_scale=k_scale,
+                                       v_scale=v_scale)
+    out = _dense_cuda(q, k_cache, v_cache, k_scale, v_scale, cur_len, q_len, window, softcap)
+    _count("dense_verify_attention", f"dense_attention/{DENSE_BODIES[q.dtype]}")
     return out

@@ -604,6 +604,10 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
                                q_len=q_len if is_verify else None)
         y = ctx.linear(params["wo"], out.reshape(B, S, H * D), "wo")
         return y, cache
+    # dense decode and verify: the fixed-order kernel on a card, the einsum forms
+    # (decode_attention / verify_attention) on the CPU
+    from repro_torch.kernels import ops
+
     kv_int8 = cache is not None and "k_scale" in cache
     scales = (dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"]) if kv_int8 else {})
     if is_verify:
@@ -617,16 +621,16 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, ctx: QuantC
         rows, cols = torch.nonzero(ar[None, :] < qln[:, None], as_tuple=True)
         for name, val in _kv_rows(k, v, kv_int8).items():
             cache[name][rows, idx[rows, cols]] = val[rows, cols].to(cache[name].dtype)
-        out = verify_attention(q, cache["k"], cache["v"], cur_len=cl, q_len=qln,
-                               window=window, softcap=cfg.attn_softcap, **scales)
+        out = ops.dense_verify_attention(q, cache["k"], cache["v"], cl, qln, window=window,
+                                         softcap=cfg.attn_softcap, **scales)
     elif is_decode:
         cl = cur_len.reshape(-1).to(torch.int64).expand(B)
         idx = torch.clamp(cl - 1, 0, cache["k"].shape[1] - 1)
         rows = torch.arange(B, device=x.device)
         for name, val in _kv_rows(k, v, kv_int8).items():
             cache[name][rows, idx] = val[:, 0].to(cache[name].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], cur_len=cl, window=window,
-                               softcap=cfg.attn_softcap, **scales)
+        out = ops.dense_decode_attention(q, cache["k"], cache["v"], cl, window=window,
+                                         softcap=cfg.attn_softcap, **scales)
     else:
         seq_lens = None
         if cache is not None and cur_len is not None:

@@ -224,8 +224,8 @@ def test_qgemm_w8a8_wgmma_graph_replay(dev):
 @pytest.mark.parametrize("S", [200, 256])
 @pytest.mark.parametrize("window,softcap", [(None, None), (48, None), (None, 30.0)])
 def test_flash_attention_bf16_body(dev, D, G, S, window, softcap):
-    """The tensor-core body at kv_len 0, 1, a length not a multiple of 64 and S;
-    S a multiple of the 64-row tile or not; window and softcap; GQA groups of 1
+    """The tensor-core bodies (mma.sync; wgmma at D = 256) at kv_len 0, 1, a length
+    not a multiple of 64 and S; S a multiple of the 64-row tile or not; window and softcap; GQA groups of 1
     and 9. Rows with a valid key are within 2e-2 of the plain version; every row,
     those with no valid key too, within 2e-2 of the f32 body (the rows past
     kv_len behave as the kernel always had them); kv_len 0 gives zeros."""
@@ -238,9 +238,11 @@ def test_flash_attention_bf16_body(dev, D, G, S, window, softcap):
     v = torch.randn(B, Hkv, S, D, generator=g, device=dev).to(torch.bfloat16)
     kv_len = torch.tensor([0, 1, S - 37, S], device=dev, dtype=torch.int32)
     kw = dict(window=window, softcap=softcap)
+    from repro_torch.kernels.flash_attention import flash_body
+    body = f"flash_attention/{flash_body(torch.bfloat16, D)}"      # the wgmma body at D = 256
     before = dict(ops.BODY_LAUNCHES)
     out = ops.flash_attention(q, k, v, kv_len, **kw)
-    assert ops.BODY_LAUNCHES["flash_attention/bf16_mma"] == before["flash_attention/bf16_mma"] + 1
+    assert ops.BODY_LAUNCHES[body] == before[body] + 1
     want = ref.flash_attention_ref(q, k, v, kv_len, **kw)
     f32 = ops.flash_attention(q.float(), k.float(), v.float(), kv_len, **kw)
     torch.cuda.synchronize()
@@ -1834,3 +1836,258 @@ def test_ragged_decode_rows_bitwise_decode_kernel_d256(dev, pool_dtype):
     dec = ops.paged_decode_attention(q[:, None], kp, vp, tab, kvl, **kw)
     torch.cuda.synchronize()
     assert torch.equal(out, dec[:, 0])
+
+
+# ---------------------------------------------------------------- dense decode / verify attention
+
+def _bar(out, want, f32_atol=1e-5):
+    """bf16 outputs (q's or the cache's type bf16): within 2e-3 or one bf16 ulp of the
+    plain version (chip_smoke.bf16_bar at the atol its dense rows take: the outputs
+    of these draws run ~1e-2 to 1, so 2e-2 would pass a mis-weighted walk); f32
+    outputs within 1e-5 of max|plain|."""
+    if out.dtype == torch.bfloat16:
+        o, p = out.float(), want.float()
+        pb = p.to(torch.bfloat16).float()
+        ok = ((o - p).abs() <= 2e-3) | ((o - pb).abs() <= torch.exp2(torch.floor(
+            torch.log2(pb.abs())) - 7))
+        return bool(ok.all())
+    err = float((out - want).abs().max())
+    return err <= f32_atol * max(1.0, float(want.abs().max()))
+
+
+def _dense_inputs(dev, B, W, Hkv, G, T, D, cache_dtype, q_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, W, Hkv * G, D, generator=g, device=dev).to(q_dtype)
+    if cache_dtype == torch.int8:
+        kc, vc = (torch.randint(-127, 128, (B, T, Hkv, D), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(B, T, Hkv, 1, generator=g, device=dev) * 0.02 + 1e-3
+                  for _ in range(2))
+        return q, kc, vc, dict(k_scale=ks, v_scale=vs)
+    kc, vc = (torch.randn(B, T, Hkv, D, generator=g, device=dev).to(cache_dtype)
+              for _ in range(2))
+    return q, kc, vc, {}
+
+
+def _dense_call(ops, q, kc, vc, cl, ql, **kw):
+    if ql is None:
+        return ops.dense_decode_attention(q, kc, vc, cl, **kw)
+    return ops.dense_verify_attention(q, kc, vc, cl, ql, **kw)
+
+
+def _dense_plain(q, kc, vc, cl, ql, **kw):
+    from repro_torch.models import layers
+    if ql is None:
+        return layers.decode_attention(q, kc, vc, cur_len=cl, **kw)
+    return layers.verify_attention(q, kc, vc, cur_len=cl, q_len=ql, **kw)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W", [1, 4])
+@pytest.mark.parametrize("window,softcap", [(None, None), (48, None), (None, 30.0)])
+def test_dense_attention(dev, D, cache_dtype, q_dtype, W, window, softcap):
+    """The dense decode (W = 1) and verify (W = 4) kernel against its plain version
+    (the einsum forms of models.layers) over f32, bf16 and int8 caches, bf16 and f32
+    q, window and softcap: slots at cur_len 0 (no visible key: uniform over T), 1,
+    a middle length and T; verify rows past q_len clamp. bf16 outputs within 2e-3 or
+    one bf16 ulp, f32 outputs within 1e-5 of max|plain|. One launch of its op and
+    body each."""
+    ops, _ = _ops()
+    B, Hkv, G, T = 4, 2, 3, 300
+    q, kc, vc, sc = _dense_inputs(dev, B, W, Hkv, G, T, D, cache_dtype, q_dtype,
+                                  D + W + (window or 0))
+    if W == 1:
+        cl, ql = torch.tensor([0, 1, 137, T], device=dev), None
+        op = "dense_decode_attention"
+    else:
+        cl = torch.tensor([4, 1, 137, T], device=dev)
+        ql = torch.tensor([4, 1, 2, 3], device=dev)
+        op = "dense_verify_attention"
+    kw = dict(sc, window=window, softcap=softcap)
+    body = f"dense_attention/{'bf16' if q_dtype == torch.bfloat16 else 'f32'}"
+    before, bodies = dict(ops.LAUNCHES), dict(ops.BODY_LAUNCHES)
+    out = _dense_call(ops, q, kc, vc, cl, ql, **kw)
+    assert ops.LAUNCHES[op] == before[op] + 1 and ops.BODY_LAUNCHES[body] == bodies[body] + 1
+    want = _dense_plain(q, kc, vc, cl, ql, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == q_dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    if cache_dtype == torch.bfloat16:
+        out, want = out.to(torch.bfloat16), want.to(torch.bfloat16)
+    assert _bar(out, want)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.float32])
+@pytest.mark.parametrize("W,T", [(1, 1024), (1, 256), (5, 1024)])
+def test_dense_attention_rank_heads_bitwise(dev, cache_dtype, W, T):
+    """The fixed order: at starcoder2-7b's decode shape (B = 4, 36 / 4 heads of 128,
+    bf16 q) a tensor-parallel rank's 2 of 4 kv heads (either half), a GQA group of 1
+    (one query head and its kv head, and every query head on its own repeated kv
+    row, as uneven tp_kv_rep serves them) and a subset of the slots give, bitwise,
+    the outputs of the same heads and slots run whole."""
+    ops, _ = _ops()
+    B, Hkv, G, D = 4, 4, 9, 128
+    q, kc, vc, sc = _dense_inputs(dev, B, W, Hkv, G, T, D, cache_dtype, torch.bfloat16, T + W)
+    cl = torch.tensor([T, T - 3, T // 2, 1], device=dev)
+    ql = None if W == 1 else torch.tensor([W, 1, 3, 2], device=dev)
+
+    def run(qq, kk, vv, ss, cl_=cl, ql_=ql):
+        return _dense_call(ops, qq.contiguous(), kk.contiguous(), vv.contiguous(), cl_, ql_,
+                           **{n: t.contiguous() for n, t in ss.items()})
+
+    def heads(t, lo, hi):
+        return t[:, :, lo:hi]
+
+    full = run(q, kc, vc, sc)
+    for r in range(2):                                   # rank r of tp=2
+        sl = {n: heads(t, 2 * r, 2 * r + 2) for n, t in sc.items()}
+        half = run(heads(q, 18 * r, 18 * r + 18), heads(kc, 2 * r, 2 * r + 2),
+                   heads(vc, 2 * r, 2 * r + 2), sl)
+        assert torch.equal(half, heads(full, 18 * r, 18 * r + 18))
+    one = run(heads(q, 10, 11), heads(kc, 1, 2), heads(vc, 1, 2),
+              {n: heads(t, 1, 2) for n, t in sc.items()})
+    assert torch.equal(one, heads(full, 10, 11))
+    rep = lambda t: t.repeat_interleave(G, dim=2)        # noqa: E731
+    ones = run(q, rep(kc), rep(vc), {n: rep(t) for n, t in sc.items()})
+    assert torch.equal(ones, full)
+    sub = run(q[1:3], kc[1:3], vc[1:3], {n: t[1:3] for n, t in sc.items()}, cl[1:3],
+              None if ql is None else ql[1:3])
+    assert torch.equal(sub, full[1:3])
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 4])
+def test_dense_attention_long_cache(dev, cache_dtype, W):
+    """At starcoder2-7b's widths over a 32k cache (configs' decode_32k) the rows'
+    scores do not fit in shared memory and go to the global scratch: the kernel
+    within the bar of its plain version, and a tensor-parallel rank's 2 of 4 kv
+    heads bitwise the same heads run whole."""
+    from repro_torch.kernels.dense_attention import dense_plan
+    ops, _ = _ops()
+    B, Hkv, G, D, T = 2, 4, 9, 128, 32768
+    assert dense_plan(B, W, Hkv * G, Hkv, T, D).scratch > 0
+    q, kc, vc, sc = _dense_inputs(dev, B, W, Hkv, G, T, D, cache_dtype, torch.bfloat16, W)
+    cl = torch.tensor([T, T // 2 + 7], device=dev)
+    ql = None if W == 1 else torch.tensor([W, 2], device=dev)
+    out = _dense_call(ops, q, kc, vc, cl, ql, window=None, softcap=None, **sc)
+    want = _dense_plain(q, kc, vc, cl, ql, window=None, softcap=None, **sc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and _bar(out, want)
+    half = _dense_call(ops, q[:, :, 18:].contiguous(), kc[:, :, 2:].contiguous(),
+                       vc[:, :, 2:].contiguous(), cl, ql, window=None, softcap=None,
+                       **{n: t[:, :, 2:].contiguous() for n, t in sc.items()})
+    assert torch.equal(half, out[:, :, 18:])
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("cache_dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W", [1, 4])
+def test_dense_attention_scratch_bitwise(dev, monkeypatch, D, cache_dtype, W):
+    """The scores in the global scratch (the plan's shared memory cut to one row's q
+    and p.v partials) and in shared memory give the same bits: only where the
+    scores live differs, not a sum's order."""
+    from repro_torch.kernels import dense_attention as da
+    ops, _ = _ops()
+    B, Hkv, G, T = 3, 2, 3, 300
+    q, kc, vc, sc = _dense_inputs(dev, B, W, Hkv, G, T, D, cache_dtype, torch.bfloat16, D + W)
+    cl = torch.tensor([T, 1, 137], device=dev)
+    ql = None if W == 1 else torch.tensor([W, 1, 3], device=dev)
+    kw = dict(sc, window=48, softcap=30.0)
+    assert da.dense_plan(B, W, Hkv * G, Hkv, T, D).scratch == 0
+    want = _dense_call(ops, q, kc, vc, cl, ql, **kw)
+    monkeypatch.setattr(da, "SMEM_BYTES", 5200)
+    assert da.dense_plan(B, W, Hkv * G, Hkv, T, D).scratch > 0
+    out = _dense_call(ops, q, kc, vc, cl, ql, **kw)
+    assert torch.equal(out, want)
+
+
+def test_dense_attention_graph_replay(dev):
+    """Decode and verify launches captured in a CUDA graph replay to the eager
+    outputs, bitwise (int8 cache, window and softcap: gemma2's local layers at D =
+    256)."""
+    ops, _ = _ops()
+    q, kc, vc, sc = _dense_inputs(dev, 2, 1, 8, 2, 600, 256, torch.int8, torch.bfloat16, 5)
+    cl = torch.tensor([600, 77], device=dev)
+    kw = dict(sc, window=256, softcap=50.0)
+    call = lambda: ops.dense_decode_attention(q, kc, vc, cl, **kw)  # noqa: E731
+    want = call()
+    assert torch.equal(_graph_replayed(call), want)
+    qw = torch.randn(2, 4, 16, 256, device=dev).to(torch.bfloat16)
+    ql = torch.tensor([4, 2], device=dev)
+    callw = lambda: ops.dense_verify_attention(qw, kc, vc, cl, ql, **kw)  # noqa: E731
+    wantw = callw()
+    assert torch.equal(_graph_replayed(callw), wantw)
+
+
+def test_dense_attention_refuses(dev):
+    """On the card a wrong head size, dtype, scale or layout raises; nothing falls
+    back to the plain version."""
+    ops, _ = _ops()
+    q, kc, vc, sc = _dense_inputs(dev, 2, 1, 2, 2, 64, 64, torch.int8, torch.bfloat16, 3)
+    cl = torch.tensor([64, 3], device=dev)
+    with pytest.raises(ValueError):
+        ops.dense_decode_attention(q, kc, vc, cl)                      # int8 without scales
+    with pytest.raises(ValueError):
+        ops.dense_decode_attention(q[..., :48].contiguous(), kc[..., :48].contiguous(),
+                                   vc[..., :48].contiguous(), cl)
+    strided = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    with pytest.raises(ValueError):
+        ops.dense_decode_attention(q, strided(kc), strided(vc), cl, **sc)
+    with pytest.raises(ValueError):
+        ops.dense_decode_attention(q.half(), kc, vc, cl, **sc)
+
+
+# ---------------------------------------------------------------- K3's wgmma body at D = 256
+
+GEMMA2_FLASH = [("local", 4096, 50.0, [4608, 300]), ("global", None, 50.0, [4608, 300]),
+                ("short", 700, None, [1000, 129])]
+
+
+@pytest.mark.parametrize("label,window,softcap,kv_lens", GEMMA2_FLASH,
+                         ids=[c[0] for c in GEMMA2_FLASH])
+def test_flash_attention_wgmma_body(dev, label, window, softcap, kv_lens):
+    """K3's wgmma body at gemma2-9b's prefill shapes (B = 2, 16 / 8 heads of 256,
+    causal, softcap 50; the local layers' window 4096 and the global layers'
+    none) and a shorter case without softcap: within 2e-2 or one bf16 ulp of the
+    plain version at the rows with a visible key."""
+    ops, ref = _ops()
+    B, H, Hkv, D = 2, 16, 8, 256
+    S = kv_lens[0]
+    g = torch.Generator(device=dev).manual_seed(S + (window or 0))
+    q, k, v = (torch.randn(B, h, S, D, generator=g, device=dev).to(torch.bfloat16)
+               for h in (H, Hkv, Hkv))
+    kv_len = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.BODY_LAUNCHES["flash_attention/bf16_wgmma"]
+    out = ops.flash_attention(q, k, v, kv_len, **kw)
+    assert ops.BODY_LAUNCHES["flash_attention/bf16_wgmma"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    qi = torch.arange(S, device=dev)
+    first = torch.zeros_like(qi) if window is None else (qi - window + 1).clamp_min(0)
+    has_key = (first[None, :] <= kv_len[:, None] - 1)
+    rows = has_key[:, None, :, None].expand_as(out)
+    o, w = out.float(), want.float()
+    pb = w.to(torch.bfloat16).float()
+    ok = ((o - w).abs() <= 2e-2) | ((o - pb).abs() <= torch.exp2(torch.floor(
+        torch.log2(pb.abs())) - 7))
+    assert bool(ok[rows].all())
+    assert torch.isfinite(o).all()
+
+
+def test_flash_attention_graph_replay(dev):
+    """K3's launches (the wgmma body at D = 256, the mma.sync body at D = 128)
+    captured in a CUDA graph replay to the eager outputs, bitwise."""
+    ops, _ = _ops()
+    for D, H, Hkv, S, window, softcap in ((256, 16, 8, 640, 256, 50.0),
+                                          (128, 36, 4, 512, None, None)):
+        g = torch.Generator(device=dev).manual_seed(D)
+        q, k, v = (torch.randn(2, h, S, D, generator=g, device=dev).to(torch.bfloat16)
+                   for h in (H, Hkv, Hkv))
+        kv_len = torch.tensor([S, S - 77], device=dev, dtype=torch.int32)
+        call = lambda: ops.flash_attention(q, k, v, kv_len, window=window,  # noqa: E731
+                                           softcap=softcap)
+        want = call()
+        assert torch.equal(_graph_replayed(call), want)
